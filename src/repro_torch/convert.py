@@ -1,0 +1,148 @@
+"""Carry DSE state across as plain numpy arrays and dicts.
+
+A characterized ``Dataset``, fitted estimators (``PolyRegModel``,
+``GBTRegressor``, ``AutoMLRegressor``) and MaP problem batteries
+(``MapProblem``) are plain numeric state.  :func:`state_of` reads that state
+off any object with the same attributes -- the port's own or another
+implementation's -- into dicts of numpy arrays and Python scalars, and
+:func:`from_state` builds the port's object from such a dict, so two
+implementations can compute from the same fitted state.  Only attributes are
+read: nothing is imported from elsewhere.
+
+State dicts carry a ``"kind"`` tag: ``dataset``, ``poly``, ``gbt``,
+``automl``, ``quad_expr`` or ``map_problem``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core.automl import AutoMLRegressor
+from .core.dataset import Dataset
+from .core.gbt import GBTRegressor, _Tree
+from .core.miqcp import MapProblem, QuadExpr
+from .core.regression import MinMaxScaler, PolyRegModel
+
+__all__ = ["state_of", "from_state"]
+
+_GBT_PARAMS = ("n_trees", "max_depth", "learning_rate", "subsample", "min_leaf", "seed")
+
+
+def _arr(x, dtype=None) -> np.ndarray:
+    return np.array(x, dtype=dtype, copy=True)
+
+
+def state_of(obj) -> dict:
+    """Plain-array state of a dataset, estimator or MaP problem (duck-typed)."""
+    if hasattr(obj, "configs") and hasattr(obj, "metrics"):
+        return {
+            "kind": "dataset",
+            "configs": _arr(obj.configs, np.uint8),
+            "metrics": {k: _arr(v, np.float64) for k, v in obj.metrics.items()},
+            "source": _arr(obj.source, np.uint8),
+        }
+    if hasattr(obj, "trees") and hasattr(obj, "learning_rate"):
+        return {
+            "kind": "gbt",
+            **{k: getattr(obj, k) for k in _GBT_PARAMS},
+            "base": float(obj.base),
+            "trees": [
+                {a: _arr(getattr(t, a)) for a in ("feature", "left", "right", "value")}
+                for t in obj.trees
+            ],
+        }
+    if hasattr(obj, "quad_pairs") and hasattr(obj, "scaler"):
+        return {
+            "kind": "poly",
+            "n_features": int(obj.n_features),
+            "quad_pairs": [(int(i), int(j)) for i, j in obj.quad_pairs],
+            "intercept": float(obj.intercept),
+            "linear": _arr(obj.linear, np.float64),
+            "quad": _arr(obj.quad, np.float64),
+            "scaler": (float(obj.scaler.lo), float(obj.scaler.hi)),
+        }
+    if hasattr(obj, "model") and hasattr(obj, "n_quad"):
+        return {
+            "kind": "automl",
+            "n_quad": int(obj.n_quad),
+            "seed": int(obj.seed),
+            "name": str(obj.name),
+            "model": state_of(obj.model),
+        }
+    if hasattr(obj, "lin") and hasattr(obj, "quad") and hasattr(obj, "const"):
+        return {
+            "kind": "quad_expr",
+            "const": float(obj.const),
+            "lin": _arr(obj.lin, np.float64),
+            "quad": _arr(obj.quad, np.float64),
+        }
+    if hasattr(obj, "obj") and hasattr(obj, "max_behav"):
+        return {
+            "kind": "map_problem",
+            "obj": state_of(obj.obj),
+            "behav": state_of(obj.behav),
+            "ppa": state_of(obj.ppa),
+            **{k: float(getattr(obj, k))
+               for k in ("max_behav", "max_ppa", "wt_b", "const_sf")},
+            "n_quad": int(obj.n_quad),
+            "meta": dict(obj.meta),
+        }
+    raise TypeError(f"no state mapping for {type(obj).__name__}")
+
+
+def from_state(state: dict):
+    """The port's object for a :func:`state_of` dict."""
+    kind = state["kind"]
+    if kind == "dataset":
+        return Dataset(
+            configs=_arr(state["configs"], np.uint8),
+            metrics={k: _arr(v, np.float64) for k, v in state["metrics"].items()},
+            source=_arr(state["source"], np.uint8),
+        )
+    if kind == "poly":
+        lo, hi = state["scaler"]
+        return PolyRegModel(
+            n_features=state["n_features"],
+            quad_pairs=list(state["quad_pairs"]),
+            intercept=state["intercept"],
+            linear=_arr(state["linear"], np.float64),
+            quad=_arr(state["quad"], np.float64),
+            scaler=MinMaxScaler(lo, hi),
+        )
+    if kind == "gbt":
+        model = GBTRegressor(**{k: state[k] for k in _GBT_PARAMS})
+        model.base = state["base"]
+        model.trees = [
+            _Tree(
+                feature=_arr(t["feature"], np.int64),
+                left=_arr(t["left"], np.int64),
+                right=_arr(t["right"], np.int64),
+                value=_arr(t["value"], np.float64),
+            )
+            for t in state["trees"]
+        ]
+        return model
+    if kind == "automl":
+        est = AutoMLRegressor(n_quad=state["n_quad"], seed=state["seed"])
+        est.model = from_state(state["model"])
+        est.name = state["name"]
+        return est
+    if kind == "quad_expr":
+        return QuadExpr(
+            const=state["const"],
+            lin=_arr(state["lin"], np.float64),
+            quad=_arr(state["quad"], np.float64),
+        )
+    if kind == "map_problem":
+        return MapProblem(
+            obj=from_state(state["obj"]),
+            behav=from_state(state["behav"]),
+            ppa=from_state(state["ppa"]),
+            max_behav=state["max_behav"],
+            max_ppa=state["max_ppa"],
+            wt_b=state["wt_b"],
+            const_sf=state["const_sf"],
+            n_quad=state["n_quad"],
+            meta=dict(state["meta"]),
+        )
+    raise ValueError(f"unknown state kind {kind!r}")

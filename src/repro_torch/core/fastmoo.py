@@ -1,0 +1,381 @@
+"""Device NSGA-II engine (the GA's ``backend="torch"`` path).
+
+Counterpart of ``repro/core/fastmoo.py``.  The whole search runs on the
+context's device as a per-generation loop of tensor operations:
+
+  * seeded initialization from a device ``torch.Generator`` (rows of a MaP
+    pool replace the first random rows),
+  * constraint-dominated ranks: feasible fronts are peeled one round at a time
+    with kernel K3 (``kernels.moo_kernels.dominance_counts``) counting each
+    point's active dominators -- one launch and one ``.any()`` host sync per
+    round -- and infeasible points take the closed form
+    ``n_feasible_fronts + dense_rank(violation)``,
+  * crowding distance over all fronts at once (rank-segmented sort plus
+    segment min/max spans),
+  * binary tournament selection, single-point crossover, bit-flip mutation,
+  * rank-then-crowding environmental selection on the combined population,
+  * a preallocated device archive of every evaluated individual, whose
+    feasible subset's exact 2-D hypervolume is computed at the numpy oracle's
+    checkpoints.
+
+The numpy ``moo.nsga2`` stays the behavioral oracle: identical operators and
+selection semantics, but torch's random streams differ from numpy's, so the
+contract is *hypervolume parity* (feasible-archive hypervolume within 2%),
+not bit parity.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..kernels.moo_kernels import dominance_counts, dominance_matrix
+from .engine import ENGINE_MENUS, ExecutionContext
+from .moo import GAResult
+
+__all__ = [
+    "UNBOUNDED",
+    "RANK_IMPLS",
+    "dominance_matrix",
+    "constraint_ranks",
+    "crowding_distance",
+    "hypervolume_2d",
+    "front_update",
+    "front_hypervolume",
+    "CompiledNSGA2",
+    "nsga2_torch",
+]
+
+# Effectively-unconstrained bound: max(0, y - 1e30) == 0 for any real metric,
+# and 1e30 stays finite in f32 so the normalized violation is an exact 0.
+UNBOUNDED = 1e30
+
+# "kernel": K3 recounts dominators every peel round; "plain": the (n, n)
+# dominance matrix is built once and counted by masked column sums.
+RANK_IMPLS = ENGINE_MENUS["fastmoo"]
+
+# hv_history checkpoints: every 10th generation and the last, as moo.nsga2.
+RECORD_EVERY = 10
+
+
+def _lexsort(keys) -> torch.Tensor:
+    """``np.lexsort`` for 1-D tensors: the LAST key is the primary one."""
+    order = torch.argsort(keys[0], stable=True)
+    for k in keys[1:]:
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
+
+
+def constraint_ranks(objs: torch.Tensor, viol: torch.Tensor,
+                     impl: str = "kernel") -> torch.Tensor:
+    """(n,) int64 fronts (0 = best) under constraint domination; torch twin
+    of ``moo.fast_nondominated_sort``.
+
+    Only feasible fronts are peeled sequentially (a round per front: the
+    points with no active dominator form the next front, identical to the
+    oracle's incremental subtraction).  Infeasible points are totally
+    ordered by violation and dominated by every feasible point, so their
+    ranks are ``n_feasible_fronts + dense_rank(violation)``.  Each peel
+    round costs one K3 launch (``impl="kernel"``) and one host sync.
+    """
+    n = objs.shape[0]
+    objs = objs.to(torch.float32).contiguous()
+    viol = viol.to(torch.float32).contiguous()
+    feas = viol <= 0
+    if impl == "kernel":
+        def count_fn(active):
+            return dominance_counts(objs, viol, active)
+    elif impl == "plain":
+        dom = dominance_matrix(objs, viol)
+
+        def count_fn(active):
+            return (dom & active[:, None]).sum(0, dtype=torch.int32)
+    else:
+        raise ValueError(f"unknown rank impl {impl!r} (menu: {RANK_IMPLS})")
+
+    rank = torch.zeros(n, dtype=torch.int64, device=objs.device)
+    assigned = ~feas  # infeasible points never block a feasible one
+    r = 0
+    while r <= n and bool((~assigned).any()):
+        counts = count_fn(~assigned)
+        front = (counts == 0) & ~assigned
+        rank = torch.where(front, r, rank)
+        assigned = assigned | front
+        r += 1
+
+    vio = torch.where(feas, float("-inf"), viol)
+    order = torch.argsort(vio, stable=True)
+    vs = vio[order]
+    prev = torch.cat([vs.new_full((1,), float("-inf")), vs[:-1]])
+    dense = torch.cumsum((vs > prev).to(torch.int64), dim=0)  # 1-based distinct id
+    rank[order] = torch.where(feas[order], rank[order], r + dense - 1)
+    return rank
+
+
+def crowding_distance(objs: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """Per-front crowding distance for all fronts in one pass.
+
+    Equivalent to ``moo.crowding_distance`` on each front: a stable (rank,
+    objective) sort makes front members contiguous, so segment boundaries are
+    the per-front extremes (inf) and interior members take span-normalized
+    neighbor gaps.  Fronts of <= 2 members are all-boundary.
+    """
+    n, m = objs.shape
+    dist = torch.zeros(n, dtype=torch.float32, device=objs.device)
+    if n == 0:
+        return dist
+    for k in range(m):
+        o = objs[:, k].to(torch.float32)
+        seg_max = torch.full((n,), float("-inf"), device=o.device).scatter_reduce(
+            0, rank, o, reduce="amax")
+        seg_min = torch.full((n,), float("inf"), device=o.device).scatter_reduce(
+            0, rank, o, reduce="amin")
+        span = seg_max - seg_min
+        order = _lexsort((o, rank))
+        ro = rank[order]
+        oo = o[order]
+        brk = ro[1:] != ro[:-1]
+        one = torch.ones(1, dtype=torch.bool, device=o.device)
+        first = torch.cat([one, brk])
+        last = torch.cat([brk, one])
+        prev = torch.cat([oo[:1], oo[:-1]])
+        nxt = torch.cat([oo[1:], oo[-1:]])
+        sp = span[ro]
+        gap = torch.where(sp > 0, (nxt - prev) / torch.where(sp > 0, sp, 1.0), 0.0)
+        dist[order] += torch.where(first | last, float("inf"), gap)
+    return dist
+
+
+def hypervolume_2d(objs: torch.Tensor, valid: torch.Tensor,
+                   ref: torch.Tensor) -> torch.Tensor:
+    """Exact 2-D hypervolume (f32) of the valid subset w.r.t. ``ref`` (minimized).
+
+    Invalid and beyond-reference points sort to +inf and contribute nothing;
+    an x sort plus an exclusive running y-minimum reproduces the oracle's
+    Pareto staircase sweep without a Pareto filter.
+    """
+    valid = valid & (objs[:, 0] <= ref[0]) & (objs[:, 1] <= ref[1])
+    x = torch.where(valid, objs[:, 0], float("inf"))
+    y = torch.where(valid, objs[:, 1], float("inf"))
+    # for tied x the staircase contributions telescope to the same total
+    # whatever the y order, so one sort key is enough
+    order = torch.argsort(x, stable=True)
+    xs, ys = x[order], y[order]
+    run = torch.minimum(torch.cummin(ys, dim=0).values, ref[1])
+    prev = torch.cat([ref[1:2], run[:-1]])
+    contrib = (ref[0] - xs) * (prev - ys)
+    return torch.where(torch.isfinite(xs) & (ys < prev), contrib, 0.0).sum()
+
+
+def front_update(buf_x, buf_y, objs, viol, ref):
+    """Merge candidate points into a sorted nondominated-front buffer.
+
+    ``buf_x``/``buf_y`` are ``(F,)`` f32 holding the current staircase (x
+    ascending, y strictly descending), +inf-padded.  Feasible within-reference
+    candidates are merged and the strict staircase re-extracted; if the front
+    outgrows F, the largest-x tail is dropped.
+    """
+    feas = (viol <= 0) & (objs[:, 0] <= ref[0]) & (objs[:, 1] <= ref[1])
+    xs = torch.cat([buf_x, torch.where(feas, objs[:, 0], float("inf"))])
+    ys = torch.cat([buf_y, torch.where(feas, objs[:, 1], float("inf"))])
+    order = _lexsort((ys, xs))
+    xs, ys = xs[order], ys[order]
+    run = torch.cummin(ys, dim=0).values
+    prev = torch.cat([ys.new_full((1,), float("inf")), run[:-1]])
+    keep = torch.isfinite(xs) & (ys < prev)
+    xs = torch.where(keep, xs, float("inf"))
+    ys = torch.where(keep, ys, float("inf"))
+    compact = torch.argsort(xs, stable=True)  # kept points stay x-sorted
+    f = buf_x.shape[0]
+    return xs[compact][:f], ys[compact][:f]
+
+
+def front_hypervolume(buf_x, buf_y, ref):
+    """Exact 2-D hypervolume of a :func:`front_update` buffer (one O(F) sweep)."""
+    run = torch.minimum(torch.cummin(buf_y, dim=0).values, ref[1])
+    prev = torch.cat([ref[1:2], run[:-1]])
+    contrib = (ref[0] - buf_x) * (prev - buf_y)
+    return torch.where(torch.isfinite(buf_x) & (buf_y < prev), contrib, 0.0).sum()
+
+
+class CompiledNSGA2:
+    """One NSGA-II run on ``ctx.device`` (name kept from the reference engine).
+
+    ``objs_fn`` maps a ``(B, L)`` f32 tensor to ``(B, 2)`` f32 objectives on
+    the same device -- e.g. ``fastchar.surrogate_objs_device``.  Constraint
+    bounds ``(max_behav, max_ppa)`` give the normalized-overflow violation.
+    """
+
+    def __init__(
+        self,
+        objs_fn: Callable[[torch.Tensor], torch.Tensor],
+        n_bits: int,
+        pop_size: int = 64,
+        n_gen: int = 250,
+        crossover_p: float = 0.9,
+        mutation_p: float | None = None,
+        hv_ref: np.ndarray | None = None,
+        rank_impl: str | None = None,
+        ctx: ExecutionContext | None = None,
+    ) -> None:
+        if pop_size % 2:
+            raise ValueError(f"pop_size must be even, got {pop_size}")
+        ctx = ctx if ctx is not None else ExecutionContext()
+        if rank_impl is None:
+            rank_impl = ctx.resolve_impl("fastmoo", "kernel")
+        if rank_impl not in RANK_IMPLS:
+            raise ValueError(f"unknown rank_impl {rank_impl!r}")
+        self.n_bits = int(n_bits)
+        self.pop_size = int(pop_size)
+        self.n_gen = int(n_gen)
+        self.crossover_p = float(crossover_p)
+        self.mutation_p = float(mutation_p if mutation_p is not None else 1.0 / n_bits)
+        self.hv_ref = None if hv_ref is None else np.asarray(hv_ref, np.float64)
+        self.rank_impl = rank_impl
+        self.device = torch.device(ctx.device)
+        self._objs_fn = objs_fn
+
+    def _prep_init(self, initial_population) -> tuple[np.ndarray, int]:
+        """Seed rows for the initial population.
+
+        Accepts one (k, n_bits) array or a list/tuple of pools: pools
+        concatenate in order and truncate to ``pop_size``; an empty/None pool
+        contributes nothing.
+        """
+        if isinstance(initial_population, (list, tuple)):
+            parts = [np.asarray(p, np.uint8) for p in initial_population
+                     if p is not None and len(p)]
+            initial_population = np.concatenate(parts) if parts else None
+        init = np.zeros((self.pop_size, self.n_bits), np.uint8)
+        k = 0
+        if initial_population is not None and len(initial_population):
+            k = min(len(initial_population), self.pop_size)
+            init[:k] = np.asarray(initial_population)[:k]
+        return init, k
+
+    def run(
+        self,
+        seed: int = 0,
+        max_behav: float = UNBOUNDED,
+        max_ppa: float = UNBOUNDED,
+        initial_population: np.ndarray | None = None,
+    ) -> GAResult:
+        """One full GA run on the device; returns host arrays."""
+        P, L, G = self.pop_size, self.n_bits, self.n_gen
+        dev = self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        init, k = self._prep_init(initial_population)
+        max_b = float(np.float32(max_behav))
+        max_p = float(np.float32(max_ppa))
+        den_b = float(np.float32(max(abs(max_behav), 1e-9)))
+        den_p = float(np.float32(max(abs(max_ppa), 1e-9)))
+        ref = (None if self.hv_ref is None
+               else torch.as_tensor(self.hv_ref, dtype=torch.float32, device=dev))
+        ranks = lambda o, v: constraint_ranks(o, v, impl=self.rank_impl)  # noqa: E731
+
+        def evaluate(pop):
+            objs = self._objs_fn(pop.to(torch.float32))
+            vb = (objs[:, 0] - max_b).clamp(min=0.0) / den_b
+            vp = (objs[:, 1] - max_p).clamp(min=0.0) / den_p
+            return objs, vb + vp
+
+        pop = torch.randint(0, 2, (P, L), generator=gen, device=dev, dtype=torch.uint8)
+        if k:
+            pop[:k] = torch.from_numpy(init[:k]).to(dev)
+        objs, viol = evaluate(pop)
+
+        M = P * (G + 1)
+        arc_c = torch.zeros((M, L), dtype=torch.uint8, device=dev)
+        arc_o = torch.full((M, 2), float("inf"), dtype=torch.float32, device=dev)
+        arc_v = torch.full((M,), float("inf"), dtype=torch.float32, device=dev)
+        arc_c[:P], arc_o[:P], arc_v[:P] = pop, objs, viol
+
+        hv_dev = []  # (evaluations, 0-d hv tensor) at the oracle's checkpoints
+        if ref is not None:
+            hv_dev.append((P, hypervolume_2d(arc_o, arc_v <= 0, ref)))
+        cols = torch.arange(L, device=dev)
+        for g in range(G):
+            rank = ranks(objs, viol)
+            crowd = crowding_distance(objs, rank)
+
+            # binary tournament selection
+            cand = torch.randint(0, P, (P, 2), generator=gen, device=dev)
+            a, b = cand[:, 0], cand[:, 1]
+            better = (rank[a] < rank[b]) | ((rank[a] == rank[b]) & (crowd[a] > crowd[b]))
+            parents = pop[torch.where(better, a, b)]
+
+            # single-point crossover on consecutive pairs
+            do_cx = torch.rand(P // 2, generator=gen, device=dev) < self.crossover_p
+            cut = torch.randint(1, L, (P // 2,), generator=gen, device=dev)
+            swap = (cols[None, :] >= cut[:, None]) & do_cx[:, None]
+            p1, p2 = parents[0::2], parents[1::2]
+            children = torch.stack(
+                [torch.where(swap, p2, p1), torch.where(swap, p1, p2)], dim=1
+            ).reshape(P, L)
+
+            # bit-flip mutation
+            flip = torch.rand((P, L), generator=gen, device=dev) < self.mutation_p
+            children = children ^ flip.to(torch.uint8)
+
+            c_objs, c_viol = evaluate(children)
+            lo = (g + 1) * P
+            arc_c[lo:lo + P], arc_o[lo:lo + P], arc_v[lo:lo + P] = children, c_objs, c_viol
+
+            # environmental selection: whole fronts, boundary front by crowding
+            all_pop = torch.cat([pop, children])
+            all_objs = torch.cat([objs, c_objs])
+            all_viol = torch.cat([viol, c_viol])
+            rank2 = ranks(all_objs, all_viol)
+            crowd2 = crowding_distance(all_objs, rank2)
+            sel = _lexsort((-crowd2, rank2))[:P]
+            pop, objs, viol = all_pop[sel], all_objs[sel], all_viol[sel]
+
+            if ref is not None and (g % RECORD_EVERY == RECORD_EVERY - 1 or g == G - 1):
+                hv_dev.append(((g + 2) * P, hypervolume_2d(arc_o, arc_v <= 0, ref)))
+
+        return GAResult(
+            population=pop.cpu().numpy(),
+            objectives=objs.cpu().numpy().astype(np.float64),
+            archive_configs=arc_c.cpu().numpy(),
+            archive_objs=arc_o.cpu().numpy().astype(np.float64),
+            archive_viol=arc_v.cpu().numpy().astype(np.float64),
+            hv_history=[(n, float(h)) for n, h in hv_dev],
+        )
+
+
+def nsga2_torch(
+    objs_fn: Callable[[torch.Tensor], torch.Tensor],
+    n_bits: int,
+    pop_size: int = 64,
+    n_gen: int = 250,
+    seed: int = 0,
+    initial_population: np.ndarray | None = None,
+    hv_ref: np.ndarray | None = None,
+    crossover_p: float = 0.9,
+    mutation_p: float | None = None,
+    max_behav: float = UNBOUNDED,
+    max_ppa: float = UNBOUNDED,
+    rank_impl: str | None = None,
+    ctx: ExecutionContext | None = None,
+) -> GAResult:
+    """One-shot wrapper; ``moo.nsga2(backend="torch")`` lands here."""
+    runner = CompiledNSGA2(
+        objs_fn,
+        n_bits=n_bits,
+        pop_size=pop_size,
+        n_gen=n_gen,
+        crossover_p=crossover_p,
+        mutation_p=mutation_p,
+        hv_ref=hv_ref,
+        rank_impl=rank_impl,
+        ctx=ctx,
+    )
+    return runner.run(
+        seed=seed,
+        max_behav=max_behav,
+        max_ppa=max_ppa,
+        initial_population=initial_population,
+    )
