@@ -49,7 +49,7 @@ INT32_LANES_PER_SM = 64
 REL_RTOL = 1e-5
 # The two GAs draw from different random streams, and one run's hypervolume
 # varies by ~1.6% (std over seeds) at this budget, so the 2% contract is held
-# on the mean over a fixed set of seeds rather than on a single run.
+# on the mean over a fixed set of seeds, and on seed 0 alone as well.
 GA_SEEDS = tuple(range(20))
 
 
@@ -268,19 +268,21 @@ def main() -> int:
     hv_np, hv_t = [], []
     for seed in GA_SEEDS:
         r_np = nsga2(None, n_bits=spec.n_luts, pop_size=32, n_gen=30, seed=seed,
-                     eval_viol_fn=fn, hv_ref=hv_ref)
+                     eval_viol_fn=fn, hv_ref=hv_ref, backend="numpy")
         r_t = nsga2(None, n_bits=spec.n_luts, pop_size=32, n_gen=30, seed=seed,
                     backend=ctx, objs_device_fn=fn.objs_fn, max_behav=mb, max_ppa=mp,
                     hv_ref=hv_ref)
         hv_np.append(r_np.hv_history[-1][1])
         hv_t.append(r_t.hv_history[-1][1])
     rel = abs(np.mean(hv_t) - np.mean(hv_np)) / np.mean(hv_np)
+    rel0 = abs(hv_t[0] - hv_np[0]) / hv_np[0]
     print(f"phase ga: seeds {list(GA_SEEDS)}: numpy nsga2 hv {hv_np}, device nsga2 hv "
           f"{hv_t}; mean {float(np.mean(hv_np))!r} vs {float(np.mean(hv_t))!r}, rel diff {rel:.3g} "
-          f"(limit 0.02); seed-0 rel diff {abs(hv_t[0] - hv_np[0]) / hv_np[0]:.3g}",
-          flush=True)
+          f"(limit 0.02); seed-0 rel diff {rel0:.3g} (limit 0.02)", flush=True)
     if not (min(hv_np) > 0 and rel <= 0.02):
         raise AssertionError("device GA mean hypervolume is not within 2% of the numpy GA")
+    if not rel0 <= 0.02:
+        raise AssertionError("device GA seed-0 hypervolume is not within 2% of the numpy GA")
 
     kernels = []
     for k, r in rec.items():

@@ -5,10 +5,10 @@ metrics in a narrow band, and augments RANDOM sampling with PATTERN sampling --
 "moving windows of consecutive and/or alternating ones and zeros" -- to widen the
 metric distribution.  ``gen_pattern`` reproduces that scheme.
 
-``characterize`` accepts ``backend="numpy"`` (bit-exact oracle, default) or
-``"torch"`` / an ``ExecutionContext`` (the ``repro_torch.core.fastchar``
-kernels) for the BEHAV half of the characterization; PPA always uses the
-shared numpy synthesis tables.
+``characterize`` accepts ``backend="torch"`` / an ``ExecutionContext`` (the
+``repro_torch.core.fastchar`` kernels on the card, the default) or
+``"numpy"`` (the bit-exact host oracle) for the BEHAV half of the
+characterization; PPA always uses the shared numpy synthesis tables.
 
 Config generation (``gen_random``) is the numpy ``default_rng`` stream on
 every backend, so training sets are bit-identical to the reference's.
@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .engine import as_context
 from .metrics import BEHAV_METRICS, behav_metrics
 from .operator_model import OperatorSpec, accurate_config
 from .ppa import PPA_METRICS, SynthesisModel, DEFAULT_SYNTH, ppa_metrics
@@ -157,15 +158,16 @@ def characterize(
     synth: SynthesisModel = DEFAULT_SYNTH,
     source: int = 0,
     batch_size: int = 256,
-    backend="numpy",
+    backend=None,
 ) -> Dataset:
     """Full characterization (exhaustive BEHAV + simulated-synthesis PPA).
 
-    ``backend`` is a string or an ``ExecutionContext``; the torch backend
-    evaluates the BEHAV metrics with the ``repro_torch.core.fastchar`` kernels
-    on the context's device (PPA stays on the cheap numpy tables).  The
-    default ``"numpy"`` path is the bit-exact oracle.
+    ``backend`` is a string or an ``ExecutionContext``; the torch backend (the
+    default, on the card) evaluates the BEHAV metrics with the
+    ``repro_torch.core.fastchar`` kernels on the context's device (PPA stays on
+    the cheap numpy tables).  ``"numpy"`` is the bit-exact host oracle.
     """
+    backend = as_context(backend)
     configs = np.atleast_2d(np.asarray(configs)).astype(np.uint8)
     metrics = dict(
         behav_metrics(spec, configs, batch_size=batch_size, backend=backend)
@@ -185,14 +187,15 @@ def build_training_dataset(
     include_pattern: bool = True,
     cache_path: str | None = None,
     include_accurate: bool = True,
-    backend="numpy",
+    backend=None,
 ) -> Dataset:
     """RANDOM + PATTERN training dataset (cached to ``cache_path`` if given).
 
-    ``backend`` (a string or an ``ExecutionContext``) is forwarded to
-    :func:`characterize` for the BEHAV half; the configs themselves are the
-    same on every backend.
+    ``backend`` (a string or an ``ExecutionContext``; default the card) is
+    forwarded to :func:`characterize` for the BEHAV half; the configs
+    themselves are the same on every backend.
     """
+    backend = as_context(backend)
     if cache_path is not None and os.path.exists(cache_path):
         return Dataset.load(cache_path)
 

@@ -341,6 +341,7 @@ def run_dse(
                 initial_population=init,
                 violation_fn=viol_fn,
                 hv_ref=ref,
+                backend=ctx,
             )
         n_evals = len(ga.archive_configs)
         hv_history = ga.hv_history

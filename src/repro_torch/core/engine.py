@@ -76,9 +76,9 @@ class ExecutionContext:
 def as_context(backend: "str | ExecutionContext | None") -> ExecutionContext:
     """Normalize a backend string (or an existing context) to a context.
 
-    ``None`` and ``"numpy"`` give the numpy oracle; ``"torch"`` gives the
-    device engines on the card.
+    ``None`` and ``"torch"`` give the device engines on the card (raising when
+    no card is present); ``"numpy"`` gives the host oracle.
     """
     if isinstance(backend, ExecutionContext):
         return backend
-    return ExecutionContext(backend="numpy" if backend is None else backend)
+    return ExecutionContext(backend="torch" if backend is None else backend)

@@ -33,7 +33,6 @@ import torch
 
 from ..kernels.char_kernels import (
     behav_stats_entry,
-    behav_stats_entry_plain,
     behav_stats_table,
     behav_stats_table_plain,
 )
@@ -41,7 +40,6 @@ from .engine import ENGINE_MENUS, ExecutionContext
 from .metrics import BEHAV_METRICS
 from .operator_model import (
     OperatorSpec,
-    _synth_small,
     config_to_masks,
     exact_product_table,
     row_tables,
@@ -126,35 +124,19 @@ def _gather_small(masks: torch.Tensor, n_bits: int) -> torch.Tensor:
     return torch.stack(smalls).contiguous()                # (R, D, 4, B)
 
 
-def _synth_small_torch(masks: torch.Tensor, n_bits: int) -> torch.Tensor:
-    """Table-free twin of ``_gather_small``: carry-chain synthesis from masks."""
-    return torch.stack(_synth_small(spec_for(n_bits), masks, torch, torch.int32))
-
-
-def _partials_plain(masks: torch.Tensor, n_bits: int, a_tile: int,
-                    source: str = "table"):
-    """Plain torch partials, the counterpart of the reference ``_partials_xla``.
-
-    ``source="table"`` is K1's plain version over gathered planes;
-    ``"entry"`` is K2's, over synthesized planes (its relative weights are
-    divided in f32, as K2 does).
-    """
-    if source == "entry":
-        return behav_stats_entry_plain(masks, n_bits, a_tile)
-    _, exact, w = _device_tables(n_bits, str(masks.device))
-    return behav_stats_table_plain(_gather_small(masks, n_bits), exact, w, a_tile)
-
-
 def _partials(spec: OperatorSpec, masks: torch.Tensor, impl: str,
               a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """One device evaluation of a (D, R) int32 mask batch -> (n_ta, D, 8) partials."""
-    if impl == "table":
-        _, exact, w = _device_tables(spec.n_bits, str(masks.device))
-        return behav_stats_table(_gather_small(masks, spec.n_bits), exact, w, a_tile)
+    """One device evaluation of a (D, R) int32 mask batch -> (n_ta, D, 8) partials.
+
+    ``"plain"`` is K1's plain torch version (the reference ``_partials_xla``
+    tiling) over the same gathered planes.
+    """
     if impl == "entry":
         return behav_stats_entry(masks, spec.n_bits, a_tile)
-    if impl == "plain":
-        return _partials_plain(masks, spec.n_bits, a_tile)
+    if impl in ("table", "plain"):
+        _, exact, w = _device_tables(spec.n_bits, str(masks.device))
+        stats = behav_stats_table if impl == "table" else behav_stats_table_plain
+        return stats(_gather_small(masks, spec.n_bits), exact, w, a_tile)
     raise ValueError(f"unknown fastchar impl {impl!r} (menu: {CHAR_IMPLS})")
 
 

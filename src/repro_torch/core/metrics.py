@@ -25,12 +25,13 @@ __all__ = ["BEHAV_METRICS", "behav_metrics"]
 
 def behav_metrics(
     spec: OperatorSpec, configs: np.ndarray, batch_size: int = 256,
-    backend="numpy",
+    backend=None,
 ) -> dict[str, np.ndarray]:
     """Exhaustive BEHAV metrics for a batch of configs.
 
     Returns a dict of float64 arrays of shape (D,).  ``backend`` is a string
-    (``"torch"`` runs the device engine on the card, ``"numpy"`` the oracle)
+    (``"torch"``, the default, runs the device engine on the card; ``"numpy"``
+    the host oracle)
     or an :class:`repro_torch.core.engine.ExecutionContext`, which also names
     the device and the kernel impl.
     """

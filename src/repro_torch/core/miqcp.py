@@ -191,12 +191,12 @@ def _all_configs(L: int) -> np.ndarray:
 
 
 def solve_enumerate(
-    problem: MapProblem, pool_size: int = 16, backend="numpy"
+    problem: MapProblem, pool_size: int = 16, backend=None
 ) -> SolveResult:
     """Exact vectorized enumeration; only for L <= 22.
 
     ``backend`` is a string or an ``ExecutionContext``; under the torch
-    backend all 2^L configs (objective + both constraint expressions) are
+    backend (the default, on the card) all 2^L configs (objective + both constraint expressions) are
     scored in one batched evaluation on the context's device
     (``fastchar.map_problem_values``); selection stays on the host.  Values
     are float32 on that path, so near-ties may order differently than numpy.
@@ -451,14 +451,15 @@ def solve_tabu(
     tabu_tenure: int = 7,
     pool_size: int = 16,
     seed: int = 0,
-    backend="numpy",
+    backend=None,
 ) -> SolveResult:
     """Multi-start steepest-descent tabu search with adaptive constraint penalty.
 
-    ``backend`` is a string or an ``ExecutionContext``; the torch backend
-    advances all starts in lockstep, scoring every start's single-flip
-    neighborhood as one batched device evaluation per iteration (see
-    ``_solve_tabu_torch``); ``"numpy"`` is the serial per-start oracle.
+    ``backend`` is a string or an ``ExecutionContext``; the torch backend (the
+    default, on the card) advances all starts in lockstep, scoring every
+    start's single-flip neighborhood as one batched device evaluation per
+    iteration (see ``_solve_tabu_torch``); ``"numpy"`` is the serial
+    per-start oracle.
     """
     ctx = as_context(backend)
     if ctx.is_torch:
@@ -579,9 +580,9 @@ def solve_bnb(
 
 
 def solve(
-    problem: MapProblem, seed: int = 0, pool_size: int = 16, backend="numpy"
+    problem: MapProblem, seed: int = 0, pool_size: int = 16, backend=None
 ) -> SolveResult:
-    """Dispatch: exact enumeration when tractable, tabu otherwise."""
+    """Dispatch: exact enumeration when tractable, tabu otherwise (default: the card)."""
     if problem.n <= 16:
         return solve_enumerate(problem, pool_size=pool_size, backend=backend)
     return solve_tabu(problem, seed=seed, pool_size=pool_size, backend=backend)
@@ -591,11 +592,11 @@ def solve_pool(
     problems: list[MapProblem],
     seed: int = 0,
     pool_size: int = 8,
-    backend="numpy",
+    backend=None,
 ) -> np.ndarray:
     """Union of solution pools over a problem list (dedup) -- the MaP config pool.
 
-    Under a torch ``backend``/context on tabu-sized instances (L > 16) the
+    Under a torch ``backend``/context (the default, on the card) on tabu-sized instances (L > 16) the
     whole battery is solved by :func:`solve_tabu_multi`: one lockstep
     (problems x starts, L) batch, one neighborhood evaluation per iteration
     for ALL problems, instead of re-entering the solver once per problem.

@@ -139,7 +139,7 @@ def nsga2(
     crossover_p: float = 0.9,
     mutation_p: float | None = None,
     eval_viol_fn: Callable[[np.ndarray], tuple[np.ndarray, np.ndarray]] | None = None,
-    backend="numpy",
+    backend=None,
     objs_device_fn: Callable | None = None,
     max_behav: float | None = None,
     max_ppa: float | None = None,
@@ -152,7 +152,8 @@ def nsga2(
     each generation in one call.  When given it replaces both ``eval_fn`` and
     ``violation_fn``.
 
-    ``backend`` is a string or an ``ExecutionContext``.  ``"torch"`` runs the
+    ``backend`` is a string or an ``ExecutionContext``.  ``"torch"`` (the
+    default, on the card) runs the
     *whole* GA -- operators, sorting, environmental selection, archive
     hypervolume -- on the context's device (``repro_torch.core.fastmoo``).  It
     requires ``objs_device_fn``, a ``(B, L) -> (B, 2)`` f32 tensor objective

@@ -19,7 +19,12 @@ from repro_torch.core import fastchar
 from repro_torch.core.dataset import characterize
 from repro_torch.core.engine import ExecutionContext
 from repro_torch.core.metrics import BEHAV_METRICS, behav_metrics
-from repro_torch.core.operator_model import accurate_config, config_to_masks, spec_for
+from repro_torch.core.operator_model import (
+    _synth_small,
+    accurate_config,
+    config_to_masks,
+    spec_for,
+)
 from repro_torch.kernels import char_kernels
 
 EXACT_KEYS = ("AVG_ABS_ERR", "PROB_ERR", "MAX_ABS_ERR", "MSE")
@@ -50,6 +55,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def plain_partials(masks, n_bits, a_tile, source):
+    """K1's (``"table"``) or K2's (``"entry"``) plain version on a mask batch."""
+    if source == "entry":
+        return char_kernels.behav_stats_entry_plain(masks, n_bits, a_tile)
+    _, exact, w = fastchar._device_tables(n_bits, str(masks.device))
+    return char_kernels.behav_stats_table_plain(
+        fastchar._gather_small(masks, n_bits), exact, w, a_tile
+    )
 
 
 def assert_parity(oracle, fast, rel_tol=1e-5):
@@ -84,7 +99,7 @@ def test_plain_partials_match_reference_xla_twin(ref_fastchar, source):
     want_i, want_r = ref_fastchar._partials_xla(
         jnp.asarray(masks), 8, a_tile, len(masks), source=source
     )
-    got_i, got_r = fastchar._partials_plain(torch.from_numpy(masks), 8, a_tile, source)
+    got_i, got_r = plain_partials(torch.from_numpy(masks), 8, a_tile, source)
     np.testing.assert_array_equal(np.asarray(want_i), got_i.numpy())
     np.testing.assert_allclose(np.asarray(want_r), got_r.numpy(), rtol=1e-5)
 
@@ -92,8 +107,8 @@ def test_plain_partials_match_reference_xla_twin(ref_fastchar, source):
 def test_plain_k1_and_k2_int_channels_agree():
     spec = spec_for(8)
     masks = torch.from_numpy(config_to_masks(spec, _configs8(32, 2)).astype(np.int32))
-    i1, r1 = fastchar._partials_plain(masks, 8, 64, "table")
-    i2, r2 = fastchar._partials_plain(masks, 8, 64, "entry")
+    i1, r1 = plain_partials(masks, 8, 64, "table")
+    i2, r2 = plain_partials(masks, 8, 64, "entry")
     assert torch.equal(i1, i2)
     torch.testing.assert_close(r1, r2, rtol=1e-5, atol=0)
 
@@ -150,7 +165,8 @@ def test_a_tile_rule_matches_reference(ref_fastchar, n_bits):
 def test_gathered_and_synthesized_planes_agree():
     spec = spec_for(8)
     masks = torch.from_numpy(config_to_masks(spec, _configs8(16, 3)).astype(np.int32))
-    assert torch.equal(fastchar._gather_small(masks, 8), fastchar._synth_small_torch(masks, 8))
+    synth = torch.stack(_synth_small(spec, masks, torch, torch.int32))
+    assert torch.equal(fastchar._gather_small(masks, 8), synth)
 
 
 def test_characterize_torch_matches_numpy():

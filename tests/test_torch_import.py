@@ -5,10 +5,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import miqcp
+from repro_torch.core.dataset import build_training_dataset, characterize
 from repro_torch.core.engine import ENGINE_MENUS, ExecutionContext, as_context
+from repro_torch.core.metrics import behav_metrics
+from repro_torch.core.moo import nsga2
+from repro_torch.core.operator_model import accurate_config, spec_for
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -64,12 +70,40 @@ def test_context_defaults_to_the_card():
             ExecutionContext(device="cuda")
         with pytest.raises(RuntimeError, match="cuda"):
             as_context("torch")
+        with pytest.raises(RuntimeError, match="cuda"):
+            as_context(None)
+
+
+def _tiny_problem(n):
+    zero = miqcp.QuadExpr(0.0, np.ones(n), np.zeros((n, n)))
+    return miqcp.MapProblem(zero, zero, zero, 1.0, 1.0, 0.5, 0.5, 0)
+
+
+ENTRY_POINTS = {
+    "build_training_dataset": lambda: build_training_dataset(spec_for(4), n_random=4),
+    "characterize": lambda: characterize(spec_for(4), accurate_config(spec_for(4))[None]),
+    "behav_metrics": lambda: behav_metrics(spec_for(4), accurate_config(spec_for(4))[None]),
+    "nsga2": lambda: nsga2(None, n_bits=8, pop_size=4, n_gen=1,
+                           objs_device_fn=lambda x: x[:, :2].float()),
+    "solve_enumerate": lambda: miqcp.solve_enumerate(_tiny_problem(4)),
+    "solve_tabu": lambda: miqcp.solve_tabu(_tiny_problem(20)),
+    "solve_pool": lambda: miqcp.solve_pool([_tiny_problem(20)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    """With no backend given, an entry point runs on the card or raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default path is exercised by chip_smoke.py")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ENTRY_POINTS[name]()
 
 
 def test_context_validation_and_menus():
     ctx = ExecutionContext(device="cpu")
     assert ctx.is_torch and ctx.device == "cpu"
-    assert as_context(None).backend == "numpy"
+    assert as_context("numpy").backend == "numpy"
     assert as_context(ctx) is ctx
     with pytest.raises(ValueError):
         ExecutionContext(backend="jax", device="cpu")
