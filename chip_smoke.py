@@ -8,11 +8,15 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
   1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
   2. build: ``nvcc`` builds every kernel source of the port (in parallel);
      the ``-Xptxas -v`` summary (registers, shared memory, spills) is printed.
-  3. kernels: K1 and K2 (BEHAV statistics) and K3 (dominance counts) are held
-     against their plain PyTorch versions on the card at the main path's
-     shapes -- int channels and counts exactly, the f32 channel to 1e-5
-     relative -- and timed with CUDA events beside the plain versions and a
-     bound computed from the shapes.
+  3. kernels: K1 and K2 (BEHAV statistics), K3 (dominance counts) and K4 and
+     K5 (table GEMV) are held against their plain PyTorch versions on the
+     card at the shapes of the paths below -- int channels, counts and GEMV
+     outputs exactly, the f32 channel to 1e-5 relative; K5 against K4 -- and
+     timed with CUDA events beside the plain versions and a bound computed
+     from the shapes.  K4/K5 run at the mnist head (D=128, M=250, K=256,
+     N=10), the ffn GEMM1 (M=96, K=64, N=128) and a ragged K=100; their
+     yardstick (``library_ms``) is the ``gemm`` route at the mnist shape, four
+     cuBLAS f32 GEMMs.
   4. main path: the 8x8 signed-multiplier DSE of the paper at full scale
      (2,000 random + pattern training configs characterized exhaustively,
      105-problem MaP battery, NSGA-II at population 64 for 100 generations)
@@ -21,11 +25,21 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      table-free kernel K2.  Kernel launch counts are zeroed before and read
      after; every kernel must have launched.  The validated fronts' BEHAV is
      checked against the numpy backend.
+  apps: the application-targeted DSE (paper Table 2).  All four apps' BEHAV is
+     attached to phase 4's training set with ``characterized_dataset_multi``
+     (K4 for the mnist head and the ffn GEMM1), a 64-config subset is held
+     against the numpy oracle (ecg and mnist exactly, gauss and ffn to 1e-6
+     relative), then ``run_dse(..., app=DigitClassification())`` runs ``ga``
+     and ``map`` (K4, K1, K3) and ``map+ga`` on ``kernel_impl="entry"`` (K5,
+     K2, K3) at population 64 x 100 generations.  Launch counts are zeroed
+     before and read after; every kernel must have launched.  Each validated
+     front's APP_MNIST must equal the numpy oracle exactly, and its PPA too.
   5. GA contract: the device NSGA-II's feasible-archive hypervolume within 2%
      of the numpy NSGA-II on the fitted 8-bit surrogate (population 32, 30
      generations), as a mean over seeds 0-19.
 
-The second-to-last lines are the kernels' JSON record and the card's
+The second-to-last lines are the kernels' JSON record (launch counts of K1-K3
+from phase 4, of K4 and K5 from phase apps) and the card's
 ``nvidia-smi`` name and power limit; the last line is the result JSON.
 Nothing of JAX or of the reference package is imported.
 """
@@ -92,15 +106,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.apps import APPLICATIONS, characterized_dataset_multi, fastapp
     from repro_torch.core import fastchar
     from repro_torch.core.automl import fit_estimators
-    from repro_torch.core.dataset import BEHAV_KEY, PPA_KEY, build_training_dataset
+    from repro_torch.core.dataset import BEHAV_KEY, PPA_KEY, Dataset, build_training_dataset
     from repro_torch.core.dse import DSESettings, hv_reference, map_solution_pool, run_dse
     from repro_torch.core.engine import ExecutionContext
     from repro_torch.core.metrics import behav_metrics
     from repro_torch.core.moo import nsga2
     from repro_torch.core.operator_model import accurate_config, config_to_masks, spec_for
-    from repro_torch.kernels import build, char_kernels, moo_kernels
+    from repro_torch.core.ppa import ppa_metrics
+    from repro_torch.kernels import app_kernels, build, char_kernels, moo_kernels
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -204,6 +220,65 @@ def main() -> int:
         bound=bound(128 * (4 * 2 + 4 + 1 + 4), 128 * 128 * 8, 0, int_rate),
     )
     err["K3"] = 0.0  # integer counts, held equal above
+
+    # K4/K5 on 126 random configs + the accurate and the all-zeros config, at
+    # the mnist head and the ffn GEMM1 (the apps' own codes) and a ragged K
+    app_cfgs = np.concatenate([cfgs[:126], cfgs[-2:]])
+    d_app = len(app_cfgs)
+    tb = fastapp.table_batch(spec, app_cfgs, ctx=ExecutionContext())
+    tflat = tb.tables.reshape(d_app, -1)
+    mnist_app, ffn_app = APPLICATIONS["mnist"](), APPLICATIONS["ffn"]()
+    g = np.random.default_rng(1)
+    gemv_shapes = {
+        "mnist": (mnist_app._x_codes, mnist_app._w_codes),
+        "ffn": (ffn_app._x_codes, ffn_app._w1_codes),
+        "ragged": (g.integers(0, b_n, (250, 100)), g.integers(0, b_n, (100, 10))),
+    }
+    for label, (a_np, b_np) in gemv_shapes.items():
+        a = torch.from_numpy(np.asarray(a_np, np.int32)).to(dev)
+        bb = torch.from_numpy(np.asarray(b_np, np.int32)).to(dev)
+        (m, k), n = a.shape, bb.shape[1]
+        k4 = app_kernels.table_gemv(tflat, a, bb)
+        k5 = app_kernels.entry_gemv(tb.masks, a, bb, 8)
+        p4 = app_kernels.table_gemv_plain(tflat, a, bb)
+        p5 = app_kernels.entry_gemv_plain(tb.masks, a, bb, 8)
+        gemm = fastapp._matmul_gemm(tb.small, a, bb)
+        torch.cuda.synchronize()
+        if not (torch.equal(k4, p4) and torch.equal(k5, p5)):
+            raise AssertionError(f"K4/K5 differ from their plain versions at {label}")
+        if not (torch.equal(k5, k4) and torch.equal(gemm, k4)):
+            raise AssertionError(f"K5 or the gemm route differs from K4 at {label}")
+        lookups = d_app * m * n * k
+        io_bytes = (a.numel() + bb.numel() + d_app * m * n) * 4
+        synth_ops = d_app * rows * 4 * b_n * spec.width * 10   # once per config
+        k4_rec = dict(
+            name="table_gemv", source="src/repro_torch/kernels/csrc/app_kernels.cu",
+            replaces="src/repro/kernels/app_kernels.py:74",
+            ms=cuda_ms(torch, lambda: app_kernels.table_gemv(tflat, a, bb), 20),
+            plain_ms=cuda_ms(torch, lambda: app_kernels.table_gemv_plain(tflat, a, bb), 3),
+            library_ms=cuda_ms(torch, lambda: fastapp._matmul_gemm(tb.small, a, bb), 20),
+            bound=bound(tflat.numel() * 4 + io_bytes, 3 * lookups, 0, int_rate),
+        )
+        k5_rec = dict(
+            name="entry_gemv", source="src/repro_torch/kernels/csrc/app_kernels.cu",
+            replaces="src/repro/kernels/app_kernels.py:173",
+            ms=cuda_ms(torch, lambda: app_kernels.entry_gemv(tb.masks, a, bb, 8), 20),
+            plain_ms=cuda_ms(torch, lambda: app_kernels.entry_gemv_plain(
+                tb.masks, a, bb, 8), 3),
+            library_ms=k4_rec["library_ms"],
+            bound=bound(tb.masks.numel() * 4 + io_bytes, 3 * rows * lookups + synth_ops, 0,
+                        int_rate),
+        )
+        print(f"phase kernels: K4/K5 vs plain at {label} D={d_app} M={m} K={k} N={n}: "
+              f"outputs ==, K5 == K4 == gemm route; K4 {k4_rec['ms']:.4f} ms (plain "
+              f"{k4_rec['plain_ms']:.4f}, bound {k4_rec['bound'][0]:.4g} by "
+              f"{k4_rec['bound'][1]}), K5 {k5_rec['ms']:.4f} ms (plain "
+              f"{k5_rec['plain_ms']:.4f}, bound {k5_rec['bound'][0]:.4g} by "
+              f"{k5_rec['bound'][1]}), gemm route (4 cuBLAS f32 GEMMs) "
+              f"{k4_rec['library_ms']:.4f} ms", flush=True)
+        if label == "mnist":   # the shape of the app path's GEMV (mnist's logits)
+            rec["K4"], rec["K5"] = k4_rec, k5_rec
+    err["K4"] = err["K5"] = 0.0  # exact int32 outputs, held equal above
     for k, r in rec.items():
         print(f"phase kernels: {k} {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound'][0]:.4g} ms by {r['bound'][1]})", flush=True)
@@ -254,6 +329,66 @@ def main() -> int:
     print(f"phase main: {t_main:.1f} s, launches {launches}; validated fronts' BEHAV == "
           f"numpy backend (4 metrics), AVG_ABS_REL_ERR rtol {REL_RTOL}", flush=True)
 
+    # -- apps: application-targeted DSE ------------------------------------
+    apps = [APPLICATIONS[name]() for name in ("ecg", "mnist", "gauss", "ffn")]
+    mnist = apps[1]
+    app_wrappers = dict(wrappers, K4=app_kernels.table_gemv, K5=app_kernels.entry_gemv)
+    for fn in app_wrappers.values():
+        fn.launches = 0
+    t_app0 = time.perf_counter()
+    train_app = characterized_dataset_multi(apps, spec, train, backend=ctx)
+    t_multi = time.perf_counter() - t_app0
+    pick = np.random.default_rng(2).choice(len(train), 62, replace=False)
+    chk = np.concatenate([train.configs[pick], cfgs[-1:], cfgs[-2:-1]])  # + zeros, accurate
+    chk_ds = Dataset(configs=chk, metrics={}, source=np.zeros(len(chk), np.uint8))
+    fast = characterized_dataset_multi(apps, spec, chk_ds, backend=ctx).metrics
+    oracle = characterized_dataset_multi(apps, spec, chk_ds, backend="numpy").metrics
+    for app in apps:
+        key = app.behav_metric_name()
+        np.testing.assert_array_equal(train_app.metrics[key][pick], fast[key][:62])
+        if app.name in ("ecg", "mnist"):
+            np.testing.assert_array_equal(fast[key], oracle[key], err_msg=key)
+        else:
+            np.testing.assert_allclose(fast[key], oracle[key], rtol=1e-6, err_msg=key)
+    print(f"phase apps: 4 apps' BEHAV attached to {len(train)} configs on the card in "
+          f"{t_multi:.2f} s (K4 launches {app_kernels.table_gemv.launches}); 64-config "
+          f"subset == numpy oracle (ecg, mnist exactly; gauss, ffn rtol 1e-6)", flush=True)
+    st_app = DSESettings(behav_key="APP_MNIST", const_sf=0.5, pop_size=64, n_gen=100,
+                         context=ctx)
+    t0 = time.perf_counter()
+    pool_app = map_solution_pool(spec, train_app, st_app)
+    ref_app = hv_reference(train_app, st_app)
+    print(f"phase apps: APP_MNIST MaP pool {len(pool_app)} configs in "
+          f"{time.perf_counter() - t0:.2f} s, hv reference {ref_app.tolist()}", flush=True)
+    app_results = {}
+    for method in ("ga", "map", "map+ga"):
+        st = st_app if method != "map+ga" else DSESettings(
+            behav_key="APP_MNIST", const_sf=0.5, pop_size=64, n_gen=100, context=ctx_entry)
+        r = run_dse(spec, train_app, method, settings=st, map_pool=pool_app, ref=ref_app,
+                    app=mnist)
+        app_results[method] = r
+        print(f"phase apps: {method} hv_ppf {r.hv_ppf!r} hv_vpf {r.hv_vpf!r} n_evals "
+              f"{r.n_evals} vpf {len(r.vpf_configs)} timings "
+              f"{ {k: round(v, 3) for k, v in r.timings.items()} } launches since start "
+              f"{ {k: fn.launches for k, fn in app_wrappers.items()} }", flush=True)
+    torch.cuda.synchronize()
+    app_launches = {k: fn.launches for k, fn in app_wrappers.items()}
+    t_app = time.perf_counter() - t_app0
+    if min(app_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the app path never launched: {app_launches}")
+    for method, r in app_results.items():
+        if not (len(r.vpf_configs) > 0 and np.isfinite(r.vpf_objs).all()):
+            raise AssertionError(f"app {method}: empty or non-finite validated front")
+        np.testing.assert_array_equal(
+            r.vpf_objs[:, 0], mnist.behav(spec, r.vpf_configs, backend="numpy"),
+            err_msg=f"app {method} APP_MNIST")
+        np.testing.assert_array_equal(
+            r.vpf_objs[:, 1], ppa_metrics(spec, r.vpf_configs)[PPA_KEY],
+            err_msg=f"app {method} {PPA_KEY}")
+    print(f"phase apps: {t_app:.1f} s, launches {app_launches}; validated fronts' "
+          f"APP_MNIST == numpy oracle, {PPA_KEY} == numpy", flush=True)
+    launches.update(K4=app_launches["K4"], K5=app_launches["K5"])
+
     # -- 5. GA hypervolume contract -----------------------------------------
     small_ds = build_training_dataset(spec, n_random=150, seed=0, backend=ctx)
     ests = fit_estimators(
@@ -290,7 +425,7 @@ def main() -> int:
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": r["replaces"], "launches": launches[k], "max_abs_err": err[k],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": None,
+            "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

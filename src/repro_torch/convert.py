@@ -9,14 +9,21 @@ implementation's -- into dicts of numpy arrays and Python scalars, and
 implementations can compute from the same fitted state.  Only attributes are
 read: nothing is imported from elsewhere.
 
+An application (``repro_torch.apps``) is carried as its name, its dataclass
+fields and the arrays its data generators made (:data:`APP_ARRAYS`), so two
+implementations score the same data.
+
 State dicts carry a ``"kind"`` tag: ``dataset``, ``poly``, ``gbt``,
-``automl``, ``quad_expr`` or ``map_problem``.
+``automl``, ``quad_expr``, ``map_problem`` or ``app``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
+from .apps import APPLICATIONS
 from .core.automl import AutoMLRegressor
 from .core.dataset import Dataset
 from .core.gbt import GBTRegressor, _Tree
@@ -26,6 +33,13 @@ from .core.regression import MinMaxScaler, PolyRegModel
 __all__ = ["state_of", "from_state"]
 
 _GBT_PARAMS = ("n_trees", "max_depth", "learning_rate", "subsample", "min_leaf", "seed")
+# the generated data of each application, by app name
+APP_ARRAYS = {
+    "mnist": ("_xte", "_W", "_labels"),
+    "ffn": ("_x", "_w1", "_w2"),
+    "ecg": ("_sig", "_taps"),
+    "gauss": ("_img", "_kern", "_float_ref"),
+}
 
 
 def _arr(x, dtype=None) -> np.ndarray:
@@ -33,7 +47,15 @@ def _arr(x, dtype=None) -> np.ndarray:
 
 
 def state_of(obj) -> dict:
-    """Plain-array state of a dataset, estimator or MaP problem (duck-typed)."""
+    """Plain-array state of a dataset, estimator, MaP problem or app (duck-typed)."""
+    if hasattr(obj, "behav_from_tables") and getattr(obj, "name", None) in APP_ARRAYS:
+        return {
+            "kind": "app",
+            "name": obj.name,
+            "fields": {f.name: getattr(obj, f.name)
+                       for f in dataclasses.fields(obj) if f.init},
+            "arrays": {k: _arr(getattr(obj, k)) for k in APP_ARRAYS[obj.name]},
+        }
     if hasattr(obj, "configs") and hasattr(obj, "metrics"):
         return {
             "kind": "dataset",
@@ -145,4 +167,12 @@ def from_state(state: dict):
             n_quad=state["n_quad"],
             meta=dict(state["meta"]),
         )
+    if kind == "app":
+        app = APPLICATIONS[state["name"]](**state["fields"])
+        for k, v in state["arrays"].items():
+            setattr(app, k, _arr(v))
+        n_bits = app._prep_bits
+        app._prep_bits = 0   # requantize the carried arrays (drops references)
+        app._prepare(n_bits)
+        return app
     raise ValueError(f"unknown state kind {kind!r}")

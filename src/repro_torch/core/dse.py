@@ -249,11 +249,16 @@ def run_dse(
     map_pool: np.ndarray | None = None,
     characterize_fn: Callable[[np.ndarray], np.ndarray] | None = None,
     ref: np.ndarray | None = None,
+    app=None,
 ) -> DSEResult:
     """One full DSE run (one method, one const_sf).
 
     ``characterize_fn`` maps (D, L) configs -> (D, 2) true [BEHAV, PPA]; defaults to
     the operator-level exhaustive characterization on the settings' context.
+    For application-specific DSE pass an application's objective function, or
+    the ``repro_torch.apps`` application itself as ``app``, which builds that
+    objective on the settings' context (``settings.behav_key`` must then name
+    the app's metric, e.g. ``"APP_MNIST"``, in ``train_ds``).
     Under a torch context the surrogate, the MaP scoring, the GA and the
     validation run on ``context.device``; under a numpy context everything
     is the host oracle.  Per-stage wall clock lands in ``DSEResult.timings``.
@@ -276,6 +281,8 @@ def run_dse(
             n_quad=settings.n_estimator_quad,
             seed=settings.seed,
         )
+    if app is not None and characterize_fn is None:
+        characterize_fn = app.characterize_fn(spec, ppa_key=settings.ppa_key, backend=ctx)
     characterize_fn = characterize_fn or _default_characterize(spec, settings)
     ref = hv_reference(train_ds, settings) if ref is None else ref
     max_behav, max_ppa = _constraint_bounds(train_ds, settings)

@@ -11,8 +11,15 @@ every engine, says:
   * ``kernel_impl`` -- a preference resolved against each engine's menu
     (:data:`ENGINE_MENUS`): ``fastchar`` offers ``"table"`` (kernel K1),
     ``"entry"`` (kernel K2) and ``"plain"`` (the plain torch reduction);
-    ``fastmoo`` offers ``"kernel"`` (K3) and ``"plain"``.  An engine whose
-    menu does not hold the preference uses its own default.
+    ``fastmoo`` offers ``"kernel"`` (K3) and ``"plain"``; ``fastapp`` (the
+    application table matmuls) offers ``"table"`` (kernel K4), ``"entry"``
+    (kernel K5), ``"gemm"`` (pair-plane f32 GEMMs), ``"gather"`` (flattened
+    gathers from the product tables, K4's plain version), ``"entry_gather"``
+    (gathers from synthesized planes, K5's plain version) and ``"plain"``
+    (no kernel: the gather routes).  One name means the same in every engine:
+    ``"table"`` and ``"entry"`` pick the table-fed and the table-free kernel,
+    ``"plain"`` the plain torch versions.  An engine whose menu does not hold
+    the preference uses its own default.
 
 On a CPU device the kernel wrappers run their plain versions; on a CUDA device
 they launch the kernels or raise.
@@ -30,6 +37,7 @@ BACKENDS = ("torch", "numpy")
 ENGINE_MENUS = {
     "fastchar": ("table", "entry", "plain"),
     "fastmoo": ("kernel", "plain"),
+    "fastapp": ("table", "entry", "gemm", "gather", "entry_gather", "plain"),
 }
 KERNEL_IMPLS = tuple(sorted({i for menu in ENGINE_MENUS.values() for i in menu}))
 

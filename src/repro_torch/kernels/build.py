@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` holds ``extern "C"`` launchers and compiles on its own
 into ``build/repro_torch_kernels/<name>-<digest>.so`` at the repository root
-(gitignored).  The digest covers the source and the compiler flags, so an
-edited source rebuilds and an unchanged one is loaded as it is.  A failed
-compile raises with the compiler's output; there is no other route to a
-kernel.  ``build_all`` starts one ``nvcc`` per source at once and waits for
-all of them.
+(gitignored).  The digest covers the source, every ``csrc/`` header it
+includes (``#include "..."``, followed through headers), and the compiler
+flags, so an edited source or header rebuilds and an unchanged one is loaded
+as it is.  A failed compile raises with the compiler's output; there is no
+other route to a kernel.  ``build_all`` starts one ``nvcc`` per source at
+once and waits for all of them.
 
 Nothing here runs at import: the kernel modules import this one on hosts
 with no ``nvcc``, and ``nvcc`` is only sought when a CUDA tensor asks for a
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,7 +28,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library", "ptxas_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("char_kernels", "moo_kernels")
+SOURCES = ("char_kernels", "moo_kernels", "app_kernels")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,10 +46,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, transitively."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(CSRC / inc.decode())
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[Path, subprocess.Popen | None]:

@@ -9,8 +9,9 @@
 //                      products and relative-error weights as (A, B) tables.
 //   behav_stats_entry  (K2) replaces behav_stats_entry_pallas: the only input
 //                      is the (D, R) mask block; the block synthesizes its
-//                      planes with the carry-chain model and derives the
-//                      exact products and weights from the operand codes.
+//                      planes with the carry-chain model (planes.cuh, shared
+//                      with K5) and derives the exact products and weights
+//                      from the operand codes.
 //
 // One block owns one (config d, A-tile j) output row, so no atomics are
 // needed: it stages config d's (R, 4, B) planes in shared memory (16 KiB at
@@ -31,6 +32,8 @@
 // or conflict-free shared memory (consecutive threads read consecutive b).
 
 #include <cuda_runtime.h>
+
+#include "planes.cuh"
 
 namespace {
 
@@ -101,44 +104,6 @@ __device__ void reduce_store(Acc acc, int* int_row, float* rel_row) {
   }
 }
 
-// Approximate product of operand codes (a, b) from the staged planes:
-// sum_r planes[r][pair_r(a)][b] << 2r, pair_r(a) = 2*bit_2r(a) + bit_2r+1(a).
-__device__ __forceinline__ int approx_product(const int* planes, int rows,
-                                              int n_bits, int a, int b) {
-  int approx = 0;
-#pragma unroll 4
-  for (int r = 0; r < rows; ++r) {
-    const int pair = (((a >> (2 * r)) & 1) << 1) | ((a >> (2 * r + 1)) & 1);
-    const int v = planes[((r * 4 + pair) << n_bits) + b];
-    approx += static_cast<int>(static_cast<unsigned>(v) << (2 * r));
-  }
-  return approx;
-}
-
-// operator_model._chain_eval on int32: carry-truncated W-bit add of t1 + t2
-// under the keep mask (columns >= cpr always kept), read as two's complement.
-__device__ __forceinline__ int chain_eval(int t1, int t2, int mask, int w,
-                                          int cpr) {
-  int s = 0;
-  int c = 0;
-  for (int j = 0; j < w; ++j) {
-    const int t1j = (t1 >> j) & 1;
-    const int t2j = (t2 >> j) & 1;
-    const int p = t1j ^ t2j;
-    const int g = t1j & t2j;
-    int sj = p ^ c;
-    int cn = p ? c : g;
-    if (j < cpr) {
-      const int kept = (mask >> j) & 1;
-      sj &= kept;
-      cn &= kept;
-    }
-    s |= sj << j;
-    c = cn;
-  }
-  return (s & (1 << (w - 1))) ? s - (1 << w) : s;
-}
-
 __global__ void __launch_bounds__(kThreads)
 behav_stats_table_kernel(const int* __restrict__ small,
                          const int* __restrict__ exact,
@@ -166,7 +131,8 @@ behav_stats_table_kernel(const int* __restrict__ small,
     const int a = a_lo + (idx >> n_bits);
     const int b = idx & (b_n - 1);
     const int off = (a << n_bits) + b;
-    accumulate(acc, approx_product(planes, rows, n_bits, a, b) - exact[off],
+    accumulate(acc,
+               rowplanes::approx_product(planes, rows, n_bits, a, b) - exact[off],
                wgt[off]);
   }
   const size_t row = (static_cast<size_t>(j) * d_total + d) * kChan;
@@ -183,22 +149,9 @@ behav_stats_entry_kernel(const int* __restrict__ masks, int* __restrict__ int_ou
   const int n_ta = b_n / a_tile;
   const int d = blockIdx.x / n_ta;
   const int j = blockIdx.x - d * n_ta;
-  const int w_bits = n_bits + 2;
-  const int cpr = n_bits + 1;
-  const int modw = (1 << w_bits) - 1;
 
-  // plane p of row r: t1 = a0 ? B : 0, t2 = a1 ? (+/-B << 1) : 0, p = 2*a0+a1
-  for (int i = threadIdx.x; i < rows * 4 * b_n; i += kThreads) {
-    const int r = i / (4 * b_n);
-    const int p = (i >> n_bits) & 3;
-    const int b = i & (b_n - 1);
-    const int bs = b >= half ? b - b_n : b;
-    const int bx = (r == rows - 1) ? -bs : bs;
-    const int t1 = ((p >> 1) & 1) ? (bs & modw) : 0;
-    const int t2 =
-        (p & 1) ? (static_cast<int>(static_cast<unsigned>(bx) << 1) & modw) : 0;
-    planes[i] = chain_eval(t1, t2, masks[d * rows + r], w_bits, cpr);
-  }
+  rowplanes::synthesize(planes, masks + static_cast<size_t>(d) * rows, rows,
+                        n_bits);
   __syncthreads();
 
   Acc acc = {0, 0, 0, 0, 0, 0, 0.0f};
@@ -212,7 +165,7 @@ behav_stats_entry_kernel(const int* __restrict__ masks, int* __restrict__ int_ou
     const int ex = as * bs;
     const int aex = ex < 0 ? -ex : ex;
     const float w = __fdiv_rn(1.0f, static_cast<float>(max(aex, 1)));
-    accumulate(acc, approx_product(planes, rows, n_bits, a, b) - ex, w);
+    accumulate(acc, rowplanes::approx_product(planes, rows, n_bits, a, b) - ex, w);
   }
   const size_t row = (static_cast<size_t>(j) * d_total + d) * kChan;
   reduce_store(acc, int_out + row, rel_out + row);

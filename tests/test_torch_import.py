@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import miqcp
-from repro_torch.core.dataset import build_training_dataset, characterize
+from repro_torch.apps import APPLICATIONS, characterized_dataset_multi
+from repro_torch.core import dse, miqcp
+from repro_torch.core.dataset import Dataset, build_training_dataset, characterize
 from repro_torch.core.engine import ENGINE_MENUS, ExecutionContext, as_context
 from repro_torch.core.metrics import behav_metrics
 from repro_torch.core.moo import nsga2
@@ -50,6 +51,7 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch, repro_torch.convert\n"
         "import repro_torch.core.dse, repro_torch.core.fastchar, repro_torch.core.fastmoo\n"
         "import repro_torch.kernels.char_kernels, repro_torch.kernels.moo_kernels\n"
+        "import repro_torch.apps, repro_torch.apps.fastapp, repro_torch.kernels.app_kernels\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -79,6 +81,16 @@ def _tiny_problem(n):
     return miqcp.MapProblem(zero, zero, zero, 1.0, 1.0, 0.5, 0.5, 0)
 
 
+def _small_mnist():
+    return APPLICATIONS["mnist"](side=8, n_train_per_class=4, n_test_per_class=2)
+
+
+def _tiny_dataset():
+    cfg = accurate_config(spec_for(4))[None]
+    return Dataset(configs=cfg, metrics={"APP_MNIST": np.zeros(1), "PDPLUT": np.ones(1)},
+                   source=np.zeros(1))
+
+
 ENTRY_POINTS = {
     "build_training_dataset": lambda: build_training_dataset(spec_for(4), n_random=4),
     "characterize": lambda: characterize(spec_for(4), accurate_config(spec_for(4))[None]),
@@ -88,6 +100,11 @@ ENTRY_POINTS = {
     "solve_enumerate": lambda: miqcp.solve_enumerate(_tiny_problem(4)),
     "solve_tabu": lambda: miqcp.solve_tabu(_tiny_problem(20)),
     "solve_pool": lambda: miqcp.solve_pool([_tiny_problem(20)]),
+    "app.behav": lambda: _small_mnist().behav(spec_for(4), accurate_config(spec_for(4))[None]),
+    "characterized_dataset_multi": lambda: characterized_dataset_multi(
+        [_small_mnist()], spec_for(4), _tiny_dataset()),
+    "run_dse(app=...)": lambda: dse.run_dse(spec_for(4), _tiny_dataset(), "ga",
+                                            app=_small_mnist()),
 }
 
 
