@@ -27,13 +27,14 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      checked against the numpy backend.
   apps: the application-targeted DSE (paper Table 2).  All four apps' BEHAV is
      attached to phase 4's training set with ``characterized_dataset_multi``
-     (K4 for the mnist head and the ffn GEMM1), a 64-config subset is held
-     against the numpy oracle (ecg and mnist exactly, gauss and ffn to 1e-6
-     relative), then ``run_dse(..., app=DigitClassification())`` runs ``ga``
-     and ``map`` (K4, K1, K3) and ``map+ga`` on ``kernel_impl="entry"`` (K5,
-     K2, K3) at population 64 x 100 generations.  Launch counts are zeroed
-     before and read after; every kernel must have launched.  Each validated
-     front's APP_MNIST must equal the numpy oracle exactly, and its PPA too.
+     (K4 for the mnist head and the ffn GEMM1), then ``run_dse(...,
+     app=DigitClassification())`` runs ``ga`` and ``map`` (K4, K1, K3) and
+     ``map+ga`` on ``kernel_impl="entry"`` (K5, K2, K3) at population 64 x 100
+     generations.  Launch counts are zeroed before and read after; every
+     kernel must have launched.  Then the checks: a 64-config subset of the
+     training set's app BEHAV is held against the numpy oracle (ecg and mnist
+     exactly, gauss and ffn to 1e-6 relative), and each validated front's
+     APP_MNIST must equal the numpy oracle exactly, and its PPA too.
   5. GA contract: the device NSGA-II's feasible-archive hypervolume within 2%
      of the numpy NSGA-II on the fitted 8-bit surrogate (population 32, 30
      generations), as a mean over seeds 0-19.
@@ -248,6 +249,9 @@ def main() -> int:
             raise AssertionError(f"K4/K5 differ from their plain versions at {label}")
         if not (torch.equal(k5, k4) and torch.equal(gemm, k4)):
             raise AssertionError(f"K5 or the gemm route differs from K4 at {label}")
+        # ALU operations only: per lookup K4 adds the index and accumulates (its
+        # table load issues on the load/store pipe); K5 per row adds the index,
+        # shifts and accumulates, and synthesizes each config's planes once
         lookups = d_app * m * n * k
         io_bytes = (a.numel() + bb.numel() + d_app * m * n) * 4
         synth_ops = d_app * rows * 4 * b_n * spec.width * 10   # once per config
@@ -257,7 +261,7 @@ def main() -> int:
             ms=cuda_ms(torch, lambda: app_kernels.table_gemv(tflat, a, bb), 20),
             plain_ms=cuda_ms(torch, lambda: app_kernels.table_gemv_plain(tflat, a, bb), 3),
             library_ms=cuda_ms(torch, lambda: fastapp._matmul_gemm(tb.small, a, bb), 20),
-            bound=bound(tflat.numel() * 4 + io_bytes, 3 * lookups, 0, int_rate),
+            bound=bound(tflat.numel() * 4 + io_bytes, 2 * lookups, 0, int_rate),
         )
         k5_rec = dict(
             name="entry_gemv", source="src/repro_torch/kernels/csrc/app_kernels.cu",
@@ -338,21 +342,8 @@ def main() -> int:
     t_app0 = time.perf_counter()
     train_app = characterized_dataset_multi(apps, spec, train, backend=ctx)
     t_multi = time.perf_counter() - t_app0
-    pick = np.random.default_rng(2).choice(len(train), 62, replace=False)
-    chk = np.concatenate([train.configs[pick], cfgs[-1:], cfgs[-2:-1]])  # + zeros, accurate
-    chk_ds = Dataset(configs=chk, metrics={}, source=np.zeros(len(chk), np.uint8))
-    fast = characterized_dataset_multi(apps, spec, chk_ds, backend=ctx).metrics
-    oracle = characterized_dataset_multi(apps, spec, chk_ds, backend="numpy").metrics
-    for app in apps:
-        key = app.behav_metric_name()
-        np.testing.assert_array_equal(train_app.metrics[key][pick], fast[key][:62])
-        if app.name in ("ecg", "mnist"):
-            np.testing.assert_array_equal(fast[key], oracle[key], err_msg=key)
-        else:
-            np.testing.assert_allclose(fast[key], oracle[key], rtol=1e-6, err_msg=key)
     print(f"phase apps: 4 apps' BEHAV attached to {len(train)} configs on the card in "
-          f"{t_multi:.2f} s (K4 launches {app_kernels.table_gemv.launches}); 64-config "
-          f"subset == numpy oracle (ecg, mnist exactly; gauss, ffn rtol 1e-6)", flush=True)
+          f"{t_multi:.2f} s (K4 launches {app_kernels.table_gemv.launches})", flush=True)
     st_app = DSESettings(behav_key="APP_MNIST", const_sf=0.5, pop_size=64, n_gen=100,
                          context=ctx)
     t0 = time.perf_counter()
@@ -376,6 +367,21 @@ def main() -> int:
     t_app = time.perf_counter() - t_app0
     if min(app_launches.values()) <= 0:
         raise AssertionError(f"a kernel of the app path never launched: {app_launches}")
+    # checks of the app path, after its launch counts and time are read
+    pick = np.random.default_rng(2).choice(len(train), 62, replace=False)
+    chk = np.concatenate([train.configs[pick], cfgs[-1:], cfgs[-2:-1]])  # + zeros, accurate
+    chk_ds = Dataset(configs=chk, metrics={}, source=np.zeros(len(chk), np.uint8))
+    fast = characterized_dataset_multi(apps, spec, chk_ds, backend=ctx).metrics
+    oracle = characterized_dataset_multi(apps, spec, chk_ds, backend="numpy").metrics
+    for app in apps:
+        key = app.behav_metric_name()
+        np.testing.assert_array_equal(train_app.metrics[key][pick], fast[key][:62])
+        if app.name in ("ecg", "mnist"):
+            np.testing.assert_array_equal(fast[key], oracle[key], err_msg=key)
+        else:
+            np.testing.assert_allclose(fast[key], oracle[key], rtol=1e-6, err_msg=key)
+    print("phase apps: 64-config subset of the training set's app BEHAV == numpy oracle "
+          "(ecg, mnist exactly; gauss, ffn rtol 1e-6)", flush=True)
     for method, r in app_results.items():
         if not (len(r.vpf_configs) > 0 and np.isfinite(r.vpf_objs).all()):
             raise AssertionError(f"app {method}: empty or non-finite validated front")

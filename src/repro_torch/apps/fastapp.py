@@ -14,8 +14,8 @@ the batched table matmul ``out[d, m, n] = sum_k T_d[a[m, k], b[k, n]]``
       pair_r(a), b]`` with ``pair_r(a)`` one of 4 values, so a table matmul is
       R dense GEMMs against the per-row ``(R, D, 4, B)`` planes.  Every
       partial is an integer below 2^24 (``_gemm_ok``), so f32 is exact.
-  ``"gather"`` / ``"plain"`` -- flattened gathers from the product tables
-      (K4's plain version).
+  ``"plain"``  -- flattened gathers from the product tables (K4's plain
+      version; no kernel, as ``"plain"`` means in every engine).
   ``"entry_gather"`` -- flattened per-row gathers from planes synthesized in
       torch (K5's plain version).
 
@@ -228,51 +228,6 @@ def _matmul_gemm(small: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch
 
 
 # ---------------------------------------------------------------------------
-# Gather routes for per-config codes
-# ---------------------------------------------------------------------------
-
-
-def _matmul_take_batched(tables: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                         d_chunk: int = app_kernels.PLAIN_D_CHUNK) -> torch.Tensor:
-    """tables (D, A, B); a (D, M, K) per-config codes; b (K, N) -> (D, M, N)."""
-    d, _, nb = tables.shape
-    _, m, k = a.shape
-    n = b.shape[1]
-    tf = tables.reshape(d, -1)
-    al = a.long() & (nb - 1)
-    bl = b.long() & (nb - 1)
-    out = torch.empty((d, m, n), dtype=torch.int32, device=tables.device)
-    for lo in range(0, d, d_chunk):
-        ac = al[lo:lo + d_chunk]
-        idx = (ac[:, :, :, None] * nb + bl[None, None]).reshape(len(ac), -1)
-        prod = torch.gather(tf[lo:lo + d_chunk], 1, idx)
-        out[lo:lo + d_chunk] = prod.reshape(len(ac), m, k, n).sum(2, dtype=torch.int32)
-    return out
-
-
-def _matmul_entry_batched(small: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                          d_chunk: int = app_kernels.PLAIN_D_CHUNK) -> torch.Tensor:
-    """small (R, D, 4, B); a (D, M, K) per-config codes; b (K, N) -> (D, M, N)."""
-    rows, d, _, nb = small.shape
-    _, m, k = a.shape
-    n = b.shape[1]
-    sf = small.permute(1, 0, 2, 3).reshape(d, rows, 4 * nb)
-    al = a.long() & (nb - 1)
-    bl = b.long() & (nb - 1)
-    out = torch.empty((d, m, n), dtype=torch.int32, device=small.device)
-    for lo in range(0, d, d_chunk):
-        ac = al[lo:lo + d_chunk]
-        acc = None
-        for r in range(rows):
-            idx = (_pair(ac, r)[:, :, :, None] * nb + bl[None, None]).reshape(len(ac), -1)
-            prod = torch.gather(sf[lo:lo + d_chunk, r], 1, idx)
-            term = prod.reshape(len(ac), m, k, n).sum(2, dtype=torch.int32) << (2 * r)
-            acc = term if acc is None else acc + term
-        out[lo:lo + d_chunk] = acc
-    return out
-
-
-# ---------------------------------------------------------------------------
 # Public primitives
 # ---------------------------------------------------------------------------
 
@@ -285,8 +240,6 @@ def _resolve_impl(impl: str | None, batch: TableBatch, k: int,
         impl = "table" if batch.ctx is None else batch.ctx.resolve_impl("fastapp", "table")
     if impl not in MATMUL_IMPLS:
         raise ValueError(f"unknown fastapp impl {impl!r} (menu: {MATMUL_IMPLS})")
-    if impl == "plain":
-        impl = "gather"
     if impl == "gemm" and not (batch.has_small and _gemm_ok(k, batch.n_bits)):
         if explicit:  # never hand back another route than the one asked for
             raise ValueError(
@@ -295,17 +248,17 @@ def _resolve_impl(impl: str | None, batch: TableBatch, k: int,
                    if batch.has_small
                    else "TableBatch built from raw tables has no per-row planes")
             )
-        impl = "gather"
+        impl = "plain"
     if impl in _ENTRY_ROUTES and batch.masks is None:
         if explicit:
             raise ValueError(f"impl={impl!r} unavailable: TableBatch built from raw "
                              "tables has no config masks to synthesize entries from")
-        impl = "gather"
+        impl = "plain"
     if per_config and impl in ("table", "entry", "gemm"):
         if explicit:
             raise ValueError(f"impl={impl!r} takes config-shared (M, K) codes; "
-                             "per-config (D, M, K) codes take the gather routes")
-        impl = "entry_gather" if impl == "entry" else "gather"
+                             "per-config (D, M, K) codes take 'plain' or 'entry_gather'")
+        impl = "entry_gather" if impl == "entry" else "plain"
     return impl
 
 
@@ -320,13 +273,8 @@ def table_matmul_torch(tables, a_codes, b_codes, impl: str | None = None) -> tor
     batch = _as_batch(tables)
     a = _codes(a_codes, batch.device)
     b = _codes(b_codes, batch.device)
-    per_config = a.dim() == 3
-    impl = _resolve_impl(impl, batch, a.shape[-1], per_config)
+    impl = _resolve_impl(impl, batch, a.shape[-1], per_config=a.dim() == 3)
     d = len(batch)
-    if per_config:
-        if impl == "entry_gather":
-            return _matmul_entry_batched(batch.entry_small, a, b)
-        return _matmul_take_batched(batch.tables, a, b)
     if impl == "table":
         return app_kernels.table_gemv(batch.tables.reshape(d, -1), a, b)
     if impl == "entry":

@@ -13,10 +13,10 @@ every engine, says:
     ``"entry"`` (kernel K2) and ``"plain"`` (the plain torch reduction);
     ``fastmoo`` offers ``"kernel"`` (K3) and ``"plain"``; ``fastapp`` (the
     application table matmuls) offers ``"table"`` (kernel K4), ``"entry"``
-    (kernel K5), ``"gemm"`` (pair-plane f32 GEMMs), ``"gather"`` (flattened
-    gathers from the product tables, K4's plain version), ``"entry_gather"``
+    (kernel K5), ``"gemm"`` (pair-plane f32 GEMMs), ``"entry_gather"``
     (gathers from synthesized planes, K5's plain version) and ``"plain"``
-    (no kernel: the gather routes).  One name means the same in every engine:
+    (flattened gathers from the product tables, K4's plain version).  One
+    name means the same in every engine:
     ``"table"`` and ``"entry"`` pick the table-fed and the table-free kernel,
     ``"plain"`` the plain torch versions.  An engine whose menu does not hold
     the preference uses its own default.
@@ -37,7 +37,7 @@ BACKENDS = ("torch", "numpy")
 ENGINE_MENUS = {
     "fastchar": ("table", "entry", "plain"),
     "fastmoo": ("kernel", "plain"),
-    "fastapp": ("table", "entry", "gemm", "gather", "entry_gather", "plain"),
+    "fastapp": ("table", "entry", "gemm", "entry_gather", "plain"),
 }
 KERNEL_IMPLS = tuple(sorted({i for menu in ENGINE_MENUS.values() for i in menu}))
 

@@ -53,24 +53,38 @@ def _pair(a: torch.Tensor, r: int) -> torch.Tensor:
     return 2 * ((a >> (2 * r)) & 1) + ((a >> (2 * r + 1)) & 1)
 
 
+def _flat_index(a: torch.Tensor, bt: torch.Tensor, nb: int) -> torch.Tensor:
+    """Codes ``a`` (..., M, K) and ``bt`` (N, K) -> (..., M*N*K) flat indices
+    ``a * B + b`` in the reference's ``(M, N, K)`` order."""
+    return (a[..., :, None, :] * nb + bt).flatten(-3)
+
+
+def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``src`` (Dc, L) at config-shared (X,) or per-config (Dc, X) indices."""
+    return src[:, idx] if idx.dim() == 1 else torch.gather(src, 1, idx)
+
+
 def table_gemv_plain(tables_flat: torch.Tensor, a_codes: torch.Tensor,
                      b_codes: torch.Tensor, d_chunk: int = PLAIN_D_CHUNK) -> torch.Tensor:
     """Plain torch version of K4: (D, A*B) i32 tables, (M, K), (K, N) -> (D, M, N) i32.
 
     One flattened index ``a * B + b`` per (m, n, k), gathered ``d_chunk``
-    configs at a time and reduced over K (the reference's ``(M, N, K)`` order).
+    configs at a time and reduced over K.  ``a_codes`` may also be per-config
+    ``(D, M, K)`` codes; their indices are built per chunk.
     """
     d, ab = tables_flat.shape
     nb = _side(ab)
-    m, k = a_codes.shape
+    m, k = a_codes.shape[-2:]
     n = b_codes.shape[1]
     a = a_codes.long() & (nb - 1)
-    b = b_codes.long() & (nb - 1)
-    idx = (a[:, None, :] * nb + b.T[None, :, :]).reshape(-1)      # (M*N*K,)
+    bt = (b_codes.long() & (nb - 1)).T
+    shared = a.dim() == 2
+    idx = _flat_index(a, bt, nb) if shared else None
     out = torch.empty((d, m, n), dtype=torch.int32, device=tables_flat.device)
     for lo in range(0, d, d_chunk):
         tc = tables_flat[lo:lo + d_chunk]
-        out[lo:lo + d_chunk] = tc[:, idx].reshape(len(tc), m, n, k).sum(-1, dtype=torch.int32)
+        ic = idx if shared else _flat_index(a[lo:lo + d_chunk], bt, nb)
+        out[lo:lo + d_chunk] = _take(tc, ic).reshape(len(tc), m, n, k).sum(-1, dtype=torch.int32)
     return out
 
 
@@ -80,21 +94,23 @@ def planes_gemv_plain(small: torch.Tensor, a_codes: torch.Tensor,
 
     ``out[d, m, n] = sum_r (sum_k small[r, d, pair_r(a[m, k]), b[k, n]]) << 2r``,
     one flattened per-row gather into the ``(4*B,)`` planes per (m, n, k).
+    ``a_codes`` may also be per-config ``(D, M, K)`` codes.
     """
     rows, d, _, nb = small.shape
-    m, k = a_codes.shape
+    m, k = a_codes.shape[-2:]
     n = b_codes.shape[1]
     a = a_codes.long() & (nb - 1)
-    b = b_codes.long() & (nb - 1)
+    bt = (b_codes.long() & (nb - 1)).T
     sf = small.permute(1, 0, 2, 3).reshape(d, rows, 4 * nb)
-    idxs = [(_pair(a, r)[:, None, :] * nb + b.T[None, :, :]).reshape(-1)
-            for r in range(rows)]
+    shared = a.dim() == 2
+    idxs = [_flat_index(_pair(a, r), bt, nb) for r in range(rows)] if shared else None
     out = torch.empty((d, m, n), dtype=torch.int32, device=small.device)
     for lo in range(0, d, d_chunk):
         sc = sf[lo:lo + d_chunk]
         acc = None
         for r in range(rows):
-            term = sc[:, r][:, idxs[r]].reshape(len(sc), m, n, k).sum(-1, dtype=torch.int32)
+            ic = idxs[r] if shared else _flat_index(_pair(a[lo:lo + d_chunk], r), bt, nb)
+            term = _take(sc[:, r], ic).reshape(len(sc), m, n, k).sum(-1, dtype=torch.int32)
             term = term << (2 * r)
             acc = term if acc is None else acc + term
         out[lo:lo + d_chunk] = acc

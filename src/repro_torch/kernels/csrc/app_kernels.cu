@@ -32,10 +32,11 @@
 // VMEM; at 8 bits one table is 65,536 int32 = 256 KiB, more than the 227 KiB
 // of shared memory a block may use.  So K4 gathers it through the read-only
 // path (L1, then L2, which holds ~190 such tables): it is bound by gather
-// throughput, ~3 int32 operations per lookup beside it.  K5 reads nothing but
-// its codes and masks; it is bound by integer instruction throughput, ~R x 3
-// operations per lookup plus the synthesis, which every M-tile block of a
-// config repeats.
+// throughput, with 2 int32 ALU operations per lookup beside it (the index add
+// and the accumulate; the load issues on the load/store pipe).  K5 reads
+// nothing but its codes and masks; it is bound by integer instruction
+// throughput, ~R x 3 ALU operations per lookup (index add, shift, accumulate
+// per row) plus the synthesis, which every M-tile block of a config repeats.
 
 #include <cuda_runtime.h>
 

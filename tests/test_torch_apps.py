@@ -105,7 +105,7 @@ def test_behav_at_default_sizes_matches_reference(ref_apps, name):
     _assert_behav(name, got, ref.behav(ref_spec_for(8), cfgs, backend="jax"))
 
 
-@pytest.mark.parametrize("impl", ["entry", "gemm", "gather", "entry_gather"])
+@pytest.mark.parametrize("impl", ["entry", "gemm", "plain", "entry_gather"])
 def test_behav_every_route_matches_the_oracle(ref_apps, impl):
     cfgs = _configs8()
     ctx = ExecutionContext(device="cpu", kernel_impl=impl)

@@ -157,7 +157,7 @@ def test_exhaustive_4x4_kernel_plain_versions(all4x4):
     )
 
 
-@pytest.mark.parametrize("impl", [None, "gather", "entry_gather", "plain"])
+@pytest.mark.parametrize("impl", [None, "entry_gather", "plain"])
 def test_per_config_codes_match_reference(ref_fastapp, cfgs8, impl):
     cfgs, tables = cfgs8
     a3 = _codes(8, (len(cfgs), 9, 33), 6)
@@ -173,6 +173,24 @@ def test_per_config_codes_match_reference(ref_fastapp, cfgs8, impl):
     batch = fastapp.table_batch(spec_for(8), cfgs, ctx=CPU)
     np.testing.assert_array_equal(
         fastapp.table_matmul_torch(batch, a3, b, impl=impl).numpy(), want
+    )
+
+
+@pytest.mark.parametrize("d_chunk", [1, 3, 100])
+def test_plain_versions_take_per_config_codes(ref_fastapp, cfgs8, d_chunk):
+    """K4's and K5's plain versions take (D, M, K) codes as well, in any chunking."""
+    cfgs, _ = cfgs8
+    a3 = _codes(8, (len(cfgs), 7, 40), 23)
+    b = _codes(8, (40, 6), 24)
+    rbatch = ref_fastapp.table_batch(ref_spec_for(8), cfgs)
+    want = np.asarray(ref_fastapp.table_matmul_jax(rbatch, a3, b, impl="xla"))
+    batch = fastapp.table_batch(spec_for(8), cfgs, ctx=CPU)
+    tflat = batch.tables.reshape(len(cfgs), -1)
+    np.testing.assert_array_equal(
+        app_kernels.table_gemv_plain(tflat, _t(a3), _t(b), d_chunk).numpy(), want
+    )
+    np.testing.assert_array_equal(
+        app_kernels.planes_gemv_plain(batch.entry_small, _t(a3), _t(b), d_chunk).numpy(), want
     )
 
 
@@ -211,7 +229,7 @@ def test_mismatch_counts_break_ties_on_the_first_maximum(ref_fastapp):
                      for t in tables])
     ref = np.asarray(ref_fastapp.mismatch_counts(tables, a, w, labels, impl="xla"))
     np.testing.assert_array_equal(ref, want)
-    for impl in ("table", "gather"):
+    for impl in ("table", "plain"):
         got = fastapp.mismatch_counts(torch.from_numpy(tables), a, w, labels, impl=impl)
         np.testing.assert_array_equal(got.numpy(), want)
     assert want[0] == (labels != 0).sum() and want[1] == (labels != 0).sum()
@@ -244,7 +262,7 @@ def test_route_resolution():
     batch = fastapp.table_batch(spec, cfgs, ctx=CPU)
     raw = fastapp.TableBatch(masks=None, n_bits=8, _tables=batch.tables)
     a, b = _codes(8, (4, 8), 20), _codes(8, (8, 3), 21)
-    want = fastapp.table_matmul_torch(batch, a, b, impl="gather")
+    want = fastapp.table_matmul_torch(batch, a, b, impl="plain")
     # an explicit route that cannot run the batch raises
     for impl in ("entry", "entry_gather", "gemm"):
         with pytest.raises(ValueError):
@@ -262,17 +280,17 @@ def test_route_resolution():
     for pref in ("entry", "gemm", "entry_gather"):
         ctx = ExecutionContext(device="cpu", kernel_impl=pref)
         raw_pref = fastapp.TableBatch(masks=None, n_bits=8, ctx=ctx, _tables=batch.tables)
-        assert fastapp._resolve_impl(None, raw_pref, 8) == "gather"
+        assert fastapp._resolve_impl(None, raw_pref, 8) == "plain"
         assert torch.equal(fastapp.table_matmul_torch(raw_pref, a, b), want)
     assert fastapp._resolve_impl(None, batch, 8) == "table"
     gemm = fastapp.table_batch(spec, cfgs, ctx=ExecutionContext(device="cpu",
                                                                 kernel_impl="gemm"))
-    assert fastapp._resolve_impl(None, gemm, 40000) == "gather"
+    assert fastapp._resolve_impl(None, gemm, 40000) == "plain"
     entry = fastapp.table_batch(spec, cfgs, ctx=ExecutionContext(device="cpu",
                                                                  kernel_impl="entry"))
     assert fastapp._resolve_impl(None, entry, 8, per_config=True) == "entry_gather"
-    assert fastapp._resolve_impl(None, batch, 8, per_config=True) == "gather"
-    assert fastapp._resolve_impl("plain", batch, 8) == "gather"
+    assert fastapp._resolve_impl(None, batch, 8, per_config=True) == "plain"
+    assert fastapp._resolve_impl("plain", batch, 8) == "plain"
 
 
 def test_kernel_wrappers_check_their_inputs():
