@@ -35,18 +35,43 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      training set's app BEHAV is held against the numpy oracle (ecg and mnist
      exactly, gauss and ffn to 1e-6 relative), and each validated front's
      APP_MNIST must equal the numpy oracle exactly, and its PPA too.
+     Under the default ``table`` route the ecg and gauss convolutions are
+     K4's N=1 table matmul; after the counts are read, K4 is held against its
+     plain version at both convolution shapes (ecg M=2,034, K=15; gauss
+     M=8,464, K=25) and timed there.
   5. GA contract: the device NSGA-II's feasible-archive hypervolume within 2%
      of the numpy NSGA-II on the fitted 8-bit surrogate (population 32, 30
      generations), as a mean over seeds 0-19.
+  serve: AxO serving of granite-3-2b at full width and depth (40 layers, d
+     2048, 32/8 heads, d_ff 8192, vocab 49,155, bf16, random weights from a
+     seed) through ``repro_torch.launch.serve.main``: batch 4, prompt 128,
+     16 generated tokens, exact and with the rank-8 demo operator in every
+     projection and the tied head.  Kernel launch counts are zeroed before
+     and read after: K7 runs 40 times per prefill, K6 7 x 40 + 1 times per AxO
+     forward.  Then the checks: the AxO teacher-forced pass and the exact
+     prefill replayed with ``kernel_impl="plain"`` agree with the kernel
+     passes within 1e-3 relative norm of the logits, and at the reduced
+     config in f32 with the reference test's mild rank-16 operator the AxO
+     logits keep its fidelity bounds (top-1 >= 0.5, rel < 0.5).
+
+Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
+decode shapes (M=4 against the five weight shapes) and a prefill shape
+(M=512, 2048 x 8192) at rank 8, to 1e-5 relative norm, and K7 (flash
+attention) at the serve prefill (B=4, H=32, G=8, S=128 over a 144-slot
+cache, hd=64) and a ragged S, in f32 and bf16; its yardsticks are one cuBLAS
+f32 GEMM over the concatenated ``[A|F_1..F_R]·[B;G_1..G_R]`` (K6) and
+``scaled_dot_product_attention`` with K/V repeated to 32 heads (K7).
 
 The second-to-last lines are the kernels' JSON record (launch counts of K1-K3
-from phase 4, of K4 and K5 from phase apps) and the card's
-``nvidia-smi`` name and power limit; the last line is the result JSON.
-Nothing of JAX or of the reference package is imported.
+from phase 4, of K4 and K5 from phase apps, of K6 and K7 from phase serve)
+and the card's ``nvidia-smi`` name and power limit; the last line is the
+result JSON.  Nothing of JAX or of the reference package is imported.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -55,13 +80,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published rates (NVIDIA data sheet): HBM3 bandwidth and non-tensor
-# f32 FMA throughput.  The int32 rate is derived from the SM clock (below).
+# H100 SXM published rates (NVIDIA data sheet): HBM3 bandwidth, non-tensor
+# f32 FMA throughput and the dense bf16 tensor-core rate.  The int32 and the
+# f32 lane rates of the K4-K6 bounds are derived from the SM clock (below).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 N_SMS = 132
 INT32_LANES_PER_SM = 64
+F32_LANES_PER_SM = 128
 REL_RTOL = 1e-5
+SERVE_REL = 1e-3      # logits of a kernel pass vs the same pass on the plain versions
+AXO_RANK = 8
+SERVE_ARGS = ["--arch", "granite-3-2b", "--full-config", "--batch", "4", "--prompt-len",
+              "128", "--gen", "16", "--axo-rank", str(AXO_RANK)]
 # The two GAs draw from different random streams, and one run's hypervolume
 # varies by ~1.6% (std over seeds) at this budget, so the 2% contract is held
 # on the mean over a fixed set of seeds, and on seed 0 alone as well.
@@ -90,11 +122,75 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, int_ops: float, f32_ops: float, int_rate: float):
+def bound(bytes_moved: float, int_ops: float, f32_ops: float, int_rate: float,
+          f32_rate: float = F32_FLOPS, bf16_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of the byte time and the op time."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = max(int_ops / int_rate, f32_ops / F32_FLOPS)
+    t_ops = max(int_ops / int_rate, f32_ops / f32_rate, bf16_ops / BF16_TENSOR_FLOPS)
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_norm(got, want) -> float:
+    """||got - want|| / ||want||, in float64."""
+    import torch
+
+    diff = torch.linalg.vector_norm((got.double() - want.double()))
+    return float(diff / torch.linalg.vector_norm(want.double()))
+
+
+@contextlib.contextmanager
+def checked_calls(torch):
+    """Run every K6 and K7 call of the serve path on its plain version too.
+
+    Patches the names the model calls the kernels by; yields ``{"K6": [rel
+    norms], "K7": [max err / max |plain|]}``, one entry per call.
+    """
+    from repro_torch.axo import deploy
+    from repro_torch.kernels import axo_matmul, flash_attention
+    from repro_torch.models import attention
+
+    calls = {"K6": [], "K7": []}
+
+    def k6(*args):
+        out = axo_matmul.axo_matmul(*args)
+        calls["K6"].append(rel_norm(out, axo_matmul.axo_matmul_plain(*args)))
+        return out
+
+    def k7(q, k, v, **kw):
+        out = flash_attention.flash_attention(q, k, v, **kw)
+        want = flash_attention.flash_attention_plain(q, k, v, **kw).float()
+        calls["K7"].append(float((out.float() - want).abs().max() / want.abs().max()))
+        return out
+
+    deploy.axo_matmul, attention.flash_attention = k6, k7
+    try:
+        yield calls
+    finally:
+        deploy.axo_matmul = axo_matmul.axo_matmul
+        attention.flash_attention = flash_attention.flash_attention
+
+
+def profile_decode(torch, prefill, decode, params, toks, steps: int = 2):
+    """torch.profiler over ``steps`` decode steps after a prefill: the device
+    time against the wall time, and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    logits, cache = prefill(params, toks)
+    nxt = logits[:, -1].argmax(-1)[:, None]
+    plen = toks.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(plen, plen + steps):
+            logits, cache = decode(params, cache, nxt, i)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    top = [(e.key[:48], round(e.self_device_time_total / 1e3 / steps, 4), e.count // steps)
+           for e in kernels[:5]]
+    return {"device_ms": device, "wall_ms": wall}, top
 
 
 def main() -> int:
@@ -108,6 +204,9 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.apps import APPLICATIONS, characterized_dataset_multi, fastapp
+    from repro_torch.axo import AxOOperator, deploy_axo
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
     from repro_torch.core import fastchar
     from repro_torch.core.automl import fit_estimators
     from repro_torch.core.dataset import BEHAV_KEY, PPA_KEY, Dataset, build_training_dataset
@@ -117,19 +216,31 @@ def main() -> int:
     from repro_torch.core.moo import nsga2
     from repro_torch.core.operator_model import accurate_config, config_to_masks, spec_for
     from repro_torch.core.ppa import ppa_metrics
-    from repro_torch.kernels import app_kernels, build, char_kernels, moo_kernels
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import (
+        app_kernels, axo_matmul, build, char_kernels, flash_attention, moo_kernels,
+    )
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.spec import init_params
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False   # IEEE f32 products (K6's plain version)
+    torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. device ----------------------------------------------------------
     card = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     int_rate = N_SMS * INT32_LANES_PER_SM * clock_mhz * 1e6
+    f32_rate = N_SMS * F32_LANES_PER_SM * 2 * clock_mhz * 1e6   # FMA = 2 FLOPs
     print(f"phase device: nvidia-smi '{card}', torch '{torch.cuda.get_device_name(0)}', "
           f"count {torch.cuda.device_count()}, max SM clock {clock_mhz:.0f} MHz, "
-          f"derived int32 rate {int_rate:.4g} op/s, torch {torch.__version__} "
+          f"derived int32 rate {int_rate:.4g} op/s, f32 rate {f32_rate:.4g} FLOP/s, "
+          f"torch {torch.__version__} "
           f"cuda {torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
 
     # -- 2. build -----------------------------------------------------------
@@ -283,6 +394,94 @@ def main() -> int:
         if label == "mnist":   # the shape of the app path's GEMV (mnist's logits)
             rec["K4"], rec["K5"] = k4_rec, k5_rec
     err["K4"] = err["K5"] = 0.0  # exact int32 outputs, held equal above
+
+    # K6 at granite-3-2b's AxO projections, rank 8: decode (M=4) against the
+    # five weight shapes, and the prefill's M = 4 x 128 against gate/up
+    op = serve.demo_operator(AXO_RANK)
+    f_t, g_t, sv_t = (torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(dev)
+                      for t in (op.f_table, op.g_table, op.signed_vals))
+    r1 = AXO_RANK + 1
+    gen = torch.Generator(device=dev).manual_seed(6)
+    k6_shapes = {"q/o decode": (4, 2048, 2048), "k/v decode": (4, 2048, 512),
+                 "gate/up decode": (4, 2048, 8192), "down decode": (4, 8192, 2048),
+                 "head decode": (4, 2048, 49155), "gate/up prefill": (512, 2048, 8192)}
+    for label, (m, k, n) in k6_shapes.items():
+        a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
+        bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
+        got = axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t)
+        want = axo_matmul.axo_matmul_plain(a, bb, f_t, g_t, sv_t)
+        torch.cuda.synchronize()
+        rel = rel_norm(got, want)
+        if not (torch.isfinite(got).all() and rel <= REL_RTOL):
+            raise AssertionError(f"K6 differs from its plain version at {label}: rel {rel:.3g}")
+        # the library yardstick: one f32 GEMM over [A|F_1..F_R] . [B;G_1..G_R]
+        al, ac = a.long(), bb.long()
+        a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
+        b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
+        k6_rec = dict(
+            name="axo_matmul", source="src/repro_torch/kernels/csrc/axo_matmul.cu",
+            replaces="src/repro/kernels/axo_matmul_kernel.py:80",
+            ms=cuda_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 10),
+            plain_ms=cuda_ms(torch, lambda: axo_matmul.axo_matmul_plain(
+                a, bb, f_t, g_t, sv_t), 3),
+            library_ms=cuda_ms(torch, lambda: a_cat @ b_cat, 10),
+            bound=bound(m * k + k * n + m * n * 4 + 2 * r1 * 256 * 4, 0,
+                        2.0 * m * n * k * r1, int_rate, f32_rate=f32_rate),
+        )
+        del a_cat, b_cat
+        print(f"phase kernels: K6 vs plain at {label} M={m} K={k} N={n} R={AXO_RANK}: rel "
+              f"norm {rel:.3g} (limit {REL_RTOL}), max abs err "
+              f"{float((got - want).abs().max()):.4g}; K6 {k6_rec['ms']:.4f} ms (plain "
+              f"{k6_rec['plain_ms']:.4f}, bound {k6_rec['bound'][0]:.4g} by "
+              f"{k6_rec['bound'][1]}), one cuBLAS f32 GEMM at K(1+R) "
+              f"{k6_rec['library_ms']:.4f} ms", flush=True)
+        if label == "gate/up prefill":   # the path's heaviest K6 call
+            rec["K6"], err["K6"] = k6_rec, float((got - want).abs().max())
+
+    # K7 at the serve prefill: B=4, H=32, G=8, hd=64, S=128 over the 144-slot
+    # cache (kv_len 128), and a ragged S=77; bf16 as served, f32 beside it
+    for label, (s_q, cap) in {"serve prefill": (128, 144), "ragged": (77, 93)}.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((4, 32, s_q, 64), generator=gen, device=dev).to(dtype)
+            kk, vv = (torch.randn((4, 8, cap, 64), generator=gen, device=dev).to(dtype)
+                      for _ in range(2))
+            got = flash_attention.flash_attention(q, kk, vv, kv_len=s_q)
+            want = flash_attention.flash_attention_plain(q, kk, vv, kv_len=s_q)
+            torch.cuda.synchronize()
+            # both round one f32 result: f32 to 2e-6, bf16 to one bf16 ulp (2^-7),
+            # of the output's largest magnitude
+            tol = (2e-6 if dtype == torch.float32 else 2.0 ** -7) * float(
+                want.float().abs().max())
+            e = float((got.float() - want.float()).abs().max())
+            if not (torch.isfinite(got.float()).all() and e <= tol):
+                raise AssertionError(f"K7 differs from its plain version at {label} {dtype}: "
+                                     f"{e:.3g} > {tol:.3g}")
+            msg = f"phase kernels: K7 vs plain at {label} S={s_q} cache {cap} {dtype}: " \
+                  f"max abs err {e:.3g} (limit {tol:.3g})"
+            if dtype == torch.bfloat16:
+                k_rep = kk[:, :, :s_q].repeat_interleave(4, dim=1)
+                v_rep = vv[:, :, :s_q].repeat_interleave(4, dim=1)
+                pairs = s_q * (s_q + 1) // 2
+                k7_rec = dict(
+                    name="flash_attention",
+                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention_kernel.py:87",
+                    ms=cuda_ms(torch, lambda: flash_attention.flash_attention(
+                        q, kk, vv, kv_len=s_q), 50),
+                    plain_ms=cuda_ms(torch, lambda: flash_attention.flash_attention_plain(
+                        q, kk, vv, kv_len=s_q), 10),
+                    library_ms=cuda_ms(torch, lambda: torch.nn.functional.
+                                       scaled_dot_product_attention(
+                                           q, k_rep, v_rep, is_causal=True), 50),
+                    bound=bound(2 * (2 * q.numel() + 2 * 4 * 8 * s_q * 64), 0, 0, int_rate,
+                                bf16_ops=4.0 * 4 * 32 * pairs * 64),
+                )
+                msg += (f"; K7 {k7_rec['ms']:.4f} ms (plain {k7_rec['plain_ms']:.4f}, bound "
+                        f"{k7_rec['bound'][0]:.4g} by {k7_rec['bound'][1]}), SDPA "
+                        f"{k7_rec['library_ms']:.4f} ms")
+                if label == "serve prefill":
+                    rec["K7"], err["K7"] = k7_rec, e
+            print(msg, flush=True)
     for k, r in rec.items():
         print(f"phase kernels: {k} {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound'][0]:.4g} ms by {r['bound'][1]})", flush=True)
@@ -367,6 +566,12 @@ def main() -> int:
     t_app = time.perf_counter() - t_app0
     if min(app_launches.values()) <= 0:
         raise AssertionError(f"a kernel of the app path never launched: {app_launches}")
+    # K4 per 128-config chunk: the mnist head, the ffn GEMM1 and the ecg and
+    # gauss convolutions; then one per ga / map validation (mnist's head)
+    k4_want = 4 * -(-len(train) // 128) + 2
+    if app_launches["K4"] != k4_want:
+        raise AssertionError(f"K4 launched {app_launches['K4']} times on the app path, "
+                             f"expected {k4_want}")
     # checks of the app path, after its launch counts and time are read
     pick = np.random.default_rng(2).choice(len(train), 62, replace=False)
     chk = np.concatenate([train.configs[pick], cfgs[-1:], cfgs[-2:-1]])  # + zeros, accurate
@@ -391,8 +596,33 @@ def main() -> int:
         np.testing.assert_array_equal(
             r.vpf_objs[:, 1], ppa_metrics(spec, r.vpf_configs)[PPA_KEY],
             err_msg=f"app {method} {PPA_KEY}")
-    print(f"phase apps: {t_app:.1f} s, launches {app_launches}; validated fronts' "
-          f"APP_MNIST == numpy oracle, {PPA_KEY} == numpy", flush=True)
+    print(f"phase apps: {t_app:.1f} s, launches {app_launches} (K4 expected {k4_want}); "
+          f"validated fronts' APP_MNIST == numpy oracle, {PPA_KEY} == numpy", flush=True)
+    # K4 at the two convolutions' shapes, the apps' own windows and taps
+    ecg, gauss = apps[0], apps[2]
+    x_c = torch.from_numpy(np.asarray(ecg._x_codes, np.int32)).to(dev)
+    img_c = torch.from_numpy(np.asarray(gauss._img_codes, np.int32)).to(dev)
+    convs = {
+        "ecg conv1d": (x_c.unfold(0, len(ecg._h_codes), 1).contiguous(),
+                       torch.from_numpy(np.asarray(ecg._h_codes, np.int32))[:, None]),
+        "gauss conv2d": (img_c.unfold(0, 5, 1).unfold(1, 5, 1).reshape(-1, 25).contiguous(),
+                         torch.from_numpy(np.asarray(gauss._k_codes, np.int32)).reshape(-1, 1)),
+    }
+    for label, (win, taps) in convs.items():
+        taps = taps.contiguous().to(dev)
+        k4 = app_kernels.table_gemv(tflat, win, taps)
+        p4 = app_kernels.table_gemv_plain(tflat, win, taps)
+        torch.cuda.synchronize()
+        if not torch.equal(k4, p4):
+            raise AssertionError(f"K4 differs from its plain version at the {label} shape")
+        m, k = win.shape
+        ms = cuda_ms(torch, lambda: app_kernels.table_gemv(tflat, win, taps), 20)
+        plain_ms = cuda_ms(torch, lambda: app_kernels.table_gemv_plain(tflat, win, taps), 3)
+        b_ms, b_by = bound(tflat.numel() * 4 + (win.numel() + k + d_app * m) * 4,
+                           2 * d_app * m * k, 0, int_rate)
+        print(f"phase apps: K4 vs plain at {label} D={d_app} M={m} K={k} N=1: outputs ==; "
+              f"K4 {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4g} ms by {b_by})",
+              flush=True)
     launches.update(K4=app_launches["K4"], K5=app_launches["K5"])
 
     # -- 5. GA hypervolume contract -----------------------------------------
@@ -424,6 +654,134 @@ def main() -> int:
         raise AssertionError("device GA mean hypervolume is not within 2% of the numpy GA")
     if not rel0 <= 0.02:
         raise AssertionError("device GA seed-0 hypervolume is not within 2% of the numpy GA")
+
+    # -- serve: granite-3-2b at full width and depth, exact and AxO -----------
+    all_wrappers = dict(app_wrappers, K6=axo_matmul.axo_matmul,
+                        K7=flash_attention.flash_attention)
+    for fn in all_wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    serve_launches = {k: fn.launches for k, fn in all_wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, axo = res["cfg"], res["axo"]
+    n_layers = cfg.n_layers
+    k7_want = n_layers * (res["prefills"] + axo["prefills"])
+    k6_want = (7 * n_layers + 1) * (axo["prefills"] + axo["decode_steps"])
+    steps = res["decode_steps"] // res["prefills"]
+    tok_s = 4 * steps / (res["exact_decode_ms"] / 1e3)
+    tok_s_axo = 4 * steps / (axo["decode_ms"] / 1e3)
+    print(f"phase serve: {cfg.name} ({n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16) in {t_serve:.1f} s; "
+          f"exact prefill {res['exact_prefill_ms']:.2f} ms, decode "
+          f"{res['exact_decode_ms'] / steps:.3f} ms/step ({tok_s:.1f} tokens/s); AxO rank "
+          f"{AXO_RANK} ({axo['deployment'].n_entries} projections) prefill "
+          f"{axo['prefill_ms']:.2f} ms, decode {axo['decode_ms'] / steps:.3f} ms/step "
+          f"({tok_s_axo:.1f} tokens/s); peak memory {peak / 2**30:.3f} GiB "
+          f"({peak} bytes); launches {serve_launches} (K6 expected {k6_want}, K7 {k7_want}); "
+          f"free-run match {axo['free_run_match']:.4f}, teacher-forced top-1 "
+          f"{axo['top1']:.4f}, logit rel_err {axo['rel_err']:.4f}", flush=True)
+    if (serve_launches["K6"], serve_launches["K7"]) != (k6_want, k7_want):
+        raise AssertionError(f"serve launches {serve_launches}: expected K6 {k6_want}, "
+                             f"K7 {k7_want}")
+    if not all(torch.isfinite(lg.float()).all() for lg in res["exact_logits"] +
+               axo["replay_logits"]):
+        raise AssertionError("non-finite logits on the serve path")
+    launches.update(K6=serve_launches["K6"], K7=serve_launches["K7"])
+    # checks, after the counts are read.  (b) Each pass replayed with every K6
+    # and K7 call also run on its plain version on the same inputs: K6 to
+    # REL_RTOL relative norm, K7 to one bf16 ulp of the call's largest output.
+    plain = ExecutionContext(kernel_impl="plain")
+    params, toks, max_seq, traj = res["params"], res["tokens"], res["max_seq"], res["trajectory"]
+    dep = axo["deployment"]
+    t0 = time.perf_counter()
+    with checked_calls(torch) as calls:
+        pre_k = make_prefill_step(cfg, max_seq)(params, toks)[0]
+        rep_k = serve.replay(make_prefill_step(cfg, max_seq, axo=dep),
+                             make_decode_step(cfg, axo=dep), params, toks, traj)
+    k6_worst = max(calls["K6"])
+    k7_worst = max(calls["K7"])
+    print(f"phase serve: exact prefill and AxO teacher-forced replay with each kernel call "
+          f"also run on its plain version: K6 {len(calls['K6'])} calls, max rel norm "
+          f"{k6_worst:.3g} (limit {REL_RTOL}); K7 {len(calls['K7'])} calls, max err / max|out| "
+          f"{k7_worst:.3g} (limit 2^-7 = {2.0 ** -7:.4g}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not (k6_worst <= REL_RTOL and k7_worst <= 2.0 ** -7):
+        raise AssertionError("a K6 or K7 call on the serve path differs from its plain version")
+    # the whole passes on the plain versions, and what one bf16 ulp of input does
+    # to the plain pass itself: at full depth with random weights the attention
+    # is saturated, so an ulp anywhere moves the logits (printed, not bounded)
+    dep_plain = dataclasses.replace(dep, ctx=plain)
+    rep_p = serve.replay(make_prefill_step(cfg, max_seq, axo=dep_plain, ctx=plain),
+                         make_decode_step(cfg, axo=dep_plain, ctx=plain), params, toks, traj)
+    pre_p = make_prefill_step(cfg, max_seq, ctx=plain)(params, toks)[0]
+    nudged = dict(params, embed={"tok": params["embed"]["tok"].clone()})
+    t_id = int(toks[0, 5])
+    nudged["embed"]["tok"][t_id, 7] = (nudged["embed"]["tok"][t_id, 7].float()
+                                       * (1 + 2.0 ** -7)).to(torch.bfloat16)
+    pre_n = make_prefill_step(cfg, max_seq, ctx=plain)(nudged, toks)[0]
+    # layer 0's attention scores (head 0, before rotary): their spread says how
+    # saturated the softmax is
+    lp, hd = params["stages"]["0"]["0"], cfg.resolved_head_dim
+    h0 = rmsnorm(params["embed"]["tok"][toks], lp["norm1"][0], cfg.norm_eps)
+    q0, k0 = ((h0 @ lp["mixer"][w][0].reshape(cfg.d_model, -1)).float()[..., :hd]
+              for w in ("wq", "wk"))
+    score_std = float((q0 @ k0.transpose(1, 2) / hd ** 0.5).std())
+    print(f"phase serve: logits of the kernel passes vs the plain passes (rel norm): AxO "
+          f"teacher-forced max over {len(rep_p)} steps "
+          f"{max(rel_norm(a, b) for a, b in zip(rep_k, rep_p)):.4g}, exact prefill "
+          f"{rel_norm(pre_k[:, -1], pre_p[:, -1]):.4g}; the plain exact prefill with one "
+          f"embedding element moved by one bf16 ulp {rel_norm(pre_n[:, -1], pre_p[:, -1]):.4g}; "
+          f"layer 0 attention score std {score_std:.4g}", flush=True)
+    del nudged, rep_p, pre_p, pre_n
+    # warm timings and where a decode step's device time goes
+    for label, a in (("exact", None), ("AxO", dep)):
+        pre_fn, dec_fn = make_prefill_step(cfg, max_seq, axo=a), make_decode_step(cfg, axo=a)
+        _, _, (tp, td) = serve.generate(pre_fn, dec_fn, params, toks, 16)
+        busy, top = profile_decode(torch, pre_fn, dec_fn, params, toks)
+        step_ms = td * 1e3 / 15
+        print(f"phase serve: {label} warm: prefill {tp * 1e3:.2f} ms, decode "
+              f"{step_ms:.3f} ms/step ({4 * 15 / td:.1f} tokens/s); profiled decode step: "
+              f"device time {busy['device_ms']:.3f} ms ({busy['device_ms'] / step_ms:.1%} "
+              f"of the unprofiled step; {busy['wall_ms']:.3f} ms wall under the profiler); "
+              f"top kernels (name, ms per step, launches per step) {top}", flush=True)
+    del res, axo, params, dep, dep_plain, rep_k
+    # (c) at the reduced config in f32, with the reference test's mild rank-16
+    # operator: its fidelity bounds, and (b) end to end, where one ulp does not
+    # reach the logits
+    red = get_arch("granite-3-2b").reduced()
+    red_params = init_params(model_spec(red), seed=0, dtype=torch.float32)
+    red_toks = torch.from_numpy(SyntheticLM(
+        red, ShapeConfig("serve", 14, 2, "train"), seed=0).batch(0)["tokens"][:, :8])
+    red_toks = red_toks.long().to(dev)
+    mild = accurate_config(spec)
+    mild[0] = 0
+    red_dep = deploy_axo(red_params, AxOOperator.from_config(mild, rank=16), red)
+    red_traj, exact_lgs, _ = serve.generate(make_prefill_step(red, 14),
+                                            make_decode_step(red), red_params, red_toks, 6)
+    k6_before = axo_matmul.axo_matmul.launches
+    red_rep = serve.replay(make_prefill_step(red, 14, axo=red_dep),
+                           make_decode_step(red, axo=red_dep), red_params, red_toks, red_traj)
+    top1, rel = serve.fidelity(red_rep, exact_lgs)
+    red_plain = dataclasses.replace(red_dep, ctx=plain)
+    red_rep_p = serve.replay(make_prefill_step(red, 14, axo=red_plain, ctx=plain),
+                             make_decode_step(red, axo=red_plain, ctx=plain),
+                             red_params, red_toks, red_traj)
+    rel_axo = max(rel_norm(a, b) for a, b in zip(red_rep, red_rep_p))
+    rel_pre = rel_norm(make_prefill_step(red, 14)(red_params, red_toks)[0],
+                       make_prefill_step(red, 14, ctx=plain)(red_params, red_toks)[0])
+    print(f"phase serve: reduced {red.name} f32, mild rank-16 operator in every projection: "
+          f"teacher-forced top-1 {top1:.4f} (bound >= 0.5), logit rel {rel:.4f} (bound < 0.5), "
+          f"K6 launches {axo_matmul.axo_matmul.launches - k6_before}; logits of the kernel "
+          f"passes vs plain: AxO teacher-forced {rel_axo:.3g}, exact prefill {rel_pre:.3g} "
+          f"(limit {SERVE_REL})", flush=True)
+    if not (top1 >= 0.5 and rel < 0.5):
+        raise AssertionError("reduced AxO serving misses the reference test's fidelity bounds")
+    if not (rel_axo <= SERVE_REL and rel_pre <= SERVE_REL):
+        raise AssertionError("a reduced serve pass on the kernels differs from its plain replay")
 
     kernels = []
     for k, r in rec.items():

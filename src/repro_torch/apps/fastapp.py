@@ -20,8 +20,10 @@ the batched table matmul ``out[d, m, n] = sum_k T_d[a[m, k], b[k, n]]``
       torch (K5's plain version).
 
 Per-config ``(D, M, K)`` codes (the FFN's requantized activations) take the
-gather routes; the convolutions follow the reference: ``"gemm"`` and the entry
-routes contract windows with the pair-plane GEMM, every other route gathers.
+gather routes.  A convolution is the N=1 table matmul of its windows against
+its taps: ``"table"`` launches K4 on them, ``"gemm"`` and the entry routes
+contract them with the pair-plane GEMM as the reference does, and
+``"plain"`` gathers.
 A route asked for explicitly that cannot run the batch raises; a context
 preference gives way only where the reference's does.
 
@@ -288,19 +290,22 @@ def table_matmul_torch(tables, a_codes, b_codes, impl: str | None = None) -> tor
 
 def _contract(batch: TableBatch, win: torch.Tensor, taps: torch.Tensor,
               impl: str | None) -> torch.Tensor:
-    """(M, K) windows against (K,) taps -> (D, M): a convolution as an N=1
-    table matmul.  ``"gemm"`` and the entry routes (within the f32 bound) take
-    the pair-plane GEMM, every other route the flattened gather."""
+    """(M, K) windows against (K,) taps -> (D, M): a convolution as the N=1
+    table matmul.  ``"table"`` launches K4; ``"gemm"`` and the entry routes
+    (within the f32 bound) take the pair-plane GEMM; past that bound
+    ``"entry"`` launches K5 and ``"entry_gather"`` runs K5's plain version;
+    ``"plain"`` runs the flattened gather (K4's plain version)."""
     k = taps.shape[0]
     impl = _resolve_impl(impl, batch, k)
-    b = taps[:, None]
+    win = win.contiguous()
+    b = taps[:, None].contiguous()
     if impl in _ENTRY_ROUTES and _gemm_ok(k, batch.n_bits):
         out = _matmul_gemm(batch.entry_small, win, b)
-    elif impl == "gemm":
-        out = _matmul_gemm(batch.small, win, b)
+    elif impl != "plain":
+        out = table_matmul_torch(batch, win, b, impl=impl)
     else:
         out = app_kernels.table_gemv_plain(
-            batch.tables.reshape(len(batch), -1), win.contiguous(), b, CONV_D_CHUNK
+            batch.tables.reshape(len(batch), -1), win, b, CONV_D_CHUNK
         )
     return out[..., 0]
 

@@ -1,0 +1,17 @@
+from .deploy import (
+    AXO_LAYERS,
+    AxODeployment,
+    AxOOperator,
+    axo_linear,
+    deploy_axo,
+    quantize_tensor,
+)
+
+__all__ = [
+    "AXO_LAYERS",
+    "AxODeployment",
+    "AxOOperator",
+    "axo_linear",
+    "deploy_axo",
+    "quantize_tensor",
+]

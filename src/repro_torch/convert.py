@@ -13,8 +13,15 @@ An application (``repro_torch.apps``) is carried as its name, its dataclass
 fields and the arrays its data generators made (:data:`APP_ARRAYS`), so two
 implementations score the same data.
 
+An AxO operator (``axo.AxOOperator``) is carried as its arrays, kind
+``axo_operator``.  Model parameters are nested dicts of arrays:
+:func:`params_from_jax` maps such a tree, as numpy arrays of the reference's
+``init_params`` tree, onto the port's tensors by name, leaf for leaf, with
+the stacked ``(repeats, ...)`` leaves kept stacked as the port's model uses
+them.
+
 State dicts carry a ``"kind"`` tag: ``dataset``, ``poly``, ``gbt``,
-``automl``, ``quad_expr``, ``map_problem`` or ``app``.
+``automl``, ``quad_expr``, ``map_problem``, ``app`` or ``axo_operator``.
 """
 
 from __future__ import annotations
@@ -22,17 +29,23 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .apps import APPLICATIONS
+from .axo.deploy import AxOOperator
+from .core.engine import ExecutionContext
 from .core.automl import AutoMLRegressor
 from .core.dataset import Dataset
 from .core.gbt import GBTRegressor, _Tree
 from .core.miqcp import MapProblem, QuadExpr
 from .core.regression import MinMaxScaler, PolyRegModel
+from .models.model import model_spec
+from .models.spec import _leaf_paths
 
-__all__ = ["state_of", "from_state"]
+__all__ = ["state_of", "from_state", "params_from_jax"]
 
 _GBT_PARAMS = ("n_trees", "max_depth", "learning_rate", "subsample", "min_leaf", "seed")
+_AXO_ARRAYS = ("f_table", "g_table", "signed_vals", "table")
 # the generated data of each application, by app name
 APP_ARRAYS = {
     "mnist": ("_xte", "_W", "_labels"),
@@ -55,6 +68,13 @@ def state_of(obj) -> dict:
             "fields": {f.name: getattr(obj, f.name)
                        for f in dataclasses.fields(obj) if f.init},
             "arrays": {k: _arr(getattr(obj, k)) for k in APP_ARRAYS[obj.name]},
+        }
+    if hasattr(obj, "f_table") and hasattr(obj, "rank_table"):
+        return {
+            "kind": "axo_operator",
+            "n_bits": int(obj.n_bits),
+            "rank": int(obj.rank),
+            **{k: _arr(getattr(obj, k)) for k in _AXO_ARRAYS},
         }
     if hasattr(obj, "configs") and hasattr(obj, "metrics"):
         return {
@@ -175,4 +195,45 @@ def from_state(state: dict):
         app._prep_bits = 0   # requantize the carried arrays (drops references)
         app._prepare(n_bits)
         return app
+    if kind == "axo_operator":
+        return AxOOperator(n_bits=state["n_bits"], rank=state["rank"],
+                           **{k: _arr(state[k]) for k in _AXO_ARRAYS})
     raise ValueError(f"unknown state kind {kind!r}")
+
+
+def _tensor(x, device, dtype) -> torch.Tensor:
+    """A numpy (or array-like) leaf as a tensor; bfloat16 arrays pass through f32."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def params_from_jax(tree: dict, cfg=None, *, device=None, dtype=None) -> dict:
+    """The reference's parameter tree (numpy leaves) as the port's tensors.
+
+    Leaves map by name: ``tree["stages"]["0"]["0"]["mixer"]["wq"]`` becomes the
+    port's leaf of the same path, stacked layers staying stacked.  With ``cfg``
+    the tree must hold exactly the leaves of ``model_spec(cfg)``, each of its
+    shape.  ``device`` defaults to the card; ``dtype`` keeps each leaf's own
+    unless given.
+    """
+    dev = ExecutionContext(device=device).device
+    if cfg is not None:
+        want = {path: tuple(s.shape) for path, s in _leaf_paths(model_spec(cfg))}
+        got = {path: tuple(np.shape(x)) for path, x in _leaf_paths(tree)}
+        if want.keys() != got.keys():
+            raise ValueError(f"parameter trees differ: missing {sorted(want.keys() - got)}, "
+                             f"extra {sorted(got.keys() - want)}")
+        bad = {p: (got[p], want[p]) for p in want if got[p] != want[p]}
+        if bad:
+            raise ValueError(f"leaf shapes differ (got, want): {bad}")
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return _tensor(t, dev, dtype)
+
+    return walk(tree)

@@ -15,7 +15,10 @@ every engine, says:
     application table matmuls) offers ``"table"`` (kernel K4), ``"entry"``
     (kernel K5), ``"gemm"`` (pair-plane f32 GEMMs), ``"entry_gather"``
     (gathers from synthesized planes, K5's plain version) and ``"plain"``
-    (flattened gathers from the product tables, K4's plain version).  One
+    (flattened gathers from the product tables, K4's plain version);
+    ``axo_matmul`` (the AxO projections of the serving path) offers
+    ``"kernel"`` (K6) and ``"plain"``, and ``attention`` (the model's prefill
+    attention) ``"kernel"`` (K7) and ``"plain"``.  One
     name means the same in every engine:
     ``"table"`` and ``"entry"`` pick the table-fed and the table-free kernel,
     ``"plain"`` the plain torch versions.  An engine whose menu does not hold
@@ -38,6 +41,8 @@ ENGINE_MENUS = {
     "fastchar": ("table", "entry", "plain"),
     "fastmoo": ("kernel", "plain"),
     "fastapp": ("table", "entry", "gemm", "entry_gather", "plain"),
+    "axo_matmul": ("kernel", "plain"),
+    "attention": ("kernel", "plain"),
 }
 KERNEL_IMPLS = tuple(sorted({i for menu in ENGINE_MENUS.values() for i in menu}))
 

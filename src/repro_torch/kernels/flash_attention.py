@@ -1,0 +1,129 @@
+"""Causal GQA flash attention, kernel K7, beside its plain version.
+
+``flash_attention`` replaces ``repro/kernels/flash_attention_kernel.py::
+flash_attention_pallas``; the CUDA source is ``csrc/flash_attention.cu``,
+whose header says what bounds it on the H100 and how the design answers it.
+It computes, for q (B, H, Sq, hd) and k, v (B, G, Skv, hd),
+
+    out[b, h, i] = softmax_j(scale * q[b, h, i] . k[b, h // (H/G), j]) v[b, h // (H/G), j]
+
+over the keys ``j < kv_len`` and, when causal, ``j <= q_offset + i``: query row
+i sits at absolute position ``q_offset + i``, as in the model's prefill into
+a KV cache (``models.attention.attn_apply``).  ``q_offset`` and ``kv_len`` are
+runtime arguments.  Every tensor may be a strided view whose head dimension
+is contiguous (the model passes ``(B, S, H, hd)`` activations and its cache
+transposed); the output has ``q``'s layout.
+
+The plain version is ``ref.ref_flash_attention``'s direct masked softmax with
+the offset and ``kv_len`` added, computed in f32 and rounded once to the input
+type (the kernel keeps its softmax weights in f32 too).  On a CPU tensor the
+wrapper returns it; on a CUDA tensor it launches the kernel or raises.
+``flash_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import build
+
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+
+HEAD_DIMS = (16, 32, 64)   # head widths the kernel is built for (one row in registers)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, scale: float | None = None,
+                          q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+    """Plain version of K7: the direct masked softmax, (B, H, Sq, hd)."""
+    b, h, sq, hd = q.shape
+    g, skv = k.shape[1], k.shape[2]
+    rep = h // g
+    scale = (1.0 / math.sqrt(hd)) if scale is None else scale
+    kv_len = skv if kv_len is None else kv_len
+    kh = k.to(torch.float32).repeat_interleave(rep, dim=1)
+    vh = v.to(torch.float32).repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kh) * scale
+    kpos = torch.arange(skv, device=q.device)
+    valid = (kpos < kv_len)[None, :]
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)
+        valid = valid & (qpos[:, None] >= kpos[None, :])
+    s = s.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vh).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.library("flash_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = [
+        p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i,
+        ctypes.c_float, i, i, i, p,
+    ]
+    lib.flash_attention_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+           kv_len: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be (B, H|G, S, hd)")
+    b, h, _, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not fit "
+                         f"q {tuple(q.shape)}")
+    if h % k.shape[1]:
+        raise ValueError(f"{h} query heads do not split into {k.shape[1]} KV groups")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v are on different devices")
+    if not 0 <= kv_len <= k.shape[2] or q_offset < 0:
+        raise ValueError(f"kv_len {kv_len} must lie in [0, {k.shape[2]}] and "
+                         f"q_offset {q_offset} must be >= 0")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+    """K7: q (B, H, Sq, hd), k/v (B, G, Skv, hd) f32 or bf16 -> (B, H, Sq, hd)."""
+    kv_len = k.shape[2] if kv_len is None else int(kv_len)
+    q_offset = int(q_offset)
+    _check(q, k, v, q_offset, kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     q_offset=q_offset, kv_len=kv_len)
+    b, h, sq, hd = q.shape
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"K7 takes float32 or bfloat16, got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"K7 is built for head_dim in {HEAD_DIMS}, got {hd}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v need a contiguous head dimension")
+    scale = (1.0 / math.sqrt(hd)) if scale is None else float(scale)
+    out = torch.empty_like(q)   # q's layout: dense with a contiguous head dim
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))
+    ))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        _DTYPES[q.dtype], b, h, k.shape[1], sq, hd, scale, int(causal), q_offset,
+        kv_len, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

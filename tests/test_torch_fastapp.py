@@ -213,6 +213,32 @@ def test_conv1d_conv2d_match_reference(ref_fastapp, cfgs8, impl):
     )
 
 
+
+@pytest.mark.parametrize("name, m, k", [("ecg", 2034, 15), ("gauss", 8464, 25)])
+def test_table_route_convolutions_go_through_k4(monkeypatch, name, m, k):
+    """Under the default ``table`` route the apps' convolutions are K4's N=1
+    table matmul (on the CPU its wrapper runs the plain version), and their
+    BEHAV still equals the numpy oracle (ecg exactly, gauss to 1e-6)."""
+    from repro_torch.apps import APPLICATIONS
+
+    calls = []
+    real = app_kernels.table_gemv
+
+    def spy(tables_flat, a, b):
+        calls.append((tuple(a.shape), tuple(b.shape)))
+        return real(tables_flat, a, b)
+
+    monkeypatch.setattr(app_kernels, "table_gemv", spy)
+    app = APPLICATIONS[name]()
+    cfgs = _configs(8, 6, 30)
+    got = app.behav(spec_for(8), cfgs, backend=CPU)
+    assert calls == [((m, k), (k, 1))]
+    want = app.behav(spec_for(8), cfgs, backend="numpy")
+    if name == "ecg":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+
 def test_mismatch_counts_break_ties_on_the_first_maximum(ref_fastapp):
     """Integer logits tie; the prediction is the first maximum, as numpy's."""
     spec = spec_for(4)

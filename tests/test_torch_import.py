@@ -16,6 +16,10 @@ from repro_torch.core.engine import ENGINE_MENUS, ExecutionContext, as_context
 from repro_torch.core.metrics import behav_metrics
 from repro_torch.core.moo import nsga2
 from repro_torch.core.operator_model import accurate_config, spec_for
+from repro_torch.configs.registry import get_arch
+from repro_torch.launch import serve
+from repro_torch.models.model import model_spec
+from repro_torch.models.spec import init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -52,6 +56,9 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.core.dse, repro_torch.core.fastchar, repro_torch.core.fastmoo\n"
         "import repro_torch.kernels.char_kernels, repro_torch.kernels.moo_kernels\n"
         "import repro_torch.apps, repro_torch.apps.fastapp, repro_torch.kernels.app_kernels\n"
+        "import repro_torch.kernels.axo_matmul, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.configs.registry, repro_torch.models.model, repro_torch.axo\n"
+        "import repro_torch.data.synthetic, repro_torch.launch.steps, repro_torch.launch.serve\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -105,6 +112,8 @@ ENTRY_POINTS = {
         [_small_mnist()], spec_for(4), _tiny_dataset()),
     "run_dse(app=...)": lambda: dse.run_dse(spec_for(4), _tiny_dataset(), "ga",
                                             app=_small_mnist()),
+    "init_params": lambda: init_params(model_spec(get_arch("granite-3-2b").reduced())),
+    "serve.main": lambda: serve.main(["--arch", "granite-3-2b", "--gen", "2"]),
 }
 
 

@@ -1,0 +1,90 @@
+"""Kernels K6 (AxO matmul) and K7 (flash attention) against their plain
+versions on the card, and the serving path through them.
+
+Every test here needs an NVIDIA card (marked ``gpu``) and skips without one;
+nothing here imports JAX, so the card's host runs them.  Tolerances: K6 to
+1e-5 relative norm (the reference's ``axo_matmul`` tolerance; both sum IEEE
+f32 products, in other orders); K7 in f32 to 2e-6 of the output's scale and
+in bf16 to one bf16 ulp (2^-7) of it, since both round one f32 result.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.axo import AxOOperator
+from repro_torch.core.operator_model import accurate_config, spec_for
+from repro_torch.kernels import axo_matmul as k6
+from repro_torch.kernels import flash_attention as k7
+from repro_torch.launch import serve
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _tables(rank, device):
+    cfg = accurate_config(spec_for(8))
+    cfg[0] = 0
+    op = AxOOperator.from_config(cfg, rank=rank)
+    return tuple(torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(device)
+                 for t in (op.f_table, op.g_table, op.signed_vals))
+
+
+def _rel(got, want) -> float:
+    return float(torch.linalg.vector_norm((got - want).double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, k, n", [(4, 2048, 512), (4, 512, 49155), (37, 1000, 77),
+                                     (512, 256, 1024), (1, 8192, 64)])
+def test_k6_matches_plain_version_on_card(cuda, m, k, n):
+    rng = np.random.default_rng(m + n)
+    f, g, sv = _tables(8, cuda)
+    a = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.uint8)).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 256, (k, n)).astype(np.uint8)).to(cuda)
+    before = k6.axo_matmul.launches
+    got = k6.axo_matmul(a, b, f, g, sv)
+    want = k6.axo_matmul_plain(a, b, f, g, sv)
+    torch.cuda.synchronize()
+    assert k6.axo_matmul.launches == before + 1
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s, offset, hd", [(128, 0, 64), (77, 0, 64), (40, 9, 16), (5, 0, 32)])
+def test_k7_matches_plain_version_on_card(cuda, dtype, s, offset, hd):
+    rng = np.random.default_rng(s)
+    skv = offset + s + 3                       # capacity past kv_len is masked
+    q = torch.from_numpy(rng.standard_normal((2, 8, s, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, skv, hd)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda, dtype) for t in (q, k, v))
+    before = k7.flash_attention.launches
+    got = k7.flash_attention(q, k, v, q_offset=offset, kv_len=offset + s)
+    want = k7.flash_attention_plain(q, k, v, q_offset=offset, kv_len=offset + s)
+    torch.cuda.synchronize()
+    assert k7.flash_attention.launches == before + 1
+    tol = 2e-6 if dtype == torch.float32 else 2.0 ** -7
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * (1.0 + float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+def test_reduced_serving_runs_through_k6_and_k7_on_card(cuda):
+    """The serve entry at reduced granite on the card: every AxO projection
+    launches K6 (7 per layer and the head), every prefill layer K7."""
+    k6.axo_matmul.launches = k7.flash_attention.launches = 0
+    out = serve.main(["--arch", "granite-3-2b", "--batch", "2", "--prompt-len", "8",
+                      "--gen", "6", "--axo-rank", "16"])
+    torch.cuda.synchronize()
+    layers = out["cfg"].n_layers
+    axo = out["axo"]
+    assert k7.flash_attention.launches == layers * (out["prefills"] + axo["prefills"])
+    assert k6.axo_matmul.launches == (7 * layers + 1) * (axo["prefills"] + axo["decode_steps"])
+    assert np.isfinite(axo["rel_err"])
