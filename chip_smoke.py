@@ -53,6 +53,20 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      passes within 1e-3 relative norm of the logits, and at the reduced
      config in f32 with the reference test's mild rank-16 operator the AxO
      logits keep its fidelity bounds (top-1 >= 0.5, rel < 0.5).
+  serve-ssm: Mamba-2 serving of mamba2-130m at full width and depth (24
+     mamba layers, d 768, 24 SSD heads of 64, state 128, vocab 50,280, bf16,
+     random weights from a seed) through ``serve.main``: batch 8, prompt 2,000
+     (16 chunks of 128, the last ragged), 32 generated tokens, exact and with
+     the rank-8 demo operator at the tied head (a mamba layer has no AxO
+     entries).  Launch counts are zeroed before and read after: K8 runs 24
+     times per prefill, K6 once per AxO forward, K7 never.  Then every K8 call
+     of an exact prefill and of the AxO teacher-forced replay is held against
+     its plain version (y to one bf16 ulp of its scale, the state to 1e-5),
+     the exact prefill's logits against the plain pass's end to end (to
+     SERVE_REL, or, where one bf16 ulp of input moves the plain pass by more,
+     to twice what re-rounding the plain scan at K8's chunk length does), and
+     at the reduced config in f32 (prompt 40 = 3 chunks of 16, ragged) the
+     kernel passes' logits against the plain passes' to SERVE_REL.
 
 Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
 decode shapes (M=4 against the five weight shapes) and a prefill shape
@@ -60,11 +74,15 @@ decode shapes (M=4 against the five weight shapes) and a prefill shape
 attention) at the serve prefill (B=4, H=32, G=8, S=128 over a 144-slot
 cache, hd=64) and a ragged S, in f32 and bf16; its yardsticks are one cuBLAS
 f32 GEMM over the concatenated ``[A|F_1..F_R]·[B;G_1..G_R]`` (K6) and
-``scaled_dot_product_attention`` with K/V repeated to 32 heads (K7).
+``scaled_dot_product_attention`` with K/V repeated to 32 heads (K7).  It
+holds K8 (SSD scan) against its plain version at mamba2-130m's prefill (B=8,
+S=2,000, H=24, P=64, N=128), at the reduced config's (B=2, S=40, H=16, P=8,
+N=16) and at a grouped shape (G=4, with an entering state), in f32 and
+bf16; no single PyTorch call computes the scan, so K8 has no yardstick.
 
 The second-to-last lines are the kernels' JSON record (launch counts of K1-K3
-from phase 4, of K4 and K5 from phase apps, of K6 and K7 from phase serve)
-and the card's ``nvidia-smi`` name and power limit; the last line is the
+from phase 4, of K4 and K5 from phase apps, of K6 and K7 from phase serve, of
+K8 from phase serve-ssm) and the card's ``nvidia-smi`` name and power limit; the last line is the
 result JSON.  Nothing of JAX or of the reference package is imported.
 """
 
@@ -94,6 +112,10 @@ SERVE_REL = 1e-3      # logits of a kernel pass vs the same pass on the plain ve
 AXO_RANK = 8
 SERVE_ARGS = ["--arch", "granite-3-2b", "--full-config", "--batch", "4", "--prompt-len",
               "128", "--gen", "16", "--axo-rank", str(AXO_RANK)]
+SSM_ARGS = ["--arch", "mamba2-130m", "--full-config", "--batch", "8", "--prompt-len", "2000",
+            "--gen", "32", "--axo-rank", str(AXO_RANK)]
+SSM_SHAPE = (8, 2000, 24, 1, 64, 128)   # mamba2-130m's prefill scan: B, S, H, G, P, N
+K8_Q = 32                               # K8's own chunk length (csrc/ssd_scan.cu)
 # The two GAs draw from different random streams, and one run's hypervolume
 # varies by ~1.6% (std over seeds) at this budget, so the 2% contract is held
 # on the mean over a fixed set of seeds, and on seed 0 alone as well.
@@ -138,18 +160,46 @@ def rel_norm(got, want) -> float:
     return float(diff / torch.linalg.vector_norm(want.double()))
 
 
+def ssd_inputs(torch, shape, dtype, gen):
+    """K8's operands at ``shape`` (B, S, H, G, P, N), drawn as the reference's
+    kernel test draws them (dt in [0.01, 0.2], a in [-2, -0.5]); x, B and C
+    are strided views into one buffer, as the model passes them."""
+    b, s, h, g, p, n = shape
+    dev = gen.device
+    buf = torch.randn((b, s, h * p + 2 * g * n), generator=gen, device=dev).to(dtype)
+    x = buf[..., :h * p].reshape(b, s, h, p)
+    bm = buf[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = buf[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = 0.01 + 0.19 * torch.rand((b, s, h), generator=gen, device=dev)
+    a = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=dev))
+    return x, dt, a, bm, cm
+
+
+def ssd_work(shape, itemsize: int) -> tuple[float, float]:
+    """(bytes, f32 FLOPs) of the chunked scan at K8's chunk length: each input
+    read and each output written once; the intra-chunk terms over the lower
+    triangle of each chunk's valid positions, the scores once per group."""
+    b, s, h, g, p, n = shape
+    tri = sum(q * (q + 1) // 2 for q in (min(K8_Q, s - t) for t in range(0, s, K8_Q)))
+    ops = 2.0 * b * g * n * tri + 2.0 * b * h * p * tri + 4.0 * b * h * s * n * p
+    moved = (2 * b * s * h * p + 2 * b * s * g * n) * itemsize + (b * s * h + h) * 4 \
+        + b * h * p * n * 4
+    return moved, ops
+
+
 @contextlib.contextmanager
 def checked_calls(torch):
-    """Run every K6 and K7 call of the serve path on its plain version too.
+    """Run every K6, K7 and K8 call of a serve path on its plain version too.
 
-    Patches the names the model calls the kernels by; yields ``{"K6": [rel
-    norms], "K7": [max err / max |plain|]}``, one entry per call.
+    Patches the names the models call the kernels by; yields ``{"K6": [rel
+    norms], "K7": [max err / max |plain|], "K8": [(y max err / max |plain y|,
+    state rel norm)]}``, one entry per call.
     """
     from repro_torch.axo import deploy
-    from repro_torch.kernels import axo_matmul, flash_attention
-    from repro_torch.models import attention
+    from repro_torch.kernels import axo_matmul, flash_attention, ssd_scan
+    from repro_torch.models import attention, ssm
 
-    calls = {"K6": [], "K7": []}
+    calls = {"K6": [], "K7": [], "K8": []}
 
     def k6(*args):
         out = axo_matmul.axo_matmul(*args)
@@ -162,35 +212,48 @@ def checked_calls(torch):
         calls["K7"].append(float((out.float() - want).abs().max() / want.abs().max()))
         return out
 
-    deploy.axo_matmul, attention.flash_attention = k6, k7
+    def k8(*args, **kw):
+        y, st = ssd_scan.ssd_scan(*args, **kw)
+        y_p, st_p = ssd_scan.ssd_scan_plain(*args, **kw)
+        calls["K8"].append((float((y.float() - y_p.float()).abs().max()
+                                  / y_p.float().abs().max()), rel_norm(st, st_p)))
+        return y, st
+
+    deploy.axo_matmul, attention.flash_attention, ssm.ssd_scan = k6, k7, k8
     try:
         yield calls
     finally:
         deploy.axo_matmul = axo_matmul.axo_matmul
         attention.flash_attention = flash_attention.flash_attention
+        ssm.ssd_scan = ssd_scan.ssd_scan
 
 
-def profile_decode(torch, prefill, decode, params, toks, steps: int = 2):
-    """torch.profiler over ``steps`` decode steps after a prefill: the device
-    time against the wall time, and the top kernels by device time."""
+def profile_calls(torch, fn, calls: int):
+    """torch.profiler over ``calls`` calls of ``fn``: the device time per call
+    against the wall time, and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    logits, cache = prefill(params, toks)
-    nxt = logits[:, -1].argmax(-1)[:, None]
-    plen = toks.shape[1]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(plen, plen + steps):
-            logits, cache = decode(params, cache, nxt, i)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / steps
+    wall = (time.perf_counter() - t0) * 1e3 / calls
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    device = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    device = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    top = [(e.key[:48], round(e.self_device_time_total / 1e3 / steps, 4), e.count // steps)
+    top = [(e.key[:48], round(e.self_device_time_total / 1e3 / calls, 4), e.count // calls)
            for e in kernels[:5]]
     return {"device_ms": device, "wall_ms": wall}, top
+
+
+def profile_decode(torch, prefill, decode, params, toks, steps: int = 2):
+    """:func:`profile_calls` over ``steps`` decode steps after a prefill."""
+    logits, cache = prefill(params, toks)
+    nxt = logits[:, -1].argmax(-1)[:, None]
+    positions = iter(range(toks.shape[1], toks.shape[1] + steps))
+    return profile_calls(torch, lambda: decode(params, cache, nxt, next(positions)), steps)
 
 
 def main() -> int:
@@ -218,7 +281,7 @@ def main() -> int:
     from repro_torch.core.ppa import ppa_metrics
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import (
-        app_kernels, axo_matmul, build, char_kernels, flash_attention, moo_kernels,
+        app_kernels, axo_matmul, build, char_kernels, flash_attention, moo_kernels, ssd_scan,
     )
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -404,7 +467,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(6)
     k6_shapes = {"q/o decode": (4, 2048, 2048), "k/v decode": (4, 2048, 512),
                  "gate/up decode": (4, 2048, 8192), "down decode": (4, 8192, 2048),
-                 "head decode": (4, 2048, 49155), "gate/up prefill": (512, 2048, 8192)}
+                 "head decode": (4, 2048, 49155), "gate/up prefill": (512, 2048, 8192),
+                 "mamba2 head": (8, 768, 50280)}
     for label, (m, k, n) in k6_shapes.items():
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
@@ -482,6 +546,49 @@ def main() -> int:
                 if label == "serve prefill":
                     rec["K7"], err["K7"] = k7_rec, e
             print(msg, flush=True)
+    # K8 at mamba2-130m's prefill scan, the reduced config's, and a grouped shape
+    # with an entering state; bf16 as served, f32 beside it.  Both versions
+    # compute in f32 over other chunk lengths and round y once: y in f32 to
+    # 1e-5 and in bf16 to one bf16 ulp (2^-7) of the output's largest
+    # magnitude, the f32 state to REL_RTOL relative norm
+    k8_shapes = {"mamba2 prefill": SSM_SHAPE, "reduced": (2, 40, 16, 1, 8, 16),
+                 "grouped": (2, 300, 16, 4, 64, 64)}
+    for label, shape in k8_shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, a, bm, cm = ssd_inputs(torch, shape, dtype, gen)
+            b_, _, h_, g_, p_, n_ = shape
+            init = (torch.randn((b_, h_, p_, n_), generator=gen, device=dev) if g_ > 1
+                    else None)
+            y, st = ssd_scan.ssd_scan(x, dt, a, bm, cm, init_state=init)
+            y_p, st_p = ssd_scan.ssd_scan_plain(x, dt, a, bm, cm, init_state=init)
+            torch.cuda.synchronize()
+            tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * float(
+                y_p.float().abs().max())
+            e = float((y.float() - y_p.float()).abs().max())
+            rs = rel_norm(st, st_p)
+            if not (torch.isfinite(y.float()).all() and e <= tol and rs <= REL_RTOL):
+                raise AssertionError(f"K8 differs from its plain version at {label} {dtype}: "
+                                     f"y {e:.3g} > {tol:.3g} or state rel {rs:.3g}")
+            msg = (f"phase kernels: K8 vs plain at {label} (B, S, H, G, P, N) = {shape} "
+                   f"{dtype}{' with an entering state' if init is not None else ''}: y max abs "
+                   f"err {e:.3g} (limit {tol:.3g}), state rel norm {rs:.3g} (limit {REL_RTOL})")
+            if label == "mamba2 prefill" and dtype == torch.bfloat16:
+                moved, ops = ssd_work(shape, 2)
+                k8_rec = dict(
+                    name="ssd_scan", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                    replaces="src/repro/kernels/ssd_scan_kernel.py:78",
+                    ms=cuda_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, a, bm, cm), 20),
+                    plain_ms=cuda_ms(torch, lambda: ssd_scan.ssd_scan_plain(
+                        x, dt, a, bm, cm), 3),
+                    library_ms=None,
+                    bound=bound(moved, 0, ops, int_rate, f32_rate=f32_rate),
+                )
+                msg += (f"; K8 {k8_rec['ms']:.4f} ms (plain {k8_rec['plain_ms']:.4f}, bound "
+                        f"{k8_rec['bound'][0]:.4g} by {k8_rec['bound'][1]}: {ops / 1e9:.4g} "
+                        f"GFLOP, {moved / 1e6:.4g} MB); no PyTorch call computes the scan")
+                rec["K8"], err["K8"] = k8_rec, e
+            print(msg, flush=True)
+            del x, dt, a, bm, cm, y, y_p
     for k, r in rec.items():
         print(f"phase kernels: {k} {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound'][0]:.4g} ms by {r['bound'][1]})", flush=True)
@@ -748,7 +855,7 @@ def main() -> int:
               f"device time {busy['device_ms']:.3f} ms ({busy['device_ms'] / step_ms:.1%} "
               f"of the unprofiled step; {busy['wall_ms']:.3f} ms wall under the profiler); "
               f"top kernels (name, ms per step, launches per step) {top}", flush=True)
-    del res, axo, params, dep, dep_plain, rep_k
+    del res, axo, params, dep, dep_plain, rep_k, pre_fn, dec_fn, a, lp, h0, q0, k0
     # (c) at the reduced config in f32, with the reference test's mild rank-16
     # operator: its fidelity bounds, and (b) end to end, where one ulp does not
     # reach the logits
@@ -782,6 +889,147 @@ def main() -> int:
         raise AssertionError("reduced AxO serving misses the reference test's fidelity bounds")
     if not (rel_axo <= SERVE_REL and rel_pre <= SERVE_REL):
         raise AssertionError("a reduced serve pass on the kernels differs from its plain replay")
+    del red_params, red_dep, red_plain
+
+    # -- serve-ssm: mamba2-130m at full width and depth, exact and AxO head ---
+    ssm_wrappers = dict(all_wrappers, K8=ssd_scan.ssd_scan)
+    for fn in ssm_wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)   # phase 3's operands, still referenced
+    t0 = time.perf_counter()
+    res = serve.main(SSM_ARGS)
+    torch.cuda.synchronize()
+    t_ssm = time.perf_counter() - t0
+    ssm_launches = {k: fn.launches for k, fn in ssm_wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    cfg, axo = res["cfg"], res["axo"]
+    dep = axo["deployment"]
+    batch, plen = res["tokens"].shape
+    steps = res["decode_steps"] // res["prefills"]
+    ssm_want = dict.fromkeys(ssm_wrappers, 0)
+    ssm_want.update(K6=dep.n_entries * (axo["prefills"] + axo["decode_steps"]),
+                    K8=cfg.n_layers * (res["prefills"] + axo["prefills"]))
+    print(f"phase serve-ssm: {cfg.name} ({cfg.n_layers} mamba layers, d {cfg.d_model}, "
+          f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} SSD heads of "
+          f"{cfg.ssm.head_dim}, state {cfg.ssm.d_state}, vocab {cfg.vocab}, bf16) batch "
+          f"{batch} x prompt {plen} + {steps + 1} tokens in {t_ssm:.1f} s; exact prefill "
+          f"{res['exact_prefill_ms']:.2f} ms ({batch * plen / res['exact_prefill_ms'] * 1e3:.0f} "
+          f"tokens/s), decode {res['exact_decode_ms'] / steps:.3f} ms/step "
+          f"({batch * steps / res['exact_decode_ms'] * 1e3:.1f} tokens/s); AxO rank {AXO_RANK} "
+          f"({dep.n_entries} projection: the tied head) prefill {axo['prefill_ms']:.2f} ms, "
+          f"decode {axo['decode_ms'] / steps:.3f} ms/step "
+          f"({batch * steps / axo['decode_ms'] * 1e3:.1f} tokens/s); peak memory "
+          f"{peak / 2**30:.3f} GiB ({peak} bytes, above the {held} held before); launches "
+          f"{ssm_launches} (expected "
+          f"{ssm_want}); free-run match {axo['free_run_match']:.4f}, teacher-forced top-1 "
+          f"{axo['top1']:.4f}, logit rel_err {axo['rel_err']:.4f}", flush=True)
+    if ssm_launches != ssm_want:
+        raise AssertionError(f"serve-ssm launches {ssm_launches}, expected {ssm_want}")
+    if not all(torch.isfinite(lg.float()).all() for lg in res["exact_logits"] +
+               axo["replay_logits"]):
+        raise AssertionError("non-finite logits on the serve-ssm path")
+    launches["K8"] = ssm_launches["K8"]
+    # checks, after the counts are read: every K8 call of an exact prefill and
+    # of the AxO teacher-forced replay also run on its plain version.  y to one
+    # bf16 ulp of the call's largest output; the f32 state to REL_RTOL
+    params, toks, max_seq, traj = res["params"], res["tokens"], res["max_seq"], res["trajectory"]
+    t0 = time.perf_counter()
+    with checked_calls(torch) as calls:
+        pre_k = make_prefill_step(cfg, max_seq)(params, toks)[0]
+        serve.replay(make_prefill_step(cfg, max_seq, axo=dep), make_decode_step(cfg, axo=dep),
+                     params, toks, traj)
+    y_worst = max(c[0] for c in calls["K8"])
+    st_worst = max(c[1] for c in calls["K8"])
+    print(f"phase serve-ssm: exact prefill and AxO teacher-forced replay with each kernel call "
+          f"also run on its plain version: K8 {len(calls['K8'])} calls, y max err / max|y| "
+          f"{y_worst:.3g} (limit 2^-7 = {2.0 ** -7:.4g}), state max rel norm {st_worst:.3g} "
+          f"(limit {REL_RTOL}); K6 {len(calls['K6'])} calls, max rel norm "
+          f"{max(calls['K6']):.3g} (limit {REL_RTOL}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if len(calls["K8"]) != 2 * cfg.n_layers or len(calls["K7"]) != 0:
+        raise AssertionError(f"serve-ssm replays made {len(calls['K8'])} K8 and "
+                             f"{len(calls['K7'])} K7 calls, expected {2 * cfg.n_layers} and 0")
+    if not (y_worst <= 2.0 ** -7 and st_worst <= REL_RTOL and max(calls["K6"]) <= REL_RTOL):
+        raise AssertionError("a K8 or K6 call on the serve-ssm path differs from its plain version")
+    # warm timings and where a prefill's and a decode step's device time goes
+    for label, a in (("exact", None), ("AxO", dep)):
+        pre_fn, dec_fn = make_prefill_step(cfg, max_seq, axo=a), make_decode_step(cfg, axo=a)
+        _, _, (tp, td) = serve.generate(pre_fn, dec_fn, params, toks, steps + 1)
+        busy_p, top_p = profile_calls(torch, lambda: pre_fn(params, toks), 1)
+        busy, top = profile_decode(torch, pre_fn, dec_fn, params, toks)
+        step_ms = td * 1e3 / steps
+        print(f"phase serve-ssm: {label} warm: prefill {tp * 1e3:.2f} ms "
+              f"({batch * plen / tp:.0f} tokens/s), decode {step_ms:.3f} ms/step "
+              f"({batch * steps / td:.1f} tokens/s); profiled prefill: device time "
+              f"{busy_p['device_ms']:.3f} ms ({busy_p['wall_ms']:.3f} ms wall under the "
+              f"profiler), top kernels {top_p}; profiled decode step: device time "
+              f"{busy['device_ms']:.3f} ms ({busy['device_ms'] / step_ms:.1%} of the "
+              f"unprofiled step; {busy['wall_ms']:.3f} ms wall under the profiler); top "
+              f"kernels (name, ms per step, launches per step) {top}", flush=True)
+    # the exact prefill on the plain versions end to end, beside two yardsticks
+    # of the plain pass's own sensitivity: one bf16 ulp of one embedding element,
+    # and the plain scan at K8's chunk length (the same algebra, other f32
+    # rounding).  The kernel pass is held to SERVE_REL unless that ulp moves the
+    # plain pass by more; then (as with random weights at full width, where 24
+    # layers amplify a rounding difference) to twice the chunk yardstick, or
+    # SERVE_REL if that is larger: K8 may move the logits no more than
+    # re-rounding the plain algebra does
+    pre_k = make_prefill_step(cfg, max_seq)(params, toks)[0]
+    pre_p = make_prefill_step(cfg, max_seq, ctx=plain)(params, toks)[0]
+    cfg_q = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=K8_Q))
+    pre_q = make_prefill_step(cfg_q, max_seq, ctx=plain)(params, toks)[0]
+    nudged = dict(params, embed={"tok": params["embed"]["tok"].clone()})
+    t_id = int(toks[0, 5])
+    nudged["embed"]["tok"][t_id, 7] = (nudged["embed"]["tok"][t_id, 7].float()
+                                       * (1 + 2.0 ** -7)).to(torch.bfloat16)
+    pre_n = make_prefill_step(cfg, max_seq, ctx=plain)(nudged, toks)[0]
+    rel_pre = rel_norm(pre_k[:, -1], pre_p[:, -1])
+    rel_q = rel_norm(pre_q[:, -1], pre_p[:, -1])
+    rel_ulp = rel_norm(pre_n[:, -1], pre_p[:, -1])
+    limit = SERVE_REL if rel_ulp <= SERVE_REL else max(SERVE_REL, 2 * rel_q)
+    print(f"phase serve-ssm: exact prefill logits of the kernel pass vs the plain pass (rel "
+          f"norm) {rel_pre:.4g} (limit {limit:.4g}); the plain pass with its scan at K8's chunk "
+          f"of {K8_Q} {rel_q:.4g}; the plain prefill with one embedding element moved by one "
+          f"bf16 ulp {rel_ulp:.4g} (so the limit is "
+          f"{'SERVE_REL' if rel_ulp <= SERVE_REL else 'twice the chunk yardstick'})",
+          flush=True)
+    if rel_pre > limit:
+        raise AssertionError("the full-width mamba prefill on K8 differs from the plain pass")
+    del nudged, pre_p, pre_n, pre_k, pre_q
+    del res, axo, params, dep, pre_fn, dec_fn, a
+    # the reduced config in f32, prompt 40 = 3 chunks of 16 (the last ragged):
+    # kernel passes vs plain passes end to end, exact and AxO head
+    red = get_arch("mamba2-130m").reduced()
+    red_params = init_params(model_spec(red), seed=0, dtype=torch.float32)
+    red_toks = torch.from_numpy(SyntheticLM(
+        red, ShapeConfig("serve", 46, 2, "train"), seed=0).batch(0)["tokens"][:, :40])
+    red_toks = red_toks.long().to(dev)
+    red_dep = deploy_axo(red_params, serve.demo_operator(AXO_RANK), red)
+    k8_before = ssd_scan.ssd_scan.launches
+    red_traj, exact_lgs, _ = serve.generate(make_prefill_step(red, 46),
+                                            make_decode_step(red), red_params, red_toks, 6)
+    red_rep = serve.replay(make_prefill_step(red, 46, axo=red_dep),
+                           make_decode_step(red, axo=red_dep), red_params, red_toks, red_traj)
+    k8_red = ssd_scan.ssd_scan.launches - k8_before
+    red_plain = dataclasses.replace(red_dep, ctx=plain)
+    exact_p = serve.replay(make_prefill_step(red, 46, ctx=plain),
+                           make_decode_step(red, ctx=plain), red_params, red_toks, red_traj)
+    red_rep_p = serve.replay(make_prefill_step(red, 46, axo=red_plain, ctx=plain),
+                             make_decode_step(red, axo=red_plain, ctx=plain),
+                             red_params, red_toks, red_traj)
+    rel_exact = max(rel_norm(a, b) for a, b in zip(exact_lgs, exact_p))
+    rel_axo = max(rel_norm(a, b) for a, b in zip(red_rep, red_rep_p))
+    print(f"phase serve-ssm: reduced {red.name} f32, prompt 40 (3 chunks of "
+          f"{red.ssm.chunk}, ragged) + 5 decode steps: K8 launches {k8_red} (expected "
+          f"{2 * red.n_layers}); logits of the kernel passes vs plain, max over steps: exact "
+          f"{rel_exact:.3g}, AxO head teacher-forced {rel_axo:.3g} (limit {SERVE_REL})",
+          flush=True)
+    if k8_red != 2 * red.n_layers:
+        raise AssertionError(f"the reduced mamba passes launched K8 {k8_red} times")
+    if not (rel_exact <= SERVE_REL and rel_axo <= SERVE_REL):
+        raise AssertionError("a reduced mamba pass on the kernels differs from its plain replay")
 
     kernels = []
     for k, r in rec.items():

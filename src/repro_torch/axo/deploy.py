@@ -200,13 +200,18 @@ def deploy_axo(
     """Build an :class:`AxODeployment` for ``params`` of a model ``cfg``.
 
     Walks ``cfg.stages`` next to ``params["stages"]`` and caches an entry for
-    every deployable projection of the port's dense stack:
+    every deployable projection of the port's dense and Mamba-2 stacks:
 
     * ``"attn"`` -- attention wq/wk/wv/wo;
     * ``"mlp"``  -- dense FFN w_gate/w_up/w_down;
     * ``"moe"``  -- routed expert banks: accepted as a name, and a dense model
       has none (the MoE stack is ROADMAP.md queue 1 item 10);
     * ``"head"`` -- the unembedding (tied: ``embed.T``), quantized once here.
+
+    A mamba layer gets no entries, as in the reference (whose ``deploy_axo``
+    covers attention, MLA, dense and MoE layers only): its in_proj, conv and
+    out_proj stay exact, so mamba2-130m deploys the head alone
+    (``n_entries == 1``).
 
     Entries live on the parameters' device; each weight is quantized layer by
     layer in f32, so the f32 copy of one layer's weight is the only scratch.

@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> ``ModelConfig``.
 
-Counterpart of ``repro/configs/registry.py``, cut to what the port runs: the
-dense single-device stack of ``granite-3-2b``.  The reference's other archs
-(MoE, MLA, Mamba-2, hybrid, encoder-decoder, VLM) and its sharding-rule and
-input-spec helpers wait for ROADMAP.md queue 1 item 10; asking for one of
-those archs raises.
+Counterpart of ``repro/configs/registry.py``, cut to what the port runs on
+one device: the dense stack of ``granite-3-2b`` and the Mamba-2 stack of
+``mamba2-130m``.  The reference's other archs (MoE, MLA, hybrid,
+encoder-decoder, VLM) and its sharding-rule and input-spec helpers wait for
+ROADMAP.md queue 1 item 10; asking for one of those archs raises.
 """
 
 from __future__ import annotations
@@ -18,12 +18,13 @@ __all__ = ["ARCH_IDS", "get_arch"]
 # arch id -> module name
 ARCH_IDS = {
     "granite-3-2b": "granite_3_2b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 # the reference's archs that the port does not run yet
 NOT_PORTED = (
-    "whisper-medium", "deepseek-67b", "starcoder2-3b", "internlm2-1.8b", "mamba2-130m",
-    "jamba-v0.1-52b", "kimi-k2-1t-a32b", "deepseek-v3-671b", "llama-3.2-vision-90b",
+    "whisper-medium", "deepseek-67b", "starcoder2-3b", "internlm2-1.8b", "jamba-v0.1-52b",
+    "kimi-k2-1t-a32b", "deepseek-v3-671b", "llama-3.2-vision-90b",
 )
 
 

@@ -17,8 +17,9 @@ every engine, says:
     (gathers from synthesized planes, K5's plain version) and ``"plain"``
     (flattened gathers from the product tables, K4's plain version);
     ``axo_matmul`` (the AxO projections of the serving path) offers
-    ``"kernel"`` (K6) and ``"plain"``, and ``attention`` (the model's prefill
-    attention) ``"kernel"`` (K7) and ``"plain"``.  One
+    ``"kernel"`` (K6) and ``"plain"``, ``attention`` (the model's prefill
+    attention) ``"kernel"`` (K7) and ``"plain"``, and ``ssd_scan`` (the
+    Mamba-2 mixer's prefill scan) ``"kernel"`` (K8) and ``"plain"``.  One
     name means the same in every engine:
     ``"table"`` and ``"entry"`` pick the table-fed and the table-free kernel,
     ``"plain"`` the plain torch versions.  An engine whose menu does not hold
@@ -43,6 +44,7 @@ ENGINE_MENUS = {
     "fastapp": ("table", "entry", "gemm", "entry_gather", "plain"),
     "axo_matmul": ("kernel", "plain"),
     "attention": ("kernel", "plain"),
+    "ssd_scan": ("kernel", "plain"),
 }
 KERNEL_IMPLS = tuple(sorted({i for menu in ENGINE_MENUS.values() for i in menu}))
 

@@ -28,7 +28,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library", "ptxas_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("char_kernels", "moo_kernels", "app_kernels", "axo_matmul", "flash_attention")
+SOURCES = ("char_kernels", "moo_kernels", "app_kernels", "axo_matmul", "flash_attention",
+           "ssd_scan")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -8,10 +8,15 @@ by default, ``--device cpu`` for the host.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --batch 4 --prompt-len 24 --gen 16 [--axo-rank 8] [--full-config]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --batch 8 --prompt-len 2000 --gen 32 [--axo-rank 8] [--full-config]
 
-Prefill attention runs kernel K7 and every AxO projection kernel K6 (their
-plain versions on the CPU); ``--axo-impl plain`` puts the AxO projections on
-K6's plain version.  The reference's telemetry flags (``--metrics-port``,
+The model decides which kernels a request runs.  granite-3-2b's prefill
+attention runs kernel K7; mamba2-130m's prefill scan runs kernel K8 in every
+layer and its decode is the plain O(1) recurrence.  Every AxO projection runs
+kernel K6: all seven of a granite layer's and the tied head, and for
+mamba2-130m the head alone.  On the CPU the kernels' plain versions run;
+``--axo-impl plain`` puts the AxO projections on K6's plain version.  The reference's telemetry flags (``--metrics-port``,
 ``--trace``) wait for ROADMAP.md queue 1 item 12 and its DSE service flags
 (``--dse-service``, ``--dse-smoke``) for item 8; each raises when given.
 """

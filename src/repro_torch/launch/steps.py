@@ -20,7 +20,13 @@ __all__ = ["init_cache", "make_prefill_step", "make_decode_step"]
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                device=None) -> dict:
-    """A zero KV cache of capacity ``max_seq`` (on the card unless ``device`` says)."""
+    """A zero decode cache (on the card unless ``device`` says).
+
+    Attention layers get KV rows of capacity ``max_seq`` in ``dtype``; mamba
+    layers a conv tail in ``dtype`` and an SSD state in f32 whatever
+    ``dtype`` is (the leaf's own spec dtype wins), which their prefill and
+    decode write in place.
+    """
     return init_params(cache_spec(cfg, batch, max_seq), dtype=dtype, device=device)
 
 
@@ -28,10 +34,12 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int, axo=None, ctx=None):
     """(params, tokens) -> (last-position logits (B, 1, V), cache).
 
     The cache is created inside the step (zeros, the parameters' dtype and
-    device) at capacity ``max_seq`` and filled by the prefill pass.  ``axo``
+    device; a mamba state in f32) at capacity ``max_seq`` and filled by the
+    prefill pass.  ``axo``
     (an ``axo.deploy.AxODeployment``) serves every deployed projection through
     the approximate operator on its cached weight codes; ``ctx`` picks the
-    prefill attention (K7 or its plain version).
+    prefill attention (K7 or its plain version) and the Mamba-2 prefill scan
+    (K8 or its plain version).
     """
 
     def prefill_step(params, tokens):

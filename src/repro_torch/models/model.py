@@ -1,19 +1,22 @@
 """Model assembly: spec trees, caches, forward (train / prefill / decode).
 
-Counterpart of ``repro/models/model.py``, dense stages only.  A model is
-``embed -> stages -> final norm -> unembed``; a stage repeats a super-block
-of ``(mixer, mlp)`` layers ``repeats`` times.  Parameters and caches keep the
-reference's tree: each leaf of a stage is stacked over ``repeats``, and the
-forward pass takes layer r's slice of every leaf in a Python loop where the
-reference scans.  The port runs the ``attn``/``attn_nc`` mixers with
-``dense``/``none`` MLPs (the ``dense`` family, e.g. granite-3-2b); MoE, MLA,
-Mamba-2, cross-attention and the encoder-decoder and VLM frontends raise
-(ROADMAP.md queue 1 item 10), as does ``compute_loss`` with the train step
-(queue 1 item 11).
+Counterpart of ``repro/models/model.py``, dense and Mamba-2 stages.  A
+model is ``embed -> stages -> final norm -> unembed``; a stage repeats a
+super-block of ``(mixer, mlp)`` layers ``repeats`` times.  Parameters and
+caches keep the reference's tree: each leaf of a stage is stacked over
+``repeats``, and the forward pass takes layer r's slice of every leaf in a
+Python loop where the reference scans.  The port runs the ``attn``/``attn_nc``
+mixers with ``dense``/``none`` MLPs (the ``dense`` family, e.g. granite-3-2b)
+and the ``mamba`` mixer with no MLP (the ``ssm`` family, mamba2-130m); MoE,
+MLA, cross-attention, the hybrid stack and the encoder-decoder and VLM
+frontends raise (ROADMAP.md queue 1 item 10), as does ``compute_loss`` with
+the train step (queue 1 item 11).
 
 ``forward`` takes an optional ``ExecutionContext`` whose ``attention`` menu
-picks kernel K7 or its plain version for prefill attention; an
-``AxODeployment`` carries its own context for the AxO projections (K6).
+picks kernel K7 or its plain version for prefill attention, and whose
+``ssd_scan`` menu picks kernel K8 or its plain version for the Mamba-2
+prefill scan; an ``AxODeployment`` carries its own context for the AxO
+projections (K6).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..configs.base import ModelConfig, StageConfig
 from .attention import attn_apply, attn_spec
 from .layers import embed_spec, mlp_apply, mlp_spec, rmsnorm, sinusoid_pos
 from .spec import ParamSpec, stacked
+from .ssm import mamba_apply, mamba_decode, mamba_dims, mamba_spec
 
 __all__ = [
     "model_spec",
@@ -34,7 +38,7 @@ __all__ = [
 ]
 
 # Which mixer kinds carry decode state.
-HAS_CACHE = {"attn": True, "attn_nc": False}
+HAS_CACHE = {"attn": True, "attn_nc": False, "mamba": True}
 _LATER = "is not ported yet (ROADMAP.md queue 1 item 10)"
 
 
@@ -57,7 +61,7 @@ def _check_config(cfg: ModelConfig) -> None:
 def _layer_spec(cfg: ModelConfig, mixer: str, mlp: str) -> dict:
     out = {
         "norm1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
-        "mixer": attn_spec(cfg),
+        "mixer": mamba_spec(cfg) if mixer == "mamba" else attn_spec(cfg),
     }
     if mlp == "dense":
         out["norm2"] = ParamSpec((cfg.d_model,), ("embed",), init="ones")
@@ -90,20 +94,35 @@ def model_spec(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    """Spec tree for the decode cache (same nesting as the param stages tree)."""
-    _check_config(cfg)
+def _layer_cache_spec(cfg: ModelConfig, mixer: str, batch: int, max_seq: int) -> dict:
+    if mixer == "mamba":
+        s = cfg.ssm
+        dims = mamba_dims(cfg)
+        return {
+            "conv": ParamSpec((batch, s.d_conv - 1, dims["conv_dim"]),
+                              ("batch", None, "ssm_inner"), init="zeros"),
+            "state": ParamSpec(
+                (batch, dims["n_heads"], s.head_dim, s.d_state),
+                ("batch", "ssm_heads", None, None), init="zeros", dtype="float32",
+            ),
+        }
     g, hd = cfg.kv_heads, cfg.resolved_head_dim
     kv_axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    return {
+        "k": ParamSpec((batch, max_seq, g, hd), kv_axes, init="zeros"),
+        "v": ParamSpec((batch, max_seq, g, hd), kv_axes, init="zeros"),
+    }
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """Spec tree for the decode cache (same nesting as the param stages tree).
+
+    A mamba layer's ``state`` leaf is f32 whatever the tree's dtype."""
+    _check_config(cfg)
     out = {}
     for si, stage in enumerate(cfg.stages):
-        blk = {
-            str(i): {
-                "k": ParamSpec((batch, max_seq, g, hd), kv_axes, init="zeros"),
-                "v": ParamSpec((batch, max_seq, g, hd), kv_axes, init="zeros"),
-            }
-            for i, (mixer, _) in enumerate(stage.layers) if HAS_CACHE[mixer]
-        }
+        blk = {str(i): _layer_cache_spec(cfg, mixer, batch, max_seq)
+               for i, (mixer, _) in enumerate(stage.layers) if HAS_CACHE[mixer]}
         out[str(si)] = _stack_tree(blk, stage.repeats)
     return out
 
@@ -120,13 +139,28 @@ def _at(tree, r: int):
     return tree[r]
 
 
+def _mamba(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict, cache: dict | None):
+    """The mamba mixer; its cache ``{conv, state}`` is written in place."""
+    if ctx["mode"] == "decode":
+        out, (conv, state) = mamba_decode(p, h, cfg, cache["conv"], cache["state"])
+    else:
+        out, (conv, state) = mamba_apply(p, h, cfg, impl=ctx["ssd_impl"])
+    if cache is not None:
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(state)
+    return out, cache
+
+
 def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                  ctx: dict, cache: dict | None, axo_layer: dict | None = None):
     """Pre-norm residual layer.  Returns (x, new_cache).
 
     ``axo_layer`` is this layer's entry dict from an ``AxODeployment``
     (``ctx["axo"]``): its named projections run through the approximate
-    operator instead of exact matmuls.
+    operator instead of exact matmuls.  A mamba layer has no entries (the
+    reference's ``deploy_axo`` gives it none).  The cache is written in
+    place: an attention layer's KV rows, and a mamba layer's conv tail and
+    f32 SSD state (by prefill from the whole prompt, by decode one step on).
     """
     dep = ctx["axo"]
 
@@ -136,13 +170,16 @@ def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfi
         return (dep, axo_layer[part])
 
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    out, new_cache = attn_apply(
-        p["mixer"], h, cfg,
-        positions=ctx["positions"], causal=(mixer == "attn"),
-        use_rope=cfg.pos_encoding == "rope" and mixer == "attn",
-        cache=cache if mixer == "attn" else None, cache_index=ctx["cache_index"],
-        axo=ax("mixer"), impl=ctx["attn_impl"],
-    )
+    if mixer == "mamba":
+        out, new_cache = _mamba(p["mixer"], h, cfg, ctx, cache)
+    else:
+        out, new_cache = attn_apply(
+            p["mixer"], h, cfg,
+            positions=ctx["positions"], causal=(mixer == "attn"),
+            use_rope=cfg.pos_encoding == "rope" and mixer == "attn",
+            cache=cache if mixer == "attn" else None, cache_index=ctx["cache_index"],
+            axo=ax("mixer"), impl=ctx["attn_impl"],
+        )
     x = x + out
     if mlp != "none":
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
@@ -182,10 +219,12 @@ def forward(
         x = x + sinusoid_pos(positions, cfg.d_model).to(x.dtype)[None]
 
     lctx = {
+        "mode": mode,
         "positions": positions,
         "cache_index": ci,
         "axo": axo,
         "attn_impl": "kernel" if ctx is None else ctx.resolve_impl("attention", "kernel"),
+        "ssd_impl": "kernel" if ctx is None else ctx.resolve_impl("ssd_scan", "kernel"),
     }
     for si, stage in enumerate(cfg.stages):
         sp = params["stages"][str(si)]

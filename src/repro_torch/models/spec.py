@@ -41,9 +41,16 @@ class ParamSpec:
 
 
 def stacked(spec: ParamSpec, n: int) -> ParamSpec:
-    """Add a leading layer-stack axis."""
+    """Add a leading layer-stack axis; the leaf keeps its own dtype.
+
+    The reference's ``stacked`` drops the dtype, so its stacked Mamba state
+    starts in the tree's dtype until the functional prefill replaces it with
+    the scan's f32 state; the port writes that state into the cache in place,
+    so the f32 has to be there from the start.
+    """
     return ParamSpec(
-        shape=(n, *spec.shape), axes=("stack", *spec.axes), init=spec.init, scale=spec.scale
+        shape=(n, *spec.shape), axes=("stack", *spec.axes), init=spec.init, scale=spec.scale,
+        dtype=spec.dtype,
     )
 
 

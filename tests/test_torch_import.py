@@ -59,6 +59,8 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.kernels.axo_matmul, repro_torch.kernels.flash_attention\n"
         "import repro_torch.configs.registry, repro_torch.models.model, repro_torch.axo\n"
         "import repro_torch.data.synthetic, repro_torch.launch.steps, repro_torch.launch.serve\n"
+        "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.configs.mamba2_130m\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -114,6 +116,7 @@ ENTRY_POINTS = {
                                             app=_small_mnist()),
     "init_params": lambda: init_params(model_spec(get_arch("granite-3-2b").reduced())),
     "serve.main": lambda: serve.main(["--arch", "granite-3-2b", "--gen", "2"]),
+    "serve.main(mamba2-130m)": lambda: serve.main(["--arch", "mamba2-130m", "--gen", "2"]),
 }
 
 

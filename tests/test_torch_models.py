@@ -1,4 +1,5 @@
-"""The port's dense LM stack vs the reference, at reduced granite-3-2b in f32.
+"""The port's LM stacks vs the reference, at reduced granite-3-2b and reduced
+mamba2-130m in f32.
 
 Parameters come from the reference's ``init_params`` and cross over by name
 (``convert.params_from_jax``), so both packages compute from the same
@@ -8,7 +9,9 @@ reference runs its XLA paths on the CPU: ``chunked_attention`` inside
 the installed JAX).  Tolerances: kernel K7's plain version to ``rtol=5e-6``
 (the reference's flash-attention spec tolerance), model logits to
 ``atol=2e-3, rtol=1e-3`` (``tests/test_models_smoke.py``'s prefill/decode
-tolerance).
+tolerance).  The Mamba-2 prefill is 40 tokens, three chunks of 16 with the
+last ragged, so the cross-chunk carry is exercised (12 tokens, as in
+``tests/test_models_smoke.py``, would be a single chunk).
 """
 
 import dataclasses
@@ -118,7 +121,7 @@ def test_config_and_spec_match_reference():
 
 def test_unported_archs_and_mixers_raise():
     with pytest.raises(ValueError, match="queue 1 item 10"):
-        get_arch("mamba2-130m")
+        get_arch("jamba-v0.1-52b")
     with pytest.raises(ValueError, match="unknown"):
         get_arch("gpt-17")
     from dataclasses import replace
@@ -282,3 +285,82 @@ def test_synthetic_tokens_match_reference():
         want = RefSyntheticLM(rcfg, RefShapeConfig("serve", s, b, "train"), seed=seed).batch(3)
         np.testing.assert_array_equal(got["tokens"], want["tokens"])
         np.testing.assert_array_equal(got["labels"], want["labels"])
+
+
+# ---------------------------------------------------------------------------
+# The Mamba-2 stack: prefill through K8's route, O(1) decode
+# ---------------------------------------------------------------------------
+
+M_PROMPT, M_STEPS = 40, 4
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    """Reduced mamba2-130m in f32: reference params, the port's copy, tokens."""
+    rcfg = ref_get_arch("mamba2-130m").reduced()
+    cfg = get_arch("mamba2-130m").reduced()
+    rparams = ref_init_params(ref_model_spec(rcfg), seed=0, dtype=jnp.float32)
+    params = params_from_jax(jax.tree.map(np.asarray, rparams), cfg, device="cpu")
+    total = M_PROMPT + M_STEPS
+    toks = SyntheticLM(cfg, ShapeConfig("smoke", total, 2, "train")).batch(0)["tokens"]
+    return rcfg, cfg, rparams, params, toks
+
+
+@pytest.fixture(scope="module")
+def mamba_ref(mamba):
+    """The reference's full-context logits, its prefill(40) + decode(4) logits
+    and its caches after the prefill."""
+    rcfg, _, rparams, _, toks = mamba
+    total = M_PROMPT + M_STEPS
+    x, _, _ = jax.jit(lambda p, t: ref_forward(p, rcfg, BASE_RULES, t, mode="train"))(
+        rparams, jnp.asarray(toks))
+    full = np.asarray(ref_logits_fn(rparams, rcfg, BASE_RULES, x))
+    pre = jax.jit(ref_prefill_step(rcfg, BASE_RULES, max_seq=total))
+    dec = jax.jit(ref_decode_step(rcfg, BASE_RULES))
+    lg, cache = pre(rparams, jnp.asarray(toks[:, :M_PROMPT]))
+    prefill_cache = jax.tree.map(np.asarray, cache)
+    steps = [np.asarray(lg[:, 0])]
+    for i in range(M_PROMPT, total):
+        lg, cache = dec(rparams, cache, jnp.asarray(toks[:, i:i + 1]), jnp.int32(i))
+        steps.append(np.asarray(lg[:, 0]))
+    return full, steps, prefill_cache
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_mamba_prefill_decode_match_reference(mamba, mamba_ref, impl):
+    _, cfg, _, params, toks = mamba
+    full, steps, ref_cache = mamba_ref
+    ctx = ExecutionContext(device="cpu", kernel_impl=impl)
+    pre = make_prefill_step(cfg, max_seq=M_PROMPT + M_STEPS, ctx=ctx)
+    dec = make_decode_step(cfg, ctx=ctx)
+    t = torch.from_numpy(toks).long()
+    lg, cache = pre(params, t[:, :M_PROMPT])
+    assert lg.shape == (2, 1, cfg.vocab)
+    np.testing.assert_allclose(lg[:, 0].numpy(), steps[0], atol=ATOL, rtol=RTOL)
+    # the prefill wrote the conv tail and the f32 state into the stacked cache
+    for leaf in ("conv", "state"):
+        got = cache["0"]["0"][leaf]
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), ref_cache["0"]["0"][leaf], atol=ATOL,
+                                   rtol=RTOL, err_msg=leaf)
+    for j, i in enumerate(range(M_PROMPT, M_PROMPT + M_STEPS)):
+        lg, cache = dec(params, cache, t[:, i:i + 1], i)
+        np.testing.assert_allclose(lg[:, 0].numpy(), steps[j + 1], atol=ATOL, rtol=RTOL)
+        if i < M_PROMPT + M_STEPS - 1:     # the reference's full-context logits too
+            np.testing.assert_allclose(lg[:, 0].numpy(), full[:, i], atol=ATOL, rtol=RTOL)
+
+
+def test_mamba_prefill_decode_match_own_full_context(mamba):
+    _, cfg, _, params, toks = mamba
+    t = torch.from_numpy(toks).long()
+    ctx = ExecutionContext(device="cpu")
+    x, aux, cache = forward(params, cfg, t, mode="train", ctx=ctx)
+    assert cache is None and float(aux) == 0.0
+    full = logits_fn(params, cfg, x)
+    lg, cache = make_prefill_step(cfg, max_seq=M_PROMPT + M_STEPS, ctx=ctx)(
+        params, t[:, :M_PROMPT])
+    torch.testing.assert_close(lg[:, 0], full[:, M_PROMPT - 1], atol=ATOL, rtol=RTOL)
+    dec = make_decode_step(cfg, ctx=ctx)
+    for i in range(M_PROMPT, M_PROMPT + M_STEPS - 1):
+        lg, cache = dec(params, cache, t[:, i:i + 1], i)
+        torch.testing.assert_close(lg[:, 0], full[:, i], atol=ATOL, rtol=RTOL)

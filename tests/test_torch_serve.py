@@ -182,6 +182,27 @@ def test_serve_main_runs_on_the_cpu(capsys):
     assert out["params"]["norm_f"].dtype == torch.bfloat16
 
 
+def test_serve_main_serves_mamba_on_the_cpu(capsys):
+    """Reduced mamba2-130m: 40 prompt tokens (3 chunks of 16, ragged); the AxO
+    pass deploys the operator at the tied head only (a mamba layer has no
+    entries, as in the reference's ``deploy_axo``)."""
+    out = serve.main(["--arch", "mamba2-130m", "--batch", "2", "--prompt-len", "40",
+                      "--gen", "4", "--axo-rank", "8", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=mamba2-130m-smoke prefill(2x40)=")
+    assert lines[1].startswith("generated token ids (row 0): [")
+    assert lines[2].startswith("axo rank=8 (1 projections, kernel): prefill=")
+    assert "free-run match=" in lines[2] and "logit rel_err=" in lines[2]
+    axo = out["axo"]
+    dep = axo["deployment"]
+    assert dep.n_entries == 1 and dep.head is not None
+    assert dep.stages == {"0": {"0": {}}}
+    assert out["trajectory"].shape == (2, 4) and len(axo["replay_logits"]) == 4
+    assert 0.0 <= axo["top1"] <= 1.0 and 0.0 <= axo["free_run_match"] <= 1.0
+    assert np.isfinite(axo["rel_err"]) and axo["rel_err"] > 0
+    assert all(torch.isfinite(lg.float()).all() for lg in out["exact_logits"])
+
+
 @pytest.mark.parametrize("flag, item", [(["--metrics-port", "0"], 12), (["--trace", "t.json"], 12),
                                         (["--dse-service"], 8), (["--dse-smoke", "2"], 8)])
 def test_serve_flags_not_ported_raise(flag, item):

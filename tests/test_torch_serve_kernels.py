@@ -1,11 +1,15 @@
-"""Kernels K6 (AxO matmul) and K7 (flash attention) against their plain
-versions on the card, and the serving path through them.
+"""Kernels K6 (AxO matmul), K7 (flash attention) and K8 (SSD scan) against
+their plain versions on the card, and the serving paths through them.
 
 Every test here needs an NVIDIA card (marked ``gpu``) and skips without one;
 nothing here imports JAX, so the card's host runs them.  Tolerances: K6 to
 1e-5 relative norm (the reference's ``axo_matmul`` tolerance; both sum IEEE
 f32 products, in other orders); K7 in f32 to 2e-6 of the output's scale and
-in bf16 to one bf16 ulp (2^-7) of it, since both round one f32 result.
+in bf16 to one bf16 ulp (2^-7) of it, since both round one f32 result.  K8
+computes in f32 over other chunk lengths than its plain version (32 against
+the model's 128), so the two differ by f32 rounding: y in f32 to 1e-5 of the
+output's scale, in bf16 to one bf16 ulp of it; the f32 final state to 1e-5
+relative norm.
 """
 
 import numpy as np
@@ -16,6 +20,7 @@ from repro_torch.axo import AxOOperator
 from repro_torch.core.operator_model import accurate_config, spec_for
 from repro_torch.kernels import axo_matmul as k6
 from repro_torch.kernels import flash_attention as k7
+from repro_torch.kernels import ssd_scan as k8
 from repro_torch.launch import serve
 
 
@@ -87,4 +92,75 @@ def test_reduced_serving_runs_through_k6_and_k7_on_card(cuda):
     axo = out["axo"]
     assert k7.flash_attention.launches == layers * (out["prefills"] + axo["prefills"])
     assert k6.axo_matmul.launches == (7 * layers + 1) * (axo["prefills"] + axo["decode_steps"])
+    assert np.isfinite(axo["rel_err"])
+
+
+def _ssd_inputs(b, s, h, g, p, n, dtype, device, seed):
+    """The reference kernel test's draws; x, B and C as strided views into one
+    (B, S, H*P + 2*G*N) buffer, as the model passes them."""
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * g * n)).astype(np.float32))
+    buf = buf.to(device, dtype)
+    x = buf[..., :h * p].reshape(b, s, h, p)
+    bm = buf[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = buf[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, s, h)).astype(np.float32)).to(device)
+    a = torch.from_numpy(-rng.uniform(0.5, 2.0, (h,)).astype(np.float32)).to(device)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, s, h, g, p, n, chunk", [
+    (8, 2000, 24, 1, 64, 128, 128),    # mamba2-130m's prefill in chip_smoke.py
+    (2, 40, 16, 1, 8, 16, 16),         # the reduced config, ragged
+    (2, 256, 4, 1, 16, 32, 64),        # the reference kernel test's shapes
+    (1, 128, 8, 2, 8, 16, 32),
+    (1, 64, 4, 4, 8, 8, 64),
+    (3, 77, 8, 2, 32, 64, 128),        # G > 1, one ragged chunk
+])
+def test_k8_matches_plain_version_on_card(cuda, dtype, b, s, h, g, p, n, chunk):
+    x, dt, a, bm, cm = _ssd_inputs(b, s, h, g, p, n, dtype, cuda, s + h)
+    init = None
+    if g > 1:   # a nonzero entering state on the grouped shapes
+        init = torch.randn((b, h, p, n), generator=torch.Generator(cuda).manual_seed(s),
+                           device=cuda)
+    before = k8.ssd_scan.launches
+    y, st = k8.ssd_scan(x, dt, a, bm, cm, chunk=chunk, init_state=init)
+    y_p, st_p = k8.ssd_scan_plain(x, dt, a, bm, cm, chunk=chunk, init_state=init)
+    torch.cuda.synchronize()
+    assert k8.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = float((y.float() - y_p.float()).abs().max())
+    assert err <= tol * float(y_p.float().abs().max()), err
+    assert _rel(st, st_p) < 1e-5
+
+
+@pytest.mark.gpu
+def test_k8_rejects_what_it_is_not_built_for(cuda):
+    x, dt, a, bm, cm = _ssd_inputs(1, 8, 2, 1, 8, 16, torch.float32, cuda, 0)
+    with pytest.raises(TypeError, match="float32 dt"):
+        k8.ssd_scan(x, dt.double(), a, bm, cm)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        k8.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, bm, cm)
+    x12, dt12, a12, bm12, cm12 = _ssd_inputs(1, 8, 2, 1, 12, 16, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="built for"):
+        k8.ssd_scan(x12, dt12, a12, bm12, cm12)
+
+
+@pytest.mark.gpu
+def test_reduced_mamba_serving_runs_through_k8_on_card(cuda):
+    """The serve entry at reduced mamba2-130m on the card: every prefill layer
+    launches K8; the AxO head launches K6 once per AxO forward."""
+    k6.axo_matmul.launches = k7.flash_attention.launches = k8.ssd_scan.launches = 0
+    out = serve.main(["--arch", "mamba2-130m", "--batch", "2", "--prompt-len", "40",
+                      "--gen", "6", "--axo-rank", "8"])
+    torch.cuda.synchronize()
+    layers = out["cfg"].n_layers
+    axo = out["axo"]
+    assert axo["deployment"].n_entries == 1
+    assert k8.ssd_scan.launches == layers * (out["prefills"] + axo["prefills"])
+    assert k6.axo_matmul.launches == axo["prefills"] + axo["decode_steps"]
+    assert k7.flash_attention.launches == 0
     assert np.isfinite(axo["rel_err"])
