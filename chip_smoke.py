@@ -52,7 +52,9 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      prefill replayed with ``kernel_impl="plain"`` agree with the kernel
      passes within 1e-3 relative norm of the logits, and at the reduced
      config in f32 with the reference test's mild rank-16 operator the AxO
-     logits keep its fidelity bounds (top-1 >= 0.5, rel < 0.5).
+     logits keep its fidelity bounds (top-1 >= 0.5, rel < 0.5).  The warm
+     passes are profiled, and K6's share of the device time of a decode step
+     and of a prefill is printed.
   serve-ssm: Mamba-2 serving of mamba2-130m at full width and depth (24
      mamba layers, d 768, 24 SSD heads of 64, state 128, vocab 50,280, bf16,
      random weights from a seed) through ``serve.main``: batch 8, prompt 2,000
@@ -67,14 +69,23 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      to twice what re-rounding the plain scan at K8's chunk length does), and
      at the reduced config in f32 (prompt 40 = 3 chunks of 16, ragged) the
      kernel passes' logits against the plain passes' to SERVE_REL.
+  device-time: K6's and K7's device time per call from torch.profiler, and
+     their yardsticks', at phase 3's shapes, beside phase 3's CUDA-event
+     times; last, because after a profiler session the host issues every
+     launch more slowly.
 
 Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
-decode shapes (M=4 against the five weight shapes) and a prefill shape
-(M=512, 2048 x 8192) at rank 8, to 1e-5 relative norm, and K7 (flash
-attention) at the serve prefill (B=4, H=32, G=8, S=128 over a 144-slot
-cache, hd=64) and a ragged S, in f32 and bf16; its yardsticks are one cuBLAS
-f32 GEMM over the concatenated ``[A|F_1..F_R]·[B;G_1..G_R]`` (K6) and
-``scaled_dot_product_attention`` with K/V repeated to 32 heads (K7).  It
+decode shapes (M=4 against the five weight shapes), a prefill shape (M=512,
+2048 x 8192), mamba2's head (M=8), the boundary of its two routes (M=16 on
+the GEMV, M=17 on the tensor cores) and, with a random 36-bit config whose
+factor part dominates, gate/up at decode and prefill, at rank 8, to 1e-5
+relative norm; its bound is the larger of the bytes and the three-pass TF32
+work, with the f32-pipe count beside it.  It holds K7 (flash attention) at
+the serve prefill (B=4, H=32, G=8, S=128 over a 144-slot cache, hd=64) and a
+ragged S, in f32 and bf16.  The yardsticks are one cuBLAS f32 GEMM over the
+concatenated ``[A|F_1..F_R]·[B;G_1..G_R]`` (K6) and
+``scaled_dot_product_attention`` with K/V repeated to 32 heads (K7); the two
+kernels' times in their first design (PR 13) are printed beside.  It
 holds K8 (SSD scan) against its plain version at mamba2-130m's prefill (B=8,
 S=2,000, H=24, P=64, N=128), at the reduced config's (B=2, S=40, H=16, P=8,
 N=16) and at a grouped shape (G=4, with an entering state), in f32 and
@@ -99,11 +110,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published rates (NVIDIA data sheet): HBM3 bandwidth, non-tensor
-# f32 FMA throughput and the dense bf16 tensor-core rate.  The int32 and the
-# f32 lane rates of the K4-K6 bounds are derived from the SM clock (below).
+# f32 FMA throughput and the dense bf16 and TF32 tensor-core rates.  The int32
+# and the f32 lane rates of the K4-K6 bounds are derived from the SM clock
+# (below).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
+# K6's and K7's times in their first design (PR 13), measured by this script
+# on an H100 80GB HBM3 at 700 W (PERF.md section 6), printed beside the new ones
+K6_PR13_MS = {"q/o decode": 0.1562, "k/v decode": 0.1077, "gate/up decode": 0.5085,
+              "down decode": 0.6691, "head decode": 3.479, "gate/up prefill": 6.370,
+              "mamba2 head": 1.3345}
+K7_PR13_MS = {"serve prefill": 0.0829, "ragged": 0.0577}
 N_SMS = 132
 INT32_LANES_PER_SM = 64
 F32_LANES_PER_SM = 128
@@ -144,11 +163,49 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# torch.profiler windows of device_ms that held no device events, of all opened
+PROFILER_EMPTY = {"empty": 0, "windows": 0}
+
+
+def device_ms(torch, fn, calls: int):
+    """Device time per call of ``fn``, every kernel it launches summed, from
+    torch.profiler over at least ``calls`` warm calls, or None where the
+    profiler handed back no device events (counted in ``PROFILER_EMPTY``).
+    A secondary figure beside :func:`cuda_ms`, which every kernel's ``ms``
+    uses: here the host's time to issue a call does not count where it exceeds
+    the kernel's.  The card is kept busy for 50 ms first, so that its clocks
+    are up, and the profiled window spans at least 20 ms of the host's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0, n = time.perf_counter(), 0
+    while n < calls or time.perf_counter() - t0 < 0.05:
+        fn()
+        n += 1
+    torch.cuda.synchronize()
+    calls = max(calls, min(2000, int(0.02 / ((time.perf_counter() - t0) / n)) + 1))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA")
+    PROFILER_EMPTY["windows"] += 1
+    if total > 0:
+        return total / 1e3 / calls
+    PROFILER_EMPTY["empty"] += 1
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def bound(bytes_moved: float, int_ops: float, f32_ops: float, int_rate: float,
-          f32_rate: float = F32_FLOPS, bf16_ops: float = 0.0):
+          f32_rate: float = F32_FLOPS, bf16_ops: float = 0.0, tf32_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of the byte time and the op time."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = max(int_ops / int_rate, f32_ops / f32_rate, bf16_ops / BF16_TENSOR_FLOPS)
+    t_ops = max(int_ops / int_rate, f32_ops / f32_rate, bf16_ops / BF16_TENSOR_FLOPS,
+                tf32_ops / TF32_TENSOR_FLOPS)
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -230,7 +287,8 @@ def checked_calls(torch):
 
 def profile_calls(torch, fn, calls: int):
     """torch.profiler over ``calls`` calls of ``fn``: the device time per call
-    against the wall time, and the top kernels by device time."""
+    against the wall time, K6's share of it, and the top kernels by device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -242,10 +300,11 @@ def profile_calls(torch, fn, calls: int):
     wall = (time.perf_counter() - t0) * 1e3 / calls
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    k6 = sum(e.self_device_time_total for e in kernels if "::axo_" in e.key) / 1e3 / calls
     kernels.sort(key=lambda e: -e.self_device_time_total)
     top = [(e.key[:48], round(e.self_device_time_total / 1e3 / calls, 4), e.count // calls)
            for e in kernels[:5]]
-    return {"device_ms": device, "wall_ms": wall}, top
+    return {"device_ms": device, "wall_ms": wall, "k6_ms": k6}, top
 
 
 def profile_decode(torch, prefill, decode, params, toks, steps: int = 2):
@@ -459,17 +518,30 @@ def main() -> int:
     err["K4"] = err["K5"] = 0.0  # exact int32 outputs, held equal above
 
     # K6 at granite-3-2b's AxO projections, rank 8: decode (M=4) against the
-    # five weight shapes, and the prefill's M = 4 x 128 against gate/up
+    # five weight shapes, and the prefill's M = 4 x 128 against gate/up; the
+    # two routes' boundary (M=16 GEMV, M=17 tensor cores); and a random 36-bit
+    # config, whose factor part dominates the product.  The bound: the larger
+    # of the bytes (codes, tables, output) and the three-pass TF32 work,
+    # (1 + 3R) 2MNK at the TF32 tensor-core rate, the cheapest route to the
+    # 1e-5 contract on this card; the f32-pipe count, 2MNK(1+R), beside it
     op = serve.demo_operator(AXO_RANK)
-    f_t, g_t, sv_t = (torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(dev)
-                      for t in (op.f_table, op.g_table, op.signed_vals))
+    op36 = AxOOperator.from_config(
+        np.random.default_rng(36).integers(0, 2, 36).astype(np.uint8), rank=AXO_RANK)
+    tabs = {name: tuple(torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(dev)
+                        for t in (o.f_table, o.g_table, o.signed_vals))
+            for name, o in (("demo", op), ("random36", op36))}
+    f_t, g_t, sv_t = tabs["demo"]
     r1 = AXO_RANK + 1
     gen = torch.Generator(device=dev).manual_seed(6)
     k6_shapes = {"q/o decode": (4, 2048, 2048), "k/v decode": (4, 2048, 512),
                  "gate/up decode": (4, 2048, 8192), "down decode": (4, 8192, 2048),
                  "head decode": (4, 2048, 49155), "gate/up prefill": (512, 2048, 8192),
-                 "mamba2 head": (8, 768, 50280)}
+                 "mamba2 head": (8, 768, 50280), "M=16 boundary": (16, 2048, 2048),
+                 "M=17 boundary": (17, 2048, 2048),
+                 "gate/up decode, random36": (4, 2048, 8192),
+                 "gate/up prefill, random36": (512, 2048, 8192)}
     for label, (m, k, n) in k6_shapes.items():
+        f_t, g_t, sv_t = tabs["random36" if "random36" in label else "demo"]
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
         got = axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t)
@@ -482,6 +554,7 @@ def main() -> int:
         al, ac = a.long(), bb.long()
         a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
         b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
+        k6_bytes = m * k + k * n + m * n * 4 + 2 * r1 * 256 * 4
         k6_rec = dict(
             name="axo_matmul", source="src/repro_torch/kernels/csrc/axo_matmul.cu",
             replaces="src/repro/kernels/axo_matmul_kernel.py:80",
@@ -489,16 +562,21 @@ def main() -> int:
             plain_ms=cuda_ms(torch, lambda: axo_matmul.axo_matmul_plain(
                 a, bb, f_t, g_t, sv_t), 3),
             library_ms=cuda_ms(torch, lambda: a_cat @ b_cat, 10),
-            bound=bound(m * k + k * n + m * n * 4 + 2 * r1 * 256 * 4, 0,
-                        2.0 * m * n * k * r1, int_rate, f32_rate=f32_rate),
+            bound=bound(k6_bytes, 0, 0, int_rate,
+                        tf32_ops=2.0 * m * n * k * (1 + 3 * AXO_RANK)),
         )
+        f32_bound = bound(k6_bytes, 0, 2.0 * m * n * k * r1, int_rate, f32_rate=f32_rate)
         del a_cat, b_cat
-        print(f"phase kernels: K6 vs plain at {label} M={m} K={k} N={n} R={AXO_RANK}: rel "
-              f"norm {rel:.3g} (limit {REL_RTOL}), max abs err "
-              f"{float((got - want).abs().max()):.4g}; K6 {k6_rec['ms']:.4f} ms (plain "
-              f"{k6_rec['plain_ms']:.4f}, bound {k6_rec['bound'][0]:.4g} by "
-              f"{k6_rec['bound'][1]}), one cuBLAS f32 GEMM at K(1+R) "
-              f"{k6_rec['library_ms']:.4f} ms", flush=True)
+        pl = axo_matmul.plan(m, n, k, AXO_RANK, 256)
+        was = K6_PR13_MS.get(label)
+        print(f"phase kernels: K6 vs plain at {label} M={m} K={k} N={n} R={AXO_RANK} "
+              f"({pl.route} route, {pl.splits} splits of {pl.k_split}): rel norm "
+              f"{rel:.3g} (limit {REL_RTOL}), max abs err "
+              f"{float((got - want).abs().max()):.4g}; K6 {k6_rec['ms']:.4f} ms (PR 13 design "
+              f"{fmt_ms(was)}; plain {k6_rec['plain_ms']:.4f}; bound "
+              f"{k6_rec['bound'][0]:.4g} by {k6_rec['bound'][1]}, three-pass TF32 or bytes; "
+              f"f32-pipe bound {f32_bound[0]:.4g} by {f32_bound[1]}), one cuBLAS f32 GEMM at "
+              f"K(1+R) {k6_rec['library_ms']:.4f} ms", flush=True)
         if label == "gate/up prefill":   # the path's heaviest K6 call
             rec["K6"], err["K6"] = k6_rec, float((got - want).abs().max())
 
@@ -540,9 +618,9 @@ def main() -> int:
                     bound=bound(2 * (2 * q.numel() + 2 * 4 * 8 * s_q * 64), 0, 0, int_rate,
                                 bf16_ops=4.0 * 4 * 32 * pairs * 64),
                 )
-                msg += (f"; K7 {k7_rec['ms']:.4f} ms (plain {k7_rec['plain_ms']:.4f}, bound "
-                        f"{k7_rec['bound'][0]:.4g} by {k7_rec['bound'][1]}), SDPA "
-                        f"{k7_rec['library_ms']:.4f} ms")
+                msg += (f"; K7 {k7_rec['ms']:.4f} ms (PR 13 design {K7_PR13_MS[label]:.4f}; "
+                        f"plain {k7_rec['plain_ms']:.4f}, bound {k7_rec['bound'][0]:.4g} by "
+                        f"{k7_rec['bound'][1]}), SDPA {k7_rec['library_ms']:.4f} ms")
                 if label == "serve prefill":
                     rec["K7"], err["K7"] = k7_rec, e
             print(msg, flush=True)
@@ -850,11 +928,15 @@ def main() -> int:
         _, _, (tp, td) = serve.generate(pre_fn, dec_fn, params, toks, 16)
         busy, top = profile_decode(torch, pre_fn, dec_fn, params, toks)
         step_ms = td * 1e3 / 15
+        busy_p, _ = profile_calls(torch, lambda: pre_fn(params, toks), 1)
         print(f"phase serve: {label} warm: prefill {tp * 1e3:.2f} ms, decode "
               f"{step_ms:.3f} ms/step ({4 * 15 / td:.1f} tokens/s); profiled decode step: "
               f"device time {busy['device_ms']:.3f} ms ({busy['device_ms'] / step_ms:.1%} "
-              f"of the unprofiled step; {busy['wall_ms']:.3f} ms wall under the profiler); "
-              f"top kernels (name, ms per step, launches per step) {top}", flush=True)
+              f"of the unprofiled step; {busy['wall_ms']:.3f} ms wall under the profiler), "
+              f"K6 {busy['k6_ms']:.3f} ms of it ({busy['k6_ms'] / busy['device_ms']:.1%}); "
+              f"profiled prefill: device time {busy_p['device_ms']:.3f} ms, K6 "
+              f"{busy_p['k6_ms']:.3f} ms of it; top decode kernels (name, ms per step, "
+              f"launches per step) {top}", flush=True)
     del res, axo, params, dep, dep_plain, rep_k, pre_fn, dec_fn, a, lp, h0, q0, k0
     # (c) at the reduced config in f32, with the reference test's mild rank-16
     # operator: its fidelity bounds, and (b) end to end, where one ulp does not
@@ -966,8 +1048,9 @@ def main() -> int:
               f"{busy_p['device_ms']:.3f} ms ({busy_p['wall_ms']:.3f} ms wall under the "
               f"profiler), top kernels {top_p}; profiled decode step: device time "
               f"{busy['device_ms']:.3f} ms ({busy['device_ms'] / step_ms:.1%} of the "
-              f"unprofiled step; {busy['wall_ms']:.3f} ms wall under the profiler); top "
-              f"kernels (name, ms per step, launches per step) {top}", flush=True)
+              f"unprofiled step; {busy['wall_ms']:.3f} ms wall under the profiler), K6 "
+              f"{busy['k6_ms']:.3f} ms of it; top kernels (name, ms per step, launches per "
+              f"step) {top}", flush=True)
     # the exact prefill on the plain versions end to end, beside two yardsticks
     # of the plain pass's own sensitivity: one bf16 ulp of one embedding element,
     # and the plain scan at K8's chunk length (the same algebra, other f32
@@ -1031,6 +1114,43 @@ def main() -> int:
     if not (rel_exact <= SERVE_REL and rel_axo <= SERVE_REL):
         raise AssertionError("a reduced mamba pass on the kernels differs from its plain replay")
 
+    # -- device time of K6 and K7 --------------------------------------------
+    # torch.profiler's device time per call, beside the CUDA-event times of
+    # phase 3 (which count the host's time to issue a call where it is the
+    # longer), taken last: after a profiler session the host issues every
+    # launch more slowly, which would move the host-bound times of the phases
+    # above.  Fresh codes and inputs of each shape; these launches count nowhere.
+    for label, (m, k, n) in k6_shapes.items():
+        f_t, g_t, sv_t = tabs["random36" if "random36" in label else "demo"]
+        a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
+        bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
+        al, ac = a.long(), bb.long()
+        a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
+        b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
+        k6_dev = device_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 10)
+        lib_dev = device_ms(torch, lambda: a_cat @ b_cat, 10)
+        del al, ac, a_cat, b_cat
+        print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: {fmt_ms(k6_dev)} on "
+              f"the device, one cuBLAS f32 GEMM at K(1+R) {fmt_ms(lib_dev)}", flush=True)
+        if label == "gate/up prefill":
+            rec["K6"].update(device_ms=k6_dev, library_device_ms=lib_dev)
+    for label, (s_q, cap) in {"serve prefill": (128, 144), "ragged": (77, 93)}.items():
+        q = torch.randn((4, 32, s_q, 64), generator=gen, device=dev).to(torch.bfloat16)
+        kk, vv = (torch.randn((4, 8, cap, 64), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        k_rep = kk[:, :, :s_q].repeat_interleave(4, dim=1)
+        v_rep = vv[:, :, :s_q].repeat_interleave(4, dim=1)
+        k7_dev = device_ms(torch, lambda: flash_attention.flash_attention(
+            q, kk, vv, kv_len=s_q), 50)
+        lib_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=True), 50)
+        print(f"phase device-time: K7 at {label} S={s_q} cache {cap} bf16: {fmt_ms(k7_dev)} "
+              f"on the device, SDPA {fmt_ms(lib_dev)}", flush=True)
+        if label == "serve prefill":
+            rec["K7"].update(device_ms=k7_dev, library_device_ms=lib_dev)
+    print(f"phase device-time: torch.profiler windows that held no device events: "
+          f"{PROFILER_EMPTY['empty']} of {PROFILER_EMPTY['windows']}", flush=True)
+
     kernels = []
     for k, r in rec.items():
         kernels.append({
@@ -1038,6 +1158,7 @@ def main() -> int:
             "replaces": r["replaces"], "launches": launches[k], "max_abs_err": err[k],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+            **{key: r[key] for key in ("device_ms", "library_device_ms") if key in r},
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

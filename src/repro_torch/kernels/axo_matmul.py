@@ -18,23 +18,44 @@ in f32: one product for the exact part, then one per rank.  On a CPU tensor
 the wrapper returns it; on a CUDA tensor it launches the kernel or raises.
 ``axo_matmul.launches`` counts kernel launches.  Any M, K and N work: the
 kernel masks its ragged tiles itself.
+
+The kernel has two routes, which :func:`plan` picks by M: up to ``GEMV_M``
+rows (decode) an f32 GEMV on the FMA pipe, above that (prefill) TF32 tensor
+cores with each factor split into hi + lo (three passes; the integer values
+take one).  ``tests/test_torch_kernel_design.py`` emulates the tensor-core
+route's rounding in plain torch.  The tile and k-step constants below plan the
+launch; the kernel's source owns its layout and refuses a plan that does not
+fit it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
-__all__ = ["axo_matmul", "axo_matmul_plain", "plan"]
+__all__ = ["axo_matmul", "axo_matmul_plain", "plan", "Plan"]
 
 MAX_SMEM = 227 * 1024      # dynamic shared memory one block may use
-SMALL_M = 16               # M at or below this takes the 16-row tile
-WAVE_BLOCKS = 2 * 132      # split K until the grid holds two blocks per SM
-MIN_SPLIT_K = 256          # codes of K per split, at least
+H100_SMS = 132             # plan()'s default; a launch passes its card's count
+GEMV_M = 16                # M at or below this takes the GEMV route
+# GEMV route (csrc/axo_matmul.cu): 4 warps x 16 columns a lane, MT rows a block
+GEMV_COLS = 512
+GEMV_KSTEP = 32            # K rows expanded per shared-memory chunk
+GEMV_PER_SM = 2            # blocks an SM runs at once
+GEMV_MAX_SPLITS = 64
+GEMV_BLOCK_COST = 1        # a block's fixed work (tables, sums), in k-steps
+# tensor-core route: 128 x 128 tile, 8 warps, 32 codes of K a step
+MMA_TILE = 128
+MMA_KSTEP = 32
+MMA_PER_SM = 1
+MMA_MAX_SPLITS = 16
+MMA_BLOCK_COST = 4
+MMA_STAGE = 2 * (MMA_TILE * 48 + MMA_KSTEP * 144)   # double-buffered code tiles, bytes
 
 
 def _need_ieee_f32(t: torch.Tensor) -> None:
@@ -55,29 +76,89 @@ def axo_matmul_plain(a_codes: torch.Tensor, b_codes: torch.Tensor, f_table: torc
     return out
 
 
-def plan(m: int, n: int, k: int, rank: int, n_codes: int) -> tuple[int, int, int, int]:
-    """(tile rows, splits of K, codes per split, shared-memory bytes) of a launch."""
-    bm = SMALL_M if m <= SMALL_M else 64
-    blocks = -(-n // 64) * -(-m // bm)
-    splits = 1
-    if blocks < WAVE_BLOCKS:
-        splits = max(1, min(-(-WAVE_BLOCKS // blocks), k // MIN_SPLIT_K))
-    k_split = -(-k // splits)
-    k_split = -(-k_split // 8) * 8          # whole shared-memory steps per split
-    splits = -(-k // k_split) if k else 1
+class Plan(NamedTuple):
+    route: str          # "gemv" (M <= GEMV_M) or "mma" (tensor cores)
+    rows: int           # output rows a block owns: MT = 1, 2, 4 or 8, or 128
+    splits: int         # blocks along K, summed in split order in the kernel
+    k_split: int        # codes of K per split: whole k-steps of the route
+    smem: int           # dynamic shared memory per block, bytes
+    tiles: int          # output tiles, one split-K counter each
+
+
+def _split_k(tiles: int, k: int, kstep: int, wave: int, max_splits: int,
+             block_cost: int) -> tuple[int, int]:
+    """(splits, codes per split) that minimise waves x (k-steps a block takes
+    + its fixed cost): enough blocks to fill the SMs, few enough that the
+    last wave is not mostly idle; whole k-steps per split."""
+    best = None
+    for want in range(1, max(1, min(max_splits, -(-k // kstep))) + 1):
+        k_split = -(-(-(-k // want)) // kstep) * kstep
+        splits = -(-k // k_split)
+        cost = -(-tiles * splits // wave) * (k_split // kstep + block_cost)
+        if best is None or cost < best[0]:
+            best = (cost, splits, k_split)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS) -> Plan:
+    """The launch of K6 for an (m, k) x (k, n) product at this rank.
+
+    M <= ``GEMV_M`` takes the GEMV route: a block owns 512 columns and MT rows
+    (the least power of two >= M, at most 8; M = 9..16 takes two row groups
+    of 8).  Larger M takes the tensor-core route: 128 x 128 tiles.  K splits
+    into whole k-steps (32 codes on either route) until the blocks fill the
+    ``n_sms`` SMs (two GEMV blocks or one tensor-core block per SM at a
+    time) in as few waves as the work allows, counting a block's fixed cost.
+    Cached: a decode step asks for the same few shapes hundreds of times.
+    """
     r1 = rank + 1
-    ts = (n_codes + 3) // 4 * 4
-    smem = (2 * r1 * ts + r1 * 8 * (bm + 64)) * 4
-    return bm, splits, k_split, smem
+    if m <= GEMV_M:
+        rows = 1 << max(0, (min(m, 8) - 1).bit_length())
+        tiles = -(-n // GEMV_COLS) * -(-m // rows)
+        splits, k_split = _split_k(tiles, k, GEMV_KSTEP, GEMV_PER_SM * n_sms,
+                                   GEMV_MAX_SPLITS, GEMV_BLOCK_COST)
+        # the weight-side table, whose space then holds the warps' partial
+        # sums; the activation-side table; the chunk's activation values
+        smem = (max(r1 * n_codes, 4 * min(rows, 4) * GEMV_COLS) + r1 * n_codes
+                + GEMV_KSTEP * r1 * rows) * 4
+        return Plan("gemv", rows, splits, k_split, smem, tiles)
+    tiles = -(-n // MMA_TILE) * -(-m // MMA_TILE)
+    splits, k_split = _split_k(tiles, k, MMA_KSTEP, MMA_PER_SM * n_sms, MMA_MAX_SPLITS,
+                               MMA_BLOCK_COST)
+    smem = 2 * r1 * n_codes * 4 + MMA_STAGE
+    return Plan("mma", MMA_TILE, splits, k_split, smem, tiles)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.library("axo_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.axo_matmul_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.axo_matmul_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                      i, ctypes.c_longlong, p]
     lib.axo_matmul_launch.restype = ctypes.c_int
     return lib
+
+
+_LAYOUT_MISMATCH = -1      # the launcher's answer to a plan that does not fit the kernel
+_COUNTERS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """Zeroed int32 split-K counters, one per output tile, for launches on one
+    stream; every launch leaves the ones it used at zero again.  A stream's
+    launches run in order, so they can share them; another stream's would
+    not, and get their own."""
+    have = _COUNTERS.get((device, stream))
+    if have is None or have.numel() < tiles:
+        have = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = have
+    return have
 
 
 def _check(a_codes, b_codes, f_table, g_table, signed_vals) -> None:
@@ -115,19 +196,30 @@ def axo_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor, f_table: torch.Tens
     rank, n_codes = f_table.shape[1], signed_vals.shape[0]
     if m * n == 0 or k == 0:
         return torch.zeros((m, n), dtype=torch.float32, device=a_codes.device)
-    bm, splits, k_split, smem = plan(m, n, k, rank, n_codes)
-    if smem > MAX_SMEM:
-        raise ValueError(f"rank {rank} needs {smem} bytes of shared memory per block, "
-                         f"over {MAX_SMEM}")
-    out = torch.empty((m, n), dtype=torch.float32, device=a_codes.device)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a_codes.device)
-          if splits > 1 else out)
-    stream = torch.cuda.current_stream(a_codes.device).cuda_stream
+    return _launch(a_codes, b_codes, f_table, g_table, signed_vals,
+                   plan(m, n, k, rank, n_codes, _sm_count(a_codes.device)))
+
+
+def _launch(a_codes, b_codes, f_table, g_table, signed_vals, pl: Plan) -> torch.Tensor:
+    """Launch K6 on CUDA tensors that passed :func:`_check`, as ``pl`` says."""
+    (m, k), n = a_codes.shape, b_codes.shape[1]
+    if pl.smem > MAX_SMEM:
+        raise ValueError(f"rank {f_table.shape[1]} needs {pl.smem} bytes of shared memory "
+                         f"per block, over {MAX_SMEM}")
+    dev = a_codes.device
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    ws = (torch.empty((pl.splits, m, n), dtype=torch.float32, device=dev)
+          if pl.splits > 1 else out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters = _counters(dev, stream, pl.tiles)
     err = _lib().axo_matmul_launch(
         a_codes.data_ptr(), b_codes.data_ptr(), signed_vals.data_ptr(), f_table.data_ptr(),
-        g_table.data_ptr(), out.data_ptr(), ws.data_ptr(), m, n, k, rank, n_codes, bm,
-        splits, k_split, stream,
+        g_table.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+        counters.numel(), m, n, k, f_table.shape[1], signed_vals.shape[0],
+        int(pl.route == "mma"), pl.rows, pl.splits, pl.k_split, pl.smem, stream,
     )
+    if err == _LAYOUT_MISMATCH:
+        raise RuntimeError(f"{pl} does not fit the layout of csrc/axo_matmul.cu")
     if err != 0:
         raise RuntimeError(f"axo_matmul launch failed: cudaError {err}")
     axo_matmul.launches += 1

@@ -15,192 +15,686 @@
 // linear weights of granite-3-2b they are 91 GB at R=8.  So this kernel reads
 // the weight codes (1 byte each) and gathers values and factors itself from
 // the two (1+R, 2^n) tables [sv; f^T] and [sv; g^T], held in shared memory.
+// Two routes, chosen in kernels/axo_matmul.py plan() by M; both reduce a
+// split K in the kernel itself, in split order (below).
 //
-// Design: one block of 256 threads per (BM x 64) output tile, and per K-split
-// when the tile grid alone is under two waves (decode, M <= 16).  The block
-// walks K in steps of BK=8 codes.  Per step it expands its A codes (BM x BK)
-// and B codes (BK x 64) through the tables into shared memory as f32 tiles of
-// depth (1+R)*BK, zero past the edges of M, N and K (code 0 is not value 0
-// for the factors, so the edge is written, not gathered), and then runs a
-// plain register-tiled f32 product over that depth: each thread owns TM x 4
-// outputs.  IEEE f32 FMAs throughout, no TF32: the reference's tolerance is
-// 1e-5.  Split-K partials go to a (splits, M, N) workspace that a second
-// kernel sums in split order, so results do not depend on scheduling.
+// 1. M > 16 (prefill): tensor cores, mma.sync.m16n8k8 TF32 with f32
+//    accumulate.  A block of 8 warps owns a 128 x 128 output tile; each warp
+//    a 64 x 32 one (4 x 4 MMA tiles).  The block walks K in steps of 32
+//    codes: cp.async stages the A (128 x 32) and B (32 x 128) code tiles in
+//    shared memory, double-buffered, and each warp expands its fragments
+//    from the codes through the tables, one table row j of [sv; f] / [sv; g]
+//    at a time.  (Expanding the A fragments once per block into shared
+//    memory, with a barrier per table row, was tried and ran slower.)  TF32
+//    keeps 10 stored mantissa bits:
+//    - the value part (j = 0) takes one pass: sv holds integers of at most
+//      8 bits, which TF32 holds exactly (a block checks its table and takes
+//      three passes where it does not);
+//    - each factor part takes three: x = hi + lo with hi = x rounded to
+//      TF32 and lo = x - hi (the tensor core truncates lo to TF32 in turn),
+//      and hi.hi + hi.lo + lo.hi.  Emulated in plain torch
+//      (tests/test_torch_kernel_design.py; M=64, K=2048, N=256, exact sums,
+//      rounded once to f32), a single pass gives a relative norm of 1.7e-5
+//      for serve.demo_operator(8) and 1.5e-5 for a random 36-bit config,
+//      over the 1e-5 contract; three passes 4.3e-9 and 3.2e-8.
+//    - The tensor core rounds its f32 sum toward zero (as modelled there), so
+//      a long chain of MMAs into one accumulator drifts toward zero.  So each
+//      32-code step accumulates from zero in the tensor core and is added to
+//      the running sum in IEEE f32, and within each 8 codes the table rows
+//      run from the last factor down to the values (each lo.hi, hi.lo,
+//      hi.hi), so that small terms meet a small accumulator: 3.2e-7 and
+//      1.6e-6 (M=32, N=64), where one chain over all of K=2048 reaches
+//      1.8e-5 and 1.3e-4.
+//    Work: (1 + 3R) * 2MNK TF32 operations, 0.87 ms at 495 TFLOP/s for the
+//    prefill gate/up projection (M=512, K=2048, N=8192, R=8).  What bounds
+//    this design: instruction issue around the MMAs, with 8 warps an SM
+//    (230 registers a thread).  Per table row and 8 codes a warp issues 48
+//    MMAs, 24 shared-memory gathers, their 24 address sums and 72 ALU
+//    operations of the hi/lo split (integer adds and masks: with the TF32
+//    conversion instruction, which issues at a quarter of the rate, the
+//    kernel took longer).
 //
-// What bounds it on this card: 2*M*N*K*(1+R) f32 FLOPs on the non-tensor
-// pipe (no tensor-core f32), against 1 byte per weight code read once.  At
-// prefill (M = 512) that is operations by far; at decode (M = 4) the weight
-// codes' bytes and the ops are within a few times of each other, and the
-// M=16 tile pads 4 rows to 16, so the kernel spends 4x the needed FLOPs.
+// 2. M <= 16 (decode): a split-K GEMV in IEEE f32 on the FMA pipe.  A block
+//    of 4 warps owns 512 columns and MT (1, 2, 4 or 8) rows; each lane owns
+//    16 columns and streams their weight codes down K with one 16-byte load
+//    per row (two aligned loads and a funnel shift where N is not a multiple
+//    of 16), each warp keeping its next 4 rows' loads in flight.  The
+//    activation side, (K chunk, 1+R, MT) values, is expanded once per chunk
+//    into shared memory and read as broadcasts; each weight code's 1+R table
+//    entries are gathered once and used for all MT rows: (1+R) * MT FMAs per
+//    code, no padded rows at M = 1, 2, 4, 8 and 16.  The 4 warps take
+//    interleaved rows of K and are summed in warp order through the table's
+//    shared memory, once the table is no longer read.  What bounds it:
+//    instruction issue and latency, about 600 cycles an SM per warp and row
+//    (16 codes: 9 gathers, 9 address sums and 9 x MT FMAs each) whatever the
+//    occupancy; its floor on the FMA pipe is 2*M*N*K*(1+R) f32 operations.
+//
+// Split K: each block writes its partial tile to a (splits, M, N) workspace;
+// the last block of a tile to arrive (an atomic counter per tile, which it
+// resets) sums the partials in split order, so the result does not depend on
+// which block finishes last.  No second launch.  plan() picks the splits
+// that fill the SMs in the fewest waves.  The launch layout (tiles, k-steps,
+// shared memory) is this file's: the launcher refuses a plan that disagrees
+// with it, rather than overrun shared memory or the counters.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 thread grid over the output tile
-constexpr int kBK = 8;         // K codes per shared-memory step
-constexpr int kBN = 64;        // output columns per block (16 threads x 4)
-constexpr size_t kStaticSmem = 48 * 1024;
+// ---------------------------------------------------------------------------
+// shared pieces
+// ---------------------------------------------------------------------------
 
-__host__ __device__ inline int table_stride(int n_codes) {
-  return (n_codes + 3) & ~3;  // keep the staged tiles 16-byte aligned
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int BM, int TM>
-__global__ void __launch_bounds__(kThreads)
-axo_matmul_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
-                  const float* __restrict__ sv, const float* __restrict__ ft,
-                  const float* __restrict__ gt, float* __restrict__ out, int m_total,
-                  int n_total, int k_total, int rank, int n_codes, int k_split) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Fill a (1+R, n_codes) table in shared memory: row 0 = sv, row 1+r =
+// fac[:, r].  Each thread reads 8 entries before it writes any, so their
+// loads are in flight together.  Returns, block-wide, whether every sv is
+// exact in TF32.
+__device__ bool fill_table(float* __restrict__ tab, const float* __restrict__ sv,
+                           const float* __restrict__ fac, int rank, int n_codes) {
+  constexpr int kBatch = 8;
+  const int r1 = rank + 1;
+  const int total = r1 * n_codes;
+  bool exact = true;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * blockDim.x) {
+    float x[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int j = i / n_codes;
+      const int c = i - j * n_codes;
+      x[u] = i >= total ? 0.f : j == 0 ? sv[c] : fac[c * rank + j - 1];
+      if (i < total && j == 0) exact = exact && (__float_as_uint(x[u]) & 0x1fffu) == 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < total) tab[i] = x[u];
+    }
+  }
+  return __syncthreads_and(exact);
+}
+
+// Split K: write this block's partial, and let the last block of the tile sum
+// all of them in split order into out.  The last block reads the partials 8
+// splits at a time (in flight together), 4 columns to a load where rows are
+// 16-byte aligned.
+__device__ void split_fixup(float* __restrict__ out, float* __restrict__ ws,
+                            int* __restrict__ counters, int splits, int m_total, int n_total,
+                            int m0, int rows, int n0, int cols) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    last = atomicAdd(&counters[tile], 1) == splits - 1;
+    if (last) counters[tile] = 0;   // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const size_t mn = static_cast<size_t>(m_total) * n_total;
+  const int rows_in = min(rows, m_total - m0);
+  const int cols_in = min(cols, n_total - n0);
+  constexpr int kBatch = 8;
+  if (n_total % 4 == 0 && n0 % 4 == 0) {   // cols_in is a multiple of 4 too
+    const int quads = cols_in / 4;
+    for (int e = threadIdx.x; e < rows_in * quads; e += blockDim.x) {
+      const int r = e / quads;
+      const size_t idx = static_cast<size_t>(m0 + r) * n_total + n0 + 4 * (e - r * quads);
+      float4 s = __ldcg(reinterpret_cast<const float4*>(ws + idx));
+      for (int z0 = 1; z0 < splits; z0 += kBatch) {
+        float4 v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (z0 + u < splits)
+            v[u] = __ldcg(reinterpret_cast<const float4*>(ws + (z0 + u) * mn + idx));
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (z0 + u < splits) {
+            s.x += v[u].x;
+            s.y += v[u].y;
+            s.z += v[u].z;
+            s.w += v[u].w;
+          }
+        }
+      }
+      *reinterpret_cast<float4*>(out + idx) = s;
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < rows_in * cols_in; e += blockDim.x) {
+    const int r = e / cols_in;
+    const size_t idx = static_cast<size_t>(m0 + r) * n_total + n0 + (e - r * cols_in);
+    float s = __ldcg(ws + idx);
+    for (int z0 = 1; z0 < splits; z0 += kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (z0 + u < splits) v[u] = __ldcg(ws + (z0 + u) * mn + idx);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (z0 + u < splits) s += v[u];
+    }
+    out[idx] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// route 1, M > 16: TF32 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 256;   // 8 warps: 2 along M x 4 along N
+constexpr int kTileM = 128;
+constexpr int kTileN = 128;
+constexpr int kStepK = 32;
+constexpr int kAStride = 48;       // bytes per staged A row: 32 codes + 16 pad
+constexpr int kBStride = 144;      // bytes per staged B row: 128 codes + 16 pad
+constexpr int kABytes = kTileM * kAStride;
+constexpr int kBBytes = kStepK * kBStride;
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away, as
+// cvt.rna.tf32.f32 rounds, here by an integer add and mask), lo = x - hi
+// exactly; the tensor core reads the top 19 bits of lo, dropping the rest.
+// Three full-rate ALU operations, where the conversion instruction would
+// issue at a quarter of the rate.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b for one 16x8 tile over 8 of k, TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage one 32-code step of A (128 x 32) and B (32 x 128) into shared memory:
+// 16-byte cp.async where the rows are 16-byte aligned, else byte loads.  Codes
+// past M, N or K are staged as 0 (their products are discarded or masked).
+__device__ void stage_step(uint8_t* as, uint8_t* bs, const uint8_t* __restrict__ a,
+                           const uint8_t* __restrict__ b, int m_total, int n_total,
+                           int k_total, int m0, int n0, int k0, int kend, bool a_vec,
+                           bool b_vec) {
+  const int tid = threadIdx.x;
+  {  // A: 128 rows x 2 pieces of 16
+    const int r = tid >> 1;
+    const int c = (tid & 1) * 16;
+    const int m = m0 + r;
+    const int k = k0 + c;
+    uint8_t* dst = as + r * kAStride + c;
+    if (a_vec) {
+      const bool in = m < m_total && k < kend;
+      cp_async16(dst, a + (in ? static_cast<size_t>(m) * k_total + k : 0), in ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (m < m_total) {
+        const uint8_t* src = a + static_cast<size_t>(m) * k_total;
+        for (int i = 0; i < 16; ++i)
+          if (k + i < kend) w[i >> 2] |= static_cast<uint32_t>(src[k + i]) << (8 * (i & 3));
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  {  // B: 32 rows x 8 pieces of 16
+    const int r = tid >> 3;
+    const int c = (tid & 7) * 16;
+    const int k = k0 + r;
+    const int n = n0 + c;
+    uint8_t* dst = bs + r * kBStride + c;
+    if (b_vec) {
+      const bool in = k < kend && n < n_total;
+      cp_async16(dst, b + (in ? static_cast<size_t>(k) * n_total + n : 0), in ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (k < kend) {
+        const uint8_t* src = b + static_cast<size_t>(k) * n_total;
+        for (int i = 0; i < 16; ++i)
+          if (n + i < n_total) w[i >> 2] |= static_cast<uint32_t>(src[n + i]) << (8 * (i & 3));
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+axo_mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+               const float* __restrict__ sv, const float* __restrict__ ft,
+               const float* __restrict__ gt, float* __restrict__ out, float* __restrict__ ws,
+               int* __restrict__ counters, int m_total, int n_total, int k_total, int rank,
+               int n_codes, int splits, int k_split, bool a_vec, bool b_vec) {
   extern __shared__ __align__(16) float smem[];
   const int r1 = rank + 1;
-  const int ts = table_stride(n_codes);
-  float* ta = smem;               // (1+R, ts): row 0 = sv, row 1+r = f[:, r]
-  float* tb = ta + r1 * ts;       // (1+R, ts): row 0 = sv, row 1+r = g[:, r]
-  float* as = tb + r1 * ts;       // ((1+R)*BK, BM) expanded A tile
-  float* bs = as + r1 * kBK * BM; // ((1+R)*BK, BN) expanded B tile
+  const int tsz = n_codes;                 // floats per table row
+  float* ta = smem;                        // (1+R, n_codes): [sv; f]
+  float* tb = ta + r1 * tsz;               // [sv; g]
+  uint8_t* as = reinterpret_cast<uint8_t*>(tb + r1 * tsz);   // 2 x (128, 48) A codes
+  uint8_t* bs = as + 2 * kABytes;                               // 2 x (32, 144) B codes
+
+  const int m0 = blockIdx.y * kTileM;
+  const int n0 = blockIdx.x * kTileN;
+  const int kb = blockIdx.z * k_split;
+  const int kend = min(k_total, kb + k_split);
+  const int n_steps = (kend - kb + kStepK - 1) / kStepK;
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = (warp >> 2) * 64;   // the warp's 64 x 32 piece of the tile
+  const int wn = (warp & 3) * 32;
   const int code_mask = n_codes - 1;
 
-  for (int i = tid; i < r1 * n_codes; i += kThreads) {
-    const int j = i / n_codes;
-    const int c = i - j * n_codes;
-    ta[j * ts + c] = j == 0 ? sv[c] : ft[c * rank + j - 1];
-    tb[j * ts + c] = j == 0 ? sv[c] : gt[c * rank + j - 1];
-  }
+  if (n_steps > 0)
+    stage_step(as, bs, a, b, m_total, n_total, k_total, m0, n0, kb, kend, a_vec, b_vec);
+  const bool sv_exact = fill_table(ta, sv, ft, rank, n_codes);
+  fill_table(tb, sv, gt, rank, n_codes);
 
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
-  const int kb = blockIdx.z * k_split;
-  const int ke = min(k_total, kb + k_split);
-  const int ty = tid / 16;
-  const int tx = tid - ty * 16;
+  float acc[4][4][4] = {};
 
-  float acc[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
-    __syncthreads();  // tables written; the previous step's tiles read
-    for (int i = tid; i < BM * kBK; i += kThreads) {
-      const int ml = i % BM;  // consecutive threads, consecutive rows: no conflicts
-      const int kk = i / BM;
-      const int m = m0 + ml;
-      const int k = k0 + kk;
-      const bool in = m < m_total && k < ke;
-      const int c = in ? (a[static_cast<size_t>(m) * k_total + k] & code_mask) : 0;
-      for (int j = 0; j < r1; ++j) as[(j * kBK + kk) * BM + ml] = in ? ta[j * ts + c] : 0.f;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int nl = i % kBN;  // consecutive threads read consecutive code bytes
-      const int kk = i / kBN;
-      const int n = n0 + nl;
-      const int k = k0 + kk;
-      const bool in = n < n_total && k < ke;
-      const int c = in ? (b[static_cast<size_t>(k) * n_total + n] & code_mask) : 0;
-      for (int j = 0; j < r1; ++j) bs[(j * kBK + kk) * kBN + nl] = in ? tb[j * ts + c] : 0.f;
+  for (int step = 0; step < n_steps; ++step) {
+    const int buf = step & 1;
+    const int k0 = kb + step * kStepK;
+    if (step + 1 < n_steps) {
+      stage_step(as + (buf ^ 1) * kABytes, bs + (buf ^ 1) * kBBytes, a, b, m_total, n_total,
+                 k_total, m0, n0, k0 + kStepK, kend, a_vec, b_vec);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    const int depth = r1 * kBK;
-    for (int kp = 0; kp < depth; ++kp) {
-      float av[TM];
+    const uint8_t* at = as + buf * kABytes;
+    const uint8_t* bt = bs + buf * kBBytes;
+    const int klim = kend - k0;   // codes of this step inside the split
+    // this step's sum starts from zero in the tensor core (see the header)
+    float tmp[4][4][4] = {};
+#pragma unroll 1
+    for (int s = 0; s < 4; ++s) {
+      // k slot t of the MMA holds code 8s + 2t of the step, slot t + 4 code
+      // 8s + 2t + 1: one 16-bit read gives a lane both of a row's codes
+      int oa[4][4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = as[kp * BM + ty * TM + i];
-      const float4 bv = *reinterpret_cast<const float4*>(bs + kp * kBN + tx * 4);
+      for (int i = 0; i < 4; ++i) {
+        const int row = wm + i * 16 + g;
+        const uint32_t lo = *reinterpret_cast<const uint16_t*>(at + row * kAStride + 8 * s + 2 * t);
+        const uint32_t hi =
+            *reinterpret_cast<const uint16_t*>(at + (row + 8) * kAStride + 8 * s + 2 * t);
+        oa[i][0] = (lo & 0xff) & code_mask;
+        oa[i][1] = (hi & 0xff) & code_mask;
+        oa[i][2] = (lo >> 8) & code_mask;
+        oa[i][3] = (hi >> 8) & code_mask;
+      }
+      int ob[4][2];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        acc[i][0] = fmaf(av[i], bv.x, acc[i][0]);
-        acc[i][1] = fmaf(av[i], bv.y, acc[i][1]);
-        acc[i][2] = fmaf(av[i], bv.z, acc[i][2]);
-        acc[i][3] = fmaf(av[i], bv.w, acc[i][3]);
+      for (int jn = 0; jn < 4; ++jn) {
+        const int col = wn + jn * 8 + g;
+        ob[jn][0] = bt[(8 * s + 2 * t) * kBStride + col] & code_mask;
+        ob[jn][1] = bt[(8 * s + 2 * t + 1) * kBStride + col] & code_mask;
+      }
+      const bool v0 = 8 * s + 2 * t < klim;
+      const bool v1 = 8 * s + 2 * t + 1 < klim;
+      // table rows from the last factor down to the values: the small terms
+      // enter the accumulator first, so its rounding toward zero stays small
+      // against them (tests/test_torch_kernel_design.py)
+#pragma unroll 1
+      for (int j = rank; j >= (sv_exact ? 1 : 0); --j) {   // three passes per row
+        const float* taj = ta + j * tsz;
+        const float* tbj = tb + j * tsz;
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(taj[oa[i][e]], ah[i][e], al[i][e]);
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(v0 ? tbj[ob[jn][0]] : 0.f, bh0, bl0);
+          split_tf32(v1 ? tbj[ob[jn][1]] : 0.f, bh1, bl1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            mma_tf32(tmp[i][jn], al[i], bh0, bh1);
+            mma_tf32(tmp[i][jn], ah[i], bl0, bl1);
+            mma_tf32(tmp[i][jn], ah[i], bh0, bh1);
+          }
+        }
+      }
+      if (sv_exact) {   // the value part: one pass, exact
+        uint32_t af[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) af[i][e] = __float_as_uint(ta[oa[i][e]]);
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn) {
+          const uint32_t b0 = v0 ? __float_as_uint(tb[ob[jn][0]]) : 0u;
+          const uint32_t b1 = v1 ? __float_as_uint(tb[ob[jn][1]]) : 0u;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(tmp[i][jn], af[i], b0, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][jn][e] += tmp[i][jn][e];
+    __syncthreads();   // this buffer is read before the next stage overwrites it
+  }
+
+  float* dst = splits > 1 ? ws + static_cast<size_t>(blockIdx.z) * m_total * n_total : out;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      const int col = n0 + wn + jn * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm + i * 16 + g + 8 * h;
+        if (row >= m_total) continue;
+        float* p = dst + static_cast<size_t>(row) * n_total + col;
+        if (col < n_total) p[0] = acc[i][jn][2 * h];
+        if (col + 1 < n_total) p[1] = acc[i][jn][2 * h + 1];
+      }
+    }
+  }
+  if (splits > 1)
+    split_fixup(out, ws, counters, splits, m_total, n_total, m0, kTileM, n0, kTileN);
+}
+
+// ---------------------------------------------------------------------------
+// route 2, M <= 16: f32 GEMV
+// ---------------------------------------------------------------------------
+
+constexpr int kGemvThreads = 128;   // 4 warps over interleaved rows of K
+constexpr int kGemvWarps = 4;
+constexpr int kGemvCols = 512;      // 32 lanes x 16 columns
+constexpr int kChunkK = 32;         // K rows expanded per shared-memory chunk
+constexpr int kRing = 4;            // rows of codes a warp keeps in flight
+
+// The 16 codes of columns [col, col + 16) of one row, as raw words: one
+// aligned 16-byte load (two where the row is not 16-byte aligned; off is the
+// misalignment) or, at the very end of b, byte loads.
+struct Window {
+  uint4 u0, u1;
+  int off;
+};
+
+__device__ __forceinline__ Window fetch(const uint8_t* __restrict__ b, size_t idx,
+                                        size_t total) {
+  Window w;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(b + idx);
+  const uintptr_t base = addr & ~static_cast<uintptr_t>(15);
+  w.off = static_cast<int>(addr & 15);
+  if (base >= reinterpret_cast<uintptr_t>(b) &&
+      base + 32 <= reinterpret_cast<uintptr_t>(b + total)) {
+    const uint4* p = reinterpret_cast<const uint4*>(base);
+    w.u0 = __ldg(p);
+    w.u1 = w.off ? __ldg(p + 1) : make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    uint32_t x[4] = {0u, 0u, 0u, 0u};
+    for (int i = 0; i < 16; ++i)
+      if (idx + i < total) x[i >> 2] |= static_cast<uint32_t>(b[idx + i]) << (8 * (i & 3));
+    w.u0 = make_uint4(x[0], x[1], x[2], x[3]);
+    w.u1 = make_uint4(0u, 0u, 0u, 0u);
+    w.off = 0;
+  }
+  return w;
+}
+
+__device__ __forceinline__ void window_words(const Window& w, uint32_t (&out)[4]) {
+  uint32_t x[8] = {w.u0.x, w.u0.y, w.u0.z, w.u0.w, w.u1.x, w.u1.y, w.u1.z, w.u1.w};
+  const int sh = w.off >> 2;
+  if (sh & 2) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) x[i] = x[i + 2];
+  }
+  if (sh & 1) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) x[i] = x[i + 1];
+  }
+  const int bits = 8 * (w.off & 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = __funnelshift_r(x[i], x[i + 1], bits);
+}
+
+template <int MT>
+__device__ __forceinline__ void load_rows(const float* p, float (&v)[MT]) {
+  if constexpr (MT % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < MT; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x;
+      v[i + 1] = q.y;
+      v[i + 2] = q.z;
+      v[i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) v[i] = p[i];
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kGemvThreads)
+axo_gemv_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+                const float* __restrict__ sv, const float* __restrict__ ft,
+                const float* __restrict__ gt, float* __restrict__ out, float* __restrict__ ws,
+                int* __restrict__ counters, int m_total, int n_total, int k_total, int rank,
+                int n_codes, int splits, int k_split) {
+  extern __shared__ __align__(16) float smem[];
+  const int r1 = rank + 1;
+  const int tsz = n_codes;
+  constexpr int kPass = MT < 4 ? MT : 4;   // rows of partial sums reduced at a time
+  float* tb = smem;   // (1+R, n_codes): [sv; g], then the warps' partial sums
+  float* ta = tb + max(r1 * tsz, kGemvWarps * kPass * kGemvCols);   // (1+R, n_codes): [sv; f]
+  float* work = ta + r1 * n_codes;   // the chunk's (kChunkK, 1+R, MT) activation values
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n0 = blockIdx.x * kGemvCols;
+  const int m0 = blockIdx.y * MT;
+  const int kb = blockIdx.z * k_split;
+  const int kend = min(k_total, kb + k_split);
+  const int code_mask = n_codes - 1;
+  const size_t total = static_cast<size_t>(k_total) * n_total;
+  const int col = n0 + lane * 16;
+
+  fill_table(ta, sv, ft, rank, n_codes);
+  fill_table(tb, sv, gt, rank, n_codes);
+
+  float acc[MT][16];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[m][c] = 0.f;
+
+  // warp w takes rows kb + w + 4t of the split; the codes of the next
+  // kRing of its rows are in flight while it works on one
+  constexpr int kPerChunk = kChunkK / kGemvWarps;   // rows a warp takes per chunk
+  Window ring[kRing];
+#pragma unroll
+  for (int i = 0; i < kRing; ++i) {
+    const int row = kb + warp + kGemvWarps * i;
+    if (row < kend) ring[i] = fetch(b, static_cast<size_t>(row) * n_total + col, total);
+  }
+  for (int c0 = kb; c0 < kend; c0 += kChunkK) {
+    const int rows = min(kChunkK, kend - c0);
+    __syncthreads();   // the previous chunk is read before it is overwritten
+    for (int e = tid; e < kChunkK * MT; e += kGemvThreads) {
+      const int kk = e / MT;
+      const int m = e - kk * MT;
+      const bool in = kk < rows && m0 + m < m_total;
+      const int code =
+          in ? (a[static_cast<size_t>(m0 + m) * k_total + c0 + kk] & code_mask) : 0;
+      float* dst = work + kk * r1 * MT + m;
+      for (int j = 0; j < r1; ++j) dst[j * MT] = in ? ta[j * n_codes + code] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kPerChunk; ++i) {
+      const int kk = warp + kGemvWarps * i;
+      if (kk >= rows) break;
+      const Window cur = ring[i % kRing];
+      const int ahead = c0 + kk + kGemvWarps * kRing;
+      if (ahead < kend)
+        ring[i % kRing] = fetch(b, static_cast<size_t>(ahead) * n_total + col, total);
+      uint32_t words[4];
+      window_words(cur, words);
+      int off[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        off[c] = (words[c >> 2] >> (8 * (c & 3))) & code_mask;
+      const float* av = work + kk * r1 * MT;
+#pragma unroll 1
+      for (int j = 0; j < r1; ++j) {
+        float x[MT];
+        load_rows<MT>(av + j * MT, x);
+        const float* tbj = tb + j * tsz;
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const float w = tbj[off[c]];
+#pragma unroll
+          for (int m = 0; m < MT; ++m) acc[m][c] = fmaf(x[m], w, acc[m][c]);
+        }
       }
     }
   }
 
-  float* dst = out + static_cast<size_t>(blockIdx.z) * m_total * n_total;
+  // sum the 4 warps' partials in warp order, up to 4 rows at a time
+  float* dst = splits > 1 ? ws + static_cast<size_t>(blockIdx.z) * m_total * n_total : out;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= m_total) continue;
+  for (int p0 = 0; p0 < MT; p0 += kPass) {
+    __syncthreads();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < n_total) dst[static_cast<size_t>(m) * n_total + n] = acc[i][j];
+    for (int m = 0; m < kPass; ++m) {
+      float* red = tb + (warp * kPass + m) * kGemvCols + lane * 16;
+#pragma unroll
+      for (int c = 0; c < 16; c += 4)
+        *reinterpret_cast<float4*>(red + c) =
+            make_float4(acc[p0 + m][c], acc[p0 + m][c + 1], acc[p0 + m][c + 2],
+                        acc[p0 + m][c + 3]);
+    }
+    __syncthreads();
+    for (int e = tid; e < kPass * kGemvCols; e += kGemvThreads) {
+      const int m = e / kGemvCols;
+      const int cc = e - m * kGemvCols;
+      const int row = m0 + p0 + m;
+      const int n = n0 + cc;
+      if (row >= m_total || n >= n_total) continue;
+      float s = tb[m * kGemvCols + cc];
+      for (int w = 1; w < kGemvWarps; ++w) s += tb[(w * kPass + m) * kGemvCols + cc];
+      dst[static_cast<size_t>(row) * n_total + n] = s;
     }
   }
+  if (splits > 1)
+    split_fixup(out, ws, counters, splits, m_total, n_total, m0, MT, n0, kGemvCols);
 }
 
-// out[i] = sum_z parts[z, i], in split order.
-__global__ void split_sum_kernel(const float* __restrict__ parts, float* __restrict__ out,
-                                 int splits, size_t mn) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < mn;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += parts[z * mn + i];
-    out[i] = s;
-  }
+// Dynamic shared memory a block of each route takes, in the layout the kernels
+// above carve it into.
+size_t mma_smem(int r1, int n_codes) {
+  return (2 * static_cast<size_t>(r1) * n_codes) * sizeof(float) + 2 * (kABytes + kBBytes);
 }
 
-template <int BM, int TM>
-cudaError_t launch(const uint8_t* a, const uint8_t* b, const float* sv, const float* ft,
-                   const float* gt, float* dst, int m, int n, int k, int rank,
-                   int n_codes, int splits, int k_split, size_t smem,
-                   cudaStream_t stream) {
-  if (smem > kStaticSmem) {
-    cudaError_t err = cudaFuncSetAttribute(axo_matmul_kernel<BM, TM>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((n + kBN - 1) / kBN, (m + BM - 1) / BM, splits);
-  axo_matmul_kernel<BM, TM><<<grid, kThreads, smem, stream>>>(
-      a, b, sv, ft, gt, dst, m, n, k, rank, n_codes, k_split);
+size_t gemv_smem(int mt, int r1, int n_codes) {
+  const int pass = mt < 4 ? mt : 4;
+  return (static_cast<size_t>(max(r1 * n_codes, kGemvWarps * pass * kGemvCols)) +
+          static_cast<size_t>(r1) * n_codes + static_cast<size_t>(kChunkK) * r1 * mt) *
+         sizeof(float);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int MT>
+cudaError_t launch_gemv(const uint8_t* a, const uint8_t* b, const float* sv, const float* ft,
+                        const float* gt, float* out, float* ws, int* counters, int m, int n,
+                        int k, int rank, int n_codes, int splits, int k_split,
+                        size_t smem, cudaStream_t stream) {
+  cudaError_t err = allow_smem(axo_gemv_kernel<MT>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kGemvCols - 1) / kGemvCols, (m + MT - 1) / MT, splits);
+  axo_gemv_kernel<MT><<<grid, kGemvThreads, smem, stream>>>(
+      a, b, sv, ft, gt, out, ws, counters, m, n, k, rank, n_codes, splits, k_split);
   return cudaGetLastError();
-}
-
-// The shared memory one block of the given tile height needs (kernels/
-// axo_matmul.py plans with the same formula).
-size_t smem_bytes(int bm, int rank, int n_codes) {
-  const size_t r1 = static_cast<size_t>(rank) + 1;
-  return (2 * r1 * table_stride(n_codes) + r1 * kBK * (bm + kBN)) * sizeof(float);
 }
 
 }  // namespace
 
-// bm is 16 (decode-sized M) or 64.  With splits > 1, ws holds splits * m * n
-// floats of partials and out receives their sum; with splits == 1 ws is unused.
+// route 0 = GEMV (rows = MT, 1/2/4/8 rows per block), 1 = tensor cores.
+// With splits > 1, ws holds splits * m * n floats of partials and counters
+// n_counters zeroed ints, one per output tile (left zeroed).  smem is the
+// dynamic shared memory plan() computed for the launch.  Returns a cudaError_t,
+// or kLayoutMismatch where the plan disagrees with this file's layout: smem
+// not what the route's block takes, a split not whole k-steps, a row count
+// the GEMV is not built for, or fewer counters than output tiles.
+constexpr int kLayoutMismatch = -1;
+
 extern "C" int axo_matmul_launch(const void* a, const void* b, const void* sv,
                                  const void* ft, const void* gt, void* out, void* ws,
-                                 int m, int n, int k, int rank, int n_codes, int bm,
-                                 int splits, int k_split, void* stream) {
+                                 void* counters, int n_counters, int m, int n, int k,
+                                 int rank, int n_codes, int route, int rows, int splits,
+                                 int k_split, long long smem, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  float* dst = static_cast<float*>(splits > 1 ? ws : out);
-  const size_t smem = smem_bytes(bm, rank, n_codes);
   const auto* ap = static_cast<const uint8_t*>(a);
   const auto* bp = static_cast<const uint8_t*>(b);
   const auto* svp = static_cast<const float*>(sv);
   const auto* fp = static_cast<const float*>(ft);
   const auto* gp = static_cast<const float*>(gt);
-  cudaError_t err;
-  if (bm == 16) {
-    err = launch<16, 1>(ap, bp, svp, fp, gp, dst, m, n, k, rank, n_codes, splits, k_split,
-                        smem, s);
-  } else if (bm == 64) {
-    err = launch<64, 4>(ap, bp, svp, fp, gp, dst, m, n, k, rank, n_codes, splits, k_split,
-                        smem, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  auto* op = static_cast<float*>(out);
+  auto* wp = static_cast<float*>(ws);
+  auto* cnt = static_cast<int*>(counters);
+  const size_t sm = static_cast<size_t>(smem);
+  const int r1 = rank + 1;
+  if (route == 1) {
+    const dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM, splits);
+    if (k_split % kStepK || sm != mma_smem(r1, n_codes) ||
+        (splits > 1 && static_cast<long long>(grid.x) * grid.y > n_counters))
+      return kLayoutMismatch;
+    cudaError_t err = allow_smem(axo_mma_kernel, sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool a_vec = k % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+    const bool b_vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+    axo_mma_kernel<<<grid, kMmaThreads, sm, s>>>(ap, bp, svp, fp, gp, op, wp, cnt, m, n, k,
+                                                 rank, n_codes, splits, k_split, a_vec, b_vec);
+    return static_cast<int>(cudaGetLastError());
   }
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t mn = static_cast<size_t>(m) * n;
-  const int blocks = static_cast<int>(std::min<size_t>((mn + 255) / 256, 4096));
-  split_sum_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(ws),
-                                          static_cast<float*>(out), splits, mn);
-  return static_cast<int>(cudaGetLastError());
+  auto* fn = rows == 1 ? &launch_gemv<1> : rows == 2 ? &launch_gemv<2>
+            : rows == 4 ? &launch_gemv<4> : rows == 8 ? &launch_gemv<8> : nullptr;
+  const long long tiles = static_cast<long long>((n + kGemvCols - 1) / kGemvCols) *
+                          ((m + rows - 1) / (rows > 0 ? rows : 1));
+  if (route != 0 || fn == nullptr || k_split % kChunkK || sm != gemv_smem(rows, r1, n_codes) ||
+      (splits > 1 && tiles > n_counters))
+    return kLayoutMismatch;
+  const cudaError_t err = fn(ap, bp, svp, fp, gp, op, wp, cnt, m, n, k, rank, n_codes, splits,
+                             k_split, sm, s);
+  return static_cast<int>(err);
 }

@@ -16,9 +16,14 @@ transposed); the output has ``q``'s layout.
 
 The plain version is ``ref.ref_flash_attention``'s direct masked softmax with
 the offset and ``kv_len`` added, computed in f32 and rounded once to the input
-type (the kernel keeps its softmax weights in f32 too).  On a CPU tensor the
-wrapper returns it; on a CUDA tensor it launches the kernel or raises.
-``flash_attention.launches`` counts kernel launches.
+type.  The bf16 kernel runs both products on the tensor cores and carries its
+softmax weights as a bf16 hi + lo pair (``tests/test_torch_kernel_design.py``
+emulates that in plain torch); the f32 kernel keeps them in f32.  For bf16
+every row of q, k, v and the output must start on a 16-byte boundary: the
+kernel copies K/V rows in 16-byte pieces, its launcher refuses a view that
+breaks that, and the wrapper raises.  On a CPU tensor the wrapper returns the plain version; on a
+CUDA tensor it launches the kernel or raises.  ``flash_attention.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
 
-HEAD_DIMS = (16, 32, 64)   # head widths the kernel is built for (one row in registers)
+HEAD_DIMS = (16, 32, 64)   # head widths the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MISALIGNED = -1           # the launcher's answer to a bf16 row off a 16-byte boundary
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -120,6 +126,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _DTYPES[q.dtype], b, h, k.shape[1], sq, hd, scale, int(causal), q_offset,
         kv_len, stream,
     )
+    if err == _MISALIGNED:
+        raise ValueError("K7 in bf16 needs every row of q, k, v and out on a 16-byte "
+                         "boundary: data at " + ", ".join(
+                             f"{t.data_ptr():#x} strides {tuple(t.stride())}"
+                             for t in (q, k, v, out)))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1

@@ -150,14 +150,16 @@ def test_k6_wrapper_checks_and_plans(ops):
         k6.axo_matmul(a, b, f[:100].contiguous(), g[:100].contiguous(), sv[:100].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         k6.axo_matmul(a, torch.zeros((8, 16), dtype=torch.uint8).T, f, g, sv)
-    # decode shapes split K until the grid fills two waves; prefill does not
-    bm, splits, k_split, smem = k6.plan(4, 2048, 2048, 8, 256)
-    assert (bm, splits, k_split) == (16, 8, 256) and splits * k_split >= 2048
-    assert k6.plan(512, 8192, 2048, 8, 256)[:2] == (64, 1)
-    assert k6.plan(4, 49155, 2048, 8, 256)[1] == 1
-    bm, splits, k_split, _ = k6.plan(4, 2048, 8192, 8, 256)
-    assert k_split % 8 == 0 and (splits - 1) * k_split < 8192 <= splits * k_split
-    assert smem <= k6.MAX_SMEM and k6.plan(4, 64, 64, 16, 256)[3] <= k6.MAX_SMEM
+    # decode shapes take the GEMV route and split K until the grid fills two
+    # waves; prefill takes the tensor cores and does not split
+    pl = k6.plan(4, 2048, 2048, 8, 256)
+    assert pl[:4] == ("gemv", 4, 64, 32) and pl.splits * pl.k_split >= 2048
+    assert k6.plan(512, 8192, 2048, 8, 256)[:3] == ("mma", 128, 1)
+    assert k6.plan(4, 49155, 2048, 8, 256).splits == 8
+    pl2 = k6.plan(4, 2048, 8192, 8, 256)
+    assert pl2.k_split % 32 == 0
+    assert (pl2.splits - 1) * pl2.k_split < 8192 <= pl2.splits * pl2.k_split
+    assert pl.smem <= k6.MAX_SMEM and k6.plan(4, 64, 64, 16, 256).smem <= k6.MAX_SMEM
 
 
 @pytest.mark.parametrize("lead", [(6,), (2, 5)])

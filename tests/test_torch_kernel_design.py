@@ -1,0 +1,290 @@
+"""The numerical designs of K6 (AxO matmul) and K7 (flash attention),
+emulated in plain torch on the CPU.
+
+K6's tensor-core route feeds TF32 operands (10 stored mantissa bits) to
+``mma.sync``: the integer operand values in one pass, each factor split as
+hi + lo in three (hi.hi + hi.lo + lo.hi), each 32-code step summed from zero
+in the tensor core and added to the running sum in IEEE f32.  K7's bf16
+kernel carries its softmax weights p as a bf16 hi + lo pair through P.V.
+These tests hold the emulated designs to the contracts the card checks:
+K6 within 1e-5 relative norm of an f64 result, K7 within 2^-7 of the output's
+largest magnitude of the plain version, and they check that ``plan`` routes
+and splits as the kernel expects.  No card is needed.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.axo import AxOOperator
+from repro_torch.kernels import axo_matmul as k6
+from repro_torch.kernels import flash_attention as k7
+from repro_torch.launch.serve import demo_operator
+
+REL = 1e-5
+
+
+# -- K6's tensor-core arithmetic, emulated ---------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 stored mantissa bits), nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = x.contiguous().view(torch.int32)
+    bits = (bits + 0x1000) & -0x2000     # add half of the 13 dropped bits, clear them
+    return bits.view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 truncated to TF32: the 13 low mantissa bits cleared, as the tensor
+    core reads a TF32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor, f_table: torch.Tensor,
+                    g_table: torch.Tensor, signed_vals: torch.Tensor, *, passes: int = 3,
+                    chain: int | None = None) -> torch.Tensor:
+    """The tensor-core route's arithmetic in plain torch (f64 sums): the
+    values in one pass (exact in TF32), the factors in ``passes`` (1: hi.hi;
+    3: lo.hi + hi.lo + hi.hi), with hi = x rounded to TF32 and lo = x - hi
+    truncated to TF32, as the kernel splits them and the tensor core reads
+    them.  With ``chain`` the sum also rounds as the tensor core's
+    accumulator is modelled here: each 8-code MMA adds its exact products to
+    the accumulator and rounds the result toward zero to f32, and every
+    ``chain`` codes of K the accumulator restarts from zero and is added to
+    the running f32 sum with IEEE rounding.  Within a chain the terms come in
+    the kernel's order (its ``chain`` is its 32-code step): 8 codes at a
+    time, the table rows from the last factor down to the values, each
+    factor lo.hi, hi.lo, hi.hi."""
+    a = a_codes.long()
+    b = b_codes.long()
+    sv = tf32_trunc(signed_vals.float())
+    rows = [[(sv[a].double(), sv[b].double())]]
+    for r in range(f_table.shape[1]):
+        fa, gb = f_table[:, r].float()[a], g_table[:, r].float()[b]
+        fh, gh = tf32_round(fa), tf32_round(gb)
+        row = [(fh.double(), gh.double())]
+        if passes == 3:
+            row = [(tf32_trunc(fa - fh).double(), gh.double()),
+                   (fh.double(), tf32_trunc(gb - gh).double())] + row
+        rows.append(row)
+    if chain is None:
+        return sum(x @ y for row in rows for x, y in row).float()
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.zeros((m, n), dtype=torch.float32)
+    for c0 in range(0, k, chain):
+        acc = torch.zeros((m, n), dtype=torch.float64)
+        for k0 in range(c0, min(k, c0 + chain), 8):
+            for row in reversed(rows):
+                for x, y in row:
+                    acc = _round_toward_zero(acc + x[:, k0:k0 + 8] @ y[k0:k0 + 8])
+        out = out + acc.float()
+    return out
+
+
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> the f32 value next to it toward zero, kept in f64."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f).double()
+
+
+# -- K7's softmax weights, emulated ----------------------------------------
+
+def p_hi_lo(p: torch.Tensor) -> torch.Tensor:
+    """The softmax weights as the bf16 kernel feeds them to P.V: bf16(p) + bf16(p - bf16(p))."""
+    hi = p.to(torch.bfloat16).float()
+    return hi + (p - hi).to(torch.bfloat16).float()
+
+
+@pytest.fixture(scope="module")
+def operators():
+    """The serve path's demo operator and a random 36-bit config, whose error
+    table (and so its factor part) dominates the product."""
+    cfg = np.random.default_rng(36).integers(0, 2, 36).astype(np.uint8)
+    return {"demo": demo_operator(8), "random36": AxOOperator.from_config(cfg, rank=8)}
+
+
+def _tables(op):
+    return tuple(torch.from_numpy(np.ascontiguousarray(t, np.float32))
+                 for t in (op.f_table, op.g_table, op.signed_vals))
+
+
+def _codes(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.uint8)),
+            torch.from_numpy(rng.integers(0, 256, (k, n)).astype(np.uint8)))
+
+
+def _f64(a, b, f, g, sv):
+    a, b = a.long(), b.long()
+    out = sv.double()[a] @ sv.double()[b]
+    for r in range(f.shape[1]):
+        out += f[:, r].double()[a] @ g[:, r].double()[b]
+    return out
+
+
+def _rel(got, want) -> float:
+    return float(torch.linalg.vector_norm(got.double() - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def test_tf32_round_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                      -(1.0 + 3 * 2.0 ** -11), 3.0e38], dtype=torch.float32)
+    got = tf32_round(x)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0,
+                         -(1.0 + 2.0 ** -9), 3.0e38], dtype=torch.float32)
+    assert torch.equal(got[:5], want[:5])
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    err = ((tf32_round(y) - y) / y).abs().max()
+    assert float(err) <= 2.0 ** -11
+
+
+def test_signed_values_are_exact_in_tf32(operators):
+    """The value part takes one TF32 pass: every 8-bit code's value survives."""
+    codes = torch.arange(-128, 128, dtype=torch.float32)
+    assert torch.equal(tf32_round(codes), codes)
+    for op in operators.values():
+        sv = torch.from_numpy(op.signed_vals.astype(np.float32))
+        assert sv.numel() == 256 and torch.equal(tf32_round(sv), sv)
+
+
+@pytest.mark.parametrize("name", ["demo", "random36"])
+def test_three_pass_tf32_holds_the_contract(operators, name):
+    """hi/lo split of the factors at M=64, K=2048, N=256: three passes sit far
+    under 1e-5; one pass misses it where the factor part dominates."""
+    f, g, sv = _tables(operators[name])
+    a, b = _codes(64, 2048, 256, 1)
+    want = _f64(a, b, f, g, sv)
+    three = _rel(tf32_matmul(a, b, f, g, sv, passes=3), want)
+    one = _rel(tf32_matmul(a, b, f, g, sv, passes=1), want)
+    assert three < REL / 100, three
+    assert three < one
+    if name == "random36":
+        assert one > REL, one
+
+
+@pytest.mark.parametrize("name", ["demo", "random36"])
+def test_tensor_core_sum_restarts_every_step(operators, name):
+    """With the accumulator rounding toward zero after every 8-code MMA, the
+    kernel's 32-code restarts hold 1e-5; one chain over all of K does not hold
+    it for the random config."""
+    f, g, sv = _tables(operators[name])
+    a, b = _codes(32, 2048, 64, 2)
+    want = _f64(a, b, f, g, sv)
+    step = _rel(tf32_matmul(a, b, f, g, sv, chain=k6.MMA_KSTEP), want)
+    assert step < REL, step
+    if name == "random36":
+        whole = _rel(tf32_matmul(a, b, f, g, sv, chain=2048), want)
+        assert whole > REL > step, (whole, step)
+
+
+@pytest.mark.parametrize("m, k, n", [(1, 2048, 2048), (4, 2048, 8192), (4, 8192, 2048),
+                                     (4, 2048, 49155), (8, 768, 50280), (16, 2048, 2048),
+                                     (17, 2048, 2048), (64, 1000, 77), (512, 2048, 8192),
+                                     (512, 2048, 512), (5, 40, 3)])
+@pytest.mark.parametrize("rank", [8, 16])
+def test_plan_routes_by_m_with_whole_steps(m, k, n, rank):
+    pl = k6.plan(m, n, k, rank, 256)
+    if m <= k6.GEMV_M:
+        assert pl.route == "gemv" and pl.rows in (1, 2, 4, 8) and pl.rows >= min(m, 8)
+        assert pl.rows < 2 * min(m, 8)              # no more than the next power of two
+        assert pl.tiles == -(-n // k6.GEMV_COLS) * -(-m // pl.rows)
+        step = k6.GEMV_KSTEP
+    else:
+        assert pl.route == "mma" and pl.rows == k6.MMA_TILE
+        assert pl.tiles == -(-n // k6.MMA_TILE) * -(-m // k6.MMA_TILE)
+        step = k6.MMA_KSTEP
+    assert pl.k_split % step == 0
+    assert (pl.splits - 1) * pl.k_split < k <= pl.splits * pl.k_split
+    assert pl.smem <= k6.MAX_SMEM
+    if pl.route == "gemv":
+        assert pl.smem <= k6.MAX_SMEM // 2          # two blocks per SM
+        assert pl.splits <= k6.GEMV_MAX_SPLITS
+    else:
+        assert pl.splits <= k6.MMA_MAX_SPLITS
+    per_sm = k6.GEMV_PER_SM if pl.route == "gemv" else k6.MMA_PER_SM
+    assert pl.splits == 1 or pl.tiles < 4 * per_sm * k6.H100_SMS
+
+
+@pytest.mark.parametrize("m, k, n", [(4, 2048, 8192), (4, 2048, 49155), (512, 2048, 2048)])
+def test_plan_splits_less_on_a_card_with_fewer_sms(m, k, n):
+    """The wave the splits fill is the card's SM count: half the SMs never
+    take more splits, and the plan stays whole k-steps."""
+    full, half = k6.plan(m, n, k, 8, 256), k6.plan(m, n, k, 8, 256, n_sms=k6.H100_SMS // 2)
+    assert half.splits <= full.splits and half[:2] == full[:2]
+    assert half.k_split % (k6.GEMV_KSTEP if m <= k6.GEMV_M else k6.MMA_KSTEP) == 0
+
+
+def test_plan_at_the_serve_shapes():
+    # granite decode: the gate/up projection's 16 tiles split K 16 ways (one
+    # wave of 256 blocks); k/v's single tile splits it 64 ways; the head's 97
+    # tiles 8 ways (three full waves)
+    assert k6.plan(4, 8192, 2048, 8, 256)[:4] == ("gemv", 4, 16, 128)
+    assert k6.plan(4, 512, 2048, 8, 256)[:4] == ("gemv", 4, 64, 32)
+    assert k6.plan(4, 49155, 2048, 8, 256)[:4] == ("gemv", 4, 8, 256)
+    # mamba2's head: 8 rows, no padding
+    assert k6.plan(8, 50280, 768, 8, 256)[:3] == ("gemv", 8, 5)
+    # granite prefill: the gate/up tiles fill two waves, no split; q/o's 64
+    # tiles split K in two
+    assert k6.plan(512, 8192, 2048, 8, 256)[:3] == ("mma", 128, 1)
+    assert k6.plan(512, 2048, 2048, 8, 256)[:3] == ("mma", 128, 2)
+    assert k6.plan(16, 64, 64, 8, 256).route == "gemv"
+    assert k6.plan(17, 64, 64, 8, 256).route == "mma"
+
+
+def _k7_emulated(q, k, v, kv_len, hi_lo=True):
+    """K7's bf16 kernel in plain f32: online softmax over 64-key tiles in the
+    exp2 domain, p fed to P.V as bf16 hi + lo (or bf16 alone), output rounded
+    once to bf16.  Causal, no offset."""
+    b, h, sq, hd = q.shape
+    rep = h // k.shape[1]
+    kh = k[:, :, :kv_len].float().repeat_interleave(rep, dim=1)
+    vh = v[:, :, :kv_len].float().repeat_interleave(rep, dim=1)
+    qf = q.float()
+    scale = math.log2(math.e) / math.sqrt(hd)
+    m = torch.full((b, h, sq, 1), -math.inf)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, hd))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, kv_len, 64):
+        s = qf @ kh[:, :, k0:k0 + 64].transpose(2, 3) * scale
+        kpos = torch.arange(k0, min(k0 + 64, kv_len))[None, :]
+        s = s.masked_fill(kpos > qpos, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = p_hi_lo(p) if hi_lo else p.to(torch.bfloat16).float()
+        acc = acc * alpha + pv @ vh[:, :, k0:k0 + 64]
+        m = m_new
+    return (acc / l).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("s, cap", [(128, 144), (77, 93)])
+def test_k7_hi_lo_p_keeps_the_bf16_contract(s, cap):
+    """At the two serve shapes of chip_smoke.py (B=4, H=32, G=8, hd=64), p as
+    bf16 hi + lo stays within 2^-7 of max|out| of the plain version, and
+    closer than bf16 p alone."""
+    rng = np.random.default_rng(s)
+    q = torch.from_numpy(rng.standard_normal((4, 32, s, 64)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((4, 8, cap, 64)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    want = k7.flash_attention_plain(q, k, v, kv_len=s).float()
+    scale = float(want.abs().max())
+    err_pair = float((_k7_emulated(q, k, v, s).float() - want).abs().max()) / scale
+    err_bf16 = float((_k7_emulated(q, k, v, s, hi_lo=False).float() - want).abs().max()) / scale
+    assert err_pair <= 2.0 ** -7, err_pair
+    assert err_pair <= err_bf16, (err_pair, err_bf16)
+
+
+def test_p_hi_lo_carries_sixteen_bits():
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(rng.random(10000).astype(np.float32))
+    rel = ((p_hi_lo(p) - p).abs() / p).max()
+    assert float(rel) <= 2.0 ** -16

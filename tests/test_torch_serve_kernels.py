@@ -3,9 +3,11 @@ their plain versions on the card, and the serving paths through them.
 
 Every test here needs an NVIDIA card (marked ``gpu``) and skips without one;
 nothing here imports JAX, so the card's host runs them.  Tolerances: K6 to
-1e-5 relative norm (the reference's ``axo_matmul`` tolerance; both sum IEEE
-f32 products, in other orders); K7 in f32 to 2e-6 of the output's scale and
-in bf16 to one bf16 ulp (2^-7) of it, since both round one f32 result.  K8
+1e-5 relative norm (the reference's ``axo_matmul`` tolerance; the GEMV route
+sums IEEE f32 products in another order, the tensor-core route three-pass
+TF32 products, tests/test_torch_kernel_design.py); K7 in f32 to 2e-6 of the
+output's scale and in bf16 to one bf16 ulp (2^-7) of it, since both round
+one f32 result (the bf16 kernel's p carried as bf16 hi + lo).  K8
 computes in f32 over other chunk lengths than its plain version (32 against
 the model's 128), so the two differ by f32 rounding: y in f32 to 1e-5 of the
 output's scale, in bf16 to one bf16 ulp of it; the f32 final state to 1e-5
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.axo import AxOOperator
 from repro_torch.core.operator_model import accurate_config, spec_for
+from repro_torch.launch.serve import demo_operator
 from repro_torch.kernels import axo_matmul as k6
 from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import ssd_scan as k8
@@ -35,6 +38,18 @@ def _tables(rank, device):
     cfg = accurate_config(spec_for(8))
     cfg[0] = 0
     op = AxOOperator.from_config(cfg, rank=rank)
+    return tuple(torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(device)
+                 for t in (op.f_table, op.g_table, op.signed_vals))
+
+
+def _op_tables(name, device):
+    """The serve path's demo operator, or a random 36-bit config whose factor
+    part dominates the product."""
+    if name == "demo":
+        op = demo_operator(8)
+    else:
+        op = AxOOperator.from_config(
+            np.random.default_rng(36).integers(0, 2, 36).astype(np.uint8), rank=8)
     return tuple(torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(device)
                  for t in (op.f_table, op.g_table, op.signed_vals))
 
@@ -61,8 +76,111 @@ def test_k6_matches_plain_version_on_card(cuda, m, k, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("op", ["demo", "random36"])
+@pytest.mark.parametrize("k, n", [(1000, 777), (2000, 1040)])
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 64, 512])
+def test_k6_routes_match_plain_version_on_card(cuda, op, k, n, m):
+    """Both routes (GEMV up to M=16, tensor cores from M=17), a ragged N, a K
+    that is no multiple of the 32-code step, rows that are not 16-byte
+    aligned (K=1000, N=777) and rows that are (K=2000, N=1040)."""
+    rng = np.random.default_rng(m * k + n)
+    f, g, sv = _op_tables(op, cuda)
+    a = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.uint8)).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 256, (k, n)).astype(np.uint8)).to(cuda)
+    assert k6.plan(m, n, k, 8, 256).route == ("gemv" if m <= 16 else "mma")
+    before = k6.axo_matmul.launches
+    got = k6.axo_matmul(a, b, f, g, sv)
+    want = k6.axo_matmul_plain(a, b, f, g, sv)
+    torch.cuda.synchronize()
+    assert k6.axo_matmul.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+def test_k6_split_sum_is_deterministic_on_card(cuda, m):
+    """The split-K partials are summed in split order by whichever block ends
+    last: repeated launches give the same bits."""
+    rng = np.random.default_rng(m)
+    f, g, sv = _tables(8, cuda)
+    a = torch.from_numpy(rng.integers(0, 256, (m, 4096)).astype(np.uint8)).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 256, (4096, 512)).astype(np.uint8)).to(cuda)
+    assert k6.plan(m, 512, 4096, 8, 256).splits > 1
+    first = k6.axo_matmul(a, b, f, g, sv)
+    for _ in range(5):
+        assert torch.equal(k6.axo_matmul(a, b, f, g, sv), first)
+
+
+def _k6_inputs(m, k, n, device, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.uint8)).to(device),
+            torch.from_numpy(rng.integers(0, 256, (k, n)).astype(np.uint8)).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, splits", [(4, 1), (4, 3), (4, 64), (8, 7), (64, 1), (64, 5),
+                                       (64, 16)])
+def test_k6_any_split_count_matches_plain_version_on_card(cuda, m, splits):
+    """The in-kernel split-K sum at split counts plan() would not pick, each
+    split whole k-steps, the last one short."""
+    k, n = 4000, 600
+    f, g, sv = _tables(8, cuda)
+    a, b = _k6_inputs(m, k, n, cuda, splits)
+    pl = k6.plan(m, n, k, 8, 256)
+    step = k6.GEMV_KSTEP if pl.route == "gemv" else k6.MMA_KSTEP
+    k_split = -(-(-(-k // splits)) // step) * step
+    pl = pl._replace(splits=-(-k // k_split), k_split=k_split)
+    got = k6._launch(a, b, f, g, sv, pl)
+    assert _rel(got, k6.axo_matmul_plain(a, b, f, g, sv)) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+def test_k6_split_sums_on_two_streams_on_card(cuda, m):
+    """Split-K launches on two streams at once keep separate tile counters:
+    each result matches its plain version."""
+    f, g, sv = _tables(8, cuda)
+    k, n = 4096, 1024
+    assert k6.plan(m, n, k, 8, 256).splits > 1
+    inputs = [_k6_inputs(m, k, n, cuda, seed) for seed in (1, 2)]
+    streams = [torch.cuda.Stream(cuda) for _ in inputs]
+    torch.cuda.synchronize()
+    outs = [[] for _ in inputs]
+    for _ in range(20):
+        for (a, b), st, got in zip(inputs, streams, outs):
+            with torch.cuda.stream(st):
+                got.append(k6.axo_matmul(a, b, f, g, sv))
+    torch.cuda.synchronize()
+    for (a, b), got in zip(inputs, outs):
+        want = k6.axo_matmul_plain(a, b, f, g, sv)
+        assert max(_rel(x, want) for x in got) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 64])
+def test_k6_refuses_a_plan_off_its_layout_on_card(cuda, m):
+    """The kernel's source owns its launch layout: a plan with another
+    shared-memory size, a split of no whole k-steps or a GEMV row count it is
+    not built for raises, and nothing launches."""
+    f, g, sv = _tables(8, cuda)
+    a, b = _k6_inputs(m, 2048, 512, cuda, 0)
+    pl = k6.plan(m, 512, 2048, 8, 256)
+    bad = [pl._replace(smem=pl.smem - 16), pl._replace(k_split=pl.k_split + 8)]
+    if pl.route == "gemv":
+        bad.append(pl._replace(rows=3))
+    before = k6.axo_matmul.launches
+    for wrong in bad:
+        with pytest.raises(RuntimeError, match="does not fit the layout"):
+            k6._launch(a, b, f, g, sv, wrong)
+    assert k6.axo_matmul.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s, offset, hd", [(128, 0, 64), (77, 0, 64), (40, 9, 16), (5, 0, 32)])
+@pytest.mark.parametrize("s, offset, hd", [(128, 0, 64), (77, 0, 64), (40, 9, 16), (5, 0, 32),
+                                           (9, 30, 64), (100, 13, 32), (7, 0, 16),
+                                           (70, 65, 64), (130, 0, 16)])
 def test_k7_matches_plain_version_on_card(cuda, dtype, s, offset, hd):
     rng = np.random.default_rng(s)
     skv = offset + s + 3                       # capacity past kv_len is masked
@@ -78,6 +196,47 @@ def test_k7_matches_plain_version_on_card(cuda, dtype, s, offset, hd):
     tol = 2e-6 if dtype == torch.float32 else 2.0 ** -7
     err = float((got.float() - want.float()).abs().max())
     assert err <= tol * (1.0 + float(want.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_reads_strided_model_layouts_on_card(cuda, dtype):
+    """q as the model's (B, S, H, hd) activations and k, v as its (B, Smax,
+    G, hd) cache, transposed views read in place; the output keeps q's
+    layout."""
+    rng = np.random.default_rng(11)
+    s, cap, off = 33, 80, 20
+    q = torch.from_numpy(rng.standard_normal((2, s, 8, 32)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, cap, 2, 32)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda, dtype).transpose(1, 2) for t in (q, k, v))
+    got = k7.flash_attention(q, k, v, q_offset=off, kv_len=off + s)
+    want = k7.flash_attention_plain(q, k, v, q_offset=off, kv_len=off + s)
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride()
+    tol = 2e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(
+        want.float().abs().max())
+
+
+@pytest.mark.gpu
+def test_k7_refuses_misaligned_rows_on_card(cuda):
+    """The bf16 kernel copies K/V rows in 16-byte pieces: a view whose rows do
+    not start on 16-byte boundaries is refused, never served another way."""
+    buf = torch.randn((1, 4, 10, 72), device=cuda).to(torch.bfloat16)
+    q = buf[..., :64]                         # rows 144 bytes apart: aligned
+    k = v = torch.randn((1, 2, 10, 64), device=cuda).to(torch.bfloat16)
+    k7.flash_attention(q, k, v)
+    bad = torch.randn((1, 4, 10, 65), device=cuda).to(torch.bfloat16)[..., :64]
+    before = k7.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        k7.flash_attention(bad, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        k7.flash_attention(q, bad[:, :2], v)
+    flat = torch.randn(1 + 2 * 10 * 64, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        k7.flash_attention(q, k, flat[1:].view(1, 2, 10, 64))
+    assert k7.flash_attention.launches == before
 
 
 @pytest.mark.gpu
