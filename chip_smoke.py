@@ -8,23 +8,26 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
   1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
   2. build: ``nvcc`` builds every kernel source of the port (in parallel);
      the ``-Xptxas -v`` summary (registers, shared memory, spills) is printed.
-  3. kernels: K1 and K2 (BEHAV statistics), K3 (dominance counts) and K4 and
-     K5 (table GEMV) are held against their plain PyTorch versions on the
-     card at the shapes of the paths below -- int channels, counts and GEMV
-     outputs exactly, the f32 channel to 1e-5 relative; K5 against K4 -- and
-     timed with CUDA events beside the plain versions and a bound computed
-     from the shapes.  K4/K5 run at the mnist head (D=128, M=250, K=256,
-     N=10), the ffn GEMM1 (M=96, K=64, N=128) and a ragged K=100; their
-     yardstick (``library_ms``) is the ``gemm`` route at the mnist shape, four
-     cuBLAS f32 GEMMs.
+  3. kernels: K1 and K2 (BEHAV statistics), K3 (dominance counts, and its
+     front peel ``constraint_fronts``) and K4 and K5 (table GEMV) are held
+     against their plain PyTorch versions on the card at the shapes of the
+     paths below -- int channels, counts, fronts and GEMV outputs exactly,
+     the f32 channel to 1e-5 relative; K5 against K4 -- and timed with CUDA
+     events beside the plain versions and a bound computed from the shapes.
+     K3's record times the front peel beside the round-by-round route it
+     replaces (a ``dominance_counts`` launch and a host sync a front).
+     K4/K5 run at the mnist head (D=128, M=250, K=256, N=10), the ffn GEMM1
+     (M=96, K=64, N=128) and a ragged K=100; their yardstick
+     (``library_ms``) is the ``gemm`` route at the mnist shape, four cuBLAS
+     f32 GEMMs.
   4. main path: the 8x8 signed-multiplier DSE of the paper at full scale
      (2,000 random + pattern training configs characterized exhaustively,
      105-problem MaP battery, NSGA-II at population 64 for 100 generations)
      through ``build_training_dataset``, ``map_solution_pool`` and ``run_dse``
      for ``ga``, ``map`` and ``map+ga``; the last one validates through the
      table-free kernel K2.  Kernel launch counts are zeroed before and read
-     after; every kernel must have launched.  The validated fronts' BEHAV is
-     checked against the numpy backend.
+     after; every kernel must have launched, K3 once per GA ranking.  The
+     validated fronts' BEHAV is checked against the numpy backend.
   apps: the application-targeted DSE (paper Table 2).  All four apps' BEHAV is
      attached to phase 4's training set with ``characterized_dataset_multi``
      (K4 for the mnist head and the ffn GEMM1), then ``run_dse(...,
@@ -71,8 +74,13 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      kernel passes' logits against the plain passes' to SERVE_REL.
   device-time: K6's and K7's device time per call from torch.profiler, and
      their yardsticks', at phase 3's shapes, beside phase 3's CUDA-event
-     times; last, because after a profiler session the host issues every
+     times, and K8's at mamba2's prefill; after the
+     timed phases, because after a profiler session the host issues every
      launch more slowly.
+  sync: one ranking (``constraint_ranks``, P=128) under
+     ``torch.cuda.set_sync_debug_mode("error")``: it must not sync the host;
+     last, since switching the debugger slows later host-issued launches (a
+     ranking's time before and after the switch is printed).
 
 Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
 decode shapes (M=4 against the five weight shapes), a prefill shape (M=512,
@@ -89,7 +97,14 @@ kernels' times in their first design (PR 13) are printed beside.  It
 holds K8 (SSD scan) against its plain version at mamba2-130m's prefill (B=8,
 S=2,000, H=24, P=64, N=128), at the reduced config's (B=2, S=40, H=16, P=8,
 N=16) and at a grouped shape (G=4, with an entering state), in f32 and
-bf16; no single PyTorch call computes the scan, so K8 has no yardstick.
+bf16: bf16 takes the tensor-core design (two grids a call), f32 the first
+design, whose bf16 time at the prefill shape (``ssd_scan_scalar``) is
+printed beside the new one.  K8's bound is the larger of its bytes and the
+least tensor-core work that holds its contracts (two bf16 passes per product
+with an f32 operand); the route's three passes and the f32 pipe are printed
+beside it.  No single PyTorch call computes the scan, so K8 has no
+yardstick.  Every K8 call of the full-width serve-ssm run must take the
+tensor-core design and launch two grids (counted by K8's CUDA library).
 
 The second-to-last lines are the kernels' JSON record (launch counts of K1-K3
 from phase 4, of K4 and K5 from phase apps, of K6 and K7 from phase serve, of
@@ -134,7 +149,7 @@ SERVE_ARGS = ["--arch", "granite-3-2b", "--full-config", "--batch", "4", "--prom
 SSM_ARGS = ["--arch", "mamba2-130m", "--full-config", "--batch", "8", "--prompt-len", "2000",
             "--gen", "32", "--axo-rank", str(AXO_RANK)]
 SSM_SHAPE = (8, 2000, 24, 1, 64, 128)   # mamba2-130m's prefill scan: B, S, H, G, P, N
-K8_Q = 32                               # K8's own chunk length (csrc/ssd_scan.cu)
+K8_Q = 32                               # K8's own chunk length, both designs (csrc/ssd_scan.cu kQ)
 # The two GAs draw from different random streams, and one run's hypervolume
 # varies by ~1.6% (std over seeds) at this budget, so the 2% contract is held
 # on the mean over a fixed set of seeds, and on seed 0 alone as well.
@@ -232,16 +247,22 @@ def ssd_inputs(torch, shape, dtype, gen):
     return x, dt, a, bm, cm
 
 
-def ssd_work(shape, itemsize: int) -> tuple[float, float]:
-    """(bytes, f32 FLOPs) of the chunked scan at K8's chunk length: each input
-    read and each output written once; the intra-chunk terms over the lower
-    triangle of each chunk's valid positions, the scores once per group."""
+def ssd_work(shape, itemsize: int, passes: int) -> tuple[float, float, float]:
+    """(bytes, f32 FLOPs, bf16 tensor-core FLOPs) of the chunked scan at K8's
+    chunk length: each input read and each output written once; the
+    intra-chunk terms over the lower triangle of each chunk's valid
+    positions, the scores once per group.  The tensor-core count takes the
+    scores in one pass (bf16 operands) and every product with an f32 operand
+    (M x, C state^T, the state update) in ``passes``, one per bf16 term of
+    that operand: 2 (a hi + lo pair, the least that holds K8's contracts) or
+    3 (the kernel's route)."""
     b, s, h, g, p, n = shape
     tri = sum(q * (q + 1) // 2 for q in (min(K8_Q, s - t) for t in range(0, s, K8_Q)))
-    ops = 2.0 * b * g * n * tri + 2.0 * b * h * p * tri + 4.0 * b * h * s * n * p
+    scores = 2.0 * b * g * n * tri
+    per_head = 2.0 * b * h * p * tri + 4.0 * b * h * s * n * p
     moved = (2 * b * s * h * p + 2 * b * s * g * n) * itemsize + (b * s * h + h) * 4 \
         + b * h * p * n * 4
-    return moved, ops
+    return moved, scores + per_head, scores + passes * per_head
 
 
 @contextlib.contextmanager
@@ -329,7 +350,7 @@ def main() -> int:
     from repro_torch.axo import AxOOperator, deploy_axo
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch
-    from repro_torch.core import fastchar
+    from repro_torch.core import fastchar, fastmoo
     from repro_torch.core.automl import fit_estimators
     from repro_torch.core.dataset import BEHAV_KEY, PPA_KEY, Dataset, build_training_dataset
     from repro_torch.core.dse import DSESettings, hv_reference, map_solution_pool, run_dse
@@ -446,14 +467,46 @@ def main() -> int:
         print(f"phase kernels: K3 vs plain at P={p} (+{pad} pad rows): counts ==", flush=True)
         if p == 128:  # the environmental-selection shape of the main path (2 x pop)
             o3, v3, a3 = o, v, a
+    # K3's front peel, the main path's ranking: every front in one launch, at
+    # the GA's populations, P = 1000 and a chain in which every point is its
+    # own front; fronts and their count equal the plain round loop's
+    front_cases = {}
+    for p in (64, 128, 1000):
+        g = np.random.default_rng(p + 1)
+        objs = g.random((p, 2)).astype(np.float32)
+        viol = np.where(g.random(p) < 0.4, g.random(p), 0.0).astype(np.float32)
+        front_cases[p] = (torch.from_numpy(objs).to(dev), torch.from_numpy(viol).to(dev))
+    chain = torch.linspace(1.0, 0.0, 128, device=dev)
+    front_cases["chain"] = (torch.stack([chain, chain], 1), torch.zeros(128, device=dev))
+    for label, (o, v) in front_cases.items():
+        got, n_got = moo_kernels.constraint_fronts(o, v)
+        want, n_want = moo_kernels.constraint_fronts_plain(o, v)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and int(n_got) == int(n_want)):
+            raise AssertionError(f"K3 constraint_fronts differs from its plain version at {label}")
+        print(f"phase kernels: K3 constraint_fronts vs plain at P={o.shape[0]} ({label}): fronts "
+              f"== ({int(n_got)} feasible fronts)", flush=True)
+    o_r, v_r = front_cases[128]
+    n_r = int(moo_kernels.constraint_fronts_plain(o_r, v_r)[1])   # rounds of the peel
+    words = -(-128 // 32)
     rec["K3"] = dict(
-        name="dominance_counts", source="src/repro_torch/kernels/csrc/moo_kernels.cu",
+        name="constraint_fronts", source="src/repro_torch/kernels/csrc/moo_kernels.cu",
         replaces="src/repro/kernels/moo_kernels.py:95",
-        ms=cuda_ms(torch, lambda: moo_kernels.dominance_counts(o3, v3, a3), 200),
-        plain_ms=cuda_ms(torch, lambda: moo_kernels.dominance_counts_plain(o3, v3, a3), 50),
-        bound=bound(128 * (4 * 2 + 4 + 1 + 4), 128 * 128 * 8, 0, int_rate),
+        ms=cuda_ms(torch, lambda: moo_kernels.constraint_fronts(o_r, v_r), 200),
+        plain_ms=cuda_ms(torch, lambda: moo_kernels.constraint_fronts_plain(o_r, v_r), 20),
+        # the round-by-round route the peel replaces: a dominance_counts launch and a
+        # host sync a front
+        old_ms=cuda_ms(torch, lambda: moo_kernels.peel_fronts(
+            lambda act: moo_kernels.dominance_counts(o_r, v_r, act), v_r <= 0), 50),
+        dominance_counts_ms=cuda_ms(
+            torch, lambda: moo_kernels.dominance_counts(o3, v3, a3), 200),
+        # bytes: objs, viol in, fronts and the count out; operations: the
+        # P x P dominance tests (2 compares an objective, 3 logic ops) once,
+        # then a word AND and OR a word a point a round
+        bound=bound(128 * (4 * 2 + 4 + 8) + 8,
+                    128 * 128 * 7 + 128 * words * 2 * n_r, 0, int_rate),
     )
-    err["K3"] = 0.0  # integer counts, held equal above
+    err["K3"] = 0.0  # integer fronts, held equal above
 
     # K4/K5 on 126 random configs + the accurate and the all-zeros config, at
     # the mnist head and the ffn GEMM1 (the apps' own codes) and a ragged K
@@ -648,36 +701,60 @@ def main() -> int:
                 raise AssertionError(f"K8 differs from its plain version at {label} {dtype}: "
                                      f"y {e:.3g} > {tol:.3g} or state rel {rs:.3g}")
             msg = (f"phase kernels: K8 vs plain at {label} (B, S, H, G, P, N) = {shape} "
-                   f"{dtype}{' with an entering state' if init is not None else ''}: y max abs "
-                   f"err {e:.3g} (limit {tol:.3g}), state rel norm {rs:.3g} (limit {REL_RTOL})")
+                   f"{dtype}{' with an entering state' if init is not None else ''} "
+                   f"({ssd_scan.route(x)} design): y max abs err {e:.3g} (limit "
+                   f"{tol:.3g}), state rel norm {rs:.3g} (limit {REL_RTOL})")
             if label == "mamba2 prefill" and dtype == torch.bfloat16:
-                moved, ops = ssd_work(shape, 2)
+                # the bound: bytes against the least tensor-core work that holds
+                # K8's contracts (two bf16 passes); the route's three passes and
+                # the same algebra on the f32 pipe printed beside it
+                moved, ops, tc_ops = ssd_work(shape, 2, passes=2)
+                tc3_ops = ssd_work(shape, 2, passes=3)[2]
                 k8_rec = dict(
                     name="ssd_scan", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                     replaces="src/repro/kernels/ssd_scan_kernel.py:78",
                     ms=cuda_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, a, bm, cm), 20),
+                    # the first design on the same inputs, in this call
+                    old_ms=cuda_ms(torch, lambda: ssd_scan.ssd_scan_scalar(x, dt, a, bm, cm), 20),
                     plain_ms=cuda_ms(torch, lambda: ssd_scan.ssd_scan_plain(
                         x, dt, a, bm, cm), 3),
                     library_ms=None,
-                    bound=bound(moved, 0, ops, int_rate, f32_rate=f32_rate),
+                    bound=bound(moved, 0, 0, int_rate, bf16_ops=tc_ops),
                 )
-                msg += (f"; K8 {k8_rec['ms']:.4f} ms (plain {k8_rec['plain_ms']:.4f}, bound "
-                        f"{k8_rec['bound'][0]:.4g} by {k8_rec['bound'][1]}: {ops / 1e9:.4g} "
-                        f"GFLOP, {moved / 1e6:.4g} MB); no PyTorch call computes the scan")
+                tc3_ms = bound(0, 0, 0, int_rate, bf16_ops=tc3_ops)[0]
+                f32_ms = bound(0, 0, ops, int_rate, f32_rate=f32_rate)[0]
+                msg += (f"; K8 {k8_rec['ms']:.4f} ms (first design {k8_rec['old_ms']:.4f}; plain "
+                        f"{k8_rec['plain_ms']:.4f}; bound {k8_rec['bound'][0]:.4g} by "
+                        f"{k8_rec['bound'][1]}: {moved / 1e6:.4g} MB, {tc_ops / 1e9:.4g} GFLOP of "
+                        f"two bf16 tensor-core passes; the route's three passes "
+                        f"{tc3_ops / 1e9:.4g} GFLOP, {tc3_ms:.4g} ms; on the f32 pipe "
+                        f"{ops / 1e9:.4g} GFLOP, {f32_ms:.4g} ms); no PyTorch call computes "
+                        f"the scan")
                 rec["K8"], err["K8"] = k8_rec, e
             print(msg, flush=True)
             del x, dt, a, bm, cm, y, y_p
     for k, r in rec.items():
+        was = f", earlier design {r['old_ms']:.4f} ms" if "old_ms" in r else ""
         print(f"phase kernels: {k} {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound'][0]:.4g} ms by {r['bound'][1]})", flush=True)
+              f"ms, bound {r['bound'][0]:.4g} ms by {r['bound'][1]}{was})", flush=True)
 
     # -- 4. main path -------------------------------------------------------
     ctx = ExecutionContext()                           # the card, K1 + K3
     ctx_entry = ExecutionContext(kernel_impl="entry")  # the card, K2 + K3
     wrappers = {"K1": char_kernels.behav_stats_table, "K2": char_kernels.behav_stats_entry,
-                "K3": moo_kernels.dominance_counts}
+                "K3": moo_kernels.constraint_fronts}
     for fn in wrappers.values():
         fn.launches = 0
+    moo_kernels.dominance_counts.launches = 0
+    # the GA's rankings, counted where it looks the function up
+    rankings = {"calls": 0}
+    constraint_ranks = fastmoo.constraint_ranks
+
+    def counted_ranks(*args, **kw):
+        rankings["calls"] += 1
+        return constraint_ranks(*args, **kw)
+
+    fastmoo.constraint_ranks = counted_ranks
     t0 = time.perf_counter()
     train = build_training_dataset(spec, n_random=2000, seed=0, backend=ctx)
     t_char = time.perf_counter() - t0
@@ -703,8 +780,15 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
     t_main = time.perf_counter() - t0 + t_char
+    fastmoo.constraint_ranks = constraint_ranks
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    print(f"phase main: {rankings['calls']} GA rankings, K3 constraint_fronts launches "
+          f"{launches['K3']}, dominance_counts launches {moo_kernels.dominance_counts.launches}",
+          flush=True)
+    if launches["K3"] != rankings["calls"]:
+        raise AssertionError(f"K3 launched {launches['K3']} times for {rankings['calls']} "
+                             f"rankings, expected one launch a ranking")
     for method, r in results.items():
         if not (r.hv_vpf > 0 and np.isfinite(r.vpf_objs).all()):
             raise AssertionError(f"{method}: empty or non-finite validated front")
@@ -977,6 +1061,8 @@ def main() -> int:
     ssm_wrappers = dict(all_wrappers, K8=ssd_scan.ssd_scan)
     for fn in ssm_wrappers.values():
         fn.launches = 0
+    ssd_scan.ssd_scan.route_launches.update(mma=0, scalar=0)
+    grids0 = ssd_scan.grids()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)   # phase 3's operands, still referenced
@@ -985,6 +1071,8 @@ def main() -> int:
     torch.cuda.synchronize()
     t_ssm = time.perf_counter() - t0
     ssm_launches = {k: fn.launches for k, fn in ssm_wrappers.items()}
+    k8_routes = dict(ssd_scan.ssd_scan.route_launches)
+    k8_grids = ssd_scan.grids() - grids0
     peak = torch.cuda.max_memory_allocated(dev) - held
     cfg, axo = res["cfg"], res["axo"]
     dep = axo["deployment"]
@@ -1005,10 +1093,17 @@ def main() -> int:
           f"({batch * steps / axo['decode_ms'] * 1e3:.1f} tokens/s); peak memory "
           f"{peak / 2**30:.3f} GiB ({peak} bytes, above the {held} held before); launches "
           f"{ssm_launches} (expected "
-          f"{ssm_want}); free-run match {axo['free_run_match']:.4f}, teacher-forced top-1 "
+          f"{ssm_want}), K8 calls by route {k8_routes}, {k8_grids} K8 grids; free-run match {axo['free_run_match']:.4f}, teacher-forced top-1 "
           f"{axo['top1']:.4f}, logit rel_err {axo['rel_err']:.4f}", flush=True)
     if ssm_launches != ssm_want:
         raise AssertionError(f"serve-ssm launches {ssm_launches}, expected {ssm_want}")
+    if k8_routes != {"mma": ssm_launches["K8"], "scalar": 0}:
+        raise AssertionError(f"serve-ssm's K8 calls by route {k8_routes}: every one must take "
+                             f"the tensor-core design")
+    if k8_grids != 2 * ssm_launches["K8"]:
+        raise AssertionError(f"serve-ssm's {ssm_launches['K8']} K8 calls launched {k8_grids} "
+                             f"grids, expected two a call")
+    rec["K8"]["grids"] = k8_grids / ssm_launches["K8"]
     if not all(torch.isfinite(lg.float()).all() for lg in res["exact_logits"] +
                axo["replay_logits"]):
         raise AssertionError("non-finite logits on the serve-ssm path")
@@ -1114,12 +1209,19 @@ def main() -> int:
     if not (rel_exact <= SERVE_REL and rel_axo <= SERVE_REL):
         raise AssertionError("a reduced mamba pass on the kernels differs from its plain replay")
 
-    # -- device time of K6 and K7 --------------------------------------------
+    # -- device time of K8, K6 and K7 -----------------------------------------
     # torch.profiler's device time per call, beside the CUDA-event times of
     # phase 3 (which count the host's time to issue a call where it is the
     # longer), taken last: after a profiler session the host issues every
     # launch more slowly, which would move the host-bound times of the phases
     # above.  Fresh codes and inputs of each shape; these launches count nowhere.
+    # K8 first, at mamba2's prefill in bf16
+    x, dt, a, bm, cm = ssd_inputs(torch, SSM_SHAPE, torch.bfloat16, gen)
+    k8_dev = device_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, a, bm, cm), 10)
+    print(f"phase device-time: K8 at mamba2 prefill bf16: {fmt_ms(k8_dev)} on the device",
+          flush=True)
+    rec["K8"]["device_ms"] = k8_dev
+    del x, dt, a, bm, cm
     for label, (m, k, n) in k6_shapes.items():
         f_t, g_t, sv_t = tabs["random36" if "random36" in label else "demo"]
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
@@ -1151,6 +1253,26 @@ def main() -> int:
     print(f"phase device-time: torch.profiler windows that held no device events: "
           f"{PROFILER_EMPTY['empty']} of {PROFILER_EMPTY['windows']}", flush=True)
 
+    # -- sync: one ranking under the sync debugger ---------------------------
+    # last, because switching the debugger slows every later host-issued
+    # launch; a ranking of the main path's shape must not sync the host (the
+    # fronts' count stays on the card).  A ranking's time before and after
+    # the switch is printed to show that cost
+    rank_ms = cuda_ms(torch, lambda: fastmoo.constraint_ranks(o_r, v_r), 200)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rank_r = fastmoo.constraint_ranks(o_r, v_r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.equal(rank_r, fastmoo.constraint_ranks(o_r, v_r, impl="plain")):
+        raise AssertionError("K3's ranking differs from the plain ranking")
+    rank_after_ms = cuda_ms(torch, lambda: fastmoo.constraint_ranks(o_r, v_r), 200)
+    print(f"phase sync: one constraint_ranks call (P=128) under "
+          f"torch.cuda.set_sync_debug_mode('error'): no host sync, ranks == plain; a ranking "
+          f"{rank_ms:.4f} ms before the debugger was switched, {rank_after_ms:.4f} ms after",
+          flush=True)
+
     kernels = []
     for k, r in rec.items():
         kernels.append({
@@ -1158,7 +1280,8 @@ def main() -> int:
             "replaces": r["replaces"], "launches": launches[k], "max_abs_err": err[k],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
-            **{key: r[key] for key in ("device_ms", "library_device_ms") if key in r},
+            **{key: r[key] for key in ("device_ms", "library_device_ms", "old_ms", "grids",
+                                       "dominance_counts_ms") if key in r},
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -5,11 +5,10 @@ context's device as a per-generation loop of tensor operations:
 
   * seeded initialization from a device ``torch.Generator`` (rows of a MaP
     pool replace the first random rows),
-  * constraint-dominated ranks: feasible fronts are peeled one round at a time
-    with kernel K3 (``kernels.moo_kernels.dominance_counts``) counting each
-    point's active dominators -- one launch and one ``.any()`` host sync per
-    round -- and infeasible points take the closed form
-    ``n_feasible_fronts + dense_rank(violation)``,
+  * constraint-dominated ranks: kernel K3 (``kernels.moo_kernels.
+    constraint_fronts``) peels every feasible front in one launch and leaves
+    the fronts' count on the device, and infeasible points take the closed
+    form ``n_feasible_fronts + dense_rank(violation)``: no host sync,
   * crowding distance over all fronts at once (rank-segmented sort plus
     segment min/max spans),
   * binary tournament selection, single-point crossover, bit-flip mutation,
@@ -31,7 +30,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..kernels.moo_kernels import dominance_counts, dominance_matrix
+from ..kernels.moo_kernels import constraint_fronts, dominance_matrix, peel_fronts
 from .engine import ENGINE_MENUS, ExecutionContext
 from .moo import GAResult
 
@@ -52,8 +51,8 @@ __all__ = [
 # and 1e30 stays finite in f32 so the normalized violation is an exact 0.
 UNBOUNDED = 1e30
 
-# "kernel": K3 recounts dominators every peel round; "plain": the (n, n)
-# dominance matrix is built once and counted by masked column sums.
+# "kernel": K3 peels every front in one launch; "plain": the (n, n)
+# dominance matrix is built once and counted by masked column sums each round.
 RANK_IMPLS = ENGINE_MENUS["fastmoo"]
 
 # hv_history checkpoints: every 10th generation and the last, as moo.nsga2.
@@ -73,45 +72,36 @@ def constraint_ranks(objs: torch.Tensor, viol: torch.Tensor,
     """(n,) int64 fronts (0 = best) under constraint domination; torch twin
     of ``moo.fast_nondominated_sort``.
 
-    Only feasible fronts are peeled sequentially (a round per front: the
-    points with no active dominator form the next front, identical to the
+    Only feasible points are peeled into fronts (a point joins the next front
+    when no feasible point still unplaced dominates it, identical to the
     oracle's incremental subtraction).  Infeasible points are totally
     ordered by violation and dominated by every feasible point, so their
-    ranks are ``n_feasible_fronts + dense_rank(violation)``.  Each peel
-    round costs one K3 launch (``impl="kernel"``) and one host sync.
+    ranks are ``n_feasible_fronts + dense_rank(violation)``, computed from
+    the fronts' count on the device.  ``impl="kernel"`` peels with K3's
+    ``constraint_fronts``: on the card one launch and no host sync for the
+    whole ranking (above ``FRONTS_MAX_P`` points one launch and one sync a
+    front).  ``impl="plain"`` builds the dominance matrix once and peels
+    round by round, one host sync a front.
     """
-    n = objs.shape[0]
     objs = objs.to(torch.float32).contiguous()
     viol = viol.to(torch.float32).contiguous()
     feas = viol <= 0
     if impl == "kernel":
-        def count_fn(active):
-            return dominance_counts(objs, viol, active)
+        front, n_fronts = constraint_fronts(objs, viol)
     elif impl == "plain":
         dom = dominance_matrix(objs, viol)
-
-        def count_fn(active):
-            return (dom & active[:, None]).sum(0, dtype=torch.int32)
+        front, n_fronts = peel_fronts(
+            lambda active: (dom & active[:, None]).sum(0, dtype=torch.int32), feas)
     else:
         raise ValueError(f"unknown rank impl {impl!r} (menu: {RANK_IMPLS})")
-
-    rank = torch.zeros(n, dtype=torch.int64, device=objs.device)
-    assigned = ~feas  # infeasible points never block a feasible one
-    r = 0
-    while r <= n and bool((~assigned).any()):
-        counts = count_fn(~assigned)
-        front = (counts == 0) & ~assigned
-        rank = torch.where(front, r, rank)
-        assigned = assigned | front
-        r += 1
 
     vio = torch.where(feas, float("-inf"), viol)
     order = torch.argsort(vio, stable=True)
     vs = vio[order]
     prev = torch.cat([vs.new_full((1,), float("-inf")), vs[:-1]])
     dense = torch.cumsum((vs > prev).to(torch.int64), dim=0)  # 1-based distinct id
-    rank[order] = torch.where(feas[order], rank[order], r + dense - 1)
-    return rank
+    ranked = torch.where(feas[order], front[order], n_fronts + dense - 1)
+    return torch.empty_like(front).scatter_(0, order, ranked)
 
 
 def crowding_distance(objs: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:

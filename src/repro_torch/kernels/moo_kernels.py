@@ -1,4 +1,4 @@
-"""Constraint-dominance counts, kernel K3, beside its plain version.
+"""Constraint-dominance counts and fronts, kernel K3, beside their plain versions.
 
 ``dominance_counts`` replaces ``repro/kernels/moo_kernels.py::
 dominance_counts_pallas``; the CUDA source is ``csrc/moo_kernels.cu``, whose
@@ -13,6 +13,16 @@ active rows.  On a CPU tensor the wrapper returns it; on a CUDA tensor it
 launches the kernel or raises.  ``dominance_counts.launches`` counts kernel
 launches.  Any P is accepted (the kernel masks its ragged last tile); rows
 padded with inactive +inf-violation points are never counted.
+
+``constraint_fronts`` peels every feasible front in one launch of the same
+source: it returns each feasible point's front (0 = best; -1 for an
+infeasible point) and the number of feasible fronts as a device scalar, so a
+ranking built on it needs no host sync.  Its plain version is the round loop
+:func:`peel_fronts` over ``dominance_counts_plain``.  The kernel is one block
+of one thread per point, so it takes P <= ``FRONTS_MAX_P``; above that the
+wrapper peels round by round with ``dominance_counts`` instead (a route by
+size between two kernels, one launch and one host sync a front).
+``constraint_fronts.launches`` counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -24,9 +34,11 @@ import torch
 
 from . import build
 
-__all__ = ["dominance_matrix", "dominance_counts_plain", "dominance_counts"]
+__all__ = ["dominance_matrix", "dominance_counts_plain", "dominance_counts", "peel_fronts",
+           "constraint_fronts_plain", "constraint_fronts", "FRONTS_MAX_P"]
 
 MAX_OBJ = 4  # objective registers per thread in the kernel
+FRONTS_MAX_P = 1024  # constraint_fronts: one block, one thread per point
 
 
 def dominance_matrix(objs: torch.Tensor, viol: torch.Tensor) -> torch.Tensor:
@@ -52,20 +64,19 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dominance_counts_launch.argtypes = [p, p, p, p, i, i, p]
     lib.dominance_counts_launch.restype = ctypes.c_int
+    lib.constraint_fronts_launch.argtypes = [p, p, p, p, i, i, p]
+    lib.constraint_fronts_launch.restype = ctypes.c_int
     return lib
 
 
-def dominance_counts(objs: torch.Tensor, viol: torch.Tensor,
-                     active: torch.Tensor) -> torch.Tensor:
-    """K3: objs (P, n_obj) f32, viol (P,) f32, active (P,) bool -> (P,) int32."""
+def _check(objs: torch.Tensor, *others) -> None:
+    """objs (P, n_obj) f32 and each ``(tensor, name, dtype)`` of shape (P,),
+    all contiguous on objs' device."""
     if objs.dim() != 2:
         raise ValueError(f"objs must be (P, n_obj), got {tuple(objs.shape)}")
     p, n_obj = objs.shape
-    for t, name, dtype, shape in (
-        (objs, "objs", torch.float32, (p, n_obj)),
-        (viol, "viol", torch.float32, (p,)),
-        (active, "active", torch.bool, (p,)),
-    ):
+    for t, name, dtype, shape in ((objs, "objs", torch.float32, (p, n_obj)),) + tuple(
+            (t, name, dtype, (p,)) for t, name, dtype in others):
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
                 f"{name} must be {dtype} of shape {shape}, got {t.dtype} {tuple(t.shape)}"
@@ -74,12 +85,19 @@ def dominance_counts(objs: torch.Tensor, viol: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, expected {objs.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if objs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {objs.device}")
+    if objs.device.type == "cuda" and not 1 <= n_obj <= MAX_OBJ:
+        raise ValueError(f"the kernel takes 1..{MAX_OBJ} objectives, got {n_obj}")
+
+
+def dominance_counts(objs: torch.Tensor, viol: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+    """K3: objs (P, n_obj) f32, viol (P,) f32, active (P,) bool -> (P,) int32."""
+    _check(objs, (viol, "viol", torch.float32), (active, "active", torch.bool))
     if objs.device.type == "cpu":
         return dominance_counts_plain(objs, viol, active)
-    if objs.device.type != "cuda":
-        raise ValueError(f"unsupported device {objs.device}")
-    if not 1 <= n_obj <= MAX_OBJ:
-        raise ValueError(f"the kernel takes 1..{MAX_OBJ} objectives, got {n_obj}")
+    p, n_obj = objs.shape
     out = torch.empty(p, dtype=torch.int32, device=objs.device)
     if p == 0:
         return out
@@ -95,3 +113,57 @@ def dominance_counts(objs: torch.Tensor, viol: torch.Tensor,
 
 
 dominance_counts.launches = 0
+
+
+def peel_fronts(count_fn, feas: torch.Tensor):
+    """Feasible fronts peeled one round at a time: each round the feasible
+    points with no dominator among the feasible points still unplaced (by
+    ``count_fn(active) -> (P,) counts``) form the next front.  Returns
+    (front (P,) int64, -1 for infeasible points; number of fronts, a 0-d
+    int64 tensor).  One ``.any()`` host sync a round."""
+    n = feas.shape[0]
+    front = torch.full((n,), -1, dtype=torch.int64, device=feas.device)
+    assigned = ~feas  # infeasible points never block a feasible one
+    r = 0
+    while r <= n and bool((~assigned).any()):
+        counts = count_fn(~assigned)
+        joins = (counts == 0) & ~assigned
+        front = torch.where(joins, r, front)
+        assigned = assigned | joins
+        r += 1
+    return front, torch.tensor(r, dtype=torch.int64, device=feas.device)
+
+
+def constraint_fronts_plain(objs: torch.Tensor, viol: torch.Tensor):
+    """Plain version of ``constraint_fronts``: the round loop over
+    ``dominance_counts_plain``."""
+    return peel_fronts(lambda active: dominance_counts_plain(objs, viol, active), viol <= 0)
+
+
+def constraint_fronts(objs: torch.Tensor, viol: torch.Tensor):
+    """K3's front peel: objs (P, n_obj) f32, viol (P,) f32 -> (front (P,)
+    int64, -1 where infeasible; number of feasible fronts, 0-d int64), both
+    on objs' device.  One launch for P <= FRONTS_MAX_P; above, one
+    ``dominance_counts`` launch and one host sync a front."""
+    _check(objs, (viol, "viol", torch.float32))
+    if objs.device.type == "cpu":
+        return constraint_fronts_plain(objs, viol)
+    p, n_obj = objs.shape
+    if p > FRONTS_MAX_P:
+        return peel_fronts(lambda active: dominance_counts(objs, viol, active), viol <= 0)
+    front = torch.empty(p, dtype=torch.int64, device=objs.device)
+    if p == 0:
+        return front, torch.zeros((), dtype=torch.int64, device=objs.device)
+    n_fronts = torch.empty((), dtype=torch.int64, device=objs.device)   # the kernel writes it
+    stream = torch.cuda.current_stream(objs.device).cuda_stream
+    err = _lib().constraint_fronts_launch(
+        objs.data_ptr(), viol.data_ptr(), front.data_ptr(), n_fronts.data_ptr(),
+        p, n_obj, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"constraint_fronts launch failed: cudaError {err}")
+    constraint_fronts.launches += 1
+    return front, n_fronts
+
+
+constraint_fronts.launches = 0

@@ -19,10 +19,21 @@ chunk states, their recurrence and the cross-chunk term, each einsum
 contracted pairwise so that no (B, nc, H, Q, Q, P) intermediate exists.  Like
 the Pallas kernel and K8, it contracts in f32 (the reference's XLA path keeps
 bf16 scores for bf16 inputs) and rounds y once.  The kernel walks its own
-32-position chunks: the chunked algebra is exact for any chunk length, so the
-two differ only by f32 rounding.  On a CPU tensor the wrapper returns the
-plain version; on a CUDA tensor it launches the kernel or raises.
-``ssd_scan.launches`` counts kernel launches.
+32-position chunks (``CHUNK``): the chunked algebra is exact for any chunk
+length, so the two differ only by rounding.  On a CPU tensor the wrapper
+returns the plain version; on a CUDA tensor it launches the kernel or raises.
+
+The kernel has two designs (``route``), chosen by dtype.  bf16 takes the
+tensor-core design, two grids a call: the scores C B^T once per group, then
+the scan, with the state's rows split into slices that share each chunk's
+operands three to a block, and every f32 operand fed to the tensor cores as
+three bf16 terms.  Its x, B and C rows must be 16-byte aligned (pointers and
+(batch, position, head|group) strides), and the wrapper raises where they are
+not.  f32 takes the first design on the f32 pipe, one grid.
+``ssd_scan.launches`` counts calls, ``ssd_scan.route_launches`` the
+calls by route, and ``grids()`` the grids the library has launched.  ``ssd_scan_scalar`` runs the first design on bf16 as well,
+so that the card's checks can time it beside the new one; it counts its own
+launches.
 """
 
 from __future__ import annotations
@@ -34,10 +45,12 @@ import torch
 
 from . import build
 
-__all__ = ["ssd_scan", "ssd_scan_plain", "segsum", "HEAD_DIMS", "STATE_DIMS"]
+__all__ = ["ssd_scan", "ssd_scan_scalar", "ssd_scan_plain", "route", "grids", "segsum",
+           "HEAD_DIMS", "STATE_DIMS", "CHUNK"]
 
 HEAD_DIMS = (8, 16, 32, 64)            # P values the kernel is built for
 STATE_DIMS = (8, 16, 32, 64, 128)      # N values
+CHUNK = 32                             # the kernel's own chunk length (kQ)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -108,11 +121,20 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: tor
 def _lib():
     lib = build.library("ssd_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_launch.argtypes = [
-        p, p, p, p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i, i, p,
-    ]
-    lib.ssd_scan_launch.restype = ctypes.c_int
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    lib.ssd_scan_scalar_launch.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, p]
+    lib.ssd_scan_scalar_launch.restype = ctypes.c_int
+    lib.ssd_scan_mma_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
+    lib.ssd_scan_mma_launch.restype = ctypes.c_int
+    lib.ssd_scan_grids.argtypes = []
+    lib.ssd_scan_grids.restype = ctypes.c_longlong
     return lib
+
+
+def grids() -> int:
+    """Grids the CUDA library has launched, both designs, since it was loaded
+    (it is built and loaded on the first call: the card's checks only)."""
+    return int(_lib().ssd_scan_grids())
 
 
 def _check(x, dt, a, bmat, cmat, init_state) -> None:
@@ -137,17 +159,9 @@ def _check(x, dt, a, bmat, cmat, init_state) -> None:
         raise TypeError("the SSD scan takes floating-point inputs")
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
-             cmat: torch.Tensor, chunk: int = 128, init_state: torch.Tensor | None = None):
-    """K8: (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32).
-
-    ``chunk`` is the plain version's chunk length; the kernel walks its own.
-    """
-    _check(x, dt, a, bmat, cmat, init_state)
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
-    b, s, h, p = x.shape
-    g, n = bmat.shape[2], bmat.shape[3]
+def _check_card(x, dt, a, bmat, cmat, init_state) -> None:
+    """What the CUDA kernel takes, beyond what the plain version does."""
+    p, n = x.shape[3], bmat.shape[3]
     if x.dtype not in _DTYPES:
         raise TypeError(f"K8 takes float32 or bfloat16 x, B and C, got {x.dtype}")
     if dt.dtype != torch.float32 or a.dtype != torch.float32 or (
@@ -160,23 +174,78 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Ten
             init_state is not None and not init_state.is_contiguous()):
         raise ValueError("K8 needs x, B and C with a contiguous last axis, and a and "
                          "init_state contiguous")
+    if x.dtype == torch.bfloat16 and not all(
+            t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+            for t in (x, bmat, cmat)):
+        raise ValueError("K8 in bf16 needs every row of x, B and C on a 16-byte boundary "
+                         "(pointers, and batch, position and head|group strides in "
+                         "multiples of 8)")
+
+
+def route(x: torch.Tensor) -> str:
+    """K8's design for x's dtype: ``"mma"`` (bf16) or ``"scalar"`` (f32)."""
+    return "mma" if x.dtype == torch.bfloat16 else "scalar"
+
+
+def _launch(design, x, dt, a, bmat, cmat, init_state):
+    """(y, final state, whether a kernel was launched: not for empty outputs)."""
+    b, s, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0 and state.numel() == 0:
-        return y, state
+        return y, state, False
     strides = (ctypes.c_longlong * 12)(*(
         st for t in (x, dt, bmat, cmat) for st in (t.stride(0), t.stride(1), t.stride(2))
     ))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().ssd_scan_launch(
-        x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-        None if init_state is None else init_state.data_ptr(), y.data_ptr(),
-        state.data_ptr(), strides, _DTYPES[x.dtype], b, s, h, g, p, n, stream,
-    )
+    init = None if init_state is None else init_state.data_ptr()
+    ptrs = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), init,
+            y.data_ptr(), state.data_ptr())
+    if design == "mma":
+        scores = torch.empty((b, -(-s // CHUNK), g, CHUNK, CHUNK), dtype=torch.float32,
+                             device=x.device)
+        err = _lib().ssd_scan_mma_launch(*ptrs, scores.data_ptr(), strides, b, s, h, g, p, n,
+                                         stream)
+    else:
+        err = _lib().ssd_scan_scalar_launch(*ptrs, strides, _DTYPES[x.dtype], b, s, h, g, p, n,
+                                            stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
-    ssd_scan.launches += 1
+        raise RuntimeError(f"ssd_scan ({design} design) launch failed: cudaError {err}")
+    return y, state, True
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+             cmat: torch.Tensor, chunk: int = 128, init_state: torch.Tensor | None = None):
+    """K8: (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32).
+
+    ``chunk`` is the plain version's chunk length; the kernel walks its own.
+    """
+    _check(x, dt, a, bmat, cmat, init_state)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
+    _check_card(x, dt, a, bmat, cmat, init_state)
+    design = route(x)
+    y, state, launched = _launch(design, x, dt, a, bmat, cmat, init_state)
+    ssd_scan.launches += launched
+    ssd_scan.route_launches[design] += launched
+    return y, state
+
+
+def ssd_scan_scalar(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                    cmat: torch.Tensor, chunk: int = 128,
+                    init_state: torch.Tensor | None = None):
+    """K8's first design (f32 pipe, one block per (batch, head)) on any input
+    ``ssd_scan`` takes; the plain version on a CPU tensor."""
+    _check(x, dt, a, bmat, cmat, init_state)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
+    _check_card(x, dt, a, bmat, cmat, init_state)
+    y, state, launched = _launch("scalar", x, dt, a, bmat, cmat, init_state)
+    ssd_scan_scalar.launches += launched
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.route_launches = {"mma": 0, "scalar": 0}
+ssd_scan_scalar.launches = 0

@@ -103,6 +103,53 @@ def test_constraint_ranks_all_feasible_and_all_infeasible():
         np.testing.assert_array_equal(want, got.numpy())
 
 
+def _front_cases():
+    """(name, objs, viol): random seeds 0-2, all feasible, all infeasible,
+    duplicated points, one point, and a chain in which every point is its
+    own front."""
+    cases = [(f"seed{seed}", *_rand_objs_viol(48, seed)) for seed in range(3)]
+    objs, _ = _rand_objs_viol(40, 5, infeas_p=0.0)
+    cases.append(("all feasible", objs, np.zeros(40)))
+    cases.append(("all infeasible", objs, 0.1 + np.random.default_rng(5).random(40)))
+    dup, viol = _rand_objs_viol(40, 6, infeas_p=0.3)
+    dup[20:] = dup[:20]            # every point twice, one copy's violation may differ
+    cases.append(("duplicates", dup, viol))
+    cases.append(("one point", np.array([[0.3, 0.7]]), np.zeros(1)))
+    chain = np.linspace(0.0, 1.0, 33)[::-1]
+    cases.append(("chain", np.stack([chain, chain], 1), np.zeros(33)))
+    return cases
+
+
+FRONT_CASES = _front_cases()
+
+
+@pytest.mark.parametrize("name, objs, viol", FRONT_CASES, ids=[c[0] for c in FRONT_CASES])
+def test_constraint_fronts_and_ranks_match_reference(ref_fastmoo, name, objs, viol):
+    """K3's front peel (plain version; the wrapper on a CPU tensor) and the
+    ranking built on it equal the reference's XLA ranking and the numpy
+    oracle exactly."""
+    import jax.numpy as jnp
+
+    objs, viol = objs.astype(np.float32), viol.astype(np.float32)
+    want = fast_nondominated_sort(objs, viol)
+    ref = np.asarray(ref_fastmoo.constraint_ranks(jnp.asarray(objs), jnp.asarray(viol),
+                                                  impl="xla"))
+    np.testing.assert_array_equal(ref, want)
+    feas = viol <= 0
+    for fn in (moo_kernels.constraint_fronts_plain, moo_kernels.constraint_fronts):
+        front, n_fronts = fn(_t(objs), _t(viol))
+        assert front.dtype == torch.int64 and n_fronts.dtype == torch.int64
+        assert n_fronts.shape == ()
+        np.testing.assert_array_equal(front.numpy(), np.where(feas, want, -1))
+        assert int(n_fronts) == (want[feas].max() + 1 if feas.any() else 0)
+    for impl in fastmoo.RANK_IMPLS:
+        got = fastmoo.constraint_ranks(_t(objs), _t(viol), impl=impl)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+    if name == "chain":
+        assert int(n_fronts) == len(objs)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_crowding_matches_oracle_per_front(seed):
     objs, viol = _rand_objs_viol(40, seed)
@@ -225,3 +272,48 @@ def test_dominance_kernel_matches_plain_on_card(cuda):
             fastmoo.constraint_ranks(o.to(cuda), v.to(cuda)).cpu().numpy(),
             fast_nondominated_sort(objs.astype(np.float32), viol.astype(np.float32)),
         )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, objs, viol", FRONT_CASES, ids=[c[0] for c in FRONT_CASES])
+def test_constraint_fronts_kernel_matches_plain_on_card(cuda, name, objs, viol):
+    o, v = _t(objs), _t(viol)
+    before = moo_kernels.constraint_fronts.launches
+    front, n_fronts = moo_kernels.constraint_fronts(o.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert moo_kernels.constraint_fronts.launches == before + 1
+    want, n_want = moo_kernels.constraint_fronts_plain(o, v)
+    assert torch.equal(front.cpu(), want) and int(n_fronts) == int(n_want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [64, 128, 1000, 1024, 1025])
+def test_constraint_fronts_sizes_on_card(cuda, p):
+    """Up to FRONTS_MAX_P points one launch of the front peel; above, the
+    round-by-round route through dominance_counts."""
+    objs, viol = _rand_objs_viol(p, p)
+    o, v = _t(objs), _t(viol)
+    fronts0 = moo_kernels.constraint_fronts.launches
+    counts0 = moo_kernels.dominance_counts.launches
+    front, n_fronts = moo_kernels.constraint_fronts(o.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    want, n_want = moo_kernels.constraint_fronts_plain(o, v)
+    assert torch.equal(front.cpu(), want) and int(n_fronts) == int(n_want)
+    big = p > moo_kernels.FRONTS_MAX_P
+    assert moo_kernels.constraint_fronts.launches == fronts0 + (not big)
+    assert (moo_kernels.dominance_counts.launches > counts0) == big
+
+
+@pytest.mark.gpu
+def test_constraint_ranks_make_no_host_sync_on_card(cuda):
+    objs, viol = _rand_objs_viol(128, 7)
+    o, v = _t(objs).to(cuda), _t(viol).to(cuda)
+    fastmoo.constraint_ranks(o, v)   # builds and loads the kernel outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rank = fastmoo.constraint_ranks(o, v)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_array_equal(rank.cpu().numpy(), fast_nondominated_sort(
+        objs.astype(np.float32), viol.astype(np.float32)))

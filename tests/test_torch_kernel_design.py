@@ -1,5 +1,5 @@
-"""The numerical designs of K6 (AxO matmul) and K7 (flash attention),
-emulated in plain torch on the CPU.
+"""The numerical designs of K6 (AxO matmul), K7 (flash attention) and K8
+(SSD scan), emulated in plain torch on the CPU.
 
 K6's tensor-core route feeds TF32 operands (10 stored mantissa bits) to
 ``mma.sync``: the integer operand values in one pass, each factor split as
@@ -9,7 +9,10 @@ kernel carries its softmax weights p as a bf16 hi + lo pair through P.V.
 These tests hold the emulated designs to the contracts the card checks:
 K6 within 1e-5 relative norm of an f64 result, K7 within 2^-7 of the output's
 largest magnitude of the plain version, and they check that ``plan`` routes
-and splits as the kernel expects.  No card is needed.
+and splits as the kernel expects.  K8's bf16 route feeds every f32 operand
+(M, w x, the state) to bf16 ``mma.sync`` as three bf16 terms; its emulation
+is held against the reference's sequential scan and its Pallas kernel (those
+tests need JAX and skip without it).  No card is needed.
 """
 
 import math
@@ -21,6 +24,7 @@ import torch
 from repro_torch.axo import AxOOperator
 from repro_torch.kernels import axo_matmul as k6
 from repro_torch.kernels import flash_attention as k7
+from repro_torch.kernels import ssd_scan as k8
 from repro_torch.launch.serve import demo_operator
 
 REL = 1e-5
@@ -288,3 +292,194 @@ def test_p_hi_lo_carries_sixteen_bits():
     p = torch.from_numpy(rng.random(10000).astype(np.float32))
     rel = ((p_hi_lo(p) - p).abs() / p).max()
     assert float(rel) <= 2.0 ** -16
+
+
+# -- K8's bf16 tensor-core route, emulated ----------------------------------
+
+def bf16_terms(v: torch.Tensor, terms: int) -> list[torch.Tensor]:
+    """f32 -> ``terms`` bf16 values (as f32), each the rest of the ones before
+    rounded to bf16, as the kernel's ``split3`` makes them (terms=3)."""
+    out, rest = [], v
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        out.append(t)
+        rest = rest - t
+    return out
+
+
+def _k8_sum(product, k: int, terms: int) -> torch.Tensor:
+    """The kernel's sum over k: per 16-wide k step and per bf16 term, one MMA
+    from a zeroed accumulator (its products exact, its result rounded to f32
+    here), the terms added small first, the step added to the running f32
+    sum.  ``product(k0, k1, term)`` gives one step's exact product in f64."""
+    acc = None
+    for k0 in range(0, k, 16):
+        parts = [product(k0, min(k0 + 16, k), t).float() for t in range(terms)]
+        step = parts[0]
+        if terms > 1:
+            rest = parts[-1]
+            for part in reversed(parts[1:-1]):
+                rest = part + rest
+            step = parts[0] + rest
+        acc = step if acc is None else acc + step
+    return acc
+
+
+def k8_emulated(x, dt, a, bmat, cmat, init=None, terms=3):
+    """K8's bf16 route in plain torch, over its 32-position chunks: the
+    scores C B^T (bf16 operands, one pass); y = M x + exp(cs) C state^T and
+    the state update (w x)^T B with M, the state and w x each as ``terms``
+    bf16 terms.  Returns (y in f32 before its rounding to bf16, the f32
+    state)."""
+    b, s, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    rep = h // g
+    q = k8.CHUNK
+    pad = (-s) % q
+    x, bmat, cmat = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+                     for t in (x, bmat, cmat))
+    dt = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    state = torch.zeros((b, h, p, n)) if init is None else init.float().clone()
+    tri = torch.ones((q, q), dtype=torch.bool).tril()
+    ys = []
+    for c0 in range(0, s + pad, q):
+        xc, dtc = x[:, c0:c0 + q], dt[:, c0:c0 + q]                   # (B, Q, H, P), (B, Q, H)
+        bh = bmat[:, c0:c0 + q].repeat_interleave(rep, dim=2).double()  # (B, Q, H, N)
+        ch = cmat[:, c0:c0 + q].repeat_interleave(rep, dim=2).double()
+        scores = _k8_sum(lambda k0, k1, t: torch.einsum(
+            "blhn,bshn->bhls", ch[..., k0:k1], bh[..., k0:k1]), n, 1)   # (B, H, Q, Q)
+        cs = torch.cumsum(dtc * a.float(), dim=1)                       # (B, Q, H)
+        last = cs[:, -1]
+        seg = cs.transpose(1, 2)[..., :, None] - cs.transpose(1, 2)[..., None, :]
+        m = scores * torch.exp(seg.masked_fill(~tri, 0.0)) * dtc.transpose(1, 2)[..., None, :]
+        m = m.masked_fill(~tri, 0.0)
+        m_t = [t.double() for t in bf16_terms(m, terms)]
+        st_t = [t.double() for t in bf16_terms(state, terms)]
+        xd = xc.double()
+        diag = _k8_sum(lambda k0, k1, t: torch.einsum(
+            "bhls,bshp->blhp", m_t[t][..., k0:k1], xd[:, k0:k1]), q, terms)
+        off = _k8_sum(lambda k0, k1, t: torch.einsum(
+            "blhn,bhpn->blhp", ch[..., k0:k1], st_t[t][..., k0:k1]), n, terms)
+        ys.append(diag + off * torch.exp(cs)[..., None])
+        w = torch.exp(last[:, None] - cs) * dtc
+        wx_t = [t.double() for t in bf16_terms(xc * w[..., None], terms)]
+        upd = _k8_sum(lambda k0, k1, t: torch.einsum(
+            "bshp,bshn->bhpn", wx_t[t][:, k0:k1], bh[:, k0:k1]), q, terms)
+        state = (state.double() * torch.exp(last).double()[..., None, None]
+                 + upd.double()).float()                                # one rounding: fmaf
+    return torch.cat(ys, dim=1)[:, :s], state
+
+
+def _k8_inputs(b, s, h, g, p, n, seed):
+    """bf16 x, B, C and f32 dt, a, drawn as the reference's kernel test draws them."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    x, bm, cm = (t.to(torch.bfloat16) for t in (f(b, s, h, p), f(b, s, g, n), f(b, s, g, n)))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, s, h)).astype(np.float32))
+    a = torch.from_numpy(-rng.uniform(0.5, 2.0, (h,)).astype(np.float32))
+    return x, dt, a, bm, cm
+
+
+def test_three_bf16_terms_carry_f32():
+    rng = np.random.default_rng(4)
+    v = torch.from_numpy((rng.standard_normal(10000) * 10.0 ** rng.uniform(-6, 6, 10000))
+                         .astype(np.float32))
+    three = sum(bf16_terms(v, 3))
+    assert float(((three - v).abs() / v.abs()).max()) <= 2.0 ** -24
+    two = sum(bf16_terms(v, 2))
+    assert float(((two - v).abs() / v.abs()).max()) <= 2.0 ** -16
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The reference's sequential scan and Pallas kernel (they need JAX)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.ops import ssd_scan as pallas_ssd_scan
+    from repro.kernels.ref import ref_ssd_scan
+
+    def run(fn, *args, **kw):
+        y, st = fn(*(jnp.asarray(t.float().numpy()) for t in args), **kw)
+        return torch.from_numpy(np.array(y)), torch.from_numpy(np.array(st))
+
+    return {"ref": lambda *t: run(ref_ssd_scan, *t),
+            "pallas": lambda *t: run(pallas_ssd_scan, *t, chunk=128, interpret=True)}
+
+
+@pytest.mark.parametrize("s", [256, 300])
+def test_k8_three_term_route_holds_the_contracts(jax_ref, s):
+    """At the mamba2 head (P=64, N=128), K8's chunk of 32, S=256 and a ragged
+    300: y within 1e-5 of max|y| before its bf16 rounding and within 2^-7
+    after it, the state within 1e-5 relative norm, against the reference's
+    sequential scan and (S=256) its Pallas kernel in interpret mode."""
+    x, dt, a, bm, cm = _k8_inputs(1, s, 2, 1, 64, 128, s)
+    y, st = k8_emulated(x, dt, a, bm, cm)
+    for name in ["ref", "pallas"] if s % 128 == 0 else ["ref"]:
+        y_ref, st_ref = jax_ref[name](x, dt, a, bm, cm)
+        scale = float(y_ref.abs().max())
+        assert float((y - y_ref).abs().max()) <= 1e-5 * scale, name
+        y_bf16 = y.to(torch.bfloat16).float()
+        assert float((y_bf16 - y_ref).abs().max()) <= 2.0 ** -7 * scale, name
+        assert _rel(st, st_ref.double()) <= REL, name
+
+
+def _ssd_f64(x, dt, a, bmat, cmat):
+    """The recurrence step by step in f64: (y, final state)."""
+    b, s, h, p = x.shape
+    rep = h // bmat.shape[2]
+    bh, ch = (t.double().repeat_interleave(rep, dim=2) for t in (bmat, cmat))
+    st = torch.zeros((b, h, p, bmat.shape[3]), dtype=torch.float64)
+    ys = []
+    for t in range(s):
+        d = dt[:, t].double()
+        st = (st * torch.exp(d * a.double())[..., None, None]
+              + (d[..., None] * x[:, t].double())[..., None] * bh[:, t][:, :, None, :])
+        ys.append(torch.einsum("bhn,bhpn->bhp", ch[:, t], st))
+    return torch.stack(ys, dim=1), st
+
+
+def test_k8_three_terms_are_as_close_as_f32():
+    """Against the f64 recurrence at the mamba2 head (S=300): three bf16
+    terms keep y and the state as close as the plain f32 scan at K8's chunk
+    does (within 2x), and y rounds to the same bf16 about as often; a hi + lo
+    pair (2^-16) is over 10x further off and flips over 10x more bf16
+    roundings of y, each of which the full-width model amplifies."""
+    x, dt, a, bm, cm = _k8_inputs(1, 300, 2, 1, 64, 128, 300)
+    y_t, st_t = _ssd_f64(x, dt, a, bm, cm)
+    y_f32, st_f32 = k8.ssd_scan_plain(x.float(), dt, a, bm.float(), cm.float(), chunk=k8.CHUNK)
+    y3, st3 = k8_emulated(x, dt, a, bm, cm, terms=3)
+    y2, _ = k8_emulated(x, dt, a, bm, cm, terms=2)
+
+    def flips(y):
+        return float((y.to(torch.bfloat16) != y_t.float().to(torch.bfloat16)).float().mean())
+
+    assert _rel(y3, y_t) <= 2 * _rel(y_f32, y_t)
+    assert _rel(st3, st_t) <= 2 * _rel(st_f32, st_t)
+    assert flips(y3) <= 2 * flips(y_f32)
+    assert _rel(y2, y_t) > 10 * _rel(y3, y_t)
+    assert flips(y2) > 10 * flips(y3)
+
+
+def test_k8_hi_lo_pair_holds_the_kernel_contracts():
+    """A hi + lo pair per f32 operand (two tensor-core passes) would still
+    hold K8's own contracts at the mamba2 head (S=300): y in bf16 within
+    2^-7 of max|y| and the state within 1e-5 relative norm of the f64
+    recurrence.  So the least tensor-core work for the scan counts two
+    passes, not the three the kernel spends, and K8's bound is by bytes."""
+    x, dt, a, bm, cm = _k8_inputs(1, 300, 2, 1, 64, 128, 300)
+    y_t, st_t = _ssd_f64(x, dt, a, bm, cm)
+    y2, st2 = k8_emulated(x, dt, a, bm, cm, terms=2)
+    scale = float(y_t.abs().max())
+    assert float((y2.to(torch.bfloat16).double() - y_t).abs().max()) <= 2.0 ** -7 * scale
+    assert _rel(st2, st_t) <= REL
+
+
+def test_k8_emulation_with_an_entering_state_and_groups(jax_ref):
+    """Two groups of two heads, an entering state, ragged S at K8's chunk."""
+    x, dt, a, bm, cm = _k8_inputs(2, 77, 4, 2, 16, 32, 7)
+    init = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 4, 16, 32))
+                            .astype(np.float32))
+    y, st = k8_emulated(x, dt, a, bm, cm, init=init)
+    y_ref, st_ref = jax_ref["ref"](x, dt, a, bm, cm, init)
+    assert float((y - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
+    assert _rel(st, st_ref.double()) <= REL

@@ -8,10 +8,11 @@ sums IEEE f32 products in another order, the tensor-core route three-pass
 TF32 products, tests/test_torch_kernel_design.py); K7 in f32 to 2e-6 of the
 output's scale and in bf16 to one bf16 ulp (2^-7) of it, since both round
 one f32 result (the bf16 kernel's p carried as bf16 hi + lo).  K8
-computes in f32 over other chunk lengths than its plain version (32 against
-the model's 128), so the two differ by f32 rounding: y in f32 to 1e-5 of the
-output's scale, in bf16 to one bf16 ulp of it; the f32 final state to 1e-5
-relative norm.
+computes over other chunk lengths than its plain version (32 against the
+model's 128), in f32 or, on bf16's tensor-core route, with each f32 operand
+as three bf16 terms (2^-24 relative), so the two differ by rounding: y in
+f32 to 1e-5 of the output's scale, in bf16 to one bf16 ulp of it; the f32
+final state to 1e-5 relative norm.
 """
 
 import numpy as np
@@ -294,6 +295,62 @@ def test_k8_matches_plain_version_on_card(cuda, dtype, b, s, h, g, p, n, chunk):
     err = float((y.float() - y_p.float()).abs().max())
     assert err <= tol * float(y_p.float().abs().max()), err
     assert _rel(st, st_p) < 1e-5
+
+
+def _k8_close(y, st, y_p, st_p):
+    tol = 1e-5 if y.dtype == torch.float32 else 2.0 ** -7
+    err = float((y.float() - y_p.float()).abs().max())
+    assert err <= tol * float(y_p.float().abs().max()), err
+    assert _rel(st, st_p) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", k8.STATE_DIMS)
+@pytest.mark.parametrize("p", k8.HEAD_DIMS)
+def test_k8_tensor_core_route_at_every_width_on_card(cuda, p, n):
+    """The bf16 tensor-core route at every (P, N) it is built for, ragged S,
+    an entering state, two groups."""
+    x, dt, a, bm, cm = _ssd_inputs(2, 75, 4, 2, p, n, torch.bfloat16, cuda, p + n)
+    init = torch.randn((2, 4, p, n), generator=torch.Generator(cuda).manual_seed(n),
+                       device=cuda)
+    assert k8.route(x) == "mma"
+    mma_before, grids_before = k8.ssd_scan.route_launches["mma"], k8.grids()
+    y, st = k8.ssd_scan(x, dt, a, bm, cm, init_state=init)
+    torch.cuda.synchronize()
+    assert k8.ssd_scan.route_launches["mma"] == mma_before + 1
+    assert k8.grids() == grids_before + 2         # the scores, then the scan
+    _k8_close(y, st, *k8.ssd_scan_plain(x, dt, a, bm, cm, init_state=init))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_first_design_and_unaligned_rows_on_card(cuda, dtype):
+    """f32 takes the first design, whatever its rows' alignment; bf16 rows
+    that are not 16-byte aligned are refused.  ssd_scan_scalar runs the first
+    design on aligned bf16 too and counts its own launches."""
+    b, s, h, g, p, n = 2, 70, 4, 1, 16, 32
+    rng = np.random.default_rng(3)
+    buf = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * g * n + 1)).astype(
+        np.float32)).to(cuda, dtype)
+    x = buf[..., 1:1 + h * p].reshape(b, s, h, p)         # rows one element off alignment
+    bm = buf[..., 1 + h * p:1 + h * p + g * n].reshape(b, s, g, n)
+    cm = buf[..., 1 + h * p + g * n:].reshape(b, s, g, n)
+    _, dt, a, _, _ = _ssd_inputs(b, s, h, g, p, n, dtype, cuda, 3)
+    before, scalar_before = k8.ssd_scan.launches, k8.ssd_scan_scalar.launches
+    if dtype == torch.bfloat16:
+        for fn in (k8.ssd_scan, k8.ssd_scan_scalar):
+            with pytest.raises(ValueError, match="16-byte boundary"):
+                fn(x, dt, a, bm, cm)
+        x, dt, a, bm, cm = _ssd_inputs(b, s, h, g, p, n, dtype, cuda, 3)
+    assert k8.route(x) == ("scalar" if dtype == torch.float32 else "mma")
+    want = k8.ssd_scan_plain(x, dt, a, bm, cm)
+    _k8_close(*k8.ssd_scan(x, dt, a, bm, cm), *want)
+    grids_before = k8.grids()
+    _k8_close(*k8.ssd_scan_scalar(x, dt, a, bm, cm), *want)
+    assert k8.grids() == grids_before + 1         # the first design: one grid
+    torch.cuda.synchronize()
+    assert k8.ssd_scan.launches == before + 1
+    assert k8.ssd_scan_scalar.launches == scalar_before + 1
 
 
 @pytest.mark.gpu
