@@ -7,19 +7,27 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
 
   1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
   2. build: ``nvcc`` builds every kernel source of the port (in parallel);
-     the ``-Xptxas -v`` summary (registers, shared memory, spills) is printed.
+     the ``-Xptxas -v`` summary (registers, shared memory, spills) is printed,
+     and, where the toolkit has ``cuobjdump``, the SASS size and loop bodies
+     of K1's two designs.
   3. kernels: K1 and K2 (BEHAV statistics), K3 (dominance counts, and its
      front peel ``constraint_fronts``) and K4 and K5 (table GEMV) are held
      against their plain PyTorch versions on the card at the shapes of the
      paths below -- int channels, counts, fronts and GEMV outputs exactly,
      the f32 channel to 1e-5 relative; K5 against K4 -- and timed with CUDA
      events beside the plain versions and a bound computed from the shapes.
+     K1's record times its register walk beside its first design
+     (``behav_stats_table_first``, held equal too, also at a ragged D).
      K3's record times the front peel beside the round-by-round route it
      replaces (a ``dominance_counts`` launch and a host sync a front).
      K4/K5 run at the mnist head (D=128, M=250, K=256, N=10), the ffn GEMM1
-     (M=96, K=64, N=128) and a ragged K=100; their yardstick
-     (``library_ms``) is the ``gemm`` route at the mnist shape, four cuBLAS
-     f32 GEMMs.
+     (M=96, K=64, N=128), a ragged K=100 and the two convolutions (ecg
+     M=2,034, K=15; gauss M=8,464, K=25; N=1), the apps' own codes; K4
+     through both of its routes (staged and gather), each held equal and
+     timed, and the route its ``plan`` picks printed; their yardstick
+     (``library_ms``) is the ``gemm`` route, four cuBLAS f32 GEMMs.  Then
+     K4's route boundary: both routes, held equal, timed at 0.25 to 2
+     lookups per table entry in two shape families, random codes.
   4. main path: the 8x8 signed-multiplier DSE of the paper at full scale
      (2,000 random + pattern training configs characterized exhaustively,
      105-problem MaP battery, NSGA-II at population 64 for 100 generations)
@@ -34,14 +42,13 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      app=DigitClassification())`` runs ``ga`` and ``map`` (K4, K1, K3) and
      ``map+ga`` on ``kernel_impl="entry"`` (K5, K2, K3) at population 64 x 100
      generations.  Launch counts are zeroed before and read after; every
-     kernel must have launched.  Then the checks: a 64-config subset of the
+     kernel must have launched, K4 106 times, each app shape on the route
+     its ``plan`` picks.  Then the checks: a 64-config subset of the
      training set's app BEHAV is held against the numpy oracle (ecg and mnist
      exactly, gauss and ffn to 1e-6 relative), and each validated front's
      APP_MNIST must equal the numpy oracle exactly, and its PPA too.
      Under the default ``table`` route the ecg and gauss convolutions are
-     K4's N=1 table matmul; after the counts are read, K4 is held against its
-     plain version at both convolution shapes (ecg M=2,034, K=15; gauss
-     M=8,464, K=25) and timed there.
+     K4's N=1 table matmul (held and timed at those shapes in phase 3).
   5. GA contract: the device NSGA-II's feasible-archive hypervolume within 2%
      of the numpy NSGA-II on the fitted 8-bit surrogate (population 32, 30
      generations), as a mean over seeds 0-19.
@@ -141,6 +148,13 @@ K7_PR13_MS = {"serve prefill": 0.0829, "ragged": 0.0577}
 N_SMS = 132
 INT32_LANES_PER_SM = 64
 F32_LANES_PER_SM = 128
+ISSUE_LANES_PER_SM = 128   # 4 warp instructions an SM a clock
+SMEM_WORDS_PER_SM = 32     # shared-memory banks: 4-byte words an SM a clock
+# the least instructions a BEHAV pair needs: sub, abs, hi/lo split (2), three
+# multiply-adds, count, max, sum and the f32 multiply-add (K1); K2 adds the
+# exact product, its abs, the clamp to 1, the conversion and the division
+K1_PAIR_OPS = 11
+K2_PAIR_OPS = K1_PAIR_OPS + 5
 REL_RTOL = 1e-5
 SERVE_REL = 1e-3      # logits of a kernel pass vs the same pass on the plain versions
 AXO_RANK = 8
@@ -380,6 +394,8 @@ def main() -> int:
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     int_rate = N_SMS * INT32_LANES_PER_SM * clock_mhz * 1e6
     f32_rate = N_SMS * F32_LANES_PER_SM * 2 * clock_mhz * 1e6   # FMA = 2 FLOPs
+    issue_rate = N_SMS * ISSUE_LANES_PER_SM * clock_mhz * 1e6
+    gather_rate = N_SMS * SMEM_WORDS_PER_SM * clock_mhz * 1e6
     print(f"phase device: nvidia-smi '{card}', torch '{torch.cuda.get_device_name(0)}', "
           f"count {torch.cuda.device_count()}, max SM clock {clock_mhz:.0f} MHz, "
           f"derived int32 rate {int_rate:.4g} op/s, f32 rate {f32_rate:.4g} FLOP/s, "
@@ -412,10 +428,19 @@ def main() -> int:
 
     i1, r1 = char_kernels.behav_stats_table(small, exact, w, a_tile)
     i1p, r1p = char_kernels.behav_stats_table_plain(small, exact, w, a_tile)
+    i0, r0 = char_kernels.behav_stats_table_first(small, exact, w, a_tile)
     i2, r2 = char_kernels.behav_stats_entry(masks, 8, a_tile)
     i2p, r2p = char_kernels.behav_stats_entry_plain(masks, 8, a_tile)
+    # a ragged D (the walk's last block holds 1 of its 4 configs)
+    small_r = small[:, :37].contiguous()
+    i1r, r1r = char_kernels.behav_stats_table(small_r, exact, w, a_tile)
+    i0r, r0r = char_kernels.behav_stats_table_first(small_r, exact, w, a_tile)
+    i1rp, r1rp = char_kernels.behav_stats_table_plain(small_r, exact, w, a_tile)
     torch.cuda.synchronize()
-    for name, ik, ip, rk, rp in (("K1", i1, i1p, r1, r1p), ("K2", i2, i2p, r2, r2p)):
+    for name, ik, ip, rk, rp in (("K1", i1, i1p, r1, r1p), ("K2", i2, i2p, r2, r2p),
+                                 ("K1 first design", i0, i1p, r0, r1p),
+                                 ("K1 at D=37", i1r, i1rp, r1r, r1rp),
+                                 ("K1 first design at D=37", i0r, i1rp, r0r, r1rp)):
         if not torch.equal(ik, ip):
             raise AssertionError(f"{name} int channels differ from the plain version")
         torch.testing.assert_close(rk, rp, rtol=REL_RTOL, atol=0)
@@ -424,18 +449,20 @@ def main() -> int:
     err = {"K1": float((r1 - r1p).abs().max()), "K2": float((r2 - r2p).abs().max())}
 
     pairs = d * b_n * b_n
-    k1_int = pairs * (2 * rows + 2 + 12)   # per row shift+add; sub, abs; 6 channel updates
-    k2_int = k1_int + pairs * 3 + d * rows * 4 * b_n * spec.width * 10  # + exact, chain
+    k1_ops = pairs * K1_PAIR_OPS
+    k2_ops = pairs * K2_PAIR_OPS + d * rows * 4 * b_n * spec.width * 10  # + the chain
     out_bytes = 2 * n_ta * d * 8 * 4
     rec = {}
     rec["K1"] = dict(
         name="behav_stats_table", source="src/repro_torch/kernels/csrc/char_kernels.cu",
         replaces="src/repro/kernels/char_kernels.py:107",
         ms=cuda_ms(torch, lambda: char_kernels.behav_stats_table(small, exact, w, a_tile), 50),
+        # the first design on the same inputs, in this call
+        old_ms=cuda_ms(torch, lambda: char_kernels.behav_stats_table_first(
+            small, exact, w, a_tile), 50),
         plain_ms=cuda_ms(torch, lambda: char_kernels.behav_stats_table_plain(
             small, exact, w, a_tile), 5),
-        bound=bound(small.numel() * 4 + 2 * b_n * b_n * 4 + out_bytes, k1_int, 2 * pairs,
-                    int_rate),
+        bound=bound(small.numel() * 4 + 2 * b_n * b_n * 4 + out_bytes, k1_ops, 0, issue_rate),
     )
     rec["K2"] = dict(
         name="behav_stats_entry", source="src/repro_torch/kernels/csrc/char_kernels.cu",
@@ -443,11 +470,16 @@ def main() -> int:
         ms=cuda_ms(torch, lambda: char_kernels.behav_stats_entry(masks, 8, a_tile), 50),
         plain_ms=cuda_ms(torch, lambda: char_kernels.behav_stats_entry_plain(
             masks, 8, a_tile), 5),
-        bound=bound(masks.numel() * 4 + out_bytes, k2_int, 3 * pairs, int_rate),
+        bound=bound(masks.numel() * 4 + out_bytes, k2_ops, 0, issue_rate),
     )
     print(f"phase kernels: K1/K2 vs plain at D={d} configs, A=B={b_n}, a_tile={a_tile}: "
           f"int channels ==, f32 channel rtol {REL_RTOL} (max abs err K1 {err['K1']:.3g}, "
-          f"K2 {err['K2']:.3g}); K2 int == K1 int", flush=True)
+          f"K2 {err['K2']:.3g}); K2 int == K1 int; K1's first design ==, and both at D=37; "
+          f"K1 {rec['K1']['ms']:.4f} ms (first design {rec['K1']['old_ms']:.4f}), bound "
+          f"{rec['K1']['bound'][0]:.4g} ms by {rec['K1']['bound'][1]} ({K1_PAIR_OPS} "
+          f"instructions a pair at {ISSUE_LANES_PER_SM} lanes an SM a clock); K2 bound "
+          f"{rec['K2']['bound'][0]:.4g} ms ({K2_PAIR_OPS} a pair + the planes' synthesis)",
+          flush=True)
 
     for p in (64, 128, 1000):
         g = np.random.default_rng(p)
@@ -509,23 +541,34 @@ def main() -> int:
     err["K3"] = 0.0  # integer fronts, held equal above
 
     # K4/K5 on 126 random configs + the accurate and the all-zeros config, at
-    # the mnist head and the ffn GEMM1 (the apps' own codes) and a ragged K
+    # the mnist head, the ffn GEMM1, a ragged K and the ecg and gauss
+    # convolutions (the apps' own codes); K4 through both of its routes
     app_cfgs = np.concatenate([cfgs[:126], cfgs[-2:]])
     d_app = len(app_cfgs)
     tb = fastapp.table_batch(spec, app_cfgs, ctx=ExecutionContext())
     tflat = tb.tables.reshape(d_app, -1)
     mnist_app, ffn_app = APPLICATIONS["mnist"](), APPLICATIONS["ffn"]()
+    ecg_app, gauss_app = APPLICATIONS["ecg"](), APPLICATIONS["gauss"]()
+    x_c = np.asarray(ecg_app._x_codes, np.int32)
+    img_c = torch.from_numpy(np.asarray(gauss_app._img_codes, np.int32))
     g = np.random.default_rng(1)
     gemv_shapes = {
         "mnist": (mnist_app._x_codes, mnist_app._w_codes),
         "ffn": (ffn_app._x_codes, ffn_app._w1_codes),
         "ragged": (g.integers(0, b_n, (250, 100)), g.integers(0, b_n, (100, 10))),
+        "ecg conv1d": (np.lib.stride_tricks.sliding_window_view(x_c, len(ecg_app._h_codes)),
+                       np.asarray(ecg_app._h_codes)[:, None]),
+        "gauss conv2d": (img_c.unfold(0, 5, 1).unfold(1, 5, 1).reshape(-1, 25).numpy(),
+                         np.asarray(gauss_app._k_codes).reshape(-1, 1)),
     }
+    k4_shapes = {}   # label -> (M, K, N) and the route K4's plan picks
     for label, (a_np, b_np) in gemv_shapes.items():
-        a = torch.from_numpy(np.asarray(a_np, np.int32)).to(dev)
-        bb = torch.from_numpy(np.asarray(b_np, np.int32)).to(dev)
+        a = torch.from_numpy(np.ascontiguousarray(a_np, np.int32)).to(dev)
+        bb = torch.from_numpy(np.ascontiguousarray(b_np, np.int32)).to(dev)
         (m, k), n = a.shape, bb.shape[1]
         k4 = app_kernels.table_gemv(tflat, a, bb)
+        k4_routes = {r: app_kernels.table_gemv(tflat, a, bb, route=r)
+                     for r in ("staged", "gather")}
         k5 = app_kernels.entry_gemv(tb.masks, a, bb, 8)
         p4 = app_kernels.table_gemv_plain(tflat, a, bb)
         p5 = app_kernels.entry_gemv_plain(tb.masks, a, bb, 8)
@@ -533,21 +576,30 @@ def main() -> int:
         torch.cuda.synchronize()
         if not (torch.equal(k4, p4) and torch.equal(k5, p5)):
             raise AssertionError(f"K4/K5 differ from their plain versions at {label}")
+        for r, out in k4_routes.items():
+            if not torch.equal(out, p4):
+                raise AssertionError(f"K4's {r} route differs from the plain version at {label}")
         if not (torch.equal(k5, k4) and torch.equal(gemm, k4)):
             raise AssertionError(f"K5 or the gemm route differs from K4 at {label}")
-        # ALU operations only: per lookup K4 adds the index and accumulates (its
-        # table load issues on the load/store pipe); K5 per row adds the index,
-        # shifts and accumulates, and synthesizes each config's planes once
+        route = app_kernels.plan(m, k, n, 8).route
+        k4_shapes[label] = ((m, k, n), route)
+        # K4: the tables' bytes, or the shared-memory gather at one 4-byte word
+        # a bank a clock, the larger; K5 (ALU operations): per row the index
+        # add, the shift and the accumulate, and each config's planes once
         lookups = d_app * m * n * k
         io_bytes = (a.numel() + bb.numel() + d_app * m * n) * 4
         synth_ops = d_app * rows * 4 * b_n * spec.width * 10   # once per config
+        route_ms = {r: cuda_ms(torch, lambda: app_kernels.table_gemv(tflat, a, bb, route=r), 20)
+                    for r in ("staged", "gather")}
         k4_rec = dict(
             name="table_gemv", source="src/repro_torch/kernels/csrc/app_kernels.cu",
             replaces="src/repro/kernels/app_kernels.py:74",
-            ms=cuda_ms(torch, lambda: app_kernels.table_gemv(tflat, a, bb), 20),
+            route=route, ms=route_ms[route],
+            # the first design (the gather route) on the same inputs, in this call
+            old_ms=route_ms["gather"], staged_ms=route_ms["staged"],
             plain_ms=cuda_ms(torch, lambda: app_kernels.table_gemv_plain(tflat, a, bb), 3),
             library_ms=cuda_ms(torch, lambda: fastapp._matmul_gemm(tb.small, a, bb), 20),
-            bound=bound(tflat.numel() * 4 + io_bytes, 2 * lookups, 0, int_rate),
+            bound=bound(tflat.numel() * 4 + io_bytes, lookups, 0, gather_rate),
         )
         k5_rec = dict(
             name="entry_gemv", source="src/repro_torch/kernels/csrc/app_kernels.cu",
@@ -559,15 +611,46 @@ def main() -> int:
             bound=bound(tb.masks.numel() * 4 + io_bytes, 3 * rows * lookups + synth_ops, 0,
                         int_rate),
         )
-        print(f"phase kernels: K4/K5 vs plain at {label} D={d_app} M={m} K={k} N={n}: "
-              f"outputs ==, K5 == K4 == gemm route; K4 {k4_rec['ms']:.4f} ms (plain "
-              f"{k4_rec['plain_ms']:.4f}, bound {k4_rec['bound'][0]:.4g} by "
-              f"{k4_rec['bound'][1]}), K5 {k5_rec['ms']:.4f} ms (plain "
+        print(f"phase kernels: K4/K5 vs plain at {label} D={d_app} M={m} K={k} N={n} "
+              f"({m * n * k / 4 ** 8:.3g} lookups a table entry): outputs ==, K4's staged and "
+              f"gather routes ==, K5 == K4 == gemm route; K4 takes the {route} "
+              f"route: {k4_rec['ms']:.4f} ms (staged {route_ms['staged']:.4f}, gather "
+              f"{route_ms['gather']:.4f}; plain "
+              f"{k4_rec['plain_ms']:.4f}, bound "
+              f"{k4_rec['bound'][0]:.4g} by {k4_rec['bound'][1]}: tables' bytes "
+              f"{bound(tflat.numel() * 4 + io_bytes, 0, 0, 1)[0]:.4g}, shared-memory gather "
+              f"{bound(0, lookups, 0, gather_rate)[0]:.4g}), K5 {k5_rec['ms']:.4f} ms (plain "
               f"{k5_rec['plain_ms']:.4f}, bound {k5_rec['bound'][0]:.4g} by "
               f"{k5_rec['bound'][1]}), gemm route (4 cuBLAS f32 GEMMs) "
               f"{k4_rec['library_ms']:.4f} ms", flush=True)
         if label == "mnist":   # the shape of the app path's GEMV (mnist's logits)
             rec["K4"], rec["K5"] = k4_rec, k5_rec
+        rec["K4"].setdefault("shapes", {})[label] = {
+            key: k4_rec[key] for key in ("route", "ms", "old_ms", "staged_ms",
+                                         "plain_ms", "library_ms")} | {
+                                             "bound_ms": k4_rec["bound"][0]}
+    # K4's route boundary: both routes at 0.25 to 2 lookups per table entry
+    # (M*K*N / 4^8) in the convolutions' family (K=15, N=1) and the head's
+    # (K=64, N=10), codes of both table halves; plan() stages from
+    # STAGED_MIN_REUSE on
+    sweep, g_sw = [], np.random.default_rng(2)
+    for k_sw, n_sw in ((15, 1), (64, 10)):
+        for reuse in (0.25, 0.35, 0.5, 0.6, 0.7, 1.0, 1.4, 2.0):
+            m_sw = round(reuse * 4 ** 8 / (k_sw * n_sw))
+            a_sw = torch.from_numpy(g_sw.integers(0, b_n, (m_sw, k_sw)).astype(np.int32)).to(dev)
+            b_sw = torch.from_numpy(g_sw.integers(0, b_n, (k_sw, n_sw)).astype(np.int32)).to(dev)
+            if not torch.equal(app_kernels.table_gemv(tflat, a_sw, b_sw, route="staged"),
+                               app_kernels.table_gemv(tflat, a_sw, b_sw, route="gather")):
+                raise AssertionError(f"K4's routes differ at M={m_sw} K={k_sw} N={n_sw}")
+            t = {r: cuda_ms(torch, lambda: app_kernels.table_gemv(tflat, a_sw, b_sw, route=r), 100)
+                 for r in ("staged", "gather")}
+            sweep.append({"m": m_sw, "k": k_sw, "n": n_sw, "reuse": m_sw * k_sw * n_sw / 4 ** 8,
+                          "plan": app_kernels.plan(m_sw, k_sw, n_sw, 8).route, **t})
+    print("phase kernels: K4's route boundary (staged == gather at every shape; "
+          f"STAGED_MIN_REUSE {app_kernels.STAGED_MIN_REUSE}): " + ", ".join(
+              f"M={p['m']} K={p['k']} N={p['n']} ({p['reuse']:.3g}) staged {p['staged']:.4f} "
+              f"gather {p['gather']:.4f} ms, plan {p['plan']}" for p in sweep), flush=True)
+    rec["K4"]["boundary"] = sweep
     err["K4"] = err["K5"] = 0.0  # exact int32 outputs, held equal above
 
     # K6 at granite-3-2b's AxO projections, rank 8: decode (M=4) against the
@@ -807,6 +890,8 @@ def main() -> int:
     app_wrappers = dict(wrappers, K4=app_kernels.table_gemv, K5=app_kernels.entry_gemv)
     for fn in app_wrappers.values():
         fn.launches = 0
+    k4_routes_seen = app_kernels.table_gemv.route_launches
+    k4_routes_seen.update(dict.fromkeys(k4_routes_seen, 0))
     t_app0 = time.perf_counter()
     train_app = characterized_dataset_multi(apps, spec, train, backend=ctx)
     t_multi = time.perf_counter() - t_app0
@@ -832,15 +917,27 @@ def main() -> int:
               f"{ {k: fn.launches for k, fn in app_wrappers.items()} }", flush=True)
     torch.cuda.synchronize()
     app_launches = {k: fn.launches for k, fn in app_wrappers.items()}
+    k4_by_route = dict(k4_routes_seen)
     t_app = time.perf_counter() - t_app0
     if min(app_launches.values()) <= 0:
         raise AssertionError(f"a kernel of the app path never launched: {app_launches}")
     # K4 per 128-config chunk: the mnist head, the ffn GEMM1 and the ecg and
     # gauss convolutions; then one per ga / map validation (mnist's head)
-    k4_want = 4 * -(-len(train) // 128) + 2
+    chunks = -(-len(train) // 128)
+    k4_want = 4 * chunks + 2
     if app_launches["K4"] != k4_want:
         raise AssertionError(f"K4 launched {app_launches['K4']} times on the app path, "
                              f"expected {k4_want}")
+    # each app shape on the route K4's plan picks for it
+    routes_want = dict.fromkeys(k4_by_route, 0)
+    for label in ("mnist", "ffn", "ecg conv1d", "gauss conv2d"):
+        routes_want[k4_shapes[label][1]] += chunks + 2 * (label == "mnist")
+    print(f"phase apps: K4's route by app shape: "
+          f"{ {label: k4_shapes[label][1] for label in k4_shapes if label != 'ragged'} }; "
+          f"launches by route {k4_by_route} (expected {routes_want})", flush=True)
+    if k4_by_route != routes_want:
+        raise AssertionError(f"K4's app-path launches by route {k4_by_route}, "
+                             f"expected {routes_want}")
     # checks of the app path, after its launch counts and time are read
     pick = np.random.default_rng(2).choice(len(train), 62, replace=False)
     chk = np.concatenate([train.configs[pick], cfgs[-1:], cfgs[-2:-1]])  # + zeros, accurate
@@ -865,33 +962,9 @@ def main() -> int:
         np.testing.assert_array_equal(
             r.vpf_objs[:, 1], ppa_metrics(spec, r.vpf_configs)[PPA_KEY],
             err_msg=f"app {method} {PPA_KEY}")
-    print(f"phase apps: {t_app:.1f} s, launches {app_launches} (K4 expected {k4_want}); "
-          f"validated fronts' APP_MNIST == numpy oracle, {PPA_KEY} == numpy", flush=True)
-    # K4 at the two convolutions' shapes, the apps' own windows and taps
-    ecg, gauss = apps[0], apps[2]
-    x_c = torch.from_numpy(np.asarray(ecg._x_codes, np.int32)).to(dev)
-    img_c = torch.from_numpy(np.asarray(gauss._img_codes, np.int32)).to(dev)
-    convs = {
-        "ecg conv1d": (x_c.unfold(0, len(ecg._h_codes), 1).contiguous(),
-                       torch.from_numpy(np.asarray(ecg._h_codes, np.int32))[:, None]),
-        "gauss conv2d": (img_c.unfold(0, 5, 1).unfold(1, 5, 1).reshape(-1, 25).contiguous(),
-                         torch.from_numpy(np.asarray(gauss._k_codes, np.int32)).reshape(-1, 1)),
-    }
-    for label, (win, taps) in convs.items():
-        taps = taps.contiguous().to(dev)
-        k4 = app_kernels.table_gemv(tflat, win, taps)
-        p4 = app_kernels.table_gemv_plain(tflat, win, taps)
-        torch.cuda.synchronize()
-        if not torch.equal(k4, p4):
-            raise AssertionError(f"K4 differs from its plain version at the {label} shape")
-        m, k = win.shape
-        ms = cuda_ms(torch, lambda: app_kernels.table_gemv(tflat, win, taps), 20)
-        plain_ms = cuda_ms(torch, lambda: app_kernels.table_gemv_plain(tflat, win, taps), 3)
-        b_ms, b_by = bound(tflat.numel() * 4 + (win.numel() + k + d_app * m) * 4,
-                           2 * d_app * m * k, 0, int_rate)
-        print(f"phase apps: K4 vs plain at {label} D={d_app} M={m} K={k} N=1: outputs ==; "
-              f"K4 {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4g} ms by {b_by})",
-              flush=True)
+    print(f"phase apps: {t_app:.1f} s ({t_multi:.2f} s attaching the 4 apps' BEHAV), launches "
+          f"{app_launches} (K4 expected {k4_want}); validated fronts' APP_MNIST == numpy "
+          f"oracle, {PPA_KEY} == numpy", flush=True)
     launches.update(K4=app_launches["K4"], K5=app_launches["K5"])
 
     # -- 5. GA hypervolume contract -----------------------------------------
@@ -1281,9 +1354,12 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
             **{key: r[key] for key in ("device_ms", "library_device_ms", "old_ms", "grids",
-                                       "dominance_counts_ms") if key in r},
+                                       "dominance_counts_ms", "route", "staged_ms", "shapes",
+                                       "boundary")
+               if key in r},
         })
-    print(f"phase done: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phase done: {time.perf_counter() - t_start:.1f} s (main path {t_main:.1f} s, apps "
+          f"{t_app:.1f} s, of which attaching app BEHAV {t_multi:.2f} s)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,12 +21,26 @@ chunked flattened gathers ``fastapp._matmul_take_shared`` (K4) and
 ``_matmul_entry_shared`` over ``operator_model._synth_small`` planes (K5),
 written in torch.  On a CUDA tensor it launches the kernel or raises; it
 never falls back.  ``launches`` on each wrapper counts kernel launches.
+
+K4 has two routes, which :func:`plan` picks by shape alone: ``"staged"``
+holds one config's table in shared memory (two passes of 128 rows at 8 bits)
+and computes all its outputs from it, for shapes with at least
+``STAGED_MIN_REUSE`` lookups per table entry that fit its shared memory;
+``"gather"``, the first design, gathers the table through the caches, for
+the rest.  A call may name a route; a shape the route cannot take raises.
+``table_gemv.route_launches`` counts launches by route.  The staged route
+runs two grids a call: a packing of the codes as uint8 (and of which table
+halves they use), then the GEMV.  Its CUDA launcher computes its
+shared-memory layout itself and refuses a shape that does not fit;
+:func:`plan` mirrors the layout's size only to choose the route.
+``tests/test_torch_kernel_design.py`` emulates the staged route.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +48,8 @@ from ..core.operator_model import _synth_small, spec_for
 from . import build
 
 __all__ = [
+    "Plan",
+    "plan",
     "table_gemv",
     "table_gemv_plain",
     "entry_gemv",
@@ -46,6 +62,18 @@ MAX_K = 1 << 14       # int32 sums of |P| < 2^16 stay exact
 M_TILE = 32           # output rows per block
 SMEM_BUDGET = 64 * 1024  # bytes of shared memory per block (3 blocks per SM)
 PLAIN_D_CHUNK = 8     # configs per gather of the plain versions (registry default)
+# lookups per config / table entries at which K4 stages: on an H100 the two
+# routes cross at 0.5-0.7 in both the convolutions' and the head's shapes
+# (chip_smoke.py's boundary sweep, PERF.md section 6)
+STAGED_MIN_REUSE = 0.6
+# K4's staged layout, as csrc/app_kernels.cu's staged_layout() computes it
+# (mirrored for routing only): 16 warps, a warp a (32-row slab, column) item
+# a round; K padded to 16-code chunks; a pass holds 128 table rows
+STAGED_WARPS = 16
+STAGED_SLAB = 32
+STAGED_CHUNK = 16
+STAGED_PASS_ROWS = 128
+MAX_SMEM = 227 * 1024    # dynamic shared memory one block may use
 
 
 def _pair(a: torch.Tensor, r: int) -> torch.Tensor:
@@ -170,12 +198,61 @@ def _tiles(m: int, k: int, n: int, plane_ints: int) -> tuple[int, int]:
     return m_tile, k_tile
 
 
+class Plan(NamedTuple):
+    route: str          # "staged" or "gather"
+    m_tile: int         # gather: output rows a block owns
+    k_tile: int         # gather: K rows a shared-memory chunk
+    smem: int           # dynamic shared memory a block, bytes
+
+
+def _staged_smem(m: int, k: int, n: int, n_bits: int) -> int:
+    """Shared memory of the staged route's block: a table pass (a half at 8
+    bits), the config's sums (N, M_pad + 1) int32, B's codes (N, K_pad) and
+    two A tiles of whole 32-row slabs (rows an odd multiple of 16 bytes)."""
+    k_pad = -(-k // STAGED_CHUNK) * STAGED_CHUNK
+    a_stride = k_pad + STAGED_CHUNK * (1 - (k_pad // STAGED_CHUNK) % 2)
+    slab_cap = min(-(-m // STAGED_SLAB), (STAGED_WARPS - 1) // n + 2)
+    pass_ints = min(1 << n_bits, STAGED_PASS_ROWS) << n_bits
+    m_pad = -(-m // STAGED_SLAB) * STAGED_SLAB
+    return (pass_ints * 4 + -(-n * (m_pad + 1) // 4) * 16 + -(-n * k_pad // 16) * 16
+            + 2 * slab_cap * STAGED_SLAB * a_stride)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m: int, k: int, n: int, n_bits: int, route: str | None = None) -> Plan:
+    """K4's launch for (M, K) x (K, N) codes of ``n_bits`` bits.
+
+    Without ``route``: ``"staged"`` where a config makes at least
+    ``STAGED_MIN_REUSE`` lookups per table entry (M*N*K / 4^n_bits), its
+    codes have 2..8 bits and its table pass, B's codes and two A tiles fit
+    ``MAX_SMEM``; else ``"gather"``.  A named route that cannot take the
+    shape raises.
+    """
+    if route not in (None, "staged", "gather"):
+        raise ValueError(f"unknown K4 route {route!r}")
+    smem = _staged_smem(m, k, n, n_bits)
+    fits = 2 <= n_bits <= MAX_BITS and smem <= MAX_SMEM
+    if route == "staged" and not fits:
+        raise ValueError(f"K4's staged route cannot take M={m} K={k} N={n} at {n_bits} bits "
+                         f"({smem} bytes of shared memory)")
+    if route == "staged" or (route is None and fits
+                             and m * n * k >= STAGED_MIN_REUSE * (1 << 2 * n_bits)):
+        return Plan("staged", 0, 0, smem)
+    m_tile, k_tile = _tiles(m, k, n, 0)
+    return Plan("gather", m_tile, k_tile, (m_tile * (k_tile + 1) + k_tile * n) * 4)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.library("app_kernels")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.table_gemv_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.table_gemv_launch.restype = ctypes.c_int
+    ll = ctypes.c_longlong
+    lib.table_gemv_staged_scratch.argtypes = [i, i, i, i]
+    lib.table_gemv_staged_scratch.restype = ll
+    lib.table_gemv_staged_launch.argtypes = [p, p, p, p, ll, p, i, i, i, i, i, p]
+    lib.table_gemv_staged_launch.restype = ctypes.c_int
     lib.entry_gemv_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.entry_gemv_launch.restype = ctypes.c_int
     return lib
@@ -187,8 +264,11 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def table_gemv(tables_flat: torch.Tensor, a_codes: torch.Tensor,
-               b_codes: torch.Tensor) -> torch.Tensor:
-    """K4: (D, A*B) i32 flattened product tables, (M, K), (K, N) i32 -> (D, M, N) i32."""
+               b_codes: torch.Tensor, route: str | None = None) -> torch.Tensor:
+    """K4: (D, A*B) i32 flattened product tables, (M, K), (K, N) i32 -> (D, M, N) i32.
+
+    ``route`` names K4's route on the card; by default :func:`plan` picks it.
+    """
     _check(tables_flat, "tables_flat", 2, tables_flat.device)
     d, ab = tables_flat.shape
     nb = _side(ab)
@@ -199,18 +279,28 @@ def table_gemv(tables_flat: torch.Tensor, a_codes: torch.Tensor,
     (m, k), n = a_codes.shape, b_codes.shape[1]
     if d * m * n == 0 or k == 0:
         return torch.zeros((d, m, n), dtype=torch.int32, device=tables_flat.device)
+    pl = plan(m, k, n, n_bits, route)
     out = torch.empty((d, m, n), dtype=torch.int32, device=tables_flat.device)
-    m_tile, k_tile = _tiles(m, k, n, 0)
     stream = torch.cuda.current_stream(tables_flat.device).cuda_stream
-    _raise_on(_lib().table_gemv_launch(
-        tables_flat.data_ptr(), a_codes.data_ptr(), b_codes.data_ptr(), out.data_ptr(),
-        d, m, k, n, n_bits, m_tile, k_tile, stream,
-    ), "table_gemv")
+    if pl.route == "staged":
+        # the uint8 codes and the packing blocks' flags, sized by the launcher
+        scratch = torch.empty(_lib().table_gemv_staged_scratch(m, k, n, n_bits),
+                              dtype=torch.uint8, device=tables_flat.device)
+        err = _lib().table_gemv_staged_launch(
+            tables_flat.data_ptr(), a_codes.data_ptr(), b_codes.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), out.data_ptr(), d, m, k, n, n_bits, stream)
+    else:
+        err = _lib().table_gemv_launch(
+            tables_flat.data_ptr(), a_codes.data_ptr(), b_codes.data_ptr(), out.data_ptr(),
+            d, m, k, n, n_bits, pl.m_tile, pl.k_tile, stream)
+    _raise_on(err, f"table_gemv ({pl.route} route)")
     table_gemv.launches += 1
+    table_gemv.route_launches[pl.route] += 1
     return out
 
 
 table_gemv.launches = 0
+table_gemv.route_launches = {"staged": 0, "gather": 0}
 
 
 def entry_gemv(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,

@@ -18,6 +18,12 @@ On a CPU tensor each wrapper returns its plain version, the tiling of the
 reference's ``fastchar._partials_xla`` written in torch.  On a CUDA tensor it
 launches the kernel or raises; it never falls back.  ``launches`` on each
 wrapper counts kernel launches (plain-version calls do not count).
+
+K1 walks each a-tile's codes in registers (a thread a b column, the plane
+values of the tile's varying rows held per config); its first design, which
+reads every product's planes from shared memory, stays callable as
+``behav_stats_table_first`` for the comparison on the card, with a counter of
+its own.  ``tests/test_torch_kernel_design.py`` emulates the walk.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from . import build
 __all__ = [
     "N_CHAN",
     "behav_stats_table",
+    "behav_stats_table_first",
     "behav_stats_table_plain",
     "behav_stats_entry",
     "behav_stats_entry_plain",
@@ -137,8 +144,9 @@ def _device_kind(t: torch.Tensor) -> str:
 def _lib():
     lib = build.library("char_kernels")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.behav_stats_table_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.behav_stats_table_launch.restype = ctypes.c_int
+    for name in ("behav_stats_table_launch", "behav_stats_table_first_launch"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, p]
+        getattr(lib, name).restype = ctypes.c_int
     lib.behav_stats_entry_launch.argtypes = [p, p, p, i, i, i, i, p]
     lib.behav_stats_entry_launch.restype = ctypes.c_int
     return lib
@@ -156,9 +164,10 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def behav_stats_table(small: torch.Tensor, exact: torch.Tensor, w: torch.Tensor,
-                      a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1: per-A-tile BEHAV partials from gathered per-row planes."""
+def _table_stats(launcher: str, small: torch.Tensor, exact: torch.Tensor, w: torch.Tensor,
+                 a_tile: int):
+    """(int partials, f32 partials, whether a kernel was launched) of K1's
+    ``launcher`` design; the plain version on a CPU tensor."""
     rows, d, _, b = small.shape
     n_bits = b.bit_length() - 1
     if b != 1 << n_bits:
@@ -168,20 +177,38 @@ def behav_stats_table(small: torch.Tensor, exact: torch.Tensor, w: torch.Tensor,
     _check(exact, "exact", torch.int32, (b, b), small.device)
     _check(w, "w", torch.float32, (b, b), small.device)
     if _device_kind(small) == "cpu":
-        return behav_stats_table_plain(small, exact, w, a_tile)
+        return (*behav_stats_table_plain(small, exact, w, a_tile), False)
     int_out, rel_out = _outputs(b // a_tile, d, small.device)
     if d == 0:
-        return int_out, rel_out
+        return int_out, rel_out, False
     stream = torch.cuda.current_stream(small.device).cuda_stream
-    _raise_on(_lib().behav_stats_table_launch(
+    _raise_on(getattr(_lib(), launcher)(
         small.data_ptr(), exact.data_ptr(), w.data_ptr(), int_out.data_ptr(),
         rel_out.data_ptr(), rows, d, n_bits, a_tile, stream,
-    ), "behav_stats_table")
-    behav_stats_table.launches += 1
+    ), launcher)
+    return int_out, rel_out, True
+
+
+def behav_stats_table(small: torch.Tensor, exact: torch.Tensor, w: torch.Tensor,
+                      a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1: per-A-tile BEHAV partials from gathered per-row planes."""
+    int_out, rel_out, launched = _table_stats("behav_stats_table_launch", small, exact, w,
+                                              a_tile)
+    behav_stats_table.launches += launched
+    return int_out, rel_out
+
+
+def behav_stats_table_first(small: torch.Tensor, exact: torch.Tensor, w: torch.Tensor,
+                            a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's first design (products from shared-memory planes) on K1's inputs."""
+    int_out, rel_out, launched = _table_stats("behav_stats_table_first_launch", small, exact,
+                                              w, a_tile)
+    behav_stats_table_first.launches += launched
     return int_out, rel_out
 
 
 behav_stats_table.launches = 0
+behav_stats_table_first.launches = 0
 
 
 def behav_stats_entry(masks: torch.Tensor, n_bits: int,

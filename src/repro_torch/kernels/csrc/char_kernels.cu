@@ -13,23 +13,45 @@
 //                      with K5) and derives the exact products and weights
 //                      from the operand codes.
 //
-// One block owns one (config d, A-tile j) output row, so no atomics are
-// needed: it stages config d's (R, 4, B) planes in shared memory (16 KiB at
-// 8 bits), strides its 256 threads over the a_tile x B pairs, selects the
-// bit-pair plane per row with shifts and masks, and reduces
+// Both reduce, per (A-tile j, config d),
 //
 //   int32: 0 sum|e|  1 #(e != 0)  2 max|e|  3 sum hi^2  4 sum hi*lo  5 sum lo^2
 //   f32:   0 sum |e| * w
 //
-// (hi = |e| >> 8, lo = |e| & 255) with warp shuffles, then one store per
-// channel.  The A-tile rule of the caller (a_tile * B * max|e| < 2^30) bounds
-// every int32 block sum, so the int channels are exact in any order; the f32
-// channel sums in another order than the plain version.
+// (hi = |e| >> 8, lo = |e| & 255) over the tile's a_tile x B pairs.  The
+// A-tile rule of the caller (a_tile * B * max|e| < 2^30) bounds every int32
+// block sum, so the int channels are exact in any order; the f32 channel
+// sums in another order than the plain version.
 //
-// What bounds it on the H100: integer issue.  The inputs are a few KiB per
-// config and the (A, B) tables stay in L2, while every pair costs ~20 int32
-// operations.  The design keeps every operand of the inner loop in registers
-// or conflict-free shared memory (consecutive threads read consecutive b).
+// K1 walks registers.  A thread owns one b column and kG configs; the block
+// covers one A-tile for 256 / B sub-blocks of kG configs.  Within a group of
+// 2^GB consecutive a codes (GB = min(log2 a_tile, 6)) the bit pairs of rows
+// >= GB / 2 are fixed, so each config's product is a per-group base (those
+// rows' plane values at the column, read once a group) plus the plane
+// values of rows < GB / 2, which the thread holds in registers (12 for the
+// 8-bit tile of 64: rows 0-2, with row 3 in the base).  The group's 2^GB
+// codes are walked fully unrolled, so every plane index is a compile-time
+// register and a product is one or two adds of shared partial sums: no
+// shared memory, no bit extraction.  exact and w are read coalesced along b,
+// each load serving kG configs, from an unrolled body that the compiler
+// schedules ahead of use.  Then: sub, abs, the six int updates and the f32
+// product and add (|e| goes to f32 exactly through the 2^23 mantissa trick,
+// on the full-rate pipes).  The least a pair needs is 11 instructions (sub,
+// abs, hi/lo split, three multiplies, count, max, sum, the f32 multiply-add),
+// at 4 warp instructions an SM a clock: that is K1's bound.  In the SASS of
+// nvcc 12.9's sm_90a build (read by kernels/sass.py) the walk's group loop
+// (64 codes x 4 configs at 8 bits) is 5,126 instructions, 20 a pair with
+// the loads, the product's adds, the count's select, the exact float
+// conversion and the f32 multiply and add kept apart as the plain version
+// rounds them.  It holds 255 registers, one block an SM.
+//
+// K1's first design (behav_stats_table_first, kept for the comparison on the
+// card) strides 256 threads over a block's a_tile x B pairs of one config and
+// computes each product from the shared-memory planes: per row a bit-pair
+// extraction, a shared-memory load, a shift and an add; exact and w are
+// loaded for every (config, pair).  In SASS its pair loop is 169
+// instructions with a runtime rows loop of 65 inside it.  K2 keeps that walk
+// over synthesized planes.  Both are bound by integer issue.
 
 #include <cuda_runtime.h>
 
@@ -105,7 +127,7 @@ __device__ void reduce_store(Acc acc, int* int_row, float* rel_row) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-behav_stats_table_kernel(const int* __restrict__ small,
+behav_stats_table_first_kernel(const int* __restrict__ small,
                          const int* __restrict__ exact,
                          const float* __restrict__ wgt, int* __restrict__ int_out,
                          float* __restrict__ rel_out, int rows, int d_total,
@@ -171,15 +193,208 @@ behav_stats_entry_kernel(const int* __restrict__ masks, int* __restrict__ int_ou
   reduce_store(acc, int_out + row, rel_out + row);
 }
 
+// ---- K1, register walk ------------------------------------------------
+
+constexpr int kWalkThreads = 256;
+constexpr int kWalkG = 4;                    // configs a thread walks
+constexpr int kMaxSegs = kWalkThreads / 2;   // B >= 2
+
+__device__ __forceinline__ int shl(int v, int s) {
+  return static_cast<int>(static_cast<unsigned>(v) << s);
+}
+
+// Row r's bit-pair plane index of code a: 2 * bit_2r(a) + bit_2r+1(a).
+__device__ __forceinline__ int pair_of(int a, int r) {
+  return (((a >> (2 * r)) & 1) << 1) | ((a >> (2 * r + 1)) & 1);
+}
+
+// |e| (0 <= v < 2^23) as f32, exactly, with an integer or and an f32 sub.
+__device__ __forceinline__ float exact_float(int v) {
+  return __fsub_rn(__int_as_float(0x4B000000 | v), 8388608.0f);
+}
+
+__device__ __forceinline__ void accumulate_walk(Acc& acc, int err, float w) {
+  const int ae = abs(err);
+  const int hi = ae >> 8;
+  const int lo = ae & 255;
+  acc.s_abs += ae;
+  acc.cnt += err != 0;
+  acc.mx = max(acc.mx, ae);
+  acc.h2 += hi * hi;
+  acc.hl += hi * lo;
+  acc.l2 += lo * lo;
+  acc.rel = __fadd_rn(acc.rel, __fmul_rn(exact_float(ae), w));
+}
+
+template <int GB>
+__global__ void __launch_bounds__(kWalkThreads)
+behav_stats_walk_kernel(const int* __restrict__ small,
+                        const int* __restrict__ exact,
+                        const float* __restrict__ wgt, int* __restrict__ int_out,
+                        float* __restrict__ rel_out, int rows, int d_total,
+                        int n_bits, int a_tile) {
+  constexpr int kFull = GB / 2;          // rows whose two bits vary in a group
+  constexpr bool kHalf = (GB & 1) != 0;  // row kFull: its low bit varies
+  constexpr int kGroup = 1 << GB;
+  const int b_n = 1 << n_bits;
+  const int b = threadIdx.x & (b_n - 1);
+  const int sub = threadIdx.x >> n_bits;
+  const int subs = kWalkThreads >> n_bits;
+  const int d0 = (blockIdx.x * subs + sub) * kWalkG;
+  const int j = blockIdx.y;
+  const int a_lo = j * a_tile;
+  const size_t row_stride = static_cast<size_t>(d_total) * 4 * b_n;
+
+  const int* col[kWalkG];  // config g's planes at column b
+  int pv[kWalkG][kFull > 0 ? kFull : 1][4];
+#pragma unroll
+  for (int g = 0; g < kWalkG; ++g) {
+    const int d = min(d0 + g, d_total - 1);
+    col[g] = small + static_cast<size_t>(d) * 4 * b_n + b;
+#pragma unroll
+    for (int r = 0; r < kFull; ++r) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        pv[g][r][p] = shl(__ldg(col[g] + r * row_stride + p * b_n), 2 * r);
+      }
+    }
+  }
+
+  Acc acc[kWalkG];
+#pragma unroll
+  for (int g = 0; g < kWalkG; ++g) acc[g] = {0, 0, 0, 0, 0, 0, 0.0f};
+  for (int a0 = a_lo; a0 < a_lo + a_tile; a0 += kGroup) {
+    int base[kWalkG];
+    int hv[kWalkG][2];
+#pragma unroll
+    for (int g = 0; g < kWalkG; ++g) {
+      int s = 0;
+      for (int r = kFull + (kHalf ? 1 : 0); r < rows; ++r) {
+        s += shl(__ldg(col[g] + r * row_stride + pair_of(a0, r) * b_n), 2 * r);
+      }
+      base[g] = s;
+      if constexpr (kHalf) {
+        const int f = (a0 >> GB) & 1;  // row kFull's high bit, fixed a group
+        hv[g][0] = shl(__ldg(col[g] + kFull * row_stride + f * b_n), 2 * kFull);
+        hv[g][1] = shl(__ldg(col[g] + kFull * row_stride + (2 + f) * b_n), 2 * kFull);
+      }
+    }
+    const int* ex_p = exact + (static_cast<size_t>(a0) << n_bits) + b;
+    const float* w_p = wgt + (static_cast<size_t>(a0) << n_bits) + b;
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const int ex = __ldg(ex_p + i * b_n);
+      const float w = __ldg(w_p + i * b_n);
+#pragma unroll
+      for (int g = 0; g < kWalkG; ++g) {
+        int approx = base[g];
+        if constexpr (kHalf) approx += hv[g][(i >> (GB - 1)) & 1];
+#pragma unroll
+        for (int r = kFull - 1; r >= 0; --r) approx += pv[g][r][pair_of(i, r)];
+        accumulate_walk(acc[g], approx - ex, w);
+      }
+    }
+  }
+
+  // Reduce over the sub-block's B columns: shuffles within segments of
+  // min(B, 32) lanes, then the segments' sums through shared memory.
+  const int seg = min(b_n, 32);
+  __shared__ int s_int[kMaxSegs][kWalkG][6];
+  __shared__ float s_rel[kMaxSegs][kWalkG];
+#pragma unroll
+  for (int g = 0; g < kWalkG; ++g) {
+    Acc& a = acc[g];
+    for (int off = seg >> 1; off > 0; off >>= 1) {
+      a.s_abs += __shfl_down_sync(0xffffffffu, a.s_abs, off, seg);
+      a.cnt += __shfl_down_sync(0xffffffffu, a.cnt, off, seg);
+      a.mx = max(a.mx, __shfl_down_sync(0xffffffffu, a.mx, off, seg));
+      a.h2 += __shfl_down_sync(0xffffffffu, a.h2, off, seg);
+      a.hl += __shfl_down_sync(0xffffffffu, a.hl, off, seg);
+      a.l2 += __shfl_down_sync(0xffffffffu, a.l2, off, seg);
+      a.rel = __fadd_rn(a.rel, __shfl_down_sync(0xffffffffu, a.rel, off, seg));
+    }
+    if ((threadIdx.x & (seg - 1)) == 0) {
+      const int sg = threadIdx.x / seg;
+      s_int[sg][g][0] = a.s_abs;
+      s_int[sg][g][1] = a.cnt;
+      s_int[sg][g][2] = a.mx;
+      s_int[sg][g][3] = a.h2;
+      s_int[sg][g][4] = a.hl;
+      s_int[sg][g][5] = a.l2;
+      s_rel[sg][g] = a.rel;
+    }
+  }
+  __syncthreads();
+  const int segs_per_sub = b_n / seg;
+  if (threadIdx.x < subs * kWalkG) {
+    const int sb = threadIdx.x / kWalkG;
+    const int g = threadIdx.x - sb * kWalkG;
+    const int d = (blockIdx.x * subs + sb) * kWalkG + g;
+    if (d < d_total) {
+      const int s0 = sb * segs_per_sub;
+      int t[6];
+      for (int c = 0; c < 6; ++c) t[c] = s_int[s0][g][c];
+      float rel = s_rel[s0][g];
+      for (int sg = s0 + 1; sg < s0 + segs_per_sub; ++sg) {
+        t[0] += s_int[sg][g][0];
+        t[1] += s_int[sg][g][1];
+        t[2] = max(t[2], s_int[sg][g][2]);
+        t[3] += s_int[sg][g][3];
+        t[4] += s_int[sg][g][4];
+        t[5] += s_int[sg][g][5];
+        rel = __fadd_rn(rel, s_rel[sg][g]);
+      }
+      const size_t row = (static_cast<size_t>(j) * d_total + d) * kChan;
+      for (int c = 0; c < 6; ++c) int_out[row + c] = t[c];
+      int_out[row + 6] = 0;
+      int_out[row + 7] = 0;
+      rel_out[row] = rel;
+      for (int c = 1; c < kChan; ++c) rel_out[row + c] = 0.0f;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int behav_stats_table_launch(const void* small, const void* exact,
                                         const void* wgt, void* int_out,
                                         void* rel_out, int rows, int d,
                                         int n_bits, int a_tile, void* stream) {
+  int tb = 0;
+  while ((1 << tb) < a_tile) ++tb;
+  const int per_block = (kWalkThreads >> n_bits) * kWalkG;
+  const dim3 grid((d + per_block - 1) / per_block, (1 << n_bits) / a_tile);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sm = static_cast<const int*>(small);
+  const int* ex = static_cast<const int*>(exact);
+  const float* w = static_cast<const float*>(wgt);
+  int* io = static_cast<int*>(int_out);
+  float* ro = static_cast<float*>(rel_out);
+  switch (tb < 6 ? tb : 6) {
+#define K1_WALK(GB)                                                             \
+  case GB:                                                                      \
+    behav_stats_walk_kernel<GB><<<grid, kWalkThreads, 0, st>>>(                 \
+        sm, ex, w, io, ro, rows, d, n_bits, a_tile);                            \
+    break;
+    K1_WALK(0)
+    K1_WALK(1)
+    K1_WALK(2)
+    K1_WALK(3)
+    K1_WALK(4)
+    K1_WALK(5)
+    K1_WALK(6)
+#undef K1_WALK
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int behav_stats_table_first_launch(const void* small, const void* exact,
+                                        const void* wgt, void* int_out,
+                                        void* rel_out, int rows, int d,
+                                        int n_bits, int a_tile, void* stream) {
   const int n_ta = (1 << n_bits) / a_tile;
   const size_t smem = static_cast<size_t>(rows) * 4 * (1 << n_bits) * sizeof(int);
-  behav_stats_table_kernel<<<d * n_ta, kThreads, smem,
+  behav_stats_table_first_kernel<<<d * n_ta, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(small), static_cast<const int*>(exact),
       static_cast<const float*>(wgt), static_cast<int*>(int_out),

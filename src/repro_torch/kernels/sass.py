@@ -1,0 +1,69 @@
+"""Instruction counts of built kernels from their SASS, on a host with the CUDA toolkit.
+
+``python -m repro_torch.kernels.sass`` builds K1's and K4's libraries and
+prints, for each of their kernels named in ``KERNELS``, its SASS
+instruction count and the sizes of its loop bodies, largest first, from
+``cuobjdump -sass``.  A loop body runs from a backward branch's target to the
+branch, 16 bytes an instruction.  The kernel headers in ``csrc/`` quote
+these figures; nothing else reads them.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+from . import build
+
+__all__ = ["KERNELS", "loops", "main"]
+
+# library -> substrings of the mangled names of the kernels to read: K1's two
+# designs, K4's staged route at 8 bits and its gather route
+KERNELS = {
+    "char_kernels": ("behav_stats_table_first_kernel", "behav_stats_walk_kernelILi6E"),
+    "app_kernels": ("table_gemv_staged_kernelILi8E", "table_gemv_kernel"),
+}
+
+_INSTR = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);")
+_BRANCH = re.compile(r"\bBRA(?:\.\w+)*\s+(?:`\()?(?:0x)?([0-9a-f]+)")
+
+
+def loops(lib_path: Path, kernels) -> dict[str, tuple[int, list[int]]]:
+    """{kernel: (SASS instructions, loop body sizes, largest first)}."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        key = next((k for k in kernels if k in name), None)
+        if key is None:
+            continue
+        count, bodies = 0, []
+        for line in part.splitlines():
+            ins = _INSTR.match(line)
+            if not ins:
+                continue
+            count += 1
+            at = int(ins.group(1), 16)
+            br = _BRANCH.search(ins.group(2))
+            if br and int(br.group(1), 16) < at:
+                bodies.append((at - int(br.group(1), 16)) // 16 + 1)
+        out[key] = (count, sorted(bodies, reverse=True))
+    missing = set(kernels) - set(out)
+    if missing:
+        raise RuntimeError(f"no SASS for {sorted(missing)} in {lib_path}")
+    return out
+
+
+def main() -> None:
+    built = build.build_all(tuple(KERNELS))
+    for lib, kernels in KERNELS.items():
+        for name, (count, bodies) in loops(built[lib], kernels).items():
+            print(f"{lib} {name}: {count} instructions, loop bodies {bodies}")
+
+
+if __name__ == "__main__":
+    main()

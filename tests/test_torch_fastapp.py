@@ -340,9 +340,69 @@ def test_kernel_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         app_kernels.table_gemv(tflat, a, torch.zeros((2, 5), dtype=torch.int32).T)
     assert app_kernels.table_gemv(tflat, a[:, :0], b[:0]).abs().sum() == 0
-    assert app_kernels._tiles(250, 256, 10, 0) == (32, 256)
+    mnist = app_kernels.plan(250, 256, 10, 8)
+    assert mnist.route == "staged" and mnist.smem <= app_kernels.MAX_SMEM
+    gather = app_kernels.plan(250, 256, 10, 8, "gather")
+    assert (gather.m_tile, gather.k_tile) == (32, 256)
     m_tile, k_tile = app_kernels._tiles(96, 64, 128, 4 * 4 * 256)
     assert (m_tile * (k_tile + 1) + k_tile * 128 + 4096) * 4 <= app_kernels.SMEM_BUDGET
+
+
+# the five shapes chip_smoke.py runs K4 at: the mnist head, the ffn GEMM1, a
+# ragged K, and the ecg and gauss convolutions
+CARD_SHAPES = {"mnist": (250, 256, 10), "ffn": (96, 64, 128), "ragged": (250, 100, 10),
+               "ecg": (2034, 15, 1), "gauss": (8464, 25, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
+def test_k4_routes_match_plain_k5_and_gemm_on_card(cuda, shape):
+    """Both of K4's routes, named, equal the plain version, K5 and the gemm
+    route; each call counts one launch, on its route."""
+    m, k, n = CARD_SHAPES[shape]
+    cfgs = _configs(8, 126, 31)
+    batch = fastapp.table_batch(spec_for(8), cfgs, ctx=ExecutionContext())
+    a, b = _t(_codes(8, (m, k), 32)).to(cuda), _t(_codes(8, (k, n), 33)).to(cuda)
+    tflat = batch.tables.reshape(len(cfgs), -1)
+    want = app_kernels.table_gemv_plain(tflat, a, b)
+    k5 = app_kernels.entry_gemv(batch.masks, a, b, 8)
+    gemm = fastapp.table_matmul_torch(batch, a, b, impl="gemm")
+    for route in ("staged", "gather"):
+        before = (app_kernels.table_gemv.launches, dict(app_kernels.table_gemv.route_launches))
+        got = app_kernels.table_gemv(tflat, a, b, route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, k5) and torch.equal(got, gemm), route
+        assert app_kernels.table_gemv.launches == before[0] + 1
+        assert app_kernels.table_gemv.route_launches[route] == before[1][route] + 1
+    plan = app_kernels.plan(m, k, n, 8)
+    assert plan.route == ("gather" if shape == "ecg" else "staged")
+
+
+@pytest.mark.gpu
+def test_k4_staged_launcher_refuses_what_its_layout_cannot_hold_on_card(cuda):
+    """The staged launcher computes its own layout: it refuses a scratch
+    buffer smaller than the layout needs, a shape over the block's shared
+    memory and 1-bit codes, and launches nothing."""
+    lib = app_kernels._lib()
+    tflat = torch.zeros((2, 1 << 16), dtype=torch.int32, device=cuda)
+    out = torch.empty(1 << 22, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def launch(m, k, n, n_bits, short=0):
+        a = torch.zeros((m, k), dtype=torch.int32, device=cuda)
+        b = torch.zeros((k, n), dtype=torch.int32, device=cuda)
+        need = lib.table_gemv_staged_scratch(m, k, n, max(n_bits, 2))
+        scratch = torch.empty(need, dtype=torch.uint8, device=cuda)
+        return lib.table_gemv_staged_launch(
+            tflat.data_ptr(), a.data_ptr(), b.data_ptr(), scratch.data_ptr(),
+            need - short, out.data_ptr(), 2, m, k, n, n_bits, stream)
+
+    assert launch(250, 256, 10, 8) == 0
+    assert launch(250, 256, 10, 8, short=1) != 0
+    assert launch(4096, 1024, 10, 8) != 0
+    assert launch(40000, 16, 1, 8) != 0
+    assert launch(64, 16, 4, 1) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -212,6 +212,34 @@ def test_kernels_match_plain_versions_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_bits", [4, 8])
+def test_k1_walk_and_first_design_match_at_a_ragged_d(cuda, n_bits):
+    """K1's register walk and its first design at D=37 (the walk's last
+    4-config group holds one), every a_tile the walk's template takes a path
+    through (GB 0..6: a_tile 1 .. 64), int channels exactly, the f32 channel
+    to 1e-5; each call counts one launch on its own wrapper."""
+    spec = spec_for(n_bits)
+    rng = np.random.default_rng(37 + n_bits)
+    cfgs = rng.integers(0, 2, (37, spec.n_luts)).astype(np.uint8)
+    masks = torch.from_numpy(config_to_masks(spec, cfgs).astype(np.int32)).to(cuda)
+    small = fastchar._gather_small(masks, n_bits)
+    _, exact, w = fastchar._device_tables(n_bits, str(masks.device))
+    for a_tile in [t for t in (1, 2, 4, 8, 16, 32, 64) if t <= spec.n_inputs]:
+        before = (char_kernels.behav_stats_table.launches,
+                  char_kernels.behav_stats_table_first.launches)
+        i1, r1 = char_kernels.behav_stats_table(small, exact, w, a_tile)
+        i0, r0 = char_kernels.behav_stats_table_first(small, exact, w, a_tile)
+        ip, rp = char_kernels.behav_stats_table_plain(small, exact, w, a_tile)
+        torch.cuda.synchronize()
+        assert torch.equal(i1, ip) and torch.equal(i0, ip), a_tile
+        torch.testing.assert_close(r1, rp, rtol=1e-5, atol=0)
+        torch.testing.assert_close(r0, rp, rtol=1e-5, atol=0)
+        assert (char_kernels.behav_stats_table.launches,
+                char_kernels.behav_stats_table_first.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+
+
+@pytest.mark.gpu
 def test_behav_metrics_on_card_match_oracle(cuda, oracle8):
     cfgs, oracle = oracle8
     for impl in ("table", "entry"):

@@ -1,5 +1,6 @@
 """The numerical designs of K6 (AxO matmul), K7 (flash attention) and K8
-(SSD scan), emulated in plain torch on the CPU.
+(SSD scan), and the index designs of K4 (table GEMV) and K1 (BEHAV
+statistics), emulated in plain torch on the CPU.
 
 K6's tensor-core route feeds TF32 operands (10 stored mantissa bits) to
 ``mma.sync``: the integer operand values in one pass, each factor split as
@@ -12,7 +13,11 @@ largest magnitude of the plain version, and they check that ``plan`` routes
 and splits as the kernel expects.  K8's bf16 route feeds every f32 operand
 (M, w x, the state) to bf16 ``mma.sync`` as three bf16 terms; its emulation
 is held against the reference's sequential scan and its Pallas kernel (those
-tests need JAX and skip without it).  No card is needed.
+tests need JAX and skip without it).  K4's staged route (two table halves
+in a swizzled shared-memory image, each pass doing only its own lookups) and
+K1's register walk are held, exactly, to the plain versions, the reference's
+numpy ``table_matmul`` and its XLA twin ``_partials_xla``; ``plan`` is
+checked to route K4 by shape.  No card is needed.
 """
 
 import math
@@ -21,8 +26,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.apps.base import table_matmul as ref_table_matmul
+from repro.core.operator_model import product_tables as ref_product_tables
+from repro.core.operator_model import spec_for as ref_spec_for
+
 from repro_torch.axo import AxOOperator
+from repro_torch.core import fastchar
+from repro_torch.core.operator_model import config_to_masks, spec_for
+from repro_torch.kernels import app_kernels as k4
 from repro_torch.kernels import axo_matmul as k6
+from repro_torch.kernels import char_kernels as k1
 from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import ssd_scan as k8
 from repro_torch.launch.serve import demo_operator
@@ -483,3 +496,261 @@ def test_k8_emulation_with_an_entering_state_and_groups(jax_ref):
     y_ref, st_ref = jax_ref["ref"](x, dt, a, bm, cm, init)
     assert float((y - y_ref).abs().max()) <= 1e-5 * float(y_ref.abs().max())
     assert _rel(st, st_ref.double()) <= REL
+
+
+# -- K4's staged route, emulated -------------------------------------------
+
+K4_SLAB, K4_CHUNK = k4.STAGED_SLAB, k4.STAGED_CHUNK
+# the apps' table-route shapes: (M, K, N), and M*N*K lookups per config
+APP_SHAPES = {"mnist head": (250, 256, 10), "ffn GEMM1": (96, 64, 128),
+              "gauss conv2d": (8464, 25, 1), "ecg conv1d": (2034, 15, 1)}
+
+
+def k4_stage_pass(table: torch.Tensor, n_bits: int, h: int) -> torch.Tensor:
+    """The shared-memory image of pass ``h`` of one config's (A*B,) table,
+    written as the kernel's ``stage_table`` writes it: 16-byte chunks of 4
+    entries, chunk (a, b0) into slot (a_local * B + (b0 ^ (a & ~3))), its
+    entries permuted by XOR with a & 3.  Entry (a, b) lands at
+    a_local * B + (b ^ a)."""
+    nb = 1 << n_bits
+    rows = min(nb, k4.STAGED_PASS_ROWS)
+    src = table[h * rows * nb:(h + 1) * rows * nb].reshape(-1, 4)
+    e = torch.arange(src.shape[0]) * 4
+    al = e >> n_bits
+    a = h * rows + al
+    slot = (al << n_bits) + ((e & (nb - 1)) ^ (a & (nb - 1) & ~3))
+    tsh = torch.empty(rows * nb, dtype=table.dtype)
+    for i in range(4):
+        tsh[slot + (i ^ (a & 3))] = src[:, i]
+    return tsh
+
+
+def k4_staged_emulated(tables_flat: torch.Tensor, a_codes: torch.Tensor,
+                       b_codes: torch.Tensor) -> torch.Tensor:
+    """K4's staged route in plain torch: the codes packed as uint8 (A in
+    whole 32-row slabs, K in whole 16-code chunks, zero-padded); per table
+    half that the packed A codes use, the swizzled shared-memory image, each
+    lookup's pass index (a << 8 | (a ^ b)) ^ (h << 15)
+    taken only where it falls in the pass's half (the kernel predicates the
+    other lookups off), padded K's T(0, 0) subtracted in the first half, the
+    two passes' sums added (in shared memory on the card); sums wrap modulo
+    2^32 as the kernel's unsigned ones."""
+    d, ab = tables_flat.shape
+    n_bits = (ab.bit_length() - 1) // 2
+    nb = 1 << n_bits
+    (m, k), n = a_codes.shape, b_codes.shape[1]
+    m_pad = -(-m // K4_SLAB) * K4_SLAB
+    k_pad = -(-k // K4_CHUNK) * K4_CHUNK
+    a8 = torch.zeros((m_pad, k_pad), dtype=torch.int64)
+    a8[:m, :k] = a_codes.long() & (nb - 1)
+    bt8 = torch.zeros((n, k_pad), dtype=torch.int64)
+    bt8[:, :k] = (b_codes.long() & (nb - 1)).T
+    pass_ints = min(nb, k4.STAGED_PASS_ROWS) * nb
+    used = sorted(set((a8 >> 7).flatten().tolist()))          # the packing's flags
+    out = torch.zeros((d, m_pad, n), dtype=torch.int64)
+    av, bv = a8[:, None, :], bt8[None, :, :]                  # (M_pad, 1, K), (1, N, K)
+    for h in used:
+        if n_bits == 8:
+            idx = (((av << 8) | (av ^ bv)) ^ (h << 15)) & 0xFFFF
+        else:
+            idx = (av << n_bits) | (av ^ bv)
+        hit = idx < pass_ints
+        idx = torch.where(hit, idx, 0)
+        for c in range(d):
+            tsh = k4_stage_pass(tables_flat[c].long(), n_bits, h)
+            part = (tsh[idx] * hit).sum(-1)
+            if h == 0:
+                part -= (k_pad - k) * tsh[0]
+            out[c] += part
+    out = out[:, :m] & 0xFFFFFFFF
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def _k4_tables(n_bits, n_cfgs, seed):
+    spec = ref_spec_for(n_bits)
+    cfgs = np.random.default_rng(seed).integers(0, 2, (n_cfgs, spec.n_luts)).astype(np.uint8)
+    return ref_product_tables(spec, cfgs)
+
+
+def _k4_check(tables, a, b):
+    got = k4_staged_emulated(torch.from_numpy(tables.reshape(len(tables), -1).astype(np.int32)),
+                             torch.from_numpy(a.astype(np.int32)),
+                             torch.from_numpy(b.astype(np.int32)))
+    tflat = torch.from_numpy(tables.reshape(len(tables), -1).astype(np.int32))
+    plain = k4.table_gemv_plain(tflat, torch.from_numpy(a.astype(np.int32)),
+                                torch.from_numpy(b.astype(np.int32)))
+    assert torch.equal(got, plain)
+    want = np.stack([ref_table_matmul(t, a & (t.shape[0] - 1), b & (t.shape[1] - 1))
+                     for t in tables])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k4_stage_pass_places_entry_a_b_at_b_xor_a():
+    tab = torch.arange(1 << 16, dtype=torch.int64)
+    for h in (0, 1):
+        tsh = k4_stage_pass(tab, 8, h)
+        a = torch.arange(128)[:, None] + 128 * h
+        b = torch.arange(256)[None, :]
+        assert torch.equal(tsh[((a - 128 * h) << 8) | (b ^ a)], a * 256 + b)
+    tsh = k4_stage_pass(torch.arange(256, dtype=torch.int64), 4, 0)
+    a, b = torch.arange(16)[:, None], torch.arange(16)[None, :]
+    assert torch.equal(tsh[(a << 4) | (b ^ a)], a * 16 + b)
+
+
+@pytest.mark.parametrize("name", sorted(APP_SHAPES))
+def test_k4_staged_route_matches_plain_and_reference(name):
+    """The four app shapes with 3 configs: codes of both halves, of the low
+    half only (as the apps' non-negative inputs) and out-of-range codes
+    (taken modulo 2^8)."""
+    m, k, n = APP_SHAPES[name]
+    tables = _k4_tables(8, 3, 5)
+    rng = np.random.default_rng(m + k)
+    b = rng.integers(0, 256, (k, n))
+    for a in (rng.integers(0, 256, (m, k)), rng.integers(0, 128, (m, k)),
+              rng.integers(-700, 900, (m, k))):
+        _k4_check(tables, a, b)
+
+
+@pytest.mark.parametrize("m, k, n", [(23, 100, 7), (64, 32, 3), (33, 17, 16), (1, 1, 1)])
+def test_k4_staged_route_ragged_and_one_half(m, k, n):
+    """Ragged M and K, and (64, 32, 3) whole slabs and chunks with every a
+    code in the high half: a single pass over half 1, no padding to subtract."""
+    tables = _k4_tables(8, 2, m)
+    rng = np.random.default_rng(k)
+    b = rng.integers(0, 256, (k, n))
+    _k4_check(tables, rng.integers(0, 256, (m, k)), b)
+    _k4_check(tables, rng.integers(128, 256, (m, k)), b)
+
+
+def test_k4_staged_route_at_four_bits():
+    tables = _k4_tables(4, 4, 9)
+    rng = np.random.default_rng(9)
+    _k4_check(tables, rng.integers(-40, 40, (70, 37)), rng.integers(0, 16, (37, 5)))
+
+
+@pytest.mark.parametrize("name", sorted(APP_SHAPES))
+def test_k4_plan_at_the_app_shapes(name):
+    """The staged route where a config makes at least STAGED_MIN_REUSE
+    lookups per table entry (mnist 9.8, ffn 12.0, gauss 3.2), the gather
+    route at the ecg conv (0.47); the staged plan fits shared memory."""
+    m, k, n = APP_SHAPES[name]
+    pl = k4.plan(m, k, n, 8)
+    reuse = m * k * n / 65536
+    assert pl.route == ("staged" if reuse >= k4.STAGED_MIN_REUSE else "gather")
+    assert pl.route == ("gather" if name == "ecg conv1d" else "staged")
+    staged = k4.plan(m, k, n, 8, "staged")
+    assert staged.smem == k4._staged_smem(m, k, n, 8) <= k4.MAX_SMEM
+    gather = k4.plan(m, k, n, 8, "gather")
+    assert (gather.m_tile, gather.k_tile) == k4._tiles(m, k, n, 0)
+
+
+def test_k4_plan_boundary_and_limits():
+    """The boundary is M*N*K = STAGED_MIN_REUSE * 4^n_bits; a shape whose
+    staged plan exceeds shared memory, or 1-bit codes, takes the gather
+    route, and naming the staged route for it raises."""
+    edge = math.ceil(k4.STAGED_MIN_REUSE * 65536 / 64)     # M at K=64, N=1
+    assert k4.plan(edge, 64, 1, 8).route == "staged"
+    assert k4.plan(edge - 1, 64, 1, 8).route == "gather"
+    assert k4.plan(4096, 1024, 10, 8).route == "gather"        # 2 tiles of 3 slabs x 1 KiB rows
+    with pytest.raises(ValueError, match="staged route cannot"):
+        k4.plan(4096, 1024, 10, 8, "staged")
+    assert k4.plan(40000, 16, 1, 8).route == "gather"          # the sums, 160 KB, do not fit
+    assert k4.plan(4000, 100, 10, 1).route == "gather"
+    for route in ("tiles", "cluster"):
+        with pytest.raises(ValueError, match="unknown"):
+            k4.plan(10, 10, 10, 8, route)
+    # the layout's A tiles hold 15 // N + 2 slabs: a round's 16 items (slab-
+    # major, N a slab) span at most that many
+    for n in (1, 3, 10, 16, 17, 128):
+        slabs = [((r * 16 + 15) // n) - (r * 16 // n) + 1 for r in range(64)]
+        assert max(slabs) <= (k4.STAGED_WARPS - 1) // n + 2
+
+
+# -- K1's register walk, emulated -------------------------------------------
+
+def _pair(a, r):
+    return (((a >> (2 * r)) & 1) << 1) | ((a >> (2 * r + 1)) & 1)
+
+
+def exact_float(v: torch.Tensor) -> torch.Tensor:
+    """|e| to f32 as the kernel does it: (0x4B000000 | v) read as f32, minus 2^23."""
+    return (v.to(torch.int32) | 0x4B000000).view(torch.float32) - 8388608.0
+
+
+def k1_walk_emulated(small, exact, w, a_tile):
+    """K1's register walk in plain torch, per A-tile and per group of 2^GB
+    codes (GB = min(log2 a_tile, 6)): the base from the rows whose bit pairs
+    the group fixes, a half row whose low bit varies when GB is odd, and the
+    rows held in registers indexed by the walk's compile-time pair indices.
+    Returns K1's (n_ta, D, 8) int32 and f32 partials."""
+    rows, d, _, b = small.shape
+    n_bits = b.bit_length() - 1
+    gb = min(a_tile.bit_length() - 1, 6)
+    full, half = gb // 2, gb % 2
+    sm = small.long()
+    shifted = [sm[r] << (2 * r) for r in range(rows)]      # (D, 4, B) each
+    n_ta = b // a_tile
+    int_p = torch.zeros((n_ta, d, 8), dtype=torch.int32)
+    rel_p = torch.zeros((n_ta, d, 8), dtype=torch.float32)
+    for j in range(n_ta):
+        errs, ws = [], []
+        for a0 in range(j * a_tile, (j + 1) * a_tile, 1 << gb):
+            base = sum((shifted[r][:, _pair(a0, r)] for r in range(full + half, rows)),
+                       torch.zeros((d, b), dtype=torch.int64))
+            f = (a0 >> gb) & 1
+            for i in range(1 << gb):
+                approx = base.clone()
+                if half:
+                    approx += shifted[full][:, 2 * ((i >> (gb - 1)) & 1) + f]
+                for r in range(full - 1, -1, -1):
+                    approx += shifted[r][:, _pair(i, r)]
+                errs.append(approx - exact[a0 + i].long())
+                ws.append(w[a0 + i])
+        err = torch.stack(errs, 1)                          # (D, a_tile, B)
+        ae = err.abs()
+        hi, lo = ae >> 8, ae & 255
+        int_p[j, :, 0] = ae.sum((1, 2)).int()
+        int_p[j, :, 1] = (err != 0).sum((1, 2)).int()
+        int_p[j, :, 2] = ae.amax((1, 2)).int()
+        int_p[j, :, 3] = (hi * hi).sum((1, 2)).int()
+        int_p[j, :, 4] = (hi * lo).sum((1, 2)).int()
+        int_p[j, :, 5] = (lo * lo).sum((1, 2)).int()
+        rel_p[j, :, 0] = (exact_float(ae) * torch.stack(ws)[None]).sum((1, 2))
+    return int_p, rel_p
+
+
+def test_exact_float_converts_every_error_exactly():
+    v = torch.cat([torch.arange(70000), torch.tensor([2**23 - 1, 43520, 123457])])
+    assert torch.equal(exact_float(v), v.to(torch.float32))
+
+
+@pytest.mark.parametrize("n_bits", [2, 4, 6, 8])
+def test_k1_walk_matches_plain_and_reference(n_bits):
+    """At the default a_tile of each width (4, 16, 64, 64) and at a_tile 8
+    (an odd GB: the half row), on 9 random configs plus the accurate and the
+    all-zeros one: int channels exactly, the f32 channel to 1e-5, against
+    the plain version and the reference's XLA twin ``_partials_xla``."""
+    spec = spec_for(n_bits)
+    rng = np.random.default_rng(n_bits)
+    cfgs = np.concatenate([rng.integers(0, 2, (9, spec.n_luts)).astype(np.uint8),
+                           np.ones((1, spec.n_luts), np.uint8),
+                           np.zeros((1, spec.n_luts), np.uint8)])
+    masks = torch.from_numpy(config_to_masks(spec, cfgs).astype(np.int32))
+    small = fastchar._gather_small(masks, n_bits)
+    _, exact, w = fastchar._device_tables(n_bits, "cpu")
+    tiles = {fastchar.default_a_tile(spec), min(8, 1 << n_bits)}
+    for a_tile in sorted(tiles):
+        got_i, got_r = k1_walk_emulated(small, exact, w, a_tile)
+        want_i, want_r = k1.behav_stats_table_plain(small, exact, w, a_tile)
+        assert torch.equal(got_i, want_i), a_tile
+        torch.testing.assert_close(got_r, want_r, rtol=1e-5, atol=0)
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core import fastchar as ref_fastchar
+
+    a_tile = fastchar.default_a_tile(spec)
+    ref_i, ref_r = ref_fastchar._partials_xla(jnp.asarray(masks.numpy()), n_bits, a_tile,
+                                              len(cfgs))
+    got_i, got_r = k1_walk_emulated(small, exact, w, a_tile)
+    np.testing.assert_array_equal(np.asarray(ref_i), got_i.numpy())
+    np.testing.assert_allclose(np.asarray(ref_r), got_r.numpy(), rtol=1e-5)
