@@ -7,27 +7,39 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
 
   1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
   2. build: ``nvcc`` builds every kernel source of the port (in parallel);
-     the ``-Xptxas -v`` summary (registers, shared memory, spills) is printed,
-     and, where the toolkit has ``cuobjdump``, the SASS size and loop bodies
-     of K1's two designs.
+     the ``-Xptxas -v`` summary (registers, shared memory, spills) is printed.
+     (The SASS loop sizes the kernel headers quote come from
+     ``python -m repro_torch.kernels.sass``, run on demand.)
   3. kernels: K1 and K2 (BEHAV statistics), K3 (dominance counts, and its
      front peel ``constraint_fronts``) and K4 and K5 (table GEMV) are held
      against their plain PyTorch versions on the card at the shapes of the
      paths below -- int channels, counts, fronts and GEMV outputs exactly,
      the f32 channel to 1e-5 relative; K5 against K4 -- and timed with CUDA
      events beside the plain versions and a bound computed from the shapes.
-     K1's record times its register walk beside its first design
-     (``behav_stats_table_first``, held equal too, also at a ragged D).
-     K3's record times the front peel beside the round-by-round route it
-     replaces (a ``dominance_counts`` launch and a host sync a front).
-     K4/K5 run at the mnist head (D=128, M=250, K=256, N=10), the ffn GEMM1
-     (M=96, K=64, N=128), a ragged K=100 and the two convolutions (ecg
-     M=2,034, K=15; gauss M=8,464, K=25; N=1), the apps' own codes; K4
-     through both of its routes (staged and gather), each held equal and
-     timed, and the route its ``plan`` picks printed; their yardstick
-     (``library_ms``) is the ``gemm`` route, four cuBLAS f32 GEMMs.  Then
-     K4's route boundary: both routes, held equal, timed at 0.25 to 2
-     lookups per table entry in two shape families, random codes.
+     K1's and K2's records time their register walks beside their first
+     designs (``behav_stats_table_first``, ``behav_stats_entry_first``, held
+     equal too), at D=258 and at a ragged D=37; K2's also times both of its
+     walk's tiers (4 and 1 configs a thread, ``behav_stats_entry_at``)
+     there.  K2's bound counts K1's 11 instructions a (config, pair), the
+     exact product's and the reciprocal's 5 once a pair and each config's
+     plane values once.
+     K3's record times the front
+     peel beside the round-by-round route it replaces (a
+     ``dominance_counts`` launch and a host sync a front).  K4/K5 run at the
+     mnist head (D=128, M=250, K=256, N=10), the ffn GEMM1 (M=96, K=64,
+     N=128), a ragged K=100 and the two convolutions (ecg M=2,034, K=15;
+     gauss M=8,464, K=25; N=1), the apps' own codes; K4 through both of its
+     routes (staged and gather), each held equal and timed, and the route its
+     ``plan`` picks printed; K5's nibble-plane design beside its first design
+     (``entry_gemv_first``), both held equal and timed at every shape, with
+     the blocks a config's slabs are split over; K5's bound, as K4's for the
+     same function, is one shared-memory word a product at one word a bank a
+     clock (beside a load and an add a product at the issue rate, and its
+     bytes; the term that sets it is named), and the earlier count (3 ALU
+     operations a row a lookup) is printed beside it; their
+     yardstick (``library_ms``) is the ``gemm`` route, four cuBLAS f32
+     GEMMs.  Then K4's route boundary: both routes, held equal, timed at
+     0.25 to 2 lookups per table entry in two shape families, random codes.
   4. main path: the 8x8 signed-multiplier DSE of the paper at full scale
      (2,000 random + pattern training configs characterized exhaustively,
      105-problem MaP battery, NSGA-II at population 64 for 100 generations)
@@ -35,7 +47,9 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      for ``ga``, ``map`` and ``map+ga``; the last one validates through the
      table-free kernel K2.  Kernel launch counts are zeroed before and read
      after; every kernel must have launched, K3 once per GA ranking.  The
-     validated fronts' BEHAV is checked against the numpy backend.
+     validated fronts' BEHAV is checked against the numpy backend.  K2's
+     path launch is recorded; its D is printed and both of K2's designs, and
+     both tiers of its walk, are timed at it afterwards.
   apps: the application-targeted DSE (paper Table 2).  All four apps' BEHAV is
      attached to phase 4's training set with ``characterized_dataset_multi``
      (K4 for the mnist head and the ffn GEMM1), then ``run_dse(...,
@@ -43,8 +57,10 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      ``map+ga`` on ``kernel_impl="entry"`` (K5, K2, K3) at population 64 x 100
      generations.  Launch counts are zeroed before and read after; every
      kernel must have launched, K4 106 times, each app shape on the route
-     its ``plan`` picks.  Then the checks: a 64-config subset of the
-     training set's app BEHAV is held against the numpy oracle (ecg and mnist
+     its ``plan`` picks.  K5's path launch is recorded; its D and shape are
+     printed and both of K5's designs are timed at them afterwards.  Then
+     the checks: a 64-config subset of the training set's app BEHAV is held
+     against the numpy oracle (ecg and mnist
      exactly, gauss and ffn to 1e-6 relative), and each validated front's
      APP_MNIST must equal the numpy oracle exactly, and its PPA too.
      Under the default ``table`` route the ecg and gauss convolutions are
@@ -81,7 +97,9 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      kernel passes' logits against the plain passes' to SERVE_REL.
   device-time: K6's and K7's device time per call from torch.profiler, and
      their yardsticks', at phase 3's shapes, beside phase 3's CUDA-event
-     times, and K8's at mamba2's prefill; after the
+     times, K8's at mamba2's prefill, and K2's and K5's, both designs, at
+     phase 3's D and at their path launches' D, and K2's two tiers at D=258,
+     D=37 and its path's D; after the
      timed phases, because after a profiler session the host issues every
      launch more slowly.
   sync: one ranking (``constraint_ranks``, P=128) under
@@ -151,10 +169,20 @@ F32_LANES_PER_SM = 128
 ISSUE_LANES_PER_SM = 128   # 4 warp instructions an SM a clock
 SMEM_WORDS_PER_SM = 32     # shared-memory banks: 4-byte words an SM a clock
 # the least instructions a BEHAV pair needs: sub, abs, hi/lo split (2), three
-# multiply-adds, count, max, sum and the f32 multiply-add (K1); K2 adds the
-# exact product, its abs, the clamp to 1, the conversion and the division
+# multiply-adds, count, max, sum and the f32 multiply-add (K1, a config and
+# pair); K2 adds the exact product, its abs, the clamp to 1, the conversion and
+# the reciprocal, which depend on the pair alone: once a pair for all configs
 K1_PAIR_OPS = 11
-K2_PAIR_OPS = K1_PAIR_OPS + 5
+K2_PAIR_ONLY_OPS = 5
+# a plane value of K2's and K5's redesigns in closed form: two masks, the
+# add, its mask and the two's-complement read (sign xor, sub); the first
+# designs' bit-serial chain, ~10 operations a column of W = 10
+CHAIN_OPS = 6
+FIRST_CHAIN_OPS = 10 * 10
+# K5's bound, as K4's for the same function (out[d, m, n] from a config's
+# products): one shared-memory word a product, and at least a load and an add
+K5_WORDS = 1
+K5_PRODUCT_OPS = 2
 REL_RTOL = 1e-5
 SERVE_REL = 1e-3      # logits of a kernel pass vs the same pass on the plain versions
 AXO_RANK = 8
@@ -396,8 +424,9 @@ def main() -> int:
     f32_rate = N_SMS * F32_LANES_PER_SM * 2 * clock_mhz * 1e6   # FMA = 2 FLOPs
     issue_rate = N_SMS * ISSUE_LANES_PER_SM * clock_mhz * 1e6
     gather_rate = N_SMS * SMEM_WORDS_PER_SM * clock_mhz * 1e6
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"phase device: nvidia-smi '{card}', torch '{torch.cuda.get_device_name(0)}', "
-          f"count {torch.cuda.device_count()}, max SM clock {clock_mhz:.0f} MHz, "
+          f"count {torch.cuda.device_count()}, {n_sms} SMs, max SM clock {clock_mhz:.0f} MHz, "
           f"derived int32 rate {int_rate:.4g} op/s, f32 rate {f32_rate:.4g} FLOP/s, "
           f"torch {torch.__version__} "
           f"cuda {torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
@@ -431,27 +460,54 @@ def main() -> int:
     i0, r0 = char_kernels.behav_stats_table_first(small, exact, w, a_tile)
     i2, r2 = char_kernels.behav_stats_entry(masks, 8, a_tile)
     i2p, r2p = char_kernels.behav_stats_entry_plain(masks, 8, a_tile)
-    # a ragged D (the walk's last block holds 1 of its 4 configs)
+    i20, r20 = char_kernels.behav_stats_entry_first(masks, 8, a_tile)
+    # a ragged D (K1's walk's last block holds 1 of its 4 configs; K2's walk
+    # takes 1 config a thread there)
     small_r = small[:, :37].contiguous()
+    masks_r = masks[:37].contiguous()
     i1r, r1r = char_kernels.behav_stats_table(small_r, exact, w, a_tile)
     i0r, r0r = char_kernels.behav_stats_table_first(small_r, exact, w, a_tile)
     i1rp, r1rp = char_kernels.behav_stats_table_plain(small_r, exact, w, a_tile)
+    i2r, r2r = char_kernels.behav_stats_entry(masks_r, 8, a_tile)
+    i20r, r20r = char_kernels.behav_stats_entry_first(masks_r, 8, a_tile)
+    i2rp, r2rp = char_kernels.behav_stats_entry_plain(masks_r, 8, a_tile)
     torch.cuda.synchronize()
     for name, ik, ip, rk, rp in (("K1", i1, i1p, r1, r1p), ("K2", i2, i2p, r2, r2p),
                                  ("K1 first design", i0, i1p, r0, r1p),
+                                 ("K2 first design", i20, i2p, r20, r2p),
                                  ("K1 at D=37", i1r, i1rp, r1r, r1rp),
-                                 ("K1 first design at D=37", i0r, i1rp, r0r, r1rp)):
+                                 ("K1 first design at D=37", i0r, i1rp, r0r, r1rp),
+                                 ("K2 at D=37", i2r, i2rp, r2r, r2rp),
+                                 ("K2 first design at D=37", i20r, i2rp, r20r, r2rp)):
         if not torch.equal(ik, ip):
             raise AssertionError(f"{name} int channels differ from the plain version")
         torch.testing.assert_close(rk, rp, rtol=REL_RTOL, atol=0)
-    if not torch.equal(i1, i2):
+    if not (torch.equal(i1, i2) and torch.equal(i1r, i2r)):
         raise AssertionError("K2 int channels differ from K1's")
     err = {"K1": float((r1 - r1p).abs().max()), "K2": float((r2 - r2p).abs().max())}
 
-    pairs = d * b_n * b_n
-    k1_ops = pairs * K1_PAIR_OPS
-    k2_ops = pairs * K2_PAIR_OPS + d * rows * 4 * b_n * spec.width * 10  # + the chain
     out_bytes = 2 * n_ta * d * 8 * 4
+
+    def k2_bound(n_cfgs: int):
+        """K2's bound at D configs: K1_PAIR_OPS a (config, pair),
+        K2_PAIR_ONLY_OPS a pair and each config's R x 4 x B plane values once
+        (CHAIN_OPS each), at the issue rate; its bytes."""
+        ops = (n_cfgs * b_n * b_n * K1_PAIR_OPS + b_n * b_n * K2_PAIR_ONLY_OPS
+               + n_cfgs * rows * 4 * b_n * CHAIN_OPS)
+        return bound(n_cfgs * rows * 4 + 2 * n_ta * n_cfgs * 8 * 4, ops, 0, issue_rate)
+
+    def k2_old_bound(n_cfgs: int) -> float:
+        """K2's earlier bound: 16 instructions a (config, pair) and the
+        bit-serial synthesis once a config."""
+        ops = (n_cfgs * b_n * b_n * (K1_PAIR_OPS + K2_PAIR_ONLY_OPS)
+               + n_cfgs * rows * 4 * b_n * FIRST_CHAIN_OPS)
+        return bound(n_cfgs * rows * 4 + 2 * n_ta * n_cfgs * 8 * 4, ops, 0, issue_rate)[0]
+
+    def k2_tiers(args) -> dict:
+        """K2's walk at 4 and at 1 configs a thread, CUDA-event ms."""
+        return {g: cuda_ms(torch, lambda: char_kernels.behav_stats_entry_at(*args, g), 50)
+                for g in (4, 1)}
+
     rec = {}
     rec["K1"] = dict(
         name="behav_stats_table", source="src/repro_torch/kernels/csrc/char_kernels.cu",
@@ -462,24 +518,47 @@ def main() -> int:
             small, exact, w, a_tile), 50),
         plain_ms=cuda_ms(torch, lambda: char_kernels.behav_stats_table_plain(
             small, exact, w, a_tile), 5),
-        bound=bound(small.numel() * 4 + 2 * b_n * b_n * 4 + out_bytes, k1_ops, 0, issue_rate),
+        bound=bound(small.numel() * 4 + 2 * b_n * b_n * 4 + out_bytes, d * b_n * b_n * K1_PAIR_OPS,
+                    0, issue_rate),
     )
     rec["K2"] = dict(
         name="behav_stats_entry", source="src/repro_torch/kernels/csrc/char_kernels.cu",
         replaces="src/repro/kernels/char_kernels.py:226",
         ms=cuda_ms(torch, lambda: char_kernels.behav_stats_entry(masks, 8, a_tile), 50),
+        # the first design on the same inputs, in this call
+        old_ms=cuda_ms(torch, lambda: char_kernels.behav_stats_entry_first(
+            masks, 8, a_tile), 50),
         plain_ms=cuda_ms(torch, lambda: char_kernels.behav_stats_entry_plain(
             masks, 8, a_tile), 5),
-        bound=bound(masks.numel() * 4 + out_bytes, k2_ops, 0, issue_rate),
+        bound=k2_bound(d), bound_term="instructions",
+        # the earlier count, both tiers of the walk, and the ragged D
+        old_bound_ms=k2_old_bound(d),
+        configs_a_thread=char_kernels.entry_configs(d, 8, a_tile, n_sms),
+        tiers_ms=k2_tiers((masks, 8, a_tile)),
+        ragged={"d": 37, "configs_a_thread": char_kernels.entry_configs(37, 8, a_tile, n_sms),
+                "ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry(
+                    masks_r, 8, a_tile), 50),
+                "old_ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry_first(
+                    masks_r, 8, a_tile), 50),
+                "tiers_ms": k2_tiers((masks_r, 8, a_tile)),
+                "bound_ms": k2_bound(37)[0]},
     )
+    k2r = rec["K2"]["ragged"]
     print(f"phase kernels: K1/K2 vs plain at D={d} configs, A=B={b_n}, a_tile={a_tile}: "
           f"int channels ==, f32 channel rtol {REL_RTOL} (max abs err K1 {err['K1']:.3g}, "
-          f"K2 {err['K2']:.3g}); K2 int == K1 int; K1's first design ==, and both at D=37; "
+          f"K2 {err['K2']:.3g}); K2 int == K1 int; both first designs ==, and all at D=37; "
           f"K1 {rec['K1']['ms']:.4f} ms (first design {rec['K1']['old_ms']:.4f}), bound "
           f"{rec['K1']['bound'][0]:.4g} ms by {rec['K1']['bound'][1]} ({K1_PAIR_OPS} "
-          f"instructions a pair at {ISSUE_LANES_PER_SM} lanes an SM a clock); K2 bound "
-          f"{rec['K2']['bound'][0]:.4g} ms ({K2_PAIR_OPS} a pair + the planes' synthesis)",
-          flush=True)
+          f"instructions a pair at {ISSUE_LANES_PER_SM} lanes an SM a clock); K2 "
+          f"{rec['K2']['ms']:.4f} ms at {rec['K2']['configs_a_thread']} configs a thread "
+          f"(tiers 4 / 1: {rec['K2']['tiers_ms'][4]:.4f} / {rec['K2']['tiers_ms'][1]:.4f}; "
+          f"first design {rec['K2']['old_ms']:.4f}), bound {rec['K2']['bound'][0]:.4g} ms "
+          f"by instructions ({K1_PAIR_OPS} a config and pair + {K2_PAIR_ONLY_OPS} a pair + "
+          f"{CHAIN_OPS} a plane value once a config; earlier count "
+          f"{rec['K2']['old_bound_ms']:.4g}); K2 at D=37 "
+          f"{k2r['ms']:.4f} ms at {k2r['configs_a_thread']} configs a thread (tiers 4 / 1: "
+          f"{k2r['tiers_ms'][4]:.4f} / {k2r['tiers_ms'][1]:.4f}; first design "
+          f"{k2r['old_ms']:.4f}, bound {k2r['bound_ms']:.4g})", flush=True)
 
     for p in (64, 128, 1000):
         g = np.random.default_rng(p)
@@ -561,6 +640,31 @@ def main() -> int:
         "gauss conv2d": (img_c.unfold(0, 5, 1).unfold(1, 5, 1).reshape(-1, 25).numpy(),
                          np.asarray(gauss_app._k_codes).reshape(-1, 1)),
     }
+    def k5_bound(n_cfgs: int, m: int, k: int, n: int):
+        """K5's bound, (ms, bound_by, the term that sets it): the largest of
+        its shared-memory words (K5_WORDS a product at one word a bank a
+        clock), its least instructions (K5_PRODUCT_OPS a product, and each
+        config's plane values once) at the issue rate, and its bytes (masks,
+        codes, output)."""
+        products = n_cfgs * m * k * n
+        moved = (n_cfgs * rows + m * k + k * n + n_cfgs * m * n) * 4
+        terms = {
+            "shared-memory words": bound(0, K5_WORDS * products, 0, gather_rate)[0],
+            "instructions": bound(0, K5_PRODUCT_OPS * products
+                                  + n_cfgs * rows * 4 * b_n * CHAIN_OPS, 0, issue_rate)[0],
+            "bytes": bound(moved, 0, 0, 1)[0],
+        }
+        term = max(terms, key=terms.get)
+        return terms[term], "bytes" if term == "bytes" else "operations", term
+
+    def k5_old_bound(n_cfgs: int, m: int, k: int, n: int) -> float:
+        """K5's earlier bound: 3 int32 ALU operations a row a lookup
+        and the bit-serial synthesis once a config, at 64 lanes an SM."""
+        products = n_cfgs * m * k * n
+        moved = (n_cfgs * rows + m * k + k * n + n_cfgs * m * n) * 4
+        return bound(moved, 3 * rows * products + n_cfgs * rows * 4 * b_n * FIRST_CHAIN_OPS, 0,
+                     int_rate)[0]
+
     k4_shapes = {}   # label -> (M, K, N) and the route K4's plan picks
     for label, (a_np, b_np) in gemv_shapes.items():
         a = torch.from_numpy(np.ascontiguousarray(a_np, np.int32)).to(dev)
@@ -570,6 +674,7 @@ def main() -> int:
         k4_routes = {r: app_kernels.table_gemv(tflat, a, bb, route=r)
                      for r in ("staged", "gather")}
         k5 = app_kernels.entry_gemv(tb.masks, a, bb, 8)
+        k5_first = app_kernels.entry_gemv_first(tb.masks, a, bb, 8)
         p4 = app_kernels.table_gemv_plain(tflat, a, bb)
         p5 = app_kernels.entry_gemv_plain(tb.masks, a, bb, 8)
         gemm = fastapp._matmul_gemm(tb.small, a, bb)
@@ -579,16 +684,15 @@ def main() -> int:
         for r, out in k4_routes.items():
             if not torch.equal(out, p4):
                 raise AssertionError(f"K4's {r} route differs from the plain version at {label}")
-        if not (torch.equal(k5, k4) and torch.equal(gemm, k4)):
-            raise AssertionError(f"K5 or the gemm route differs from K4 at {label}")
+        if not (torch.equal(k5, k4) and torch.equal(gemm, k4) and torch.equal(k5_first, k4)):
+            raise AssertionError(f"K5, its first design or the gemm route differs from K4 "
+                                 f"at {label}")
         route = app_kernels.plan(m, k, n, 8).route
         k4_shapes[label] = ((m, k, n), route)
         # K4: the tables' bytes, or the shared-memory gather at one 4-byte word
-        # a bank a clock, the larger; K5 (ALU operations): per row the index
-        # add, the shift and the accumulate, and each config's planes once
+        # a bank a clock, the larger; K5: k5_bound
         lookups = d_app * m * n * k
         io_bytes = (a.numel() + bb.numel() + d_app * m * n) * 4
-        synth_ops = d_app * rows * 4 * b_n * spec.width * 10   # once per config
         route_ms = {r: cuda_ms(torch, lambda: app_kernels.table_gemv(tflat, a, bb, route=r), 20)
                     for r in ("staged", "gather")}
         k4_rec = dict(
@@ -605,11 +709,15 @@ def main() -> int:
             name="entry_gemv", source="src/repro_torch/kernels/csrc/app_kernels.cu",
             replaces="src/repro/kernels/app_kernels.py:173",
             ms=cuda_ms(torch, lambda: app_kernels.entry_gemv(tb.masks, a, bb, 8), 20),
+            # the first design on the same inputs, in this call
+            old_ms=cuda_ms(torch, lambda: app_kernels.entry_gemv_first(tb.masks, a, bb, 8), 20),
             plain_ms=cuda_ms(torch, lambda: app_kernels.entry_gemv_plain(
                 tb.masks, a, bb, 8), 3),
             library_ms=k4_rec["library_ms"],
-            bound=bound(tb.masks.numel() * 4 + io_bytes, 3 * rows * lookups + synth_ops, 0,
-                        int_rate),
+            bound=k5_bound(d_app, m, k, n),
+            bound_term=k5_bound(d_app, m, k, n)[2],
+            old_bound_ms=k5_old_bound(d_app, m, k, n),
+            splits=app_kernels.entry_splits(d_app, m, k, n, 8),
         )
         print(f"phase kernels: K4/K5 vs plain at {label} D={d_app} M={m} K={k} N={n} "
               f"({m * n * k / 4 ** 8:.3g} lookups a table entry): outputs ==, K4's staged and "
@@ -619,16 +727,23 @@ def main() -> int:
               f"{k4_rec['plain_ms']:.4f}, bound "
               f"{k4_rec['bound'][0]:.4g} by {k4_rec['bound'][1]}: tables' bytes "
               f"{bound(tflat.numel() * 4 + io_bytes, 0, 0, 1)[0]:.4g}, shared-memory gather "
-              f"{bound(0, lookups, 0, gather_rate)[0]:.4g}), K5 {k5_rec['ms']:.4f} ms (plain "
-              f"{k5_rec['plain_ms']:.4f}, bound {k5_rec['bound'][0]:.4g} by "
-              f"{k5_rec['bound'][1]}), gemm route (4 cuBLAS f32 GEMMs) "
-              f"{k4_rec['library_ms']:.4f} ms", flush=True)
+              f"{bound(0, lookups, 0, gather_rate)[0]:.4g}), K5 {k5_rec['ms']:.4f} ms at "
+              f"{k5_rec['splits']} block(s) a config (first design {k5_rec['old_ms']:.4f}; "
+              f"plain {k5_rec['plain_ms']:.4f}; bound {k5_rec['bound'][0]:.4g} by "
+              f"{k5_rec['bound_term']}, earlier count {k5_rec['old_bound_ms']:.4g}), gemm route "
+              f"(4 cuBLAS f32 GEMMs) {k4_rec['library_ms']:.4f} ms", flush=True)
         if label == "mnist":   # the shape of the app path's GEMV (mnist's logits)
             rec["K4"], rec["K5"] = k4_rec, k5_rec
+            k5_mnist = (tb.masks, a, bb, 8)
         rec["K4"].setdefault("shapes", {})[label] = {
             key: k4_rec[key] for key in ("route", "ms", "old_ms", "staged_ms",
                                          "plain_ms", "library_ms")} | {
                                              "bound_ms": k4_rec["bound"][0]}
+        rec["K5"].setdefault("shapes", {})[label] = {
+            key: k5_rec[key] for key in ("ms", "old_ms", "plain_ms", "old_bound_ms",
+                                         "splits", "bound_term")} | {
+                                             "bound_ms": k5_rec["bound"][0],
+                                             "bound_by": k5_rec["bound"][1]}
     # K4's route boundary: both routes at 0.25 to 2 lookups per table entry
     # (M*K*N / 4^8) in the convolutions' family (K=15, N=1) and the head's
     # (K=64, N=10), codes of both table halves; plan() stages from
@@ -819,7 +934,8 @@ def main() -> int:
     for k, r in rec.items():
         was = f", earlier design {r['old_ms']:.4f} ms" if "old_ms" in r else ""
         print(f"phase kernels: {k} {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound'][0]:.4g} ms by {r['bound'][1]}{was})", flush=True)
+              f"ms, bound {r['bound'][0]:.4g} ms by {r.get('bound_term', r['bound'][1])}{was})",
+              flush=True)
 
     # -- 4. main path -------------------------------------------------------
     ctx = ExecutionContext()                           # the card, K1 + K3
@@ -838,6 +954,16 @@ def main() -> int:
         return constraint_ranks(*args, **kw)
 
     fastmoo.constraint_ranks = counted_ranks
+    # K2's inputs on the path, kept where fastchar looks the wrapper up (its
+    # count stays the wrapper's own)
+    k2_calls = []
+    k2_entry = fastchar.behav_stats_entry
+
+    def recorded_k2(*args):
+        k2_calls.append(args)
+        return k2_entry(*args)
+
+    fastchar.behav_stats_entry = recorded_k2
     t0 = time.perf_counter()
     train = build_training_dataset(spec, n_random=2000, seed=0, backend=ctx)
     t_char = time.perf_counter() - t0
@@ -864,8 +990,26 @@ def main() -> int:
     launches = {k: fn.launches for k, fn in wrappers.items()}
     t_main = time.perf_counter() - t0 + t_char
     fastmoo.constraint_ranks = constraint_ranks
+    fastchar.behav_stats_entry = k2_entry
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    # K2 at the D of its path launch (the validation of map+ga's front), both
+    # designs, after the path's counts were read
+    k2_masks, k2_bits, k2_tile = k2_calls[0]
+    k2_d = k2_masks.shape[0]
+    rec["K2"]["path"] = {
+        "d": k2_d, "calls": len(k2_calls),
+        "configs_a_thread": char_kernels.entry_configs(k2_d, k2_bits, k2_tile, n_sms),
+        "ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry(*k2_calls[0]), 50),
+        "old_ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry_first(*k2_calls[0]), 50),
+        "tiers_ms": k2_tiers(k2_calls[0]),
+        "bound_ms": k2_bound(k2_d)[0]}
+    k2p = rec["K2"]["path"]
+    print(f"phase main: K2's path launch (map+ga validation, {k2p['calls']} call(s)): D={k2_d} "
+          f"configs, a_tile {k2_tile}, {k2p['configs_a_thread']} configs a thread: "
+          f"{k2p['ms']:.4f} ms (tiers 4 / 1: {k2p['tiers_ms'][4]:.4f} / "
+          f"{k2p['tiers_ms'][1]:.4f}; first design {k2p['old_ms']:.4f}, bound "
+          f"{k2p['bound_ms']:.4g})", flush=True)
     print(f"phase main: {rankings['calls']} GA rankings, K3 constraint_fronts launches "
           f"{launches['K3']}, dominance_counts launches {moo_kernels.dominance_counts.launches}",
           flush=True)
@@ -892,6 +1036,19 @@ def main() -> int:
         fn.launches = 0
     k4_routes_seen = app_kernels.table_gemv.route_launches
     k4_routes_seen.update(dict.fromkeys(k4_routes_seen, 0))
+    # K5's inputs on the path, kept by fastapp's view of app_kernels (the
+    # wrapper and its count stay the module's own)
+    k5_calls = []
+
+    class RecordingAppKernels:
+        def __getattr__(self, name):
+            return getattr(app_kernels, name)
+
+        def entry_gemv(self, *args):
+            k5_calls.append(args)
+            return app_kernels.entry_gemv(*args)
+
+    fastapp.app_kernels = RecordingAppKernels()
     t_app0 = time.perf_counter()
     train_app = characterized_dataset_multi(apps, spec, train, backend=ctx)
     t_multi = time.perf_counter() - t_app0
@@ -919,8 +1076,24 @@ def main() -> int:
     app_launches = {k: fn.launches for k, fn in app_wrappers.items()}
     k4_by_route = dict(k4_routes_seen)
     t_app = time.perf_counter() - t_app0
+    fastapp.app_kernels = app_kernels
     if min(app_launches.values()) <= 0:
         raise AssertionError(f"a kernel of the app path never launched: {app_launches}")
+    # K5 at the D of its path launch (the validation of map+ga's front on
+    # mnist's head), both designs, after the path's counts were read
+    k5_masks, k5_a, k5_b, _ = k5_calls[0]
+    k5_d, (k5_m, k5_k), k5_n = k5_masks.shape[0], k5_a.shape, k5_b.shape[1]
+    rec["K5"]["path"] = {
+        "d": k5_d, "m": k5_m, "k": k5_k, "n": k5_n, "calls": len(k5_calls),
+        "splits": app_kernels.entry_splits(k5_d, k5_m, k5_k, k5_n, 8),
+        "ms": cuda_ms(torch, lambda: app_kernels.entry_gemv(*k5_calls[0]), 50),
+        "old_ms": cuda_ms(torch, lambda: app_kernels.entry_gemv_first(*k5_calls[0]), 50),
+        "bound_ms": k5_bound(k5_d, k5_m, k5_k, k5_n)[0]}
+    k5p = rec["K5"]["path"]
+    print(f"phase apps: K5's path launch (map+ga validation, {k5p['calls']} call(s)): D={k5_d} "
+          f"configs, M={k5_m} K={k5_k} N={k5_n}, {k5p['splits']} block(s) a config: "
+          f"{k5p['ms']:.4f} ms (first design {k5p['old_ms']:.4f}, bound "
+          f"{k5p['bound_ms']:.4g})", flush=True)
     # K4 per 128-config chunk: the mnist head, the ffn GEMM1 and the ecg and
     # gauss convolutions; then one per ga / map validation (mnist's head)
     chunks = -(-len(train) // 128)
@@ -1323,6 +1496,34 @@ def main() -> int:
               f"on the device, SDPA {fmt_ms(lib_dev)}", flush=True)
         if label == "serve prefill":
             rec["K7"].update(device_ms=k7_dev, library_device_ms=lib_dev)
+    # K2 and K5, both designs, at phase 3's D and at their path launch's D:
+    # where the CUDA-event time exceeds this, the host's issue bounds a call
+    for key, label, new_fn, first_fn, args in (
+            ("K2", "D=258", char_kernels.behav_stats_entry,
+             char_kernels.behav_stats_entry_first, (masks, 8, a_tile)),
+            ("K2", f"path D={k2_d}", char_kernels.behav_stats_entry,
+             char_kernels.behav_stats_entry_first, k2_calls[0]),
+            ("K5", "mnist D=128", app_kernels.entry_gemv, app_kernels.entry_gemv_first,
+             k5_mnist),
+            ("K5", f"path D={k5_d}", app_kernels.entry_gemv, app_kernels.entry_gemv_first,
+             k5_calls[0])):
+        dev_new = device_ms(torch, lambda: new_fn(*args), 50)
+        dev_first = device_ms(torch, lambda: first_fn(*args), 50)
+        print(f"phase device-time: {key} at {label}: {fmt_ms(dev_new)} on the device "
+              f"(first design {fmt_ms(dev_first)})", flush=True)
+        where = rec[key] if label.startswith(("D=258", "mnist")) else rec[key]["path"]
+        where.update(device_ms=dev_new, old_device_ms=dev_first)
+    # K2's walk at 4 and at 1 configs a thread: which tier leaves the card
+    # less idle at a small D
+    for label, args, where in (("D=258", (masks, 8, a_tile), rec["K2"]),
+                               ("D=37", (masks_r, 8, a_tile), rec["K2"]["ragged"]),
+                               (f"path D={k2_d}", k2_calls[0], rec["K2"]["path"])):
+        tiers = {g: device_ms(torch, lambda: char_kernels.behav_stats_entry_at(*args, g), 50)
+                 for g in (4, 1)}
+        print(f"phase device-time: K2 at {label}: 4 configs a thread {fmt_ms(tiers[4])}, 1 "
+              f"config a thread {fmt_ms(tiers[1])} on the device (the rule takes "
+              f"{char_kernels.entry_configs(args[0].shape[0], 8, a_tile, n_sms)})", flush=True)
+        where["tiers_device_ms"] = tiers
     print(f"phase device-time: torch.profiler windows that held no device events: "
           f"{PROFILER_EMPTY['empty']} of {PROFILER_EMPTY['windows']}", flush=True)
 
@@ -1355,7 +1556,9 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
             **{key: r[key] for key in ("device_ms", "library_device_ms", "old_ms", "grids",
                                        "dominance_counts_ms", "route", "staged_ms", "shapes",
-                                       "boundary")
+                                       "boundary", "old_bound_ms", "old_device_ms", "splits",
+                                       "configs_a_thread", "ragged", "path", "bound_term",
+                                       "tiers_ms", "tiers_device_ms")
                if key in r},
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s (main path {t_main:.1f} s, apps "

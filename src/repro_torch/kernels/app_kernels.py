@@ -33,7 +33,16 @@ runs two grids a call: a packing of the codes as uint8 (and of which table
 halves they use), then the GEMV.  Its CUDA launcher computes its
 shared-memory layout itself and refuses a shape that does not fit;
 :func:`plan` mirrors the layout's size only to choose the route.
-``tests/test_torch_kernel_design.py`` emulates the staged route.
+
+K5 runs the staged structure over one config's *nibble planes*, built in
+shared memory from its masks: plane q folds rows 2q and 2q + 1 for the 16
+values of a's nibble q, so a product is two lookups at 8 bits.  Where D is
+below the card's SM count its launcher splits a config's 32-row slabs over
+blocks (:func:`entry_splits`), each building its own planes.  K5's first
+design, a block per (config, 32-row tile) over the (R, 4, B) planes, stays
+callable as :func:`entry_gemv_first` for the comparison on the card, with a
+counter of its own.  ``tests/test_torch_kernel_design.py`` emulates K4's
+staged route and K5's nibble planes.
 """
 
 from __future__ import annotations
@@ -53,14 +62,16 @@ __all__ = [
     "table_gemv",
     "table_gemv_plain",
     "entry_gemv",
+    "entry_gemv_first",
     "entry_gemv_plain",
+    "entry_splits",
     "planes_gemv_plain",
 ]
 
 MAX_BITS = 8          # (R, 4, B) planes in shared memory; |P| < 2^16
 MAX_K = 1 << 14       # int32 sums of |P| < 2^16 stay exact
-M_TILE = 32           # output rows per block
-SMEM_BUDGET = 64 * 1024  # bytes of shared memory per block (3 blocks per SM)
+M_TILE = 32           # gather route and K5's first design: output rows per block
+SMEM_BUDGET = 64 * 1024  # their bytes of shared memory per block (3 blocks per SM)
 PLAIN_D_CHUNK = 8     # configs per gather of the plain versions (registry default)
 # lookups per config / table entries at which K4 stages: on an H100 the two
 # routes cross at 0.5-0.7 in both the convolutions' and the head's shapes
@@ -253,7 +264,13 @@ def _lib():
     lib.table_gemv_staged_scratch.restype = ll
     lib.table_gemv_staged_launch.argtypes = [p, p, p, p, ll, p, i, i, i, i, i, p]
     lib.table_gemv_staged_launch.restype = ctypes.c_int
-    lib.entry_gemv_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.entry_gemv_first_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.entry_gemv_first_launch.restype = ctypes.c_int
+    lib.entry_gemv_scratch.argtypes = [i, i, i]
+    lib.entry_gemv_scratch.restype = ll
+    lib.entry_gemv_splits.argtypes = [i, i, i, i, i]
+    lib.entry_gemv_splits.restype = ctypes.c_int
+    lib.entry_gemv_launch.argtypes = [p, p, p, p, ll, p, i, i, i, i, i, p]
     lib.entry_gemv_launch.restype = ctypes.c_int
     return lib
 
@@ -303,17 +320,60 @@ table_gemv.launches = 0
 table_gemv.route_launches = {"staged": 0, "gather": 0}
 
 
-def entry_gemv(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,
-               n_bits: int) -> torch.Tensor:
-    """K5: (D, R) i32 config masks, (M, K), (K, N) i32 -> (D, M, N) i32.
-
-    Signed multipliers of at most 8 bits.
-    """
+def _entry_args(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,
+                n_bits: int) -> int:
+    """Check K5's operands; its row count R."""
     _check_codes(a_codes, b_codes, masks.device, n_bits)
     rows = spec_for(n_bits).rows
     _check(masks, "masks", 2, masks.device)
     if masks.shape[1] != rows:
         raise ValueError(f"masks must have shape (D, {rows}), got {tuple(masks.shape)}")
+    return rows
+
+
+def entry_splits(d: int, m: int, k: int, n: int, n_bits: int) -> int:
+    """Blocks a config's 32-row slabs are split over by K5's launcher on the
+    current card (more where D is below the SM count), 0 where K5 cannot take
+    the shape.  Needs the card."""
+    return _lib().entry_gemv_splits(d, m, k, n, n_bits)
+
+
+def entry_gemv(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,
+               n_bits: int) -> torch.Tensor:
+    """K5: (D, R) i32 config masks, (M, K), (K, N) i32 -> (D, M, N) i32.
+
+    Signed multipliers of at most 8 bits.  On the card a block synthesizes
+    its config's nibble planes and computes its slabs' outputs from them; a
+    shape whose layout exceeds the block's shared memory raises.
+    """
+    _entry_args(masks, a_codes, b_codes, n_bits)
+    if masks.device.type == "cpu":
+        return entry_gemv_plain(masks, a_codes, b_codes, n_bits)
+    d = masks.shape[0]
+    (m, k), n = a_codes.shape, b_codes.shape[1]
+    if d * m * n == 0 or k == 0:
+        return torch.zeros((d, m, n), dtype=torch.int32, device=masks.device)
+    out = torch.empty((d, m, n), dtype=torch.int32, device=masks.device)
+    # the uint8 codes, sized by the launcher
+    scratch = torch.empty(_lib().entry_gemv_scratch(m, k, n), dtype=torch.uint8,
+                          device=masks.device)
+    stream = torch.cuda.current_stream(masks.device).cuda_stream
+    err = _lib().entry_gemv_launch(
+        masks.data_ptr(), a_codes.data_ptr(), b_codes.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), out.data_ptr(), d, m, k, n, n_bits, stream)
+    if err and entry_splits(d, m, k, n, n_bits) == 0:   # refused before any launch
+        raise ValueError(f"K5 cannot take M={m} K={k} N={n} at {n_bits} bits: its layout "
+                         f"exceeds {MAX_SMEM} bytes of shared memory")
+    _raise_on(err, "entry_gemv")
+    entry_gemv.launches += 1
+    return out
+
+
+def entry_gemv_first(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,
+                     n_bits: int) -> torch.Tensor:
+    """K5's first design (a block per (config, 32-row tile), products from
+    the (R, 4, B) planes in shared memory) on K5's inputs."""
+    rows = _entry_args(masks, a_codes, b_codes, n_bits)
     if masks.device.type == "cpu":
         return entry_gemv_plain(masks, a_codes, b_codes, n_bits)
     d = masks.shape[0]
@@ -323,12 +383,13 @@ def entry_gemv(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor
     out = torch.empty((d, m, n), dtype=torch.int32, device=masks.device)
     m_tile, k_tile = _tiles(m, k, n, rows * 4 << n_bits)
     stream = torch.cuda.current_stream(masks.device).cuda_stream
-    _raise_on(_lib().entry_gemv_launch(
+    _raise_on(_lib().entry_gemv_first_launch(
         masks.data_ptr(), a_codes.data_ptr(), b_codes.data_ptr(), out.data_ptr(),
         rows, d, m, k, n, n_bits, m_tile, k_tile, stream,
-    ), "entry_gemv")
-    entry_gemv.launches += 1
+    ), "entry_gemv_first")
+    entry_gemv_first.launches += 1
     return out
 
 
 entry_gemv.launches = 0
+entry_gemv_first.launches = 0

@@ -23,7 +23,14 @@ K1 walks each a-tile's codes in registers (a thread a b column, the plane
 values of the tile's varying rows held per config); its first design, which
 reads every product's planes from shared memory, stays callable as
 ``behav_stats_table_first`` for the comparison on the card, with a counter of
-its own.  ``tests/test_torch_kernel_design.py`` emulates the walk.
+its own.  K2 runs the same walk with every plane value computed in closed
+form from the config's masks and the exact product and weight from the
+codes, 4 configs a thread, or 1 where a small D would leave SMs without a
+block (:func:`entry_configs`; :func:`behav_stats_entry_at` runs either, for
+their comparison on the card); its first design (planes synthesized into shared
+memory by every (config, A-tile) block) stays callable as
+``behav_stats_entry_first``.  ``tests/test_torch_kernel_design.py`` emulates
+both walks.
 """
 
 from __future__ import annotations
@@ -42,7 +49,10 @@ __all__ = [
     "behav_stats_table_first",
     "behav_stats_table_plain",
     "behav_stats_entry",
+    "behav_stats_entry_at",
+    "behav_stats_entry_first",
     "behav_stats_entry_plain",
+    "entry_configs",
 ]
 
 N_CHAN = 8
@@ -100,7 +110,7 @@ def _entry_exact_and_weights(n_bits: int, device) -> tuple[torch.Tensor, torch.T
     codes = torch.arange(b, dtype=torch.int32, device=device)
     sv = torch.where(codes >= b // 2, codes - b, codes)
     exact = sv[:, None] * sv[None, :]                       # (A, B) int32
-    w = 1.0 / exact.abs().clamp(min=1).to(torch.float32)    # f32 division, as K2
+    w = 1.0 / exact.abs().clamp(min=1).to(torch.float32)    # rn(1/x) in f32, as K2
     return exact, w
 
 
@@ -147,9 +157,16 @@ def _lib():
     for name in ("behav_stats_table_launch", "behav_stats_table_first_launch"):
         getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, p]
         getattr(lib, name).restype = ctypes.c_int
-    lib.behav_stats_entry_launch.argtypes = [p, p, p, i, i, i, i, p]
-    lib.behav_stats_entry_launch.restype = ctypes.c_int
+    lib.behav_stats_entry_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.behav_stats_entry_first_launch.argtypes = [p, p, p, i, i, i, i, p]
+    for name in ("behav_stats_entry_launch", "behav_stats_entry_first_launch"):
+        getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _outputs(n_ta: int, d: int, device):
@@ -211,25 +228,67 @@ behav_stats_table.launches = 0
 behav_stats_table_first.launches = 0
 
 
-def behav_stats_entry(masks: torch.Tensor, n_bits: int,
-                      a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2: per-A-tile BEHAV partials from the (D, R) config masks alone."""
+def entry_configs(d: int, n_bits: int, a_tile: int, n_sms: int) -> int:
+    """Configs a thread of K2's walk: 4 where a grid of 4-config threads
+    (256 / B sub-blocks of B threads a block, by B / a_tile A-tiles) still
+    has a block for each of ``n_sms`` SMs, else 1."""
+    blocks = -(-d // ((256 >> n_bits) * 4)) * ((1 << n_bits) // a_tile)
+    return 4 if blocks >= n_sms else 1
+
+
+def _entry_stats(launcher: str, masks: torch.Tensor, n_bits: int, a_tile: int, *args: int):
+    """(int partials, f32 partials, whether a kernel was launched) of K2's
+    ``launcher`` design, ``args`` passed before the stream; the plain
+    version on a CPU tensor."""
     _check_tiling(n_bits, a_tile)
     rows = spec_for(n_bits).rows
     d = masks.shape[0]
     _check(masks, "masks", torch.int32, (d, rows), masks.device)
     if _device_kind(masks) == "cpu":
-        return behav_stats_entry_plain(masks, n_bits, a_tile)
+        return (*behav_stats_entry_plain(masks, n_bits, a_tile), False)
     int_out, rel_out = _outputs((1 << n_bits) // a_tile, d, masks.device)
     if d == 0:
-        return int_out, rel_out
+        return int_out, rel_out, False
     stream = torch.cuda.current_stream(masks.device).cuda_stream
-    _raise_on(_lib().behav_stats_entry_launch(
+    _raise_on(getattr(_lib(), launcher)(
         masks.data_ptr(), int_out.data_ptr(), rel_out.data_ptr(),
-        rows, d, n_bits, a_tile, stream,
-    ), "behav_stats_entry")
-    behav_stats_entry.launches += 1
+        rows, d, n_bits, a_tile, *args, stream,
+    ), launcher)
+    return int_out, rel_out, True
+
+
+def behav_stats_entry(masks: torch.Tensor, n_bits: int,
+                      a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2: per-A-tile BEHAV partials from the (D, R) config masks alone, at
+    the configs a thread :func:`entry_configs` picks for the tensor's card."""
+    _check_tiling(n_bits, a_tile)
+    configs = 4
+    if masks.device.type == "cuda":
+        configs = entry_configs(masks.shape[0], n_bits, a_tile, _n_sms(masks.device.index))
+    return behav_stats_entry_at(masks, n_bits, a_tile, configs)
+
+
+def behav_stats_entry_at(masks: torch.Tensor, n_bits: int, a_tile: int,
+                         configs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2 at ``configs`` (4 or 1) configs a thread of its walk, for the
+    comparison of the two on the card; counts on :func:`behav_stats_entry`."""
+    if configs not in (4, 1):
+        raise ValueError(f"configs={configs} must be 4 or 1")
+    int_out, rel_out, launched = _entry_stats("behav_stats_entry_launch", masks, n_bits,
+                                              a_tile, configs)
+    behav_stats_entry.launches += launched
+    return int_out, rel_out
+
+
+def behav_stats_entry_first(masks: torch.Tensor, n_bits: int,
+                            a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's first design (planes synthesized into shared memory by every
+    block) on K2's inputs."""
+    int_out, rel_out, launched = _entry_stats("behav_stats_entry_first_launch", masks,
+                                              n_bits, a_tile)
+    behav_stats_entry_first.launches += launched
     return int_out, rel_out
 
 
 behav_stats_entry.launches = 0
+behav_stats_entry_first.launches = 0

@@ -18,9 +18,12 @@
 //               table entry) one block per (config, M-tile) gathers the table
 //               through the read-only path.
 //   entry_gemv  (K5) replaces entry_gemv_pallas: P_d is synthesized from the
-//               (D, R) config masks -- the block builds its config's (R, 4, B)
-//               planes in shared memory (planes.cuh, shared with K2) and sums
-//               sum_r planes[r][pair_r(a)][b] << 2r.
+//               (D, R) config masks.  K4's staged structure over the
+//               config's nibble planes (below), built in shared memory by
+//               the block itself.  Its first design (entry_gemv_first, kept
+//               for the comparison on the card): a block per (config, 32-row
+//               tile) builds the (R, 4, B) planes bit by bit (planes.cuh,
+//               shared with K2) and sums sum_r planes[r][pair_r(a)][b] << 2r.
 //
 // Codes are taken modulo 2^n_bits, so every lookup stays inside its table.
 // int32 accumulation is exact: |P| < 2^16 at 8 bits and the wrapper checks
@@ -68,10 +71,36 @@
 //
 // K4's gather route (first design) gathers the table through L1 and L2:
 // every warp lookup is a divergent global load of ~32 cache lines, ~1.1
-// lookups per SM per clock.  K5 reads nothing but its codes and masks; it is
-// bound by integer instruction throughput, ~R x 3 ALU operations per lookup
-// (index add, shift, accumulate per row) plus the synthesis, which every
-// M-tile block of a config repeats.
+// lookups per SM per clock.
+//
+// K5.  A config's rows fold pairwise into nibble planes: plane q holds, for
+// the 16 values nu of a's nibble q, sum over rows 2q, 2q + 1 of
+// planes[r][pair_r(nu << 4q)][b] << 2(r - 2q) (with an odd row count the
+// last plane is the last row's 4 entries), so a product is
+// sum_q plane_q[(a >> 4q) & 15][b] << 4q: two lookups at 8 bits, no bit-pair
+// extraction.  At 8 bits the planes take 2 x 16 x 256 int32 = 32 KiB, so one
+// pass holds them, and the block builds them itself from the masks in
+// closed form (rowplanes::Column: one masked add a plane value, no bit
+// loop).  The codes are packed by K4's packing grid (no halves' flags); the
+// block keeps B's codes in shared memory, streams A in 32-row slabs and
+// sums in shared memory exactly as K4's staged route does (staged_pass is
+// shared).  Entry (nu, b) sits at row nu, column b ^ nu: the lanes of a
+// lookup share b, so lanes with different nu fall in 16 distinct banks and
+// lanes with one nu read one word -- no bank conflicts.  A 16-code chunk
+// takes, per 4-code word and plane, the nibbles (one and, or a shift and an
+// and), their columns (one xor) and per code a byte permute that forms
+// (nu << 8) | (b ^ nu), the load and the add.  Zero codes pad M and K: plane
+// row 0 is 0 for every b, so padding adds nothing.  Where D is below the
+// SM count the launcher splits a config's slabs over up to n_sms / D blocks
+// (each builds its own planes, a few microseconds), and further where the
+// block's sums would not fit; it refuses a layout over 227 KiB even at one
+// slab a block.  What bounds it: the shared-memory words, 2 a product at
+// one word a bank a clock, beside the issued instructions: in the SASS of
+// nvcc 12.9's sm_90a build (kernels/sass.py) a 16-code chunk is 139
+// instructions with 34 shared-memory loads (its 32 lookups and the two
+// 16-byte code loads): per lookup a byte permute, an address LEA and the
+// load, an add per two lookups (IADD3), 8.7 a product; 64 registers, no
+// spills.
 
 #include <cuda_runtime.h>
 
@@ -141,7 +170,7 @@ table_gemv_kernel(const int* __restrict__ tables, const int* __restrict__ a,
 }
 
 __global__ void __launch_bounds__(kThreads)
-entry_gemv_kernel(const int* __restrict__ masks, const int* __restrict__ a,
+entry_gemv_first_kernel(const int* __restrict__ masks, const int* __restrict__ a,
                   const int* __restrict__ b, int* __restrict__ out, int rows,
                   int m_total, int k_total, int n, int n_bits, int m_tile,
                   int k_tile) {
@@ -188,35 +217,38 @@ constexpr int kChunk = 16;   // codes a 16-byte shared-memory load
 constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory a block may use
 constexpr int kPackBlocks = 128;         // most blocks of the packing grid
 
-// The staged route's layout for (M, K, N) codes of n_bits bits.  Shared
-// memory, in bytes from its start: the pass's table (kRows x B int32), the
-// config's sums (N x ostride int32, column-major, ostride = M_pad + 1 odd:
-// conflict-free transposed reads), B's codes (N x K_pad bytes) and two A
-// tiles of slab_cap slabs of 32 rows (row stride sa, an odd multiple of 16
-// bytes: conflict-free 16-byte loads).  A round's 16 items span at most
-// 15 / N + 2 slabs.  Scratch (global): A's codes (M_pad x K_pad bytes), B's
-// (N x K_pad), then one int of flags a packing block.
+// The staged layout of a block that owns spb 32-row slabs of (M, K, N) codes
+// and holds table_ints int32 of table (K4: one pass; K5: the nibble planes).
+// Shared memory, in bytes from its start: the table, the block's sums (N x
+// ostride int32, column-major, ostride = 32 spb + 1 odd: conflict-free
+// transposed reads), B's codes (N x K_pad bytes) and two A tiles of slab_cap
+// slabs of 32 rows (row stride sa, an odd multiple of 16 bytes: conflict-
+// free 16-byte loads).  A round's 16 items span at most 15 / N + 2 slabs.
+// Scratch (global): A's codes (M_pad x K_pad bytes), B's (N x K_pad), then
+// one int of flags a packing block.  K4 gives a block every slab (splits =
+// 1); K5 may split a config's slabs over several blocks.
 struct StagedLayout {
-  int m_pad, k_pad, sa, slab_cap, ostride, pack_blocks;
+  int m_pad, k_pad, sa, slab_cap, ostride, pack_blocks, spb, splits;
   size_t osh, bsh, tile0, tile1, smem;
   size_t bt8, flags, scratch;
 };
 
 size_t round_up(size_t x, size_t to) { return (x + to - 1) / to * to; }
 
-StagedLayout staged_layout(int m, int k, int n, int n_bits) {
+StagedLayout staged_layout(int m, int k, int n, size_t table_ints, int spb) {
   StagedLayout L;
   const int slabs = (m + kSlab - 1) / kSlab;
   L.m_pad = slabs * kSlab;
   L.k_pad = (k + kChunk - 1) / kChunk * kChunk;
   L.sa = L.k_pad + kChunk * (1 - (L.k_pad / kChunk) % 2);
-  L.slab_cap = std::min(slabs, (kStagedWarps - 1) / n + 2);
-  L.ostride = L.m_pad + 1;
+  L.spb = std::min(spb, slabs);
+  L.splits = (slabs + L.spb - 1) / L.spb;
+  L.slab_cap = std::min(L.spb, (kStagedWarps - 1) / n + 2);
+  L.ostride = L.spb * kSlab + 1;
   L.pack_blocks = static_cast<int>(std::min<long long>(
       kPackBlocks,
       (static_cast<long long>(L.m_pad + n) * L.k_pad + 255) / 256));
-  const size_t pass_ints = static_cast<size_t>(std::min(1 << n_bits, 128)) << n_bits;
-  L.osh = pass_ints * 4;
+  L.osh = table_ints * 4;
   L.bsh = L.osh + round_up(static_cast<size_t>(n) * L.ostride, 4) * 4;
   L.tile0 = L.bsh + round_up(static_cast<size_t>(n) * L.k_pad, 16);
   L.tile1 = L.tile0 + static_cast<size_t>(L.slab_cap) * kSlab * L.sa;
@@ -227,9 +259,16 @@ StagedLayout staged_layout(int m, int k, int n, int n_bits) {
   return L;
 }
 
+// K4's layout: a table pass of up to 128 rows, every slab in one block.
+StagedLayout table_layout(int m, int k, int n, int n_bits) {
+  const size_t pass_ints = static_cast<size_t>(std::min(1 << n_bits, 128)) << n_bits;
+  return staged_layout(m, k, n, pass_ints, (m + kSlab - 1) / kSlab);
+}
+
 // Pack the codes as uint8, modulo 2^n_bits: a (M, K) -> a8 (M_pad, K_pad),
 // b (K, N) -> bt8 (N, K_pad), zero-padded.  flags[block] gets bit h set if
-// any of the block's A bytes (padding included) has top-bit half h.
+// any of the block's A bytes (padding included) has top-bit half h (K4;
+// K5 passes no flags).
 __global__ void __launch_bounds__(kPackThreads)
 pack_codes_kernel(const int* __restrict__ a, const int* __restrict__ b,
                   uint8_t* __restrict__ a8, uint8_t* __restrict__ bt8,
@@ -259,6 +298,7 @@ pack_codes_kernel(const int* __restrict__ a, const int* __restrict__ b,
           col < k ? b[static_cast<size_t>(col) * n + nn] & code_mask : 0);
     }
   }
+  if (flags == nullptr) return;  // K5: no table halves
   if (bits) atomicOr(&s_bits, bits);
   __syncthreads();
   if (threadIdx.x == 0) flags[blockIdx.x] = s_bits;
@@ -380,10 +420,98 @@ __device__ __forceinline__ unsigned lane_sum(const int* tsh, const uint8_t* arow
   return sum;
 }
 
-// One block per config, in staged_layout's shared memory (a warp's 32 rows
-// of sums are consecutive words).  A warp computes one (slab, column) item a
-// round and adds each pass's sums in shared memory; the block then writes
-// them out coalesced.
+// The shared memory of a staged block, carved as staged_layout lays it out.
+struct StagedSmem {
+  int* tsh;
+  int* osh;
+  uint8_t* bsh;
+  uint8_t* tile0;
+  uint8_t* tile1;
+};
+
+__device__ __forceinline__ StagedSmem staged_smem(int4* smem4, const StagedLayout& L) {
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  return {reinterpret_cast<int*>(smem), reinterpret_cast<int*>(smem + L.osh),
+          smem + L.bsh, smem + L.tile0, smem + L.tile1};
+}
+
+// B's codes into shared memory (cp.async, completed with the first tile's
+// group) and the block's sums zeroed.
+__device__ __forceinline__ void stage_b_and_zero(const uint8_t* __restrict__ bt8,
+                                                 const StagedSmem& S,
+                                                 const StagedLayout& L, int n) {
+  for (int i = threadIdx.x; i < n * L.k_pad / kChunk; i += kStagedThreads) {
+    cp_async16(S.bsh + i * kChunk, bt8 + i * kChunk);
+  }
+  for (int i = threadIdx.x; i < n * L.ostride; i += kStagedThreads) S.osh[i] = 0;
+}
+
+// One pass of a staged block over its slabs (a8 points at the first; slabs
+// of them): prepare() fills the table while the first A tile is in flight,
+// then each warp computes one (slab, column) item a round, lane l row 32 s
+// + l, and adds lane_sum(A row, B column) to the block's sums.  The tiles
+// are double-buffered; a block barrier only where a round brings a new tile.
+template <class Prepare, class LaneSum>
+__device__ __forceinline__ void staged_pass(const uint8_t* __restrict__ a8,
+                                            const StagedSmem& S,
+                                            const StagedLayout& L, int n,
+                                            int slabs, Prepare prepare,
+                                            LaneSum lane_sum) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int items = slabs * n;
+  const int rounds = (items + kStagedWarps - 1) / kStagedWarps;
+  __syncthreads();  // the previous pass is done with the table and the tiles
+  bool cur = false;
+  bool fresh = true;  // this round's tile (the first time, the table) is new
+  int2 sl = round_slabs(0, n, slabs);
+  issue_tile(a8, S.tile0, sl, L.k_pad, L.sa);
+  cp_async_commit();
+  prepare();
+  for (int r = 0; r < rounds; ++r) {
+    const int2 nsl = round_slabs(r + 1, n, slabs);
+    const bool next = r + 1 < rounds && (nsl.x != sl.x || nsl.y != sl.y);
+    if (next) {
+      issue_tile(a8, cur ? S.tile0 : S.tile1, nsl, L.k_pad, L.sa);
+      cp_async_commit();
+    }
+    if (fresh) {
+      if (next) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // the tile (and the first time, the table) is in
+    }
+    const int item = r * kStagedWarps + warp;
+    if (item < items) {
+      const int s = item / n;
+      const int nn = item - s * n;
+      const uint8_t* arow = (cur ? S.tile1 : S.tile0) + ((s - sl.x) * kSlab + lane) * L.sa;
+      S.osh[nn * L.ostride + s * kSlab + lane] +=
+          static_cast<int>(lane_sum(arow, S.bsh + nn * L.k_pad));
+    }
+    fresh = next;
+    if (next) {
+      __syncthreads();  // every warp is done with this tile before it is reused
+      cur = !cur;
+      sl = nsl;
+    }
+  }
+}
+
+// The block's sums of rows [0, rows) out to (rows, N) row-major, coalesced.
+__device__ __forceinline__ void write_sums(int* __restrict__ out, const int* osh,
+                                           int rows, int n, int ostride) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * n; i += kStagedThreads) {
+    const int row = i / n;
+    out[i] = osh[(i - row * n) * ostride + row];
+  }
+}
+
+// K4: one block per config, in table_layout's shared memory (a warp's 32
+// rows of sums are consecutive words), one pass per table half in use.
 template <int NB>
 __global__ void __launch_bounds__(kStagedThreads, 1)
 table_gemv_staged_kernel(const int* __restrict__ tables,
@@ -395,85 +523,156 @@ table_gemv_staged_kernel(const int* __restrict__ tables,
   constexpr int kRows = B > 128 ? 128 : B;
   constexpr int kPasses = B / kRows;
   extern __shared__ int4 smem4[];  // 16-byte aligned: no static shared memory
-  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
-  int* tsh = reinterpret_cast<int*>(smem);
-  int* osh = reinterpret_cast<int*>(smem + L.osh);
-  uint8_t* bsh = smem + L.bsh;
-  uint8_t* tile0 = smem + L.tile0;
-  uint8_t* tile1 = smem + L.tile1;
-  const int k_pad = L.k_pad, sa = L.sa, ostride = L.ostride;
-  const int pack_blocks = L.pack_blocks;
-  const int slabs = L.m_pad / kSlab;
-
+  const StagedSmem S = staged_smem(smem4, L);
   const int d = blockIdx.x;
   const int* tab = tables + (static_cast<size_t>(d) << (2 * NB));
-  int* out_d = out + static_cast<size_t>(d) * m * n;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int items = slabs * n;
-  const int rounds = (items + kStagedWarps - 1) / kStagedWarps;
-  const unsigned pad_k = static_cast<unsigned>(k_pad - k);
+  const unsigned pad_k = static_cast<unsigned>(L.k_pad - k);
 
   int used = 0;  // halves the A codes fall in
-  for (int i = threadIdx.x; i < pack_blocks; i += kStagedThreads) used |= flags[i];
+  for (int i = threadIdx.x; i < L.pack_blocks; i += kStagedThreads) used |= flags[i];
   const bool has0 = __syncthreads_or(used & 1);
   const bool has1 = __syncthreads_or(used & 2);
   const bool check = has0 && has1;
 
-  for (int i = threadIdx.x; i < n * k_pad / kChunk; i += kStagedThreads) {
-    cp_async16(bsh + i * kChunk, bt8 + i * kChunk);
-  }
-  for (int i = threadIdx.x; i < n * ostride; i += kStagedThreads) osh[i] = 0;
+  stage_b_and_zero(bt8, S, L, n);
   for (int h = 0; h < kPasses; ++h) {
     if (!(h == 0 ? has0 : has1)) continue;
-    __syncthreads();  // the previous pass is done with the table and the tiles
-    bool cur = false;
-    bool fresh = true;  // this round's tile (the first time, the table) is new
-    int2 sl = round_slabs(0, n, slabs);
-    issue_tile(a8, tile0, sl, k_pad, sa);
-    cp_async_commit();
-    stage_table<NB>(tab, tsh, h);
     const unsigned hbias = static_cast<unsigned>(h) << 15;
-    for (int r = 0; r < rounds; ++r) {
-      const int2 nsl = round_slabs(r + 1, n, slabs);
-      const bool next = r + 1 < rounds && (nsl.x != sl.x || nsl.y != sl.y);
-      if (next) {
-        issue_tile(a8, cur ? tile0 : tile1, nsl, k_pad, sa);
-        cp_async_commit();
-      }
-      if (fresh) {
-        if (next) {
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();  // the tile (and the first time, the table) is in
-      }
-      const int item = r * kStagedWarps + warp;
-      if (item < items) {
-        const int s = item / n;
-        const int nn = item - s * n;
-        const uint8_t* arow = (cur ? tile1 : tile0) + ((s - sl.x) * kSlab + lane) * sa;
-        const uint8_t* brow = bsh + nn * k_pad;
-        unsigned acc = check ? lane_sum<NB, true>(tsh, arow, brow, k_pad, hbias)
-                             : lane_sum<NB, false>(tsh, arow, brow, k_pad, hbias);
-        // padded K looked up T(0, 0), which only the first half holds
-        if (h == 0) acc -= pad_k * static_cast<unsigned>(tsh[0]);
-        osh[nn * ostride + s * kSlab + lane] += static_cast<int>(acc);
-      }
-      fresh = next;
-      if (next) {
-        __syncthreads();  // every warp is done with this tile before it is reused
-        cur = !cur;
-        sl = nsl;
+    staged_pass(
+        a8, S, L, n, L.m_pad / kSlab, [&] { stage_table<NB>(tab, S.tsh, h); },
+        [&](const uint8_t* arow, const uint8_t* brow) {
+          unsigned acc = check ? lane_sum<NB, true>(S.tsh, arow, brow, L.k_pad, hbias)
+                               : lane_sum<NB, false>(S.tsh, arow, brow, L.k_pad, hbias);
+          // padded K looked up T(0, 0), which only the first half holds
+          if (h == 0) acc -= pad_k * static_cast<unsigned>(S.tsh[0]);
+          return acc;
+        });
+  }
+  write_sums(out + static_cast<size_t>(d) * m * n, S.osh, m, n, L.ostride);
+}
+
+// ---- K5, staged over nibble planes ---------------------------------------
+
+// K5's nibble planes of one config: plane q folds rows 2q and 2q + 1, entry
+// nu in [0, 16) being sum over those rows of planes[r][pair_r(nu << 4q)][b]
+// << 2(r - 2q); with an odd row count the last plane has the last row's 4
+// entries alone.  A product is sum_q plane_q[(a >> 4q) & 15][b] << 4q: two
+// lookups at 8 bits.  Entry (nu, b) sits at row nu, column b ^ nu, so for
+// one b the 16 values of nu fall in 16 distinct banks (B >= 16).
+template <int NB>
+struct Nibbles {
+  static constexpr int kB = 1 << NB;
+  static constexpr int kRows = NB / 2;
+  static constexpr int kPlanes = (kRows + 1) / 2;
+};
+
+// Row-pair index of the 2-bit field x: 2 * bit0 + bit1.
+__device__ __forceinline__ int pair2(int x) { return ((x & 1) << 1) | ((x >> 1) & 1); }
+
+// Every thread builds the nibble-plane entries of (plane, column) items from
+// the config's masks, in closed form (rowplanes::Column).
+template <int NB>
+__device__ __forceinline__ void synthesize_nibbles(int* nib, const int* __restrict__ mask_row) {
+  using P = Nibbles<NB>;
+  for (int it = threadIdx.x; it < P::kPlanes * P::kB; it += kStagedThreads) {
+    const int q = it >> NB;
+    const int b = it & (P::kB - 1);
+    const rowplanes::Column col(b, NB);
+    const int r0 = 2 * q;
+    const bool two = r0 + 1 < P::kRows;
+    const int k0 = col.keep_of(__ldg(mask_row + r0));
+    const int k1 = two ? col.keep_of(__ldg(mask_row + r0 + 1)) : 0;
+    int v0[4], v1[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      v0[p] = col.value(p, r0 == P::kRows - 1, k0);
+      v1[p] = two ? col.value(p, r0 + 1 == P::kRows - 1, k1) : 0;
+    }
+    int* plane = nib + q * 16 * P::kB;
+#pragma unroll
+    for (int nu = 0; nu < 16; ++nu) {  // unrolled: v0, v1 stay in registers
+      if (two || nu < 4) {
+        plane[nu * P::kB + (b ^ nu)] =
+            v0[pair2(nu & 3)] + static_cast<int>(static_cast<unsigned>(v1[pair2(nu >> 2)]) << 2);
       }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < m * n; i += kStagedThreads) {
-    const int row = i / n;
-    out_d[i] = osh[(i - row * n) * ostride + row];
+}
+
+// (nu << NB) | c for byte J of the nibble word nu and of c = b ^ nu: at 8
+// bits one byte permute, whose upper two bytes replicate the sign of a
+// nibble byte (0).
+template <int NB, int J>
+__device__ __forceinline__ unsigned nibble_index(unsigned nu, unsigned cw) {
+  if constexpr (NB == 8) {
+    unsigned r;
+    asm("prmt.b32 %0, %1, %2, %3;"
+        : "=r"(r)
+        : "r"(cw), "r"(nu), "r"(J | ((J + 4) << 4) | ((12 + J) << 8) | ((12 + J) << 12)));
+    return r;
+  } else {
+    return (((nu >> (8 * J)) & 0xFFu) << NB) | ((cw >> (8 * J)) & 0xFFu);
   }
+}
+
+// The sum over K of one lane's products: per 16 codes, per 4-code word and
+// nibble plane, the nibbles of a, their swizzled columns and 4 lookups.
+template <int NB>
+__device__ __forceinline__ unsigned entry_lane_sum(const int* nib, const uint8_t* arow,
+                                                   const uint8_t* brow, int k_pad) {
+  using P = Nibbles<NB>;
+  unsigned acc[P::kPlanes];
+#pragma unroll
+  for (int q = 0; q < P::kPlanes; ++q) acc[q] = 0;
+  for (int k0 = 0; k0 < k_pad; k0 += kChunk) {
+    const uint4 av = *reinterpret_cast<const uint4*>(arow + k0);
+    const uint4 bv = *reinterpret_cast<const uint4*>(brow + k0);
+    const unsigned aw[4] = {av.x, av.y, av.z, av.w};
+    const unsigned bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+#pragma unroll
+      for (int q = 0; q < P::kPlanes; ++q) {
+        const unsigned nu = (aw[w] >> (4 * q)) & 0x0F0F0F0Fu;
+        const unsigned cw = bw[w] ^ nu;
+        const int* plane = nib + q * 16 * P::kB;
+        acc[q] += static_cast<unsigned>(plane[nibble_index<NB, 0>(nu, cw)]) +
+                  static_cast<unsigned>(plane[nibble_index<NB, 1>(nu, cw)]) +
+                  static_cast<unsigned>(plane[nibble_index<NB, 2>(nu, cw)]) +
+                  static_cast<unsigned>(plane[nibble_index<NB, 3>(nu, cw)]);
+      }
+    }
+  }
+  unsigned sum = 0;
+#pragma unroll
+  for (int q = 0; q < P::kPlanes; ++q) sum += acc[q] << (4 * q);
+  return sum;
+}
+
+// K5: block (d, split) synthesizes config d's nibble planes and computes the
+// outputs of slabs [split * spb, split * spb + spb).  Padded codes are 0,
+// and plane row 0 is 0 for every b, so padding adds nothing.
+template <int NB>
+__global__ void __launch_bounds__(kStagedThreads, 1)
+entry_gemv_staged_kernel(const int* __restrict__ masks,
+                         const uint8_t* __restrict__ a8,
+                         const uint8_t* __restrict__ bt8, int* __restrict__ out,
+                         int m, int n, StagedLayout L) {
+  extern __shared__ int4 smem4[];
+  const StagedSmem S = staged_smem(smem4, L);
+  const int d = blockIdx.x;
+  const int slab0 = blockIdx.y * L.spb;
+  const int slabs = min(L.spb, L.m_pad / kSlab - slab0);
+  stage_b_and_zero(bt8, S, L, n);
+  staged_pass(
+      a8 + static_cast<size_t>(slab0) * kSlab * L.k_pad, S, L, n, slabs,
+      [&] { synthesize_nibbles<NB>(S.tsh, masks + static_cast<size_t>(d) * (NB / 2)); },
+      [&](const uint8_t* arow, const uint8_t* brow) {
+        return entry_lane_sum<NB>(S.tsh, arow, brow, L.k_pad);
+      });
+  const int row0 = slab0 * kSlab;
+  write_sums(out + (static_cast<size_t>(d) * m + row0) * n, S.osh,
+             min(slabs * kSlab, m - row0), n, L.ostride);
 }
 
 size_t staging_bytes(int m_tile, int k_tile, int n) {
@@ -509,7 +708,7 @@ extern "C" int table_gemv_launch(const void* tables, const void* a,
 
 // Bytes of scratch the staged route needs for (M, K, N) codes.
 extern "C" long long table_gemv_staged_scratch(int m, int k, int n, int n_bits) {
-  return static_cast<long long>(staged_layout(m, k, n, n_bits).scratch);
+  return static_cast<long long>(table_layout(m, k, n, n_bits).scratch);
 }
 
 // Refuses (cudaErrorInvalidValue) codes of other than 2..8 bits, a layout
@@ -521,7 +720,7 @@ extern "C" int table_gemv_staged_launch(const void* tables, const void* a,
                                         void* stream) {
   if (n_bits < 2 || n_bits > 8 || m < 1 || k < 1 || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const StagedLayout L = staged_layout(m, k, n, n_bits);
+  const StagedLayout L = table_layout(m, k, n, n_bits);
   if (L.smem > kMaxSmem || scratch_bytes < static_cast<long long>(L.scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -557,20 +756,104 @@ extern "C" int table_gemv_staged_launch(const void* tables, const void* a,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int entry_gemv_launch(const void* masks, const void* a,
-                                 const void* b, void* out, int rows, int d,
-                                 int m, int k, int n, int n_bits, int m_tile,
-                                 int k_tile, void* stream) {
+extern "C" int entry_gemv_first_launch(const void* masks, const void* a,
+                                       const void* b, void* out, int rows, int d,
+                                       int m, int k, int n, int n_bits, int m_tile,
+                                       int k_tile, void* stream) {
   const size_t smem =
       static_cast<size_t>(rows) * 4 * (1 << n_bits) * sizeof(int) +
       staging_bytes(m_tile, k_tile, n);
-  cudaError_t err = allow_smem(entry_gemv_kernel, smem);
+  cudaError_t err = allow_smem(entry_gemv_first_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_mt = (m + m_tile - 1) / m_tile;
-  entry_gemv_kernel<<<d * n_mt, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  entry_gemv_first_kernel<<<d * n_mt, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(masks), static_cast<const int*>(a),
       static_cast<const int*>(b), static_cast<int*>(out), rows, m, k, n, n_bits,
       m_tile, k_tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// K5's layout for D configs on a card of n_sms SMs: where D < n_sms, a
+// config's slabs are split over up to n_sms / D blocks; where that layout
+// exceeds kMaxSmem, over more (the sums and tiles shrink with the slabs).
+StagedLayout entry_layout(int d, int m, int k, int n, int n_bits, int n_sms) {
+  const int rows = n_bits / 2;
+  const size_t ints = static_cast<size_t>((rows / 2) * 16 + (rows % 2) * 4) << n_bits;
+  const int slabs = (m + kSlab - 1) / kSlab;
+  const int want = std::min(slabs, std::max(1, n_sms / std::max(d, 1)));
+  int spb = (slabs + want - 1) / want;
+  StagedLayout L = staged_layout(m, k, n, ints, spb);
+  while (L.smem > kMaxSmem && spb > 1) {
+    spb = (spb + 1) / 2;
+    L = staged_layout(m, k, n, ints, spb);
+  }
+  return L;
+}
+
+int sm_count() {
+  int dev = 0, n_sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  return n_sms;
+}
+
+bool entry_takes(int n_bits, int m, int k, int n) {
+  return n_bits >= 2 && n_bits <= 8 && n_bits % 2 == 0 && m >= 1 && k >= 1 && n >= 1;
+}
+
+}  // namespace
+
+// Bytes of scratch K5 needs for (M, K, N) codes: the uint8 codes.
+extern "C" long long entry_gemv_scratch(int m, int k, int n) {
+  return static_cast<long long>(staged_layout(m, k, n, 0, 1).scratch);
+}
+
+// The blocks a config's slabs are split over on this card, or 0 where K5
+// cannot take the shape (its layout exceeds kMaxSmem even at one slab a
+// block, or the codes are not of 2, 4, 6 or 8 bits).
+extern "C" int entry_gemv_splits(int d, int m, int k, int n, int n_bits) {
+  if (!entry_takes(n_bits, m, k, n)) return 0;
+  const StagedLayout L = entry_layout(d, m, k, n, n_bits, sm_count());
+  return L.smem > kMaxSmem ? 0 : L.splits;
+}
+
+// Refuses (cudaErrorInvalidValue) what entry_gemv_splits refuses and a
+// scratch buffer smaller than the layout needs.
+extern "C" int entry_gemv_launch(const void* masks, const void* a, const void* b,
+                                 void* scratch, long long scratch_bytes, void* out,
+                                 int d, int m, int k, int n, int n_bits, void* stream) {
+  if (!entry_takes(n_bits, m, k, n) || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const StagedLayout L = entry_layout(d, m, k, n, n_bits, sm_count());
+  if (L.smem > kMaxSmem || scratch_bytes < static_cast<long long>(L.scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  uint8_t* a8 = static_cast<uint8_t*>(scratch);
+  uint8_t* bt8 = a8 + L.bt8;
+  pack_codes_kernel<<<L.pack_blocks, kPackThreads, 0, st>>>(
+      static_cast<const int*>(a), static_cast<const int*>(b), a8, bt8, nullptr, m,
+      k, n, L.m_pad, L.k_pad, (1 << n_bits) - 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(d, L.splits);
+  switch (n_bits) {
+#define K5_STAGED(NB)                                                          \
+  case NB: {                                                                   \
+    err = allow_smem(entry_gemv_staged_kernel<NB>, L.smem);                    \
+    if (err != cudaSuccess) return static_cast<int>(err);                      \
+    entry_gemv_staged_kernel<NB><<<grid, kStagedThreads, L.smem, st>>>(        \
+        static_cast<const int*>(masks), a8, bt8, static_cast<int*>(out), m, n, \
+        L);                                                                    \
+    break;                                                                     \
+  }
+    K5_STAGED(2)
+    K5_STAGED(4)
+    K5_STAGED(6)
+    K5_STAGED(8)
+#undef K5_STAGED
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,10 @@
 //                      gathered (R, D, 4, B) int32 "small" tables, the exact
 //                      products and relative-error weights as (A, B) tables.
 //   behav_stats_entry  (K2) replaces behav_stats_entry_pallas: the only input
-//                      is the (D, R) mask block; the block synthesizes its
-//                      planes with the carry-chain model (planes.cuh, shared
-//                      with K5) and derives the exact products and weights
-//                      from the operand codes.
+//                      is the (D, R) mask block; the plane values come from
+//                      the carry-chain model (planes.cuh, shared with K5)
+//                      and the exact products and weights from the operand
+//                      codes.
 //
 // Both reduce, per (A-tile j, config d),
 //
@@ -40,7 +40,7 @@
 // abs, hi/lo split, three multiplies, count, max, sum, the f32 multiply-add),
 // at 4 warp instructions an SM a clock: that is K1's bound.  In the SASS of
 // nvcc 12.9's sm_90a build (read by kernels/sass.py) the walk's group loop
-// (64 codes x 4 configs at 8 bits) is 5,126 instructions, 20 a pair with
+// (64 codes x 4 configs at 8 bits) is 5,117 instructions, 20 a pair with
 // the loads, the product's adds, the count's select, the exact float
 // conversion and the f32 multiply and add kept apart as the plain version
 // rounds them.  It holds 255 registers, one block an SM.
@@ -50,8 +50,25 @@
 // computes each product from the shared-memory planes: per row a bit-pair
 // extraction, a shared-memory load, a shift and an add; exact and w are
 // loaded for every (config, pair).  In SASS its pair loop is 169
-// instructions with a runtime rows loop of 65 inside it.  K2 keeps that walk
-// over synthesized planes.  Both are bound by integer issue.
+// instructions with a runtime rows loop of 65 inside it.  Both are bound by
+// integer issue.
+//
+// K2 runs K1's walk (one template, behav_stats_walk_kernel<GB, G, true>)
+// with nothing to load: a thread computes its column's register plane
+// values and each group's base values in closed form from the config's
+// keep masks (rowplanes::Column: one masked add a value, no bit loop), and
+// per pair the exact product a_s * b_s and w = __frcp_rn(max(|exact|, 1))
+// (the correctly rounded reciprocal, equal to the plain version's f32
+// division), once for the thread's G configs.  G is 4, or 1 where a grid
+// of 4-config threads would leave SMs without a block (the wrapper's
+// entry_configs picks it and passes it to the launcher).  In
+// the SASS of nvcc 12.9's sm_90a build the group loop at 8 bits is 5,814
+// instructions for 64 codes x 4 configs (22.7 a pair; no loads) in 121
+// registers, and 2,486 for 64 codes x 1 config (38.8 a pair: the exact
+// product and the reciprocal are no longer shared) in 42.  Its
+// first design (behav_stats_entry_first): every (config, A-tile) block
+// synthesizes all R x 4 x B plane entries bit by bit into shared memory and
+// runs K1's first-design pair loop with an IEEE division per (config, pair).
 
 #include <cuda_runtime.h>
 
@@ -162,7 +179,7 @@ behav_stats_table_first_kernel(const int* __restrict__ small,
 }
 
 __global__ void __launch_bounds__(kThreads)
-behav_stats_entry_kernel(const int* __restrict__ masks, int* __restrict__ int_out,
+behav_stats_entry_first_kernel(const int* __restrict__ masks, int* __restrict__ int_out,
                          float* __restrict__ rel_out, int rows, int d_total,
                          int n_bits, int a_tile) {
   extern __shared__ int planes[];  // (R, 4, B) synthesized for config d
@@ -196,8 +213,9 @@ behav_stats_entry_kernel(const int* __restrict__ masks, int* __restrict__ int_ou
 // ---- K1, register walk ------------------------------------------------
 
 constexpr int kWalkThreads = 256;
-constexpr int kWalkG = 4;                    // configs a thread walks
+constexpr int kWalkG = 4;                    // configs a thread walks (K1; K2's most)
 constexpr int kMaxSegs = kWalkThreads / 2;   // B >= 2
+constexpr int kMaxRows = 4;                  // 8-bit operands
 
 __device__ __forceinline__ int shl(int v, int s) {
   return static_cast<int>(static_cast<unsigned>(v) << s);
@@ -226,11 +244,23 @@ __device__ __forceinline__ void accumulate_walk(Acc& acc, int err, float w) {
   acc.rel = __fadd_rn(acc.rel, __fmul_rn(exact_float(ae), w));
 }
 
-template <int GB>
+// The walk's inputs: K1's gathered planes, exact products and weights, or
+// K2's masks alone.
+struct WalkIn {
+  const int* small;   // (R, D, 4, B), K1
+  const int* exact;   // (A, B), K1
+  const float* wgt;   // (A, B), K1
+  const int* masks;   // (D, R), K2
+};
+
+// K1 (kSynth false) reads a plane value at its column from the gathered
+// planes; K2 (kSynth true) computes it in closed form from the config's keep
+// mask (rowplanes::Column), and the exact product and its weight from the
+// codes: exact = a_s * b_s, w = rn(1 / max(|exact|, 1)) (__frcp_rn, equal to
+// the plain version's f32 division).  G configs a thread.
+template <int GB, int G, bool kSynth>
 __global__ void __launch_bounds__(kWalkThreads)
-behav_stats_walk_kernel(const int* __restrict__ small,
-                        const int* __restrict__ exact,
-                        const float* __restrict__ wgt, int* __restrict__ int_out,
+behav_stats_walk_kernel(WalkIn in, int* __restrict__ int_out,
                         float* __restrict__ rel_out, int rows, int d_total,
                         int n_bits, int a_tile) {
   constexpr int kFull = GB / 2;          // rows whose two bits vary in a group
@@ -240,53 +270,86 @@ behav_stats_walk_kernel(const int* __restrict__ small,
   const int b = threadIdx.x & (b_n - 1);
   const int sub = threadIdx.x >> n_bits;
   const int subs = kWalkThreads >> n_bits;
-  const int d0 = (blockIdx.x * subs + sub) * kWalkG;
+  const int d0 = (blockIdx.x * subs + sub) * G;
   const int j = blockIdx.y;
   const int a_lo = j * a_tile;
   const size_t row_stride = static_cast<size_t>(d_total) * 4 * b_n;
 
-  const int* col[kWalkG];  // config g's planes at column b
-  int pv[kWalkG][kFull > 0 ? kFull : 1][4];
+  // config g's planes at column b (K1), or its rows' keep masks (K2)
+  const int* col[kSynth ? 1 : G];
+  int keep[kSynth ? G : 1][kMaxRows];
+  const rowplanes::Column column(b, n_bits);
+  // plane value of config g, row r (< kMaxRows), pair p at column b
+  auto plane = [&](int g, int r, int p) {
+    if constexpr (kSynth) {
+      return column.value(p, r == rows - 1, keep[g][r]);
+    } else {
+      return __ldg(col[g] + r * row_stride + p * b_n);
+    }
+  };
+  int pv[G][kFull > 0 ? kFull : 1][4];
 #pragma unroll
-  for (int g = 0; g < kWalkG; ++g) {
+  for (int g = 0; g < G; ++g) {
     const int d = min(d0 + g, d_total - 1);
-    col[g] = small + static_cast<size_t>(d) * 4 * b_n + b;
+    if constexpr (kSynth) {
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        keep[g][r] = r < rows ? column.keep_of(__ldg(in.masks + d * rows + r)) : 0;
+      }
+    } else {
+      col[g] = in.small + static_cast<size_t>(d) * 4 * b_n + b;
+    }
 #pragma unroll
     for (int r = 0; r < kFull; ++r) {
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        pv[g][r][p] = shl(__ldg(col[g] + r * row_stride + p * b_n), 2 * r);
-      }
+      for (int p = 0; p < 4; ++p) pv[g][r][p] = shl(plane(g, r, p), 2 * r);
     }
   }
 
-  Acc acc[kWalkG];
+  Acc acc[G];
 #pragma unroll
-  for (int g = 0; g < kWalkG; ++g) acc[g] = {0, 0, 0, 0, 0, 0, 0.0f};
+  for (int g = 0; g < G; ++g) acc[g] = {0, 0, 0, 0, 0, 0, 0.0f};
+  const int half = b_n >> 1;
+  const int bs = b >= half ? b - b_n : b;
   for (int a0 = a_lo; a0 < a_lo + a_tile; a0 += kGroup) {
-    int base[kWalkG];
-    int hv[kWalkG][2];
+    int base[G];
+    int hv[G][2];
 #pragma unroll
-    for (int g = 0; g < kWalkG; ++g) {
+    for (int g = 0; g < G; ++g) {
       int s = 0;
-      for (int r = kFull + (kHalf ? 1 : 0); r < rows; ++r) {
-        s += shl(__ldg(col[g] + r * row_stride + pair_of(a0, r) * b_n), 2 * r);
+      if constexpr (kSynth) {  // a compile-time row indexes keep
+#pragma unroll
+        for (int r = kFull + (kHalf ? 1 : 0); r < kMaxRows; ++r) {
+          if (r < rows) s += shl(plane(g, r, pair_of(a0, r)), 2 * r);
+        }
+      } else {
+        for (int r = kFull + (kHalf ? 1 : 0); r < rows; ++r) {
+          s += shl(plane(g, r, pair_of(a0, r)), 2 * r);
+        }
       }
       base[g] = s;
       if constexpr (kHalf) {
         const int f = (a0 >> GB) & 1;  // row kFull's high bit, fixed a group
-        hv[g][0] = shl(__ldg(col[g] + kFull * row_stride + f * b_n), 2 * kFull);
-        hv[g][1] = shl(__ldg(col[g] + kFull * row_stride + (2 + f) * b_n), 2 * kFull);
+        hv[g][0] = shl(plane(g, kFull, f), 2 * kFull);
+        hv[g][1] = shl(plane(g, kFull, 2 + f), 2 * kFull);
       }
     }
-    const int* ex_p = exact + (static_cast<size_t>(a0) << n_bits) + b;
-    const float* w_p = wgt + (static_cast<size_t>(a0) << n_bits) + b;
+    const int* ex_p = kSynth ? nullptr : in.exact + (static_cast<size_t>(a0) << n_bits) + b;
+    const float* w_p = kSynth ? nullptr : in.wgt + (static_cast<size_t>(a0) << n_bits) + b;
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) {
-      const int ex = __ldg(ex_p + i * b_n);
-      const float w = __ldg(w_p + i * b_n);
+      int ex;
+      float w;
+      if constexpr (kSynth) {
+        const int a = a0 + i;
+        ex = (a >= half ? a - b_n : a) * bs;
+        w = __frcp_rn(exact_float(max(abs(ex), 1)));
+      } else {
+        ex = __ldg(ex_p + i * b_n);
+        w = __ldg(w_p + i * b_n);
+      }
 #pragma unroll
-      for (int g = 0; g < kWalkG; ++g) {
+      for (int g = 0; g < G; ++g) {
         int approx = base[g];
         if constexpr (kHalf) approx += hv[g][(i >> (GB - 1)) & 1];
 #pragma unroll
@@ -302,7 +365,7 @@ behav_stats_walk_kernel(const int* __restrict__ small,
   __shared__ int s_int[kMaxSegs][kWalkG][6];
   __shared__ float s_rel[kMaxSegs][kWalkG];
 #pragma unroll
-  for (int g = 0; g < kWalkG; ++g) {
+  for (int g = 0; g < G; ++g) {
     Acc& a = acc[g];
     for (int off = seg >> 1; off > 0; off >>= 1) {
       a.s_abs += __shfl_down_sync(0xffffffffu, a.s_abs, off, seg);
@@ -326,10 +389,10 @@ behav_stats_walk_kernel(const int* __restrict__ small,
   }
   __syncthreads();
   const int segs_per_sub = b_n / seg;
-  if (threadIdx.x < subs * kWalkG) {
-    const int sb = threadIdx.x / kWalkG;
-    const int g = threadIdx.x - sb * kWalkG;
-    const int d = (blockIdx.x * subs + sb) * kWalkG + g;
+  if (threadIdx.x < subs * G) {
+    const int sb = threadIdx.x / G;
+    const int g = threadIdx.x - sb * G;
+    const int d = (blockIdx.x * subs + sb) * G + g;
     if (d < d_total) {
       const int s0 = sb * segs_per_sub;
       int t[6];
@@ -356,36 +419,51 @@ behav_stats_walk_kernel(const int* __restrict__ small,
 
 }  // namespace
 
+namespace {
+
+int log2_tile(int a_tile) {
+  int tb = 0;
+  while ((1 << tb) < a_tile) ++tb;
+  return tb < 6 ? tb : 6;
+}
+
+// The walk at (GB, G, kSynth) on a grid of blocks of 256 / B sub-blocks of G
+// configs by A-tiles.
+template <int G, bool kSynth>
+int launch_walk(const WalkIn& in, void* int_out, void* rel_out, int rows, int d,
+                int n_bits, int a_tile, cudaStream_t st) {
+  const int per_block = (kWalkThreads >> n_bits) * G;
+  const dim3 grid((d + per_block - 1) / per_block, (1 << n_bits) / a_tile);
+  int* io = static_cast<int*>(int_out);
+  float* ro = static_cast<float*>(rel_out);
+  switch (log2_tile(a_tile)) {
+#define WALK(GB)                                                                \
+  case GB:                                                                      \
+    behav_stats_walk_kernel<GB, G, kSynth><<<grid, kWalkThreads, 0, st>>>(      \
+        in, io, ro, rows, d, n_bits, a_tile);                                   \
+    break;
+    WALK(0)
+    WALK(1)
+    WALK(2)
+    WALK(3)
+    WALK(4)
+    WALK(5)
+    WALK(6)
+#undef WALK
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 extern "C" int behav_stats_table_launch(const void* small, const void* exact,
                                         const void* wgt, void* int_out,
                                         void* rel_out, int rows, int d,
                                         int n_bits, int a_tile, void* stream) {
-  int tb = 0;
-  while ((1 << tb) < a_tile) ++tb;
-  const int per_block = (kWalkThreads >> n_bits) * kWalkG;
-  const dim3 grid((d + per_block - 1) / per_block, (1 << n_bits) / a_tile);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* sm = static_cast<const int*>(small);
-  const int* ex = static_cast<const int*>(exact);
-  const float* w = static_cast<const float*>(wgt);
-  int* io = static_cast<int*>(int_out);
-  float* ro = static_cast<float*>(rel_out);
-  switch (tb < 6 ? tb : 6) {
-#define K1_WALK(GB)                                                             \
-  case GB:                                                                      \
-    behav_stats_walk_kernel<GB><<<grid, kWalkThreads, 0, st>>>(                 \
-        sm, ex, w, io, ro, rows, d, n_bits, a_tile);                            \
-    break;
-    K1_WALK(0)
-    K1_WALK(1)
-    K1_WALK(2)
-    K1_WALK(3)
-    K1_WALK(4)
-    K1_WALK(5)
-    K1_WALK(6)
-#undef K1_WALK
-  }
-  return static_cast<int>(cudaGetLastError());
+  const WalkIn in = {static_cast<const int*>(small), static_cast<const int*>(exact),
+                     static_cast<const float*>(wgt), nullptr};
+  return launch_walk<kWalkG, false>(in, int_out, rel_out, rows, d, n_bits, a_tile,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int behav_stats_table_first_launch(const void* small, const void* exact,
@@ -402,13 +480,30 @@ extern "C" int behav_stats_table_first_launch(const void* small, const void* exa
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 at G = configs (4 or 1) configs a thread.
 extern "C" int behav_stats_entry_launch(const void* masks, void* int_out,
                                         void* rel_out, int rows, int d,
-                                        int n_bits, int a_tile, void* stream) {
+                                        int n_bits, int a_tile, int configs,
+                                        void* stream) {
+  const WalkIn in = {nullptr, nullptr, nullptr, static_cast<const int*>(masks)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (configs) {
+    case 4:
+      return launch_walk<4, true>(in, int_out, rel_out, rows, d, n_bits, a_tile, st);
+    case 1:
+      return launch_walk<1, true>(in, int_out, rel_out, rows, d, n_bits, a_tile, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int behav_stats_entry_first_launch(const void* masks, void* int_out,
+                                              void* rel_out, int rows, int d,
+                                              int n_bits, int a_tile, void* stream) {
   const int n_ta = (1 << n_bits) / a_tile;
   const size_t smem = static_cast<size_t>(rows) * 4 * (1 << n_bits) * sizeof(int);
-  behav_stats_entry_kernel<<<d * n_ta, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  behav_stats_entry_first_kernel<<<d * n_ta, kThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(masks), static_cast<int*>(int_out),
       static_cast<float*>(rel_out), rows, d, n_bits, a_tile);
   return static_cast<int>(cudaGetLastError());

@@ -11,6 +11,14 @@
 // config's (R,) keep masks with the carry-chain model of
 // operator_model._chain_eval (W = n_bits + 2 columns, the low n_bits + 1 of
 // them removable).
+//
+// The first designs of K2 and K5 evaluate that chain bit by bit
+// (chain_eval, synthesize).  The redesigns use its closed form (Column): a
+// removed column zeroes its sum bit and its carry out, so the chain is the
+// ordinary sum of the operands with the removed columns cleared, cleared
+// once more: ((t1 & keep) + (t2 & keep)) & keep.  At a removed column both
+// operand bits are 0, so the ordinary sum makes no carry out of it and its
+// sum bit is the carry in, which the last mask drops.
 
 #pragma once
 
@@ -79,5 +87,35 @@ __device__ __forceinline__ int approx_product(const int* planes, int rows,
   }
   return approx;
 }
+
+// One operand column b of a config's planes, in closed form: value(p, top,
+// keep) is plane p of a row whose keep mask (keep_of) is keep, top for the
+// last (subtracting) row, equal to chain_eval's.
+struct Column {
+  int t1, t2, t2_top, sign;  // B, +B << 1 and -B << 1 modulo 2^W; 2^(W-1)
+
+  __device__ __forceinline__ Column(int b, int n_bits) {
+    const int b_n = 1 << n_bits;
+    const int bs = b >= (b_n >> 1) ? b - b_n : b;
+    const int modw = (1 << (n_bits + 2)) - 1;
+    t1 = bs & modw;
+    t2 = static_cast<int>(static_cast<unsigned>(bs) << 1) & modw;
+    t2_top = static_cast<int>(static_cast<unsigned>(-bs) << 1) & modw;
+    sign = 1 << (n_bits + 1);
+  }
+
+  // The row's removable columns 0..n_bits as its mask keeps them, and the
+  // sign column W - 1 = n_bits + 1, which is always kept.
+  __device__ __forceinline__ int keep_of(int mask) const {
+    return (mask & (sign - 1)) | sign;
+  }
+
+  __device__ __forceinline__ int value(int p, bool top, int keep) const {
+    const int x = (p & 2) ? (t1 & keep) : 0;
+    const int y = (p & 1) ? ((top ? t2_top : t2) & keep) : 0;
+    const int s = (x + y) & keep;
+    return (s ^ sign) - sign;  // W-bit two's complement
+  }
+};
 
 }  // namespace rowplanes

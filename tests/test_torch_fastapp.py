@@ -422,3 +422,85 @@ def test_k4_k5_match_plain_versions_on_card(cuda, shape):
     assert torch.equal(k4, p4) and torch.equal(k5, p5) and torch.equal(k4, k5)
     assert app_kernels.table_gemv.launches == before[0] + 1
     assert app_kernels.entry_gemv.launches == before[1] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cfgs", [128, 20, 37])
+@pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
+def test_k5_designs_match_plain_and_k4_on_card(cuda, shape, n_cfgs):
+    """K5's redesign (nibble planes, a config's slabs split over blocks where
+    D is below the SM count) and its first design equal the plain version
+    and K4 at the five app shapes, at D=128, at D=20 (split) and at a ragged
+    D=37; each call counts one launch on its own wrapper."""
+    m, k, n = CARD_SHAPES[shape]
+    cfgs = _configs(8, n_cfgs - 2, 41)
+    batch = fastapp.table_batch(spec_for(8), cfgs, ctx=ExecutionContext())
+    a, b = _t(_codes(8, (m, k), 42)).to(cuda), _t(_codes(8, (k, n), 43)).to(cuda)
+    want = app_kernels.entry_gemv_plain(batch.masks, a, b, 8)
+    before = (app_kernels.entry_gemv.launches, app_kernels.entry_gemv_first.launches)
+    got = app_kernels.entry_gemv(batch.masks, a, b, 8)
+    first = app_kernels.entry_gemv_first(batch.masks, a, b, 8)
+    k4 = app_kernels.table_gemv(batch.tables.reshape(len(cfgs), -1), a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(first, want) and torch.equal(k4, want)
+    assert (app_kernels.entry_gemv.launches,
+            app_kernels.entry_gemv_first.launches) == (before[0] + 1, before[1] + 1)
+    splits = app_kernels.entry_splits(len(cfgs), m, k, n, 8)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    slabs = -(-m // 32)
+    assert 1 <= splits <= slabs
+    assert (splits == 1) == (len(cfgs) * 2 > n_sms or slabs == 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits", [2, 4, 6])
+def test_k5_designs_at_narrow_widths_on_card(cuda, n_bits):
+    """4 and 6 bits (an odd row count: the last plane has 4 entries) and 2,
+    ragged M and K, codes out of range."""
+    cfgs = _configs(n_bits, 35, 44)
+    batch = fastapp.table_batch(spec_for(n_bits), cfgs, ctx=ExecutionContext())
+    g = np.random.default_rng(45)
+    nb = 1 << n_bits
+    a = _t(g.integers(-nb, 2 * nb, (77, 23))).to(cuda)
+    b = _t(g.integers(0, nb, (23, 6))).to(cuda)
+    want = app_kernels.entry_gemv_plain(batch.masks, a, b, n_bits)
+    got = app_kernels.entry_gemv(batch.masks, a, b, n_bits)
+    first = app_kernels.entry_gemv_first(batch.masks, a, b, n_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(first, want)
+
+
+@pytest.mark.gpu
+def test_k5_launcher_refuses_what_its_layout_cannot_hold_on_card(cuda):
+    """K5's launcher computes its own layout, splitting a config's slabs
+    further where the sums do not fit: it refuses a layout over 227 KiB even
+    at one slab a block, a short scratch buffer and odd widths, and launches
+    nothing; the wrapper raises on such a shape before any launch."""
+    lib = app_kernels._lib()
+    masks = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    out = torch.empty(1 << 22, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def launch(m, k, n, n_bits, short=0):
+        a = torch.zeros((m, k), dtype=torch.int32, device=cuda)
+        b = torch.zeros((k, n), dtype=torch.int32, device=cuda)
+        need = lib.entry_gemv_scratch(m, k, n)
+        scratch = torch.empty(need, dtype=torch.uint8, device=cuda)
+        return lib.entry_gemv_launch(masks.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                     scratch.data_ptr(), need - short, out.data_ptr(), 2, m,
+                                     k, n, n_bits, stream)
+
+    assert launch(250, 256, 10, 8) == 0
+    assert launch(250, 256, 10, 8, short=1) != 0
+    assert launch(64, 4096, 10, 8) != 0       # two 1-slab A tiles of 4,112-byte rows: 263 KB
+    assert launch(40000, 16, 1, 8) == 0       # the sums fit once the slabs are split
+    assert launch(64, 16, 4, 5) != 0
+    assert app_kernels.entry_splits(2, 64, 4096, 10, 8) == 0
+    assert app_kernels.entry_splits(2, 40000, 16, 1, 8) > 1
+    torch.cuda.synchronize()
+    big = torch.zeros((64, 4096), dtype=torch.int32, device=cuda)
+    before = app_kernels.entry_gemv.launches
+    with pytest.raises(ValueError, match="K5 cannot take"):
+        app_kernels.entry_gemv(masks, big, torch.zeros((4096, 10), dtype=torch.int32,
+                                                       device=cuda), 8)
+    assert app_kernels.entry_gemv.launches == before

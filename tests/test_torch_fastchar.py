@@ -195,6 +195,25 @@ def test_unported_families_and_bad_inputs_raise():
         char_kernels.behav_stats_entry(masks.to(torch.int32), 8, 48)
 
 
+@pytest.mark.parametrize("n_bits,a_tile,d,want", [
+    (8, 64, 258, 4), (8, 64, 132, 4), (8, 64, 128, 1), (8, 64, 64, 1), (8, 64, 37, 1),
+    (8, 8, 37, 4), (4, 16, 258, 1), (4, 1, 258, 1), (4, 1, 600, 4),
+])
+def test_k2_configs_a_thread_rule(n_bits, a_tile, d, want):
+    """K2's walk takes 4 configs a thread where that grid still has a block
+    for every one of 132 SMs, else 1; any other count raises, and a CPU
+    tensor runs the plain version whatever the count."""
+    assert char_kernels.entry_configs(d, n_bits, a_tile, 132) == want
+    cfgs = np.random.default_rng(d).integers(0, 2, (3, spec_for(4).n_luts)).astype(np.uint8)
+    masks = torch.from_numpy(config_to_masks(spec_for(4), cfgs).astype(np.int32))
+    want_i, want_r = char_kernels.behav_stats_entry_plain(masks, 4, 4)
+    for g in (4, 1):
+        got_i, got_r = char_kernels.behav_stats_entry_at(masks, 4, 4, g)
+        assert torch.equal(got_i, want_i) and torch.equal(got_r, want_r)
+    with pytest.raises(ValueError, match="4 or 1"):
+        char_kernels.behav_stats_entry_at(masks, 4, 4, 2)
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_card(cuda):
     spec = spec_for(8)
@@ -250,3 +269,41 @@ def test_behav_metrics_on_card_match_oracle(cuda, oracle8):
         after = (char_kernels.behav_stats_table.launches,
                  char_kernels.behav_stats_entry.launches)
         assert after[impl == "entry"] > before[impl == "entry"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cfgs", [258, 37, 5])
+@pytest.mark.parametrize("n_bits", [4, 8])
+def test_k2_walk_and_first_design_match_on_card(cuda, n_bits, n_cfgs):
+    """K2's synthesized walk, at the configs a thread its rule picks and at
+    both of its tiers (4 and 1), and its first design at D=258, a ragged D=37
+    and D=5 (below the SM count: 1 config a thread), every a_tile the walk's
+    template takes a path through, against the plain version and, on the int
+    channels, K1 on the same configs; each call counts one launch on its own
+    wrapper."""
+    spec = spec_for(n_bits)
+    rng = np.random.default_rng(n_cfgs + n_bits)
+    cfgs = rng.integers(0, 2, (n_cfgs, spec.n_luts)).astype(np.uint8)
+    masks = torch.from_numpy(config_to_masks(spec, cfgs).astype(np.int32)).to(cuda)
+    small = fastchar._gather_small(masks, n_bits)
+    _, exact, w = fastchar._device_tables(n_bits, str(masks.device))
+    for a_tile in [t for t in (1, 2, 4, 8, 16, 32, 64) if t <= spec.n_inputs]:
+        before = (char_kernels.behav_stats_entry.launches,
+                  char_kernels.behav_stats_entry_first.launches)
+        walks = [char_kernels.behav_stats_entry(masks, n_bits, a_tile)] + [
+            char_kernels.behav_stats_entry_at(masks, n_bits, a_tile, g) for g in (4, 1)]
+        i0, r0 = char_kernels.behav_stats_entry_first(masks, n_bits, a_tile)
+        ip, rp = char_kernels.behav_stats_entry_plain(masks, n_bits, a_tile)
+        i1, _ = char_kernels.behav_stats_table(small, exact, w, a_tile)
+        torch.cuda.synchronize()
+        assert torch.equal(i0, ip) and torch.equal(i1, ip), a_tile
+        torch.testing.assert_close(r0, rp, rtol=1e-5, atol=0)
+        for i2, r2 in walks:
+            assert torch.equal(i2, ip), a_tile
+            torch.testing.assert_close(r2, rp, rtol=1e-5, atol=0)
+        assert (char_kernels.behav_stats_entry.launches,
+                char_kernels.behav_stats_entry_first.launches) == (before[0] + 3,
+                                                                   before[1] + 1)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = char_kernels.entry_configs(n_cfgs, n_bits, 64 if n_bits == 8 else 16, n_sms)
+    assert (g == 4) == (n_cfgs == 258 and n_bits == 8 and n_sms <= 260)

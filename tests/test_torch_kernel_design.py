@@ -754,3 +754,274 @@ def test_k1_walk_matches_plain_and_reference(n_bits):
     got_i, got_r = k1_walk_emulated(small, exact, w, a_tile)
     np.testing.assert_array_equal(np.asarray(ref_i), got_i.numpy())
     np.testing.assert_allclose(np.asarray(ref_r), got_r.numpy(), rtol=1e-5)
+
+
+# -- The closed-form carry chain of K5's and K2's redesigns -----------------
+
+def chain_closed_form(t1, t2, mask, n_bits):
+    """``operator_model._chain_eval`` as ``rowplanes::Column`` computes it:
+    ((t1 & keep) + (t2 & keep)) & keep, keep = the mask's removable columns
+    0..n_bits and the sign column n_bits + 1, read as W-bit two's complement."""
+    sign = 1 << (n_bits + 1)
+    keep = (mask & (sign - 1)) | sign
+    s = ((t1 & keep) + (t2 & keep)) & keep
+    return (s ^ sign) - sign
+
+
+def closed_form_planes(masks: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """(D, R) masks -> (R, D, 4, B) planes, each value in closed form from
+    the column's operands B, +B << 1 and -B << 1 (the last row subtracts)."""
+    spec = spec_for(n_bits)
+    nb = 1 << n_bits
+    modw = (1 << spec.width) - 1
+    b = torch.arange(nb, dtype=torch.int64)
+    bs = torch.where(b >= nb // 2, b - nb, b)
+    out = []
+    for r in range(spec.rows):
+        bx = -bs if r == spec.rows - 1 else bs
+        mask = masks[:, r].long()[:, None]
+        planes = [chain_closed_form((bs & modw) * (p >> 1), ((bx << 1) & modw) * (p & 1),
+                                    mask, n_bits) for p in range(4)]
+        out.append(torch.stack(planes, 1))                   # (D, 4, B)
+    return torch.stack(out).to(torch.int32)
+
+
+def test_closed_form_chain_equals_the_bit_serial_chain():
+    """Every (t1, t2) pair of W-bit operands under every row mask at 4 bits,
+    and 200,000 random triples at 8 bits, against the reference's
+    ``_chain_eval``."""
+    from repro.core.operator_model import _chain_eval as ref_chain_eval
+
+    t = np.arange(64)
+    t1, t2, mask = np.meshgrid(t, t, np.arange(32), indexing="ij")
+    got = chain_closed_form(torch.from_numpy(t1), torch.from_numpy(t2),
+                            torch.from_numpy(mask), 4)
+    want = ref_chain_eval(t1, t2, mask, 6, 5, np, np.int64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    g = np.random.default_rng(8)
+    t1, t2, mask = g.integers(0, 1024, (3, 200_000))
+    got = chain_closed_form(torch.from_numpy(t1), torch.from_numpy(t2),
+                            torch.from_numpy(mask), 8)
+    np.testing.assert_array_equal(got.numpy(), ref_chain_eval(t1, t2, mask, 10, 9, np,
+                                                              np.int64))
+
+
+@pytest.mark.parametrize("n_bits", [2, 4, 6, 8])
+def test_closed_form_planes_equal_the_synthesized_planes(n_bits):
+    """Every row mask of the width, in every row, against ``_synth_small``."""
+    from repro_torch.core.operator_model import _synth_small
+
+    spec = spec_for(n_bits)
+    masks = torch.arange(1 << spec.cols_removable, dtype=torch.int32)[:, None].repeat(
+        1, spec.rows)
+    want = torch.stack(_synth_small(spec, masks, torch, torch.int32))
+    assert torch.equal(closed_form_planes(masks, n_bits), want)
+
+
+# -- K5's nibble planes, emulated -------------------------------------------
+
+def k5_nibble_image(small_d: torch.Tensor) -> torch.Tensor:
+    """The shared-memory image of one config's nibble planes from its
+    (R, 4, B) planes, as the kernel's ``synthesize_nibbles`` writes it: plane
+    q at q * 16 * B, entry (nu, b) at row nu, column b ^ nu, the sum over rows
+    2q, 2q + 1 of planes[r][pair_r(nu << 4q)][b] << 2(r - 2q); an odd last row
+    fills 4 rows alone."""
+    rows, _, nb = small_d.shape
+    img = torch.zeros(((rows // 2) * 16 + (rows % 2) * 4) * nb, dtype=torch.int64)
+    b = torch.arange(nb)
+    for q in range((rows + 1) // 2):
+        r0 = 2 * q
+        two = r0 + 1 < rows
+        for nu in range(16 if two else 4):
+            v = small_d[r0, _pair(nu, 0)].long()
+            if two:
+                v = v + (small_d[r0 + 1, _pair(nu, 1)].long() << 2)
+            img[(q * 16 + nu) * nb + (b ^ nu)] = v
+    return img
+
+
+def k5_staged_emulated(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,
+                       n_bits: int) -> torch.Tensor:
+    """K5's redesign in plain torch: the codes packed as uint8 (A in whole
+    32-row slabs, K in whole 16-code chunks, zero-padded, no padding
+    subtracted), each config's nibble-plane image, per plane q the lookups at
+    (q * 16 + nu) * B + (b ^ nu), nu = (a >> 4q) & 15, summed per plane and
+    shifted by 4q; sums wrap modulo 2^32 as the kernel's unsigned ones."""
+    small = torch.stack(_synth_small_port(n_bits, masks))       # (R, D, 4, B)
+    rows, d, _, nb = small.shape
+    (m, k), n = a_codes.shape, b_codes.shape[1]
+    m_pad = -(-m // K4_SLAB) * K4_SLAB
+    k_pad = -(-k // K4_CHUNK) * K4_CHUNK
+    a8 = torch.zeros((m_pad, k_pad), dtype=torch.int64)
+    a8[:m, :k] = a_codes.long() & (nb - 1)
+    bt8 = torch.zeros((n, k_pad), dtype=torch.int64)
+    bt8[:, :k] = (b_codes.long() & (nb - 1)).T
+    av, bv = a8[:, None, :], bt8[None, :, :]                    # (M_pad, 1, K), (1, N, K)
+    idx = []
+    for q in range((rows + 1) // 2):
+        nu = (av >> (4 * q)) & 15
+        idx.append((q * 16 + nu) * nb + (bv ^ nu))
+    out = torch.zeros((d, m_pad, n), dtype=torch.int64)
+    for c in range(d):
+        img = k5_nibble_image(small[:, c])
+        for q, ix in enumerate(idx):
+            out[c] += img[ix].sum(-1) << (4 * q)
+    out = out[:, :m] & 0xFFFFFFFF
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def _synth_small_port(n_bits, masks):
+    from repro_torch.core.operator_model import _synth_small
+
+    return _synth_small(spec_for(n_bits), masks, torch, torch.int32)
+
+
+@pytest.fixture(scope="module")
+def ref_fastapp():
+    """The reference's device engine (imports JAX)."""
+    pytest.importorskip("jax")
+    from repro.apps import fastapp
+
+    return fastapp
+
+
+def _k5_configs(n_bits, n_cfgs, seed):
+    spec = spec_for(n_bits)
+    cfgs = np.random.default_rng(seed).integers(0, 2, (n_cfgs, spec.n_luts)).astype(np.uint8)
+    return np.concatenate([cfgs, np.zeros((1, spec.n_luts), np.uint8),
+                           np.ones((1, spec.n_luts), np.uint8)])
+
+
+def _k5_check(ref_fastapp, n_bits, cfgs, a, b):
+    """The emulation == entry_gemv_plain == the reference's entry route ==
+    numpy table_matmul, exactly."""
+    masks = torch.from_numpy(config_to_masks(spec_for(n_bits), cfgs).astype(np.int32))
+    a_t, b_t = (torch.from_numpy(np.ascontiguousarray(x, np.int32)) for x in (a, b))
+    got = k5_staged_emulated(masks, a_t, b_t, n_bits)
+    assert torch.equal(got, k4.entry_gemv_plain(masks, a_t, b_t, n_bits))
+    nb = 1 << n_bits
+    tables = ref_product_tables(ref_spec_for(n_bits), cfgs)
+    want = np.stack([ref_table_matmul(t, a & (nb - 1), b & (nb - 1)) for t in tables])
+    np.testing.assert_array_equal(got.numpy(), want)
+    rbatch = ref_fastapp.table_batch(ref_spec_for(n_bits), cfgs)
+    np.testing.assert_array_equal(
+        np.asarray(ref_fastapp.table_matmul_jax(rbatch, a & (nb - 1), b & (nb - 1),
+                                                impl="entry")), want)
+
+
+# the five app shapes chip_smoke.py times K5 at
+K5_SHAPES = dict(APP_SHAPES, **{"ragged K": (250, 100, 10)})
+
+
+@pytest.mark.parametrize("name", sorted(K5_SHAPES))
+def test_k5_nibble_planes_match_plain_and_reference(ref_fastapp, name):
+    """The five app shapes, 2 random configs plus the all-zeros and the
+    accurate one, codes of the whole 8-bit range."""
+    m, k, n = K5_SHAPES[name]
+    rng = np.random.default_rng(m + k + n)
+    _k5_check(ref_fastapp, 8, _k5_configs(8, 2, m), rng.integers(0, 256, (m, k)),
+              rng.integers(0, 256, (k, n)))
+
+
+@pytest.mark.parametrize("n_bits, m, k, n", [(8, 23, 100, 7), (8, 33, 17, 16), (8, 1, 1, 1),
+                                             (4, 70, 37, 5), (6, 41, 19, 3), (2, 9, 5, 2)])
+def test_k5_nibble_planes_ragged_and_narrow(ref_fastapp, n_bits, m, k, n):
+    """Ragged M and K, and 4, 6 (the odd last row: a 4-entry plane) and 2
+    bits, with codes out of range (taken modulo 2^n_bits)."""
+    rng = np.random.default_rng(k)
+    nb = 1 << n_bits
+    _k5_check(ref_fastapp, n_bits, _k5_configs(n_bits, 3, m),
+              rng.integers(-2 * nb, 3 * nb, (m, k)), rng.integers(0, nb, (k, n)))
+
+
+@pytest.mark.parametrize("n_bits", [4, 6, 8])
+def test_k5_swizzle_puts_the_sixteen_nibbles_of_a_column_in_sixteen_banks(n_bits):
+    """Entry (nu, b) at row nu, column b ^ nu: for every b the 16 rows fall
+    in 16 distinct banks of 4-byte words (a warp's lanes share b, so lanes
+    with different nu never conflict and lanes with one nu read one word);
+    the image holds every folded entry at that place."""
+    nb = 1 << n_bits
+    nu = torch.arange(16)
+    for b in range(nb):
+        banks = (nu * nb + (b ^ nu)) % 32
+        assert len(set(banks.tolist())) == 16
+    spec = spec_for(n_bits)
+    masks = torch.from_numpy(config_to_masks(spec, _k5_configs(n_bits, 1, 3)).astype(np.int32))
+    small = torch.stack(_synth_small_port(n_bits, masks))[:, 0].long()
+    img = k5_nibble_image(small)
+    b = torch.arange(nb)
+    for n_val in range(16):
+        want = small[0, _pair(n_val, 0)] + (small[1, _pair(n_val, 1)] << 2)
+        assert torch.equal(img[n_val * nb + (b ^ n_val)], want)
+
+
+# -- K2's walk over synthesized column values, emulated ---------------------
+
+def entry_exact_and_weights(n_bits: int):
+    """K2's exact = a_s * b_s and w = rn(1 / f32(max(|exact|, 1))), the
+    operand formed as the kernel forms it (``exact_float``)."""
+    nb = 1 << n_bits
+    codes = torch.arange(nb)
+    sv = torch.where(codes >= nb // 2, codes - nb, codes)
+    exact = sv[:, None] * sv[None, :]
+    w = 1.0 / exact_float(exact.abs().clamp(min=1))
+    return exact.to(torch.int32), w
+
+
+def k2_walk_emulated(masks, n_bits, a_tile):
+    """K2's redesign: K1's walk (the same groups, base rows, half row and
+    registers) over plane values computed in closed form at the thread's
+    column, with the exact products and weights from the codes."""
+    exact, w = entry_exact_and_weights(n_bits)
+    return k1_walk_emulated(closed_form_planes(masks, n_bits), exact, w, a_tile)
+
+
+def test_reciprocal_equals_f32_division_for_every_product():
+    """rn(1/x), the correctly rounded reciprocal that ``__frcp_rn`` returns,
+    found here with exact rationals, equals the plain version's f32 division
+    1.0 / x for every |exact| in [1, 2^14], x formed by ``exact_float``."""
+    from fractions import Fraction
+
+    x = torch.arange(1, (1 << 14) + 1)
+    xf = exact_float(x)
+    assert torch.equal(xf, x.to(torch.float32))
+    division = (1.0 / xf).numpy()
+    for v, got in zip(x.tolist(), division.tolist()):
+        c = np.float32(1.0 / v)
+        cands = [np.nextafter(c, np.float32(0)), c, np.nextafter(c, np.float32(1))]
+        errs = [abs(Fraction(float(f)) - Fraction(1, v)) for f in cands]
+        best = min(errs)
+        ties = [f for f, e in zip(cands, errs) if e == best]
+        rn = ties[0] if len(ties) == 1 else next(
+            f for f in ties if int(np.float32(f).view(np.int32)) % 2 == 0)
+        assert got == float(rn), v
+
+
+@pytest.mark.parametrize("n_bits", [2, 4, 6, 8])
+def test_k2_walk_matches_plain_and_reference(n_bits):
+    """At the default a_tile of each width and at a_tile 8 (an odd GB: the
+    half row), on 9 random configs plus the accurate and the all-zeros one:
+    int channels exactly, the f32 channel to 1e-5, against the plain version
+    and the reference's XLA twin ``_partials_xla(source="entry")``."""
+    spec = spec_for(n_bits)
+    rng = np.random.default_rng(20 + n_bits)
+    cfgs = np.concatenate([rng.integers(0, 2, (9, spec.n_luts)).astype(np.uint8),
+                           np.ones((1, spec.n_luts), np.uint8),
+                           np.zeros((1, spec.n_luts), np.uint8)])
+    masks = torch.from_numpy(config_to_masks(spec, cfgs).astype(np.int32))
+    tiles = {fastchar.default_a_tile(spec), min(8, 1 << n_bits)}
+    for a_tile in sorted(tiles):
+        got_i, got_r = k2_walk_emulated(masks, n_bits, a_tile)
+        want_i, want_r = k1.behav_stats_entry_plain(masks, n_bits, a_tile)
+        assert torch.equal(got_i, want_i), a_tile
+        torch.testing.assert_close(got_r, want_r, rtol=1e-5, atol=0)
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.core import fastchar as ref_fastchar
+
+    for a_tile in sorted(tiles):
+        ref_i, ref_r = ref_fastchar._partials_xla(jnp.asarray(masks.numpy()), n_bits, a_tile,
+                                                  len(cfgs), source="entry")
+        got_i, got_r = k2_walk_emulated(masks, n_bits, a_tile)
+        np.testing.assert_array_equal(np.asarray(ref_i), got_i.numpy())
+        np.testing.assert_allclose(np.asarray(ref_r), got_r.numpy(), rtol=1e-5)
