@@ -68,6 +68,27 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
   5. GA contract: the device NSGA-II's feasible-archive hypervolume within 2%
      of the numpy NSGA-II on the fitted 8-bit surrogate (population 32, 30
      generations), as a mean over seeds 0-19.
+  wide: ``behav_metrics_sampled`` on 64 12-bit and 64 16-bit configs at
+     32,768 samples (the accurate config reads 0; an 8-config subset equals
+     the CPU path); the unsigned 8-bit training set (2,000 random + pattern
+     configs) through K1, a 64-config subset equal to the numpy backend, and
+     ``run_dse(..., "ga")`` on it, its validated front's BEHAV equal to
+     numpy; 12-bit mnist BEHAV of 64 configs through K5's 12-bit instance
+     (its launches counted), a subset equal to the plain route.
+  sweep: ``run_dse_sweep(spec_for(8), <phase 4's set>, "map+ga", seeds (0,
+     1), const_sf_grid=CONST_SF_GRID)``: 12 lanes at population 64 x 100
+     generations in one batched GA; K3 over lanes must launch once a ranking
+     (200) and the per-lane K3 never; the (seed 0, const_sf 0.5) lane equals
+     phase 4's map+ga run (hv_ppf to 1e-5, the same validated front); every
+     lane's validated BEHAV equals numpy.
+  service: an ``OperatorStore`` in a temporary directory and a
+     ``DSEJobQueue(default_runner(...))`` behind a ``MetricsServer`` with the
+     three ``/dse`` routes: the 12 mul8 requests of the sweep's grid posted
+     over HTTP are one batched sweep (200 K3 launches), and posted again are
+     all answered from the library (no GA, no K3 launch); ``/dse/library``,
+     ``/metrics`` and ``/healthz`` (the card's name) are read; then
+     ``serve.main --metrics-port 0 --dse-smoke 4`` at the reduced granite
+     config, its own self-test, with a fresh library.
   serve: AxO serving of granite-3-2b at full width and depth (40 layers, d
      2048, 32/8 heads, d_ff 8192, vocab 49,155, bf16, random weights from a
      seed) through ``repro_torch.launch.serve.main``: batch 4, prompt 128,
@@ -107,6 +128,15 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      last, since switching the debugger slows later host-issued launches (a
      ranking's time before and after the switch is printed).
 
+Phase 3 also holds K3 over lanes (``constraint_fronts_lanes``) against its
+plain version at L=12 x P=128 and a ragged L=5 x P=100, timed beside 12
+launches of ``constraint_fronts`` (its yardstick; no PyTorch call computes
+it), and K5's 12-bit instance (``entry_gemv_wide``) at the mnist head, the
+ffn GEMM1 and the two convolutions on 12-bit codes and 64 configs, counting
+the configs whose exact sums leave int32 (the kernel sums modulo 2^32, as
+the reference does), with the pair-plane gemm route over the synthesized
+planes as its yardstick where that route is exact.
+
 Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
 decode shapes (M=4 against the five weight shapes), a prefill shape (M=512,
 2048 x 8192), mamba2's head (M=8), the boundary of its two routes (M=16 on
@@ -132,8 +162,9 @@ yardstick.  Every K8 call of the full-width serve-ssm run must take the
 tensor-core design and launch two grids (counted by K8's CUDA library).
 
 The second-to-last lines are the kernels' JSON record (launch counts of K1-K3
-from phase 4, of K4 and K5 from phase apps, of K6 and K7 from phase serve, of
-K8 from phase serve-ssm) and the card's ``nvidia-smi`` name and power limit; the last line is the
+from phase 4, of K4 and K5 from phase apps, of K5's 12-bit instance from
+phase wide, of K3 over lanes from phase sweep, of K6 and K7 from phase
+serve, of K8 from phase serve-ssm) and the card's ``nvidia-smi`` name and power limit; the last line is the
 result JSON.  Nothing of JAX or of the reference package is imported.
 """
 
@@ -142,9 +173,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -378,6 +412,14 @@ def profile_decode(torch, prefill, decode, params, toks, steps: int = 2):
     return profile_calls(torch, lambda: decode(params, cache, nxt, next(positions)), steps)
 
 
+def http_json(url: str, body: dict | None = None) -> dict:
+    """GET (or POST ``body`` as JSON to) ``url``; the JSON answer."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
 def main() -> int:
     import torch
 
@@ -395,7 +437,10 @@ def main() -> int:
     from repro_torch.core import fastchar, fastmoo
     from repro_torch.core.automl import fit_estimators
     from repro_torch.core.dataset import BEHAV_KEY, PPA_KEY, Dataset, build_training_dataset
-    from repro_torch.core.dse import DSESettings, hv_reference, map_solution_pool, run_dse
+    from repro_torch import obs
+    from repro_torch.core.dse import (
+        CONST_SF_GRID, DSESettings, hv_reference, map_solution_pool, run_dse, run_dse_sweep,
+    )
     from repro_torch.core.engine import ExecutionContext
     from repro_torch.core.metrics import behav_metrics
     from repro_torch.core.moo import nsga2
@@ -410,6 +455,9 @@ def main() -> int:
     from repro_torch.models.layers import rmsnorm
     from repro_torch.models.model import model_spec
     from repro_torch.models.spec import init_params
+    from repro_torch.obs.prom import MetricsServer
+    from repro_torch.service import DSEJobQueue, DSERequest, OperatorStore, default_runner
+    from repro_torch.service.store import store_status
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -619,6 +667,48 @@ def main() -> int:
     )
     err["K3"] = 0.0  # integer fronts, held equal above
 
+    # K3 over lanes (the sweep's ranking): held equal to its plain version
+    # lane by lane at both of the full sweep's shapes, L=12 x P=64 (the
+    # tournament's ranking of population 64) and L=12 x P=128 (environmental
+    # selection), and at a ragged L=5 x P=100 with a chain lane; timed beside
+    # L launches of constraint_fronts, its yardstick
+    lane_cases = {}
+    for n_lanes, p in ((12, 64), (12, 128), (5, 100)):
+        g = np.random.default_rng(10 * n_lanes + p)
+        objs = g.random((n_lanes, p, 2)).astype(np.float32)
+        viol = np.where(g.random((n_lanes, p)) < 0.4, g.random((n_lanes, p)), 0.0)
+        if n_lanes == 5:
+            objs[-1] = np.stack([np.linspace(1, 0, p)] * 2, 1)
+            viol[-1] = 0.0
+        o = torch.from_numpy(objs).to(dev)
+        v = torch.from_numpy(viol.astype(np.float32)).to(dev)
+        got, n_got = moo_kernels.constraint_fronts_lanes(o, v)
+        want, n_want = moo_kernels.constraint_fronts_lanes_plain(o, v)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(n_got, n_want)):
+            raise AssertionError(f"K3 over lanes differs from its plain version at L={n_lanes} "
+                                 f"P={p}")
+        lane_cases[(n_lanes, p)] = (o, v, n_want)
+        print(f"phase kernels: K3 constraint_fronts_lanes vs plain at L={n_lanes} P={p}: "
+              f"fronts == ({n_want.tolist()} feasible fronts a lane)", flush=True)
+    o_l, v_l, n_l = lane_cases[(12, 128)]
+    rounds = int(n_l.sum())
+    rec["K3L"] = dict(
+        name="constraint_fronts_lanes", source="src/repro_torch/kernels/csrc/moo_kernels.cu",
+        replaces="src/repro/kernels/moo_kernels.py:95",
+        ms=cuda_ms(torch, lambda: moo_kernels.constraint_fronts_lanes(o_l, v_l), 200),
+        plain_ms=cuda_ms(torch, lambda: moo_kernels.constraint_fronts_lanes_plain(o_l, v_l), 5),
+        # the yardstick: the same lanes one constraint_fronts launch at a time
+        per_lane_ms=cuda_ms(torch, lambda: [moo_kernels.constraint_fronts(o_l[i], v_l[i])
+                                            for i in range(12)], 50),
+        library_ms=None,
+        # K3's per-lane count (bytes in and out; the P x P tests once and a
+        # word AND and OR a word a point a round) over the 12 lanes
+        bound=bound(12 * (128 * (4 * 2 + 4 + 8) + 8),
+                    12 * 128 * 128 * 7 + 128 * words * 2 * rounds, 0, int_rate),
+    )
+    err["K3L"] = 0.0
+
     # K4/K5 on 126 random configs + the accurate and the all-zeros config, at
     # the mnist head, the ffn GEMM1, a ragged K and the ecg and gauss
     # convolutions (the apps' own codes); K4 through both of its routes
@@ -767,6 +857,97 @@ def main() -> int:
               f"gather {p['gather']:.4f} ms, plan {p['plan']}" for p in sweep), flush=True)
     rec["K4"]["boundary"] = sweep
     err["K4"] = err["K5"] = 0.0  # exact int32 outputs, held equal above
+
+    # K5 at 12 bits on 62 random 12-bit configs + the accurate and the
+    # all-zeros config, at the mnist head, the ffn GEMM1 and the two
+    # convolutions on the apps' own 12-bit codes.  Its sums are int32 modulo
+    # 2^32, as the reference's; the configs whose exact (int64) sums leave
+    # int32 are counted.  Its bound, as K5's: one shared-memory word a
+    # product, beside a load and an add a product and the closed-form
+    # synthesis once a (config, product slot) at the issue rate, and its bytes
+    spec12 = spec_for(12)
+    g12 = np.random.default_rng(12)
+    cfgs12 = np.concatenate([g12.integers(0, 2, (62, spec12.n_luts)).astype(np.uint8),
+                             accurate_config(spec12)[None],
+                             np.zeros((1, spec12.n_luts), np.uint8)])
+    tb12 = fastapp.table_batch(spec12, cfgs12, ctx=ExecutionContext())
+    apps12 = {name: APPLICATIONS[name]() for name in ("mnist", "ffn", "ecg", "gauss")}
+    for app in apps12.values():
+        app._prepare(12)
+    x12 = np.asarray(apps12["ecg"]._x_codes, np.int32)
+    img12 = torch.from_numpy(np.asarray(apps12["gauss"]._img_codes, np.int32))
+    wide_shapes = {
+        "mnist": (apps12["mnist"]._x_codes, apps12["mnist"]._w_codes),
+        "ffn": (apps12["ffn"]._x_codes, apps12["ffn"]._w1_codes),
+        "ecg conv1d": (np.lib.stride_tricks.sliding_window_view(
+            x12, len(apps12["ecg"]._h_codes)), np.asarray(apps12["ecg"]._h_codes)[:, None]),
+        "gauss conv2d": (img12.unfold(0, 5, 1).unfold(1, 5, 1).reshape(-1, 25).numpy(),
+                         np.asarray(apps12["gauss"]._k_codes).reshape(-1, 1)),
+    }
+    planes12 = (spec12.rows + 1) // 2
+
+    def k5w_bound(n_cfgs: int, m: int, k: int, n: int):
+        products = n_cfgs * m * k * n
+        slots = n_cfgs * k * n * planes12
+        moved = (n_cfgs * spec12.rows + m * k + k * n + n_cfgs * m * n) * 4
+        terms = {
+            "shared-memory words": bound(0, K5_WORDS * products, 0, gather_rate)[0],
+            "instructions": bound(0, K5_PRODUCT_OPS * products
+                                  + slots * (8 * CHAIN_OPS + 16), 0, issue_rate)[0],
+            "bytes": bound(moved, 0, 0, 1)[0],
+        }
+        term = max(terms, key=terms.get)
+        return terms[term], "bytes" if term == "bytes" else "operations", term
+
+    d12 = len(cfgs12)
+    for label, (a_np, b_np) in wide_shapes.items():
+        a = torch.from_numpy(np.ascontiguousarray(a_np, np.int32)).to(dev)
+        bb = torch.from_numpy(np.ascontiguousarray(b_np, np.int32)).to(dev)
+        (m, k), n = a.shape, bb.shape[1]
+        got = app_kernels.entry_gemv(tb12.masks, a, bb, 12)
+        want = app_kernels.entry_gemv_plain(tb12.masks, a, bb, 12)
+        exact = app_kernels.entry_gemv_plain(tb12.masks, a, bb, 12, acc_dtype=torch.int64)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 at 12 bits differs from its plain version at {label}")
+        if not torch.equal(exact.to(torch.int32), want):
+            raise AssertionError(f"K5's plain version at 12 bits is not the int64 sum "
+                                 f"modulo 2^32 at {label}")
+        wrapped = int((exact.abs() >= 2**31).flatten(1).any(1).sum())
+        # the yardstick: the pair-plane gemm route over the synthesized planes
+        # (R = 6 cuBLAS f32 GEMMs), exact modulo 2^32 where K x 2^13 < 2^24
+        gemm_ok = fastapp._gemm_ok(k, 12)
+        if gemm_ok and not torch.equal(fastapp._matmul_gemm(tb12.entry_small, a, bb), want):
+            raise AssertionError(f"the 12-bit gemm route differs from K5 at {label}")
+        w_rec = dict(
+            name="entry_gemv_wide", source="src/repro_torch/kernels/csrc/app_kernels.cu",
+            replaces="src/repro/kernels/app_kernels.py:173",
+            ms=cuda_ms(torch, lambda: app_kernels.entry_gemv(tb12.masks, a, bb, 12), 20),
+            plain_ms=cuda_ms(torch, lambda: app_kernels.entry_gemv_plain(
+                tb12.masks, a, bb, 12), 3),
+            library_ms=cuda_ms(torch, lambda: fastapp._matmul_gemm(
+                tb12.entry_small, a, bb), 20) if gemm_ok else None,
+            library_reason="the gemm route over the synthesized planes (6 cuBLAS f32 GEMMs)"
+                           if gemm_ok else "none: the gemm route is not exact here "
+                                           "(K x 2^13 reaches 2^24)",
+            bound=k5w_bound(d12, m, k, n), bound_term=k5w_bound(d12, m, k, n)[2],
+            splits=app_kernels.entry_wide_splits(d12, m, k, n, 12),
+            wrapped_configs=wrapped,
+        )
+        print(f"phase kernels: K5 at 12 bits vs plain at {label} D={d12} M={m} K={k} N={n}: "
+              f"outputs == (sums modulo 2^32; {wrapped} of {d12} configs' exact sums leave "
+              f"int32), {w_rec['splits']} block(s) a config: {w_rec['ms']:.4f} ms (plain "
+              f"{w_rec['plain_ms']:.4f}; bound {w_rec['bound'][0]:.4g} by "
+              f"{w_rec['bound_term']}); yardstick {fmt_ms(w_rec['library_ms'])}: "
+              f"{w_rec['library_reason']}", flush=True)
+        if label == "mnist":
+            rec["K5W"] = w_rec
+        rec["K5W"].setdefault("shapes", {})[label] = {
+            key: w_rec[key] for key in ("ms", "plain_ms", "library_ms", "splits",
+                                        "bound_term", "wrapped_configs")} | {
+                                            "bound_ms": w_rec["bound"][0],
+                                            "bound_by": w_rec["bound"][1]}
+    err["K5W"] = 0.0
 
     # K6 at granite-3-2b's AxO projections, rank 8: decode (M=4) against the
     # five weight shapes, and the prefill's M = 4 x 128 against gate/up; the
@@ -1170,6 +1351,238 @@ def main() -> int:
     if not rel0 <= 0.02:
         raise AssertionError("device GA seed-0 hypervolume is not within 2% of the numpy GA")
 
+    # -- wide: sampled 12/16-bit BEHAV, unsigned 8-bit, 12-bit app BEHAV ------
+    t_wide0 = time.perf_counter()
+    wide_timings = {}
+    for n_bits in (12, 16):
+        spec_w = spec_for(n_bits)
+        g_w = np.random.default_rng(n_bits)
+        cfgs_w = np.concatenate([accurate_config(spec_w)[None],
+                                 g_w.integers(0, 2, (63, spec_w.n_luts)).astype(np.uint8)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met, ci = fastchar.behav_metrics_sampled(spec_w, cfgs_w, n_samples=32768, seed=0,
+                                                 ctx=ctx)
+        t_w = time.perf_counter() - t0
+        wide_timings[f"sampled{n_bits}"] = t_w
+        if any(met[k][0] != 0.0 for k in met) or not all(
+                np.isfinite(v).all() for v in met.values()):
+            raise AssertionError(f"sampled {n_bits}-bit BEHAV: the accurate config does not "
+                                 f"read 0, or a metric is not finite")
+        # an 8-config subset against the port's CPU path (held against the
+        # reference on the CPU by tests/test_torch_wide.py)
+        met_c, ci_c = fastchar.behav_metrics_sampled(
+            spec_w, cfgs_w[:8], n_samples=32768, seed=0, ctx=ExecutionContext(device="cpu"))
+        for k in met_c:
+            if k in ("AVG_ABS_REL_ERR", "MSE"):
+                np.testing.assert_allclose(met[k][:8], met_c[k], rtol=1e-12, err_msg=k)
+            else:
+                np.testing.assert_array_equal(met[k][:8], met_c[k], err_msg=k)
+        print(f"phase wide: sampled BEHAV of 64 {spec_w.tag} configs (L={spec_w.n_luts}) at "
+              f"32,768 samples on the card: {t_w:.3f} s, {64 / t_w:.4g} configs/s; the "
+              f"accurate config reads 0; an 8-config subset == the CPU path (integer "
+              f"channels exactly, AVG_ABS_REL_ERR and MSE rtol 1e-12)", flush=True)
+    # the unsigned 8-bit training set through K1, and a DSE on it
+    spec_u = spec_for(8, signed=False)
+    char_kernels.behav_stats_table.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_u = build_training_dataset(spec_u, n_random=2000, seed=0, backend=ctx)
+    wide_timings["train_u8"] = time.perf_counter() - t0
+    k1_u = char_kernels.behav_stats_table.launches
+    pick_u = np.random.default_rng(4).choice(len(train_u), 64, replace=False)
+    oracle_u = behav_metrics(spec_u, train_u.configs[pick_u], backend="numpy")
+    for key in ("AVG_ABS_ERR", "PROB_ERR", "MAX_ABS_ERR", "MSE"):
+        np.testing.assert_array_equal(train_u.metrics[key][pick_u], oracle_u[key], err_msg=key)
+    np.testing.assert_allclose(train_u.metrics[BEHAV_KEY][pick_u], oracle_u[BEHAV_KEY],
+                               rtol=REL_RTOL)
+    print(f"phase wide: unsigned training set {len(train_u)} {spec_u.tag} configs "
+          f"characterized through K1 ({k1_u} launches) in {wide_timings['train_u8']:.2f} s; "
+          f"a 64-config subset == numpy backend (4 metrics, AVG_ABS_REL_ERR rtol "
+          f"{REL_RTOL})", flush=True)
+    if k1_u <= 0:
+        raise AssertionError("the unsigned training set did not run K1")
+    t0 = time.perf_counter()
+    r_u = run_dse(spec_u, train_u, "ga",
+                  settings=DSESettings(const_sf=0.5, pop_size=64, n_gen=100, context=ctx))
+    wide_timings["dse_u8"] = time.perf_counter() - t0
+    if not (r_u.hv_vpf > 0 and len(r_u.vpf_configs)):
+        raise AssertionError("unsigned DSE: empty validated front")
+    oracle_u = behav_metrics(spec_u, r_u.vpf_configs, backend="numpy")
+    np.testing.assert_allclose(r_u.vpf_objs[:, 0], oracle_u[BEHAV_KEY], rtol=REL_RTOL)
+    fast_u = behav_metrics(spec_u, r_u.vpf_configs, backend=ctx)
+    for key in ("AVG_ABS_ERR", "PROB_ERR", "MAX_ABS_ERR", "MSE"):
+        np.testing.assert_array_equal(fast_u[key], oracle_u[key], err_msg=key)
+    print(f"phase wide: run_dse({spec_u.tag}, ga) hv_vpf {r_u.hv_vpf!r}, vpf "
+          f"{len(r_u.vpf_configs)}, {wide_timings['dse_u8']:.2f} s; the validated front's "
+          f"BEHAV == numpy", flush=True)
+    # 12-bit mnist BEHAV of 64 configs through K5's 12-bit instance
+    mnist12 = APPLICATIONS["mnist"]()
+    app_kernels.entry_gemv_wide.launches = 0
+    app_kernels.entry_gemv.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mn12 = fastapp.app_behav_torch(mnist12, spec12, cfgs12, ctx=ctx_entry)
+    torch.cuda.synchronize()
+    wide_timings["mnist12"] = time.perf_counter() - t0
+    launches["K5W"] = app_kernels.entry_gemv_wide.launches
+    if launches["K5W"] <= 0 or app_kernels.entry_gemv.launches:
+        raise AssertionError(f"12-bit mnist BEHAV: K5's 12-bit instance launched "
+                             f"{launches['K5W']} times, the 8-bit design "
+                             f"{app_kernels.entry_gemv.launches}")
+    plain12 = fastapp.app_behav_torch(mnist12, spec12, cfgs12[:8],
+                                      ctx=ExecutionContext(kernel_impl="entry_gather"))
+    np.testing.assert_array_equal(mn12[:8], plain12)
+    if not np.isfinite(mn12).all():
+        raise AssertionError("12-bit mnist BEHAV is not finite")
+    print(f"phase wide: 12-bit mnist BEHAV of {len(cfgs12)} configs through K5's 12-bit "
+          f"instance ({launches['K5W']} launch(es)) in {wide_timings['mnist12']:.3f} s; an "
+          f"8-config subset == the plain route (entry_gather); accurate config "
+          f"{mn12[-2]!r}%", flush=True)
+    t_wide = time.perf_counter() - t_wide0
+    print(f"phase wide: {t_wide:.1f} s ({ {k: round(v, 3) for k, v in wide_timings.items()} })",
+          flush=True)
+
+    # -- sweep: run_dse_sweep over the full const_sf grid, one GA for 12 lanes --
+    for fn in (moo_kernels.constraint_fronts, moo_kernels.constraint_fronts_lanes,
+               moo_kernels.dominance_counts):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep = run_dse_sweep(spec, train, "map+ga", settings=DSESettings(
+        const_sf=0.5, pop_size=64, n_gen=100, context=ctx_entry), seeds=(0, 1),
+        const_sf_grid=CONST_SF_GRID)
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    launches["K3L"] = moo_kernels.constraint_fronts_lanes.launches
+    per_lane = moo_kernels.constraint_fronts.launches + moo_kernels.dominance_counts.launches
+    print(f"phase sweep: run_dse_sweep({spec.tag}, map+ga, seeds (0, 1), const_sf "
+          f"{list(CONST_SF_GRID)}): {len(sweep)} lanes at population 64 x 100 generations in "
+          f"{t_sweep:.1f} s (shared stages {sweep[0].timings}); K3 over lanes launched "
+          f"{launches['K3L']} times, per-lane K3 {per_lane}", flush=True)
+    if launches["K3L"] != 2 * 100 or per_lane:
+        raise AssertionError(f"the sweep's rankings: {launches['K3L']} lane launches (expected "
+                             f"200, one a ranking) and {per_lane} per-lane launches")
+    lane = next(r for r in sweep if r.settings.seed == 0 and r.settings.const_sf == 0.5)
+    single = results["map+ga"]
+    np.testing.assert_allclose(lane.hv_ppf, single.hv_ppf, rtol=1e-5)
+    np.testing.assert_array_equal(lane.vpf_configs, single.vpf_configs)
+    for r in sweep:
+        # the tightest constraint (const_sf 0.2) may leave no validated
+        # config; from 0.5 up every lane has a front
+        if not np.isfinite(r.vpf_objs).all() or (
+                r.settings.const_sf >= 0.5 and not (r.hv_vpf > 0 and len(r.vpf_configs))):
+            raise AssertionError(f"sweep lane {r.settings.seed, r.settings.const_sf}: empty or "
+                                 f"non-finite front")
+        if not len(r.vpf_configs):
+            continue
+        oracle = behav_metrics(spec, r.vpf_configs, backend="numpy")
+        np.testing.assert_allclose(r.vpf_objs[:, 0], oracle[BEHAV_KEY], rtol=REL_RTOL)
+        fast = behav_metrics(spec, r.vpf_configs, backend=ctx)
+        for key in ("AVG_ABS_ERR", "PROB_ERR", "MAX_ABS_ERR", "MSE"):
+            np.testing.assert_array_equal(fast[key], oracle[key], err_msg=key)
+    print(f"phase sweep: lane (seed 0, const_sf 0.5) == phase 4's map+ga run_dse (hv_ppf "
+          f"{lane.hv_ppf!r} vs {single.hv_ppf!r}, rtol 1e-5; the same validated front of "
+          f"{len(lane.vpf_configs)}); every lane's validated BEHAV == numpy; hv_vpf by lane "
+          f"{[round(r.hv_vpf, 1) for r in sweep]} ({sum(not len(r.vpf_configs) for r in sweep)} "
+          f"empty front(s) at const_sf 0.2)", flush=True)
+
+    # -- service: the operator library and the job queue behind HTTP ---------
+    t_svc0 = time.perf_counter()
+    tel_svc = obs.Telemetry("chip-smoke-service", parent=obs.GLOBAL)
+    sweeps = {"calls": 0}
+    run_sweep = fastmoo.CompiledNSGA2.run_sweep
+
+    def counted_sweep(self, *args, **kw):
+        sweeps["calls"] += 1
+        return run_sweep(self, *args, **kw)
+
+    fastmoo.CompiledNSGA2.run_sweep = counted_sweep
+    with tempfile.TemporaryDirectory() as lib_dir:
+        store = OperatorStore(root=lib_dir, tel=tel_svc)
+        queue = DSEJobQueue(default_runner(DSESettings(pop_size=64, n_gen=100, context=ctx),
+                                           store, n_train=2000), tel=tel_svc, linger_s=0.5)
+        srv = MetricsServer(tel=obs.GLOBAL, port=0).start()
+        srv.add_route("POST", "/dse", lambda p: {"job_id": queue.submit(
+            DSERequest.from_dict(p))})
+        srv.add_route("GET", "/dse", lambda p: queue.result(p["id"]) or {"status": "pending"})
+        srv.add_route("GET", "/dse/library", lambda p: store_status(store))
+        try:
+            bursts = []
+            for burst in range(2):
+                moo_kernels.constraint_fronts_lanes.launches = 0
+                moo_kernels.constraint_fronts.launches = 0
+                batches0 = tel_svc.counter("service.batches")
+                sweeps0 = sweeps["calls"]
+                hits0 = tel_svc.counter("service.request_hit")
+                t0 = time.perf_counter()
+                jobs = [http_json(f"{srv.url}/dse", {"n_bits": 8, "const_sf": sf, "seed": sd,
+                                                     "method": "map+ga"})["job_id"]
+                        for sf in CONST_SF_GRID for sd in (0, 1)]
+                if not queue.join(timeout=600):
+                    raise AssertionError("service: the jobs did not finish in 600 s")
+                answers = [http_json(f"{srv.url}/dse?id={j}") for j in jobs]
+                bursts.append(dict(
+                    s=time.perf_counter() - t0,
+                    batches=tel_svc.counter("service.batches") - batches0,
+                    ga_dispatches=sweeps["calls"] - sweeps0,
+                    hits=tel_svc.counter("service.request_hit") - hits0,
+                    k3_lanes=moo_kernels.constraint_fronts_lanes.launches,
+                    k3=moo_kernels.constraint_fronts.launches,
+                    hv=[a.get("hv_vpf") for a in answers],
+                    status=sorted({a["status"] for a in answers})))
+                print(f"phase service: burst {burst + 1}: {len(jobs)} mul8 map+ga requests over "
+                      f"HTTP -> {bursts[-1]}", flush=True)
+                # the service's lanes are the sweep's (the same training set,
+                # seeds and grid; validated through K1 there, K2 here)
+                if bursts[-1]["status"] != ["done"]:
+                    raise AssertionError(f"service burst {burst + 1}: {answers[:2]}")
+                np.testing.assert_allclose(bursts[-1]["hv"], [r.hv_vpf for r in sweep],
+                                           rtol=1e-5, err_msg="service hv vs the sweep's")
+            first, second = bursts
+            if not (first["batches"] == 1 and first["ga_dispatches"] == 1
+                    and first["k3_lanes"] == 200 and first["k3"] == 0):
+                raise AssertionError(f"service: the first burst was not one batched sweep "
+                                     f"of one K3 launch a ranking: {first}")
+            if not (second["ga_dispatches"] == 0 and second["hits"] == len(jobs)
+                    and second["k3_lanes"] == 0 and second["k3"] == 0
+                    and second["hv"] == first["hv"]):
+                raise AssertionError(f"service: the repeated burst was not answered from the "
+                                     f"library: {second}")
+            lib = http_json(f"{srv.url}/dse/library")
+            with urllib.request.urlopen(f"{srv.url}/metrics") as resp:
+                prom = resp.read().decode()
+            health = http_json(f"{srv.url}/healthz")
+            if not (lib["ok"] and lib["rows"] > 0 and lib["fronts"] >= len(jobs)):
+                raise AssertionError(f"service: /dse/library {lib}")
+            for name in ("repro_service_jobs_total", "repro_service_batches_total",
+                         "repro_service_request_hit_total", "repro_service_batch_lanes"):
+                if name not in prom:
+                    raise AssertionError(f"service: /metrics lacks {name}")
+            if health["status"] != "ok" or health["device"]["kind"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"service: /healthz {health}")
+            print(f"phase service: /dse/library rows {lib['rows']} fronts {lib['fronts']}; "
+                  f"/metrics renders the service.* counters; /healthz {health['status']} on "
+                  f"'{health['device']['kind']}'", flush=True)
+        finally:
+            queue.close()
+            srv.stop()
+            fastmoo.CompiledNSGA2.run_sweep = run_sweep
+    # the entry point's own self-test, at the reduced granite config, with a
+    # fresh library
+    with tempfile.TemporaryDirectory() as lib_dir:
+        os.environ["REPRO_OPERATOR_LIBRARY"] = lib_dir
+        try:
+            smoke = serve.main(["--arch", "granite-3-2b", "--gen", "4", "--metrics-port", "0",
+                                "--dse-smoke", "4", "--device", "cuda"])
+        finally:
+            del os.environ["REPRO_OPERATOR_LIBRARY"]
+    if len(smoke["dse"]) != 4 or any(a["status"] != "done" for a in smoke["dse"]):
+        raise AssertionError("serve --dse-smoke: not every request is done")
+    t_svc = time.perf_counter() - t_svc0
+    print(f"phase service: serve.main --dse-smoke 4 at the reduced config: 4 fronts, hv "
+          f"{[round(a['hv_vpf'], 1) for a in smoke['dse']]}; {t_svc:.1f} s", flush=True)
+
     # -- serve: granite-3-2b at full width and depth, exact and AxO -----------
     all_wrappers = dict(app_wrappers, K6=axo_matmul.axo_matmul,
                         K7=flash_attention.flash_attention)
@@ -1558,11 +1971,13 @@ def main() -> int:
                                        "dominance_counts_ms", "route", "staged_ms", "shapes",
                                        "boundary", "old_bound_ms", "old_device_ms", "splits",
                                        "configs_a_thread", "ragged", "path", "bound_term",
-                                       "tiers_ms", "tiers_device_ms")
+                                       "tiers_ms", "tiers_device_ms", "per_lane_ms",
+                                       "wrapped_configs", "library_reason")
                if key in r},
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s (main path {t_main:.1f} s, apps "
-          f"{t_app:.1f} s, of which attaching app BEHAV {t_multi:.2f} s)", flush=True)
+          f"{t_app:.1f} s, of which attaching app BEHAV {t_multi:.2f} s; wide {t_wide:.1f} s, "
+          f"sweep {t_sweep:.1f} s, service {t_svc:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

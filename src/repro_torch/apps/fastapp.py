@@ -27,6 +27,13 @@ contract them with the pair-plane GEMM as the reference does, and
 A route asked for explicitly that cannot run the batch raises; a context
 preference gives way only where the reference's does.
 
+12-bit operators take the table-free routes only: their product and row
+tables (67 MB and 1 GB) are not built, so ``"entry"`` launches K5's 12-bit
+instance (``entry_gemv_wide``) on config-shared codes, per-config codes take
+``"entry_gather"``, and a convolution within the f32 bound contracts the
+synthesized planes with the pair-plane GEMM, as the reference does.  Sums
+are int32 modulo 2^32, as the reference's.
+
 Per-app BEHAV heads combine the integer device outputs on the host in float64
 with exactly the oracle's expressions, which keeps every app BEHAV equal to
 the numpy path.  Left out against the reference: the ``shard_map`` mesh
@@ -43,7 +50,7 @@ import numpy as np
 import torch
 
 from ..core.engine import ENGINE_MENUS, ExecutionContext
-from ..core.fastchar import _check_exhaustive, _gather_small
+from ..core.fastchar import _gather_small
 from ..core.operator_model import OperatorSpec, _synth_small, config_to_masks, spec_for
 from ..kernels import app_kernels
 from ..kernels.app_kernels import _pair
@@ -114,7 +121,8 @@ class TableBatch:
 
     @property
     def has_small(self) -> bool:
-        return self._small is not None or self.masks is not None
+        return self._small is not None or (
+            self.masks is not None and self.n_bits <= app_kernels.MAX_BITS)
 
     def _need_masks(self, what: str) -> None:
         if self.masks is None:
@@ -127,6 +135,9 @@ class TableBatch:
     def small(self) -> torch.Tensor:
         if self._small is None:
             self._need_masks("the per-row planes")
+            if self.n_bits > app_kernels.MAX_BITS:
+                raise ValueError(f"the row tables stop at {app_kernels.MAX_BITS} bits: a "
+                                 f"{self.n_bits}-bit batch takes the table-free routes")
             self._small = _gather_small(self.masks, self.n_bits)
         return self._small
 
@@ -151,10 +162,13 @@ def table_batch(
 ) -> TableBatch:
     """(D, L) {0,1} configs -> a TableBatch on ``ctx.device`` (default the card).
 
-    The batch carries ``ctx``, so every primitive scoring it resolves its
-    route from the same kernel-impl preference.
+    Signed multipliers of up to 12 bits (above 8 bits the table-free routes
+    only).  The batch carries ``ctx``, so every primitive scoring it
+    resolves its route from the same kernel-impl preference.
     """
-    _check_exhaustive(spec)
+    if spec.op != "mul" or not spec.signed or spec.n_bits > app_kernels.ENTRY_MAX_BITS:
+        raise ValueError(f"application BEHAV takes signed multipliers of up to "
+                         f"{app_kernels.ENTRY_MAX_BITS} bits, got {spec.tag}")
     ctx = ctx if ctx is not None else ExecutionContext()
     configs = np.atleast_2d(np.asarray(configs)).astype(np.uint8)
     masks = torch.from_numpy(config_to_masks(spec, configs).astype(np.int32))
@@ -242,6 +256,10 @@ def _resolve_impl(impl: str | None, batch: TableBatch, k: int,
         impl = "table" if batch.ctx is None else batch.ctx.resolve_impl("fastapp", "table")
     if impl not in MATMUL_IMPLS:
         raise ValueError(f"unknown fastapp impl {impl!r} (menu: {MATMUL_IMPLS})")
+    if batch.n_bits > app_kernels.MAX_BITS and impl not in _ENTRY_ROUTES:
+        raise ValueError(f"{batch.n_bits}-bit codes take the table-free routes "
+                         f"{_ENTRY_ROUTES}: the tables stop at {app_kernels.MAX_BITS} bits "
+                         f"(got impl={impl!r})")
     if impl == "gemm" and not (batch.has_small and _gemm_ok(k, batch.n_bits)):
         if explicit:  # never hand back another route than the one asked for
             raise ValueError(

@@ -25,6 +25,10 @@ every engine, says:
     ``"plain"`` the plain torch versions.  An engine whose menu does not hold
     the preference uses its own default.
 
+``telemetry`` is where the context's engines report spans and counters
+(``"on"``, ``"off"``, a ``repro_torch.obs.Telemetry`` or ``None`` for the
+process-wide current sink, :attr:`ExecutionContext.tel`).
+
 On a CPU device the kernel wrappers run their plain versions; on a CUDA device
 they launch the kernels or raise.
 """
@@ -56,8 +60,15 @@ class ExecutionContext:
     backend: str = "torch"
     device: str | None = None
     kernel_impl: str | None = None
+    telemetry: object | None = None
 
     def __post_init__(self) -> None:
+        if self.telemetry is not None:
+            # "on"/"off" become sink objects once, at construction
+            from ..obs.telemetry import Telemetry, as_telemetry
+
+            if not isinstance(self.telemetry, Telemetry):
+                object.__setattr__(self, "telemetry", as_telemetry(self.telemetry))
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
         if self.kernel_impl not in (None,) + KERNEL_IMPLS:
@@ -79,6 +90,14 @@ class ExecutionContext:
     @property
     def is_torch(self) -> bool:
         return self.backend == "torch"
+
+    @property
+    def tel(self):
+        """This context's telemetry sink (never None): the explicit sink, or
+        the process-wide current one when the field was left default."""
+        from ..obs.telemetry import current
+
+        return current() if self.telemetry is None else self.telemetry
 
     def resolve_impl(self, engine: str, default: str) -> str:
         """The context's kernel impl if ``engine``'s menu offers it, else ``default``."""

@@ -17,6 +17,18 @@ kernel launches:
      MAX_ABS_ERR and MSE are bit-identical to the numpy oracle; AVG_ABS_REL_ERR
      accumulates ``|e| * w`` in f32 and matches to ~1e-6 relative.
 
+Unsigned multipliers take K1 (or its plain version) over planes built from
+the carry-chain model (``operator_model._entry_row_values``); the row tables
+and K2 are the signed multiplier's.  The reference's device paths compute the
+signed operator for an unsigned spec (they call ``spec_for(n_bits)``), so the
+port holds its unsigned results against the numpy oracle instead.
+
+Wider operators and adders take the sampled estimator
+(:func:`behav_metrics_sampled`): common random numbers drawn on the host
+exactly as the reference draws them, per-row int32 values streamed on the
+device in ``(D, s_block, R)`` chunks, an exact int64 combine and a host
+block bootstrap.  :func:`entry_fn` is the table-free product of one config.
+
 Also here: the f32 surrogate evaluators the device GA calls every
 generation (``surrogate_objs_device``, ``compile_surrogate_batch``) and the
 batched MaP quadratic-form scorers behind ``miqcp``'s torch routing
@@ -27,6 +39,7 @@ batched MaP quadratic-form scorers behind ``miqcp``'s torch routing
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -40,8 +53,11 @@ from .engine import ENGINE_MENUS, ExecutionContext
 from .metrics import BEHAV_METRICS
 from .operator_model import (
     OperatorSpec,
+    _entry_product,
+    _entry_row_values,
     config_to_masks,
     exact_product_table,
+    exact_table,
     row_tables,
     spec_for,
 )
@@ -51,6 +67,8 @@ __all__ = [
     "max_abs_error_bound",
     "default_a_tile",
     "behav_metrics_torch",
+    "entry_fn",
+    "behav_metrics_sampled",
     "surrogate_objs_device",
     "compile_surrogate_batch",
     "map_problem_values",
@@ -69,7 +87,20 @@ CHAR_IMPLS = ENGINE_MENUS["fastchar"]
 
 
 def max_abs_error_bound(spec: OperatorSpec) -> int:
-    """Static bound on ``|approx - exact|`` for any config and input pair."""
+    """Static bound on ``|approx - exact|`` for any config and input pair.
+
+    A signed row reaches ``2^(W-1)`` in magnitude.  An unsigned row is read
+    as a plain W-bit pattern, up to ``2^W - 1``, and both the approximate and
+    the exact result are non-negative, so the error is at most the larger of
+    their maxima (86,955 at ``mul8u``, where the signed formula gives 59,904).
+    The reference's copy ignores ``signed``.
+    """
+    if not spec.signed:
+        row_max = (1 << spec.width) - 1
+        top = spec.n_inputs - 1
+        if spec.op == "add":
+            return max(row_max, 2 * top)
+        return max(row_max * ((4**spec.rows - 1) // 3), top * top)
     row_mag = 1 << (spec.width - 1)
     if spec.op == "add":
         return row_mag + (1 << spec.n_bits)
@@ -124,19 +155,59 @@ def _gather_small(masks: torch.Tensor, n_bits: int) -> torch.Tensor:
     return torch.stack(smalls).contiguous()                # (R, D, 4, B)
 
 
+@functools.lru_cache(maxsize=None)
+def _host_exact(spec: OperatorSpec):
+    """(exact (A, B) i32, w (A, B) f32) of any multiplier family on the host;
+    ``w`` is ``1 / max(|exact|, 1)`` divided in f64 and rounded to f32."""
+    exact = exact_table(spec)
+    w = (1.0 / np.maximum(np.abs(exact).astype(np.float64), 1.0)).astype(np.float32)
+    return exact.astype(np.int32), w
+
+
+@functools.lru_cache(maxsize=None)
+def _device_exact(spec: OperatorSpec, device: str):
+    return tuple(torch.from_numpy(x).to(device) for x in _host_exact(spec))
+
+
+def _model_planes(spec: OperatorSpec, masks: torch.Tensor) -> torch.Tensor:
+    """(D, R) int32 masks -> (R, D, 4, B) int32 planes from the carry-chain
+    model, on the masks' device: plane ``p = 2*a0 + a1`` of row ``r`` is the
+    row's value at an operand ``a`` with bits (2r, 2r+1) = (a0, a1).  Any
+    signedness; equal to ``_gather_small`` for the signed multiplier."""
+    dev = masks.device
+    p = torch.arange(4, dtype=torch.int32, device=dev)
+    a = torch.zeros_like(p)
+    for r in range(spec.rows):   # pair p in every row at once
+        a = a | (((p >> 1) & 1) << (2 * r)) | ((p & 1) << (2 * r + 1))
+    b = torch.arange(spec.n_inputs, dtype=torch.int32, device=dev)
+    vals = _entry_row_values(spec, masks[:, None, None, :], a[None, :, None],
+                             b[None, None, :], torch, torch.int32)
+    shape = (masks.shape[0], 4, spec.n_inputs)
+    return torch.stack([v.expand(shape) for v in vals]).contiguous()
+
+
 def _partials(spec: OperatorSpec, masks: torch.Tensor, impl: str,
               a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
     """One device evaluation of a (D, R) int32 mask batch -> (n_ta, D, 8) partials.
 
     ``"plain"`` is K1's plain torch version (the reference ``_partials_xla``
-    tiling) over the same gathered planes.
+    tiling) over the same planes.  Signed planes are gathered from the row
+    tables; unsigned ones come from the carry-chain model.
     """
     if impl == "entry":
+        if not spec.signed:
+            raise ValueError(f"the table-free kernel K2 synthesizes the signed "
+                             f"multiplier only, got {spec.tag}")
         return behav_stats_entry(masks, spec.n_bits, a_tile)
     if impl in ("table", "plain"):
-        _, exact, w = _device_tables(spec.n_bits, str(masks.device))
+        if spec.signed:
+            _, exact, w = _device_tables(spec.n_bits, str(masks.device))
+            small = _gather_small(masks, spec.n_bits)
+        else:
+            exact, w = _device_exact(spec, str(masks.device))
+            small = _model_planes(spec, masks)
         stats = behav_stats_table if impl == "table" else behav_stats_table_plain
-        return stats(_gather_small(masks, spec.n_bits), exact, w, a_tile)
+        return stats(small, exact, w, a_tile)
     raise ValueError(f"unknown fastchar impl {impl!r} (menu: {CHAR_IMPLS})")
 
 
@@ -160,10 +231,12 @@ def _combine(spec: OperatorSpec, int_p: np.ndarray, rel_p: np.ndarray, d: int):
 
 
 def _check_exhaustive(spec: OperatorSpec) -> None:
-    if spec.op != "mul" or not spec.signed or spec.n_bits > 8:
+    if spec.op != "mul" or spec.n_bits > 8:
         raise ValueError(
-            f"the port characterizes signed multipliers up to 8 bits exhaustively "
-            f"(got {spec.tag}); unsigned, adder and wider families are not ported yet"
+            f"exhaustive device characterization takes multipliers up to 8 bits "
+            f"(got {spec.tag}), as the reference's does: the (D, 2^N, 2^N) working "
+            f"set and the int32 tile partials do not fit -- use "
+            f"behav_metrics_sampled for wider operators and adders"
         )
 
 
@@ -177,8 +250,10 @@ def behav_metrics_torch(
 ) -> dict[str, np.ndarray]:
     """Exhaustive BEHAV metrics on ``ctx.device``; drop-in for ``behav_metrics``.
 
-    ``impl`` defaults to the context's fastchar preference, then to ``"table"``
-    (kernel K1).  Batches go ``batch_size`` configs per launch.
+    Signed and unsigned multipliers of up to 8 bits.  ``impl`` defaults to the
+    context's fastchar preference, then to ``"table"`` (kernel K1); ``"entry"``
+    (K2) takes signed multipliers only.  Batches go ``batch_size`` configs
+    per launch.
     """
     ctx = ctx if ctx is not None else ExecutionContext()
     if impl is None:
@@ -199,6 +274,153 @@ def behav_metrics_torch(
         for k in BEHAV_METRICS:
             out[k][lo:hi] = part[k]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Table-free entry function + sampled/streamed characterization (12/16-bit)
+# ---------------------------------------------------------------------------
+
+
+def entry_fn(spec: OperatorSpec):
+    """``fn(config, a, b) -> product`` on tensors for one operator family.
+
+    ``config`` is the (L,) {0,1} LUT tuple; ``a``/``b`` are int32 codes
+    (two's complement for a signed spec; negative int32 inputs carry the same
+    low bits) of any mutually broadcastable shape, on one device.  Every
+    product is synthesized from the carry-chain model; there is no table.
+    Exact in int32 for adders at any width and multipliers up to N=14;
+    16-bit multiplier products can exceed int32, so that family streams
+    per-row values instead (:func:`behav_metrics_sampled`).
+    """
+    if spec.op == "mul" and spec.n_bits > 14:
+        raise ValueError(
+            f"{spec.n_bits}-bit multiplier products overflow int32; use the "
+            f"streamed per-row path (behav_metrics_sampled)"
+        )
+    cpr = spec.cols_removable
+
+    def fn(config, a, b):
+        a = torch.as_tensor(a).to(torch.int32)
+        b = torch.as_tensor(b).to(device=a.device, dtype=torch.int32)
+        c = torch.as_tensor(config).to(device=a.device, dtype=torch.int32)
+        shifts = torch.arange(cpr, dtype=torch.int32, device=a.device)
+        masks = (c.reshape(spec.rows, cpr) << shifts[None, :]).sum(1, dtype=torch.int32)
+        return _entry_product(spec, masks, a, b, torch, torch.int32)
+
+    return fn
+
+
+def _sampled_row_values(spec: OperatorSpec, masks: torch.Tensor, a_codes: torch.Tensor,
+                        b_codes: torch.Tensor) -> torch.Tensor:
+    """(D, R) masks x (S,) code samples -> (D, S, R) int32 per-row values.
+
+    Row values fit int32 at every width, so their combine ``sum_r vals << 2r``
+    is exact in int64 even for 16-bit multipliers, whose products do not.
+    """
+    vals = _entry_row_values(spec, masks[:, None, :], a_codes[None, :], b_codes[None, :],
+                             torch, torch.int32)
+    shape = (masks.shape[0], a_codes.shape[0])
+    return torch.stack([v.expand(shape) for v in vals], dim=-1)
+
+
+def behav_metrics_sampled(
+    spec: OperatorSpec,
+    configs: np.ndarray,
+    n_samples: int = 32768,
+    seed: int = 0,
+    s_block: int = 4096,
+    b_block: int = 512,
+    n_boot: int = 200,
+    ci_level: float = 0.95,
+    ctx: ExecutionContext | None = None,
+) -> tuple[dict[str, np.ndarray], dict[str, tuple[np.ndarray, np.ndarray]]]:
+    """Monte-Carlo BEHAV metrics for operators too wide for the exhaustive path.
+
+    Draws ``n_samples`` (rounded up to whole ``s_block`` chunks) input pairs
+    with ``np.random.default_rng(seed)``, as the reference does, shared
+    across configs (common random numbers), and streams them through the
+    carry-chain model on ``ctx.device`` (default the card) in ``(D, s_block,
+    R)`` int32 chunks.  The device combines products and errors exactly in
+    int64 and reduces them to per-block partials (at 16-bit multipliers the
+    squared errors can exceed int64, so MSE sums in float64 there); the host
+    adds them up and draws the block bootstrap (``default_rng(seed + 1)``).
+    Exact results read the codes as the spec's signedness says.
+
+    Returns ``(metrics, ci)`` as the reference does: the BEHAV_METRICS
+    estimates (MAX_ABS_ERR is a sample max) and a ``ci_level`` percentile
+    interval of each mean-type metric over ``b_block``-sample blocks.  The
+    integer channels equal the reference's bit for bit; AVG_ABS_REL_ERR and
+    a float64 MSE sum in another order.
+    """
+    ctx = ctx if ctx is not None else ExecutionContext()
+    configs = np.atleast_2d(np.asarray(configs)).astype(np.uint8)
+    d = configs.shape[0]
+    dev = ctx.device
+    masks = torch.from_numpy(config_to_masks(spec, configs).astype(np.int32)).to(dev)
+    n_chunks = max(1, -(-n_samples // s_block))
+    total = n_chunks * s_block
+
+    rng = np.random.default_rng(seed)
+    a_codes = rng.integers(0, spec.n_inputs, size=total).astype(np.int32)
+    b_codes = rng.integers(0, spec.n_inputs, size=total).astype(np.int32)
+    a_v = spec.operand_values[a_codes]
+    b_v = spec.operand_values[b_codes]
+    exact = a_v + b_v if spec.op == "add" else a_v * b_v    # int64, exact
+    denom = np.maximum(np.abs(exact), 1).astype(np.float64)
+
+    bound = max_abs_error_bound(spec)
+    sq_exact = bound * bound * total < (1 << 62)           # int64-exact totals
+
+    # bootstrap blocks finer than the device chunks, always dividing s_block
+    b_block = math.gcd(s_block, max(1, b_block))
+    n_sub = s_block // b_block
+    a_t = torch.from_numpy(a_codes).to(dev)
+    b_t = torch.from_numpy(b_codes).to(dev)
+    exact_t = torch.from_numpy(exact).to(dev)
+    denom_t = torch.from_numpy(denom).to(dev)
+    shifts = torch.arange(spec.rows, dtype=torch.int64, device=dev) * 2
+    parts = {k: [] for k in ("abs", "cnt", "max", "sq", "rel")}
+    for c in range(n_chunks):
+        sl = slice(c * s_block, (c + 1) * s_block)
+        vals = _sampled_row_values(spec, masks, a_t[sl], b_t[sl]).to(torch.int64)
+        approx = (vals << shifts).sum(-1)                   # (D, s) int64
+        abs_e = (approx - exact_t[None, sl]).abs()
+        by_block = abs_e.reshape(d, n_sub, b_block)
+        parts["abs"].append(by_block.sum(2).T)
+        parts["cnt"].append((by_block != 0).sum(2).T)
+        parts["max"].append(abs_e.amax(1)[None])
+        sq = by_block * by_block if sq_exact else by_block.to(torch.float64) ** 2
+        parts["sq"].append(sq.sum(2).T)
+        parts["rel"].append((abs_e / denom_t[None, sl]).reshape(d, n_sub, b_block).sum(2).T)
+    host = {k: torch.cat(v).cpu().numpy() for k, v in parts.items()}
+    p_abs, p_cnt, p_max = host["abs"], host["cnt"], host["max"]
+    p_sq, p_rel = host["sq"], host["rel"]
+    n_blocks = n_chunks * n_sub
+
+    inv = 1.0 / total
+    metrics = {
+        "AVG_ABS_ERR": p_abs.sum(axis=0).astype(np.float64) * inv,
+        "AVG_ABS_REL_ERR": 100.0 * p_rel.sum(axis=0) * inv,
+        "PROB_ERR": 100.0 * p_cnt.sum(axis=0).astype(np.float64) * inv,
+        "MAX_ABS_ERR": p_max.max(axis=0).astype(np.float64),
+        "MSE": p_sq.sum(axis=0).astype(np.float64) * inv,
+    }
+
+    boot_rng = np.random.default_rng(seed + 1)
+    idx = boot_rng.integers(0, n_blocks, size=(n_boot, n_blocks))
+    q_lo, q_hi = 100.0 * (1 - ci_level) / 2, 100.0 * (1 + ci_level) / 2
+
+    def _boot(partials, scale):
+        est = partials[idx].sum(axis=1).astype(np.float64) * (scale * inv)
+        return (np.percentile(est, q_lo, axis=0), np.percentile(est, q_hi, axis=0))
+
+    ci = {
+        "AVG_ABS_ERR": _boot(p_abs, 1.0),
+        "AVG_ABS_REL_ERR": _boot(p_rel, 100.0),
+        "PROB_ERR": _boot(p_cnt, 100.0),
+        "MSE": _boot(p_sq, 1.0),
+    }
+    return metrics, ci
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,14 @@ context's device as a per-generation loop of tensor operations:
     feasible subset's exact 2-D hypervolume is computed at the numpy oracle's
     checkpoints.
 
+``CompiledNSGA2.run_sweep`` runs L lanes of one GA (a seed x constraint-bound
+grid) in one batched program, and ``run`` is its one-lane case: each lane
+draws from its own generator and is evaluated at one lane's shape, so a lane
+reproduces ``run`` at its seed, bounds and seed pool; the ranking is one
+launch of K3 over all lanes (``constraint_fronts_lanes``; a single lane
+launches ``constraint_fronts``), and crowding, tournament, crossover,
+mutation and environmental selection are batched over lanes.
+
 The numpy ``moo.nsga2`` stays the behavioral oracle: identical operators and
 selection semantics, but torch's random streams differ from numpy's, so the
 contract is *hypervolume parity* (feasible-archive hypervolume within 2%),
@@ -30,7 +38,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..kernels.moo_kernels import constraint_fronts, dominance_matrix, peel_fronts
+from ..kernels.moo_kernels import (
+    constraint_fronts,
+    constraint_fronts_lanes,
+    dominance_matrix,
+    peel_fronts,
+)
 from .engine import ENGINE_MENUS, ExecutionContext
 from .moo import GAResult
 
@@ -39,7 +52,9 @@ __all__ = [
     "RANK_IMPLS",
     "dominance_matrix",
     "constraint_ranks",
+    "constraint_ranks_lanes",
     "crowding_distance",
+    "crowding_distance_lanes",
     "hypervolume_2d",
     "front_update",
     "front_hypervolume",
@@ -85,23 +100,59 @@ def constraint_ranks(objs: torch.Tensor, viol: torch.Tensor,
     """
     objs = objs.to(torch.float32).contiguous()
     viol = viol.to(torch.float32).contiguous()
-    feas = viol <= 0
     if impl == "kernel":
         front, n_fronts = constraint_fronts(objs, viol)
     elif impl == "plain":
         dom = dominance_matrix(objs, viol)
         front, n_fronts = peel_fronts(
-            lambda active: (dom & active[:, None]).sum(0, dtype=torch.int32), feas)
+            lambda active: (dom & active[:, None]).sum(0, dtype=torch.int32), viol <= 0)
     else:
         raise ValueError(f"unknown rank impl {impl!r} (menu: {RANK_IMPLS})")
+    return _dense_infeasible(front, n_fronts, viol, dim=0)
 
+
+def _dense_infeasible(front, n_fronts, viol, dim: int):
+    """Ranks along ``dim``: feasible points keep their front, infeasible ones
+    take ``n_fronts + dense_rank(violation)`` (``n_fronts`` broadcasting
+    against the other dims)."""
+    feas = viol <= 0
     vio = torch.where(feas, float("-inf"), viol)
-    order = torch.argsort(vio, stable=True)
-    vs = vio[order]
-    prev = torch.cat([vs.new_full((1,), float("-inf")), vs[:-1]])
-    dense = torch.cumsum((vs > prev).to(torch.int64), dim=0)  # 1-based distinct id
-    ranked = torch.where(feas[order], front[order], n_fronts + dense - 1)
-    return torch.empty_like(front).scatter_(0, order, ranked)
+    order = torch.argsort(vio, dim=dim, stable=True)
+    vs = vio.gather(dim, order)
+    first = torch.full_like(vs.narrow(dim, 0, 1), float("-inf"))
+    prev = torch.cat([first, vs.narrow(dim, 0, vs.shape[dim] - 1)], dim=dim)
+    dense = torch.cumsum((vs > prev).to(torch.int64), dim=dim)  # 1-based distinct id
+    ranked = torch.where(feas.gather(dim, order), front.gather(dim, order),
+                         n_fronts + dense - 1)
+    return torch.empty_like(front).scatter_(dim, order, ranked)
+
+
+def constraint_ranks_lanes(objs: torch.Tensor, viol: torch.Tensor,
+                           impl: str = "kernel") -> torch.Tensor:
+    """(L, P) int64 ranks of L independent lanes, each equal to
+    :func:`constraint_ranks` on its lane.  ``impl="kernel"`` peels every
+    lane's fronts in one launch of K3 (``constraint_fronts_lanes``), with no
+    host sync; one lane (``run``) is ranked by :func:`constraint_ranks`, so
+    it launches ``constraint_fronts`` (counted there) and keeps its route
+    above ``FRONTS_MAX_P``.  ``impl="plain"`` ranks lane by lane on the
+    plain versions."""
+    objs = objs.to(torch.float32).contiguous()
+    viol = viol.to(torch.float32).contiguous()
+    if impl == "plain" or objs.shape[0] == 1:
+        return torch.stack([constraint_ranks(o, v, impl=impl) for o, v in zip(objs, viol)])
+    if impl != "kernel":
+        raise ValueError(f"unknown rank impl {impl!r} (menu: {RANK_IMPLS})")
+    front, n_fronts = constraint_fronts_lanes(objs, viol)
+    return _dense_infeasible(front, n_fronts[:, None], viol, dim=1)
+
+
+def crowding_distance_lanes(objs: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """(L, P, m) objectives, (L, P) ranks -> (L, P) crowding distances, each
+    lane equal to :func:`crowding_distance` on it: the lanes' fronts are made
+    distinct segments of one flat pass (rank + P * lane; ranks are below P)."""
+    lanes, p, m = objs.shape
+    key = rank + p * torch.arange(lanes, device=rank.device)[:, None]
+    return crowding_distance(objs.reshape(lanes * p, m), key.reshape(-1)).reshape(lanes, p)
 
 
 def crowding_distance(objs: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
@@ -245,26 +296,12 @@ class CompiledNSGA2:
             init[:k] = np.asarray(initial_population)[:k]
         return init, k
 
-    def run(
-        self,
-        seed: int = 0,
-        max_behav: float = UNBOUNDED,
-        max_ppa: float = UNBOUNDED,
-        initial_population: np.ndarray | None = None,
-    ) -> GAResult:
-        """One full GA run on the device; returns host arrays."""
-        P, L, G = self.pop_size, self.n_bits, self.n_gen
-        dev = self.device
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        init, k = self._prep_init(initial_population)
+    def _evaluator(self, max_behav: float, max_ppa: float):
+        """``pop (B, L) -> (objs (B, 2), viol (B,))`` at one lane's bounds."""
         max_b = float(np.float32(max_behav))
         max_p = float(np.float32(max_ppa))
         den_b = float(np.float32(max(abs(max_behav), 1e-9)))
         den_p = float(np.float32(max(abs(max_ppa), 1e-9)))
-        ref = (None if self.hv_ref is None
-               else torch.as_tensor(self.hv_ref, dtype=torch.float32, device=dev))
-        ranks = lambda o, v: constraint_ranks(o, v, impl=self.rank_impl)  # noqa: E731
 
         def evaluate(pop):
             objs = self._objs_fn(pop.to(torch.float32))
@@ -272,68 +309,135 @@ class CompiledNSGA2:
             vp = (objs[:, 1] - max_p).clamp(min=0.0) / den_p
             return objs, vb + vp
 
-        pop = torch.randint(0, 2, (P, L), generator=gen, device=dev, dtype=torch.uint8)
-        if k:
-            pop[:k] = torch.from_numpy(init[:k]).to(dev)
+        return evaluate
+
+    def run(
+        self,
+        seed: int = 0,
+        max_behav: float = UNBOUNDED,
+        max_ppa: float = UNBOUNDED,
+        initial_population: np.ndarray | None = None,
+    ) -> GAResult:
+        """One full GA run on the device; returns host arrays.  The one-lane
+        case of :meth:`run_sweep`."""
+        return self.run_sweep([seed], [(max_behav, max_ppa)], [initial_population])[0]
+
+    def run_sweep(self, seeds, bounds, initial_populations=None) -> list[GAResult]:
+        """A (seed x constraint-bound) sweep as one batched GA; lane i equals
+        ``run(seeds[i], *bounds[i], initial_populations[i])``.
+
+        ``bounds``: (S, 2) [max_behav, max_ppa] rows; ``initial_populations``:
+        optional per-lane seed pools (entries may be None, empty or a tuple of
+        pools).  Each lane draws from its own generator (torch's draws depend
+        on their shape, so lanes cannot share one), and the surrogate is
+        evaluated lane by lane at one lane's shape (a batched product may sum
+        in another order and move a near-tie); the ranking is one launch of
+        K3 over all lanes (:func:`constraint_ranks_lanes`), and crowding,
+        tournament, crossover, mutation and environmental selection run
+        batched over the lanes.
+        """
+        seeds = [int(x) for x in seeds]
+        S = len(seeds)
+        bounds = np.asarray(bounds, np.float64).reshape(S, 2)
+        if S == 0:
+            return []
+        P, L, G = self.pop_size, self.n_bits, self.n_gen
+        dev = self.device
+        gens = [torch.Generator(device=dev).manual_seed(x) for x in seeds]
+        evals = [self._evaluator(b, p) for b, p in bounds]
+        ref = (None if self.hv_ref is None
+               else torch.as_tensor(self.hv_ref, dtype=torch.float32, device=dev))
+        lane = torch.arange(S, device=dev)
+
+        def evaluate(pops):
+            pairs = [ev(x) for ev, x in zip(evals, pops)]
+            return torch.stack([o for o, _ in pairs]), torch.stack([v for _, v in pairs])
+
+        pop = torch.stack([torch.randint(0, 2, (P, L), generator=g, device=dev,
+                                         dtype=torch.uint8) for g in gens])
+        for i in range(S):
+            pool = None if initial_populations is None else initial_populations[i]
+            init, k = self._prep_init(pool)
+            if k:
+                pop[i, :k] = torch.from_numpy(init[:k]).to(dev)
         objs, viol = evaluate(pop)
 
         M = P * (G + 1)
-        arc_c = torch.zeros((M, L), dtype=torch.uint8, device=dev)
-        arc_o = torch.full((M, 2), float("inf"), dtype=torch.float32, device=dev)
-        arc_v = torch.full((M,), float("inf"), dtype=torch.float32, device=dev)
-        arc_c[:P], arc_o[:P], arc_v[:P] = pop, objs, viol
+        arc_c = torch.zeros((S, M, L), dtype=torch.uint8, device=dev)
+        arc_o = torch.full((S, M, 2), float("inf"), dtype=torch.float32, device=dev)
+        arc_v = torch.full((S, M), float("inf"), dtype=torch.float32, device=dev)
+        arc_c[:, :P], arc_o[:, :P], arc_v[:, :P] = pop, objs, viol
 
-        hv_dev = []  # (evaluations, 0-d hv tensor) at the oracle's checkpoints
-        if ref is not None:
-            hv_dev.append((P, hypervolume_2d(arc_o, arc_v <= 0, ref)))
+        def hv_now():
+            return [hypervolume_2d(arc_o[i], arc_v[i] <= 0, ref) for i in range(S)]
+
+        hv_dev = [] if ref is None else [(P, hv_now())]
         cols = torch.arange(L, device=dev)
         for g in range(G):
-            rank = ranks(objs, viol)
-            crowd = crowding_distance(objs, rank)
+            rank = constraint_ranks_lanes(objs, viol, impl=self.rank_impl)
+            crowd = crowding_distance_lanes(objs, rank)
+
+            draws = []
+            for gen in gens:   # each lane's draws from its own generator
+                cand = torch.randint(0, P, (P, 2), generator=gen, device=dev)
+                do_cx = torch.rand(P // 2, generator=gen, device=dev) < self.crossover_p
+                cut = torch.randint(1, L, (P // 2,), generator=gen, device=dev)
+                flip = torch.rand((P, L), generator=gen, device=dev) < self.mutation_p
+                draws.append((cand, do_cx, cut, flip))
+            cand, do_cx, cut, flip = (torch.stack(x) for x in zip(*draws))
 
             # binary tournament selection
-            cand = torch.randint(0, P, (P, 2), generator=gen, device=dev)
-            a, b = cand[:, 0], cand[:, 1]
-            better = (rank[a] < rank[b]) | ((rank[a] == rank[b]) & (crowd[a] > crowd[b]))
-            parents = pop[torch.where(better, a, b)]
+            a, b = cand[..., 0], cand[..., 1]
+            ra, rb = rank.gather(1, a), rank.gather(1, b)
+            better = (ra < rb) | ((ra == rb) & (crowd.gather(1, a) > crowd.gather(1, b)))
+            win = torch.where(better, a, b)
+            parents = pop.gather(1, win[..., None].expand(S, P, L))
 
             # single-point crossover on consecutive pairs
-            do_cx = torch.rand(P // 2, generator=gen, device=dev) < self.crossover_p
-            cut = torch.randint(1, L, (P // 2,), generator=gen, device=dev)
-            swap = (cols[None, :] >= cut[:, None]) & do_cx[:, None]
-            p1, p2 = parents[0::2], parents[1::2]
+            swap = (cols[None, None, :] >= cut[..., None]) & do_cx[..., None]
+            p1, p2 = parents[:, 0::2], parents[:, 1::2]
             children = torch.stack(
-                [torch.where(swap, p2, p1), torch.where(swap, p1, p2)], dim=1
-            ).reshape(P, L)
+                [torch.where(swap, p2, p1), torch.where(swap, p1, p2)], dim=2
+            ).reshape(S, P, L)
 
             # bit-flip mutation
-            flip = torch.rand((P, L), generator=gen, device=dev) < self.mutation_p
             children = children ^ flip.to(torch.uint8)
 
             c_objs, c_viol = evaluate(children)
             lo = (g + 1) * P
-            arc_c[lo:lo + P], arc_o[lo:lo + P], arc_v[lo:lo + P] = children, c_objs, c_viol
+            arc_c[:, lo:lo + P], arc_o[:, lo:lo + P], arc_v[:, lo:lo + P] = \
+                children, c_objs, c_viol
 
-            # environmental selection: whole fronts, boundary front by crowding
-            all_pop = torch.cat([pop, children])
-            all_objs = torch.cat([objs, c_objs])
-            all_viol = torch.cat([viol, c_viol])
-            rank2 = ranks(all_objs, all_viol)
-            crowd2 = crowding_distance(all_objs, rank2)
-            sel = _lexsort((-crowd2, rank2))[:P]
-            pop, objs, viol = all_pop[sel], all_objs[sel], all_viol[sel]
+            # environmental selection: rank, then crowding, within each lane
+            all_pop = torch.cat([pop, children], 1)
+            all_objs = torch.cat([objs, c_objs], 1)
+            all_viol = torch.cat([viol, c_viol], 1)
+            rank2 = constraint_ranks_lanes(all_objs, all_viol, impl=self.rank_impl)
+            crowd2 = crowding_distance_lanes(all_objs, rank2)
+            lane2 = lane[:, None].expand(S, 2 * P)
+            order = _lexsort((-crowd2.reshape(-1), rank2.reshape(-1), lane2.reshape(-1)))
+            sel = order.reshape(S, 2 * P)[:, :P] - 2 * P * lane[:, None]
+            pop = all_pop.gather(1, sel[..., None].expand(S, P, L))
+            objs = all_objs.gather(1, sel[..., None].expand(S, P, 2))
+            viol = all_viol.gather(1, sel)
 
             if ref is not None and (g % RECORD_EVERY == RECORD_EVERY - 1 or g == G - 1):
-                hv_dev.append(((g + 2) * P, hypervolume_2d(arc_o, arc_v <= 0, ref)))
+                hv_dev.append(((g + 2) * P, hv_now()))
 
-        return GAResult(
-            population=pop.cpu().numpy(),
-            objectives=objs.cpu().numpy().astype(np.float64),
-            archive_configs=arc_c.cpu().numpy(),
-            archive_objs=arc_o.cpu().numpy().astype(np.float64),
-            archive_viol=arc_v.cpu().numpy().astype(np.float64),
-            hv_history=[(n, float(h)) for n, h in hv_dev],
-        )
+        host = {name: t.cpu().numpy() for name, t in (
+            ("pop", pop), ("objs", objs), ("arc_c", arc_c), ("arc_o", arc_o), ("arc_v", arc_v))}
+        hv_host = [(n, [float(h) for h in hs]) for n, hs in hv_dev]
+        return [
+            GAResult(
+                population=host["pop"][i],
+                objectives=host["objs"][i].astype(np.float64),
+                archive_configs=host["arc_c"][i],
+                archive_objs=host["arc_o"][i].astype(np.float64),
+                archive_viol=host["arc_v"][i].astype(np.float64),
+                hv_history=[(n, hs[i]) for n, hs in hv_host],
+            )
+            for i in range(S)
+        ]
 
 
 def nsga2_torch(

@@ -328,8 +328,11 @@ def _entry_row_values(spec: OperatorSpec, masks, a_codes, b_codes, xp, dtype):
     n, w, cpr = spec.n_bits, spec.width, spec.cols_removable
     half = spec.n_inputs // 2
     modw = (1 << w) - 1
-    a = a_codes.astype(dtype)
-    b = b_codes.astype(dtype)
+    if xp is torch:
+        a, b = a_codes.to(dtype), b_codes.to(dtype)
+    else:
+        a = a_codes.astype(dtype)
+        b = b_codes.astype(dtype)
     if spec.signed:
         a_s = xp.where(a >= half, a - 2 * half, a)
         b_s = xp.where(b >= half, b - 2 * half, b)

@@ -43,6 +43,13 @@ design, a block per (config, 32-row tile) over the (R, 4, B) planes, stays
 callable as :func:`entry_gemv_first` for the comparison on the card, with a
 counter of its own.  ``tests/test_torch_kernel_design.py`` emulates K4's
 staged route and K5's nibble planes.
+
+K5 also takes 12-bit codes, which K4 and K5's 8-bit design do not (a
+12-bit config's nibble planes are 768 KiB): ``entry_gemv`` hands them
+to :func:`entry_gemv_wide`, whose block builds the planes per product slot
+(the 3 x 16 values of each b-code of a K-chunk) and reuses them across its
+rows; it has its own counter.  Its sums are int32 modulo 2^32, as the
+reference's; its plain version is ``entry_gemv_plain`` at that width.
 """
 
 from __future__ import annotations
@@ -64,12 +71,15 @@ __all__ = [
     "entry_gemv",
     "entry_gemv_first",
     "entry_gemv_plain",
+    "entry_gemv_wide",
     "entry_splits",
+    "entry_wide_splits",
     "planes_gemv_plain",
 ]
 
-MAX_BITS = 8          # (R, 4, B) planes in shared memory; |P| < 2^16
-MAX_K = 1 << 14       # int32 sums of |P| < 2^16 stay exact
+MAX_BITS = 8          # K4 and K5's 8-bit design: (R, 4, B) planes or tables; |P| < 2^16
+ENTRY_MAX_BITS = 12   # K5 at 12 bits (entry_gemv_wide): sums modulo 2^32
+MAX_K = 1 << 14       # up to 8 bits, int32 sums of |P| < 2^16 stay exact
 M_TILE = 32           # gather route and K5's first design: output rows per block
 SMEM_BUDGET = 64 * 1024  # their bytes of shared memory per block (3 blocks per SM)
 PLAIN_D_CHUNK = 8     # configs per gather of the plain versions (registry default)
@@ -128,12 +138,15 @@ def table_gemv_plain(tables_flat: torch.Tensor, a_codes: torch.Tensor,
 
 
 def planes_gemv_plain(small: torch.Tensor, a_codes: torch.Tensor,
-                      b_codes: torch.Tensor, d_chunk: int = PLAIN_D_CHUNK) -> torch.Tensor:
+                      b_codes: torch.Tensor, d_chunk: int = PLAIN_D_CHUNK,
+                      acc_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """The table-free gather: (R, D, 4, B) i32 planes, (M, K), (K, N) -> (D, M, N) i32.
 
     ``out[d, m, n] = sum_r (sum_k small[r, d, pair_r(a[m, k]), b[k, n]]) << 2r``,
-    one flattened per-row gather into the ``(4*B,)`` planes per (m, n, k).
-    ``a_codes`` may also be per-config ``(D, M, K)`` codes.
+    one flattened per-row gather into the ``(4*B,)`` planes per (m, n, k),
+    summed modulo 2^32 as the reference sums (``acc_dtype=torch.int64`` gives
+    the exact sums instead).  ``a_codes`` may also be per-config ``(D, M, K)``
+    codes.
     """
     rows, d, _, nb = small.shape
     m, k = a_codes.shape[-2:]
@@ -143,13 +156,13 @@ def planes_gemv_plain(small: torch.Tensor, a_codes: torch.Tensor,
     sf = small.permute(1, 0, 2, 3).reshape(d, rows, 4 * nb)
     shared = a.dim() == 2
     idxs = [_flat_index(_pair(a, r), bt, nb) for r in range(rows)] if shared else None
-    out = torch.empty((d, m, n), dtype=torch.int32, device=small.device)
+    out = torch.empty((d, m, n), dtype=acc_dtype, device=small.device)
     for lo in range(0, d, d_chunk):
         sc = sf[lo:lo + d_chunk]
         acc = None
         for r in range(rows):
             ic = idxs[r] if shared else _flat_index(_pair(a[lo:lo + d_chunk], r), bt, nb)
-            term = _take(sc[:, r], ic).reshape(len(sc), m, n, k).sum(-1, dtype=torch.int32)
+            term = _take(sc[:, r], ic).reshape(len(sc), m, n, k).sum(-1, dtype=acc_dtype)
             term = term << (2 * r)
             acc = term if acc is None else acc + term
         out[lo:lo + d_chunk] = acc
@@ -157,13 +170,14 @@ def planes_gemv_plain(small: torch.Tensor, a_codes: torch.Tensor,
 
 
 def entry_gemv_plain(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,
-                     n_bits: int, d_chunk: int = PLAIN_D_CHUNK) -> torch.Tensor:
+                     n_bits: int, d_chunk: int = PLAIN_D_CHUNK,
+                     acc_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """Plain torch version of K5: (D, R) i32 masks -> K4's output.
 
     Planes come from the carry-chain synthesis (``operator_model._synth_small``).
     """
     small = torch.stack(_synth_small(spec_for(n_bits), masks, torch, torch.int32))
-    return planes_gemv_plain(small, a_codes, b_codes, d_chunk)
+    return planes_gemv_plain(small, a_codes, b_codes, d_chunk, acc_dtype)
 
 
 def _side(ab: int) -> int:
@@ -185,7 +199,8 @@ def _check(t: torch.Tensor, name: str, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_codes(a: torch.Tensor, b: torch.Tensor, device, n_bits: int) -> None:
+def _check_codes(a: torch.Tensor, b: torch.Tensor, device, n_bits: int,
+                 max_bits: int = MAX_BITS) -> None:
     _check(a, "a_codes", 2, device)
     _check(b, "b_codes", 2, device)
     if a.shape[1] != b.shape[0]:
@@ -193,8 +208,8 @@ def _check_codes(a: torch.Tensor, b: torch.Tensor, device, n_bits: int) -> None:
                          f"{tuple(b.shape)} disagree on K")
     if a.shape[1] > MAX_K:
         raise ValueError(f"K={a.shape[1]} > {MAX_K}: int32 sums could overflow")
-    if not 1 <= n_bits <= MAX_BITS:
-        raise ValueError(f"table-GEMV kernels take 1..{MAX_BITS}-bit codes, got {n_bits}")
+    if not 1 <= n_bits <= max_bits:
+        raise ValueError(f"this table-GEMV kernel takes 1..{max_bits}-bit codes, got {n_bits}")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
 
@@ -241,6 +256,8 @@ def plan(m: int, k: int, n: int, n_bits: int, route: str | None = None) -> Plan:
     """
     if route not in (None, "staged", "gather"):
         raise ValueError(f"unknown K4 route {route!r}")
+    if not 1 <= n_bits <= MAX_BITS:
+        raise ValueError(f"K4 takes codes of at most {MAX_BITS} bits, got {n_bits}")
     smem = _staged_smem(m, k, n, n_bits)
     fits = 2 <= n_bits <= MAX_BITS and smem <= MAX_SMEM
     if route == "staged" and not fits:
@@ -272,6 +289,10 @@ def _lib():
     lib.entry_gemv_splits.restype = ctypes.c_int
     lib.entry_gemv_launch.argtypes = [p, p, p, p, ll, p, i, i, i, i, i, p]
     lib.entry_gemv_launch.restype = ctypes.c_int
+    lib.entry_gemv_wide_splits.argtypes = [i, i, i, i, i]
+    lib.entry_gemv_wide_splits.restype = ctypes.c_int
+    lib.entry_gemv_wide_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.entry_gemv_wide_launch.restype = ctypes.c_int
     return lib
 
 
@@ -321,9 +342,9 @@ table_gemv.route_launches = {"staged": 0, "gather": 0}
 
 
 def _entry_args(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,
-                n_bits: int) -> int:
+                n_bits: int, max_bits: int = ENTRY_MAX_BITS) -> int:
     """Check K5's operands; its row count R."""
-    _check_codes(a_codes, b_codes, masks.device, n_bits)
+    _check_codes(a_codes, b_codes, masks.device, n_bits, max_bits)
     rows = spec_for(n_bits).rows
     _check(masks, "masks", 2, masks.device)
     if masks.shape[1] != rows:
@@ -342,11 +363,14 @@ def entry_gemv(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor
                n_bits: int) -> torch.Tensor:
     """K5: (D, R) i32 config masks, (M, K), (K, N) i32 -> (D, M, N) i32.
 
-    Signed multipliers of at most 8 bits.  On the card a block synthesizes
-    its config's nibble planes and computes its slabs' outputs from them; a
-    shape whose layout exceeds the block's shared memory raises.
+    Signed multipliers of at most 12 bits; above 8 bits the call is
+    :func:`entry_gemv_wide`'s.  On the card a block synthesizes its config's
+    nibble planes and computes its slabs' outputs from them; a shape whose
+    layout exceeds the block's shared memory raises.
     """
     _entry_args(masks, a_codes, b_codes, n_bits)
+    if n_bits > MAX_BITS:
+        return entry_gemv_wide(masks, a_codes, b_codes, n_bits)
     if masks.device.type == "cpu":
         return entry_gemv_plain(masks, a_codes, b_codes, n_bits)
     d = masks.shape[0]
@@ -369,11 +393,45 @@ def entry_gemv(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor
     return out
 
 
+def entry_wide_splits(d: int, m: int, k: int, n: int, n_bits: int) -> int:
+    """Blocks a config's 32-row slabs are split over by K5's 12-bit launcher
+    on the current card, 0 where it cannot take the shape.  Needs the card."""
+    return _lib().entry_gemv_wide_splits(d, m, k, n, n_bits)
+
+
+def entry_gemv_wide(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,
+                    n_bits: int) -> torch.Tensor:
+    """K5 at 12 bits: (D, 6) i32 masks, (M, K), (K, N) i32 -> (D, M, N) i32
+    sums modulo 2^32.  On the card a block builds the nibble-plane values of
+    each K-chunk's b-codes (3 x 16 a code) in shared memory and sums its rows'
+    products from them; a shape whose slots for one K-code exceed the block's
+    shared memory raises."""
+    _entry_args(masks, a_codes, b_codes, n_bits)
+    if n_bits != ENTRY_MAX_BITS:
+        raise ValueError(f"entry_gemv_wide takes 12-bit codes, got {n_bits}")
+    if masks.device.type == "cpu":
+        return entry_gemv_plain(masks, a_codes, b_codes, n_bits)
+    d = masks.shape[0]
+    (m, k), n = a_codes.shape, b_codes.shape[1]
+    if d * m * n == 0 or k == 0:
+        return torch.zeros((d, m, n), dtype=torch.int32, device=masks.device)
+    if entry_wide_splits(d, m, k, n, n_bits) == 0:
+        raise ValueError(f"K5 cannot take M={m} K={k} N={n} at {n_bits} bits: one K-code's "
+                         f"slots exceed {MAX_SMEM} bytes of shared memory")
+    out = torch.empty((d, m, n), dtype=torch.int32, device=masks.device)
+    stream = torch.cuda.current_stream(masks.device).cuda_stream
+    _raise_on(_lib().entry_gemv_wide_launch(
+        masks.data_ptr(), a_codes.data_ptr(), b_codes.data_ptr(), out.data_ptr(),
+        d, m, k, n, n_bits, stream), "entry_gemv_wide")
+    entry_gemv_wide.launches += 1
+    return out
+
+
 def entry_gemv_first(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.Tensor,
                      n_bits: int) -> torch.Tensor:
     """K5's first design (a block per (config, 32-row tile), products from
-    the (R, 4, B) planes in shared memory) on K5's inputs."""
-    rows = _entry_args(masks, a_codes, b_codes, n_bits)
+    the (R, 4, B) planes in shared memory) on K5's inputs, up to 8 bits."""
+    rows = _entry_args(masks, a_codes, b_codes, n_bits, MAX_BITS)
     if masks.device.type == "cpu":
         return entry_gemv_plain(masks, a_codes, b_codes, n_bits)
     d = masks.shape[0]
@@ -392,4 +450,5 @@ def entry_gemv_first(masks: torch.Tensor, a_codes: torch.Tensor, b_codes: torch.
 
 
 entry_gemv.launches = 0
+entry_gemv_wide.launches = 0
 entry_gemv_first.launches = 0

@@ -101,6 +101,29 @@
 // 16-byte code loads): per lookup a byte permute, an address LEA and the
 // load, an add per two lookups (IADD3), 8.7 a product; 64 registers, no
 // spills.
+//
+// K5 at 12 bits (entry_gemv_wide).  A config's nibble planes there are 3 x
+// 16 x 4,096 int32 = 768 KiB, over the 227 KiB a block may use, so the block
+// builds them per product slot instead of per b code: for each chunk of kc
+// K-codes it synthesizes, in closed form (rowplanes::Column), the 3 x 16
+// plane values of each of the chunk's kc x N b-codes b[k, n] into shared
+// memory (kc x N x 3 x 16 int32: 120 KiB at the mnist head, N = 10, kc = 64;
+// 192 KiB at the ffn GEMM1, N = 128, kc = 8), then reuses them across all of
+// its rows: a product is sum_q slot[q][(a >> 4q) & 15] << 4q, 3 lookups.  A
+// warp owns one (32-row slab, column) item a chunk, lane l row 32 s + l, so
+// the lanes of a lookup share the slot and read 16 distinct words (a slot's
+// 16 values sit XOR-swizzled by the slot's index, which also spreads the
+// synthesis's stores over the banks).  A codes are read as given (int32,
+// modulo 2^12), from the caches; a lane's sum over a chunk is added to its
+// output in device memory (only that lane touches it).  Sums are int32
+// modulo 2^32, as the reference's are: wrapping addition does not depend on
+// order, so the result equals the plain version bit for bit whatever the
+// order.  Where D is below twice the SM count the launcher splits a config's
+// slabs over blocks, each synthesizing the slots again.  What bounds it: a
+// shared-memory word a lookup, one lookup a product at best (the bound the
+// K5 record counts), beside the synthesis: per slot 2 rows x 4 closed-form
+// values and 16 stores, once per block.  This first 12-bit design is
+// correct first; its time stands in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -675,6 +698,114 @@ entry_gemv_staged_kernel(const int* __restrict__ masks,
              min(slabs * kSlab, m - row0), n, L.ostride);
 }
 
+// ---- K5 at 12 bits: nibble planes per product slot ----------------------
+
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr size_t kWideSlotBudget = 192 * 1024;  // shared memory for a chunk's slots
+
+template <int NB>
+struct WideNibbles {
+  static constexpr int kRows = NB / 2;
+  static constexpr int kPlanes = (kRows + 1) / 2;
+  static constexpr int kSlotInts = kPlanes * 16;  // one b code's values
+};
+
+// The chunk layout of the wide kernel for (M, K, N) at NB bits: kc K-codes a
+// chunk (their slots within kWideSlotBudget), spb slabs a block.
+struct WideLayout {
+  int kc, spb, splits;
+  size_t smem;
+};
+
+template <int NB>
+WideLayout wide_layout(int d, int m, int k, int n, int n_sms) {
+  WideLayout L;
+  const size_t per_k = static_cast<size_t>(n) * WideNibbles<NB>::kSlotInts * sizeof(int);
+  L.kc = static_cast<int>(std::min<size_t>(k, std::max<size_t>(1, kWideSlotBudget / per_k)));
+  L.smem = per_k * L.kc;
+  const int slabs = (m + kSlab - 1) / kSlab;
+  const int want = std::min(slabs, std::max(1, (2 * n_sms + d - 1) / std::max(d, 1)));
+  L.spb = (slabs + want - 1) / want;
+  L.splits = (slabs + L.spb - 1) / L.spb;
+  return L;
+}
+
+// Block (d, split): config d's rows of slabs [split * spb, split * spb + spb).
+template <int NB>
+__global__ void __launch_bounds__(kWideThreads)
+entry_gemv_wide_kernel(const int* __restrict__ masks, const int* __restrict__ a,
+                       const int* __restrict__ b, int* __restrict__ out, int m, int k,
+                       int n, int kc, int spb) {
+  using W = WideNibbles<NB>;
+  constexpr int kMask = (1 << NB) - 1;
+  extern __shared__ int4 smem4[];
+  int* slots = reinterpret_cast<int*>(smem4);  // (kc, n, kPlanes) slots of 16
+  const int d = blockIdx.x;
+  const int slab0 = blockIdx.y * spb;
+  const int slabs = min(spb, (m + kSlab - 1) / kSlab - slab0);
+  const int* mask_row = masks + static_cast<size_t>(d) * W::kRows;
+  int* out_d = out + static_cast<size_t>(d) * m * n;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int keep_mask[W::kRows];
+#pragma unroll
+  for (int r = 0; r < W::kRows; ++r) keep_mask[r] = __ldg(mask_row + r);
+
+  for (int k0 = 0; k0 < k; k0 += kc) {
+    const int kcur = min(kc, k - k0);
+    __syncthreads();  // the previous chunk's slots are read
+    // the chunk's slots: item (kk, nn, q) holds plane q's 16 values at b[k0 + kk, nn]
+    for (int it = threadIdx.x; it < kcur * n * W::kPlanes; it += kWideThreads) {
+      const int q = it % W::kPlanes;
+      const int col = it / W::kPlanes;
+      const rowplanes::Column c(__ldg(b + static_cast<size_t>(k0) * n + col) & kMask, NB);
+      const int r0 = 2 * q;
+      const bool two = r0 + 1 < W::kRows;
+      int k0m = 0, k1m = 0;
+#pragma unroll
+      for (int r = 0; r < W::kRows; ++r) {  // registers, not a local array index
+        if (r == r0) k0m = c.keep_of(keep_mask[r]);
+        if (r == r0 + 1) k1m = c.keep_of(keep_mask[r]);
+      }
+      int v0[4], v1[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        v0[p] = c.value(p, r0 == W::kRows - 1, k0m);
+        v1[p] = two ? c.value(p, r0 + 1 == W::kRows - 1, k1m) : 0;
+      }
+      int* slot = slots + it * 16;
+      const int sw = it & 15;
+#pragma unroll
+      for (int nu = 0; nu < 16; ++nu) {
+        slot[nu ^ sw] =
+            v0[pair2(nu & 3)] + static_cast<int>(static_cast<unsigned>(v1[pair2(nu >> 2)]) << 2);
+      }
+    }
+    __syncthreads();
+    for (int item = warp; item < slabs * n; item += kWideWarps) {
+      const int s = item / n;
+      const int nn = item - s * n;
+      const int row = (slab0 + s) * kSlab + lane;
+      if (row >= m) continue;
+      const int* arow = a + static_cast<size_t>(row) * k + k0;
+      unsigned acc = 0;
+      for (int kk = 0; kk < kcur; ++kk) {
+        const unsigned av = static_cast<unsigned>(__ldg(arow + kk)) & kMask;
+        const int it0 = (kk * n + nn) * W::kPlanes;
+#pragma unroll
+        for (int q = 0; q < W::kPlanes; ++q) {
+          const int it = it0 + q;
+          const unsigned nu = (av >> (4 * q)) & 15u;
+          acc += static_cast<unsigned>(slots[it * 16 + (nu ^ (it & 15))]) << (4 * q);
+        }
+      }
+      int* o = out_d + static_cast<size_t>(row) * n + nn;
+      *o = static_cast<int>(k0 == 0 ? acc : static_cast<unsigned>(*o) + acc);
+    }
+  }
+}
+
 size_t staging_bytes(int m_tile, int k_tile, int n) {
   return (static_cast<size_t>(m_tile) * (k_tile + 1) +
           static_cast<size_t>(k_tile) * n) * sizeof(int);
@@ -855,5 +986,40 @@ extern "C" int entry_gemv_launch(const void* masks, const void* a, const void* b
     K5_STAGED(8)
 #undef K5_STAGED
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+bool wide_takes(int n_bits, int m, int k, int n) {
+  return n_bits == 12 && m >= 1 && k >= 1 && n >= 1;
+}
+
+}  // namespace
+
+// The blocks a config's slabs are split over by K5's 12-bit launcher on this
+// card, or 0 where it cannot take the shape (codes not of 12 bits, or one
+// K-code's slots over kMaxSmem).
+extern "C" int entry_gemv_wide_splits(int d, int m, int k, int n, int n_bits) {
+  if (!wide_takes(n_bits, m, k, n) || d < 1) return 0;
+  const WideLayout L = wide_layout<12>(d, m, k, n, sm_count());
+  return L.smem > kMaxSmem ? 0 : L.splits;
+}
+
+// K5 at 12 bits: masks (D, 6) int32, a (M, K) and b (K, N) int32
+// codes, out (D, M, N) int32 sums modulo 2^32.  Refuses (cudaErrorInvalidValue)
+// what entry_gemv_wide_splits refuses.
+extern "C" int entry_gemv_wide_launch(const void* masks, const void* a, const void* b,
+                                      void* out, int d, int m, int k, int n, int n_bits,
+                                      void* stream) {
+  if (!wide_takes(n_bits, m, k, n) || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const WideLayout L = wide_layout<12>(d, m, k, n, sm_count());
+  if (L.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(entry_gemv_wide_kernel<12>, L.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  entry_gemv_wide_kernel<12><<<dim3(d, L.splits), kWideThreads, L.smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(masks), static_cast<const int*>(a), static_cast<const int*>(b),
+      static_cast<int*>(out), m, k, n, L.kc, L.spb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,6 +37,14 @@
 // no sync, where it was ~4.4 launches and as many syncs.  A round is a few
 // word ANDs per thread; the call is bound by its launch and its chain of
 // rounds, not by bytes or operations.
+//
+// constraint_fronts_lanes is the same kernel over L independent lanes of a
+// batched GA (repro/core/fastmoo.py CompiledNSGA2.run_sweep, whose vmap
+// ranks every lane in one program): gridDim.x = L, block l at lane l's
+// offset into (L, P, n_obj) objs, (L, P) viol and fronts and (L,) counts.
+// A sweep's ranking is then one launch for all its lanes, where one lane at
+// a time takes L; its bound is the single lane's times L, and each lane's
+// block is still bound by its chain of rounds.
 
 #include <cuda_runtime.h>
 
@@ -107,6 +115,11 @@ constraint_fronts_kernel(const float* __restrict__ objs,
                          long long* __restrict__ front,
                          long long* __restrict__ n_fronts, int p, int n_obj) {
   extern __shared__ unsigned int bits[];
+  // lane blockIdx.x of a batch of lanes (one lane: blockIdx.x = 0)
+  objs += static_cast<size_t>(blockIdx.x) * p * n_obj;
+  viol += static_cast<size_t>(blockIdx.x) * p;
+  front += static_cast<size_t>(blockIdx.x) * p;
+  n_fronts += blockIdx.x;
   const int words = (p + 31) / 32;
   unsigned int* dom = bits;                // (words, p): point 32 w + b dominates i
   unsigned int* left = dom + words * p;    // (words,): feasible, in no front yet
@@ -185,13 +198,12 @@ extern "C" int dominance_counts_launch(const void* objs, const void* viol,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One block of 32 * ceil(p / 32) threads; p in 1..1024, n_obj in 1..4.
-// front (p,) int64 gets each feasible point's front (0 = best) and -1 for an
-// infeasible one; n_fronts (1,) int64 the number of feasible fronts.
-extern "C" int constraint_fronts_launch(const void* objs, const void* viol,
-                                        void* front, void* n_fronts, int p,
-                                        int n_obj, void* stream) {
-  if (p < 1 || p > kMaxFrontsP || n_obj < 1 || n_obj > kMaxObj)
+namespace {
+
+// One block of 32 * ceil(p / 32) threads a lane; p in 1..1024, n_obj in 1..4.
+int launch_fronts(const void* objs, const void* viol, void* front, void* n_fronts,
+                  int lanes, int p, int n_obj, void* stream) {
+  if (lanes < 1 || p < 1 || p > kMaxFrontsP || n_obj < 1 || n_obj > kMaxObj)
     return static_cast<int>(cudaErrorInvalidValue);
   const int words = (p + 31) / 32;
   const size_t smem = (static_cast<size_t>(words) * p + words) * sizeof(unsigned int) +
@@ -202,8 +214,26 @@ extern "C" int constraint_fronts_launch(const void* objs, const void* viol,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  constraint_fronts_kernel<<<1, 32 * words, smem, static_cast<cudaStream_t>(stream)>>>(
+  constraint_fronts_kernel<<<lanes, 32 * words, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(objs), static_cast<const float*>(viol),
       static_cast<long long*>(front), static_cast<long long*>(n_fronts), p, n_obj);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// front (p,) int64 gets each feasible point's front (0 = best) and -1 for an
+// infeasible one; n_fronts (1,) int64 the number of feasible fronts.
+extern "C" int constraint_fronts_launch(const void* objs, const void* viol,
+                                        void* front, void* n_fronts, int p,
+                                        int n_obj, void* stream) {
+  return launch_fronts(objs, viol, front, n_fronts, 1, p, n_obj, stream);
+}
+
+// The same over lanes: objs (lanes, p, n_obj), viol (lanes, p), front
+// (lanes, p), n_fronts (lanes,); one block a lane.
+extern "C" int constraint_fronts_lanes_launch(const void* objs, const void* viol,
+                                              void* front, void* n_fronts, int lanes,
+                                              int p, int n_obj, void* stream) {
+  return launch_fronts(objs, viol, front, n_fronts, lanes, p, n_obj, stream);
 }

@@ -23,6 +23,13 @@ of one thread per point, so it takes P <= ``FRONTS_MAX_P``; above that the
 wrapper peels round by round with ``dominance_counts`` instead (a route by
 size between two kernels, one launch and one host sync a front).
 ``constraint_fronts.launches`` counts its kernel's launches.
+
+``constraint_fronts_lanes`` is the front peel over L lanes of a batched GA
+(the lane axis of ``CompiledNSGA2.run_sweep``): objs (L, P, n_obj), viol
+(L, P) -> fronts (L, P) and counts (L,), one launch of the same kernel with a
+block a lane.  Its plain version is ``constraint_fronts_plain`` lane by lane.
+It has no round-by-round route: P above ``FRONTS_MAX_P`` raises.
+``constraint_fronts_lanes.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ import torch
 from . import build
 
 __all__ = ["dominance_matrix", "dominance_counts_plain", "dominance_counts", "peel_fronts",
-           "constraint_fronts_plain", "constraint_fronts", "FRONTS_MAX_P"]
+           "constraint_fronts_plain", "constraint_fronts", "constraint_fronts_lanes_plain",
+           "constraint_fronts_lanes", "FRONTS_MAX_P"]
 
 MAX_OBJ = 4  # objective registers per thread in the kernel
 FRONTS_MAX_P = 1024  # constraint_fronts: one block, one thread per point
@@ -66,6 +74,8 @@ def _lib():
     lib.dominance_counts_launch.restype = ctypes.c_int
     lib.constraint_fronts_launch.argtypes = [p, p, p, p, i, i, p]
     lib.constraint_fronts_launch.restype = ctypes.c_int
+    lib.constraint_fronts_lanes_launch.argtypes = [p, p, p, p, i, i, i, p]
+    lib.constraint_fronts_lanes_launch.restype = ctypes.c_int
     return lib
 
 
@@ -167,3 +177,49 @@ def constraint_fronts(objs: torch.Tensor, viol: torch.Tensor):
 
 
 constraint_fronts.launches = 0
+
+
+def constraint_fronts_lanes_plain(objs: torch.Tensor, viol: torch.Tensor):
+    """Plain version of ``constraint_fronts_lanes``: ``constraint_fronts_plain``
+    lane by lane."""
+    fronts, counts = [], []
+    for o, v in zip(objs, viol):
+        f, n = constraint_fronts_plain(o, v)
+        fronts.append(f)
+        counts.append(n)
+    return torch.stack(fronts), torch.stack(counts)
+
+
+def constraint_fronts_lanes(objs: torch.Tensor, viol: torch.Tensor):
+    """K3's front peel over lanes: objs (L, P, n_obj) f32, viol (L, P) f32 ->
+    (front (L, P) int64, -1 where infeasible; feasible fronts a lane (L,)
+    int64), on objs' device.  One launch for every lane; P <= FRONTS_MAX_P."""
+    if objs.dim() != 3 or viol.dim() != 2 or tuple(viol.shape) != tuple(objs.shape[:2]):
+        raise ValueError(f"objs must be (L, P, n_obj) and viol (L, P), got "
+                         f"{tuple(objs.shape)} and {tuple(viol.shape)}")
+    lanes, p, n_obj = objs.shape
+    if not (objs.is_contiguous() and viol.is_contiguous()):
+        raise ValueError("objs and viol must be contiguous")
+    # each lane's operands as constraint_fronts checks them
+    _check(objs.reshape(lanes * p, n_obj), (viol.reshape(-1), "viol", torch.float32))
+    if objs.device.type == "cpu":
+        return constraint_fronts_lanes_plain(objs, viol)
+    if p > FRONTS_MAX_P:
+        raise ValueError(f"constraint_fronts_lanes takes P <= {FRONTS_MAX_P} points a "
+                         f"lane, got {p}")
+    front = torch.empty((lanes, p), dtype=torch.int64, device=objs.device)
+    n_fronts = torch.zeros(lanes, dtype=torch.int64, device=objs.device)
+    if lanes * p == 0:
+        return front, n_fronts
+    stream = torch.cuda.current_stream(objs.device).cuda_stream
+    err = _lib().constraint_fronts_lanes_launch(
+        objs.data_ptr(), viol.data_ptr(), front.data_ptr(), n_fronts.data_ptr(),
+        lanes, p, n_obj, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"constraint_fronts_lanes launch failed: cudaError {err}")
+    constraint_fronts_lanes.launches += 1
+    return front, n_fronts
+
+
+constraint_fronts_lanes.launches = 0

@@ -16,15 +16,27 @@ attention runs kernel K7; mamba2-130m's prefill scan runs kernel K8 in every
 layer and its decode is the plain O(1) recurrence.  Every AxO projection runs
 kernel K6: all seven of a granite layer's and the tied head, and for
 mamba2-130m the head alone.  On the CPU the kernels' plain versions run;
-``--axo-impl plain`` puts the AxO projections on K6's plain version.  The reference's telemetry flags (``--metrics-port``,
-``--trace``) wait for ROADMAP.md queue 1 item 12 and its DSE service flags
-(``--dse-service``, ``--dse-smoke``) for item 8; each raises when given.
+``--axo-impl plain`` puts the AxO projections on K6's plain version.
+
+``--metrics-port`` serves ``GET /metrics`` (Prometheus text of the process's
+telemetry: the serving latency histograms, the DSE service's counters) and
+``GET /healthz`` (the card's liveness and the deployment).  ``--dse-service``
+mounts the persistent DSE service on that server: ``POST /dse`` queues a
+(n_bits, op, signed, app, const_sf, seed, method) job, ``GET /dse?id=<job>``
+polls it, ``GET /dse/library`` reports the operator library
+(``$REPRO_OPERATOR_LIBRARY``, default ``experiments/library``); the queue
+coalesces compatible jobs into one ``run_dse_sweep`` on the serving device.
+``--dse-smoke N`` posts N small requests to the live endpoint after serving
+and waits for their fronts.  The reference's ``--trace`` waits for
+ROADMAP.md queue 1 item 12 and raises when given.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
+import urllib.request
 
 import torch
 
@@ -36,12 +48,13 @@ from ..core.operator_model import accurate_config, spec_for
 from ..data.synthetic import SyntheticLM
 from ..models.model import model_spec
 from ..models.spec import init_params
+from ..obs import telemetry as obs
 from .steps import make_decode_step, make_prefill_step
 
 __all__ = ["demo_operator", "generate", "replay", "fidelity", "main"]
 
 # flags of the reference's serve entry point that the port does not serve yet
-_NOT_PORTED = {"metrics_port": 12, "trace": 12, "dse_service": 8, "dse_smoke": 8}
+_NOT_PORTED = {"trace": 12}
 
 
 def demo_operator(rank: int) -> AxOOperator:
@@ -60,28 +73,44 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(prefill, decode, params, toks, gen: int):
+def generate(prefill, decode, params, toks, gen: int, tel=None, label: str = "exact"):
     """Greedy generation: (tokens (B, gen), last-step logits per step, (t_pre, t_dec) s).
 
     The two times are host clocks around work that ends in a device sync.
+    With a telemetry sink ``tel`` the call is one request span: its prefill
+    time and each decode step's host time land in the ``serve.prefill_ms``
+    and ``serve.decode_step_ms`` histograms, its decode rate in the
+    ``serve.tokens_per_s`` gauge, as the reference records them.
     """
+    tel = obs.NULL if tel is None else tel
     device = toks.device
     plen = toks.shape[1]
-    _sync(device)
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, toks)
-    nxt = logits[:, -1].argmax(-1)[:, None]
-    out, lgs = [nxt], [logits[:, -1]]
-    _sync(device)
-    t_pre = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for i in range(plen, plen + gen - 1):
-        logits, cache = decode(params, cache, nxt, i)
-        nxt = logits[:, -1].argmax(-1)[:, None]
-        out.append(nxt)
-        lgs.append(logits[:, -1])
-    _sync(device)
-    return torch.cat(out, 1), lgs, (t_pre, time.perf_counter() - t0)
+    with tel.span("serve.request", label=label, batch=toks.shape[0], prompt_len=plen,
+                  gen=gen):
+        _sync(device)
+        t0 = time.perf_counter()
+        with tel.span("serve.prefill"):
+            logits, cache = prefill(params, toks)
+            nxt = logits[:, -1].argmax(-1)[:, None]
+            out, lgs = [nxt], [logits[:, -1]]
+            _sync(device)
+        t_pre = time.perf_counter() - t0
+        tel.observe("serve.prefill_ms", t_pre * 1e3)
+        t0 = time.perf_counter()
+        with tel.span("serve.decode", steps=gen - 1):
+            for i in range(plen, plen + gen - 1):
+                ts = time.perf_counter()
+                logits, cache = decode(params, cache, nxt, i)
+                nxt = logits[:, -1].argmax(-1)[:, None]
+                tel.observe("serve.decode_step_ms", (time.perf_counter() - ts) * 1e3)
+                out.append(nxt)
+                lgs.append(logits[:, -1])
+            _sync(device)
+        t_dec = time.perf_counter() - t0
+        if t_dec > 0:
+            tel.gauge("serve.tokens_per_s", toks.shape[0] * (gen - 1) / t_dec)
+        tel.count("serve.requests")
+    return torch.cat(out, 1), lgs, (t_pre, t_dec)
 
 
 def replay(prefill, decode, params, toks, trajectory) -> list:
@@ -133,20 +162,63 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on; 'cpu' runs the kernels' plain versions")
     ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
-                    help="not ported yet (ROADMAP.md queue 1 item 12)")
+                    help="serve GET /metrics (Prometheus text exposition of "
+                         "the process's telemetry) and GET /healthz (the card's "
+                         "liveness + deployment status) on this port; 0 picks "
+                         "an ephemeral port")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="not ported yet (ROADMAP.md queue 1 item 12)")
     ap.add_argument("--dse-service", action="store_true",
-                    help="not ported yet (ROADMAP.md queue 1 item 8)")
+                    help="mount the persistent DSE service on the metrics "
+                         "server: POST /dse submits a (n_bits, op, signed, "
+                         "app, const_sf, seed, method) job into the batched "
+                         "queue, GET /dse?id=<job> polls its result, GET "
+                         "/dse/library reports the operator-library status; "
+                         "requires --metrics-port")
     ap.add_argument("--dse-smoke", type=int, default=0, metavar="N",
-                    help="not ported yet (ROADMAP.md queue 1 item 8)")
+                    help="after serving, POST N small DSE requests to the "
+                         "live endpoint and wait for their fronts (endpoint "
+                         "self-test; implies --dse-service)")
+    ap.add_argument("--dse-pop", type=int, default=16,
+                    help="service GA population per request lane")
+    ap.add_argument("--dse-gens", type=int, default=8,
+                    help="service GA generations per request lane")
     args = ap.parse_args(argv)
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag) != ap.get_default(flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet "
                                       f"(ROADMAP.md queue 1 item {item})")
+    if args.dse_smoke:
+        args.dse_service = True
+    if args.dse_service and args.metrics_port is None:
+        ap.error("--dse-service requires --metrics-port")
 
     ctx = ExecutionContext(device=args.device)
+    # one sink for the serving run: the latency histograms and gauges, counters
+    # chained to the process aggregate that /metrics renders
+    tel = obs.Telemetry("serve", parent=obs.GLOBAL)
+    metrics = dse_queue = None
+    try:
+        if args.metrics_port is not None:
+            from ..obs.prom import MetricsServer
+
+            metrics = MetricsServer(tel=obs.GLOBAL, port=args.metrics_port).start()
+            print(f"metrics: {metrics.url}/metrics  health: {metrics.url}/healthz")
+        dse_queue = _mount_dse_service(metrics, args, ctx) if args.dse_service else None
+        return _serve(args, ctx, tel, metrics, dse_queue)
+    finally:
+        # the server's thread and socket and the queue's worker end with the
+        # run, whether it returned or raised
+        if dse_queue is not None:
+            dse_queue.close()
+        if metrics is not None:
+            metrics.stop()
+
+
+def _serve(args, ctx, tel, metrics, dse_queue) -> dict:
+    """The serving run of :func:`main` once its metrics server and DSE
+    service are up: exact requests, then the AxO deployment and the DSE
+    endpoint's self-test where asked."""
     device = torch.device(ctx.device)
     cfg = get_arch(args.arch)
     if not args.full_config:
@@ -160,8 +232,9 @@ def main(argv=None) -> dict:
     prefill = make_prefill_step(cfg, max_seq=max_seq, ctx=ctx)
     decode = make_decode_step(cfg, ctx=ctx)
     for _ in range(max(0, args.requests - 1)):
-        generate(prefill, decode, params, toks, args.gen)   # warm repeats
-    out, exact_lgs, (t_prefill, t_decode) = generate(prefill, decode, params, toks, args.gen)
+        generate(prefill, decode, params, toks, args.gen, tel)   # warm repeats
+    out, exact_lgs, (t_prefill, t_decode) = generate(prefill, decode, params, toks, args.gen,
+                                                     tel)
     print(f"arch={cfg.name} prefill({args.batch}x{args.prompt_len})="
           f"{t_prefill*1e3:.1f}ms decode({args.gen - 1} steps)={t_decode*1e3:.1f}ms")
     print("generated token ids (row 0):", out[0].tolist())
@@ -171,6 +244,8 @@ def main(argv=None) -> dict:
         "exact_prefill_ms": t_prefill * 1e3, "exact_decode_ms": t_decode * 1e3,
         "prefills": max(1, args.requests), "decode_steps": max(1, args.requests) * (args.gen - 1),
     }
+    if metrics is not None:
+        metrics.set_deployment({"mode": "exact", "arch": cfg.name})
 
     if args.axo_rank > 0:
         # deploy the operator into every requested linear layer, rebuild the
@@ -181,8 +256,9 @@ def main(argv=None) -> dict:
         dep = deploy_axo(params, op, cfg, layers=tuple(args.axo_layers), ctx=axo_ctx)
         pre_a = make_prefill_step(cfg, max_seq=max_seq, axo=dep, ctx=ctx)
         dec_a = make_decode_step(cfg, axo=dep, ctx=ctx)
-        out_a, _, _ = generate(pre_a, dec_a, params, toks, args.gen)  # warm + free-run tokens
-        _, _, (tp, td) = generate(pre_a, dec_a, params, toks, args.gen)
+        out_a, _, _ = generate(pre_a, dec_a, params, toks, args.gen, tel,
+                               "axo")  # warm + free-run tokens
+        _, _, (tp, td) = generate(pre_a, dec_a, params, toks, args.gen, tel, "axo")
 
         # teacher-forced comparison along the exact trajectory
         rep = replay(pre_a, dec_a, params, toks, out)
@@ -197,7 +273,77 @@ def main(argv=None) -> dict:
             "decode_ms": td * 1e3, "free_run_match": match, "top1": top1, "rel_err": rel,
             "prefills": 3, "decode_steps": 3 * (args.gen - 1),
         }
+        tel.gauge("serve.axo_top1", top1)
+        tel.gauge("serve.axo_free_run_match", match)
+        tel.gauge("serve.axo_logit_rel_err", rel)
+        if metrics is not None:
+            metrics.set_deployment({
+                "mode": "axo", "arch": cfg.name, "rank": args.axo_rank,
+                "impl": dep.impl, "layers": list(args.axo_layers),
+                "projections": dep.n_entries, "top1": top1, "free_run_match": match,
+            })
+
+    if args.dse_smoke:
+        result["dse"] = _dse_smoke(metrics, dse_queue, args.dse_smoke)
     return result
+
+
+def _mount_dse_service(metrics, args, ctx):
+    """The DSE job queue, its operator library and their three routes on the
+    metrics server; the queue's sweeps run on ``ctx``'s device."""
+    from ..core.dse import DSESettings
+    from ..service import DSEJobQueue, DSERequest, OperatorStore, default_runner
+    from ..service.store import store_status
+
+    store = OperatorStore()
+    queue = DSEJobQueue(default_runner(
+        settings=DSESettings(pop_size=args.dse_pop, n_gen=args.dse_gens, context=ctx),
+        store=store,
+    ))
+
+    def post_dse(payload: dict) -> dict:
+        job_id = queue.submit(DSERequest.from_dict(payload))
+        return {"job_id": job_id, "queued": queue.depth()}
+
+    def get_dse(params: dict) -> dict:
+        res = queue.result(params["id"])
+        return res if res is not None else {"status": "pending"}
+
+    metrics.add_route("POST", "/dse", post_dse)
+    metrics.add_route("GET", "/dse", get_dse)
+    metrics.add_route("GET", "/dse/library", lambda params: store_status(store))
+    print(f"dse service: POST {metrics.url}/dse (library: {store.root})")
+    return queue
+
+
+def _dse_smoke(metrics, queue, n: int) -> list[dict]:
+    """Endpoint self-test: post ``n`` small 4-bit requests through the live
+    HTTP surface (not the queue object), wait for every front and return the
+    answers; raises where one is not done."""
+    t0 = time.perf_counter()
+    jobs = []
+    for i in range(n):
+        body = json.dumps({"n_bits": 4, "const_sf": 0.5 + 0.3 * (i % 2),
+                           "seed": i // 2}).encode()
+        req = urllib.request.Request(f"{metrics.url}/dse", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req) as resp:
+            jobs.append(json.loads(resp.read())["job_id"])
+    if not queue.join(timeout=600):
+        raise RuntimeError("dse smoke: jobs did not finish in 600s")
+    answers = []
+    for jid in jobs:
+        with urllib.request.urlopen(f"{metrics.url}/dse?id={jid}") as resp:
+            res = json.loads(resp.read())
+        if res["status"] != "done":
+            raise RuntimeError(f"dse smoke: {jid} -> {res}")
+        print(f"dse {jid}: const_sf={res['request']['const_sf']} "
+              f"seed={res['request']['seed']} hv={res['hv_vpf']:.4g} "
+              f"front={len(res['front'])}")
+        answers.append(res)
+    print(f"dse smoke: {n} requests -> {obs.GLOBAL.counter('service.batches')} batched "
+          f"dispatch(es) in {time.perf_counter() - t0:.1f}s")
+    return answers
 
 
 if __name__ == "__main__":

@@ -504,3 +504,143 @@ def test_k5_launcher_refuses_what_its_layout_cannot_hold_on_card(cuda):
         app_kernels.entry_gemv(masks, big, torch.zeros((4096, 10), dtype=torch.int32,
                                                        device=cuda), 8)
     assert app_kernels.entry_gemv.launches == before
+
+
+# ---------------------------------------------------------------------------
+# 12-bit operands: K5's plain version and app BEHAV on the entry route
+# ---------------------------------------------------------------------------
+#
+# The reference admits 12-bit codes on its table-free routes only; its
+# ``table_matmul_jax(impl="entry")`` sums int32 modulo 2^32, and so do the
+# port's K5 plain version and kernel.  Every comparison is exact.
+
+SHAPES12 = {"mnist-like": (40, 64, 10), "ffn1": (24, 32, 16), "conv": (120, 15, 1),
+            "wraps": (6, 700, 3)}
+
+
+def _wrapping_codes(shape, seed):
+    """12-bit codes of magnitude near 2^11, so that K=700 products overflow int32."""
+    rng = np.random.default_rng(seed)
+    mag = rng.integers(1800, 2048, shape)
+    return np.where(rng.random(shape) < 0.5, mag, 4096 - mag).astype(np.int64)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES12))
+def test_k5_plain_12bit_matches_reference_entry(ref_fastapp, shape):
+    m, k, n = SHAPES12[shape]
+    spec, rspec = spec_for(12), ref_spec_for(12)
+    cfgs = _configs(12, 5, 61)
+    if shape == "wraps":
+        a, b = _wrapping_codes((m, k), 62), _wrapping_codes((k, n), 63)
+    else:
+        a, b = _codes(12, (m, k), 62), _codes(12, (k, n), 63)
+    rctx = _ref_ctx(kernel_impl="entry")
+    want = np.asarray(ref_fastapp.table_matmul_jax(
+        ref_fastapp.table_batch(rspec, cfgs, ctx=rctx), a, b, impl="entry"))
+    batch = fastapp.table_batch(spec, cfgs, ctx=CPU)
+    got = app_kernels.entry_gemv(batch.masks, _t(a), _t(b), 12)     # CPU: plain version
+    np.testing.assert_array_equal(got.numpy(), want)
+    routed = fastapp.table_matmul_torch(batch, a, b, impl="entry")
+    np.testing.assert_array_equal(routed.numpy(), want)
+    exact = app_kernels.entry_gemv_plain(batch.masks, _t(a), _t(b), 12, acc_dtype=torch.int64)
+    wrapped = (exact.abs() >= 2**31).any()
+    assert bool(wrapped) == (shape == "wraps")
+    np.testing.assert_array_equal(exact.numpy().astype(np.int32), want)   # modulo 2^32
+
+
+def _ref_ctx(**kw):
+    from repro.core.engine import ExecutionContext as RefContext
+
+    return RefContext(backend="jax", **kw)
+
+
+SMALL12 = {
+    "ecg": dict(n_samples=512),
+    "mnist": dict(side=8, n_train_per_class=12, n_test_per_class=6),
+    "gauss": dict(side=32),
+    "ffn": dict(d_model=16, d_ff=32, n_tokens=12),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL12))
+def test_12bit_app_behav_matches_reference_entry_route(ref_fastapp, name):
+    """12-bit app BEHAV on the entry route: the port on the CPU (K5's plain
+    version, the per-config gather, the conv GEMM on synthesized planes)
+    against the reference's ``app_behav_jax`` on its XLA entry route."""
+    from repro.apps import APPLICATIONS as REF_APPS
+    from repro_torch.apps import APPLICATIONS
+
+    cfgs = _configs(12, 3, 71)
+    want = ref_fastapp.app_behav_jax(REF_APPS[name](**SMALL12[name]), ref_spec_for(12), cfgs,
+                                     ctx=_ref_ctx(kernel_impl="entry"))
+    got = fastapp.app_behav_torch(APPLICATIONS[name](**SMALL12[name]), spec_for(12), cfgs,
+                                  ctx=ExecutionContext(device="cpu", kernel_impl="entry"))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_12bit_batches_take_the_table_free_routes_only():
+    cfgs = _configs(12, 2, 72)
+    batch = fastapp.table_batch(spec_for(12), cfgs, ctx=CPU)
+    a, b = _codes(12, (4, 8), 73), _codes(12, (8, 3), 74)
+    for impl in ("table", "plain", "gemm", None):
+        with pytest.raises(ValueError, match="table-free"):
+            fastapp.table_matmul_torch(batch, a, b, impl=impl)
+    assert not batch.has_small
+    with pytest.raises(ValueError, match="row tables stop"):
+        batch.small
+    per_config = np.stack([(a + i) % 4096 for i in range(len(cfgs))])
+    got = fastapp.table_matmul_torch(batch, per_config, b, impl="entry_gather")
+    want = app_kernels.planes_gemv_plain(batch.entry_small, _t(per_config), _t(b))
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="signed multipliers"):
+        fastapp.table_batch(spec_for(14), _configs(12, 1, 0)[:, :1].repeat(105, 1), ctx=CPU)
+    with pytest.raises(ValueError, match="at most 8 bits"):
+        app_kernels.plan(40, 64, 10, 12)
+    with pytest.raises(ValueError, match="takes 12-bit codes"):
+        app_kernels.entry_gemv_wide(batch.masks[:, :4].contiguous(), _t(a), _t(b), 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(SHAPES12) + ["mnist", "ffn", "ecg", "gauss"])
+@pytest.mark.parametrize("n_cfgs", [64, 7])
+def test_k5_12bit_matches_plain_on_card(cuda, shape, n_cfgs):
+    """K5's 12-bit instance equals its plain version at the app shapes (D=64
+    and a few configs, split over blocks) and where int32 sums wrap; each call
+    counts one launch on ``entry_gemv_wide`` and none on the 8-bit design."""
+    m, k, n = SHAPES12[shape] if shape in SHAPES12 else CARD_SHAPES[shape]
+    cfgs = _configs(12, n_cfgs - 2, 81)
+    batch = fastapp.table_batch(spec_for(12), cfgs, ctx=ExecutionContext())
+    if shape == "wraps":
+        a, b = _wrapping_codes((m, k), 82), _wrapping_codes((k, n), 83)
+    else:
+        a, b = _codes(12, (m, k), 82), _codes(12, (k, n), 83)
+    a, b = _t(a).to(cuda), _t(b).to(cuda)
+    before = (app_kernels.entry_gemv_wide.launches, app_kernels.entry_gemv.launches)
+    got = app_kernels.entry_gemv(batch.masks, a, b, 12)
+    torch.cuda.synchronize()
+    assert (app_kernels.entry_gemv_wide.launches, app_kernels.entry_gemv.launches) == \
+        (before[0] + 1, before[1])
+    assert torch.equal(got, app_kernels.entry_gemv_plain(batch.masks, a, b, 12))
+    assert app_kernels.entry_wide_splits(n_cfgs, m, k, n, 12) >= 1
+
+
+@pytest.mark.gpu
+def test_k5_12bit_launcher_refuses_what_it_cannot_hold_on_card(cuda):
+    """One K-code's slots of N = 2,000 columns (384 KB) exceed a block's
+    shared memory: the wrapper raises before any launch; 8-bit codes are
+    not the wide instance's."""
+    lib = app_kernels._lib()
+    assert app_kernels.entry_wide_splits(4, 64, 16, 2000, 12) == 0
+    assert app_kernels.entry_wide_splits(4, 64, 16, 1000, 12) >= 1
+    assert app_kernels.entry_wide_splits(4, 64, 16, 10, 8) == 0
+    masks = torch.zeros((4, 6), dtype=torch.int32, device=cuda)
+    a = torch.zeros((64, 16), dtype=torch.int32, device=cuda)
+    b = torch.zeros((16, 2000), dtype=torch.int32, device=cuda)
+    out = torch.empty((4, 64, 2000), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.entry_gemv_wide_launch(masks.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), 4, 64, 16, 2000, 12, stream) != 0
+    before = app_kernels.entry_gemv_wide.launches
+    with pytest.raises(ValueError, match="K5 cannot take"):
+        app_kernels.entry_gemv(masks, a, b, 12)
+    assert app_kernels.entry_gemv_wide.launches == before

@@ -182,9 +182,10 @@ def test_characterize_torch_matches_numpy():
 
 def test_unported_families_and_bad_inputs_raise():
     cfg = accurate_config(spec_for(4))[None]
-    with pytest.raises(ValueError, match="not ported"):
-        fastchar.behav_metrics_torch(spec_for(4, signed=False), cfg, ctx=CPU)
-    with pytest.raises(ValueError, match="not ported"):
+    wide = spec_for(12)
+    with pytest.raises(ValueError, match="behav_metrics_sampled"):
+        fastchar.behav_metrics_torch(wide, accurate_config(wide)[None], ctx=CPU)
+    with pytest.raises(ValueError, match="behav_metrics_sampled"):
         fastchar.behav_metrics_torch(spec_for(4, op="add"), cfg[:, :4], ctx=CPU)
     with pytest.raises(ValueError):
         fastchar.behav_metrics_torch(spec_for(4), cfg, impl="pallas", ctx=CPU)

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch.apps import APPLICATIONS, characterized_dataset_multi
-from repro_torch.core import dse, miqcp
+from repro_torch import service
+from repro_torch.core import dse, fastchar, miqcp
 from repro_torch.core.dataset import Dataset, build_training_dataset, characterize
 from repro_torch.core.engine import ENGINE_MENUS, ExecutionContext, as_context
 from repro_torch.core.metrics import behav_metrics
@@ -61,6 +62,9 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.data.synthetic, repro_torch.launch.steps, repro_torch.launch.serve\n"
         "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.configs.mamba2_130m\n"
+        "import repro_torch.obs, repro_torch.obs.telemetry, repro_torch.obs.export\n"
+        "import repro_torch.obs.prom, repro_torch.service, repro_torch.service.store\n"
+        "import repro_torch.service.queue\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -117,6 +121,13 @@ ENTRY_POINTS = {
     "init_params": lambda: init_params(model_spec(get_arch("granite-3-2b").reduced())),
     "serve.main": lambda: serve.main(["--arch", "granite-3-2b", "--gen", "2"]),
     "serve.main(mamba2-130m)": lambda: serve.main(["--arch", "mamba2-130m", "--gen", "2"]),
+    "behav_metrics_sampled": lambda: fastchar.behav_metrics_sampled(
+        spec_for(12), accurate_config(spec_for(12))[None]),
+    "run_dse_sweep": lambda: dse.run_dse_sweep(spec_for(4), _tiny_dataset(), "ga",
+                                               app=_small_mnist()),
+    "default_runner": lambda: service.default_runner(),
+    "serve.main(--dse-service)": lambda: serve.main(
+        ["--arch", "granite-3-2b", "--gen", "2", "--metrics-port", "0", "--dse-service"]),
 }
 
 

@@ -11,6 +11,9 @@ difference in an activation can move one int8 code.  The reference test's
 fidelity bounds (top-1 >= 0.5, logit rel < 0.5) hold on the port too.
 """
 
+import urllib.error
+import urllib.request
+
 import numpy as np
 import pytest
 import torch
@@ -206,5 +209,57 @@ def test_serve_main_serves_mamba_on_the_cpu(capsys):
 @pytest.mark.parametrize("flag, item", [(["--metrics-port", "0"], 12), (["--trace", "t.json"], 12),
                                         (["--dse-service"], 8), (["--dse-smoke", "2"], 8)])
 def test_serve_flags_not_ported_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        serve.main(["--arch", "granite-3-2b", "--device", "cpu", *flag])
+    """``--trace`` (ROADMAP.md queue 1 item 12) is the reference's one serve
+    flag the port does not serve yet: it raises.  ``--metrics-port`` serves
+    and stops its server, and the DSE service flags need it, as the
+    reference's do (an argparse error)."""
+    argv = ["--arch", "granite-3-2b", "--device", "cpu", "--gen", "2", *flag]
+    if flag[0] == "--trace":
+        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+            serve.main(argv)
+    elif flag[0] == "--metrics-port":
+        assert serve.main(argv)["trajectory"].shape == (4, 2)
+    else:
+        with pytest.raises(SystemExit):
+            serve.main(argv)
+
+
+def test_serve_dse_smoke_on_cpu(tmp_path, monkeypatch):
+    """``--dse-smoke`` posts its requests to the live endpoint, the queue
+    answers them in one batched sweep on the CPU, and the fronts land in the
+    library named by ``REPRO_OPERATOR_LIBRARY``."""
+    monkeypatch.setenv("REPRO_OPERATOR_LIBRARY", str(tmp_path / "library"))
+    out = serve.main(["--arch", "granite-3-2b", "--device", "cpu", "--gen", "2",
+                      "--metrics-port", "0", "--dse-smoke", "4"])
+    answers = out["dse"]
+    assert len(answers) == 4 and all(a["status"] == "done" for a in answers)
+    assert sorted((a["request"]["const_sf"], a["request"]["seed"]) for a in answers) == \
+        [(0.5, 0), (0.5, 1), (0.8, 0), (0.8, 1)]
+    assert all(a["hv_vpf"] > 0 and a["n_evals"] == 16 * 9 for a in answers)
+    assert (tmp_path / "library" / "fronts.jsonl").exists()
+
+
+def test_serve_main_stops_its_server_and_queue_when_it_raises(tmp_path, monkeypatch, capsys):
+    """A failure after the metrics server and the DSE queue are up leaves
+    neither running: the port refuses connections and the worker has ended."""
+    monkeypatch.setenv("REPRO_OPERATOR_LIBRARY", str(tmp_path / "library"))
+    queues = []
+    mount = serve._mount_dse_service
+
+    def recording_mount(*args, **kw):
+        queues.append(mount(*args, **kw))
+        return queues[-1]
+
+    def failing_serve(*args, **kw):
+        raise RuntimeError("serving failed")
+
+    monkeypatch.setattr(serve, "_mount_dse_service", recording_mount)
+    monkeypatch.setattr(serve, "_serve", failing_serve)
+    with pytest.raises(RuntimeError, match="serving failed"):
+        serve.main(["--arch", "granite-3-2b", "--device", "cpu", "--gen", "2",
+                    "--metrics-port", "0", "--dse-service"])
+    url = next(line.split()[1] for line in capsys.readouterr().out.splitlines()
+               if line.startswith("metrics: "))
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(url, timeout=5)
+    assert len(queues) == 1 and not queues[0]._worker.is_alive()
