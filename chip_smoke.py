@@ -116,6 +116,27 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      to twice what re-rounding the plain scan at K8's chunk length does), and
      at the reduced config in f32 (prompt 40 = 3 chunks of 16, ragged) the
      kernel passes' logits against the plain passes' to SERVE_REL.
+  serve-dense: internlm2-1.8b (24 layers, d 2048, 16/8 heads of 128, d_ff
+     8192, vocab 92,544) and starcoder2-3b (30 layers, d 3072, 24/2 heads of
+     128, gelu, d_ff 12,288, vocab 49,152) at full width and depth through
+     ``serve.main --full-config``, and deepseek-67b at full width (d 8192,
+     64/8 heads of 128, d_ff 22,016, vocab 102,400) cut to 8 of its 95
+     layers (the bf16 weights of all 95 are ~134 GB), built with
+     ``dataclasses.replace`` and served by ``serve.serve_config``, the run
+     ``serve.main`` makes for the config it resolves; each at batch 4, prompt 128, 8 new tokens, exact and with the
+     rank-8 demo operator in every projection and the head.  Launch counts
+     are zeroed before and read after: K7 at hd 128 in every prefill layer,
+     K6 once a deployed projection a forward.  Every K7 call of an exact
+     prefill and every K6 and K7 call of the AxO prefill and first decode
+     step is held against its plain version; warm prefill and decode times,
+     their profiled device time and the peak memory are printed, and each
+     model is freed before the next.
+  serve-moe: kimi-k2-1t-a32b at full width (d 7168, 64/8 heads of 112, 384
+     experts top-8 of d_ff 2,048 + 1 shared, dense d_ff 18,432, vocab
+     163,840) cut to its dense layer and one moe layer (2 of 61; ~19.9 G
+     parameters, all 384 experts kept), the same way and with the same
+     checks: K7 at hd 112, and K6 for each expert's capacity buffer (M = 16
+     at the prefill, 8 at decode), 1,167 launches an AxO forward.
   device-time: K6's and K7's device time per call from torch.profiler, and
      their yardsticks', at phase 3's shapes, beside phase 3's CUDA-event
      times, K8's at mamba2's prefill, and K2's and K5's, both designs, at
@@ -136,6 +157,13 @@ ffn GEMM1 and the two convolutions on 12-bit codes and 64 configs, counting
 the configs whose exact sums leave int32 (the kernel sums modulo 2^32, as
 the reference does), with the pair-plane gemm route over the synthesized
 planes as its yardstick where that route is exact.
+
+Phase 3 also holds K7 at head widths 128 and 112 at the four new archs'
+prefill shapes (B=4, S=128 over a 136-slot cache, their own heads and KV
+groups) in bf16 (timed beside SDPA and the bound) and f32, and K6 at kimi-k2's
+expert buffers (M = 16 and 8 against 7168 x 2048 and 2048 x 7168, half the
+rows padding) and at deepseek-67b's gate/up prefill (512 x 8192 x 22016),
+timed beside one cuBLAS f32 GEMM.
 
 Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
 decode shapes (M=4 against the five weight shapes), a prefill shape (M=512,
@@ -164,7 +192,9 @@ tensor-core design and launch two grids (counted by K8's CUDA library).
 The second-to-last lines are the kernels' JSON record (launch counts of K1-K3
 from phase 4, of K4 and K5 from phase apps, of K5's 12-bit instance from
 phase wide, of K3 over lanes from phase sweep, of K6 and K7 from phase
-serve, of K8 from phase serve-ssm) and the card's ``nvidia-smi`` name and power limit; the last line is the
+serve, of K8 from phase serve-ssm, of K7 at hd 128 from serve-dense and at hd
+112 from serve-moe, of K6 in serve-dense and serve-moe, each counted
+separately) and the card's ``nvidia-smi`` name and power limit; the last line is the
 result JSON.  Nothing of JAX or of the reference package is imported.
 """
 
@@ -172,6 +202,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -225,11 +256,27 @@ SERVE_ARGS = ["--arch", "granite-3-2b", "--full-config", "--batch", "4", "--prom
 SSM_ARGS = ["--arch", "mamba2-130m", "--full-config", "--batch", "8", "--prompt-len", "2000",
             "--gen", "32", "--axo-rank", str(AXO_RANK)]
 SSM_SHAPE = (8, 2000, 24, 1, 64, 128)   # mamba2-130m's prefill scan: B, S, H, G, P, N
+# serve-dense and serve-moe: batch 4, prompt 128, 8 new tokens, exact and AxO
+PROMPT_LEN, GEN_TOKENS = 128, 8
+SERVE_NEW_ARGS = ["--full-config", "--batch", "4", "--prompt-len", str(PROMPT_LEN), "--gen",
+                  str(GEN_TOKENS), "--axo-rank", str(AXO_RANK)]
+DENSE_FULL = ("internlm2-1.8b", "starcoder2-3b")          # full width and depth
+DEPTH_CUTS = {"deepseek-67b": (8,),        # layers kept: bf16 weights of all 95 are ~134 GB
+              "kimi-k2-1t-a32b": (1, 1)}   # a stage's repeats: the dense layer, one moe layer
+# K7 at the new head widths: arch -> (query heads, KV groups, hd) of its prefill
+K7_WIDE = {"internlm2-1.8b": (16, 8, 128), "starcoder2-3b": (24, 2, 128),
+           "deepseek-67b": (64, 8, 128), "kimi-k2-1t-a32b": (64, 8, 112)}
+# K6 at kimi-k2's expert buffers and deepseek-67b's gate/up prefill: (M, K, N)
+K6_NEW = {"expert gate/up prefill": (16, 7168, 2048), "expert down prefill": (16, 2048, 7168),
+          "expert gate/up decode": (8, 7168, 2048), "expert down decode": (8, 2048, 7168),
+          "deepseek-67b gate/up prefill": (512, 8192, 22016)}
 K8_Q = 32                               # K8's own chunk length, both designs (csrc/ssd_scan.cu kQ)
 # The two GAs draw from different random streams, and one run's hypervolume
 # varies by ~1.6% (std over seeds) at this budget, so the 2% contract is held
 # on the mean over a fixed set of seeds, and on seed 0 alone as well.
 GA_SEEDS = tuple(range(20))
+# the largest weight, in codes, the serve checks run K6's plain version on at once
+PLAIN_K6_ELEMS = 1 << 28
 
 
 def smi(query: str) -> str:
@@ -355,9 +402,14 @@ def checked_calls(torch):
 
     calls = {"K6": [], "K7": [], "K8": []}
 
-    def k6(*args):
-        out = axo_matmul.axo_matmul(*args)
-        calls["K6"].append(rel_norm(out, axo_matmul.axo_matmul_plain(*args)))
+    def k6(a, b, *tables):
+        out = axo_matmul.axo_matmul(a, b, *tables)
+        # the plain version over column slices of a large weight (kimi-k2's
+        # head: 7168 x 163840 codes gather 9.4 GB of int64 indices at once)
+        step = max(1, PLAIN_K6_ELEMS // b.shape[0])
+        want = torch.cat([axo_matmul.axo_matmul_plain(a, b[:, j:j + step], *tables)
+                          for j in range(0, b.shape[1], step)], 1)
+        calls["K6"].append(rel_norm(out, want))
         return out
 
     def k7(q, k, v, **kw):
@@ -380,6 +432,21 @@ def checked_calls(torch):
         deploy.axo_matmul = axo_matmul.axo_matmul
         attention.flash_attention = flash_attention.flash_attention
         ssm.ssd_scan = ssd_scan.ssd_scan
+
+
+def k6_per_forward(cfg) -> int:
+    """K6 launches of one AxO forward with every layer group deployed: a
+    layer's four attention projections and its MLP's (two for gelu, three for
+    swiglu), a moe layer's shared expert and three for each routed expert (the
+    reference's per-expert loop), and the head."""
+    mlp = 3 if cfg.act == "swiglu" else 2
+
+    def layer(kind: str) -> int:
+        if kind == "moe":
+            return 4 + 3 * cfg.moe.n_experts + (mlp if cfg.moe.n_shared else 0)
+        return 4 + (mlp if kind == "dense" else 0)
+
+    return 1 + sum(st.repeats * sum(layer(kind) for _, kind in st.layers) for st in cfg.stages)
 
 
 def profile_calls(torch, fn, calls: int):
@@ -454,7 +521,7 @@ def main() -> int:
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.layers import rmsnorm
     from repro_torch.models.model import model_spec
-    from repro_torch.models.spec import init_params
+    from repro_torch.models.spec import count_params, init_params
     from repro_torch.obs.prom import MetricsServer
     from repro_torch.service import DSEJobQueue, DSERequest, OperatorStore, default_runner
     from repro_torch.service.store import store_status
@@ -1056,6 +1123,107 @@ def main() -> int:
                 if label == "serve prefill":
                     rec["K7"], err["K7"] = k7_rec, e
             print(msg, flush=True)
+    # K7 at head widths 128 and 112: the prefill of each new arch (B=4, S=128
+    # over a 136-slot cache, kv_len 128) with its own heads and KV groups;
+    # bf16 as served, timed beside SDPA (K/V repeated to the query heads) and
+    # the bound, f32 beside it (held, not timed)
+    for label, (h_q, g_kv, hd) in K7_WIDE.items():
+        key = "K7W" if hd == 128 else "K7X"
+        s_q, cap = PROMPT_LEN, PROMPT_LEN + GEN_TOKENS
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((4, h_q, s_q, hd), generator=gen, device=dev).to(dtype)
+            kk, vv = (torch.randn((4, g_kv, cap, hd), generator=gen, device=dev).to(dtype)
+                      for _ in range(2))
+            got = flash_attention.flash_attention(q, kk, vv, kv_len=s_q)
+            want = flash_attention.flash_attention_plain(q, kk, vv, kv_len=s_q)
+            torch.cuda.synchronize()
+            tol = (2e-6 if dtype == torch.float32 else 2.0 ** -7) * float(
+                want.float().abs().max())
+            e = float((got.float() - want.float()).abs().max())
+            if not (torch.isfinite(got.float()).all() and e <= tol):
+                raise AssertionError(f"K7 differs from its plain version at {label} hd {hd} "
+                                     f"{dtype}: {e:.3g} > {tol:.3g}")
+            msg = (f"phase kernels: K7 vs plain at {label}'s prefill B=4 H={h_q} G={g_kv} "
+                   f"hd={hd} S={s_q} cache {cap} {dtype}: max abs err {e:.3g} (limit {tol:.3g})")
+            if dtype == torch.bfloat16:
+                k_rep = kk[:, :, :s_q].repeat_interleave(h_q // g_kv, dim=1)
+                v_rep = vv[:, :, :s_q].repeat_interleave(h_q // g_kv, dim=1)
+                pairs = s_q * (s_q + 1) // 2
+                w_rec = dict(
+                    name=f"flash_attention_hd{hd}",
+                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention_kernel.py:87",
+                    ms=cuda_ms(torch, lambda: flash_attention.flash_attention(
+                        q, kk, vv, kv_len=s_q), 50),
+                    plain_ms=cuda_ms(torch, lambda: flash_attention.flash_attention_plain(
+                        q, kk, vv, kv_len=s_q), 10),
+                    library_ms=cuda_ms(torch, lambda: torch.nn.functional.
+                                       scaled_dot_product_attention(
+                                           q, k_rep, v_rep, is_causal=True), 50),
+                    bound=bound(2 * (2 * q.numel() + 2 * 4 * g_kv * s_q * hd), 0, 0, int_rate,
+                                bf16_ops=4.0 * 4 * h_q * pairs * hd),
+                )
+                msg += (f"; K7 {w_rec['ms']:.4f} ms (plain {w_rec['plain_ms']:.4f}, bound "
+                        f"{w_rec['bound'][0]:.4g} by {w_rec['bound'][1]}), SDPA "
+                        f"{w_rec['library_ms']:.4f} ms")
+                if key not in rec:
+                    rec[key], err[key] = w_rec, e
+                rec[key].setdefault("shapes", {})[label] = {
+                    "ms": w_rec["ms"], "plain_ms": w_rec["plain_ms"],
+                    "library_ms": w_rec["library_ms"], "bound_ms": w_rec["bound"][0],
+                    "bound_by": w_rec["bound"][1], "max_abs_err": e}
+                err[key] = max(err[key], e)
+            print(msg, flush=True)
+            del q, kk, vv, got, want
+    # K6 at kimi-k2's expert buffers (capacity 8 at decode, 16 at the prefill;
+    # half the rows are padding, all-zero codes) and at deepseek-67b's gate/up
+    # prefill, the heaviest K6 call of serve-dense; each beside one cuBLAS f32
+    # GEMM over [A|F_1..F_R] . [B;G_1..G_R] and its bound, as above
+    f_t, g_t, sv_t = tabs["demo"]
+    for label, (m, k, n) in K6_NEW.items():
+        key = "K6D" if label.startswith("deepseek") else "K6E"
+        a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
+        if key == "K6E":
+            a[m // 2:] = 0
+        bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
+        got = axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t)
+        want = axo_matmul.axo_matmul_plain(a, bb, f_t, g_t, sv_t)
+        torch.cuda.synchronize()
+        rel = rel_norm(got, want)
+        if not (torch.isfinite(got).all() and rel <= REL_RTOL):
+            raise AssertionError(f"K6 differs from its plain version at {label}: rel {rel:.3g}")
+        al, ac = a.long(), bb.long()
+        a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
+        b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
+        del al, ac
+        n_rec = dict(
+            name="axo_matmul_experts" if key == "K6E" else "axo_matmul_dense",
+            source="src/repro_torch/kernels/csrc/axo_matmul.cu",
+            replaces="src/repro/kernels/axo_matmul_kernel.py:80",
+            ms=cuda_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 20),
+            plain_ms=cuda_ms(torch, lambda: axo_matmul.axo_matmul_plain(
+                a, bb, f_t, g_t, sv_t), 3),
+            library_ms=cuda_ms(torch, lambda: a_cat @ b_cat, 20),
+            bound=bound(m * k + k * n + m * n * 4 + 2 * r1 * 256 * 4, 0, 0, int_rate,
+                        tf32_ops=2.0 * m * n * k * (1 + 3 * AXO_RANK)),
+        )
+        del a_cat, b_cat
+        pl = axo_matmul.plan(m, n, k, AXO_RANK, 256)
+        e = float((got - want).abs().max())
+        print(f"phase kernels: K6 vs plain at {label} M={m} K={k} N={n} R={AXO_RANK} "
+              f"({pl.route} route, {pl.splits} splits of {pl.k_split}): rel norm {rel:.3g} "
+              f"(limit {REL_RTOL}); K6 {n_rec['ms']:.4f} ms (plain {n_rec['plain_ms']:.4f}; "
+              f"bound {n_rec['bound'][0]:.4g} by {n_rec['bound'][1]}), one cuBLAS f32 GEMM "
+              f"at K(1+R) {n_rec['library_ms']:.4f} ms ({n_rec['ms'] / n_rec['library_ms']:.2f}x "
+              f"its time)", flush=True)
+        if key not in rec:
+            rec[key], err[key] = n_rec, e
+        rec[key].setdefault("shapes", {})[label] = {
+            "ms": n_rec["ms"], "plain_ms": n_rec["plain_ms"],
+            "library_ms": n_rec["library_ms"], "bound_ms": n_rec["bound"][0],
+            "bound_by": n_rec["bound"][1], "route": pl.route, "splits": pl.splits}
+        err[key] = max(err[key], e)
+        del a, bb, got, want
     # K8 at mamba2-130m's prefill scan, the reduced config's, and a grouped shape
     # with an entering state; bf16 as served, f32 beside it.  Both versions
     # compute in f32 over other chunk lengths and round y once: y in f32 to
@@ -1868,6 +2036,131 @@ def main() -> int:
     if not (rel_exact <= SERVE_REL and rel_axo <= SERVE_REL):
         raise AssertionError("a reduced mamba pass on the kernels differs from its plain replay")
 
+    # -- serve-dense and serve-moe: the four archs at full width --------------
+    # internlm2-1.8b and starcoder2-3b at full depth through serve.main;
+    # deepseek-67b and kimi-k2 cut in depth (DEPTH_CUTS) with dataclasses.replace
+    # and served by serve.serve_config, serve.main's run.  Each: batch 4, prompt
+    # 128, 8 new tokens, exact and with the rank-8 demo operator in every
+    # projection and the head; launch counts zeroed before and read after;
+    # every K7 call of an exact prefill and every K6 and K7 call of the AxO
+    # prefill and first decode step held against its plain version; warm
+    # times, device time and peak memory; the model freed before the next
+    new_serve = {}
+
+    def serve_phase(phase: str, arch: str) -> dict:
+        for fn in ssm_wrappers.values():
+            fn.launches = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        argv = ["--arch", arch, *SERVE_NEW_ARGS]
+        if arch in DEPTH_CUTS:
+            full = get_arch(arch)
+            cut = dataclasses.replace(full, stages=tuple(
+                dataclasses.replace(st, repeats=r) for st, r in zip(full.stages, DEPTH_CUTS[arch])))
+            print(f"phase {phase}: {arch} at full width, depth cut {full.n_layers} -> "
+                  f"{cut.n_layers} layers (stage repeats "
+                  f"{[st.repeats for st in full.stages]} -> {list(DEPTH_CUTS[arch])}): "
+                  f"{count_params(model_spec(cut)) / 1e9:.3f} G parameters of "
+                  f"{count_params(model_spec(full)) / 1e9:.1f} G", flush=True)
+            res = serve.serve_config(cut, serve.parse_args(argv))
+        else:
+            res = serve.main(argv)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in ssm_wrappers.items()}
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        cfg, axo = res["cfg"], res["axo"]
+        dep = axo["deployment"]
+        hd = cfg.resolved_head_dim
+        per_fwd = k6_per_forward(cfg)
+        want = dict.fromkeys(ssm_wrappers, 0)
+        want.update(K6=per_fwd * (axo["prefills"] + axo["decode_steps"]),
+                    K7=cfg.n_layers * (res["prefills"] + axo["prefills"]))
+        steps = res["decode_steps"] // res["prefills"]
+        print(f"phase {phase}: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.kv_heads} heads of {hd}, d_ff {cfg.d_ff}, "
+              f"{'%d experts top-%d, d_ff_expert %d, ' % (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert) if cfg.moe else ''}"
+              f"vocab {cfg.vocab}, bf16) batch 4 x prompt {PROMPT_LEN} + {GEN_TOKENS} tokens "
+              f"in {t_run:.1f} s; exact prefill {res['exact_prefill_ms']:.2f} ms, decode "
+              f"{res['exact_decode_ms'] / steps:.3f} ms/step; AxO rank {AXO_RANK} "
+              f"({dep.n_entries} entries, {per_fwd} K6 calls a forward) prefill "
+              f"{axo['prefill_ms']:.2f} ms, decode {axo['decode_ms'] / steps:.3f} ms/step; "
+              f"peak memory {peak / 2**30:.3f} GiB ({peak} bytes above the {held} held "
+              f"before); launches {got} (expected {want}), K7 at hd {hd}; "
+              f"free-run match {axo['free_run_match']:.4f}, teacher-forced top-1 "
+              f"{axo['top1']:.4f}, logit rel_err {axo['rel_err']:.4f}", flush=True)
+        if got != want:
+            raise AssertionError(f"{phase} {cfg.name}: launches {got}, expected {want}")
+        if not all(torch.isfinite(lg.float()).all() for lg in res["exact_logits"] +
+                   axo["replay_logits"]):
+            raise AssertionError(f"non-finite logits on the {phase} path ({cfg.name})")
+        params, toks, max_seq = res["params"], res["tokens"], res["max_seq"]
+        traj = res["trajectory"]
+        t0 = time.perf_counter()
+        with checked_calls(torch) as calls:
+            make_prefill_step(cfg, max_seq)(params, toks)
+            serve.replay(make_prefill_step(cfg, max_seq, axo=dep),
+                         make_decode_step(cfg, axo=dep), params, toks, traj[:, :2])
+        k6_worst, k7_worst = max(calls["K6"]), max(calls["K7"])
+        print(f"phase {phase}: {cfg.name} exact prefill, AxO prefill and first decode step "
+              f"with each kernel call also run on its plain version: K6 {len(calls['K6'])} "
+              f"calls, max rel norm {k6_worst:.3g} (limit {REL_RTOL}); K7 "
+              f"{len(calls['K7'])} calls at hd {hd}, max err / max|out| {k7_worst:.3g} "
+              f"(limit 2^-7 = {2.0 ** -7:.4g}) in {time.perf_counter() - t0:.1f} s", flush=True)
+        if (len(calls["K6"]), len(calls["K7"])) != (2 * per_fwd, 2 * cfg.n_layers):
+            raise AssertionError(f"{phase} checks made {len(calls['K6'])} K6 and "
+                                 f"{len(calls['K7'])} K7 calls, expected {2 * per_fwd} and "
+                                 f"{2 * cfg.n_layers}")
+        if not (k6_worst <= REL_RTOL and k7_worst <= 2.0 ** -7):
+            raise AssertionError(f"a K6 or K7 call on the {phase} path differs from its plain "
+                                 f"version ({cfg.name})")
+        stats = {"layers": cfg.n_layers, "head_dim": hd, "peak_bytes": peak, "launches": got,
+                 "seconds": t_run}
+        for label, a in (("exact", None), ("AxO", dep)):
+            pre_fn, dec_fn = make_prefill_step(cfg, max_seq, axo=a), make_decode_step(cfg, axo=a)
+            _, _, (tp, td) = serve.generate(pre_fn, dec_fn, params, toks, GEN_TOKENS)
+            busy_p, top_p = profile_calls(torch, lambda: pre_fn(params, toks), 1)
+            busy, top = profile_decode(torch, pre_fn, dec_fn, params, toks)
+            step_ms = td * 1e3 / (GEN_TOKENS - 1)
+            print(f"phase {phase}: {cfg.name} {label} warm: prefill {tp * 1e3:.2f} ms "
+                  f"({4 * PROMPT_LEN / tp:.0f} tokens/s), decode {step_ms:.3f} ms/step "
+                  f"({4 * (GEN_TOKENS - 1) / td:.1f} tokens/s); profiled prefill: device "
+                  f"time {busy_p['device_ms']:.3f} ms, K6 {busy_p['k6_ms']:.3f} ms of it; top "
+                  f"kernels {top_p}; profiled decode step: device time "
+                  f"{busy['device_ms']:.3f} ms ({busy['device_ms'] / step_ms:.1%} of the "
+                  f"unprofiled step), K6 {busy['k6_ms']:.3f} ms of it; top kernels {top}",
+                  flush=True)
+            stats[label] = {"prefill_ms": tp * 1e3, "decode_step_ms": step_ms,
+                            "prefill_device_ms": busy_p["device_ms"],
+                            "decode_device_ms": busy["device_ms"]}
+        new_serve[cfg.name] = stats
+        del res, axo, dep, params, toks, traj, calls, pre_fn, dec_fn, a
+        gc.collect()
+        torch.cuda.empty_cache()
+        return stats
+
+    t0 = time.perf_counter()
+    dense_runs = [serve_phase("serve-dense", arch) for arch in (*DENSE_FULL, "deepseek-67b")]
+    t_dense = time.perf_counter() - t0
+    launches["K6D"] = sum(r["launches"]["K6"] for r in dense_runs)
+    t0 = time.perf_counter()
+    moe_run = serve_phase("serve-moe", "kimi-k2-1t-a32b")
+    t_moe = time.perf_counter() - t0
+    launches["K6E"] = moe_run["launches"]["K6"]
+    # K7's launches of these phases by head width: an arch has one
+    k7_at = {}
+    for r in (*dense_runs, moe_run):
+        k7_at[r["head_dim"]] = k7_at.get(r["head_dim"], 0) + r["launches"]["K7"]
+    launches["K7W"], launches["K7X"] = k7_at.get(128, 0), k7_at.get(112, 0)
+    print(f"phase serve-moe: launches of the new phases: K6 serve-dense {launches['K6D']}, "
+          f"serve-moe {launches['K6E']}; K7 at hd 128 {launches['K7W']}, at hd 112 "
+          f"{launches['K7X']}; serve-dense {t_dense:.1f} s, serve-moe {t_moe:.1f} s; "
+          f"{json.dumps(new_serve)}", flush=True)
+
     # -- device time of K8, K6 and K7 -----------------------------------------
     # torch.profiler's device time per call, beside the CUDA-event times of
     # phase 3 (which count the host's time to issue a call where it is the
@@ -1909,6 +2202,23 @@ def main() -> int:
               f"on the device, SDPA {fmt_ms(lib_dev)}", flush=True)
         if label == "serve prefill":
             rec["K7"].update(device_ms=k7_dev, library_device_ms=lib_dev)
+    # K7 at the new head widths: each arch's prefill, bf16
+    for label, (h_q, g_kv, hd) in K7_WIDE.items():
+        key = "K7W" if hd == 128 else "K7X"
+        q = torch.randn((4, h_q, PROMPT_LEN, hd), generator=gen, device=dev).to(torch.bfloat16)
+        kk, vv = (torch.randn((4, g_kv, PROMPT_LEN + GEN_TOKENS, hd), generator=gen,
+                              device=dev).to(torch.bfloat16) for _ in range(2))
+        k_rep = kk[:, :, :PROMPT_LEN].repeat_interleave(h_q // g_kv, dim=1)
+        v_rep = vv[:, :, :PROMPT_LEN].repeat_interleave(h_q // g_kv, dim=1)
+        k7_dev = device_ms(torch, lambda: flash_attention.flash_attention(
+            q, kk, vv, kv_len=PROMPT_LEN), 50)
+        lib_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=True), 50)
+        print(f"phase device-time: K7 at {label}'s prefill hd {hd} bf16: {fmt_ms(k7_dev)} on "
+              f"the device, SDPA {fmt_ms(lib_dev)}", flush=True)
+        rec[key]["shapes"][label].update(device_ms=k7_dev, library_device_ms=lib_dev)
+        if "device_ms" not in rec[key]:
+            rec[key].update(device_ms=k7_dev, library_device_ms=lib_dev)
     # K2 and K5, both designs, at phase 3's D and at their path launch's D:
     # where the CUDA-event time exceeds this, the host's issue bounds a call
     for key, label, new_fn, first_fn, args in (
@@ -1977,7 +2287,8 @@ def main() -> int:
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s (main path {t_main:.1f} s, apps "
           f"{t_app:.1f} s, of which attaching app BEHAV {t_multi:.2f} s; wide {t_wide:.1f} s, "
-          f"sweep {t_sweep:.1f} s, service {t_svc:.1f} s)", flush=True)
+          f"sweep {t_sweep:.1f} s, service {t_svc:.1f} s, serve-dense {t_dense:.1f} s, "
+          f"serve-moe {t_moe:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

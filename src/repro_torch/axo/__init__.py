@@ -5,6 +5,7 @@ from .deploy import (
     axo_linear,
     deploy_axo,
     quantize_tensor,
+    quantize_weight,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "axo_linear",
     "deploy_axo",
     "quantize_tensor",
+    "quantize_weight",
 ]

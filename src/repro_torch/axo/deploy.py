@@ -11,8 +11,8 @@ output (a LUT config) to the serving path:
      plain version -- and dequantization.
   3. ``deploy_axo``: walk a model's parameter tree and build an
      :class:`AxODeployment` -- per-layer **cached** weight codes and scales for
-     every attention q/k/v/o and MLP projection (plus the LM head), so decode
-     steps never requantize weights per token.
+     every attention q/k/v/o, MLP and MoE expert projection (plus the LM
+     head), so decode steps never requantize weights per token.
 
 The reference caches each weight's signed values and pre-gathered right
 factors in f32, ``(1 + R)`` floats per weight: 91 GB for granite-3-2b's
@@ -38,6 +38,7 @@ __all__ = [
     "AxODeployment",
     "AXO_LAYERS",
     "quantize_tensor",
+    "quantize_weight",
     "axo_linear",
     "deploy_axo",
 ]
@@ -89,6 +90,16 @@ class AxOOperator:
         }
 
 
+def _scale(amax: torch.Tensor, n_bits: int) -> torch.Tensor:
+    return torch.clamp(amax, min=1e-12) / ((1 << (n_bits - 1)) - 1)
+
+
+def _codes(x: torch.Tensor, scale: torch.Tensor, n_bits: int) -> torch.Tensor:
+    qmax = (1 << (n_bits - 1)) - 1
+    q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax).to(torch.int32)
+    return q & ((1 << n_bits) - 1)
+
+
 def quantize_tensor(x: torch.Tensor, n_bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8-style quantization -> (int32 codes, 0-dim scale).
 
@@ -96,11 +107,27 @@ def quantize_tensor(x: torch.Tensor, n_bits: int = 8) -> tuple[torch.Tensor, tor
     are rounded half to even and masked into table-index (two's complement)
     space, as the reference's.
     """
-    qmax = (1 << (n_bits - 1)) - 1
-    amax = torch.clamp(x.abs().max(), min=1e-12)
-    scale = amax / qmax
-    q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax).to(torch.int32)
-    return q & ((1 << n_bits) - 1), scale
+    scale = _scale(x.abs().max(), n_bits)
+    return _codes(x, scale, n_bits), scale
+
+
+#: elements of a weight quantized at once: the f32 scratch of :func:`quantize_weight`
+QUANT_BLOCK = 1 << 26
+
+
+def quantize_weight(w: torch.Tensor, n_bits: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_tensor`` of a (K, N) weight's f32 copy as (uint8 codes, scale),
+    bit for bit, computed over row blocks of at most ``QUANT_BLOCK`` elements: the
+    largest magnitude first, then each block's codes.  A whole (7168, 163840)
+    head would need ~19 GB of f32 and int32 scratch at once."""
+    rows = max(1, QUANT_BLOCK // max(w.shape[-1], 1))
+    blocks = range(0, w.shape[0], rows)
+    amax = torch.stack([w[i:i + rows].abs().max().to(torch.float32) for i in blocks]).max()
+    scale = _scale(amax, n_bits)
+    codes = torch.empty(w.shape, dtype=torch.uint8, device=w.device)
+    for i in blocks:
+        codes[i:i + rows] = _codes(w[i:i + rows].to(torch.float32), scale, n_bits)
+    return codes, scale
 
 
 def _tables(op: AxOOperator, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -156,9 +183,10 @@ class AxODeployment:
     as the parameters do.
 
     ``stages[str(si)][str(li)]`` mirrors ``params["stages"]`` with per-layer
-    ``{"mixer": ..., "mlp": ...}`` entry dicts; ``head`` is a single
-    ``(d, vocab)`` entry.  ``n_entries`` counts entries as the reference does
-    (one per stacked weight).  ``ctx`` picks K6 or its plain version
+    ``{"mixer": ..., "mlp": ...}`` entry dicts (a moe layer's ``"mlp"`` holds
+    ``"experts"``, each bank's entry stacked over (repeats, experts), and
+    ``"shared"``); ``head`` is a single ``(d, vocab)`` entry.  ``n_entries``
+    counts entries as the reference does (one per stacked weight).  ``ctx`` picks K6 or its plain version
     (``dataclasses.replace(dep, ctx=...)`` shares the cached codes).
     """
 
@@ -200,12 +228,14 @@ def deploy_axo(
     """Build an :class:`AxODeployment` for ``params`` of a model ``cfg``.
 
     Walks ``cfg.stages`` next to ``params["stages"]`` and caches an entry for
-    every deployable projection of the port's dense and Mamba-2 stacks:
+    every deployable projection of the port's dense, MoE and Mamba-2 stacks:
 
     * ``"attn"`` -- attention wq/wk/wv/wo;
-    * ``"mlp"``  -- dense FFN w_gate/w_up/w_down;
-    * ``"moe"``  -- routed expert banks: accepted as a name, and a dense model
-      has none (the MoE stack is ROADMAP.md queue 1 item 10);
+    * ``"mlp"``  -- dense FFN w_gate/w_up/w_down, and a MoE layer's shared
+      expert;
+    * ``"moe"``  -- the routed expert banks, one entry per (repeat, expert),
+      each expert with its own scale; the router stays exact (it picks which
+      experts run, a routing decision rather than arithmetic);
     * ``"head"`` -- the unembedding (tied: ``embed.T``), quantized once here.
 
     A mamba layer gets no entries, as in the reference (whose ``deploy_axo``
@@ -214,7 +244,9 @@ def deploy_axo(
     (``n_entries == 1``).
 
     Entries live on the parameters' device; each weight is quantized layer by
-    layer in f32, so the f32 copy of one layer's weight is the only scratch.
+    layer, and an expert bank expert by expert, in f32, so the f32 copy of one
+    layer's (or one expert's) weight is the only scratch: a whole kimi-k2
+    bank, (384, 7168, 2048), would be 22.5 GB in f32.
     """
     unknown = set(layers) - set(AXO_LAYERS)
     if unknown:
@@ -224,24 +256,22 @@ def deploy_axo(
     f_dev, g_dev, sv_dev = _tables(op, device)
     count = [0]
 
-    def quantize_codes(w2d: torch.Tensor):
-        wq, sw = quantize_tensor(w2d.to(torch.float32), op.n_bits)
-        return wq.to(torch.uint8).contiguous(), sw
-
     def prep(w2d):
         """(K, N) weight -> cached codes/scale entry."""
         count[0] += 1
-        codes, sw = quantize_codes(w2d)
+        codes, sw = quantize_weight(w2d, op.n_bits)
         return {"codes": codes, "scale": sw}
 
     def prep_r(w, tail2=None):
-        """Stacked (repeats, ...) weight -> entry with a leading repeats axis."""
-        rep = w.shape[0]
-        w = w.reshape(rep, *tail2) if tail2 is not None else w
+        """Stacked (repeats, [experts,] K, N) weight -> entry stacked over the
+        leading axes, quantized one (K, N) matrix at a time."""
+        if tail2 is not None:
+            w = w.reshape(w.shape[0], *tail2)
+        lead = w.shape[:-2]
         codes = torch.empty(w.shape, dtype=torch.uint8, device=device)
-        scale = torch.empty((rep,), dtype=torch.float32, device=device)
-        for r in range(rep):
-            codes[r], scale[r] = quantize_codes(w[r])
+        scale = torch.empty(lead, dtype=torch.float32, device=device)
+        for idx in np.ndindex(*lead):
+            codes[idx], scale[idx] = quantize_weight(w[idx], op.n_bits)
         count[0] += 1
         return {"codes": codes, "scale": scale}
 
@@ -255,13 +285,23 @@ def deploy_axo(
             "wo": prep_r(mp["wo"], (h * hd, mp["wo"].shape[3])),
         }
 
+    def mlp_entries(mp):
+        return {k: prep_r(mp[k]) for k in ("w_gate", "w_up", "w_down") if k in mp}
+
     def layer_entries(mixer, mlp, lp):
         ent = {}
         if "attn" in layers and mixer in ("attn", "attn_nc"):
             ent["mixer"] = attn_entries(lp["mixer"])
         if mlp == "dense" and "mlp" in layers:
-            ent["mlp"] = {k: prep_r(lp["mlp"][k])
-                          for k in ("w_gate", "w_up", "w_down") if k in lp["mlp"]}
+            ent["mlp"] = mlp_entries(lp["mlp"])
+        elif mlp == "moe":
+            sub = {}
+            if "mlp" in layers and "shared" in lp["mlp"]:
+                sub["shared"] = mlp_entries(lp["mlp"]["shared"])
+            if "moe" in layers:
+                sub["experts"] = {k: prep_r(lp["mlp"][k]) for k in ("w_gate", "w_up", "w_down")}
+            if sub:
+                ent["mlp"] = sub
         return ent
 
     stages = {}

@@ -54,6 +54,25 @@
 // The f32 kernel serves only the reduced-config checks and keeps the first
 // design: one query row per thread on the f32 FMA pipe, K/V staged in shared
 // memory as f32, p kept f32.
+//
+// Head widths 112 and 128 (internlm2, starcoder2, deepseek-67b at 128,
+// kimi-k2 at 112).  The bf16 kernel is the same code: hd = 112 is 7 k-chunks
+// of 16 and 14 output tiles of 8, and a 224-byte row padded by 16 bytes
+// keeps ldmatrix's eight row addresses on distinct bank quads (row r starts
+// at bank 28 r mod 32).  Its double-buffered K/V tiles take 2 x 2 x 64 x
+// (hd + 8) bf16: 61,440 bytes at 112 and 69,632 at 128, over the 48 KB a
+// block may hold statically, so every instance takes its tiles as dynamic
+// shared memory and the launcher raises the block's limit above 48 KB
+// (cudaFuncSetAttribute).  The accumulator grows to hd / 2 floats a thread
+// (64 at 128) beside q's hd / 4 fragment registers and S's 32: ptxas gives
+// the hd 128 instance 173 registers and the hd 112 one 182, no spills.  The
+// f32 kernel would hold q and the accumulator in registers, 2 hd floats a
+// thread (256 at 128; with q alone moved out, ptxas still spilled 88 bytes
+// at 128); above hd 64 it keeps both in shared memory instead, element d of
+// a thread's row at d * 64 + thread, so a warp reads 32 consecutive words,
+// and unrolls its loops over d by 4 (fully unrolled, ptxas hoisted the q row
+// back into 255 registers and spilled 60 bytes at 128; by 4, 48 registers and
+// no spills at 112 and 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,6 +150,12 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* row, int d, b
   return in ? *reinterpret_cast<const uint32_t*>(row + d) : 0u;
 }
 
+// dynamic shared memory of the bf16 kernel: double-buffered K and V tiles
+template <int HD>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return 2 * 2 * kBK * (HD + 8) * static_cast<int>(sizeof(__nv_bfloat16));
+}
+
 template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -143,8 +168,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KC = HD / 16;       // k-chunks of q . k
   constexpr int DT = HD / 8;        // 8-wide tiles of the output
   constexpr int kChunks = HD / 8;   // 16-byte pieces per K/V row
-  __shared__ __align__(16) __nv_bfloat16 k_sh[2][kBK * kStride];
-  __shared__ __align__(16) __nv_bfloat16 v_sh[2][kBK * kStride];
+  constexpr int kTile = kBK * kStride;
+  // two K tiles, then two V tiles: mma_smem_bytes<HD>() of dynamic memory
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* const k_sh = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const v_sh = k_sh + 2 * kTile;
 
   const int qt = blockIdx.x;
   const int hi = blockIdx.y;
@@ -181,8 +209,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int pos = k0 + r;
       const long long src = pos < kend ? pos : 0;   // zero-filled past kend
       const int bytes = pos < kend ? 16 : 0;
-      cp_async16(&k_sh[buf][r * kStride + c], kb + src * ks.s + c, bytes);
-      cp_async16(&v_sh[buf][r * kStride + c], vb + src * vs.s + c, bytes);
+      cp_async16(&k_sh[buf * kTile + r * kStride + c], kb + src * ks.s + c, bytes);
+      cp_async16(&v_sh[buf * kTile + r * kStride + c], vb + src * vs.s + c, bytes);
     }
     cp_async_commit();
   };
@@ -214,8 +242,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     const int k0 = tile * kBK;
     if (w_active && k0 < w_kend) {
-      const __nv_bfloat16* ksh = k_sh[buf];
-      const __nv_bfloat16* vsh = v_sh[buf];
+      const __nv_bfloat16* ksh = k_sh + buf * kTile;
+      const __nv_bfloat16* vsh = v_sh + buf * kTile;
       // S = q k^T: 16 rows x 64 keys, 8 tiles of 8 keys
       float s[8][4];
 #pragma unroll
@@ -339,14 +367,36 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // f32: the first design, one query row per thread
 // ---------------------------------------------------------------------------
 
+// Above hd 64 the f32 kernel keeps each thread's q row and accumulator in
+// shared memory and unrolls its loops over d by 4 (see the header).
+template <int HD>
+struct F32Rows {
+  static constexpr bool kShared = HD > 64;
+  static constexpr int kUnroll = kShared ? 4 : HD;
+};
+
+// dynamic shared memory of the f32 kernel: a K and a V tile, then q's rows
+// and the accumulators, each [HD][kBQ]
+template <int HD>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return static_cast<int>(sizeof(float)) *
+         (2 * kBK * HD + (F32Rows<HD>::kShared ? 2 * HD * kBQ : 0));
+}
+
 template <int HD>
 __global__ void __launch_bounds__(kBQ)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o, Strides qs,
                            Strides ks, Strides vs, Strides os, int rep, int sq,
                            float scale_log2, int causal, int q_offset, int kv_len) {
-  __shared__ __align__(16) float k_sh[kBK][HD];
-  __shared__ __align__(16) float v_sh[kBK][HD];
+  constexpr bool kShared = F32Rows<HD>::kShared;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const k_sh = reinterpret_cast<float*>(smem);   // [kBK][HD]
+  float* const v_sh = k_sh + kBK * HD;                    // [kBK][HD]
+  // kShared: element d of this thread's q row and accumulator at d * kBQ +
+  // threadIdx.x, so a warp's 32 threads read 32 consecutive words
+  float* const q_t = v_sh + kBK * HD + threadIdx.x;
+  float* const acc_t = q_t + HD * kBQ;
   const int qt = blockIdx.x;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
@@ -355,13 +405,28 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   const bool active = row < sq;
   const int qpos = q_offset + row;
 
-  float qr[HD];
-  float acc[HD];
+  float qr[kShared ? 1 : HD];
+  float acc[kShared ? 1 : HD];
+  // q (scaled into the exp2 domain) and the accumulator, where they live
+  auto q_at = [&](int d) -> float& {
+    if constexpr (kShared) {
+      return q_t[d * kBQ];
+    } else {
+      return qr[d];
+    }
+  };
+  auto acc_at = [&](int d) -> float& {
+    if constexpr (kShared) {
+      return acc_t[d * kBQ];
+    } else {
+      return acc[d];
+    }
+  };
   const float* qp = q + bi * qs.b + hi * qs.h + static_cast<long long>(active ? row : 0) * qs.s;
-#pragma unroll
+#pragma unroll(F32Rows<HD>::kUnroll)
   for (int d = 0; d < HD; ++d) {
-    qr[d] = active ? qp[d] * scale_log2 : 0.f;
-    acc[d] = 0.f;
+    q_at(d) = active ? qp[d] * scale_log2 : 0.f;
+    acc_at(d) = 0.f;
   }
   float m = -INFINITY;
   float l = 0.f;
@@ -379,38 +444,40 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
       const int j = i / HD;
       const int d = i - j * HD;
       const long long pos = k0 + j;
-      k_sh[j][d] = j < kc ? kp[pos * ks.s + d] : 0.f;
-      v_sh[j][d] = j < kc ? vp[pos * vs.s + d] : 0.f;
+      k_sh[i] = j < kc ? kp[pos * ks.s + d] : 0.f;
+      v_sh[i] = j < kc ? vp[pos * vs.s + d] : 0.f;
     }
     __syncthreads();
     if (!active) continue;
     const int jmax = causal ? min(kc, qpos - k0 + 1) : kc;
     for (int j = 0; j < jmax; ++j) {
+      const float* krow = k_sh + j * HD;
+      const float* vrow = v_sh + j * HD;
       float s = 0.f;
-#pragma unroll
+#pragma unroll(F32Rows<HD>::kUnroll)
       for (int d = 0; d < HD; d += 4) {
-        const float4 kv4 = *reinterpret_cast<const float4*>(&k_sh[j][d]);
-        s = fmaf(qr[d], kv4.x, s);
-        s = fmaf(qr[d + 1], kv4.y, s);
-        s = fmaf(qr[d + 2], kv4.z, s);
-        s = fmaf(qr[d + 3], kv4.w, s);
+        const float4 kv4 = *reinterpret_cast<const float4*>(krow + d);
+        s = fmaf(q_at(d), kv4.x, s);
+        s = fmaf(q_at(d + 1), kv4.y, s);
+        s = fmaf(q_at(d + 2), kv4.z, s);
+        s = fmaf(q_at(d + 3), kv4.w, s);
       }
       if (s > m) {  // new running maximum: rescale what was summed so far
         const float alpha = exp2f(m - s);
         l *= alpha;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+#pragma unroll(F32Rows<HD>::kUnroll)
+        for (int d = 0; d < HD; ++d) acc_at(d) *= alpha;
         m = s;
       }
       const float p = exp2f(s - m);
       l += p;
-#pragma unroll
+#pragma unroll(F32Rows<HD>::kUnroll)
       for (int d = 0; d < HD; d += 4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(&v_sh[j][d]);
-        acc[d] = fmaf(p, v4.x, acc[d]);
-        acc[d + 1] = fmaf(p, v4.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, v4.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, v4.w, acc[d + 3]);
+        const float4 v4 = *reinterpret_cast<const float4*>(vrow + d);
+        acc_at(d) = fmaf(p, v4.x, acc_at(d));
+        acc_at(d + 1) = fmaf(p, v4.y, acc_at(d + 1));
+        acc_at(d + 2) = fmaf(p, v4.z, acc_at(d + 2));
+        acc_at(d + 3) = fmaf(p, v4.w, acc_at(d + 3));
       }
     }
   }
@@ -418,8 +485,8 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   // a row with no visible key gives 0/0, as the plain softmax does
   const float inv = 1.f / l;
   float* op = o + bi * os.b + hi * os.h + static_cast<long long>(row) * os.s;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) op[d] = acc[d] * inv;
+#pragma unroll(F32Rows<HD>::kUnroll)
+  for (int d = 0; d < HD; ++d) op[d] = acc_at(d) * inv;
 }
 
 struct Args {
@@ -432,16 +499,39 @@ struct Args {
   float scale_log2;
 };
 
+// A block above 48 KB of shared memory needs its kernel's limit raised first,
+// once a device: ``done`` holds a bit for each device where it was raised.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, unsigned& done) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
 template <int HD>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   const dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, a.b);
   if (dtype == 1) {
-    flash_attention_mma_kernel<HD><<<grid, kWarps * 32, 0, stream>>>(
+    constexpr int bytes = mma_smem_bytes<HD>();
+    static unsigned raised = 0;
+    const cudaError_t err = allow_smem(flash_attention_mma_kernel<HD>, bytes, raised);
+    if (err != cudaSuccess) return err;
+    flash_attention_mma_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
         static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
         static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.qs, a.ks,
         a.vs, a.os, a.h / a.g, a.sq, a.scale_log2, a.causal, a.q_offset, a.kv_len);
   } else {
-    flash_attention_f32_kernel<HD><<<grid, kBQ, 0, stream>>>(
+    constexpr int bytes = f32_smem_bytes<HD>();
+    static unsigned raised = 0;
+    const cudaError_t err = allow_smem(flash_attention_f32_kernel<HD>, bytes, raised);
+    if (err != cudaSuccess) return err;
+    flash_attention_f32_kernel<HD><<<grid, kBQ, bytes, stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<float*>(a.o), a.qs, a.ks, a.vs, a.os,
         a.h / a.g, a.sq, a.scale_log2, a.causal, a.q_offset, a.kv_len);
@@ -459,7 +549,7 @@ bool rows_aligned(const void* p, const Strides& st, int nb, int nh, int ns) {
 
 }  // namespace
 
-// dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64}.  Each stride array is
+// dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 112, 128}.  Each stride array is
 // the (batch, head, position) element strides of q, k, v and o in turn.
 // Returns a cudaError_t, or kMisaligned where a bf16 row does not start on a
 // 16-byte boundary.
@@ -485,6 +575,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 16: err = launch<16>(dtype, a, s); break;
     case 32: err = launch<32>(dtype, a, s); break;
     case 64: err = launch<64>(dtype, a, s); break;
+    case 112: err = launch<112>(dtype, a, s); break;
+    case 128: err = launch<128>(dtype, a, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -21,9 +21,12 @@ softmax weights as a bf16 hi + lo pair (``tests/test_torch_kernel_design.py``
 emulates that in plain torch); the f32 kernel keeps them in f32.  For bf16
 every row of q, k, v and the output must start on a 16-byte boundary: the
 kernel copies K/V rows in 16-byte pieces, its launcher refuses a view that
-breaks that, and the wrapper raises.  On a CPU tensor the wrapper returns the plain version; on a
-CUDA tensor it launches the kernel or raises.  ``flash_attention.launches``
-counts kernel launches.
+breaks that, and the wrapper raises.  The kernel is built for the head widths
+in ``HEAD_DIMS``: granite's 64, the reduced configs' 16, internlm2's,
+starcoder2's and deepseek-67b's 128, and kimi-k2's 112; another width raises.
+On a CPU tensor the wrapper returns the plain version; on a CUDA tensor it
+launches the kernel or raises.  ``flash_attention.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
 
-HEAD_DIMS = (16, 32, 64)   # head widths the kernel is built for
+HEAD_DIMS = (16, 32, 64, 112, 128)   # head widths the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MISALIGNED = -1           # the launcher's answer to a bf16 row off a 16-byte boundary
 

@@ -10,13 +10,24 @@ by default, ``--device cpu`` for the host.
       --batch 4 --prompt-len 24 --gen 16 [--axo-rank 8] [--full-config]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --batch 8 --prompt-len 2000 --gen 32 [--axo-rank 8] [--full-config]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b \\
+      --device cpu --batch 2 --prompt-len 8 --gen 4 --axo-rank 8
 
-The model decides which kernels a request runs.  granite-3-2b's prefill
-attention runs kernel K7; mamba2-130m's prefill scan runs kernel K8 in every
-layer and its decode is the plain O(1) recurrence.  Every AxO projection runs
-kernel K6: all seven of a granite layer's and the tied head, and for
-mamba2-130m the head alone.  On the CPU the kernels' plain versions run;
-``--axo-impl plain`` puts the AxO projections on K6's plain version.
+``--arch`` takes the dense archs granite-3-2b, internlm2-1.8b, starcoder2-3b
+and deepseek-67b, the MoE arch kimi-k2-1t-a32b and the SSM arch mamba2-130m.
+The model decides which kernels a request runs.  A dense or MoE arch's
+prefill attention runs kernel K7 in every layer, at head width 64
+(granite), 128 (internlm2, starcoder2, deepseek-67b) or 112 (kimi-k2);
+mamba2-130m's prefill scan runs kernel K8 in every layer and its decode is
+the plain O(1) recurrence.  Every AxO projection runs kernel K6: all seven
+of a dense layer's (starcoder2's gelu MLP has six) and the head; in a kimi
+MoE layer its four attention projections, the shared expert's three and
+three for each of the 384 routed experts, at M = the expert's capacity
+buffer; for mamba2-130m the head alone.  The MoE router stays exact.  On the
+CPU the kernels' plain versions run; ``--axo-impl plain`` puts the AxO
+projections on K6's plain version.  Full width (``--full-config``) needs the
+card: deepseek-67b's bf16 weights (~134 GB) and kimi-k2's (~2 TB) fit it only
+cut in depth, as ``chip_smoke.py`` cuts them.
 
 ``--metrics-port`` serves ``GET /metrics`` (Prometheus text of the process's
 telemetry: the serving latency histograms, the DSE service's counters) and
@@ -51,7 +62,8 @@ from ..models.spec import init_params
 from ..obs import telemetry as obs
 from .steps import make_decode_step, make_prefill_step
 
-__all__ = ["demo_operator", "generate", "replay", "fidelity", "main"]
+__all__ = ["demo_operator", "generate", "replay", "fidelity", "main", "parse_args",
+           "serve_config"]
 
 # flags of the reference's serve entry point that the port does not serve yet
 _NOT_PORTED = {"trace": 12}
@@ -142,6 +154,15 @@ def main(argv=None) -> dict:
     deployment and its teacher-forced logits, so a caller can replay either
     pass on another route.
     """
+    args = parse_args(argv)
+    cfg = get_arch(args.arch)
+    if not args.full_config:
+        cfg = cfg.reduced()
+    return serve_config(cfg, args)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """:func:`main`'s command line, checked."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(ARCH_IDS))
     ap.add_argument("--batch", type=int, default=4)
@@ -192,7 +213,13 @@ def main(argv=None) -> dict:
         args.dse_service = True
     if args.dse_service and args.metrics_port is None:
         ap.error("--dse-service requires --metrics-port")
+    return args
 
+
+def serve_config(cfg, args: argparse.Namespace) -> dict:
+    """:func:`main`'s run with ``cfg`` served in place of ``--arch``'s
+    registry entry (``chip_smoke.py`` passes configs cut in depth); returns
+    what :func:`main` returns."""
     ctx = ExecutionContext(device=args.device)
     # one sink for the serving run: the latency histograms and gauges, counters
     # chained to the process aggregate that /metrics renders
@@ -205,7 +232,7 @@ def main(argv=None) -> dict:
             metrics = MetricsServer(tel=obs.GLOBAL, port=args.metrics_port).start()
             print(f"metrics: {metrics.url}/metrics  health: {metrics.url}/healthz")
         dse_queue = _mount_dse_service(metrics, args, ctx) if args.dse_service else None
-        return _serve(args, ctx, tel, metrics, dse_queue)
+        return _serve(cfg, args, ctx, tel, metrics, dse_queue)
     finally:
         # the server's thread and socket and the queue's worker end with the
         # run, whether it returned or raised
@@ -215,14 +242,11 @@ def main(argv=None) -> dict:
             metrics.stop()
 
 
-def _serve(args, ctx, tel, metrics, dse_queue) -> dict:
+def _serve(cfg, args, ctx, tel, metrics, dse_queue) -> dict:
     """The serving run of :func:`main` once its metrics server and DSE
     service are up: exact requests, then the AxO deployment and the DSE
     endpoint's self-test where asked."""
     device = torch.device(ctx.device)
-    cfg = get_arch(args.arch)
-    if not args.full_config:
-        cfg = cfg.reduced()
     max_seq = args.prompt_len + args.gen
 
     params = init_params(model_spec(cfg), seed=args.seed, device=device)

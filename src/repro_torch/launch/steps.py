@@ -2,8 +2,10 @@
 
 Counterpart of the serving half of ``repro/launch/steps.py``.  Each ``make_*``
 closes over the config (and an optional ``AxODeployment`` and
-``ExecutionContext``) and returns a function of tensors.  PyTorch runs them
-eagerly; the reference's sharding trees and abstract caches have no use on
+``ExecutionContext``) and returns a function of tensors; one pair serves every
+arch of ``configs.registry``, dense, MoE and Mamba-2 (a MoE layer's router
+aux loss is computed and dropped, as the reference's serving steps drop
+it).  PyTorch runs them eagerly; the reference's sharding trees and abstract caches have no use on
 one device, and the train step waits for ROADMAP.md queue 1 item 11.
 """
 

@@ -1,16 +1,19 @@
 """Model assembly: spec trees, caches, forward (train / prefill / decode).
 
-Counterpart of ``repro/models/model.py``, dense and Mamba-2 stages.  A
+Counterpart of ``repro/models/model.py``, dense, MoE and Mamba-2 stages.  A
 model is ``embed -> stages -> final norm -> unembed``; a stage repeats a
 super-block of ``(mixer, mlp)`` layers ``repeats`` times.  Parameters and
 caches keep the reference's tree: each leaf of a stage is stacked over
 ``repeats``, and the forward pass takes layer r's slice of every leaf in a
 Python loop where the reference scans.  The port runs the ``attn``/``attn_nc``
-mixers with ``dense``/``none`` MLPs (the ``dense`` family, e.g. granite-3-2b)
-and the ``mamba`` mixer with no MLP (the ``ssm`` family, mamba2-130m); MoE,
-MLA, cross-attention, the hybrid stack and the encoder-decoder and VLM
-frontends raise (ROADMAP.md queue 1 item 10), as does ``compute_loss`` with
-the train step (queue 1 item 11).
+mixers with ``dense``/``moe``/``none`` MLPs (the ``dense`` family, e.g.
+granite-3-2b, internlm2-1.8b, starcoder2-3b, deepseek-67b; the ``moe`` family,
+kimi-k2-1t-a32b) and the ``mamba`` mixer with no MLP (the ``ssm`` family,
+mamba2-130m); MLA, cross-attention, the hybrid stack and the
+encoder-decoder and VLM frontends raise (ROADMAP.md queue 1 item 10), as
+does ``compute_loss`` with the train step (queue 1 item 11).  ``forward``
+returns the sum of the MoE layers' router aux losses, as the reference's
+does.
 
 ``forward`` takes an optional ``ExecutionContext`` whose ``attention`` menu
 picks kernel K7 or its plain version for prefill attention, and whose
@@ -26,6 +29,7 @@ import torch
 from ..configs.base import ModelConfig, StageConfig
 from .attention import attn_apply, attn_spec
 from .layers import embed_spec, mlp_apply, mlp_spec, rmsnorm, sinusoid_pos
+from .moe import moe_apply, moe_spec
 from .spec import ParamSpec, stacked
 from .ssm import mamba_apply, mamba_decode, mamba_dims, mamba_spec
 
@@ -49,7 +53,7 @@ def _check_config(cfg: ModelConfig) -> None:
         for mixer, mlp in stage.layers:
             if mixer not in HAS_CACHE:
                 raise NotImplementedError(f"{cfg.name}: mixer {mixer!r} {_LATER}")
-            if mlp not in ("dense", "none"):
+            if mlp not in ("dense", "moe", "none"):
                 raise NotImplementedError(f"{cfg.name}: mlp {mlp!r} {_LATER}")
 
 
@@ -63,9 +67,9 @@ def _layer_spec(cfg: ModelConfig, mixer: str, mlp: str) -> dict:
         "norm1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
         "mixer": mamba_spec(cfg) if mixer == "mamba" else attn_spec(cfg),
     }
-    if mlp == "dense":
+    if mlp != "none":
         out["norm2"] = ParamSpec((cfg.d_model,), ("embed",), init="ones")
-        out["mlp"] = mlp_spec(cfg)
+        out["mlp"] = moe_spec(cfg) if mlp == "moe" else mlp_spec(cfg)
     return out
 
 
@@ -153,7 +157,7 @@ def _mamba(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict, cache: dict | 
 
 def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                  ctx: dict, cache: dict | None, axo_layer: dict | None = None):
-    """Pre-norm residual layer.  Returns (x, new_cache).
+    """Pre-norm residual layer.  Returns (x, aux, new_cache).
 
     ``axo_layer`` is this layer's entry dict from an ``AxODeployment``
     (``ctx["axo"]``): its named projections run through the approximate
@@ -161,6 +165,7 @@ def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfi
     reference's ``deploy_axo`` gives it none).  The cache is written in
     place: an attention layer's KV rows, and a mamba layer's conv tail and
     f32 SSD state (by prefill from the whole prompt, by decode one step on).
+    ``aux`` is a moe layer's router aux loss, ``None`` for other layers.
     """
     dep = ctx["axo"]
 
@@ -181,10 +186,15 @@ def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfi
             axo=ax("mixer"), impl=ctx["attn_impl"],
         )
     x = x + out
+    aux = None
     if mlp != "none":
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg, axo=ax("mlp"))
-    return x, new_cache
+        if mlp == "moe":
+            out, aux = moe_apply(p["mlp"], h, cfg, axo=ax("mlp"))
+        else:
+            out = mlp_apply(p["mlp"], h, cfg, axo=ax("mlp"))
+        x = x + out
+    return x, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +215,9 @@ def forward(
 ):
     """Returns (hidden (B, S, d), aux, new_cache).
 
-    ``cache`` is updated in place and returned (``None`` without a cache).
+    ``aux`` is the f32 sum of the moe layers' router aux losses (0 without
+    one); ``cache`` is updated in place and returned (``None`` without a
+    cache).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -226,6 +238,7 @@ def forward(
         "attn_impl": "kernel" if ctx is None else ctx.resolve_impl("attention", "kernel"),
         "ssd_impl": "kernel" if ctx is None else ctx.resolve_impl("ssd_scan", "kernel"),
     }
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, stage in enumerate(cfg.stages):
         sp = params["stages"][str(si)]
         sc = cache.get(str(si), {}) if cache is not None else {}
@@ -235,11 +248,12 @@ def forward(
                 key = str(li)
                 lc = _at(sc[key], r) if key in sc else None
                 la = _at(sa[key], r) if key in sa else None
-                x, _ = _apply_layer(mixer, mlp, _at(sp[key], r), x, cfg, lctx, lc,
-                                    axo_layer=la)
+                x, da, _ = _apply_layer(mixer, mlp, _at(sp[key], r), x, cfg, lctx, lc,
+                                        axo_layer=la)
+                if da is not None:
+                    aux = aux + da
 
     x = rmsnorm(x, params["norm_f"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, cache
 
 

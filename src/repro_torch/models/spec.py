@@ -6,7 +6,10 @@ dict of tensors.  Each normal leaf is drawn from its own ``torch.Generator``,
 seeded from the leaf's path and the base seed exactly as the reference seeds
 its ``jax.random`` keys, with the same ``std = scale / sqrt(fan_in)``.  The
 values differ from ``jax.random``'s; two implementations compare on the same
-weights through ``convert.params_from_jax``.  The reference's sharding helpers
+weights through ``convert.params_from_jax``.  A leaf of more than two axes is
+drawn one trailing (K, N) matrix at a time from its generator (an expert bank
+of kimi-k2, (384, 7168, 2048), would be 22.5 GB as one f32 draw).  The
+reference's sharding helpers
 (``abstract_params``, ``param_pspecs``, ``param_shardings``) are not ported:
 the port runs on one device.
 """
@@ -14,6 +17,7 @@ the port runs on one device.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import math
 from dataclasses import dataclass
 
@@ -72,7 +76,14 @@ def init_params(tree, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
     """Materialize a spec tree with deterministic per-leaf seeding.
 
     ``device`` defaults to the card and raises when none is present; pass
-    ``"cpu"`` for the host.
+    ``"cpu"`` for the host.  A normal leaf of more than two axes is drawn
+    one trailing (K, N) matrix at a time, each scaled and cast into the
+    output, so the f32 scratch is one matrix.  On the CPU the draws come in
+    the same order from the same generator, so the values equal one draw of
+    the whole leaf bit for bit where a matrix holds a multiple of 16 elements
+    (PyTorch's CPU normal sampler transforms uniforms 16 at a time); on the
+    card they are the leaf's own values, drawn from its seed, not those one
+    draw of the whole leaf would give.
     """
     dev = torch.device(ExecutionContext(device=device).device)
 
@@ -85,8 +96,14 @@ def init_params(tree, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
         gen = torch.Generator(device=dev).manual_seed(_path_seed(path, seed))
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / math.sqrt(max(fan_in, 1))
-        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=dev)
-        return (x * std).to(dt)
+        if len(spec.shape) <= 2:
+            x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=dev)
+            return (x * std).to(dt)
+        out = torch.empty(spec.shape, dtype=dt, device=dev)
+        for idx in itertools.product(*map(range, spec.shape[:-2])):
+            x = torch.randn(spec.shape[-2:], generator=gen, dtype=torch.float32, device=dev)
+            out[idx] = x * std
+        return out
 
     return _map_with_path(tree, make)
 

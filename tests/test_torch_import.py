@@ -61,7 +61,9 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.configs.registry, repro_torch.models.model, repro_torch.axo\n"
         "import repro_torch.data.synthetic, repro_torch.launch.steps, repro_torch.launch.serve\n"
         "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
-        "import repro_torch.configs.mamba2_130m\n"
+        "import repro_torch.configs.mamba2_130m, repro_torch.models.moe\n"
+        "import repro_torch.configs.internlm2_1_8b, repro_torch.configs.starcoder2_3b\n"
+        "import repro_torch.configs.deepseek_67b, repro_torch.configs.kimi_k2_1t_a32b\n"
         "import repro_torch.obs, repro_torch.obs.telemetry, repro_torch.obs.export\n"
         "import repro_torch.obs.prom, repro_torch.service, repro_torch.service.store\n"
         "import repro_torch.service.queue\n"
@@ -121,6 +123,8 @@ ENTRY_POINTS = {
     "init_params": lambda: init_params(model_spec(get_arch("granite-3-2b").reduced())),
     "serve.main": lambda: serve.main(["--arch", "granite-3-2b", "--gen", "2"]),
     "serve.main(mamba2-130m)": lambda: serve.main(["--arch", "mamba2-130m", "--gen", "2"]),
+    "serve.main(kimi-k2-1t-a32b)": lambda: serve.main(["--arch", "kimi-k2-1t-a32b",
+                                                       "--gen", "2"]),
     "behav_metrics_sampled": lambda: fastchar.behav_metrics_sampled(
         spec_for(12), accurate_config(spec_for(12))[None]),
     "run_dse_sweep": lambda: dse.run_dse_sweep(spec_for(4), _tiny_dataset(), "ga",

@@ -129,7 +129,7 @@ def test_unported_archs_and_mixers_raise():
     from repro_torch.configs.base import StageConfig
 
     cfg = get_arch("granite-3-2b").reduced()
-    for layers in ((("mla", "dense"),), (("attn", "moe"),), (("attn_x", "dense"),)):
+    for layers in ((("mla", "dense"),), (("xattn", "dense"),), (("attn_x", "dense"),)):
         bad = replace(cfg, stages=(StageConfig(repeats=1, layers=layers),))
         with pytest.raises(NotImplementedError, match="queue 1 item 10"):
             model_spec(bad)

@@ -19,13 +19,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.axo import AxOOperator
+from repro_torch.axo import AxOOperator, deploy_axo
+from repro_torch.configs.registry import get_arch
 from repro_torch.core.operator_model import accurate_config, spec_for
 from repro_torch.launch.serve import demo_operator
 from repro_torch.kernels import axo_matmul as k6
 from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import ssd_scan as k8
 from repro_torch.launch import serve
+from repro_torch.models.model import _at, model_spec
+from repro_torch.models.moe import moe_apply
+from repro_torch.models.spec import init_params
 
 
 @pytest.fixture
@@ -181,7 +185,10 @@ def test_k6_refuses_a_plan_off_its_layout_on_card(cuda, m):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s, offset, hd", [(128, 0, 64), (77, 0, 64), (40, 9, 16), (5, 0, 32),
                                            (9, 30, 64), (100, 13, 32), (7, 0, 16),
-                                           (70, 65, 64), (130, 0, 16)])
+                                           (70, 65, 64), (130, 0, 16),
+                                           (128, 0, 128), (77, 0, 112), (40, 9, 128),
+                                           (9, 30, 112), (70, 65, 128), (130, 0, 112),
+                                           (200, 17, 128)])
 def test_k7_matches_plain_version_on_card(cuda, dtype, s, offset, hd):
     rng = np.random.default_rng(s)
     skv = offset + s + 3                       # capacity past kv_len is masked
@@ -200,15 +207,16 @@ def test_k7_matches_plain_version_on_card(cuda, dtype, s, offset, hd):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 112, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k7_reads_strided_model_layouts_on_card(cuda, dtype):
+def test_k7_reads_strided_model_layouts_on_card(cuda, dtype, hd):
     """q as the model's (B, S, H, hd) activations and k, v as its (B, Smax,
     G, hd) cache, transposed views read in place; the output keeps q's
     layout."""
     rng = np.random.default_rng(11)
     s, cap, off = 33, 80, 20
-    q = torch.from_numpy(rng.standard_normal((2, s, 8, 32)).astype(np.float32))
-    k, v = (torch.from_numpy(rng.standard_normal((2, cap, 2, 32)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((2, s, 8, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, cap, 2, hd)).astype(np.float32))
             for _ in range(2))
     q, k, v = (t.to(cuda, dtype).transpose(1, 2) for t in (q, k, v))
     got = k7.flash_attention(q, k, v, q_offset=off, kv_len=off + s)
@@ -218,6 +226,40 @@ def test_k7_reads_strided_model_layouts_on_card(cuda, dtype):
     tol = 2e-6 if dtype == torch.float32 else 2.0 ** -7
     assert float((got.float() - want.float()).abs().max()) <= tol * float(
         want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [8, 48, 96, 256])
+def test_k7_refuses_a_head_width_it_is_not_built_for_on_card(cuda, hd):
+    """A width outside ``HEAD_DIMS`` raises on the card and launches
+    nothing: no plain version serves it."""
+    q = torch.randn((1, 4, 16, hd), device=cuda).to(torch.bfloat16)
+    k = v = torch.randn((1, 2, 16, hd), device=cuda).to(torch.bfloat16)
+    assert hd not in k7.HEAD_DIMS
+    before = k7.flash_attention.launches
+    with pytest.raises(ValueError, match="built for head_dim"):
+        k7.flash_attention(q, k, v)
+    assert k7.flash_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k, n", [(7168, 2048), (2048, 7168)])
+@pytest.mark.parametrize("m", [8, 16])
+def test_k6_at_expert_buffers_matches_plain_version_on_card(cuda, m, k, n):
+    """K6 at kimi-k2's expert shapes: a capacity buffer of M = 8 (decode) or
+    16 (prefill) rows against an expert's gate/up (7168 x 2048) and down
+    (2048 x 7168) codes, on the GEMV route; padding rows (all zero codes)
+    included."""
+    f, g, sv = _op_tables("demo", cuda)
+    a, b = _k6_inputs(m, k, n, cuda, m + k)
+    a[m // 2:] = 0                          # the buffer's unfilled rows
+    assert k6.plan(m, n, k, 8, 256).route == "gemv"
+    before = k6.axo_matmul.launches
+    got = k6.axo_matmul(a, b, f, g, sv)
+    want = k6.axo_matmul_plain(a, b, f, g, sv)
+    torch.cuda.synchronize()
+    assert k6.axo_matmul.launches == before + 1
+    assert _rel(got, want) < 1e-5
 
 
 @pytest.mark.gpu
@@ -252,6 +294,65 @@ def test_reduced_serving_runs_through_k6_and_k7_on_card(cuda):
     axo = out["axo"]
     assert k7.flash_attention.launches == layers * (out["prefills"] + axo["prefills"])
     assert k6.axo_matmul.launches == (7 * layers + 1) * (axo["prefills"] + axo["decode_steps"])
+    assert np.isfinite(axo["rel_err"])
+
+
+def _moe_case(device):
+    """Reduced kimi's first moe layer in f32 on ``device``, its input and the
+    mild operator's deployment of the layer."""
+    cfg = get_arch("kimi-k2-1t-a32b").reduced()
+    params = init_params(model_spec(cfg), seed=0, dtype=torch.float32, device="cpu")
+    params = _to(params, device)
+    dep = deploy_axo(params, demo_operator(8), cfg)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32))
+    p = _at(params["stages"]["1"]["0"]["mlp"], 0)
+    ent = _at(dep.stages["1"]["0"]["mlp"], 0)
+    return cfg, p, x.to(device), dep, ent
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+def test_moe_layer_on_card_matches_its_cpu_run(cuda):
+    """``moe_apply`` at reduced kimi on the card against the same layer on
+    the CPU: the exact experts (batched products, atomic combine) to 1e-5
+    relative norm, the aux loss to 1e-5; the AxO experts through K6, one
+    launch a projection of each of the 8 experts and of the shared expert, to
+    the AxO serving contract of 1e-3."""
+    cfg, p_c, x_c, dep_c, ent_c = _moe_case("cpu")
+    _, p_g, x_g, dep_g, ent_g = _moe_case(cuda)
+    want, want_aux = moe_apply(p_c, x_c, cfg)
+    got, aux = moe_apply(p_g, x_g, cfg)
+    torch.cuda.synchronize()
+    assert _rel(got.cpu(), want) < 1e-5
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
+    want_a, _ = moe_apply(p_c, x_c, cfg, axo=(dep_c, ent_c))
+    before = k6.axo_matmul.launches
+    got_a, _ = moe_apply(p_g, x_g, cfg, axo=(dep_g, ent_g))
+    torch.cuda.synchronize()
+    assert k6.axo_matmul.launches == before + 3 * cfg.moe.n_experts + 3
+    assert _rel(got_a.cpu(), want_a) < 1e-3
+
+
+@pytest.mark.gpu
+def test_reduced_moe_serving_runs_through_k6_and_k7_on_card(cuda):
+    """The serve entry at reduced kimi-k2 on the card: K7 in every prefill
+    layer, K6 for every deployed projection, each routed expert's three
+    included, a forward."""
+    k6.axo_matmul.launches = k7.flash_attention.launches = 0
+    out = serve.main(["--arch", "kimi-k2-1t-a32b", "--batch", "2", "--prompt-len", "8",
+                      "--gen", "4", "--axo-rank", "8"])
+    torch.cuda.synchronize()
+    cfg, axo = out["cfg"], out["axo"]
+    per_forward = 1 + 7 * cfg.stages[0].repeats + cfg.stages[1].repeats * (
+        4 + 3 + 3 * cfg.moe.n_experts)
+    assert k7.flash_attention.launches == cfg.n_layers * (out["prefills"] + axo["prefills"])
+    assert k6.axo_matmul.launches == per_forward * (axo["prefills"] + axo["decode_steps"])
     assert np.isfinite(axo["rel_err"])
 
 
