@@ -137,6 +137,30 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      parameters, all 384 experts kept), the same way and with the same
      checks: K7 at hd 112, and K6 for each expert's capacity buffer (M = 16
      at the prefill, 8 at decode), 1,167 launches an AxO forward.
+  serve-hybrid, serve-mla, serve-encdec, serve-vlm (slice 4): the same run and
+     checks for jamba-v0.1-52b at full width cut to one whole 8-layer block
+     of 4 (7 mamba + 1 attn, dense and 16-expert top-2 moe MLPs alternating;
+     13.27 of 51.5 G parameters): K8 in its 7 mamba layers (tensor-core
+     route), K7 causal at hd 128, K6 at the expert buffers (M = 80 at the
+     prefill); deepseek-v3-671b cut to its dense stage and one moe layer
+     (repeats (3, 1); 15.21 of 671 G parameters, all 256 experts): MLA (q/k
+     width 576, v width 512) on the port's plain attention, no K7, K6 at the
+     four MLA projections and the expert buffers (M = 24); whisper-medium at
+     full depth (24 encoder + 24 decoder layers, 0.81 G) with its 1,500 stub
+     frames: K7 non-causal in the encoder and the cross-attention (Sq 128 x
+     Skv 1,500), causal in the decoder's self-attention; and
+     llama-3.2-vision-90b cut to one whole 5-layer block of 20 (6.38 of 87.7
+     G) with its 1,600 stub image tokens: K7 non-causal in the gated
+     cross-attention (hd 128, H 64 / G 8).  Launches are counted by head
+     width and causality; each K7 call's ``causal`` flag is checked; every
+     K8 call is held as in serve-ssm; each MoE arch's (kimi-k2's too)
+     capacity drops at the exact prefill are counted; the profiled prefill
+     splits its device time by K6, K7 and K8.  Then the four reduced configs
+     in f32 (K7's and K8's f32 instances): kernel passes against plain
+     passes end to end, exact to SERVE_REL, AxO to SERVE_REL or, where a
+     one-ulp nudge of the norm weights moves the plain AxO pass by more, to
+     twice that; and MLA's attention at deepseek-v3's prefill timed beside
+     SDPA on K/V expanded to the heads.
   device-time: K6's and K7's device time per call from torch.profiler, and
      their yardsticks', at phase 3's shapes, beside phase 3's CUDA-event
      times, K8's at mamba2's prefill, and K2's and K5's, both designs, at
@@ -165,6 +189,18 @@ expert buffers (M = 16 and 8 against 7168 x 2048 and 2048 x 7168, half the
 rows padding) and at deepseek-67b's gate/up prefill (512 x 8192 x 22016),
 timed beside one cuBLAS f32 GEMM.
 
+Phase 3 also holds K7 with ``causal=False`` at slice 4's shapes (B=4:
+whisper's encoder 1,500 x 1,500 and cross-attention 128 x 1,500 at hd 64,
+H=G=16; the VLM's cross-attention 128 x 1,600 at hd 128, H 64 / G 8), in bf16
+(timed beside SDPA, ``is_causal=False``, and the bound) and f32 (to 2e-6 of
+the largest softmax-weighted sum of |v|); K6 at the prefill expert buffers
+of jamba (M = 80, 4096 x 14336 and back) and deepseek-v3 (M = 24, 7168 x
+2048 and back) on its tensor-core route and at the cross K/V projections
+(M = 6,000, 1024 x 1024; M = 6,400, 8192 x 1024), timed beside one cuBLAS
+f32 GEMM; and K8 at jamba's prefill scan (B=4, S=128, H=128, P=64, N=128).
+The device-time phase adds their profiler times, K8's at jamba's prefill
+and MLA's attention.
+
 Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
 decode shapes (M=4 against the five weight shapes), a prefill shape (M=512,
 2048 x 8192), mamba2's head (M=8), the boundary of its two routes (M=16 on
@@ -192,8 +228,12 @@ tensor-core design and launch two grids (counted by K8's CUDA library).
 The second-to-last lines are the kernels' JSON record (launch counts of K1-K3
 from phase 4, of K4 and K5 from phase apps, of K5's 12-bit instance from
 phase wide, of K3 over lanes from phase sweep, of K6 and K7 from phase
-serve, of K8 from phase serve-ssm, of K7 at hd 128 from serve-dense and at hd
-112 from serve-moe, of K6 in serve-dense and serve-moe, each counted
+serve (and whisper's causal hd 64 self-attention), of K8 from phase
+serve-ssm, of K7 at hd 128 from serve-dense, serve-hybrid and serve-vlm (its
+causal layers) and at hd 112 from serve-moe, of K7 non-causal from
+serve-encdec and serve-vlm, of K6 in serve-dense, serve-moe, serve-hybrid +
+serve-mla (the expert-buffer record) and serve-encdec + serve-vlm (the cross
+K/V record), of K8 at jamba's shape from serve-hybrid, each counted
 separately) and the card's ``nvidia-smi`` name and power limit; the last line is the
 result JSON.  Nothing of JAX or of the reference package is imported.
 """
@@ -262,14 +302,40 @@ SERVE_NEW_ARGS = ["--full-config", "--batch", "4", "--prompt-len", str(PROMPT_LE
                   str(GEN_TOKENS), "--axo-rank", str(AXO_RANK)]
 DENSE_FULL = ("internlm2-1.8b", "starcoder2-3b")          # full width and depth
 DEPTH_CUTS = {"deepseek-67b": (8,),        # layers kept: bf16 weights of all 95 are ~134 GB
-              "kimi-k2-1t-a32b": (1, 1)}   # a stage's repeats: the dense layer, one moe layer
+              "kimi-k2-1t-a32b": (1, 1),   # a stage's repeats: the dense layer, one moe layer
+              "jamba-v0.1-52b": (1,),      # one whole 8-layer block of 4
+              "deepseek-v3-671b": (3, 1),  # the dense stage and one moe layer
+              "llama-3.2-vision-90b": (1,)}  # one whole 5-layer block of 20
+# slice 4's serving phases: whisper-medium at full depth, the others cut above
+SLICE4_PHASES = {"serve-hybrid": "jamba-v0.1-52b", "serve-mla": "deepseek-v3-671b",
+                 "serve-encdec": "whisper-medium", "serve-vlm": "llama-3.2-vision-90b"}
 # K7 at the new head widths: arch -> (query heads, KV groups, hd) of its prefill
 K7_WIDE = {"internlm2-1.8b": (16, 8, 128), "starcoder2-3b": (24, 2, 128),
            "deepseek-67b": (64, 8, 128), "kimi-k2-1t-a32b": (64, 8, 112)}
-# K6 at kimi-k2's expert buffers and deepseek-67b's gate/up prefill: (M, K, N)
-K6_NEW = {"expert gate/up prefill": (16, 7168, 2048), "expert down prefill": (16, 2048, 7168),
-          "expert gate/up decode": (8, 7168, 2048), "expert down decode": (8, 2048, 7168),
-          "deepseek-67b gate/up prefill": (512, 8192, 22016)}
+# K6 at the serving shapes of slices 3 and 4: label -> (M, K, N, record, rows
+# holding codes; the rest of an expert's capacity buffer is padding, all-zero
+# codes).  kimi-k2's expert buffers (GEMV route) and deepseek-67b's gate/up
+# prefill; jamba's (M = 80) and deepseek-v3's (M = 24) prefill expert buffers
+# (tensor-core route, about a third padding at their loads) and the cross K/V
+# projections over whisper's frames and the VLM's image tokens
+K6_NEW = {"expert gate/up prefill": (16, 7168, 2048, "K6E", 8),
+          "expert down prefill": (16, 2048, 7168, "K6E", 8),
+          "expert gate/up decode": (8, 7168, 2048, "K6E", 4),
+          "expert down decode": (8, 2048, 7168, "K6E", 4),
+          "deepseek-67b gate/up prefill": (512, 8192, 22016, "K6D", 512),
+          "jamba expert gate/up prefill": (80, 4096, 14336, "K6M", 53),
+          "jamba expert down prefill": (80, 14336, 4096, "K6M", 53),
+          "deepseek-v3 expert gate/up prefill": (24, 7168, 2048, "K6M", 16),
+          "deepseek-v3 expert down prefill": (24, 2048, 7168, "K6M", 16),
+          "whisper cross K/V": (4 * 1500, 1024, 1024, "K6X", 4 * 1500),
+          "vlm image K/V": (4 * 1600, 8192, 1024, "K6X", 4 * 1600)}
+K6_RECORDS = {"K6E": "axo_matmul_experts", "K6D": "axo_matmul_dense",
+              "K6M": "axo_matmul_expert_prefill", "K6X": "axo_matmul_cross_kv"}
+# slice 4: K7 non-causal, label -> (query heads, KV groups, Sq, Skv, hd), B=4
+K7_NC = {"whisper encoder": (16, 16, 1500, 1500, 64),
+         "whisper cross": (16, 16, PROMPT_LEN, 1500, 64),
+         "vlm cross": (64, 8, PROMPT_LEN, 1600, 128)}
+JAMBA_SSM_SHAPE = (4, PROMPT_LEN, 128, 1, 64, 128)   # jamba's prefill scan: B, S, H, G, P, N
 K8_Q = 32                               # K8's own chunk length, both designs (csrc/ssd_scan.cu kQ)
 # The two GAs draw from different random streams, and one run's hypervolume
 # varies by ~1.6% (std over seeds) at this budget, so the 2% contract is held
@@ -394,13 +460,14 @@ def checked_calls(torch):
 
     Patches the names the models call the kernels by; yields ``{"K6": [rel
     norms], "K7": [max err / max |plain|], "K8": [(y max err / max |plain y|,
-    state rel norm)]}``, one entry per call.
+    state rel norm)]}``, one entry per call, and ``"K7 non-causal"``, the
+    count of K7 calls with ``causal=False``.
     """
     from repro_torch.axo import deploy
     from repro_torch.kernels import axo_matmul, flash_attention, ssd_scan
     from repro_torch.models import attention, ssm
 
-    calls = {"K6": [], "K7": [], "K8": []}
+    calls = {"K6": [], "K7": [], "K8": [], "K7 non-causal": 0}
 
     def k6(a, b, *tables):
         out = axo_matmul.axo_matmul(a, b, *tables)
@@ -416,6 +483,7 @@ def checked_calls(torch):
         out = flash_attention.flash_attention(q, k, v, **kw)
         want = flash_attention.flash_attention_plain(q, k, v, **kw).float()
         calls["K7"].append(float((out.float() - want).abs().max() / want.abs().max()))
+        calls["K7 non-causal"] += not kw.get("causal", True)
         return out
 
     def k8(*args, **kw):
@@ -434,25 +502,99 @@ def checked_calls(torch):
         ssm.ssd_scan = ssd_scan.ssd_scan
 
 
-def k6_per_forward(cfg) -> int:
+def _layers(cfg, mode: str):
+    """(repeats, mixer, mlp) of every stage of ``cfg``, the encoder's at a prefill."""
+    out = [(st.repeats, mixer, mlp) for st in cfg.stages for mixer, mlp in st.layers]
+    if cfg.encoder is not None and mode == "prefill":
+        out.append((cfg.encoder.n_layers, "attn_nc", "dense"))
+    return out
+
+
+def k6_per_forward(cfg, mode: str = "prefill") -> int:
     """K6 launches of one AxO forward with every layer group deployed: a
-    layer's four attention projections and its MLP's (two for gelu, three for
-    swiglu), a moe layer's shared expert and three for each routed expert (the
-    reference's per-expert loop), and the head."""
+    layer's four attention projections (MLA's wq_a, wq_b, wkv_a, wo; a cross
+    half's K/V only at the prefill, from the encoder or image states; none for
+    a mamba mixer) and its MLP's (two for gelu, three for swiglu), a moe
+    layer's shared expert and three for each routed expert (the reference's
+    per-expert loop), the encoder's layers at the prefill, and the head."""
     mlp = 3 if cfg.act == "swiglu" else 2
+    cross = 4 if mode == "prefill" else 2
+    mixers = {"attn": 4, "attn_nc": 4, "mla": 4, "mamba": 0, "xattn": cross,
+              "attn_x": 4 + cross}
 
-    def layer(kind: str) -> int:
+    def ffn(kind: str) -> int:
         if kind == "moe":
-            return 4 + 3 * cfg.moe.n_experts + (mlp if cfg.moe.n_shared else 0)
-        return 4 + (mlp if kind == "dense" else 0)
+            return 3 * cfg.moe.n_experts + (mlp if cfg.moe.n_shared else 0)
+        return mlp if kind == "dense" else 0
 
-    return 1 + sum(st.repeats * sum(layer(kind) for _, kind in st.layers) for st in cfg.stages)
+    return 1 + sum(r * (mixers[mixer] + ffn(kind)) for r, mixer, kind in _layers(cfg, mode))
+
+
+def k7_per_prefill(cfg) -> dict:
+    """K7 launches of one prefill by (head width, causal): a causal ``attn``
+    layer one, ``attn_x`` a causal self and a non-causal cross call, ``xattn``
+    and the encoder's ``attn_nc`` one non-causal call; MLA and mamba none."""
+    calls = {"attn": (1, 0), "attn_nc": (0, 1), "attn_x": (1, 1), "xattn": (0, 1)}
+    out = {}
+    for r, mixer, _ in _layers(cfg, "prefill"):
+        for causal, n in zip((True, False), calls.get(mixer, (0, 0))):
+            if n:
+                key = (cfg.resolved_head_dim, causal)
+                out[key] = out.get(key, 0) + r * n
+    return out
+
+
+def k8_per_prefill(cfg) -> int:
+    """K8 launches of one prefill: one a mamba layer."""
+    return sum(r for r, mixer, _ in _layers(cfg, "prefill") if mixer == "mamba")
+
+
+def nudge_norms(torch, params: dict, seed: int) -> dict:
+    """``params`` with every norm weight moved one f32 ulp up or down at random."""
+    gen = torch.Generator(device=params["norm_f"].device).manual_seed(seed)
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if not name.startswith("norm"):
+            return tree
+        sign = torch.randint(0, 2, tree.shape, generator=gen, device=tree.device) * 2 - 1
+        return torch.nextafter(tree, tree + sign.to(tree.dtype))
+
+    return walk(params)
+
+
+@contextlib.contextmanager
+def routed_drops(torch):
+    """Tally the capacity drops of every moe layer the model runs: yields
+    ``{"dropped", "entries", "layers"}``, the (token, expert) entries routed
+    past their expert's capacity, of all routed, over the layers called.
+    The routing is recomputed as ``moe_apply`` computes it."""
+    from repro_torch.models import model as model_mod, moe
+
+    tally = {"dropped": 0, "entries": 0, "layers": 0}
+
+    def counting(p, x, cfg, axo=None):
+        t = x.shape[0] * x.shape[1]
+        probs = torch.softmax((x @ p["router"]).to(torch.float32), dim=-1).reshape(t, -1)
+        top_i = torch.topk(probs, cfg.moe.top_k, dim=-1).indices
+        load = torch.bincount(top_i.reshape(-1), minlength=cfg.moe.n_experts)
+        tally["dropped"] += int((load - moe.moe_capacity(t, cfg)).clamp(min=0).sum())
+        tally["entries"] += t * cfg.moe.top_k
+        tally["layers"] += 1
+        return moe.moe_apply(p, x, cfg, axo=axo)
+
+    model_mod.moe_apply = counting
+    try:
+        yield tally
+    finally:
+        model_mod.moe_apply = moe.moe_apply
 
 
 def profile_calls(torch, fn, calls: int):
     """torch.profiler over ``calls`` calls of ``fn``: the device time per call
-    against the wall time, K6's share of it, and the top kernels by device
-    time."""
+    against the wall time, K6's, K7's and K8's shares of it, and the top
+    kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -464,16 +606,21 @@ def profile_calls(torch, fn, calls: int):
     wall = (time.perf_counter() - t0) * 1e3 / calls
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
-    k6 = sum(e.self_device_time_total for e in kernels if "::axo_" in e.key) / 1e3 / calls
+
+    def by_name(part: str) -> float:
+        return sum(e.self_device_time_total for e in kernels if part in e.key) / 1e3 / calls
+
     kernels.sort(key=lambda e: -e.self_device_time_total)
     top = [(e.key[:48], round(e.self_device_time_total / 1e3 / calls, 4), e.count // calls)
            for e in kernels[:5]]
-    return {"device_ms": device, "wall_ms": wall, "k6_ms": k6}, top
+    return {"device_ms": device, "wall_ms": wall, "k6_ms": by_name("::axo_"),
+            "k7_ms": by_name("flash_attention_"), "k8_ms": by_name("ssd_")}, top
 
 
-def profile_decode(torch, prefill, decode, params, toks, steps: int = 2):
-    """:func:`profile_calls` over ``steps`` decode steps after a prefill."""
-    logits, cache = prefill(params, toks)
+def profile_decode(torch, prefill, decode, params, toks, steps: int = 2, front=None):
+    """:func:`profile_calls` over ``steps`` decode steps after a prefill
+    (``front``: the stub frontend's input)."""
+    logits, cache = prefill(params, toks, front)
     nxt = logits[:, -1].argmax(-1)[:, None]
     positions = iter(range(toks.shape[1], toks.shape[1] + steps))
     return profile_calls(torch, lambda: decode(params, cache, nxt, next(positions)), steps)
@@ -519,6 +666,7 @@ def main() -> int:
     )
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import attention
     from repro_torch.models.layers import rmsnorm
     from repro_torch.models.model import model_spec
     from repro_torch.models.spec import count_params, init_params
@@ -1175,16 +1323,15 @@ def main() -> int:
                 err[key] = max(err[key], e)
             print(msg, flush=True)
             del q, kk, vv, got, want
-    # K6 at kimi-k2's expert buffers (capacity 8 at decode, 16 at the prefill;
-    # half the rows are padding, all-zero codes) and at deepseek-67b's gate/up
-    # prefill, the heaviest K6 call of serve-dense; each beside one cuBLAS f32
-    # GEMM over [A|F_1..F_R] . [B;G_1..G_R] and its bound, as above
+    # K6 at K6_NEW's shapes: kimi-k2's expert buffers, deepseek-67b's gate/up
+    # prefill (the heaviest K6 call of serve-dense), jamba's and deepseek-v3's
+    # prefill expert buffers and the cross K/V of whisper and the VLM; each
+    # beside one cuBLAS f32 GEMM over [A|F_1..F_R] . [B;G_1..G_R] and its bound,
+    # as above
     f_t, g_t, sv_t = tabs["demo"]
-    for label, (m, k, n) in K6_NEW.items():
-        key = "K6D" if label.startswith("deepseek") else "K6E"
+    for label, (m, k, n, key, filled) in K6_NEW.items():
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
-        if key == "K6E":
-            a[m // 2:] = 0
+        a[filled:] = 0
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
         got = axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t)
         want = axo_matmul.axo_matmul_plain(a, bb, f_t, g_t, sv_t)
@@ -1197,7 +1344,7 @@ def main() -> int:
         b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
         del al, ac
         n_rec = dict(
-            name="axo_matmul_experts" if key == "K6E" else "axo_matmul_dense",
+            name=K6_RECORDS[key],
             source="src/repro_torch/kernels/csrc/axo_matmul.cu",
             replaces="src/repro/kernels/axo_matmul_kernel.py:80",
             ms=cuda_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 20),
@@ -1224,13 +1371,68 @@ def main() -> int:
             "bound_by": n_rec["bound"][1], "route": pl.route, "splits": pl.splits}
         err[key] = max(err[key], e)
         del a, bb, got, want
+    # K7 non-causal, at Sq != Skv and Skv off the 64-key tile: whisper's encoder
+    # (1,500 frames) and cross-attention (Sq 128 x Skv 1,500, hd 64) and the
+    # VLM's gated cross-attention (128 x 1,600, hd 128, H 64 / G 8), B=4; bf16
+    # as served, timed beside SDPA (K/V repeated to the query heads,
+    # is_causal=False) and the bound; f32 beside it, held and not timed
+    for label, (h_q, g_kv, s_q, s_kv, hd) in K7_NC.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((4, h_q, s_q, hd), generator=gen, device=dev).to(dtype)
+            kk, vv = (torch.randn((4, g_kv, s_kv, hd), generator=gen, device=dev).to(dtype)
+                      for _ in range(2))
+            got = flash_attention.flash_attention(q, kk, vv, causal=False)
+            want = flash_attention.flash_attention_plain(q, kk, vv, causal=False).float()
+            torch.cuda.synchronize()
+            # bf16: one ulp of the output's scale; f32: 2e-6 of the terms summed
+            # (the largest softmax-weighted sum of |v|), since over 1,500 keys
+            # the output itself cancels to a fraction of them
+            tol = (2e-6 * float(flash_attention.flash_attention_plain(
+                q, kk, vv.abs(), causal=False).abs().max()) if dtype == torch.float32
+                else 2.0 ** -7 * float(want.abs().max()))
+            e = float((got.float() - want).abs().max())
+            if not (torch.isfinite(got.float()).all() and e <= tol):
+                raise AssertionError(f"K7 non-causal differs from its plain version at {label} "
+                                     f"{dtype}: {e:.3g} > {tol:.3g}")
+            msg = (f"phase kernels: K7 non-causal vs plain at {label} B=4 H={h_q} G={g_kv} "
+                   f"Sq={s_q} Skv={s_kv} hd={hd} {dtype}: max abs err {e:.3g} (limit {tol:.3g})")
+            if dtype == torch.bfloat16:
+                k_rep = kk.repeat_interleave(h_q // g_kv, dim=1)
+                v_rep = vv.repeat_interleave(h_q // g_kv, dim=1)
+                nc_rec = dict(
+                    name="flash_attention_non_causal",
+                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention_kernel.py:87",
+                    ms=cuda_ms(torch, lambda: flash_attention.flash_attention(
+                        q, kk, vv, causal=False), 50),
+                    plain_ms=cuda_ms(torch, lambda: flash_attention.flash_attention_plain(
+                        q, kk, vv, causal=False), 5),
+                    library_ms=cuda_ms(torch, lambda: torch.nn.functional.
+                                       scaled_dot_product_attention(q, k_rep, v_rep), 50),
+                    bound=bound(2 * (2 * q.numel() + 2 * kk.numel()), 0, 0, int_rate,
+                                bf16_ops=4.0 * 4 * h_q * s_q * s_kv * hd),
+                )
+                msg += (f"; K7 {nc_rec['ms']:.4f} ms (plain {nc_rec['plain_ms']:.4f}, bound "
+                        f"{nc_rec['bound'][0]:.4g} by {nc_rec['bound'][1]}), SDPA "
+                        f"{nc_rec['library_ms']:.4f} ms ({nc_rec['ms'] / nc_rec['library_ms']:.2f}x"
+                        f" its time)")
+                if "K7N" not in rec:
+                    rec["K7N"], err["K7N"] = nc_rec, e
+                rec["K7N"].setdefault("shapes", {})[label] = {
+                    "ms": nc_rec["ms"], "plain_ms": nc_rec["plain_ms"],
+                    "library_ms": nc_rec["library_ms"], "bound_ms": nc_rec["bound"][0],
+                    "bound_by": nc_rec["bound"][1], "max_abs_err": e}
+                err["K7N"] = max(err["K7N"], e)
+                del k_rep, v_rep
+            print(msg, flush=True)
+            del q, kk, vv, got, want
     # K8 at mamba2-130m's prefill scan, the reduced config's, and a grouped shape
     # with an entering state; bf16 as served, f32 beside it.  Both versions
     # compute in f32 over other chunk lengths and round y once: y in f32 to
     # 1e-5 and in bf16 to one bf16 ulp (2^-7) of the output's largest
     # magnitude, the f32 state to REL_RTOL relative norm
     k8_shapes = {"mamba2 prefill": SSM_SHAPE, "reduced": (2, 40, 16, 1, 8, 16),
-                 "grouped": (2, 300, 16, 4, 64, 64)}
+                 "grouped": (2, 300, 16, 4, 64, 64), "jamba prefill": JAMBA_SSM_SHAPE}
     for label, shape in k8_shapes.items():
         for dtype in (torch.bfloat16, torch.float32):
             x, dt, a, bm, cm = ssd_inputs(torch, shape, dtype, gen)
@@ -1278,6 +1480,21 @@ def main() -> int:
                         f"{ops / 1e9:.4g} GFLOP, {f32_ms:.4g} ms); no PyTorch call computes "
                         f"the scan")
                 rec["K8"], err["K8"] = k8_rec, e
+            if label == "jamba prefill" and dtype == torch.bfloat16:
+                # jamba's mamba layers: 128 heads of 64 over a 128-token prompt
+                moved, _, tc_ops = ssd_work(shape, 2, passes=2)
+                h_rec = dict(
+                    name="ssd_scan_hybrid", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                    replaces="src/repro/kernels/ssd_scan_kernel.py:78",
+                    ms=cuda_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, a, bm, cm), 50),
+                    plain_ms=cuda_ms(torch, lambda: ssd_scan.ssd_scan_plain(
+                        x, dt, a, bm, cm), 5),
+                    library_ms=None,
+                    bound=bound(moved, 0, 0, int_rate, bf16_ops=tc_ops),
+                )
+                msg += (f"; K8 {h_rec['ms']:.4f} ms (plain {h_rec['plain_ms']:.4f}; bound "
+                        f"{h_rec['bound'][0]:.4g} by {h_rec['bound'][1]})")
+                rec["K8H"], err["K8H"] = h_rec, e
             print(msg, flush=True)
             del x, dt, a, bm, cm, y, y_p
     for k, r in rec.items():
@@ -2036,20 +2253,23 @@ def main() -> int:
     if not (rel_exact <= SERVE_REL and rel_axo <= SERVE_REL):
         raise AssertionError("a reduced mamba pass on the kernels differs from its plain replay")
 
-    # -- serve-dense and serve-moe: the four archs at full width --------------
-    # internlm2-1.8b and starcoder2-3b at full depth through serve.main;
-    # deepseek-67b and kimi-k2 cut in depth (DEPTH_CUTS) with dataclasses.replace
-    # and served by serve.serve_config, serve.main's run.  Each: batch 4, prompt
-    # 128, 8 new tokens, exact and with the rank-8 demo operator in every
-    # projection and the head; launch counts zeroed before and read after;
-    # every K7 call of an exact prefill and every K6 and K7 call of the AxO
-    # prefill and first decode step held against its plain version; warm
-    # times, device time and peak memory; the model freed before the next
+    # -- serve-dense, serve-moe, serve-hybrid, serve-mla, serve-encdec, serve-vlm
+    # internlm2-1.8b, starcoder2-3b and whisper-medium at full depth through
+    # serve.main; deepseek-67b, kimi-k2, jamba, deepseek-v3 and the VLM cut in
+    # depth (DEPTH_CUTS) with dataclasses.replace and served by
+    # serve.serve_config, serve.main's run.  Each: batch 4, prompt 128, 8 new
+    # tokens, exact and with the rank-8 demo operator in every projection and
+    # the head; launch counts zeroed before and read after; every K7 and K8
+    # call of an exact prefill and every K6, K7 and K8 call of the AxO prefill
+    # and first decode step held against its plain version; a MoE arch's
+    # capacity drops at the prefill; warm times, device time by kernel and
+    # peak memory; the model freed before the next
     new_serve = {}
 
     def serve_phase(phase: str, arch: str) -> dict:
         for fn in ssm_wrappers.values():
             fn.launches = 0
+        ssd_scan.ssd_scan.route_launches.update(mma=0, scalar=0)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -2072,29 +2292,47 @@ def main() -> int:
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
         got = {k: fn.launches for k, fn in ssm_wrappers.items()}
+        k8_routes = dict(ssd_scan.ssd_scan.route_launches)
         peak = torch.cuda.max_memory_allocated(dev) - held
         cfg, axo = res["cfg"], res["axo"]
         dep = axo["deployment"]
         hd = cfg.resolved_head_dim
-        per_fwd = k6_per_forward(cfg)
+        per_pre, per_dec = k6_per_forward(cfg, "prefill"), k6_per_forward(cfg, "decode")
+        k7_pre = k7_per_prefill(cfg)
+        k7_n, k8_n = sum(k7_pre.values()), k8_per_prefill(cfg)
+        k7_nc = sum(n for (_, causal), n in k7_pre.items() if not causal)
+        prefills = res["prefills"] + axo["prefills"]
         want = dict.fromkeys(ssm_wrappers, 0)
-        want.update(K6=per_fwd * (axo["prefills"] + axo["decode_steps"]),
-                    K7=cfg.n_layers * (res["prefills"] + axo["prefills"]))
+        want.update(K6=per_pre * axo["prefills"] + per_dec * axo["decode_steps"],
+                    K7=k7_n * prefills, K8=k8_n * prefills)
         steps = res["decode_steps"] // res["prefills"]
-        print(f"phase {phase}: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
-              f"{cfg.n_heads}/{cfg.kv_heads} heads of {hd}, d_ff {cfg.d_ff}, "
-              f"{'%d experts top-%d, d_ff_expert %d, ' % (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert) if cfg.moe else ''}"
-              f"vocab {cfg.vocab}, bf16) batch 4 x prompt {PROMPT_LEN} + {GEN_TOKENS} tokens "
-              f"in {t_run:.1f} s; exact prefill {res['exact_prefill_ms']:.2f} ms, decode "
+        front = res["frontend"]
+        extra = ""
+        if cfg.moe:
+            extra += (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff_expert "
+                      f"{cfg.moe.d_ff_expert}, ")
+        if cfg.mla:
+            extra += f"MLA q/k width {cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim}, "
+        if front is not None:
+            extra += f"stub frontend {tuple(front.shape)}, "
+        print(f"phase {phase}: {cfg.name} ({cfg.n_layers} layers"
+              f"{' + %d encoder layers' % cfg.encoder.n_layers if cfg.encoder else ''}, d "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads of {hd}, d_ff {cfg.d_ff}, "
+              f"{extra}vocab {cfg.vocab}, bf16) batch 4 x prompt {PROMPT_LEN} + {GEN_TOKENS} "
+              f"tokens in {t_run:.1f} s; exact prefill {res['exact_prefill_ms']:.2f} ms, decode "
               f"{res['exact_decode_ms'] / steps:.3f} ms/step; AxO rank {AXO_RANK} "
-              f"({dep.n_entries} entries, {per_fwd} K6 calls a forward) prefill "
-              f"{axo['prefill_ms']:.2f} ms, decode {axo['decode_ms'] / steps:.3f} ms/step; "
-              f"peak memory {peak / 2**30:.3f} GiB ({peak} bytes above the {held} held "
-              f"before); launches {got} (expected {want}), K7 at hd {hd}; "
+              f"({dep.n_entries} entries, K6 calls a forward {per_pre} prefill / {per_dec} "
+              f"decode) prefill {axo['prefill_ms']:.2f} ms, decode "
+              f"{axo['decode_ms'] / steps:.3f} ms/step; peak memory {peak / 2**30:.3f} GiB "
+              f"({peak} bytes above the {held} held before); launches {got} (expected {want}), "
+              f"K7 a prefill by (hd, causal) {k7_pre}, K8 calls by route {k8_routes}; "
               f"free-run match {axo['free_run_match']:.4f}, teacher-forced top-1 "
               f"{axo['top1']:.4f}, logit rel_err {axo['rel_err']:.4f}", flush=True)
         if got != want:
             raise AssertionError(f"{phase} {cfg.name}: launches {got}, expected {want}")
+        if k8_routes != {"mma": got["K8"], "scalar": 0}:
+            raise AssertionError(f"{phase}: K8 calls by route {k8_routes}: every one must take "
+                                 f"the tensor-core design")
         if not all(torch.isfinite(lg.float()).all() for lg in res["exact_logits"] +
                    axo["replay_logits"]):
             raise AssertionError(f"non-finite logits on the {phase} path ({cfg.name})")
@@ -2102,43 +2340,63 @@ def main() -> int:
         traj = res["trajectory"]
         t0 = time.perf_counter()
         with checked_calls(torch) as calls:
-            make_prefill_step(cfg, max_seq)(params, toks)
+            with routed_drops(torch) as drops:
+                make_prefill_step(cfg, max_seq)(params, toks, front)
             serve.replay(make_prefill_step(cfg, max_seq, axo=dep),
-                         make_decode_step(cfg, axo=dep), params, toks, traj[:, :2])
-        k6_worst, k7_worst = max(calls["K6"]), max(calls["K7"])
+                         make_decode_step(cfg, axo=dep), params, toks, traj[:, :2], front)
+        k6_worst = max(calls["K6"])
+        k7_worst = max(calls["K7"], default=0.0)
+        y_worst = max((c[0] for c in calls["K8"]), default=0.0)
+        st_worst = max((c[1] for c in calls["K8"]), default=0.0)
+        drop = drops["dropped"] / drops["entries"] if drops["entries"] else None
         print(f"phase {phase}: {cfg.name} exact prefill, AxO prefill and first decode step "
               f"with each kernel call also run on its plain version: K6 {len(calls['K6'])} "
               f"calls, max rel norm {k6_worst:.3g} (limit {REL_RTOL}); K7 "
-              f"{len(calls['K7'])} calls at hd {hd}, max err / max|out| {k7_worst:.3g} "
-              f"(limit 2^-7 = {2.0 ** -7:.4g}) in {time.perf_counter() - t0:.1f} s", flush=True)
-        if (len(calls["K6"]), len(calls["K7"])) != (2 * per_fwd, 2 * cfg.n_layers):
-            raise AssertionError(f"{phase} checks made {len(calls['K6'])} K6 and "
-                                 f"{len(calls['K7'])} K7 calls, expected {2 * per_fwd} and "
-                                 f"{2 * cfg.n_layers}")
-        if not (k6_worst <= REL_RTOL and k7_worst <= 2.0 ** -7):
-            raise AssertionError(f"a K6 or K7 call on the {phase} path differs from its plain "
+              f"{len(calls['K7'])} calls at hd {hd} ({calls['K7 non-causal']} non-causal), "
+              f"max err / max|out| {k7_worst:.3g} (limit 2^-7 = {2.0 ** -7:.4g}); K8 "
+              f"{len(calls['K8'])} calls, y max err / max|y| {y_worst:.3g} (limit 2^-7), "
+              f"state rel norm {st_worst:.3g} (limit {REL_RTOL}) in "
+              f"{time.perf_counter() - t0:.1f} s"
+              + (f"; MoE capacity drops at the exact prefill ({4 * PROMPT_LEN} tokens, "
+                 f"{drops['layers']} moe layers): {drops['dropped']} of {drops['entries']} "
+                 f"routed entries, drop rate {drop:.4%}" if drop is not None else ""),
+              flush=True)
+        if (len(calls["K6"]), len(calls["K7"]), calls["K7 non-causal"], len(calls["K8"])) != (
+                per_pre + per_dec, 2 * k7_n, 2 * k7_nc, 2 * k8_n):
+            raise AssertionError(f"{phase} checks made {len(calls['K6'])} K6, "
+                                 f"{len(calls['K7'])} K7 ({calls['K7 non-causal']} non-causal) "
+                                 f"and {len(calls['K8'])} K8 calls, expected {per_pre + per_dec}, "
+                                 f"{2 * k7_n} ({2 * k7_nc}) and {2 * k8_n}")
+        if not (k6_worst <= REL_RTOL and k7_worst <= 2.0 ** -7 and y_worst <= 2.0 ** -7
+                and st_worst <= REL_RTOL):
+            raise AssertionError(f"a kernel call on the {phase} path differs from its plain "
                                  f"version ({cfg.name})")
         stats = {"layers": cfg.n_layers, "head_dim": hd, "peak_bytes": peak, "launches": got,
-                 "seconds": t_run}
+                 "k7_a_prefill": {f"hd{h} {'causal' if c else 'non-causal'}": n
+                                  for (h, c), n in k7_pre.items()},
+                 "seconds": t_run, "drop_rate": drop}
         for label, a in (("exact", None), ("AxO", dep)):
             pre_fn, dec_fn = make_prefill_step(cfg, max_seq, axo=a), make_decode_step(cfg, axo=a)
-            _, _, (tp, td) = serve.generate(pre_fn, dec_fn, params, toks, GEN_TOKENS)
-            busy_p, top_p = profile_calls(torch, lambda: pre_fn(params, toks), 1)
-            busy, top = profile_decode(torch, pre_fn, dec_fn, params, toks)
+            _, _, (tp, td) = serve.generate(pre_fn, dec_fn, params, toks, GEN_TOKENS,
+                                            frontend=front)
+            busy_p, top_p = profile_calls(torch, lambda: pre_fn(params, toks, front), 1)
+            busy, top = profile_decode(torch, pre_fn, dec_fn, params, toks, front=front)
             step_ms = td * 1e3 / (GEN_TOKENS - 1)
             print(f"phase {phase}: {cfg.name} {label} warm: prefill {tp * 1e3:.2f} ms "
                   f"({4 * PROMPT_LEN / tp:.0f} tokens/s), decode {step_ms:.3f} ms/step "
                   f"({4 * (GEN_TOKENS - 1) / td:.1f} tokens/s); profiled prefill: device "
-                  f"time {busy_p['device_ms']:.3f} ms, K6 {busy_p['k6_ms']:.3f} ms of it; top "
-                  f"kernels {top_p}; profiled decode step: device time "
-                  f"{busy['device_ms']:.3f} ms ({busy['device_ms'] / step_ms:.1%} of the "
-                  f"unprofiled step), K6 {busy['k6_ms']:.3f} ms of it; top kernels {top}",
-                  flush=True)
+                  f"time {busy_p['device_ms']:.3f} ms, K6 {busy_p['k6_ms']:.3f}, K7 "
+                  f"{busy_p['k7_ms']:.3f}, K8 {busy_p['k8_ms']:.3f} ms of it; top kernels "
+                  f"{top_p}; profiled decode step: device time {busy['device_ms']:.3f} ms "
+                  f"({busy['device_ms'] / step_ms:.1%} of the unprofiled step), K6 "
+                  f"{busy['k6_ms']:.3f} ms of it; top kernels {top}", flush=True)
             stats[label] = {"prefill_ms": tp * 1e3, "decode_step_ms": step_ms,
                             "prefill_device_ms": busy_p["device_ms"],
+                            "prefill_k6_ms": busy_p["k6_ms"], "prefill_k7_ms": busy_p["k7_ms"],
+                            "prefill_k8_ms": busy_p["k8_ms"],
                             "decode_device_ms": busy["device_ms"]}
         new_serve[cfg.name] = stats
-        del res, axo, dep, params, toks, traj, calls, pre_fn, dec_fn, a
+        del res, axo, dep, params, toks, traj, calls, pre_fn, dec_fn, a, front
         gc.collect()
         torch.cuda.empty_cache()
         return stats
@@ -2151,15 +2409,113 @@ def main() -> int:
     moe_run = serve_phase("serve-moe", "kimi-k2-1t-a32b")
     t_moe = time.perf_counter() - t0
     launches["K6E"] = moe_run["launches"]["K6"]
-    # K7's launches of these phases by head width: an arch has one
+    # slice 4: the hybrid, MLA, encoder-decoder and VLM families
+    slice4, t_slice4 = {}, {}
+    for phase, arch in SLICE4_PHASES.items():
+        t0 = time.perf_counter()
+        slice4[phase] = serve_phase(phase, arch)
+        t_slice4[phase] = time.perf_counter() - t0
+    launches["K6M"] = sum(slice4[ph]["launches"]["K6"] for ph in ("serve-hybrid", "serve-mla"))
+    launches["K6X"] = sum(slice4[ph]["launches"]["K6"] for ph in ("serve-encdec", "serve-vlm"))
+    launches["K8H"] = slice4["serve-hybrid"]["launches"]["K8"]
+    # K7's launches of these phases by head width and causality: hd 64 causal
+    # beside granite's (K7), hd 128 causal (K7W), hd 112 (K7X), non-causal (K7N)
     k7_at = {}
-    for r in (*dense_runs, moe_run):
-        k7_at[r["head_dim"]] = k7_at.get(r["head_dim"], 0) + r["launches"]["K7"]
-    launches["K7W"], launches["K7X"] = k7_at.get(128, 0), k7_at.get(112, 0)
-    print(f"phase serve-moe: launches of the new phases: K6 serve-dense {launches['K6D']}, "
-          f"serve-moe {launches['K6E']}; K7 at hd 128 {launches['K7W']}, at hd 112 "
-          f"{launches['K7X']}; serve-dense {t_dense:.1f} s, serve-moe {t_moe:.1f} s; "
-          f"{json.dumps(new_serve)}", flush=True)
+    for r in (*dense_runs, moe_run, *slice4.values()):
+        prefills = r["launches"]["K7"] // max(1, sum(r["k7_a_prefill"].values()))
+        for kind, n in r["k7_a_prefill"].items():
+            k7_at[kind] = k7_at.get(kind, 0) + n * prefills
+    launches["K7"] += k7_at.get("hd64 causal", 0)
+    launches["K7W"], launches["K7X"] = k7_at.get("hd128 causal", 0), k7_at.get("hd112 causal", 0)
+    launches["K7N"] = sum(n for kind, n in k7_at.items() if kind.endswith("non-causal"))
+    print(f"phase serve-vlm: launches of the serving phases since slice 3: K6 serve-dense "
+          f"{launches['K6D']}, serve-moe {launches['K6E']}, serve-hybrid + serve-mla "
+          f"{launches['K6M']}, serve-encdec + serve-vlm {launches['K6X']}; K7 by kind "
+          f"{k7_at}; K8 serve-hybrid {launches['K8H']}; MoE drop rates at full width "
+          f"{ {k: v['drop_rate'] for k, v in new_serve.items() if v['drop_rate'] is not None} }; "
+          f"serve-dense {t_dense:.1f} s, serve-moe {t_moe:.1f} s, "
+          f"{ {k: round(v, 1) for k, v in t_slice4.items()} }; {json.dumps(new_serve)}",
+          flush=True)
+
+    # the reduced configs of slice 4 in f32 (K7's and K8's f32 instances; K7
+    # non-causal in whisper's encoder and cross-attention): kernel passes vs
+    # plain passes, exact to SERVE_REL; AxO to SERVE_REL, or, where a one-ulp
+    # nudge of the norm weights moves the plain AxO pass by more (an
+    # activation code on a rounding boundary), to twice that nudge's effect
+    for arch in SLICE4_PHASES.values():
+        red = get_arch(arch).reduced()
+        red_params = init_params(model_spec(red), seed=0, dtype=torch.float32)
+        batch = SyntheticLM(red, ShapeConfig("serve", 14, 2, "train"), seed=0).batch(0)
+        red_toks = torch.from_numpy(batch["tokens"][:, :8]).long().to(dev)
+        red_front = next((torch.from_numpy(batch[k]).to(dev) for k in ("enc_embeds",
+                                                                        "img_embeds")
+                          if k in batch), None)
+        red_dep = deploy_axo(red_params, serve.demo_operator(AXO_RANK), red)
+        red_plain = dataclasses.replace(red_dep, ctx=plain)
+        before = {k: fn.launches for k, fn in ssm_wrappers.items()}
+        red_traj, exact_lgs, _ = serve.generate(make_prefill_step(red, 14),
+                                                make_decode_step(red), red_params, red_toks,
+                                                6, frontend=red_front)
+        red_rep = serve.replay(make_prefill_step(red, 14, axo=red_dep),
+                               make_decode_step(red, axo=red_dep), red_params, red_toks,
+                               red_traj, red_front)
+        red_launches = {k: fn.launches - before[k] for k, fn in ssm_wrappers.items()}
+        exact_p = serve.replay(make_prefill_step(red, 14, ctx=plain),
+                               make_decode_step(red, ctx=plain), red_params, red_toks,
+                               red_traj, red_front)
+        pre_p = make_prefill_step(red, 14, axo=red_plain, ctx=plain)
+        dec_p = make_decode_step(red, axo=red_plain, ctx=plain)
+        red_rep_p = serve.replay(pre_p, dec_p, red_params, red_toks, red_traj, red_front)
+        spread = max(max(rel_norm(a, b) for a, b in zip(serve.replay(
+            pre_p, dec_p, nudge_norms(torch, red_params, seed), red_toks, red_traj, red_front),
+            red_rep_p)) for seed in range(2))
+        rel_exact = max(rel_norm(a, b) for a, b in zip(exact_lgs, exact_p))
+        rel_axo = max(rel_norm(a, b) for a, b in zip(red_rep, red_rep_p))
+        limit = max(SERVE_REL, 2 * spread)
+        k7_red = sum(k7_per_prefill(red).values()) * 2
+        print(f"phase serve-vlm: reduced {red.name} f32, prompt 8 + 5 decode steps: launches "
+              f"{red_launches} (K7 expected {k7_red}, K8 {2 * k8_per_prefill(red)}); logits of "
+              f"the kernel passes vs plain, max over steps: exact {rel_exact:.3g} (limit "
+              f"{SERVE_REL}), AxO teacher-forced {rel_axo:.3g} (limit {limit:.3g}: a one-ulp "
+              f"nudge of the norm weights moves the plain AxO pass by {spread:.3g})", flush=True)
+        if (red_launches["K7"], red_launches["K8"]) != (k7_red, 2 * k8_per_prefill(red)):
+            raise AssertionError(f"the reduced {red.name} passes launched {red_launches}")
+        if not (rel_exact <= SERVE_REL and rel_axo <= limit):
+            raise AssertionError(f"a reduced {red.name} pass on the kernels differs from its "
+                                 f"plain replay")
+        del red_params, red_dep, red_plain, red_front
+
+    # MLA's attention at deepseek-v3's prefill: the port's plain direct softmax
+    # (q/k width 576, v width 512, one shared KV head, 128 query heads, B=4,
+    # S=128 over the 136-slot latent cache), bf16 as served; SDPA beside it
+    # on K/V expanded to the 128 heads
+    mla = get_arch("deepseek-v3-671b").mla
+    qk_w = mla.kv_lora_rank + mla.rope_head_dim
+    mla_scale = 1.0 / (mla.nope_head_dim + mla.rope_head_dim) ** 0.5
+    mla_q = torch.randn((4, PROMPT_LEN, 128, qk_w), generator=gen, device=dev).to(torch.bfloat16)
+    mla_k = torch.randn((4, PROMPT_LEN + GEN_TOKENS, 1, qk_w), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    mla_v = mla_k[..., :mla.kv_lora_rank]
+    mla_pos = torch.arange(PROMPT_LEN, device=dev)
+
+    def mla_attention():
+        return attention.direct_attention(mla_q, mla_k, mla_v, causal=True, q_positions=mla_pos,
+                                          kv_len=PROMPT_LEN, scale=mla_scale)
+
+    mla_sdpa_args = (mla_q.transpose(1, 2),
+                     mla_k[:, :PROMPT_LEN].transpose(1, 2).expand(-1, 128, -1, -1),
+                     mla_v[:, :PROMPT_LEN].transpose(1, 2).expand(-1, 128, -1, -1))
+    mla_ms = cuda_ms(torch, mla_attention, 20)
+    mla_sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        *mla_sdpa_args, is_causal=True, scale=mla_scale), 20)
+    mla_bound = bound(2 * (mla_q.numel() + mla_k[:, :PROMPT_LEN].numel()
+                           + 4 * PROMPT_LEN * 128 * mla.kv_lora_rank), 0, 0, int_rate,
+                      bf16_ops=2.0 * 4 * 128 * (PROMPT_LEN * (PROMPT_LEN + 1) // 2)
+                      * (qk_w + mla.kv_lora_rank))
+    print(f"phase serve-mla: MLA attention at deepseek-v3's prefill (B=4, H=128, S=128, q/k "
+          f"width {qk_w}, v width {mla.kv_lora_rank}, bf16), the port's plain direct softmax: "
+          f"{mla_ms:.4f} ms by events (bound {mla_bound[0]:.4g} by {mla_bound[1]}), SDPA on "
+          f"K/V expanded to the heads {mla_sdpa_ms:.4f} ms", flush=True)
 
     # -- device time of K8, K6 and K7 -----------------------------------------
     # torch.profiler's device time per call, beside the CUDA-event times of
@@ -2219,6 +2575,52 @@ def main() -> int:
         rec[key]["shapes"][label].update(device_ms=k7_dev, library_device_ms=lib_dev)
         if "device_ms" not in rec[key]:
             rec[key].update(device_ms=k7_dev, library_device_ms=lib_dev)
+    # K7 non-causal at slice 4's three shapes, K6 at K6_NEW's shapes, K8 at
+    # jamba's prefill and MLA's plain attention, bf16
+    for label, (h_q, g_kv, s_q, s_kv, hd) in K7_NC.items():
+        q = torch.randn((4, h_q, s_q, hd), generator=gen, device=dev).to(torch.bfloat16)
+        kk, vv = (torch.randn((4, g_kv, s_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        k_rep = kk.repeat_interleave(h_q // g_kv, dim=1)
+        v_rep = vv.repeat_interleave(h_q // g_kv, dim=1)
+        k7_dev = device_ms(torch, lambda: flash_attention.flash_attention(
+            q, kk, vv, causal=False), 20)
+        lib_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_rep, v_rep), 20)
+        print(f"phase device-time: K7 non-causal at {label} bf16: {fmt_ms(k7_dev)} on the "
+              f"device, SDPA {fmt_ms(lib_dev)}", flush=True)
+        rec["K7N"]["shapes"][label].update(device_ms=k7_dev, library_device_ms=lib_dev)
+        if rec["K7N"].get("device_ms") is None:     # the first shape the profiler measured
+            rec["K7N"].update(device_ms=k7_dev, library_device_ms=lib_dev)
+        del q, kk, vv, k_rep, v_rep
+    f_t, g_t, sv_t = tabs["demo"]
+    for label, (m, k, n, key, filled) in K6_NEW.items():
+        a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
+        a[filled:] = 0
+        bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
+        al, ac = a.long(), bb.long()
+        a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
+        b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
+        del al, ac
+        k6_dev = device_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 10)
+        lib_dev = device_ms(torch, lambda: a_cat @ b_cat, 10)
+        print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: {fmt_ms(k6_dev)} on the "
+              f"device, one cuBLAS f32 GEMM at K(1+R) {fmt_ms(lib_dev)}", flush=True)
+        rec[key]["shapes"][label].update(device_ms=k6_dev, library_device_ms=lib_dev)
+        if rec[key].get("device_ms") is None:     # the first shape the profiler measured
+            rec[key].update(device_ms=k6_dev, library_device_ms=lib_dev)
+        del a, bb, a_cat, b_cat
+    x, dt, a, bm, cm = ssd_inputs(torch, JAMBA_SSM_SHAPE, torch.bfloat16, gen)
+    rec["K8H"]["device_ms"] = device_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, a, bm, cm), 20)
+    del x, dt, a, bm, cm
+    mla_dev = device_ms(torch, mla_attention, 10)
+    mla_sdpa_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        *mla_sdpa_args, is_causal=True, scale=mla_scale), 10)
+    print(f"phase device-time: K8 at jamba's prefill bf16: {fmt_ms(rec['K8H']['device_ms'])}; "
+          f"MLA attention at deepseek-v3's prefill (plain direct softmax): {fmt_ms(mla_dev)} on "
+          f"the device ({mla_ms:.4f} ms by events), SDPA on expanded K/V "
+          f"{fmt_ms(mla_sdpa_dev)}", flush=True)
+    del mla_q, mla_k, mla_v, mla_sdpa_args
     # K2 and K5, both designs, at phase 3's D and at their path launch's D:
     # where the CUDA-event time exceeds this, the host's issue bounds a call
     for key, label, new_fn, first_fn, args in (
@@ -2288,7 +2690,8 @@ def main() -> int:
     print(f"phase done: {time.perf_counter() - t_start:.1f} s (main path {t_main:.1f} s, apps "
           f"{t_app:.1f} s, of which attaching app BEHAV {t_multi:.2f} s; wide {t_wide:.1f} s, "
           f"sweep {t_sweep:.1f} s, service {t_svc:.1f} s, serve-dense {t_dense:.1f} s, "
-          f"serve-moe {t_moe:.1f} s)", flush=True)
+          f"serve-moe {t_moe:.1f} s, "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in t_slice4.items())})", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -185,7 +185,9 @@ class AxODeployment:
     ``stages[str(si)][str(li)]`` mirrors ``params["stages"]`` with per-layer
     ``{"mixer": ..., "mlp": ...}`` entry dicts (a moe layer's ``"mlp"`` holds
     ``"experts"``, each bank's entry stacked over (repeats, experts), and
-    ``"shared"``); ``head`` is a single ``(d, vocab)`` entry.  ``n_entries``
+    ``"shared"``; an ``attn_x`` mixer's holds ``"self"`` and ``"cross"``);
+    ``encoder`` mirrors the encoder stage, ``{"0": ...}``, where the model
+    has one; ``head`` is a single ``(d, vocab)`` entry.  ``n_entries``
     counts entries as the reference does (one per stacked weight).  ``ctx`` picks K6 or its plain version
     (``dataclasses.replace(dep, ctx=...)`` shares the cached codes).
     """
@@ -196,6 +198,7 @@ class AxODeployment:
     g_table: torch.Tensor                # (2^n, R) f32
     signed_vals: torch.Tensor            # (2^n,) f32
     stages: dict = field(default_factory=dict)
+    encoder: dict | None = None
     head: dict | None = None
     ctx: object | None = None            # ExecutionContext: the axo_matmul route
     n_entries: int = 0
@@ -227,10 +230,13 @@ def deploy_axo(
 ) -> AxODeployment:
     """Build an :class:`AxODeployment` for ``params`` of a model ``cfg``.
 
-    Walks ``cfg.stages`` next to ``params["stages"]`` and caches an entry for
-    every deployable projection of the port's dense, MoE and Mamba-2 stacks:
+    Walks ``cfg.stages`` (and the encoder stage) next to ``params`` and
+    caches an entry for every deployable projection:
 
-    * ``"attn"`` -- attention wq/wk/wv/wo;
+    * ``"attn"`` -- attention wq/wk/wv/wo (causal, the encoder's non-causal,
+      both halves of ``attn_x``, the VLM's gated ``xattn``) and MLA's
+      wq_a/wq_b/wkv_a/wo; MLA's ``wkv_b`` stays exact (its absorbed halves
+      contract per head against latents, not as a (K, N) linear);
     * ``"mlp"``  -- dense FFN w_gate/w_up/w_down, and a MoE layer's shared
       expert;
     * ``"moe"``  -- the routed expert banks, one entry per (repeat, expert),
@@ -238,10 +244,11 @@ def deploy_axo(
       experts run, a routing decision rather than arithmetic);
     * ``"head"`` -- the unembedding (tied: ``embed.T``), quantized once here.
 
-    A mamba layer gets no entries, as in the reference (whose ``deploy_axo``
+    A mamba mixer gets no entries, as in the reference (whose ``deploy_axo``
     covers attention, MLA, dense and MoE layers only): its in_proj, conv and
     out_proj stay exact, so mamba2-130m deploys the head alone
-    (``n_entries == 1``).
+    (``n_entries == 1``); a mamba layer's dense or moe MLP (jamba) gets its
+    entries.
 
     Entries live on the parameters' device; each weight is quantized layer by
     layer, and an expert bank expert by expert, in f32, so the f32 copy of one
@@ -285,13 +292,29 @@ def deploy_axo(
             "wo": prep_r(mp["wo"], (h * hd, mp["wo"].shape[3])),
         }
 
+    def mla_entries(mp):
+        r_q, h, qd = mp["wq_b"].shape[1:]
+        _, v_hd, d = mp["wo"].shape[1:]
+        return {
+            "wq_a": prep_r(mp["wq_a"]),
+            "wq_b": prep_r(mp["wq_b"], (r_q, h * qd)),
+            "wkv_a": prep_r(mp["wkv_a"]),
+            "wo": prep_r(mp["wo"], (h * v_hd, d)),
+        }
+
     def mlp_entries(mp):
         return {k: prep_r(mp[k]) for k in ("w_gate", "w_up", "w_down") if k in mp}
 
     def layer_entries(mixer, mlp, lp):
         ent = {}
-        if "attn" in layers and mixer in ("attn", "attn_nc"):
-            ent["mixer"] = attn_entries(lp["mixer"])
+        if "attn" in layers:
+            if mixer in ("attn", "attn_nc", "xattn"):
+                ent["mixer"] = attn_entries(lp["mixer"])
+            elif mixer == "attn_x":
+                ent["mixer"] = {"self": attn_entries(lp["mixer"]["self"]),
+                                "cross": attn_entries(lp["mixer"]["cross"])}
+            elif mixer == "mla":
+                ent["mixer"] = mla_entries(lp["mixer"])
         if mlp == "dense" and "mlp" in layers:
             ent["mlp"] = mlp_entries(lp["mlp"])
         elif mlp == "moe":
@@ -312,6 +335,10 @@ def deploy_axo(
             for li, (mixer, mlp) in enumerate(stage.layers)
         }
 
+    encoder = None
+    if cfg.encoder is not None:
+        encoder = {"0": layer_entries("attn_nc", "dense", params["encoder"]["stage"]["0"])}
+
     head = None
     if "head" in layers:
         w = (params["embed"]["tok"].T if cfg.tie_embeddings
@@ -320,5 +347,5 @@ def deploy_axo(
 
     return AxODeployment(
         op=op, layers=tuple(layers), f_table=f_dev, g_table=g_dev, signed_vals=sv_dev,
-        stages=stages, head=head, ctx=ctx, n_entries=count[0],
+        stages=stages, encoder=encoder, head=head, ctx=ctx, n_entries=count[0],
     )

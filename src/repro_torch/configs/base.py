@@ -9,9 +9,8 @@ MLPs: ``dense``, ``moe``, ``none``.
 
 Heterogeneous patterns (Jamba 1:7, VLM every-5th-cross) are expressed inside the
 super-block.  Counterpart of ``repro/configs/base.py``, copied: plain data.  The
-port runs the dense ``(attn, dense)``, the MoE ``(attn, moe)`` and the Mamba-2
-``(mamba, none)`` stages (the others are ROADMAP queue 1 item 10);
-its model loops over ``repeats`` in Python, and the runtime-policy fields
+port runs every mixer and MLP kind above; its model loops over ``repeats`` in
+Python, and the runtime-policy fields
 that steer XLA (``remat``, ``causal_block_skip``, the attention chunks,
 ``unroll_loops``) are kept for the configs' sake and not read.
 """

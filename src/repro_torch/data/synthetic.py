@@ -5,6 +5,9 @@ step ``t`` is a pure function of ``(seed, t)``, and its tokens equal the
 reference's for the same seed and shape.  The token stream is a
 Zipf-distributed unigram draw mixed with a first-order Markov "phrase"
 structure; labels are next-token targets with the final position masked.
+The stub frontends' inputs (whisper's frame embeddings, the VLM's patch
+embeddings) are drawn after the tokens from the same generator, so they too
+equal the reference's.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ class SyntheticLM:
         )
 
     def batch(self, step: int) -> dict:
-        """Numpy batch for one step: {'tokens', 'labels'}."""
+        """Numpy batch for one step: {'tokens','labels'[, stub embeddings]}."""
         b, s = self.shape.global_batch, self.shape.seq_len
         v = self.cfg.vocab
         rng = self._rng(step)
@@ -49,4 +52,14 @@ class SyntheticLM:
 
         labels = np.full((b, s), -1, dtype=np.int32)
         labels[:, :-1] = tokens[:, 1:]
-        return {"tokens": tokens, "labels": labels}
+        out = {"tokens": tokens, "labels": labels}
+        d = self.cfg.d_model
+        if self.cfg.encoder is not None:
+            out["enc_embeds"] = rng.standard_normal(
+                (b, self.cfg.encoder.n_ctx, d)
+            ).astype(np.float32) * 0.02
+        if self.cfg.n_img_tokens:
+            out["img_embeds"] = rng.standard_normal(
+                (b, self.cfg.n_img_tokens, d)
+            ).astype(np.float32) * 0.02
+        return out

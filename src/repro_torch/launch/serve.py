@@ -12,22 +12,34 @@ by default, ``--device cpu`` for the host.
       --batch 8 --prompt-len 2000 --gen 32 [--axo-rank 8] [--full-config]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b \\
       --device cpu --batch 2 --prompt-len 8 --gen 4 --axo-rank 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+      --device cpu --batch 2 --prompt-len 8 --gen 4 --axo-rank 8
 
-``--arch`` takes the dense archs granite-3-2b, internlm2-1.8b, starcoder2-3b
-and deepseek-67b, the MoE arch kimi-k2-1t-a32b and the SSM arch mamba2-130m.
-The model decides which kernels a request runs.  A dense or MoE arch's
-prefill attention runs kernel K7 in every layer, at head width 64
-(granite), 128 (internlm2, starcoder2, deepseek-67b) or 112 (kimi-k2);
-mamba2-130m's prefill scan runs kernel K8 in every layer and its decode is
-the plain O(1) recurrence.  Every AxO projection runs kernel K6: all seven
-of a dense layer's (starcoder2's gelu MLP has six) and the head; in a kimi
-MoE layer its four attention projections, the shared expert's three and
-three for each of the 384 routed experts, at M = the expert's capacity
-buffer; for mamba2-130m the head alone.  The MoE router stays exact.  On the
-CPU the kernels' plain versions run; ``--axo-impl plain`` puts the AxO
-projections on K6's plain version.  Full width (``--full-config``) needs the
-card: deepseek-67b's bf16 weights (~134 GB) and kimi-k2's (~2 TB) fit it only
-cut in depth, as ``chip_smoke.py`` cuts them.
+``--arch`` takes every arch of the reference: the dense granite-3-2b,
+internlm2-1.8b, starcoder2-3b and deepseek-67b, the MoE kimi-k2-1t-a32b and
+deepseek-v3-671b (MLA), the SSM mamba2-130m, the hybrid jamba-v0.1-52b, the
+encoder-decoder whisper-medium and the VLM llama-3.2-vision-90b.  The model
+decides which kernels a request runs.  Prefill self-attention runs kernel
+K7 in every attention layer, at head width 64 (granite, whisper), 128
+(internlm2, starcoder2, deepseek-67b, jamba, the VLM) or 112 (kimi-k2);
+whisper's encoder layers and its and the VLM's cross-attention take K7
+non-causal (Sq 128 against 1,500 frames or 1,600 image tokens at the
+prefill below).  deepseek-v3's MLA attention (q/k width 576, v width 512)
+runs the port's plain attention, as the reference runs its XLA paths there.
+A mamba layer's prefill scan runs kernel K8 (mamba2-130m, jamba); its decode
+is the plain O(1) recurrence.  Every AxO projection runs kernel K6: a
+layer's attention projections (MLA's wq_a, wq_b, wkv_a and wo; the cross
+K/V only at the prefill, from the encoder or image states), its MLP's, in a
+MoE layer the shared expert's and three for each routed expert at M = the
+expert's capacity buffer, and the head; a mamba mixer has none.  The MoE
+router stays exact.  whisper's frame embeddings and the VLM's patch
+embeddings are the reference's stub frontends, drawn by ``SyntheticLM``
+from ``--seed``.  On the CPU the kernels' plain versions run; ``--axo-impl
+plain`` puts the AxO projections on K6's plain version.  Full width
+(``--full-config``) needs the card, and the large archs fit it only cut in
+depth, as ``chip_smoke.py`` cuts them: deepseek-67b (~134 GB of bf16
+weights), kimi-k2 (~2 TB), deepseek-v3 (~1.3 TB), jamba (~103 GB) and the
+VLM (~175 GB).
 
 ``--metrics-port`` serves ``GET /metrics`` (Prometheus text of the process's
 telemetry: the serving latency histograms, the DSE service's counters) and
@@ -85,8 +97,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(prefill, decode, params, toks, gen: int, tel=None, label: str = "exact"):
+def generate(prefill, decode, params, toks, gen: int, tel=None, label: str = "exact",
+             frontend=None):
     """Greedy generation: (tokens (B, gen), last-step logits per step, (t_pre, t_dec) s).
+
+    ``frontend`` is the stub modality input the prefill takes (whisper's
+    frames, the VLM's image tokens), ``None`` for a text-only arch.
 
     The two times are host clocks around work that ends in a device sync.
     With a telemetry sink ``tel`` the call is one request span: its prefill
@@ -102,7 +118,7 @@ def generate(prefill, decode, params, toks, gen: int, tel=None, label: str = "ex
         _sync(device)
         t0 = time.perf_counter()
         with tel.span("serve.prefill"):
-            logits, cache = prefill(params, toks)
+            logits, cache = prefill(params, toks, frontend)
             nxt = logits[:, -1].argmax(-1)[:, None]
             out, lgs = [nxt], [logits[:, -1]]
             _sync(device)
@@ -125,10 +141,10 @@ def generate(prefill, decode, params, toks, gen: int, tel=None, label: str = "ex
     return torch.cat(out, 1), lgs, (t_pre, t_dec)
 
 
-def replay(prefill, decode, params, toks, trajectory) -> list:
+def replay(prefill, decode, params, toks, trajectory, frontend=None) -> list:
     """Teacher-forced logits along ``trajectory`` (B, gen): one per step."""
     plen = toks.shape[1]
-    logits, cache = prefill(params, toks)
+    logits, cache = prefill(params, toks, frontend)
     lgs = [logits[:, -1]]
     for j in range(trajectory.shape[1] - 1):
         logits, cache = decode(params, cache, trajectory[:, j:j + 1], plen + j)
@@ -251,19 +267,25 @@ def _serve(cfg, args, ctx, tel, metrics, dse_queue) -> dict:
 
     params = init_params(model_spec(cfg), seed=args.seed, device=device)
     data = SyntheticLM(cfg, ShapeConfig("serve", max_seq, args.batch, "train"), seed=args.seed)
-    toks = torch.from_numpy(data.batch(0)["tokens"][:, : args.prompt_len]).long().to(device)
+    batch = data.batch(0)
+    toks = torch.from_numpy(batch["tokens"][:, : args.prompt_len]).long().to(device)
+    frontend = None   # the stub modality input, in the parameters' dtype
+    for key in ("enc_embeds", "img_embeds"):
+        if key in batch:
+            frontend = torch.from_numpy(batch[key]).to(device, params["norm_f"].dtype)
 
     prefill = make_prefill_step(cfg, max_seq=max_seq, ctx=ctx)
     decode = make_decode_step(cfg, ctx=ctx)
     for _ in range(max(0, args.requests - 1)):
-        generate(prefill, decode, params, toks, args.gen, tel)   # warm repeats
+        generate(prefill, decode, params, toks, args.gen, tel, frontend=frontend)  # warm
     out, exact_lgs, (t_prefill, t_decode) = generate(prefill, decode, params, toks, args.gen,
-                                                     tel)
+                                                     tel, frontend=frontend)
     print(f"arch={cfg.name} prefill({args.batch}x{args.prompt_len})="
           f"{t_prefill*1e3:.1f}ms decode({args.gen - 1} steps)={t_decode*1e3:.1f}ms")
     print("generated token ids (row 0):", out[0].tolist())
     result = {
-        "cfg": cfg, "params": params, "tokens": toks, "max_seq": max_seq,
+        "cfg": cfg, "params": params, "tokens": toks, "frontend": frontend,
+        "max_seq": max_seq,
         "trajectory": out, "exact_logits": exact_lgs,
         "exact_prefill_ms": t_prefill * 1e3, "exact_decode_ms": t_decode * 1e3,
         "prefills": max(1, args.requests), "decode_steps": max(1, args.requests) * (args.gen - 1),
@@ -281,11 +303,11 @@ def _serve(cfg, args, ctx, tel, metrics, dse_queue) -> dict:
         pre_a = make_prefill_step(cfg, max_seq=max_seq, axo=dep, ctx=ctx)
         dec_a = make_decode_step(cfg, axo=dep, ctx=ctx)
         out_a, _, _ = generate(pre_a, dec_a, params, toks, args.gen, tel,
-                               "axo")  # warm + free-run tokens
-        _, _, (tp, td) = generate(pre_a, dec_a, params, toks, args.gen, tel, "axo")
+                               "axo", frontend)  # warm + free-run tokens
+        _, _, (tp, td) = generate(pre_a, dec_a, params, toks, args.gen, tel, "axo", frontend)
 
         # teacher-forced comparison along the exact trajectory
-        rep = replay(pre_a, dec_a, params, toks, out)
+        rep = replay(pre_a, dec_a, params, toks, out, frontend)
         top1, rel = fidelity(rep, exact_lgs)
         match = float((out_a == out).float().mean())
         print(f"axo rank={args.axo_rank} ({dep.n_entries} projections, {dep.impl}): "

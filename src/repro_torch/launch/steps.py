@@ -3,9 +3,9 @@
 Counterpart of the serving half of ``repro/launch/steps.py``.  Each ``make_*``
 closes over the config (and an optional ``AxODeployment`` and
 ``ExecutionContext``) and returns a function of tensors; one pair serves every
-arch of ``configs.registry``, dense, MoE and Mamba-2 (a MoE layer's router
-aux loss is computed and dropped, as the reference's serving steps drop
-it).  PyTorch runs them eagerly; the reference's sharding trees and abstract caches have no use on
+arch of ``configs.registry`` (a MoE layer's router aux loss is computed and
+dropped, as the reference's serving steps drop it).  The prefill takes the
+stubbed modality input of the encoder-decoder and VLM families.  PyTorch runs them eagerly; the reference's sharding trees and abstract caches have no use on
 one device, and the train step waits for ROADMAP.md queue 1 item 11.
 """
 
@@ -33,7 +33,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int, axo=None, ctx=None):
-    """(params, tokens) -> (last-position logits (B, 1, V), cache).
+    """(params, tokens[, frontend]) -> (last-position logits (B, 1, V), cache).
+
+    ``frontend`` is the stubbed modality input: frame embeddings for the
+    encoder-decoder family, patch embeddings for the VLM (``cfg`` decides
+    which), as the reference's step takes it.
 
     The cache is created inside the step (zeros, the parameters' dtype and
     device; a mamba state in f32) at capacity ``max_seq`` and filled by the
@@ -44,12 +48,15 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int, axo=None, ctx=None):
     (K8 or its plain version).
     """
 
-    def prefill_step(params, tokens):
+    def prefill_step(params, tokens, frontend=None):
         norm = params["norm_f"]
         cache = init_cache(cfg, tokens.shape[0], max_seq, dtype=norm.dtype,
                            device=norm.device)
+        enc = frontend if cfg.encoder is not None else None
+        img = frontend if cfg.n_img_tokens else None
         x, _, cache = forward(params, cfg, tokens, mode="prefill", cache=cache,
-                              cache_index=0, axo=axo, ctx=ctx)
+                              cache_index=0, enc_embeds=enc, img_embeds=img, axo=axo,
+                              ctx=ctx)
         logits = logits_fn(params, cfg, x[:, -1:], axo=axo)
         return logits, cache
 

@@ -1,25 +1,36 @@
 """Model assembly: spec trees, caches, forward (train / prefill / decode).
 
-Counterpart of ``repro/models/model.py``, dense, MoE and Mamba-2 stages.  A
-model is ``embed -> stages -> final norm -> unembed``; a stage repeats a
-super-block of ``(mixer, mlp)`` layers ``repeats`` times.  Parameters and
-caches keep the reference's tree: each leaf of a stage is stacked over
-``repeats``, and the forward pass takes layer r's slice of every leaf in a
-Python loop where the reference scans.  The port runs the ``attn``/``attn_nc``
-mixers with ``dense``/``moe``/``none`` MLPs (the ``dense`` family, e.g.
-granite-3-2b, internlm2-1.8b, starcoder2-3b, deepseek-67b; the ``moe`` family,
-kimi-k2-1t-a32b) and the ``mamba`` mixer with no MLP (the ``ssm`` family,
-mamba2-130m); MLA, cross-attention, the hybrid stack and the
-encoder-decoder and VLM frontends raise (ROADMAP.md queue 1 item 10), as
-does ``compute_loss`` with the train step (queue 1 item 11).  ``forward``
-returns the sum of the MoE layers' router aux losses, as the reference's
-does.
+Counterpart of ``repro/models/model.py``.  A model is ``embed -> stages ->
+final norm -> unembed``; a stage repeats a super-block of ``(mixer, mlp)``
+layers ``repeats`` times.  Parameters and caches keep the reference's tree:
+each leaf of a stage is stacked over ``repeats``, and the forward pass takes
+layer r's slice of every leaf in a Python loop where the reference scans.
+Every family of the reference runs:
+
+  dense    [(attn, dense)]      granite-3-2b, internlm2-1.8b, starcoder2-3b,
+                                deepseek-67b
+  moe      [(attn|mla, moe)]    kimi-k2-1t-a32b; deepseek-v3-671b (MLA, after
+                                a leading dense stage; its MTP leaves are in
+                                the tree)
+  ssm      [(mamba, none)]      mamba2-130m
+  hybrid   jamba-v0.1-52b's 8-layer block: 7 mamba + 1 attn, dense and moe
+           MLPs alternating
+  encdec   whisper-medium: an encoder stage of (attn_nc, dense) over stub
+           frame embeddings + a decoder of (attn_x, dense)
+  vlm      llama-3.2-vision-90b's 5-layer block: 4 (attn, dense) + 1 gated
+           (xattn, dense) over stub patch embeddings
+
+The modality frontends are stubs, as in the reference: ``forward`` takes
+precomputed ``enc_embeds`` (whisper) or ``img_embeds`` (the VLM).  The MTP
+head's leaves are used only by the training loss, which waits with the train
+step for ROADMAP.md queue 1 item 11.  ``forward`` returns the sum of the MoE
+layers' router aux losses, as the reference's does.
 
 ``forward`` takes an optional ``ExecutionContext`` whose ``attention`` menu
-picks kernel K7 or its plain version for prefill attention, and whose
-``ssd_scan`` menu picks kernel K8 or its plain version for the Mamba-2
-prefill scan; an ``AxODeployment`` carries its own context for the AxO
-projections (K6).
+picks kernel K7 or its plain version for prefill attention (self, encoder
+and cross), and whose ``ssd_scan`` menu picks kernel K8 or its plain version
+for the Mamba-2 prefill scan; an ``AxODeployment`` carries its own context
+for the AxO projections (K6).
 """
 
 from __future__ import annotations
@@ -27,7 +38,15 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig, StageConfig
-from .attention import attn_apply, attn_spec
+from .attention import (
+    attn_apply,
+    attn_spec,
+    mla_apply,
+    mla_spec,
+    xattn_apply,
+    xattn_kv,
+    xattn_spec,
+)
 from .layers import embed_spec, mlp_apply, mlp_spec, rmsnorm, sinusoid_pos
 from .moe import moe_apply, moe_spec
 from .spec import ParamSpec, stacked
@@ -42,19 +61,22 @@ __all__ = [
 ]
 
 # Which mixer kinds carry decode state.
-HAS_CACHE = {"attn": True, "attn_nc": False, "mamba": True}
-_LATER = "is not ported yet (ROADMAP.md queue 1 item 10)"
+HAS_CACHE = {"attn": True, "attn_x": True, "xattn": True, "mla": True,
+             "mamba": True, "attn_nc": False}
+MLPS = ("dense", "moe", "none")
 
 
 def _check_config(cfg: ModelConfig) -> None:
-    if cfg.encoder is not None or cfg.n_img_tokens or cfg.mtp:
-        raise NotImplementedError(f"{cfg.name}: its encoder / image / MTP frontend {_LATER}")
     for stage in cfg.stages:
         for mixer, mlp in stage.layers:
             if mixer not in HAS_CACHE:
-                raise NotImplementedError(f"{cfg.name}: mixer {mixer!r} {_LATER}")
-            if mlp not in ("dense", "moe", "none"):
-                raise NotImplementedError(f"{cfg.name}: mlp {mlp!r} {_LATER}")
+                raise ValueError(f"{cfg.name}: unknown mixer {mixer!r}")
+            if mlp not in MLPS:
+                raise ValueError(f"{cfg.name}: unknown mlp {mlp!r}")
+
+
+def _encoder_stage(cfg: ModelConfig) -> StageConfig:
+    return StageConfig(repeats=cfg.encoder.n_layers, layers=(("attn_nc", "dense"),))
 
 
 # ---------------------------------------------------------------------------
@@ -62,10 +84,26 @@ def _check_config(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _mixer_spec(cfg: ModelConfig, mixer: str) -> dict:
+    if mixer == "attn_x":                      # whisper decoder: self + cross
+        return {
+            "self": attn_spec(cfg),
+            "cross": xattn_spec(cfg),
+            "norm_x": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        }
+    if mixer == "xattn":
+        return xattn_spec(cfg)
+    if mixer == "mla":
+        return mla_spec(cfg)
+    if mixer == "mamba":
+        return mamba_spec(cfg)
+    return attn_spec(cfg)                      # attn, attn_nc
+
+
 def _layer_spec(cfg: ModelConfig, mixer: str, mlp: str) -> dict:
     out = {
         "norm1": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
-        "mixer": mamba_spec(cfg) if mixer == "mamba" else attn_spec(cfg),
+        "mixer": _mixer_spec(cfg, mixer),
     }
     if mlp != "none":
         out["norm2"] = ParamSpec((cfg.d_model,), ("embed",), init="ones")
@@ -86,11 +124,24 @@ def _stage_spec(cfg: ModelConfig, stage: StageConfig) -> dict:
 
 def model_spec(cfg: ModelConfig) -> dict:
     _check_config(cfg)
-    return {
+    out = {
         "embed": embed_spec(cfg),
         "stages": {str(i): _stage_spec(cfg, s) for i, s in enumerate(cfg.stages)},
         "norm_f": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
     }
+    if cfg.encoder is not None:
+        out["encoder"] = {
+            "stage": _stage_spec(cfg, _encoder_stage(cfg)),
+            "norm_f": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+        }
+    if cfg.mtp:
+        d = cfg.d_model
+        out["mtp"] = {
+            "norm_h": ParamSpec((d,), ("embed",), init="ones"),
+            "norm_e": ParamSpec((d,), ("embed",), init="ones"),
+            "proj": ParamSpec((2 * d, d), (None, "embed")),
+        }
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +149,8 @@ def model_spec(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _layer_cache_spec(cfg: ModelConfig, mixer: str, batch: int, max_seq: int) -> dict:
+def _layer_cache_spec(cfg: ModelConfig, mixer: str, batch: int, max_seq: int,
+                      enc_len: int) -> dict:
     if mixer == "mamba":
         s = cfg.ssm
         dims = mamba_dims(cfg)
@@ -110,22 +162,38 @@ def _layer_cache_spec(cfg: ModelConfig, mixer: str, batch: int, max_seq: int) ->
                 ("batch", "ssm_heads", None, None), init="zeros", dtype="float32",
             ),
         }
+    if mixer == "mla":
+        m = cfg.mla
+        return {
+            "ckv": ParamSpec((batch, max_seq, m.kv_lora_rank),
+                             ("batch", "kv_seq", "lora"), init="zeros"),
+            "kpe": ParamSpec((batch, max_seq, m.rope_head_dim),
+                             ("batch", "kv_seq", None), init="zeros"),
+        }
     g, hd = cfg.kv_heads, cfg.resolved_head_dim
     kv_axes = ("batch", "kv_seq", "kv_heads", "head_dim")
-    return {
-        "k": ParamSpec((batch, max_seq, g, hd), kv_axes, init="zeros"),
-        "v": ParamSpec((batch, max_seq, g, hd), kv_axes, init="zeros"),
-    }
+    enc_axes = ("batch", "kv_enc", "kv_heads", "head_dim")
+    out = {}
+    if mixer in ("attn", "attn_x"):
+        out["k"] = ParamSpec((batch, max_seq, g, hd), kv_axes, init="zeros")
+        out["v"] = ParamSpec((batch, max_seq, g, hd), kv_axes, init="zeros")
+    if mixer in ("attn_x", "xattn"):
+        out["xk"] = ParamSpec((batch, enc_len, g, hd), enc_axes, init="zeros")
+        out["xv"] = ParamSpec((batch, enc_len, g, hd), enc_axes, init="zeros")
+    return out
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """Spec tree for the decode cache (same nesting as the param stages tree).
 
-    A mamba layer's ``state`` leaf is f32 whatever the tree's dtype."""
+    A mamba layer's ``state`` leaf is f32 whatever the tree's dtype; the
+    cross-attention's ``xk``/``xv`` hold ``enc_len`` rows, the encoder's
+    frames or the image tokens."""
     _check_config(cfg)
+    enc_len = cfg.encoder.n_ctx if cfg.encoder is not None else cfg.n_img_tokens
     out = {}
     for si, stage in enumerate(cfg.stages):
-        blk = {str(i): _layer_cache_spec(cfg, mixer, batch, max_seq)
+        blk = {str(i): _layer_cache_spec(cfg, mixer, batch, max_seq, enc_len)
                for i, (mixer, _) in enumerate(stage.layers) if HAS_CACHE[mixer]}
         out[str(si)] = _stack_tree(blk, stage.repeats)
     return out
@@ -155,36 +223,72 @@ def _mamba(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict, cache: dict | 
     return out, cache
 
 
+def _cross_kv(p: dict, ctx: dict, cache: dict | None, axo):
+    """Cross K/V: from the encoder/image states at the prefill (written into
+    the cache's ``xk``/``xv``), else the cached ones."""
+    if ctx["enc_out"] is None:
+        if cache is None:
+            raise ValueError("cross-attention needs enc_embeds / img_embeds or a filled cache")
+        return cache["xk"], cache["xv"]
+    kv = xattn_kv(p, ctx["enc_out"], axo=axo)
+    if cache is not None:
+        cache["xk"].copy_(kv[0])
+        cache["xv"].copy_(kv[1])
+    return kv
+
+
 def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
                  ctx: dict, cache: dict | None, axo_layer: dict | None = None):
     """Pre-norm residual layer.  Returns (x, aux, new_cache).
 
     ``axo_layer`` is this layer's entry dict from an ``AxODeployment``
     (``ctx["axo"]``): its named projections run through the approximate
-    operator instead of exact matmuls.  A mamba layer has no entries (the
-    reference's ``deploy_axo`` gives it none).  The cache is written in
-    place: an attention layer's KV rows, and a mamba layer's conv tail and
-    f32 SSD state (by prefill from the whole prompt, by decode one step on).
-    ``aux`` is a moe layer's router aux loss, ``None`` for other layers.
+    operator instead of exact matmuls.  A mamba mixer has no entries (the
+    reference's ``deploy_axo`` gives it none); its MLP has.  The cache is
+    written in place: an attention layer's KV rows, MLA's latent rows, the
+    cross K/V at the prefill, and a mamba layer's conv tail and f32 SSD state
+    (by prefill from the whole prompt, by decode one step on).  ``aux`` is a
+    moe layer's router aux loss, ``None`` for other layers.
     """
     dep = ctx["axo"]
 
-    def ax(part):
-        if dep is None or not axo_layer or part not in axo_layer:
-            return None
-        return (dep, axo_layer[part])
+    def ax(part, sub=None):
+        ent = axo_layer.get(part) if dep is not None and axo_layer else None
+        if ent is not None and sub is not None:
+            ent = ent.get(sub)
+        return None if ent is None else (dep, ent)
 
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    use_rope = cfg.pos_encoding == "rope"
+    attn_kw = dict(positions=ctx["positions"], cache_index=ctx["cache_index"],
+                   impl=ctx["attn_impl"])
     if mixer == "mamba":
         out, new_cache = _mamba(p["mixer"], h, cfg, ctx, cache)
-    else:
+    elif mixer in ("attn", "attn_nc"):
         out, new_cache = attn_apply(
-            p["mixer"], h, cfg,
-            positions=ctx["positions"], causal=(mixer == "attn"),
-            use_rope=cfg.pos_encoding == "rope" and mixer == "attn",
-            cache=cache if mixer == "attn" else None, cache_index=ctx["cache_index"],
-            axo=ax("mixer"), impl=ctx["attn_impl"],
-        )
+            p["mixer"], h, cfg, causal=(mixer == "attn"), use_rope=use_rope and mixer == "attn",
+            cache=cache if mixer == "attn" else None, axo=ax("mixer"), **attn_kw)
+    elif mixer == "attn_x":
+        self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
+        out, _ = attn_apply(p["mixer"]["self"], h, cfg, causal=True, use_rope=use_rope,
+                            cache=self_cache, axo=ax("mixer", "self"), **attn_kw)
+        x = x + out
+        h = rmsnorm(x, p["mixer"]["norm_x"], cfg.norm_eps)
+        cross = ax("mixer", "cross")
+        kv = _cross_kv(p["mixer"]["cross"], ctx, cache, cross)
+        out = xattn_apply(p["mixer"]["cross"], h, cfg, kv=kv, axo=cross,
+                          impl=ctx["attn_impl"])
+        new_cache = cache
+    elif mixer == "xattn":
+        kv = _cross_kv(p["mixer"], ctx, cache, ax("mixer"))
+        out = xattn_apply(p["mixer"], h, cfg, kv=kv, gated=True, axo=ax("mixer"),
+                          impl=ctx["attn_impl"])
+        new_cache = cache
+    elif mixer == "mla":
+        out, new_cache = mla_apply(p["mixer"], h, cfg, positions=ctx["positions"], cache=cache,
+                                   cache_index=ctx["cache_index"], axo=ax("mixer"))
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
     x = x + out
     aux = None
     if mlp != "none":
@@ -197,9 +301,40 @@ def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfi
     return x, aux, new_cache
 
 
+def _run_stage(sp: dict, stage: StageConfig, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
+               sc: dict, sa: dict):
+    """The stage's super-block over its ``repeats``; returns (x, summed aux or None).
+
+    ``sp``, ``sc`` and ``sa`` are the stage's parameters, cache and AxO
+    entries, each stacked over ``repeats``."""
+    aux = None
+    for r in range(stage.repeats):
+        for li, (mixer, mlp) in enumerate(stage.layers):
+            key = str(li)
+            lc = _at(sc[key], r) if key in sc else None
+            la = _at(sa[key], r) if key in sa else None
+            x, da, _ = _apply_layer(mixer, mlp, _at(sp[key], r), x, cfg, ctx, lc, axo_layer=la)
+            if da is not None:
+                aux = da if aux is None else aux + da
+    return x, aux
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
+
+
+def _encode(params: dict, cfg: ModelConfig, enc_embeds: torch.Tensor, ctx: dict, axo=None):
+    """Whisper-style encoder over precomputed frame embeddings (stub frontend):
+    ``n_layers`` non-causal (attn_nc, dense) layers, then its final norm."""
+    x = enc_embeds
+    positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.pos_encoding == "sinusoid":
+        x = x + sinusoid_pos(positions, cfg.d_model).to(x.dtype)[None]
+    ectx = dict(ctx, positions=positions, cache_index=0, enc_out=None)
+    ea = axo.encoder if axo is not None and axo.encoder else {}
+    x, _ = _run_stage(params["encoder"]["stage"], _encoder_stage(cfg), x, cfg, ectx, {}, ea)
+    return rmsnorm(x, params["encoder"]["norm_f"], cfg.norm_eps)
 
 
 def forward(
@@ -210,6 +345,8 @@ def forward(
     mode: str = "train",                  # train | prefill | decode
     cache: dict | None = None,
     cache_index: int | None = None,
+    enc_embeds: torch.Tensor | None = None,   # (B, n_ctx, d) whisper stub frontend
+    img_embeds: torch.Tensor | None = None,   # (B, n_img, d) VLM stub frontend
     axo=None,                             # optional axo.deploy.AxODeployment
     ctx=None,                             # optional core.engine.ExecutionContext
 ):
@@ -217,7 +354,9 @@ def forward(
 
     ``aux`` is the f32 sum of the moe layers' router aux losses (0 without
     one); ``cache`` is updated in place and returned (``None`` without a
-    cache).
+    cache).  The encoder runs where ``cfg`` has one and ``enc_embeds`` is
+    given (the prefill); the VLM's image states are ``img_embeds`` as given.
+    Without them (a decode step) cross-attention reads its cached K/V.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -235,23 +374,22 @@ def forward(
         "positions": positions,
         "cache_index": ci,
         "axo": axo,
+        "enc_out": None,
         "attn_impl": "kernel" if ctx is None else ctx.resolve_impl("attention", "kernel"),
         "ssd_impl": "kernel" if ctx is None else ctx.resolve_impl("ssd_scan", "kernel"),
     }
+    if cfg.encoder is not None and enc_embeds is not None:
+        lctx["enc_out"] = _encode(params, cfg, enc_embeds, lctx, axo)
+    elif cfg.n_img_tokens and img_embeds is not None:
+        lctx["enc_out"] = img_embeds
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, stage in enumerate(cfg.stages):
-        sp = params["stages"][str(si)]
         sc = cache.get(str(si), {}) if cache is not None else {}
         sa = axo.stages.get(str(si), {}) if axo is not None else {}
-        for r in range(stage.repeats):
-            for li, (mixer, mlp) in enumerate(stage.layers):
-                key = str(li)
-                lc = _at(sc[key], r) if key in sc else None
-                la = _at(sa[key], r) if key in sa else None
-                x, da, _ = _apply_layer(mixer, mlp, _at(sp[key], r), x, cfg, lctx, lc,
-                                        axo_layer=la)
-                if da is not None:
-                    aux = aux + da
+        x, da = _run_stage(params["stages"][str(si)], stage, x, cfg, lctx, sc, sa)
+        if da is not None:
+            aux = aux + da
 
     x = rmsnorm(x, params["norm_f"], cfg.norm_eps)
     return x, aux, cache

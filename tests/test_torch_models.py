@@ -120,19 +120,23 @@ def test_config_and_spec_match_reference():
 
 
 def test_unported_archs_and_mixers_raise():
-    with pytest.raises(ValueError, match="queue 1 item 10"):
-        get_arch("jamba-v0.1-52b")
+    """Every arch and mixer of the reference is ported: what still raises is
+    an arch id or a mixer / mlp kind the reference does not know either."""
     with pytest.raises(ValueError, match="unknown"):
         get_arch("gpt-17")
     from dataclasses import replace
 
     from repro_torch.configs.base import StageConfig
+    from repro_torch.models.model import cache_spec
 
     cfg = get_arch("granite-3-2b").reduced()
-    for layers in ((("mla", "dense"),), (("xattn", "dense"),), (("attn_x", "dense"),)):
+    for layers, what in (((("conv", "dense"),), "unknown mixer 'conv'"),
+                         ((("attn", "glu"),), "unknown mlp 'glu'")):
         bad = replace(cfg, stages=(StageConfig(repeats=1, layers=layers),))
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        with pytest.raises(ValueError, match=what):
             model_spec(bad)
+        with pytest.raises(ValueError, match=what):
+            cache_spec(bad, 1, 8)
 
 
 def test_params_from_jax_covers_every_leaf(granite):

@@ -481,3 +481,100 @@ def test_reduced_mamba_serving_runs_through_k8_on_card(cuda):
     assert k6.axo_matmul.launches == axo["prefills"] + axo["decode_steps"]
     assert k7.flash_attention.launches == 0
     assert np.isfinite(axo["rel_err"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq, skv, h, g, hd", [(128, 1500, 16, 16, 64), (1500, 1500, 16, 16, 64),
+                                               (128, 1600, 64, 8, 128), (77, 1537, 8, 2, 112)])
+def test_k7_non_causal_at_long_unequal_lengths_on_card(cuda, dtype, sq, skv, h, g, hd):
+    """K7 with ``causal=False``: whisper's cross-attention (Sq 128 x Skv 1,500,
+    hd 64) and encoder (1,500 x 1,500), the VLM's cross-attention (128 x
+    1,600, hd 128, H 64 / G 8) and a ragged case; Skv is no multiple of the
+    64-key tile, so the last tile is zero-filled past kv_len and masked.
+    bf16 to one ulp of the output's scale; f32 to 2e-6 of the scale of the
+    terms summed, the largest softmax-weighted sum of |v| (over 1,500 random
+    keys the output itself cancels to a fifth of that, and f32 rounding of
+    the sum scales with the terms)."""
+    rng = np.random.default_rng(skv + sq)
+    q = torch.from_numpy(rng.standard_normal((2, h, sq, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, g, skv, hd)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda, dtype) for t in (q, k, v))
+    before = k7.flash_attention.launches
+    got = k7.flash_attention(q, k, v, causal=False, kv_len=skv)
+    want = k7.flash_attention_plain(q, k, v, causal=False, kv_len=skv)
+    torch.cuda.synchronize()
+    assert k7.flash_attention.launches == before + 1
+    if dtype == torch.float32:
+        scale = k7.flash_attention_plain(q, k, v.abs(), causal=False, kv_len=skv).abs().max()
+        tol = 2e-6 * float(scale)
+    else:
+        tol = 2.0 ** -7 * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k, n", [(4096, 14336), (14336, 4096), (7168, 2048), (2048, 7168)])
+@pytest.mark.parametrize("m", [24, 80])
+def test_k6_at_prefill_expert_buffers_matches_plain_version_on_card(cuda, m, k, n):
+    """K6 at the prefill expert buffers of deepseek-v3 (M = 24) and jamba (M =
+    80) against their experts' gate/up and down codes, on the tensor-core
+    route; the buffer's unfilled rows (all-zero codes) included."""
+    f, g, sv = _op_tables("demo", cuda)
+    a, b = _k6_inputs(m, k, n, cuda, m + k)
+    a[2 * m // 3:] = 0
+    assert k6.plan(m, n, k, 8, 256).route == "mma"
+    before = k6.axo_matmul.launches
+    got = k6.axo_matmul(a, b, f, g, sv)
+    want = k6.axo_matmul_plain(a, b, f, g, sv)
+    torch.cuda.synchronize()
+    assert k6.axo_matmul.launches == before + 1
+    assert _rel(got, want) < 1e-5
+
+
+def _launches_a_forward(cfg, mode: str) -> dict:
+    """K6, K7 and K8 launches of one forward of ``cfg`` with every AxO layer
+    group deployed: the cross K/V projections (and the encoder) run only at
+    the prefill, attention kernels only there."""
+    mlp = 3 if cfg.act == "swiglu" else 2
+    pre = mode == "prefill"
+    k6n = {"attn": 4, "attn_nc": 4, "mla": 4, "mamba": 0, "xattn": 4 if pre else 2,
+           "attn_x": 8 if pre else 6}
+    k7n = {"attn": 1, "attn_nc": 1, "xattn": 1, "attn_x": 2, "mla": 0, "mamba": 0}
+    out = {"K6": 1, "K7": 0, "K8": 0}
+    layers = [(st.repeats, mx, ff) for st in cfg.stages for mx, ff in st.layers]
+    if cfg.encoder is not None and pre:
+        layers.append((cfg.encoder.n_layers, "attn_nc", "dense"))
+    for rep, mixer, ff in layers:
+        ffn = {"dense": mlp, "none": 0}.get(ff) if ff != "moe" else (
+            3 * cfg.moe.n_experts + (mlp if cfg.moe.n_shared else 0))
+        out["K6"] += rep * (k6n[mixer] + ffn)
+        out["K7"] += rep * k7n[mixer] * pre
+        out["K8"] += rep * (mixer == "mamba") * pre
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v3-671b", "whisper-medium",
+                                  "llama-3.2-vision-90b"])
+def test_reduced_families_serve_through_the_kernels_on_card(cuda, arch):
+    """The serve entry at the reduced hybrid, MLA, encoder-decoder and VLM
+    configs on the card: K7 in every attention layer of a prefill (whisper's
+    encoder and cross-attention non-causal; none for MLA), K8 in every mamba
+    layer, K6 for every deployed projection of a forward."""
+    for fn in (k6.axo_matmul, k7.flash_attention, k8.ssd_scan):
+        fn.launches = 0
+    out = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "8", "--gen", "4",
+                      "--axo-rank", "8"])
+    torch.cuda.synchronize()
+    cfg, axo = out["cfg"], out["axo"]
+    pre, dec = _launches_a_forward(cfg, "prefill"), _launches_a_forward(cfg, "decode")
+    assert dec["K7"] == dec["K8"] == 0
+    prefills = out["prefills"] + axo["prefills"]
+    assert k7.flash_attention.launches == pre["K7"] * prefills
+    assert k8.ssd_scan.launches == pre["K8"] * prefills
+    assert k6.axo_matmul.launches == (pre["K6"] * axo["prefills"]
+                                      + dec["K6"] * axo["decode_steps"])
+    assert (arch == "deepseek-v3-671b") == (pre["K7"] == 0)
+    assert np.isfinite(axo["rel_err"])
