@@ -161,11 +161,49 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      one-ulp nudge of the norm weights moves the plain AxO pass by more, to
      twice that; and MLA's attention at deepseek-v3's prefill timed beside
      SDPA on K/V expanded to the heads.
+  train: K7 and K8 under autograd, then training.  ``FlashAttentionFn`` at
+     granite-3-2b's train shape (bf16, B=8, H=32, G=8, S=128, hd 64) and a
+     reduced f32 shape and ``SSDScanFn`` at mamba2-130m's microbatch (bf16,
+     B=4, S=2,000, H=24, P=64, N=128) and a reduced f32 shape: the forward
+     equal to the raw kernel call, the gradients against plain autograd to
+     one bf16 ulp of each gradient's largest entry (f32: 1e-5 relative
+     norm); the raw wrappers must refuse grad-requiring inputs.  Every
+     reduced arch in f32 takes two train steps on the kernels and on the
+     plain versions (``kernel_impl="plain"``): the first step's loss and
+     grad norm, the second step's loss and the parameters after both, each
+     to SERVE_REL, or, where the kernel run differs by more, to twice the
+     most that six one-ulp nudges of the weights do to the plain run (the
+     second step's grad norm is printed: from random weights the reduced VLM
+     trains chaotically, its second grad norm spreading over 187-1326 across
+     nudges); K7 and K8 launch twice a forward (remat).  granite-3-2b at
+     full width and depth (2.53 G parameters, remat; the attention
+     projections drawn at 1/sqrt(fan-in), ``rescale_attention``): the
+     gradient of the first batch's loss on the kernels against the same on
+     the plain versions, from the same parameters, in bf16 and in f32 (the
+     bf16 parameters upcast): the loss, the grad norm and each leaf's
+     gradient a layer, each to SERVE_REL or, where the kernels differ by
+     more, to twice the most that two one-ulp nudges of the norm weights do
+     to the plain run; a limit of TRAIN_GRAD_CAP or more fails, as it could
+     not tell a lost gradient.  Then six bf16 AdamW steps of
+     ``make_train_step`` at batch 8 x seq 128, lr 1e-3 cosine with warmup
+     5, clip 1.0: finite losses and grad norms, the loss falling by
+     TRAIN_MIN_DROP or more, K7 80 launches a step; step time, tokens/s,
+     peak memory and the step's bound.  No checkpoint at this width (one
+     would be ~25 GB).  mamba2-130m through ``launch.train.main`` (8 steps,
+     batch 8 x seq 2,000 in two microbatches, int8 accumulation,
+     checkpoints every 4 steps): K8 96 launches a step, each on the
+     tensor-core route; then the same run through ``train_loop`` with a
+     fault before step 5: the losses after recovery within TRAIN_REPLAY_REL
+     of the uninterrupted run's (whether bitwise is printed); then a
+     checkpoint of its final state saved and restored, timed.
   device-time: K6's and K7's device time per call from torch.profiler, and
      their yardsticks', at phase 3's shapes, beside phase 3's CUDA-event
      times, K8's at mamba2's prefill, and K2's and K5's, both designs, at
      phase 3's D and at their path launches' D, and K2's two tiers at D=258,
-     D=37 and its path's D; after the
+     D=37 and its path's D; first, one profiled train step each of
+     granite-3-2b and mamba2-130m (the device time split into K7 and K8
+     forward, the plain attention and scan backward, the global-norm clip,
+     the optimizer and the GEMM kernels, and the device-busy share); after the
      timed phases, because after a profiler session the host issues every
      launch more slowly.
   sync: one ranking (``constraint_ranks``, P=128) under
@@ -234,7 +272,8 @@ causal layers) and at hd 112 from serve-moe, of K7 non-causal from
 serve-encdec and serve-vlm, of K6 in serve-dense, serve-moe, serve-hybrid +
 serve-mla (the expert-buffer record) and serve-encdec + serve-vlm (the cross
 K/V record), of K8 at jamba's shape from serve-hybrid, each counted
-separately) and the card's ``nvidia-smi`` name and power limit; the last line is the
+separately; K7's and K8's records add the train phase's launches, granite's
+steps and mamba2's run through ``launch.train.main``, as ``train_launches``) and the card's ``nvidia-smi`` name and power limit; the last line is the
 result JSON.  Nothing of JAX or of the reference package is imported.
 """
 
@@ -244,6 +283,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -343,6 +383,20 @@ K8_Q = 32                               # K8's own chunk length, both designs (c
 GA_SEEDS = tuple(range(20))
 # the largest weight, in codes, the serve checks run K6's plain version on at once
 PLAIN_K6_ELEMS = 1 << 28
+# the train phase: granite-3-2b's steps (batch x seq, cosine warmup) and
+# mamba2-130m's run through launch.train.main, a fault injected before one step
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 128, 6, 5
+TRAIN_SSM_ARGS = ["--arch", "mamba2-130m", "--full-config", "--steps", "8", "--batch", "8",
+                  "--seq", "2000", "--accum", "2", "--int8-accum", "--ckpt-every", "4"]
+TRAIN_FAULT_STEP = 5
+# losses after recovery vs the uninterrupted run (a replay repeats every
+# kernel and GEMM, but an atomic reduction may sum in another order)
+TRAIN_REPLAY_REL = SERVE_REL
+# granite's full-width gradient, kernels vs plain: a limit this large, set by
+# nudges, could not tell a gradient lost through a kernel (relative error 1)
+TRAIN_GRAD_CAP = 0.25
+# the least granite's loss must fall over its TRAIN_STEPS steps (nats)
+TRAIN_MIN_DROP = 1.0
 
 
 def smi(query: str) -> str:
@@ -549,14 +603,15 @@ def k8_per_prefill(cfg) -> int:
     return sum(r for r, mixer, _ in _layers(cfg, "prefill") if mixer == "mamba")
 
 
-def nudge_norms(torch, params: dict, seed: int) -> dict:
-    """``params`` with every norm weight moved one f32 ulp up or down at random."""
+def nudge_norms(torch, params: dict, seed: int, prefix: str = "norm") -> dict:
+    """``params`` with every norm weight (every leaf whose name starts with
+    ``prefix``; ``""``: every leaf) moved one ulp up or down at random."""
     gen = torch.Generator(device=params["norm_f"].device).manual_seed(seed)
 
     def walk(tree, name=""):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
-        if not name.startswith("norm"):
+        if not name.startswith(prefix):
             return tree
         sign = torch.randint(0, 2, tree.shape, generator=gen, device=tree.device) * 2 - 1
         return torch.nextafter(tree, tree + sign.to(tree.dtype))
@@ -624,6 +679,479 @@ def profile_decode(torch, prefill, decode, params, toks, steps: int = 2, front=N
     nxt = logits[:, -1].argmax(-1)[:, None]
     positions = iter(range(toks.shape[1], toks.shape[1] + steps))
     return profile_calls(torch, lambda: decode(params, cache, nxt, next(positions)), steps)
+
+
+def rescale_attention(torch, params: dict) -> dict:
+    """``params`` with every attention projection scaled in place to a
+    1/sqrt(fan-in) draw.  ``init_params``, as the reference's, takes a
+    leaf's fan-in from its second-to-last axis: the head count for wq, wk,
+    wv (d, heads, hd) and the head width for wo (heads, hd, d), so they
+    start 5.7-16x too large at granite-3-2b's shapes.  Then the residual
+    grows ~10x a layer and at 40 layers a one-ulp nudge of the norm weights
+    moves every gradient by more than itself: no check can hold the
+    gradient, and clipping sets every step."""
+
+    def walk(tree):
+        if not isinstance(tree, dict):
+            return
+        if "wq" in tree and "wo" in tree:
+            with torch.no_grad():
+                for name in ("wq", "wk", "wv"):
+                    tree[name].mul_((tree[name].shape[-2] / tree[name].shape[-3]) ** 0.5)
+                tree["wo"].mul_(tree["wo"].shape[-3] ** -0.5)
+            return
+        for v in tree.values():
+            walk(v)
+
+    walk(params)
+    return params
+
+
+def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
+    """The train phase (module docstring): K7 and K8 under autograd, every
+    reduced arch's train step on the kernels against the plain versions,
+    granite-3-2b's and mamba2-130m's full-width training.  Returns the
+    printed figures and what the device-time phase profiles: each full-width
+    model's step function, state and a batch."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_tree, save_tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCH_IDS, get_arch
+    from repro_torch.core.engine import ExecutionContext
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import flash_attention as k7, ssd_scan as k8
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import compute_loss, model_spec
+    from repro_torch.models.spec import count_params, init_params
+    from repro_torch.optim import cosine_schedule, make_optimizer, tree_leaves, tree_map
+    from repro_torch.train import train_loop
+
+    stats, keep = {}, {}
+
+    def grad_err(got, want) -> float:
+        """bf16: max error over the largest entry; f32: relative norm."""
+        if want.dtype == torch.bfloat16:
+            return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        return rel_norm(got, want)
+
+    def grad_limit(dtype) -> float:
+        return 2.0 ** -7 if dtype == torch.bfloat16 else REL_RTOL
+
+    # (1) the autograd functions against plain autograd, at the train shapes
+    for label, (b, s, h, g, hd), dtype in (
+            ("granite train", (8, 128, 32, 8, 64), torch.bfloat16),
+            ("reduced", (2, 32, 4, 2, 16), torch.float32)):
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        kk, vv = (torch.randn((b, s, g, hd), generator=gen, device=dev).to(dtype).transpose(1, 2)
+                  for _ in range(2))
+        w = torch.randn((b, h, s, hd), generator=gen, device=dev)
+
+        def run(fn):
+            ins = [t.detach().requires_grad_() for t in (q, kk, vv)]
+            out = fn(*ins)
+            return out.detach(), torch.autograd.grad((out.float() * w).sum(), ins)
+
+        out_k, g_k = run(lambda *t: k7.FlashAttentionFn.apply(*t, True, None, 0, s))
+        out_p, g_p = run(lambda *t: k7.flash_attention_plain(*t, causal=True))
+        with torch.no_grad():
+            same = torch.equal(out_k, k7.flash_attention(q, kk, vv))
+        errs = [grad_err(a, c) for a, c in zip(g_k, g_p)]
+        fwd = float((out_k.float() - out_p.float()).abs().max() / out_p.float().abs().max())
+        print(f"phase train: FlashAttentionFn at the {label} shape (B={b}, H={h}, G={g}, S={s}, "
+              f"hd {hd}, {str(dtype)[6:]}): forward equals the raw K7 call: {same}; forward vs "
+              f"plain {fwd:.3g}; q/k/v gradients vs plain autograd {[f'{e:.3g}' for e in errs]} "
+              f"(limit {grad_limit(dtype):.3g})", flush=True)
+        if not same or max(errs) > grad_limit(dtype):
+            raise AssertionError(f"FlashAttentionFn at the {label} shape differs")
+    for label, shape, dtype, chunk in (
+            ("mamba2 microbatch", (4, 2000, 24, 1, 64, 128), torch.bfloat16, 128),
+            ("reduced", (2, 40, 16, 1, 8, 16), torch.float32, 16)):
+        x, dt, a, bm, cm = ssd_inputs(torch, shape, dtype, gen)
+        w = torch.randn(x.shape, generator=gen, device=dev)
+
+        def run(fn):
+            ins = [t.detach().requires_grad_() for t in (x, dt, a, bm, cm)]
+            y, st = fn(*ins)
+            return (y.detach(), st.detach()), torch.autograd.grad((y.float() * w).sum(), ins)
+
+        (y_k, st_k), g_k = run(lambda *t: k8.SSDScanFn.apply(*t, chunk, None))
+        _, g_p = run(lambda *t: k8.ssd_scan_plain(*t, chunk=chunk))
+        with torch.no_grad():
+            y_r, st_r = k8.ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        same = torch.equal(y_k, y_r) and torch.equal(st_k, st_r)
+        errs = [grad_err(c, d) for c, d in zip(g_k, g_p)]
+        limit = max(grad_limit(c.dtype) for c in g_p)
+        print(f"phase train: SSDScanFn at the {label} shape {shape} ({str(dtype)[6:]}): forward "
+              f"equals the raw K8 call: {same}; x/dt/a/B/C gradients vs plain autograd "
+              f"{[f'{e:.3g}' for e in errs]} (limit {grad_limit(dtype):.3g}, f32 leaves "
+              f"{REL_RTOL})", flush=True)
+        if not same or any(e > grad_limit(c.dtype) for e, c in zip(errs, g_p)):
+            raise AssertionError(f"SSDScanFn at the {label} shape differs")
+        del x, dt, a, bm, cm, w, g_k, g_p
+    refused = []
+    q = torch.randn((1, 4, 8, 64), device=dev, requires_grad=True)
+    x, dt, a, bm, cm = ssd_inputs(torch, (1, 40, 16, 1, 8, 16), torch.float32, gen)
+    for name, call in (("flash_attention", lambda: k7.flash_attention(q, q, q)),
+                       ("ssd_scan", lambda: k8.ssd_scan(x, dt, a.requires_grad_(), bm, cm)),
+                       ("ssd_scan_scalar", lambda: k8.ssd_scan_scalar(x, dt, a, bm, cm))):
+        try:
+            call()
+        except RuntimeError as exc:
+            refused.append(name if "Fn.apply" in str(exc) else None)
+    print(f"phase train: the raw wrappers refuse grad-requiring CUDA inputs: {refused}",
+          flush=True)
+    if refused != ["flash_attention", "ssd_scan", "ssd_scan_scalar"]:
+        raise AssertionError(f"a raw wrapper took grad-requiring inputs: {refused}")
+    del q, x, dt, a, bm, cm
+
+    # (2) every reduced arch in f32: two steps on the kernels vs on the plain
+    # versions.  Held: the first step's loss and grad norm (both runs
+    # differentiate the same parameters), the second step's loss and the
+    # parameters after both; each to SERVE_REL, or where a kernel run differs
+    # by more, to twice the most that six one-ulp nudges of the weights (the
+    # norm weights, three draws; every weight, three) do to the plain run.
+    # The second step's grad norm is printed, not held: from random weights
+    # the reduced VLM's spreads over 187-1326 across such nudges (its plain
+    # run: 368)
+    kernel_ctx, plain_ctx = ExecutionContext(), ExecutionContext(kernel_impl="plain")
+    for arch in sorted(ARCH_IDS):
+        red = get_arch(arch).reduced()
+        batch = train.batch_to_device(SyntheticLM(red, ShapeConfig("train", 32, 2, "train"),
+                                                  seed=0).batch(0), dev, torch.float32)
+        base = init_params(model_spec(red), seed=0, dtype=torch.float32, device=dev)
+
+        def two_steps(ctx, params):
+            opt = make_optimizer(red.optimizer, cosine_schedule(1e-3, warmup_steps=1))
+            fn, state = make_train_step(red, opt, ctx=ctx), opt.init(params)
+            seen = []
+            for t in range(2):
+                params, state, m = fn(params, state, t, batch)
+                seen.append(m)
+            return seen, torch.cat([p.flatten() for p in tree_leaves(params)])
+
+        before = (k7.flash_attention.launches, k8.ssd_scan.launches)
+        m_k, p_k = two_steps(kernel_ctx, tree_map(torch.clone, base))
+        got = (k7.flash_attention.launches - before[0], k8.ssd_scan.launches - before[1])
+        m_p, p_p = two_steps(plain_ctx, tree_map(torch.clone, base))
+        want = (2 * 2 * sum(k7_per_prefill(red).values()), 2 * 2 * k8_per_prefill(red))
+
+        def diffs(m, p):
+            return [rel_norm(m[0]["loss"], m_p[0]["loss"]),
+                    rel_norm(m[0]["grad_norm"], m_p[0]["grad_norm"]),
+                    rel_norm(m[1]["loss"], m_p[1]["loss"]), rel_norm(p, p_p)]
+
+        errs, spread = diffs(m_k, p_k), None
+        limits = [SERVE_REL] * len(errs)
+        if max(errs) > SERVE_REL:
+            spread = [max(v) for v in zip(*(
+                diffs(*two_steps(plain_ctx, nudge_norms(
+                    torch, tree_map(torch.clone, base), seed, "norm" if seed < 3 else "")))
+                for seed in range(6)))]
+            limits = [max(SERVE_REL, 2 * v) for v in spread]
+        print(f"phase train: reduced {red.name} f32 ({red.optimizer}), two steps of batch 2 x "
+              f"32 on the kernels vs the plain versions: first loss, first grad norm, second "
+              f"loss, parameters {[f'{e:.3g}' for e in errs]} (limits "
+              f"{[f'{v:.3g}' for v in limits]}"
+              + ("" if spread is None else f": twice the most that one-ulp nudges of the "
+                 f"weights do to the plain run where above SERVE_REL, "
+                 f"{[f'{v:.3g}' for v in spread]}")
+              + f"); second grad norm {float(m_k[1]['grad_norm']):.4g} (plain "
+              f"{float(m_p[1]['grad_norm']):.4g}); K7, K8 launches {got} (expected {want}, "
+              f"forwards twice under remat)", flush=True)
+        if got != want or any(e > v for e, v in zip(errs, limits)) \
+                or not torch.isfinite(p_k).all():
+            raise AssertionError(f"the reduced {red.name} train step on the kernels differs "
+                                 f"from its plain run")
+        del base, p_k, p_p
+
+    # (3) granite-3-2b at full width and depth, its attention projections
+    # drawn at 1/sqrt(fan-in) (rescale_attention): its loss gradient on the
+    # kernels vs on the plain versions, then six AdamW steps, remat on
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    cfg = get_arch("granite-3-2b")
+    n_params = count_params(model_spec(cfg))
+    t0 = time.perf_counter()
+    params = rescale_attention(torch, init_params(model_spec(cfg), seed=0, device=dev))
+    data = SyntheticLM(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=0)
+    batches = [train.batch_to_device(data.batch(t), dev, torch.bfloat16)
+               for t in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+
+    def loss_grads(ctx, params):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            loss, _ = compute_loss(leaves, cfg, batches[0], ctx=ctx)
+            return loss.detach(), torch.autograd.grad(loss, tree_leaves(leaves))
+
+    def grad_diffs(got, want):
+        """Relative: the loss, the grad norm and the worst gradient of a
+        leaf's layer (a stacked leaf's slice; one under 1e-6 of the grad
+        norm is judged against the grad norm)."""
+        norm = lambda gs: torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.double()) for g in gs]))
+        n_got, n_want = norm(got[1]), norm(want[1])
+        worst = 0.0
+        for x, y in zip(got[1], want[1]):
+            stacked = x.dim() > 1 and x.shape[0] == cfg.n_layers
+            for a, b in (zip(x.unbind(0), y.unbind(0)) if stacked else ((x, y),)):
+                b = b.double()
+                worst = max(worst, float(torch.linalg.vector_norm(a.double() - b) / torch.clamp(
+                    torch.linalg.vector_norm(b), min=1e-6 * float(n_want))))
+        return [rel_norm(got[0], want[0]), float(abs(n_got - n_want) / n_want), worst]
+
+    for dtype in (torch.bfloat16, torch.float32):
+        at = params if dtype == torch.bfloat16 else tree_map(lambda t: t.float(), params)
+        before = k7.flash_attention.launches
+        on_k = loss_grads(kernel_ctx, at)
+        launched = k7.flash_attention.launches - before
+        on_p = loss_grads(plain_ctx, at)
+        errs, spread = grad_diffs(on_k, on_p), None
+        limits = [SERVE_REL] * len(errs)
+        if max(errs) > SERVE_REL:
+            spread = [max(v) for v in zip(*(
+                grad_diffs(loss_grads(plain_ctx, nudge_norms(torch, at, seed)), on_p)
+                for seed in range(2)))]
+            limits = [max(SERVE_REL, 2 * v) for v in spread]
+        finite = all(bool(torch.isfinite(g).all()) for g in on_k[1]) \
+            and bool(torch.isfinite(on_k[0]))
+        print(f"phase train: {cfg.name} at full width and depth, {str(dtype)[6:]}: the loss "
+              f"gradient of batch 0 on the kernels vs the plain versions, same parameters: "
+              f"loss, grad norm, worst leaf a layer {[f'{e:.3g}' for e in errs]} (limits "
+              f"{[f'{v:.3g}' for v in limits]}"
+              + ("" if spread is None else f": twice the most that two one-ulp nudges of the "
+                 f"norm weights do to the plain run, {[f'{v:.3g}' for v in spread]}")
+              + f"); loss {float(on_k[0]):.6g} (plain {float(on_p[0]):.6g}); K7 launches "
+              f"{launched} (expected {2 * cfg.n_layers}); finite: {finite}", flush=True)
+        if launched != 2 * cfg.n_layers or not finite or max(limits) >= TRAIN_GRAD_CAP \
+                or any(e > v for e, v in zip(errs, limits)):
+            raise AssertionError(f"{cfg.name}'s {str(dtype)[6:]} gradient on the kernels "
+                                 f"differs from its plain run's")
+        del at, on_k, on_p
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = make_optimizer(cfg.optimizer, cosine_schedule(
+        1e-3, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, norms, step_ms = [], [], []
+    for t in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, t, batches[t])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    got = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    want = dict.fromkeys(wrappers, 0)
+    want["K7"] = 2 * cfg.n_layers * TRAIN_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    warm = sorted(step_ms[1:])
+    flops = (6 + 2) * n_params * tokens          # forward, backward, the remat forward
+    print(f"phase train: {cfg.name} at full width and depth ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab} tied, {n_params / 1e9:.3f} G parameters, bf16, "
+          f"attention projections at 1/sqrt(fan-in), AdamW, remat) batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, lr 1e-3 cosine warmup {TRAIN_WARMUP}, clip 1.0: "
+          f"loss {[round(v, 4) for v in losses]}, grad "
+          f"norm {[round(v, 3) for v in norms]}; step ms {[round(v, 1) for v in step_ms]} (the "
+          f"first includes the card's warm-up; warm median {warm[len(warm) // 2]:.1f} ms, "
+          f"{tokens / warm[len(warm) // 2] * 1e3:.0f} tokens/s); bound {flops / 1e12:.2f} TFLOP "
+          f"at the bf16 dense peak {flops / BF16_TENSOR_FLOPS * 1e3:.2f} ms; peak memory "
+          f"{peak / 2**30:.3f} GiB ({peak} bytes above the {held} held before); init "
+          f"{t_init:.1f} s; launches {got} (expected {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"granite train launches {got}, expected {want}")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError("non-finite loss or grad norm in granite's training")
+    if not losses[-1] < losses[0] - TRAIN_MIN_DROP:
+        raise AssertionError(f"granite's loss fell by less than {TRAIN_MIN_DROP} in "
+                             f"{TRAIN_STEPS} steps: {losses}")
+    stats["granite"] = {"loss": losses, "grad_norm": norms, "step_ms": step_ms,
+                        "peak_bytes": peak, "k7_launches": got["K7"], "bound_tflop": flops / 1e12}
+    keep["granite"] = (step_fn, params, state, batches[0], opt, cfg, {})
+
+    # (4) mamba2-130m at full width and depth through launch.train.main, then
+    # the same run with a fault at step TRAIN_FAULT_STEP through train_loop
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        argv = [*TRAIN_SSM_ARGS, "--ckpt-dir", os.path.join(ckpt_root, "clean")]
+        for fn in wrappers.values():
+            fn.launches = 0
+        k8.ssd_scan.route_launches.update(mma=0, scalar=0)
+        grids0 = k8.grids()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        clean = train.main(argv)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        routes, grids = dict(k8.ssd_scan.route_launches), k8.grids() - grids0
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        args = train.parse_args(argv)
+        cfg = get_arch("mamba2-130m")
+        per_step = 2 * cfg.n_layers * args.accum
+        want = dict.fromkeys(wrappers, 0)
+        want["K8"] = per_step * args.steps
+        history = [v for _, v in clean["history"]]
+        print(f"phase train: {cfg.name} through launch.train.main {' '.join(argv[:-2])}: "
+              f"{len(history)} steps in {t_main:.1f} s, loss {[round(v, 4) for v in history]}, "
+              f"peak memory {peak / 2**30:.3f} GiB ({peak} bytes above the {held} held "
+              f"before); launches {got} (expected {want}), K8 calls by route {routes}, {grids} "
+              f"grids", flush=True)
+        if got != want or routes != {"mma": want["K8"], "scalar": 0} or grids != 2 * want["K8"]:
+            raise AssertionError(f"mamba2 train launches {got}, routes {routes}, grids "
+                                 f"{grids}: expected {want}, every call on the tensor-core "
+                                 f"route, two grids a call")
+        if len(history) != args.steps or not all(math.isfinite(v) for v in history):
+            raise AssertionError(f"mamba2's training history {history}")
+        del clean
+
+        run = train.build(train.parse_args([*TRAIN_SSM_ARGS, "--ckpt-dir",
+                                            os.path.join(ckpt_root, "fault")]))
+        fired, step_ms = [], []
+
+        def fault(step):
+            if step == TRAIN_FAULT_STEP and not fired:
+                fired.append(step)
+                raise RuntimeError("injected node failure")
+
+        def timed_step(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run.step_fn(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = train_loop(timed_step, run.init_state, run.batch_fn, run.loop, fault_hook=fault)
+        t_fault = time.perf_counter() - t0
+        got_k8 = k8.ssd_scan.launches
+        replay = [v for _, v in out["history"]]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(replay, history))
+        warm = sorted(step_ms[1:])
+        tokens = args.batch * args.seq
+        print(f"phase train: {cfg.name} through train_loop with a fault at step "
+              f"{TRAIN_FAULT_STEP}: restarts {out['restarts']}, {len(step_ms)} steps run in "
+              f"{t_fault:.1f} s, loss after recovery {[round(v, 4) for v in replay]}; largest "
+              f"relative difference from the uninterrupted run {worst:.3g} (limit "
+              f"{TRAIN_REPLAY_REL}; bitwise: {replay == history}); K8 launches {got_k8} "
+              f"(expected {per_step * len(step_ms)}); step ms {[round(v, 1) for v in step_ms]} "
+              f"(warm median {warm[len(warm) // 2]:.1f} ms, "
+              f"{tokens / warm[len(warm) // 2] * 1e3:.0f} tokens/s)", flush=True)
+        if (out["restarts"], fired) != (1, [TRAIN_FAULT_STEP]) or len(replay) != args.steps \
+                or worst > TRAIN_REPLAY_REL or got_k8 != per_step * len(step_ms):
+            raise AssertionError("mamba2's fault-injected run did not recover to the "
+                                 "uninterrupted run")
+        # the checkpoint's own cost at this state: save and restore
+        state = (out["params"], out["opt_state"])
+        t0 = time.perf_counter()
+        save_tree(os.path.join(ckpt_root, "timed"), args.steps - 1, state)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(ckpt_root, "timed", f"step_{args.steps - 1:08d}.npz"))
+        t0 = time.perf_counter()
+        back = restore_tree(os.path.join(ckpt_root, "timed"), args.steps - 1, state,
+                            device=dev)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(back[0]) + tree_leaves(back[1]),
+                                                       tree_leaves(state[0]) + tree_leaves(state[1])))
+        print(f"phase train: {cfg.name} checkpoint of params + AdamW state ({size} bytes): "
+              f"save {t_save:.2f} s, restore onto the card {t_restore:.2f} s, bitwise: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("mamba2's checkpoint did not restore bit for bit")
+        del back
+    stats["mamba2"] = {"loss": history, "replay_loss": replay, "step_ms": step_ms,
+                       "peak_bytes": peak, "k8_launches": want["K8"], "save_s": t_save,
+                       "restore_s": t_restore, "ckpt_bytes": size, "replay_rel": worst}
+    keep["mamba2"] = (run.step_fn, out["params"], out["opt_state"], run.batch_fn(0), run.opt,
+                      run.cfg, {"accum_steps": args.accum, "int8_accum": args.int8_accum})
+    return stats, keep
+
+
+def profile_train(torch, label, step_fn, params, state, batch, opt, cfg, step_kw) -> dict:
+    """torch.profiler over one train step, after a warm one and one timed
+    unprofiled: device time against that step's wall time (the busy share),
+    K7's and K8's forward kernels, the ranges of the plain attention and scan
+    backward, of the global-norm clip and of the optimizer (``opt.update``
+    and ``apply_updates``), and GEMM kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import flash_attention as k7, ssd_scan as k8
+    from repro_torch.launch import steps
+    from repro_torch.optim import Optimizer
+
+    ranges = {"attention backward": k7.FlashAttentionFn, "scan backward": k8.SSDScanFn}
+    originals = {name: fn.backward for name, fn in ranges.items()}
+    apply_updates, clip = steps.apply_updates, steps.clip_by_global_norm
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    for name, fn in ranges.items():
+        fn.backward = staticmethod(ranged(name, originals[name]))
+    steps.apply_updates = ranged("optimizer", apply_updates)
+    steps.clip_by_global_norm = ranged("clip", clip)
+    try:
+        fn = steps.make_train_step(cfg, Optimizer(init=opt.init,
+                                                  update=ranged("optimizer", opt.update)),
+                                   **step_kw)
+        params, state, _ = fn(params, state, 1, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, _ = fn(params, state, 2, batch)
+        torch.cuda.synchronize()
+        step = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(params, state, 3, batch)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn_cls in ranges.items():
+            fn_cls.backward = staticmethod(originals[name])
+        steps.apply_updates, steps.clip_by_global_norm = apply_updates, clip
+    rows = prof.key_averages()
+    names = set(ranges) | {"clip", "optimizer"}
+    kernels = [e for e in rows if e.device_type.name == "CUDA" and e.key not in names]
+    ms = lambda evs: sum(e.self_device_time_total for e in evs) / 1e3
+    out = {"device_ms": ms(kernels), "wall_ms": wall, "step_ms": step,
+           "k7_ms": ms(e for e in kernels if "flash_attention_" in e.key),
+           "k8_ms": ms(e for e in kernels if "ssd_" in e.key),
+           "gemm_ms": ms(e for e in kernels if any(s in e.key.lower() for s in
+                                                   ("gemm", "nvjet", "cutlass", "xmma")))}
+    for name in names:
+        out[name.replace(" ", "_") + "_ms"] = sum(
+            e.device_time_total for e in rows
+            if e.key == name and e.device_type.name == "CPU") / 1e3
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    top = [(e.key[:48], round(e.self_device_time_total / 1e3, 3), e.count) for e in kernels[:6]]
+    print(f"phase device-time: {label} train step profiled: device time {out['device_ms']:.2f} "
+          f"ms, {out['device_ms'] / step:.1%} of the step before it unprofiled ({step:.2f} "
+          f"ms; the profiled step's wall {wall:.2f} ms); K7 forward "
+          f"{out['k7_ms']:.3f}, K8 forward {out['k8_ms']:.3f}, plain attention backward "
+          f"{out['attention_backward_ms']:.3f}, plain scan backward "
+          f"{out['scan_backward_ms']:.3f}, clip {out['clip_ms']:.3f}, optimizer "
+          f"{out['optimizer_ms']:.3f}, GEMM kernels "
+          f"{out['gemm_ms']:.3f} ms (ranges by their kernels' device time; 0 where the "
+          f"profiler attributed none); top kernels {top}", flush=True)
+    return out
 
 
 def http_json(url: str, body: dict | None = None) -> dict:
@@ -2517,7 +3045,25 @@ def main() -> int:
           f"{mla_ms:.4f} ms by events (bound {mla_bound[0]:.4g} by {mla_bound[1]}), SDPA on "
           f"K/V expanded to the heads {mla_sdpa_ms:.4f} ms", flush=True)
 
+    # -- train: K7 and K8 under autograd, the reduced archs, granite and mamba2
+    t0 = time.perf_counter()
+    train_stats, train_keep = train_phase(torch, dev, ssm_wrappers, gen)
+    t_train = time.perf_counter() - t0
+    launches["K7"] += train_stats["granite"]["k7_launches"]
+    launches["K8"] += train_stats["mamba2"]["k8_launches"]
+    rec["K7"]["train_launches"] = train_stats["granite"]["k7_launches"]
+    rec["K8"]["train_launches"] = train_stats["mamba2"]["k8_launches"]
+    print(f"phase train: {t_train:.1f} s; {json.dumps(train_stats)}", flush=True)
+
     # -- device time of K8, K6 and K7 -----------------------------------------
+    # first, one train step of granite-3-2b and one of mamba2-130m, each after
+    # a warm one: the device time split by kernel and range; then their state
+    # is freed
+    for label, kept in train_keep.items():
+        train_stats[label]["profile"] = profile_train(torch, label, *kept)
+    del train_keep, kept
+    gc.collect()
+    torch.cuda.empty_cache()
     # torch.profiler's device time per call, beside the CUDA-event times of
     # phase 3 (which count the host's time to issue a call where it is the
     # longer), taken last: after a profiler session the host issues every
@@ -2684,14 +3230,16 @@ def main() -> int:
                                        "boundary", "old_bound_ms", "old_device_ms", "splits",
                                        "configs_a_thread", "ragged", "path", "bound_term",
                                        "tiers_ms", "tiers_device_ms", "per_lane_ms",
-                                       "wrapped_configs", "library_reason")
+                                       "wrapped_configs", "library_reason",
+                                       "train_launches")
                if key in r},
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s (main path {t_main:.1f} s, apps "
           f"{t_app:.1f} s, of which attaching app BEHAV {t_multi:.2f} s; wide {t_wide:.1f} s, "
           f"sweep {t_sweep:.1f} s, service {t_svc:.1f} s, serve-dense {t_dense:.1f} s, "
           f"serve-moe {t_moe:.1f} s, "
-          f"{', '.join(f'{k} {v:.1f} s' for k, v in t_slice4.items())})", flush=True)
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in t_slice4.items())}, train "
+          f"{t_train:.1f} s)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

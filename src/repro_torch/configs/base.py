@@ -10,9 +10,10 @@ MLPs: ``dense``, ``moe``, ``none``.
 Heterogeneous patterns (Jamba 1:7, VLM every-5th-cross) are expressed inside the
 super-block.  Counterpart of ``repro/configs/base.py``, copied: plain data.  The
 port runs every mixer and MLP kind above; its model loops over ``repeats`` in
-Python, and the runtime-policy fields
-that steer XLA (``remat``, ``causal_block_skip``, the attention chunks,
-``unroll_loops``) are kept for the configs' sake and not read.
+Python.  Of the runtime-policy fields, ``remat`` is read (a training pass
+recomputes each repeat in the backward) and ``optimizer`` picks the train
+step's optimizer; those that steer XLA (``causal_block_skip``, the attention
+chunks, ``unroll_loops``) are kept for the configs' sake and not read.
 """
 
 from __future__ import annotations

@@ -27,6 +27,18 @@ starcoder2's and deepseek-67b's 128, and kimi-k2's 112; another width raises.
 On a CPU tensor the wrapper returns the plain version; on a CUDA tensor it
 launches the kernel or raises.  ``flash_attention.launches`` counts kernel
 launches.
+
+Training takes K7 through :class:`FlashAttentionFn`, an autograd function:
+its forward is ``flash_attention`` (K7 on the card, the plain version on a
+CPU tensor) and its backward recomputes ``flash_attention_plain`` on the
+saved inputs and differentiates it.  That backward is the reference's own
+math: the reference trains through its XLA ``chunked_attention`` and has no
+backward kernel, so the gradient is autodiff of the plain softmax algebra.
+It is not a fallback: the forward never gives way to the plain version on
+the card.  The raw ``flash_attention`` refuses, on a CUDA tensor, inputs
+that require grad while grad mode is on: its output would carry no
+``grad_fn``, and every gradient through attention would be dropped without
+a word.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ import torch
 
 from . import build
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "FlashAttentionFn", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 112, 128)   # head widths the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,6 +121,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, kv_len=kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("K7's output carries no gradient: take FlashAttentionFn.apply for "
+                           "inputs that require grad, or run under torch.no_grad()")
     b, h, sq, hd = q.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"K7 takes float32 or bfloat16, got {q.dtype}")
@@ -141,3 +156,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K7 under autograd: ``apply(q, k, v, causal, scale, q_offset, kv_len)``.
+
+    The forward runs ``flash_attention``; the backward differentiates
+    ``flash_attention_plain`` recomputed on the saved q, k and v.  q, k and v
+    as ``flash_attention`` takes them, causal or not, at any Sq and Skv.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, scale=None, q_offset=0, kv_len=None):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, scale=scale, q_offset=q_offset, kv_len=kv_len)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wrt = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = flash_attention_plain(*inputs, **ctx.kw)
+        grads = iter(torch.autograd.grad(out, wrt, grad_out))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None, None, None, None)

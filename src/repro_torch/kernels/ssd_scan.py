@@ -34,6 +34,19 @@ not.  f32 takes the first design on the f32 pipe, one grid.
 calls by route, and ``grids()`` the grids the library has launched.  ``ssd_scan_scalar`` runs the first design on bf16 as well,
 so that the card's checks can time it beside the new one; it counts its own
 launches.
+
+Training takes K8 through :class:`SSDScanFn`, an autograd function with two
+outputs, y and the final state: its forward is ``ssd_scan`` (K8 on the card,
+the plain version on a CPU tensor) and its backward recomputes
+``ssd_scan_plain`` at the model's chunk on the saved inputs and
+differentiates it.  That backward is the reference's own math: the
+reference trains through its XLA ``ssd_chunked`` and has no backward
+kernel, so the gradient is autodiff of the plain chunked algebra.  It is
+not a fallback: the forward never gives way to the plain version on the
+card.  The raw ``ssd_scan`` and ``ssd_scan_scalar`` refuse, on a CUDA
+tensor, inputs that require grad while grad mode is on: their outputs would
+carry no ``grad_fn``, and every gradient through the scan would be dropped
+without a word.
 """
 
 from __future__ import annotations
@@ -45,8 +58,8 @@ import torch
 
 from . import build
 
-__all__ = ["ssd_scan", "ssd_scan_scalar", "ssd_scan_plain", "route", "grids", "segsum",
-           "HEAD_DIMS", "STATE_DIMS", "CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_scalar", "ssd_scan_plain", "SSDScanFn", "route", "grids",
+           "segsum", "HEAD_DIMS", "STATE_DIMS", "CHUNK"]
 
 HEAD_DIMS = (8, 16, 32, 64)            # P values the kernel is built for
 STATE_DIMS = (8, 16, 32, 64, 128)      # N values
@@ -161,6 +174,10 @@ def _check(x, dt, a, bmat, cmat, init_state) -> None:
 
 def _check_card(x, dt, a, bmat, cmat, init_state) -> None:
     """What the CUDA kernel takes, beyond what the plain version does."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, bmat, cmat, init_state)):
+        raise RuntimeError("K8's outputs carry no gradient: take SSDScanFn.apply for inputs "
+                           "that require grad, or run under torch.no_grad()")
     p, n = x.shape[3], bmat.shape[3]
     if x.dtype not in _DTYPES:
         raise TypeError(f"K8 takes float32 or bfloat16 x, B and C, got {x.dtype}")
@@ -249,3 +266,33 @@ def ssd_scan_scalar(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: to
 ssd_scan.launches = 0
 ssd_scan.route_launches = {"mma": 0, "scalar": 0}
 ssd_scan_scalar.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """K8 under autograd: ``apply(x, dt, a, bmat, cmat, chunk, init_state)`` ->
+    (y, final state).
+
+    The forward runs ``ssd_scan``; the backward differentiates
+    ``ssd_scan_plain`` at ``chunk``, recomputed on the saved inputs.  Either
+    output's cotangent may be absent (a training forward drops the state).
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, chunk=128, init_state=None):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, bmat, cmat, init_state)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        needs = ctx.needs_input_grad[:5] + ctx.needs_input_grad[6:7]
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        wrt = [t for t in inputs if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            outs = ssd_scan_plain(*inputs[:5], chunk=ctx.chunk, init_state=inputs[5])
+        pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_state)) if g is not None]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs]))
+        got = [next(grads) if t is not None and t.requires_grad else None for t in inputs]
+        return (*got[:5], None, got[5])

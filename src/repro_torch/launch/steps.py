@@ -1,12 +1,15 @@
-"""The serving steps: prefill and decode.
+"""Step functions: train, prefill and decode.
 
-Counterpart of the serving half of ``repro/launch/steps.py``.  Each ``make_*``
-closes over the config (and an optional ``AxODeployment`` and
-``ExecutionContext``) and returns a function of tensors; one pair serves every
-arch of ``configs.registry`` (a MoE layer's router aux loss is computed and
-dropped, as the reference's serving steps drop it).  The prefill takes the
-stubbed modality input of the encoder-decoder and VLM families.  PyTorch runs them eagerly; the reference's sharding trees and abstract caches have no use on
-one device, and the train step waits for ROADMAP.md queue 1 item 11.
+Counterpart of ``repro/launch/steps.py``.  Each ``make_*`` closes over the
+config (and an optimizer, an optional ``AxODeployment`` and
+``ExecutionContext``) and returns a function of tensors; one set serves
+every arch of ``configs.registry``.  The train step differentiates
+``compute_loss`` (CE, the MoE aux loss and deepseek-v3's MTP term) with
+autograd; the serving steps drop a MoE layer's aux loss, as the reference's
+do, and run under ``torch.no_grad()``.  The prefill takes the stubbed
+modality input of the encoder-decoder and VLM families.  PyTorch runs them
+eagerly; the reference's sharding trees and abstract caches have no use on
+one device.
 """
 
 from __future__ import annotations
@@ -14,10 +17,102 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..models.model import cache_spec, forward, logits_fn
+from ..models.model import cache_spec, compute_loss, forward, logits_fn
 from ..models.spec import init_params
+from ..optim import Optimizer, apply_updates, clip_by_global_norm, tree_leaves, tree_map
+from ..optim.compress import compress_int8, decompress_int8
 
-__all__ = ["init_cache", "make_prefill_step", "make_decode_step"]
+__all__ = ["init_cache", "make_train_step", "make_prefill_step", "make_decode_step"]
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def _split_microbatches(batch: dict, accum: int) -> list[dict]:
+    """``batch`` as ``accum`` microbatches along its leading (batch) axis."""
+    out = [{} for _ in range(accum)]
+    for k, x in batch.items():
+        b = x.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} not divisible by accum {accum}")
+        for i, part in enumerate(x.reshape(accum, b // accum, *x.shape[1:]).unbind(0)):
+            out[i][k] = part
+    return out
+
+
+def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
+                    clip_norm: float = 1.0, int8_accum: bool = False, ctx=None):
+    """(params, opt_state, step, batch) -> (params, opt_state, metrics).
+
+    The gradient of ``compute_loss`` over every parameter leaf, clipped to
+    ``clip_norm`` by global norm, then ``opt.update`` and ``apply_updates``.
+    Parameters and optimizer state are updated in place and returned.
+    ``accum_steps > 1`` runs the microbatches in a Python loop and sums
+    their gradients in f32 (the reference's ``lax.scan``); ``int8_accum``
+    keeps that sum as int8 with a per-tensor scale and an f32 error-feedback
+    residual, re-compressed after every microbatch, as the reference does.
+    ``metrics``: ``loss``, ``ce``, ``moe_aux`` (and ``mtp_ce``), means over
+    the microbatches, and ``grad_norm``, the norm before clipping; 0-d f32
+    tensors.  ``ctx`` picks K7/K8 (default) or their plain versions.
+    """
+
+    def grads_of(params, mb):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        flat = tree_leaves(leaves)
+        with torch.enable_grad():
+            loss, metrics = compute_loss(leaves, cfg, mb, ctx=ctx)
+            got = torch.autograd.grad(loss, flat, allow_unused=True)
+        by_leaf = {id(p): g for p, g in zip(flat, got)}
+        grads = tree_map(lambda p: torch.zeros_like(p) if by_leaf[id(p)] is None
+                         else by_leaf[id(p)], leaves)
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(params, opt_state, step, batch):
+        if accum_steps == 1:
+            grads, metrics = grads_of(params, batch)
+        else:
+            f32 = torch.float32
+            zeros = lambda p, dt: torch.zeros(p.shape, dtype=dt, device=p.device)
+            if int8_accum:
+                acc_q = tree_map(lambda p: zeros(p, torch.int8), params)
+                acc_s = tree_map(lambda p: torch.ones((), dtype=f32, device=p.device), params)
+                err = tree_map(lambda p: zeros(p, f32), params)
+            else:
+                acc = tree_map(lambda p: zeros(p, f32), params)
+            seen = []
+            for mb in _split_microbatches(batch, accum_steps):
+                g, m = grads_of(params, mb)
+                if int8_accum:
+                    # accumulate in an f32 view, re-compress with error feedback
+                    new = tree_map(lambda q, s, e, gi: compress_int8(
+                        decompress_int8(q, s) + gi.to(f32), e), acc_q, acc_s, err, g)
+                    acc_q, acc_s, err = (tree_map(lambda t, i=i: t[i], new) for i in range(3))
+                else:
+                    acc = tree_map(lambda a, gi: a + gi.to(f32), acc, g)
+                seen.append(m)
+                del g
+            if int8_accum:
+                grads = tree_map(lambda q, s: decompress_int8(q, s) / accum_steps, acc_q, acc_s)
+                del acc_q, acc_s, err, new
+            else:
+                grads = tree_map(lambda a: a / accum_steps, acc)
+                del acc
+            metrics = {k: torch.stack([m[k] for m in seen]).mean() for k in seen[0]}
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        updates, opt_state = opt.update(grads, opt_state, params, step)
+        del grads
+        params = apply_updates(params, updates)
+        metrics["grad_norm"] = gnorm
+        return params, opt_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -48,6 +143,7 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int, axo=None, ctx=None):
     (K8 or its plain version).
     """
 
+    @torch.no_grad()
     def prefill_step(params, tokens, frontend=None):
         norm = params["norm_f"]
         cache = init_cache(cfg, tokens.shape[0], max_seq, dtype=norm.dtype,
@@ -69,6 +165,7 @@ def make_decode_step(cfg: ModelConfig, axo=None, ctx=None):
     The cache is written in place and returned.  ``axo`` and ``ctx`` as in
     :func:`make_prefill_step`."""
 
+    @torch.no_grad()
     def decode_step(params, cache, tokens, index):
         x, _, cache = forward(params, cfg, tokens, mode="decode", cache=cache,
                               cache_index=int(index), axo=axo, ctx=ctx)

@@ -22,9 +22,18 @@ Every family of the reference runs:
 
 The modality frontends are stubs, as in the reference: ``forward`` takes
 precomputed ``enc_embeds`` (whisper) or ``img_embeds`` (the VLM).  The MTP
-head's leaves are used only by the training loss, which waits with the train
-step for ROADMAP.md queue 1 item 11.  ``forward`` returns the sum of the MoE
-layers' router aux losses, as the reference's does.
+head's leaves are used only by the training loss, :func:`compute_loss`.
+``forward`` returns the sum of the MoE layers' router aux losses, as the
+reference's does.
+
+A training pass (``mode="train"``) writes no cache.  It hands layer r the
+r-th piece of each stacked leaf, unbound once a stage (``unbind``'s backward
+is one ``stack``; taking ``leaf[r]`` a layer would make its backward
+allocate a zero tensor of the whole stacked leaf for every layer), and, when
+``cfg.remat``, recomputes each repeat of a stage's super-block in the
+backward (``torch.utils.checkpoint``, non-reentrant), as the reference wraps
+its scan body in ``jax.checkpoint``: under remat every K7 and K8 forward of
+a training step runs twice.
 
 ``forward`` takes an optional ``ExecutionContext`` whose ``attention`` menu
 picks kernel K7 or its plain version for prefill attention (self, encoder
@@ -36,6 +45,7 @@ for the AxO projections (K6).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, StageConfig
 from .attention import (
@@ -57,6 +67,7 @@ __all__ = [
     "cache_spec",
     "forward",
     "logits_fn",
+    "compute_loss",
     "HAS_CACHE",
 ]
 
@@ -205,10 +216,18 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 
 def _at(tree, r: int):
-    """Layer ``r``'s slice of every leaf of a stacked tree (views, no copies)."""
+    """Layer ``r``'s slice of every leaf of a stacked tree (views, no copies),
+    or its piece of an unbound one (:func:`_unbind`)."""
     if isinstance(tree, dict):
         return {k: _at(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+def _unbind(tree):
+    """Every leaf of a stacked tree unbound into its layers' pieces."""
+    if isinstance(tree, dict):
+        return {k: _unbind(v) for k, v in tree.items()}
+    return tree.unbind(0)
 
 
 def _mamba(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict, cache: dict | None):
@@ -306,16 +325,30 @@ def _run_stage(sp: dict, stage: StageConfig, x: torch.Tensor, cfg: ModelConfig, 
     """The stage's super-block over its ``repeats``; returns (x, summed aux or None).
 
     ``sp``, ``sc`` and ``sa`` are the stage's parameters, cache and AxO
-    entries, each stacked over ``repeats``."""
-    aux = None
-    for r in range(stage.repeats):
+    entries, each stacked over ``repeats``.  A training pass unbinds the
+    parameters once and, under ``cfg.remat``, checkpoints each repeat."""
+    train = ctx["mode"] == "train"
+
+    def block(x, p_blk, c_blk, a_blk):
+        aux = None
         for li, (mixer, mlp) in enumerate(stage.layers):
             key = str(li)
-            lc = _at(sc[key], r) if key in sc else None
-            la = _at(sa[key], r) if key in sa else None
-            x, da, _ = _apply_layer(mixer, mlp, _at(sp[key], r), x, cfg, ctx, lc, axo_layer=la)
+            x, da, _ = _apply_layer(mixer, mlp, p_blk[key], x, cfg, ctx, c_blk.get(key),
+                                    axo_layer=a_blk.get(key))
             if da is not None:
                 aux = da if aux is None else aux + da
+        return x, aux
+
+    layers = _unbind(sp) if train else sp
+    aux = None
+    for r in range(stage.repeats):
+        args = (x, _at(layers, r), _at(sc, r), _at(sa, r))
+        if train and cfg.remat:
+            x, da = checkpoint(block, *args, use_reentrant=False)
+        else:
+            x, da = block(*args)
+        if da is not None:
+            aux = da if aux is None else aux + da
     return x, aux
 
 
@@ -360,6 +393,8 @@ def forward(
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mode == "train" and cache is not None:
+        raise ValueError("a training pass writes no cache")
     _check_config(cfg)
     b, s = tokens.shape
     ci = 0 if cache_index is None else int(cache_index)
@@ -405,3 +440,40 @@ def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torch
 
 def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torch.Tensor:
     return _unembed(params, cfg, x, axo=axo)
+
+
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over ``labels >= 0``, in f32.  logits (B, S, V), labels (B, S)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return ((lse - tgt) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def compute_loss(params: dict, cfg: ModelConfig, batch: dict, ctx=None):
+    """Training loss: CE + MoE aux (+ DeepSeek-style MTP head loss); (loss, metrics).
+
+    ``batch``: {"tokens": (B, S) int64, "labels": (B, S)} (+ "enc_embeds" /
+    "img_embeds", cast to the parameters' dtype).  ``metrics`` holds ``ce``,
+    ``moe_aux``, ``loss`` and, with ``cfg.mtp``, ``mtp_ce``: the MTP head
+    merges hidden state t with the embedding of token t + 1 and predicts
+    label t + 1, through the shared unembedding, weighted by
+    ``cfg.mtp_weight``.  ``ctx`` picks K7/K8 or their plain versions.
+    """
+    dtype = params["norm_f"].dtype
+    front = {k: batch[k].to(dtype) for k in ("enc_embeds", "img_embeds") if k in batch}
+    x, aux, _ = forward(params, cfg, batch["tokens"], mode="train", ctx=ctx, **front)
+    ce = _masked_ce(_unembed(params, cfg, x), batch["labels"])
+    loss = ce + aux
+    metrics = {"ce": ce, "moe_aux": aux}
+    if cfg.mtp:
+        mtp = params["mtp"]
+        emb_next = params["embed"]["tok"][batch["tokens"][:, 1:]]
+        h = torch.cat([rmsnorm(x[:, :-1], mtp["norm_h"], cfg.norm_eps),
+                       rmsnorm(emb_next, mtp["norm_e"], cfg.norm_eps)], dim=-1)
+        mtp_ce = _masked_ce(_unembed(params, cfg, h @ mtp["proj"]), batch["labels"][:, 1:])
+        loss = loss + cfg.mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics

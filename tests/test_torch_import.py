@@ -18,7 +18,8 @@ from repro_torch.core.metrics import behav_metrics
 from repro_torch.core.moo import nsga2
 from repro_torch.core.operator_model import accurate_config, spec_for
 from repro_torch.configs.registry import get_arch
-from repro_torch.launch import serve
+from repro_torch.checkpoint import restore_tree, save_tree
+from repro_torch.launch import serve, train
 from repro_torch.models.model import model_spec
 from repro_torch.models.spec import init_params
 
@@ -67,6 +68,10 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.obs, repro_torch.obs.telemetry, repro_torch.obs.export\n"
         "import repro_torch.obs.prom, repro_torch.service, repro_torch.service.store\n"
         "import repro_torch.service.queue\n"
+        "import repro_torch.optim, repro_torch.optim.adamw, repro_torch.optim.adafactor\n"
+        "import repro_torch.optim.base, repro_torch.optim.clip, repro_torch.optim.compress\n"
+        "import repro_torch.optim.schedule, repro_torch.checkpoint, repro_torch.checkpoint.ckpt\n"
+        "import repro_torch.train, repro_torch.train.loop, repro_torch.launch.train\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -132,7 +137,19 @@ ENTRY_POINTS = {
     "default_runner": lambda: service.default_runner(),
     "serve.main(--dse-service)": lambda: serve.main(
         ["--arch", "granite-3-2b", "--gen", "2", "--metrics-port", "0", "--dse-service"]),
+    "train.main": lambda: train.main(["--arch", "granite-3-2b", "--steps", "1"]),
+    "train.main(mamba2-130m)": lambda: train.main(["--arch", "mamba2-130m", "--steps", "1"]),
+    "restore_tree": lambda: _restore_default(),
 }
+
+
+def _restore_default():
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        tree = {"w": torch.zeros(2)}
+        save_tree(d, 0, tree)
+        return restore_tree(d, 0, tree)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
