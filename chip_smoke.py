@@ -83,7 +83,8 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      lane's validated BEHAV equals numpy.
   service: an ``OperatorStore`` in a temporary directory and a
      ``DSEJobQueue(default_runner(...))`` behind a ``MetricsServer`` with the
-     three ``/dse`` routes: the 12 mul8 requests of the sweep's grid posted
+     three ``/dse`` routes: 6 mul8 requests (every other const_sf of the
+     sweep's grid, both seeds; their fronts equal the sweep's lanes) posted
      over HTTP are one batched sweep (200 K3 launches), and posted again are
      all answered from the library (no GA, no K3 launch); ``/dse/library``,
      ``/metrics`` and ``/healthz`` (the card's name) are read; then
@@ -116,12 +117,13 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      to twice what re-rounding the plain scan at K8's chunk length does), and
      at the reduced config in f32 (prompt 40 = 3 chunks of 16, ragged) the
      kernel passes' logits against the plain passes' to SERVE_REL.
-  serve-dense: internlm2-1.8b (24 layers, d 2048, 16/8 heads of 128, d_ff
-     8192, vocab 92,544) and starcoder2-3b (30 layers, d 3072, 24/2 heads of
-     128, gelu, d_ff 12,288, vocab 49,152) at full width and depth through
-     ``serve.main --full-config``, and deepseek-67b at full width (d 8192,
-     64/8 heads of 128, d_ff 22,016, vocab 102,400) cut to 8 of its 95
-     layers (the bf16 weights of all 95 are ~134 GB), built with
+  serve-dense: internlm2-1.8b (d 2048, 16/8 heads of 128, d_ff 8192, vocab
+     92,544) and starcoder2-3b (d 3072, 24/2 heads of 128, gelu, d_ff
+     12,288, vocab 49,152) at full width cut to 8 of their 24 and 30 layers
+     (to keep the script within its time budget; full depth adds repeats
+     of the same layer), and deepseek-67b at full width
+     (d 8192, 64/8 heads of 128, d_ff 22,016, vocab 102,400) cut to 8 of its
+     95 layers (the bf16 weights of all 95 are ~134 GB), each built with
      ``dataclasses.replace`` and served by ``serve.serve_config``, the run
      ``serve.main`` makes for the config it resolves; each at batch 4, prompt 128, 8 new tokens, exact and with the
      rank-8 demo operator in every projection and the head.  Launch counts
@@ -167,7 +169,8 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      B=4, S=2,000, H=24, P=64, N=128) and a reduced f32 shape: the forward
      equal to the raw kernel call, the gradients against plain autograd to
      one bf16 ulp of each gradient's largest entry (f32: 1e-5 relative
-     norm); the raw wrappers must refuse grad-requiring inputs.  Every
+     norm); on grad-requiring inputs ``flash_attention`` and ``ssd_scan``
+     take those functions themselves (``ssd_scan_scalar`` refuses).  Every
      reduced arch in f32 takes two train steps on the kernels and on the
      plain versions (``kernel_impl="plain"``): the first step's loss and
      grad norm, the second step's loss and the parameters after both, each
@@ -209,7 +212,33 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
   sync: one ranking (``constraint_ranks``, P=128) under
      ``torch.cuda.set_sync_debug_mode("error")``: it must not sync the host;
      last, since switching the debugger slows later host-issued launches (a
-     ranking's time before and after the switch is printed).
+     ranking's time before and after the switch is printed).  Then the
+     tapped GA's 100 generations (phase 5's problem, population 64) under
+     the debugger: one ``fastmoo.gen`` row a generation, no host sync, and
+     ``hv_history`` equal to an untapped run's.
+  obs (in phase 4, the serve and service phases and after device-time):
+     ``obs_tune`` searches K1 at the training set's 256-config chunks, K2
+     at the untuned ``map+ga``'s front and K6 at ``K6_TUNE`` under
+     ``tuning="search"`` into ``build/tuning_cache`` (every candidate held
+     to its plain version, none rejected; CUDA-event times beside the
+     default's), then resolves them under ``"cached"``: all hits, no
+     search; the training set is characterized again on ``"cached"``
+     tiles (K1 at its tuned a-tile, equal to the untuned set) and the main
+     path's ``map+ga`` runs on ``telemetry="on", tuning="cached"``: no
+     search, one ``fastmoo.gen`` row a generation, a monotone hv ending at
+     ``hv_history``'s, ``hv_history`` and the front equal to the untuned
+     run's; K1's and K2's first tuned launches are held to their plain
+     versions and timed beside the untuned launch (the kernels line's
+     ``path``); granite's serve run writes ``--trace`` (its prefill and
+     decode spans), the service's ``/healthz`` carries ``tuning_cache``,
+     each serving run's K6 and K7 pad waste (its own telemetry's) and the
+     AxO decode steps beside the earlier runs' are printed, and one granite
+     AxO prefill's ``trace_capture`` (beside the serve phase's profiled
+     windows) must hold K6 and K7 device events; after device-time
+     ``profile_registry`` times every kernel at the main paths' shapes
+     against its roofline bound on the H100 (the operands' own bytes,
+     ``cost_fn``'s FLOPs).  The last ``phase wall:`` line gives each
+     section's wall-clock seconds.
 
 Phase 3 also holds K3 over lanes (``constraint_fronts_lanes``) against its
 plain version at L=12 x P=128 and a ragged L=5 x P=100, timed beside 12
@@ -285,6 +314,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -340,8 +370,10 @@ SSM_SHAPE = (8, 2000, 24, 1, 64, 128)   # mamba2-130m's prefill scan: B, S, H, G
 PROMPT_LEN, GEN_TOKENS = 128, 8
 SERVE_NEW_ARGS = ["--full-config", "--batch", "4", "--prompt-len", str(PROMPT_LEN), "--gen",
                   str(GEN_TOKENS), "--axo-rank", str(AXO_RANK)]
-DENSE_FULL = ("internlm2-1.8b", "starcoder2-3b")          # full width and depth
-DEPTH_CUTS = {"deepseek-67b": (8,),        # layers kept: bf16 weights of all 95 are ~134 GB
+DENSE_ARCHS = ("internlm2-1.8b", "starcoder2-3b", "deepseek-67b")
+DEPTH_CUTS = {"internlm2-1.8b": (8,),      # layers kept: 8 of 24 and 30, the script's time
+              "starcoder2-3b": (8,),
+              "deepseek-67b": (8,),        # bf16 weights of all 95 are ~134 GB
               "kimi-k2-1t-a32b": (1, 1),   # a stage's repeats: the dense layer, one moe layer
               "jamba-v0.1-52b": (1,),      # one whole 8-layer block of 4
               "deepseek-v3-671b": (3, 1),  # the dense stage and one moe layer
@@ -376,6 +408,11 @@ K7_NC = {"whisper encoder": (16, 16, 1500, 1500, 64),
          "whisper cross": (16, 16, PROMPT_LEN, 1500, 64),
          "vlm cross": (64, 8, PROMPT_LEN, 1600, 128)}
 JAMBA_SSM_SHAPE = (4, PROMPT_LEN, 128, 1, 64, 128)   # jamba's prefill scan: B, S, H, G, P, N
+# K6 above this many rows (its tensor-core route at M = 80 .. 6,400) is not
+# profiled in the device-time section: torch.profiler handed back no device
+# events for those launches in every earlier run, and the empty windows took
+# ~80 s of the script; their rows keep their CUDA-event times
+K6_PROFILED_MAX_M = 24
 K8_Q = 32                               # K8's own chunk length, both designs (csrc/ssd_scan.cu kQ)
 # The two GAs draw from different random streams, and one run's hypervolume
 # varies by ~1.6% (std over seeds) at this budget, so the 2% contract is held
@@ -383,6 +420,14 @@ K8_Q = 32                               # K8's own chunk length, both designs (c
 GA_SEEDS = tuple(range(20))
 # the largest weight, in codes, the serve checks run K6's plain version on at once
 PLAIN_K6_ELEMS = 1 << 28
+# the obs phase: K6 shapes tuned, granite-3-2b's decode (M=4) and prefill (M=512)
+# projections (q/o, k/v, gate/up, down) and deepseek-v3's 24-row expert buffers
+K6_TUNE = [(m, k, n) for m in (4, 512)
+           for k, n in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))] + [
+    (24, 7168, 2048), (24, 2048, 7168)]
+# the AxO decode steps of the first full-width runs of these archs (PERF.md
+# section 5, ms a step), printed beside this run's
+EARLIER_AXO_DECODE_MS = {"granite-3-2b": "162-189", "kimi-k2-1t-a32b": "283-389"}
 # the train phase: granite-3-2b's steps (batch x seq, cosine warmup) and
 # mamba2-130m's run through launch.train.main, a fault injected before one step
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 128, 6, 5
@@ -523,8 +568,8 @@ def checked_calls(torch):
 
     calls = {"K6": [], "K7": [], "K8": [], "K7 non-causal": 0}
 
-    def k6(a, b, *tables):
-        out = axo_matmul.axo_matmul(a, b, *tables)
+    def k6(a, b, *tables, **tiles):
+        out = axo_matmul.axo_matmul(a, b, *tables, **tiles)
         # the plain version over column slices of a large weight (kimi-k2's
         # head: 7168 x 163840 codes gather 9.4 GB of int64 indices at once)
         step = max(1, PLAIN_K6_ELEMS // b.shape[0])
@@ -790,20 +835,34 @@ def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
         if not same or any(e > grad_limit(c.dtype) for e, c in zip(errs, g_p)):
             raise AssertionError(f"SSDScanFn at the {label} shape differs")
         del x, dt, a, bm, cm, w, g_k, g_p
-    refused = []
+    # on grad-requiring inputs the wrappers take their autograd functions
+    # themselves: a kernel launch, a grad_fn, plain autograd's gradient;
+    # ssd_scan_scalar, which has no autograd function, refuses them
+    routed = []
     q = torch.randn((1, 4, 8, 64), device=dev, requires_grad=True)
     x, dt, a, bm, cm = ssd_inputs(torch, (1, 40, 16, 1, 8, 16), torch.float32, gen)
-    for name, call in (("flash_attention", lambda: k7.flash_attention(q, q, q)),
-                       ("ssd_scan", lambda: k8.ssd_scan(x, dt, a.requires_grad_(), bm, cm)),
-                       ("ssd_scan_scalar", lambda: k8.ssd_scan_scalar(x, dt, a, bm, cm))):
-        try:
-            call()
-        except RuntimeError as exc:
-            refused.append(name if "Fn.apply" in str(exc) else None)
-    print(f"phase train: the raw wrappers refuse grad-requiring CUDA inputs: {refused}",
-          flush=True)
-    if refused != ["flash_attention", "ssd_scan", "ssd_scan_scalar"]:
-        raise AssertionError(f"a raw wrapper took grad-requiring inputs: {refused}")
+    a.requires_grad_()
+    for name, fn, plain, args, wrt in (
+            ("flash_attention", k7.flash_attention, k7.flash_attention_plain, (q, q, q), q),
+            ("ssd_scan", k8.ssd_scan, k8.ssd_scan_plain, (x, dt, a, bm, cm), a)):
+        before = fn.launches
+        outs = [f(*args) for f in (fn, plain)]
+        outs = [o[0] if isinstance(o, tuple) else o for o in outs]
+        got, want = (torch.autograd.grad(o.float().sum(), wrt)[0] for o in outs)
+        if (outs[0].grad_fn is not None and fn.launches == before + 1
+                and rel_norm(got, want) <= REL_RTOL):
+            routed.append(name)
+    try:
+        k8.ssd_scan_scalar(x, dt, a, bm, cm)
+        scalar_refused = False
+    except RuntimeError as exc:
+        scalar_refused = "SSDScanFn" in str(exc)
+    print(f"phase train: wrappers that took their autograd route on grad-requiring CUDA "
+          f"inputs (a launch, a grad_fn, plain autograd's gradient): {routed}; "
+          f"ssd_scan_scalar refused them: {scalar_refused}", flush=True)
+    if routed != ["flash_attention", "ssd_scan"] or not scalar_refused:
+        raise AssertionError(f"grad-requiring inputs reached a raw launch: {routed}, "
+                             f"{scalar_refused}")
     del q, x, dt, a, bm, cm
 
     # (2) every reduced arch in f32: two steps on the kernels vs on the plain
@@ -1154,6 +1213,55 @@ def profile_train(torch, label, step_fn, params, state, batch, opt, cfg, step_kw
     return out
 
 
+def obs_tune(torch, tuning, registry, obs, buckets, counted=()) -> float:
+    """The obs phase's tuning: every (kernel, shape) of ``buckets`` searched
+    under ``tuning="search"`` into a fresh cache under ``build/``, each
+    candidate held to its plain version (none may be rejected) and its
+    CUDA-event time printed beside the default's and the winner; then the
+    same buckets resolved under ``"cached"`` from a fresh state: all hits, no
+    search.  Leaves ``REPRO_TUNING_CACHE`` pointing at the cache.  The
+    launch counts of the wrappers in ``counted`` are left as they were: the
+    search's launches are not a path's.  Returns its seconds."""
+    from repro_torch.core.engine import ExecutionContext
+
+    t0 = time.perf_counter()
+    held = [fn.launches for fn in counted]
+    cache_dir = ROOT / "build" / "tuning_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    os.environ["REPRO_TUNING_CACHE"] = str(cache_dir)
+    tuning.reset_stats()
+    search = ExecutionContext(tuning="search")
+    won = []
+    for name, shape in buckets:
+        tiles = tuning.tiles_for(search, name, **shape)
+        spec = registry.get(name)
+        rec = tuning.default_cache().get(
+            tuning._cache_key(spec, spec.bucket(**shape), tuning.device_key()))
+        won.append(tiles)
+        times = ", ".join(f"{k} {v:.2f}" for k, v in rec["timings"].items())
+        print(f"phase obs: tuned {name} at {shape} (bucket {spec.bucket(**shape)}): "
+              f"{rec['candidates']} candidates held to the plain version, {rec['rejected']} "
+              f"rejected; us a call {{{times}}}; default {rec['default']['tiles']} "
+              f"{rec['default']['us']:.2f} us, winner {rec['tiles']} {rec['us']:.2f} us",
+              flush=True)
+        if rec["rejected"] or rec["us"] is None:
+            raise AssertionError(f"obs: a candidate of {name} at {shape} failed parity with "
+                                 f"the plain version: {rec['rejected_tiles']}")
+    searched = tuning.STATS["searches"]
+    tuning.reset_stats()
+    cached = ExecutionContext(tuning="cached")
+    again = [tuning.tiles_for(cached, name, **shape) for name, shape in buckets]
+    print(f"phase obs: {searched} searches into {cache_dir}; the same {len(buckets)} buckets "
+          f"under 'cached' from a fresh state: {tuning.STATS['cache_hits']} hits, "
+          f"{tuning.STATS['searches']} searches; cache status {tuning.cache_status()}",
+          flush=True)
+    if again != won or tuning.STATS["searches"] or tuning.STATS["cache_hits"] != len(buckets):
+        raise AssertionError("obs: the cached resolution did not hit every tuned bucket")
+    for fn, n in zip(counted, held):
+        fn.launches = n
+    return time.perf_counter() - t0
+
+
 def http_json(url: str, body: dict | None = None) -> dict:
     """GET (or POST ``body`` as JSON to) ``url``; the JSON answer."""
     data = None if body is None else json.dumps(body).encode()
@@ -1190,7 +1298,8 @@ def main() -> int:
     from repro_torch.core.ppa import ppa_metrics
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import (
-        app_kernels, axo_matmul, build, char_kernels, flash_attention, moo_kernels, ssd_scan,
+        app_kernels, axo_matmul, build, char_kernels, flash_attention, moo_kernels, registry,
+        ssd_scan, tuning,
     )
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -1198,11 +1307,14 @@ def main() -> int:
     from repro_torch.models.layers import rmsnorm
     from repro_torch.models.model import model_spec
     from repro_torch.models.spec import count_params, init_params
+    from repro_torch.launch.roofline import HW
+    from repro_torch.obs.profile import profile_registry, trace_capture
     from repro_torch.obs.prom import MetricsServer
     from repro_torch.service import DSEJobQueue, DSERequest, OperatorStore, default_runner
     from repro_torch.service.store import store_status
 
     t_start = time.perf_counter()
+    segments = {}   # each section's start, for the wall-clock breakdown
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False   # IEEE f32 products (K6's plain version)
@@ -1223,6 +1335,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
 
     # -- 2. build -----------------------------------------------------------
+    segments["build"] = time.perf_counter()
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"phase build: {sorted(built)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1232,6 +1345,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # -- 3. kernels vs plain versions ---------------------------------------
+    segments["kernels"] = time.perf_counter()
     spec = spec_for(8)
     rows, b_n = spec.rows, spec.n_inputs
     a_tile = fastchar.default_a_tile(spec)
@@ -2032,6 +2146,7 @@ def main() -> int:
               flush=True)
 
     # -- 4. main path -------------------------------------------------------
+    segments["main"] = time.perf_counter()
     ctx = ExecutionContext()                           # the card, K1 + K3
     ctx_entry = ExecutionContext(kernel_impl="entry")  # the card, K2 + K3
     wrappers = {"K1": char_kernels.behav_stats_table, "K2": char_kernels.behav_stats_entry,
@@ -2054,10 +2169,19 @@ def main() -> int:
     k2_entry = fastchar.behav_stats_entry
 
     def recorded_k2(*args):
-        k2_calls.append(args)
+        k2_calls.append(args)   # (masks, n_bits, a_tile), and configs a thread where tuned
         return k2_entry(*args)
 
     fastchar.behav_stats_entry = recorded_k2
+    # K1's likewise: (small, exact, w, a_tile)
+    k1_calls = []
+    k1_table = fastchar.behav_stats_table
+
+    def recorded_k1(*args):
+        k1_calls.append(args)
+        return k1_table(*args)
+
+    fastchar.behav_stats_table = recorded_k1
     t0 = time.perf_counter()
     train = build_training_dataset(spec, n_random=2000, seed=0, backend=ctx)
     t_char = time.perf_counter() - t0
@@ -2070,10 +2194,41 @@ def main() -> int:
     print(f"phase main: MaP pool {len(pool)} configs in {time.perf_counter() - t0:.2f} s, "
           f"hv reference {ref.tolist()}", flush=True)
     results = {}
-    for method in ("ga", "map", "map+ga"):
-        st = settings if method != "map+ga" else DSESettings(
-            const_sf=0.5, pop_size=64, n_gen=100, context=ctx_entry)
-        r = run_dse(spec, train, method, settings=st, map_pool=pool, ref=ref)
+    # map+ga runs twice: untuned ("off"), then, after the obs phase's search of
+    # the path's buckets, on a context with telemetry on (the GA's tap) and
+    # tuning "cached" -- the main path's map+ga, held to the same contracts.
+    # Before it the training set is characterized again on K1's menu under
+    # the same policy: K1 at its tuned tiles, on the path's chunks
+    ctx_obs = ExecutionContext(kernel_impl="entry", telemetry="on", tuning="cached")
+    ctx_obs_k1 = ExecutionContext(telemetry="on", tuning="cached")
+    for method in ("ga", "map", "map+ga (off)", "map+ga"):
+        if method == "map+ga":
+            k2_tuned_from = len(k2_calls)
+            # characterize launches K1 on chunks of 256 configs (its last, 212
+            # here, falls in the same bucket); K2 validates map+ga's front
+            t_obs = obs_tune(torch, tuning, registry, obs, [
+                ("fastchar.table", dict(n_bits=8, d=k1_calls[0][0].shape[1])),
+                ("fastchar.entry", dict(n_bits=8, d=k2_calls[0][0].shape[0])),
+                *(("axo_matmul.kernel", dict(m=m, k=k, n=n, rank=AXO_RANK))
+                  for m, k, n in K6_TUNE)], counted=wrappers.values())
+            searches0 = tuning.STATS["searches"]
+            k1_tuned_from = len(k1_calls)
+            train_tuned = build_training_dataset(spec, n_random=2000, seed=0,
+                                                 backend=ctx_obs_k1)
+            for key in ("AVG_ABS_ERR", "PROB_ERR", "MAX_ABS_ERR", "MSE"):
+                np.testing.assert_array_equal(train_tuned.metrics[key], train.metrics[key],
+                                              err_msg=f"the tuned training set's {key}")
+            np.testing.assert_allclose(train_tuned.metrics[BEHAV_KEY],
+                                       train.metrics[BEHAV_KEY], rtol=REL_RTOL)
+            print(f"phase obs: the training set characterized again on 'cached' tiles: "
+                  f"{len(k1_calls) - k1_tuned_from} K1 launches at a_tile "
+                  f"{sorted({c[3] for c in k1_calls[k1_tuned_from:]})} (untuned "
+                  f"{sorted({c[3] for c in k1_calls[:k1_tuned_from]})}); 4 metrics == the "
+                  f"untuned set's, {BEHAV_KEY} rtol {REL_RTOL}", flush=True)
+        st = settings if method in ("ga", "map") else DSESettings(
+            const_sf=0.5, pop_size=64, n_gen=100,
+            context=ctx_obs if method == "map+ga" else ctx_entry)
+        r = run_dse(spec, train, method.split()[0], settings=st, map_pool=pool, ref=ref)
         results[method] = r
         print(f"phase main: {method} hv_ppf {r.hv_ppf!r} hv_vpf {r.hv_vpf!r} n_evals "
               f"{r.n_evals} vpf {len(r.vpf_configs)} timings "
@@ -2081,29 +2236,110 @@ def main() -> int:
               f"K1 {wrappers['K1'].launches} K2 {wrappers['K2'].launches} "
               f"K3 {wrappers['K3'].launches}", flush=True)
     torch.cuda.synchronize()
+    # the obs phase's checks of the tuned, tapped map+ga against the untuned one
+    t_chk = time.perf_counter()
+    obs_tel = ctx_obs.telemetry
+    gen_rows = obs_tel.series.get("fastmoo.gen", [])
+    gen_hv = [float(row["hv"]) for row in gen_rows]
+    tuned, off = results["map+ga"], results["map+ga (off)"]
+    print(f"phase obs: map+ga on telemetry 'on', tuning 'cached': searches during the run "
+          f"{tuning.STATS['searches'] - searches0}, cache hits {tuning.STATS['cache_hits']}; "
+          f"fastmoo.gen rows {len(gen_rows)} (gens {int(gen_rows[0]['gen'])}.."
+          f"{int(gen_rows[-1]['gen'])}), hv {gen_hv[0]!r} -> {gen_hv[-1]!r} (hv_history "
+          f"{tuned.hv_history[-1][1]!r}), front {int(gen_rows[-1]['front'])} of capacity "
+          f"{4 * 64}, archive feasible {int(gen_rows[-1]['arc_feasible'])}; tap.fastmoo.gen "
+          f"{obs_tel.counter('tap.fastmoo.gen')}, dispatch counters "
+          f"{ {k: v for k, v in obs_tel.counters.items() if k.startswith('dispatch.')} }; "
+          f"hv_history tapped == untapped: {tuned.hv_history == off.hv_history}; front "
+          f"equal to the 'off' run's: {np.array_equal(tuned.vpf_configs, off.vpf_configs)}",
+          flush=True)
+    if tuning.STATS["searches"] != searches0:
+        raise AssertionError("the cached map+ga searched: a bucket of its path was not tuned")
+    if [int(row["gen"]) for row in gen_rows] != list(range(100)):
+        raise AssertionError(f"fastmoo.gen holds {len(gen_rows)} rows, not one a generation")
+    if any(b < a for a, b in zip(gen_hv, gen_hv[1:])):
+        raise AssertionError("the per-generation hypervolume decreased")
+    if not np.isclose(gen_hv[-1], tuned.hv_history[-1][1], rtol=1e-6):
+        raise AssertionError("the last tapped hv differs from hv_history's")
+    if tuned.hv_history != off.hv_history:
+        raise AssertionError("hv_history differs between the tapped and the untapped GA")
+    np.testing.assert_array_equal(tuned.vpf_configs, off.vpf_configs,
+                                  err_msg="the tuned map+ga's front differs from 'off's")
+    np.testing.assert_allclose(tuned.vpf_objs, off.vpf_objs, rtol=REL_RTOL)
+    t_obs += time.perf_counter() - t_chk
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    t_main = time.perf_counter() - t0 + t_char
+    t_main = time.perf_counter() - t0 + t_char - t_obs
     fastmoo.constraint_ranks = constraint_ranks
     fastchar.behav_stats_entry = k2_entry
+    fastchar.behav_stats_table = k1_table
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    # K2 at the D of its path launch (the validation of map+ga's front), both
-    # designs, after the path's counts were read
-    k2_masks, k2_bits, k2_tile = k2_calls[0]
+    # K2 at its path launch (the validation of the tuned map+ga's front, at
+    # its tuned tiles, on its own masks): held to the plain version and timed,
+    # both designs, after the path's counts were read; the untuned run's
+    # launch beside it
+    k2_path, k2_untuned = k2_calls[k2_tuned_from], k2_calls[0]
+    k2_masks, k2_bits, k2_tile = k2_path[:3]
     k2_d = k2_masks.shape[0]
+    k2_cfgs = (k2_path[3] if len(k2_path) > 3
+               else char_kernels.entry_configs(k2_d, k2_bits, k2_tile, n_sms))
+    ik, rk = char_kernels.behav_stats_entry(*k2_path)
+    ip, rp = char_kernels.behav_stats_entry_plain(*k2_path[:3])
+    torch.cuda.synchronize()
+    if not torch.equal(ik, ip):
+        raise AssertionError("K2 at its tuned path launch: int channels differ from plain")
+    torch.testing.assert_close(rk, rp, rtol=REL_RTOL, atol=0)
     rec["K2"]["path"] = {
-        "d": k2_d, "calls": len(k2_calls),
-        "configs_a_thread": char_kernels.entry_configs(k2_d, k2_bits, k2_tile, n_sms),
-        "ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry(*k2_calls[0]), 50),
-        "old_ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry_first(*k2_calls[0]), 50),
-        "tiers_ms": k2_tiers(k2_calls[0]),
-        "bound_ms": k2_bound(k2_d)[0]}
+        "d": k2_d, "calls": len(k2_calls) - k2_tuned_from, "a_tile": k2_tile,
+        "configs_a_thread": k2_cfgs, "max_abs_err": float((rk - rp).abs().max()),
+        "ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry(*k2_path), 50),
+        "plain_ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry_plain(
+            *k2_path[:3]), 5),
+        "old_ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry_first(*k2_path[:3]), 50),
+        "tiers_ms": k2_tiers(k2_path[:3]),
+        "bound_ms": k2_bound(k2_d)[0],
+        "untuned": {"a_tile": k2_untuned[2], "configs_a_thread": char_kernels.entry_configs(
+                        k2_d, k2_bits, k2_untuned[2], n_sms),
+                    "ms": cuda_ms(torch, lambda: char_kernels.behav_stats_entry(*k2_untuned),
+                                  50)}}
+    # K1 likewise at its first tuned launch: the training set's first chunk
+    k1_path, k1_untuned = k1_calls[k1_tuned_from], k1_calls[0]
+    k1_small, k1_tile = k1_path[0], k1_path[3]
+    k1_d = k1_small.shape[1]
+    ik, rk = char_kernels.behav_stats_table(*k1_path)
+    ip, rp = char_kernels.behav_stats_table_plain(*k1_path)
+    torch.cuda.synchronize()
+    if not torch.equal(ik, ip):
+        raise AssertionError("K1 at its tuned path launch: int channels differ from plain")
+    torch.testing.assert_close(rk, rp, rtol=REL_RTOL, atol=0)
+    rec["K1"]["path"] = {
+        "d": k1_d, "calls": len(k1_calls) - k1_tuned_from, "a_tile": k1_tile,
+        "max_abs_err": float((rk - rp).abs().max()),
+        "ms": cuda_ms(torch, lambda: char_kernels.behav_stats_table(*k1_path), 50),
+        "plain_ms": cuda_ms(torch, lambda: char_kernels.behav_stats_table_plain(*k1_path), 5),
+        "old_ms": cuda_ms(torch, lambda: char_kernels.behav_stats_table_first(*k1_path), 50),
+        "bound_ms": bound(k1_small.numel() * 4 + 2 * b_n * b_n * 4
+                          + 2 * (b_n // k1_tile) * k1_d * 8 * 4,
+                          k1_d * b_n * b_n * K1_PAIR_OPS, 0, issue_rate)[0],
+        "untuned": {"a_tile": k1_untuned[3],
+                    "ms": cuda_ms(torch, lambda: char_kernels.behav_stats_table(*k1_untuned),
+                                  50)}}
+    k1p = rec["K1"]["path"]
+    print(f"phase main: K1's path launch (the training set on 'cached' tiles, {k1p['calls']} "
+          f"call(s)): D={k1_d} configs, a_tile {k1_tile}: int channels == plain, f32 max abs "
+          f"err {k1p['max_abs_err']:.3g} (rtol {REL_RTOL}); {k1p['ms']:.4f} ms (plain "
+          f"{k1p['plain_ms']:.4f}; first design {k1p['old_ms']:.4f}, bound "
+          f"{k1p['bound_ms']:.4g}); the untuned launch at a_tile {k1p['untuned']['a_tile']}: "
+          f"{k1p['untuned']['ms']:.4f} ms", flush=True)
     k2p = rec["K2"]["path"]
-    print(f"phase main: K2's path launch (map+ga validation, {k2p['calls']} call(s)): D={k2_d} "
-          f"configs, a_tile {k2_tile}, {k2p['configs_a_thread']} configs a thread: "
-          f"{k2p['ms']:.4f} ms (tiers 4 / 1: {k2p['tiers_ms'][4]:.4f} / "
-          f"{k2p['tiers_ms'][1]:.4f}; first design {k2p['old_ms']:.4f}, bound "
-          f"{k2p['bound_ms']:.4g})", flush=True)
+    print(f"phase main: K2's path launch (the tuned map+ga's validation, {k2p['calls']} "
+          f"call(s)): D={k2_d} configs, a_tile {k2_tile}, {k2_cfgs} configs a thread: int "
+          f"channels == plain, f32 max abs err {k2p['max_abs_err']:.3g} (rtol {REL_RTOL}); "
+          f"{k2p['ms']:.4f} ms (plain {k2p['plain_ms']:.4f}; tiers 4 / 1 at a_tile "
+          f"{k2_tile}: {k2p['tiers_ms'][4]:.4f} / {k2p['tiers_ms'][1]:.4f}; first design "
+          f"{k2p['old_ms']:.4f}, bound {k2p['bound_ms']:.4g}); the untuned run's launch at "
+          f"a_tile {k2p['untuned']['a_tile']}, {k2p['untuned']['configs_a_thread']} configs "
+          f"a thread: {k2p['untuned']['ms']:.4f} ms", flush=True)
     print(f"phase main: {rankings['calls']} GA rankings, K3 constraint_fronts launches "
           f"{launches['K3']}, dominance_counts launches {moo_kernels.dominance_counts.launches}",
           flush=True)
@@ -2123,6 +2359,7 @@ def main() -> int:
           f"numpy backend (4 metrics), AVG_ABS_REL_ERR rtol {REL_RTOL}", flush=True)
 
     # -- apps: application-targeted DSE ------------------------------------
+    segments["apps"] = time.perf_counter()
     apps = [APPLICATIONS[name]() for name in ("ecg", "mnist", "gauss", "ffn")]
     mnist = apps[1]
     app_wrappers = dict(wrappers, K4=app_kernels.table_gemv, K5=app_kernels.entry_gemv)
@@ -2235,6 +2472,7 @@ def main() -> int:
     launches.update(K4=app_launches["K4"], K5=app_launches["K5"])
 
     # -- 5. GA hypervolume contract -----------------------------------------
+    segments["ga"] = time.perf_counter()
     small_ds = build_training_dataset(spec, n_random=150, seed=0, backend=ctx)
     ests = fit_estimators(
         small_ds.configs.astype(np.float64),
@@ -2245,6 +2483,7 @@ def main() -> int:
     mp = float(small_ds.metrics[PPA_KEY].max())
     hv_ref = np.array([1.05 * mb, 1.05 * mp])
     fn = fastchar.compile_surrogate_batch(ests, BEHAV_KEY, PPA_KEY, mb, mp, ctx=ctx)
+    ga_problem = (fn.objs_fn, (mb, mp), hv_ref)   # the sync phase's tapped GA
     hv_np, hv_t = [], []
     for seed in GA_SEEDS:
         r_np = nsga2(None, n_bits=spec.n_luts, pop_size=32, n_gen=30, seed=seed,
@@ -2265,6 +2504,7 @@ def main() -> int:
         raise AssertionError("device GA seed-0 hypervolume is not within 2% of the numpy GA")
 
     # -- wide: sampled 12/16-bit BEHAV, unsigned 8-bit, 12-bit app BEHAV ------
+    segments["wide"] = time.perf_counter()
     t_wide0 = time.perf_counter()
     wide_timings = {}
     for n_bits in (12, 16):
@@ -2357,6 +2597,7 @@ def main() -> int:
           flush=True)
 
     # -- sweep: run_dse_sweep over the full const_sf grid, one GA for 12 lanes --
+    segments["sweep"] = time.perf_counter()
     for fn in (moo_kernels.constraint_fronts, moo_kernels.constraint_fronts_lanes,
                moo_kernels.dominance_counts):
         fn.launches = 0
@@ -2401,6 +2642,7 @@ def main() -> int:
           f"empty front(s) at const_sf 0.2)", flush=True)
 
     # -- service: the operator library and the job queue behind HTTP ---------
+    segments["service"] = time.perf_counter()
     t_svc0 = time.perf_counter()
     tel_svc = obs.Telemetry("chip-smoke-service", parent=obs.GLOBAL)
     sweeps = {"calls": 0}
@@ -2421,6 +2663,11 @@ def main() -> int:
         srv.add_route("GET", "/dse", lambda p: queue.result(p["id"]) or {"status": "pending"})
         srv.add_route("GET", "/dse/library", lambda p: store_status(store))
         try:
+            # half the sweep's grid (every other const_sf, both seeds): the
+            # service's batching and library are the same at six lanes, and
+            # each const_sf costs a MaP battery (~8 s on the host)
+            svc_grid = CONST_SF_GRID[1::2]
+            svc_lanes = [r for r in sweep if r.settings.const_sf in svc_grid]
             bursts = []
             for burst in range(2):
                 moo_kernels.constraint_fronts_lanes.launches = 0
@@ -2431,7 +2678,7 @@ def main() -> int:
                 t0 = time.perf_counter()
                 jobs = [http_json(f"{srv.url}/dse", {"n_bits": 8, "const_sf": sf, "seed": sd,
                                                      "method": "map+ga"})["job_id"]
-                        for sf in CONST_SF_GRID for sd in (0, 1)]
+                        for sf in svc_grid for sd in (0, 1)]
                 if not queue.join(timeout=600):
                     raise AssertionError("service: the jobs did not finish in 600 s")
                 answers = [http_json(f"{srv.url}/dse?id={j}") for j in jobs]
@@ -2450,7 +2697,7 @@ def main() -> int:
                 # seeds and grid; validated through K1 there, K2 here)
                 if bursts[-1]["status"] != ["done"]:
                     raise AssertionError(f"service burst {burst + 1}: {answers[:2]}")
-                np.testing.assert_allclose(bursts[-1]["hv"], [r.hv_vpf for r in sweep],
+                np.testing.assert_allclose(bursts[-1]["hv"], [r.hv_vpf for r in svc_lanes],
                                            rtol=1e-5, err_msg="service hv vs the sweep's")
             first, second = bursts
             if not (first["batches"] == 1 and first["ga_dispatches"] == 1
@@ -2474,9 +2721,13 @@ def main() -> int:
                     raise AssertionError(f"service: /metrics lacks {name}")
             if health["status"] != "ok" or health["device"]["kind"] != torch.cuda.get_device_name(0):
                 raise AssertionError(f"service: /healthz {health}")
+            if not (health.get("tuning_cache", {}).get("ok")
+                    and health["tuning_cache"]["entries"] > 0):
+                raise AssertionError(f"service: /healthz lacks the tuning cache: {health}")
             print(f"phase service: /dse/library rows {lib['rows']} fronts {lib['fronts']}; "
                   f"/metrics renders the service.* counters; /healthz {health['status']} on "
-                  f"'{health['device']['kind']}'", flush=True)
+                  f"'{health['device']['kind']}', tuning_cache {health['tuning_cache']}",
+                  flush=True)
         finally:
             queue.close()
             srv.stop()
@@ -2497,13 +2748,15 @@ def main() -> int:
           f"{[round(a['hv_vpf'], 1) for a in smoke['dse']]}; {t_svc:.1f} s", flush=True)
 
     # -- serve: granite-3-2b at full width and depth, exact and AxO -----------
+    segments["serve"] = time.perf_counter()
     all_wrappers = dict(app_wrappers, K6=axo_matmul.axo_matmul,
                         K7=flash_attention.flash_attention)
     for fn in all_wrappers.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    res = serve.main(SERVE_ARGS)
+    serve_trace = ROOT / "build" / "serve_trace.json"
+    res = serve.main(SERVE_ARGS + ["--trace", str(serve_trace)])
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
     serve_launches = {k: fn.launches for k, fn in all_wrappers.items()}
@@ -2528,6 +2781,22 @@ def main() -> int:
     if (serve_launches["K6"], serve_launches["K7"]) != (k6_want, k7_want):
         raise AssertionError(f"serve launches {serve_launches}: expected K6 {k6_want}, "
                              f"K7 {k7_want}")
+    # obs: the --trace file, the AxO decode step beside earlier runs', the pad waste
+    with open(serve_trace) as f:
+        spans = [e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    # the serving run's own plans: its kernels record on its telemetry
+    pads = {k: (res["telemetry"].gauges.get(f"{k}.pad_waste"),
+                res["telemetry"].histogram_summary(f"{k}.pad_waste"))
+            for k in ("axo_matmul", "flash_attention")}
+    print(f"phase obs: serve --trace {serve_trace}: {len(spans)} spans "
+          f"({ {n: spans.count(n) for n in sorted(set(spans))} }); granite AxO decode "
+          f"{axo['decode_ms'] / steps:.3f} ms/step (earlier runs: "
+          f"{EARLIER_AXO_DECODE_MS['granite-3-2b']}"
+          f"); pad waste of the run's plans (last, summary): K6 {pads['axo_matmul'][0]} "
+          f"{pads['axo_matmul'][1]}, K7 {pads['flash_attention'][0]} "
+          f"{pads['flash_attention'][1]}", flush=True)
+    if not {"serve.request", "serve.prefill", "serve.decode"} <= set(spans):
+        raise AssertionError(f"serve --trace lacks the prefill and decode spans: {set(spans)}")
     if not all(torch.isfinite(lg.float()).all() for lg in res["exact_logits"] +
                axo["replay_logits"]):
         raise AssertionError("non-finite logits on the serve path")
@@ -2585,8 +2854,30 @@ def main() -> int:
         busy, top = profile_decode(torch, pre_fn, dec_fn, params, toks)
         step_ms = td * 1e3 / 15
         busy_p, _ = profile_calls(torch, lambda: pre_fn(params, toks), 1)
+        earlier = (f" (earlier runs: {EARLIER_AXO_DECODE_MS['granite-3-2b']})"
+                   if label == "AxO" else "")
+        if label == "AxO":
+            # obs: one AxO prefill's torch.profiler trace, beside the
+            # profiled windows above; it must hold K6 and K7 device events
+            t_tr = time.perf_counter()
+            prefill_trace = ROOT / "build" / "granite_prefill_trace.json"
+            with trace_capture(str(prefill_trace), tel=obs.GLOBAL):
+                pre_fn(params, toks)
+                torch.cuda.synchronize()
+            with open(prefill_trace) as f:
+                events = json.load(f)["traceEvents"]
+            dev_names = [e["name"] for e in events if e.get("cat") == "kernel"]
+            k6_ev = sum("axo_mma_kernel" in n or "axo_gemv_kernel" in n for n in dev_names)
+            k7_ev = sum("flash_attention_" in n for n in dev_names)
+            t_obs += time.perf_counter() - t_tr
+            print(f"phase obs: trace_capture of one granite-3-2b AxO prefill (B=4, S=128) -> "
+                  f"{prefill_trace}: {len(events)} events, {len(dev_names)} device kernels, "
+                  f"K6 {k6_ev}, K7 {k7_ev}", flush=True)
+            if not (k6_ev and k7_ev):
+                raise AssertionError("the granite prefill's trace holds no K6 or no K7 "
+                                     "device event")
         print(f"phase serve: {label} warm: prefill {tp * 1e3:.2f} ms, decode "
-              f"{step_ms:.3f} ms/step ({4 * 15 / td:.1f} tokens/s); profiled decode step: "
+              f"{step_ms:.3f} ms/step{earlier} ({4 * 15 / td:.1f} tokens/s); profiled decode step: "
               f"device time {busy['device_ms']:.3f} ms ({busy['device_ms'] / step_ms:.1%} "
               f"of the unprofiled step; {busy['wall_ms']:.3f} ms wall under the profiler), "
               f"K6 {busy['k6_ms']:.3f} ms of it ({busy['k6_ms'] / busy['device_ms']:.1%}); "
@@ -2630,6 +2921,7 @@ def main() -> int:
     del red_params, red_dep, red_plain
 
     # -- serve-ssm: mamba2-130m at full width and depth, exact and AxO head ---
+    segments["serve-ssm"] = time.perf_counter()
     ssm_wrappers = dict(all_wrappers, K8=ssd_scan.ssd_scan)
     for fn in ssm_wrappers.values():
         fn.launches = 0
@@ -2782,9 +3074,10 @@ def main() -> int:
         raise AssertionError("a reduced mamba pass on the kernels differs from its plain replay")
 
     # -- serve-dense, serve-moe, serve-hybrid, serve-mla, serve-encdec, serve-vlm
-    # internlm2-1.8b, starcoder2-3b and whisper-medium at full depth through
-    # serve.main; deepseek-67b, kimi-k2, jamba, deepseek-v3 and the VLM cut in
-    # depth (DEPTH_CUTS) with dataclasses.replace and served by
+    segments["serve-families"] = time.perf_counter()
+    # whisper-medium at full depth through serve.main; internlm2-1.8b,
+    # starcoder2-3b, deepseek-67b, kimi-k2, jamba, deepseek-v3 and the VLM cut
+    # in depth (DEPTH_CUTS) with dataclasses.replace and served by
     # serve.serve_config, serve.main's run.  Each: batch 4, prompt 128, 8 new
     # tokens, exact and with the rank-8 demo operator in every projection and
     # the head; launch counts zeroed before and read after; every K7 and K8
@@ -2843,6 +3136,8 @@ def main() -> int:
             extra += f"MLA q/k width {cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim}, "
         if front is not None:
             extra += f"stub frontend {tuple(front.shape)}, "
+        earlier = (f" (earlier runs: {EARLIER_AXO_DECODE_MS[arch]})"
+                   if arch in EARLIER_AXO_DECODE_MS else "")
         print(f"phase {phase}: {cfg.name} ({cfg.n_layers} layers"
               f"{' + %d encoder layers' % cfg.encoder.n_layers if cfg.encoder else ''}, d "
               f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads of {hd}, d_ff {cfg.d_ff}, "
@@ -2851,11 +3146,14 @@ def main() -> int:
               f"{res['exact_decode_ms'] / steps:.3f} ms/step; AxO rank {AXO_RANK} "
               f"({dep.n_entries} entries, K6 calls a forward {per_pre} prefill / {per_dec} "
               f"decode) prefill {axo['prefill_ms']:.2f} ms, decode "
-              f"{axo['decode_ms'] / steps:.3f} ms/step; peak memory {peak / 2**30:.3f} GiB "
+              f"{axo['decode_ms'] / steps:.3f} ms/step{earlier}; peak memory "
+              f"{peak / 2**30:.3f} GiB "
               f"({peak} bytes above the {held} held before); launches {got} (expected {want}), "
               f"K7 a prefill by (hd, causal) {k7_pre}, K8 calls by route {k8_routes}; "
               f"free-run match {axo['free_run_match']:.4f}, teacher-forced top-1 "
-              f"{axo['top1']:.4f}, logit rel_err {axo['rel_err']:.4f}", flush=True)
+              f"{axo['top1']:.4f}, logit rel_err {axo['rel_err']:.4f}; K6 pad waste of the "
+              f"run's plans {res['telemetry'].histogram_summary('axo_matmul.pad_waste')}",
+              flush=True)
         if got != want:
             raise AssertionError(f"{phase} {cfg.name}: launches {got}, expected {want}")
         if k8_routes != {"mma": got["K8"], "scalar": 0}:
@@ -2911,7 +3209,8 @@ def main() -> int:
             busy, top = profile_decode(torch, pre_fn, dec_fn, params, toks, front=front)
             step_ms = td * 1e3 / (GEN_TOKENS - 1)
             print(f"phase {phase}: {cfg.name} {label} warm: prefill {tp * 1e3:.2f} ms "
-                  f"({4 * PROMPT_LEN / tp:.0f} tokens/s), decode {step_ms:.3f} ms/step "
+                  f"({4 * PROMPT_LEN / tp:.0f} tokens/s), decode {step_ms:.3f} ms/step"
+                  f"{earlier if label == 'AxO' else ''} "
                   f"({4 * (GEN_TOKENS - 1) / td:.1f} tokens/s); profiled prefill: device "
                   f"time {busy_p['device_ms']:.3f} ms, K6 {busy_p['k6_ms']:.3f}, K7 "
                   f"{busy_p['k7_ms']:.3f}, K8 {busy_p['k8_ms']:.3f} ms of it; top kernels "
@@ -2930,7 +3229,7 @@ def main() -> int:
         return stats
 
     t0 = time.perf_counter()
-    dense_runs = [serve_phase("serve-dense", arch) for arch in (*DENSE_FULL, "deepseek-67b")]
+    dense_runs = [serve_phase("serve-dense", arch) for arch in DENSE_ARCHS]
     t_dense = time.perf_counter() - t0
     launches["K6D"] = sum(r["launches"]["K6"] for r in dense_runs)
     t0 = time.perf_counter()
@@ -3046,6 +3345,7 @@ def main() -> int:
           f"K/V expanded to the heads {mla_sdpa_ms:.4f} ms", flush=True)
 
     # -- train: K7 and K8 under autograd, the reduced archs, granite and mamba2
+    segments["train"] = time.perf_counter()
     t0 = time.perf_counter()
     train_stats, train_keep = train_phase(torch, dev, ssm_wrappers, gen)
     t_train = time.perf_counter() - t0
@@ -3056,6 +3356,7 @@ def main() -> int:
     print(f"phase train: {t_train:.1f} s; {json.dumps(train_stats)}", flush=True)
 
     # -- device time of K8, K6 and K7 -----------------------------------------
+    segments["device-time"] = time.perf_counter()
     # first, one train step of granite-3-2b and one of mamba2-130m, each after
     # a warm one: the device time split by kernel and range; then their state
     # is freed
@@ -3077,6 +3378,12 @@ def main() -> int:
     rec["K8"]["device_ms"] = k8_dev
     del x, dt, a, bm, cm
     for label, (m, k, n) in k6_shapes.items():
+        if m > K6_PROFILED_MAX_M:
+            print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: not profiled (M > "
+                  f"{K6_PROFILED_MAX_M})", flush=True)
+            if label == "gate/up prefill":
+                rec["K6"].update(device_ms=None, library_device_ms=None)
+            continue
         f_t, g_t, sv_t = tabs["random36" if "random36" in label else "demo"]
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
@@ -3141,6 +3448,13 @@ def main() -> int:
         del q, kk, vv, k_rep, v_rep
     f_t, g_t, sv_t = tabs["demo"]
     for label, (m, k, n, key, filled) in K6_NEW.items():
+        if m > K6_PROFILED_MAX_M:
+            print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: not profiled (M > "
+                  f"{K6_PROFILED_MAX_M})", flush=True)
+            rec[key]["shapes"][label].update(device_ms=None, library_device_ms=None)
+            rec[key].setdefault("device_ms", None)
+            rec[key].setdefault("library_device_ms", None)
+            continue
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         a[filled:] = 0
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
@@ -3173,13 +3487,13 @@ def main() -> int:
             ("K2", "D=258", char_kernels.behav_stats_entry,
              char_kernels.behav_stats_entry_first, (masks, 8, a_tile)),
             ("K2", f"path D={k2_d}", char_kernels.behav_stats_entry,
-             char_kernels.behav_stats_entry_first, k2_calls[0]),
+             char_kernels.behav_stats_entry_first, k2_path),
             ("K5", "mnist D=128", app_kernels.entry_gemv, app_kernels.entry_gemv_first,
              k5_mnist),
             ("K5", f"path D={k5_d}", app_kernels.entry_gemv, app_kernels.entry_gemv_first,
              k5_calls[0])):
         dev_new = device_ms(torch, lambda: new_fn(*args), 50)
-        dev_first = device_ms(torch, lambda: first_fn(*args), 50)
+        dev_first = device_ms(torch, lambda: first_fn(*args[:3] if key == "K2" else args), 50)
         print(f"phase device-time: {key} at {label}: {fmt_ms(dev_new)} on the device "
               f"(first design {fmt_ms(dev_first)})", flush=True)
         where = rec[key] if label.startswith(("D=258", "mnist")) else rec[key]["path"]
@@ -3188,7 +3502,7 @@ def main() -> int:
     # less idle at a small D
     for label, args, where in (("D=258", (masks, 8, a_tile), rec["K2"]),
                                ("D=37", (masks_r, 8, a_tile), rec["K2"]["ragged"]),
-                               (f"path D={k2_d}", k2_calls[0], rec["K2"]["path"])):
+                               (f"path D={k2_d}", k2_path[:3], rec["K2"]["path"])):
         tiers = {g: device_ms(torch, lambda: char_kernels.behav_stats_entry_at(*args, g), 50)
                  for g in (4, 1)}
         print(f"phase device-time: K2 at {label}: 4 configs a thread {fmt_ms(tiers[4])}, 1 "
@@ -3198,7 +3512,39 @@ def main() -> int:
     print(f"phase device-time: torch.profiler windows that held no device events: "
           f"{PROFILER_EMPTY['empty']} of {PROFILER_EMPTY['windows']}", flush=True)
 
+    # -- obs: the registry's profile of every kernel (after the timed phases)
+    segments["profile"] = time.perf_counter()
+    t0 = time.perf_counter()
+    hw = HW.h100_sxm()
+    # at the main paths' shapes: K1/K2 at the training set's 1,024-config
+    # chunk, K3 at the GA's 128-row ranking, K4/K5 at the mnist head, K6 at
+    # granite's gate/up prefill, K7 at granite's prefill, K8 at mamba2's
+    prof_shapes = {
+        "fastchar": dict(d=1024), "fastmoo": dict(p=128),
+        "fastapp": dict(d=128, m=250, k=256, n=10),
+        "axo_matmul": dict(m=512, k=2048, n=8192, rank=AXO_RANK),
+        "attention": dict(b=4, h=32, g=8, s=128, hd=64),
+        "ssd_scan": dict(zip(("b", "s", "h", "g", "p", "n"), SSM_SHAPE), chunk=K8_Q)}
+    for r in profile_registry(tel=obs.GLOBAL, device=dev, shapes=prof_shapes):
+        if r.name == "fastapp.gemm":
+            print(f"phase obs: profile fastapp.gemm (the plain route): FlopCounterMode "
+                  f"{r.cost['flops']:.4g} FLOPs vs cost_fn {r.estimate['flops']:.4g} "
+                  f"(ratio {r.divergence['flops']:.3g}, flagged {list(r.flagged)})", flush=True)
+            continue
+        print(f"phase obs: profile {r.name} at {r.extra['shape']}: {r.cost['ms']:.4f} ms (CUDA "
+              f"events), cost_fn {r.estimate}; bound on {hw.name} {r.extra['bound_ms']:.5f} ms "
+              f"by {r.extra['bound_by']} ({r.extra['bytes_moved']} bytes of operands and "
+              f"outputs, cost_fn's FLOPs at the {r.extra['peak_type']} peak), "
+              f"{r.extra['bound_share']:.2%} of it reached"
+              + (f"; plain version's FlopCounterMode FLOPs {r.cost['plain_flops']:.4g} vs "
+                 f"cost_fn (ratio {r.divergence['flops']:.3g}, flagged {list(r.flagged)})"
+                 if "plain_flops" in r.cost else ""), flush=True)
+    t_obs += time.perf_counter() - t0
+    print(f"phase obs: profile.traces {obs.GLOBAL.counter('profile.traces')}; obs phase "
+          f"{t_obs:.1f} s", flush=True)
+
     # -- sync: one ranking under the sync debugger ---------------------------
+    segments["sync"] = time.perf_counter()
     # last, because switching the debugger slows every later host-issued
     # launch; a ranking of the main path's shape must not sync the host (the
     # fronts' count stays on the card).  A ranking's time before and after
@@ -3217,6 +3563,35 @@ def main() -> int:
           f"torch.cuda.set_sync_debug_mode('error'): no host sync, ranks == plain; a ranking "
           f"{rank_ms:.4f} ms before the debugger was switched, {rank_after_ms:.4f} ms after",
           flush=True)
+    # the tapped GA's generation loop (phase 5's problem, population 64 x 100)
+    # under the debugger: its per-generation rows reach the host without a
+    # sync.  Its setup (the seed pool and reference copied to the card) and
+    # its results (the archive copied back) sync once each, outside the loop
+    ga_objs, (ga_mb, ga_mp), ga_ref = ga_problem
+    tap_ctx = ExecutionContext(telemetry="on")
+    runner = fastmoo.CompiledNSGA2(ga_objs, n_bits=spec.n_luts, pop_size=64, n_gen=100,
+                                   hv_ref=ga_ref, ctx=tap_ctx)
+    state = runner._setup([0], [(ga_mb, ga_mp)], [None], tapped=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner._generations(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t_loop = time.perf_counter() - t0
+    tapped_run = runner._results(state)[0]
+    obs.flush()
+    rows = tap_ctx.telemetry.series["fastmoo.gen"]
+    untapped_run = fastmoo.CompiledNSGA2(ga_objs, n_bits=spec.n_luts, pop_size=64, n_gen=100,
+                                         hv_ref=ga_ref, ctx=ctx).run(0, ga_mb, ga_mp)
+    print(f"phase sync: the tapped GA's 100 generations under "
+          f"torch.cuda.set_sync_debug_mode('error') in {t_loop:.2f} s: no host sync; "
+          f"fastmoo.gen rows {len(rows)}, last hv {float(rows[-1]['hv'])!r} vs hv_history "
+          f"{tapped_run.hv_history[-1][1]!r}; hv_history == the untapped run's: "
+          f"{tapped_run.hv_history == untapped_run.hv_history}", flush=True)
+    if len(rows) != 100 or tapped_run.hv_history != untapped_run.hv_history:
+        raise AssertionError("the tapped GA under the sync debugger: rows or hv_history differ")
 
     kernels = []
     for k, r in rec.items():
@@ -3239,7 +3614,10 @@ def main() -> int:
           f"sweep {t_sweep:.1f} s, service {t_svc:.1f} s, serve-dense {t_dense:.1f} s, "
           f"serve-moe {t_moe:.1f} s, "
           f"{', '.join(f'{k} {v:.1f} s' for k, v in t_slice4.items())}, train "
-          f"{t_train:.1f} s)", flush=True)
+          f"{t_train:.1f} s, obs {t_obs:.1f} s)", flush=True)
+    ends = [*list(segments.values())[1:], time.perf_counter()]
+    print(f"phase wall: wall-clock by section (s): "
+          f"{ {k: round(e - b, 1) for (k, b), e in zip(segments.items(), ends)} }", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

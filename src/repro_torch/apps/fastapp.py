@@ -36,10 +36,12 @@ are int32 modulo 2^32, as the reference's.
 
 Per-app BEHAV heads combine the integer device outputs on the host in float64
 with exactly the oracle's expressions, which keeps every app BEHAV equal to
-the numpy path.  Left out against the reference: the ``shard_map`` mesh
-paths, the telemetry counters, the tile registry (tiles are module
-constants) and the power-of-two bucket padding of config chunks, which only
-bounds JAX recompiles.
+the numpy path.  A table matmul counts ``dispatch.fastapp.<impl>`` on the
+batch context's telemetry, and K4's route and gather tiles resolve through
+the kernel registry under its ``tuning`` policy (``kernels.tuning.
+tiles_for``; ``app_kernels.plan``'s choice untuned).  Left out against the
+reference: the ``shard_map`` mesh paths and the power-of-two bucket padding
+of config chunks, which only bounds JAX recompiles.
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ from ..core.fastchar import _gather_small
 from ..core.operator_model import OperatorSpec, _synth_small, config_to_masks, spec_for
 from ..kernels import app_kernels
 from ..kernels.app_kernels import _pair
+from ..kernels.tuning import launch_overrides
+from ..obs.telemetry import current
 
 __all__ = [
     "MATMUL_IMPLS",
@@ -295,8 +299,15 @@ def table_matmul_torch(tables, a_codes, b_codes, impl: str | None = None) -> tor
     b = _codes(b_codes, batch.device)
     impl = _resolve_impl(impl, batch, a.shape[-1], per_config=a.dim() == 3)
     d = len(batch)
+    tel = batch.ctx.tel if batch.ctx is not None else current()
+    tel.count(f"dispatch.fastapp.{impl}")
     if impl == "table":
-        return app_kernels.table_gemv(batch.tables.reshape(d, -1), a, b)
+        (m, k), n = a.shape, b.shape[1]
+        tuned = launch_overrides(batch.ctx, "fastapp.table", n_bits=batch.n_bits, d=d, m=m,
+                                 k=k, n=n)
+        kw = {} if not tuned else dict(route=tuned["route"], m_tile=tuned["m_tile"] or None,
+                                       k_tile=tuned["k_tile"] or None)
+        return app_kernels.table_gemv(batch.tables.reshape(d, -1), a, b, **kw)
     if impl == "entry":
         return app_kernels.entry_gemv(batch.masks, a, b, batch.n_bits)
     if impl == "gemm":

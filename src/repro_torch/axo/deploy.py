@@ -19,8 +19,15 @@ factors in f32, ``(1 + R)`` floats per weight: 91 GB for granite-3-2b's
 2.53 G linear weights at R=8, more than the card holds.  The port caches the
 uint8 codes (2.53 GB there) and K6 gathers values and factors from the
 ``(2^n, R)`` tables itself, which computes what the reference's
-``ops.axo_matmul`` computes from codes.  The reference's telemetry counters
-are left out (ROADMAP.md queue 1 item 12).
+``ops.axo_matmul`` computes from codes.
+
+K6's K splits resolve through the kernel registry under the context's
+``tuning`` policy (``kernels.tuning.tiles_for``; ``axo_matmul.plan``'s
+choice untuned).  A deployment resolves them once per shape, at its first
+call: a decode step issues hundreds of K6 launches, and the resolution and
+the reference's counter ``dispatch.axo_apply.<impl>`` fall there, never on a
+launch (``axo_linear``, off the serving path, resolves and counts
+``dispatch.axo_linear.<impl>`` a call).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import torch
 
 from ..core.operator_model import error_tables, exact_product_table, product_tables, spec_for
 from ..kernels.axo_matmul import axo_matmul, axo_matmul_plain
+from ..kernels.tuning import launch_overrides
+from ..obs import telemetry as obs
 
 __all__ = [
     "AxOOperator",
@@ -140,6 +149,22 @@ def _impl(ctx, default: str) -> str:
     return default if ctx is None else ctx.resolve_impl("axo_matmul", default)
 
 
+def _k6_tiles(ctx, site: str, impl: str, m: int, k: int, n: int, rank: int) -> dict:
+    """K6's tuned launch tiles at one shape (``{}`` untuned); counts
+    ``dispatch.<site>.<impl>``."""
+    obs.of(ctx).count(f"dispatch.{site}.{impl}")
+    if impl != "kernel":
+        return {}
+    return launch_overrides(ctx, "axo_matmul.kernel", m=m, k=k, n=n, rank=rank)
+
+
+def _matmul(impl: str, tiles: dict, a_codes, b_codes, f, g, sv) -> torch.Tensor:
+    """K6 at ``tiles`` or its plain version on uint8 codes."""
+    if impl == "kernel":
+        return axo_matmul(a_codes, b_codes, f, g, sv, **tiles)
+    return axo_matmul_plain(a_codes, b_codes, f, g, sv)
+
+
 def axo_linear(
     x: torch.Tensor,             # (..., K) float activations
     w: torch.Tensor,             # (K, N) float weights
@@ -151,7 +176,7 @@ def axo_linear(
 
     ``use_kernel`` picks K6 (``False`` its plain version, the reference's
     ``use_kernel=False`` contraction); ``ctx`` may override it through its
-    ``axo_matmul`` menu.
+    ``axo_matmul`` menu and supplies tuned K splits.
     """
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -159,9 +184,9 @@ def axo_linear(
     xq, sx = quantize_tensor(x.reshape(-1, k), op.n_bits)
     wq, sw = quantize_tensor(w, op.n_bits)
     f, g, sv = _tables(op, x.device)
-    fn = axo_matmul if _impl(ctx, "kernel" if use_kernel else "plain") == "kernel" \
-        else axo_matmul_plain
-    y = fn(xq.to(torch.uint8), wq.to(torch.uint8).contiguous(), f, g, sv)
+    impl = _impl(ctx, "kernel" if use_kernel else "plain")
+    tiles = _k6_tiles(ctx, "axo_linear", impl, xq.shape[0], k, n, op.rank)
+    y = _matmul(impl, tiles, xq.to(torch.uint8), wq.to(torch.uint8).contiguous(), f, g, sv)
     return (y * (sx * sw)).reshape(*lead, n).to(x.dtype)
 
 
@@ -188,8 +213,9 @@ class AxODeployment:
     ``"shared"``; an ``attn_x`` mixer's holds ``"self"`` and ``"cross"``);
     ``encoder`` mirrors the encoder stage, ``{"0": ...}``, where the model
     has one; ``head`` is a single ``(d, vocab)`` entry.  ``n_entries``
-    counts entries as the reference does (one per stacked weight).  ``ctx`` picks K6 or its plain version
-    (``dataclasses.replace(dep, ctx=...)`` shares the cached codes).
+    counts entries as the reference does (one per stacked weight).  ``ctx`` picks K6 or its
+    plain version and K6's tuned K splits (``dataclasses.replace(dep,
+    ctx=...)`` shares the cached codes).
     """
 
     op: AxOOperator
@@ -202,6 +228,8 @@ class AxODeployment:
     head: dict | None = None
     ctx: object | None = None            # ExecutionContext: the axo_matmul route
     n_entries: int = 0
+    # K6's tiles by (M, K, N), resolved at a shape's first call
+    _k6: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def impl(self) -> str:
@@ -214,8 +242,13 @@ class AxODeployment:
         codes = entry["codes"]
         n = codes.shape[-1]
         xq, sx = quantize_tensor(x.reshape(-1, k).to(torch.float32), self.op.n_bits)
-        fn = axo_matmul if self.impl == "kernel" else axo_matmul_plain
-        y = fn(xq.to(torch.uint8), codes, self.f_table, self.g_table, self.signed_vals)
+        shape = (xq.shape[0], k, n)
+        tiles = self._k6.get(shape)
+        if tiles is None:
+            tiles = self._k6[shape] = _k6_tiles(self.ctx, "axo_apply", self.impl, *shape,
+                                                self.op.rank)
+        y = _matmul(self.impl, tiles, xq.to(torch.uint8), codes, self.f_table,
+                    self.g_table, self.signed_vals)
         y = y * (sx * entry["scale"])
         return y.reshape(*lead, n).to(x.dtype)
 

@@ -25,9 +25,19 @@ every engine, says:
     ``"plain"`` the plain torch versions.  An engine whose menu does not hold
     the preference uses its own default.
 
+The menus come from the kernel registry (``kernels.registry``), the one
+place every implementation registers.
+
+``tuning`` says where the engines' launch tiles come from
+(:meth:`ExecutionContext.tuned_tiles`, ``kernels.tuning.tiles_for``):
+``"off"`` (the default) the registry's defaults, which are the engines'
+untuned choices bit for bit; ``"cached"`` the tuned winner of the on-disk
+cache, searched once on a miss; ``"search"`` a fresh search once a process.
+
 ``telemetry`` is where the context's engines report spans and counters
 (``"on"``, ``"off"``, a ``repro_torch.obs.Telemetry`` or ``None`` for the
-process-wide current sink, :attr:`ExecutionContext.tel`).
+process-wide current sink, :attr:`ExecutionContext.tel`); ``"on"`` also
+turns the device taps on (the GA's per-generation curve).
 
 On a CPU device the kernel wrappers run their plain versions; on a CUDA device
 they launch the kernels or raise.
@@ -39,17 +49,14 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["BACKENDS", "ENGINE_MENUS", "KERNEL_IMPLS", "ExecutionContext", "as_context"]
+from ..kernels import registry
+
+__all__ = ["BACKENDS", "ENGINE_MENUS", "KERNEL_IMPLS", "TUNING_POLICIES", "ExecutionContext",
+           "as_context"]
 
 BACKENDS = ("torch", "numpy")
-ENGINE_MENUS = {
-    "fastchar": ("table", "entry", "plain"),
-    "fastmoo": ("kernel", "plain"),
-    "fastapp": ("table", "entry", "gemm", "entry_gather", "plain"),
-    "axo_matmul": ("kernel", "plain"),
-    "attention": ("kernel", "plain"),
-    "ssd_scan": ("kernel", "plain"),
-}
+TUNING_POLICIES = ("off", "cached", "search")
+ENGINE_MENUS = {engine: registry.impl_names(engine) for engine in registry.ENGINES}
 KERNEL_IMPLS = tuple(sorted({i for menu in ENGINE_MENUS.values() for i in menu}))
 
 
@@ -60,6 +67,7 @@ class ExecutionContext:
     backend: str = "torch"
     device: str | None = None
     kernel_impl: str | None = None
+    tuning: str = "off"
     telemetry: object | None = None
 
     def __post_init__(self) -> None:
@@ -76,6 +84,8 @@ class ExecutionContext:
                 f"kernel_impl must be one of {(None,) + KERNEL_IMPLS}, "
                 f"got {self.kernel_impl!r}"
             )
+        if self.tuning not in TUNING_POLICIES:
+            raise ValueError(f"tuning must be one of {TUNING_POLICIES}, got {self.tuning!r}")
         device = self.device
         if device is None:
             device = "cuda" if self.backend == "torch" else "cpu"
@@ -105,6 +115,13 @@ class ExecutionContext:
         if default not in menu:
             raise ValueError(f"default {default!r} is not on the {engine} menu {menu}")
         return self.kernel_impl if self.kernel_impl in menu else default
+
+    def tuned_tiles(self, kernel: str, **shape) -> dict:
+        """Launch tiles of registered kernel ``kernel`` at ``shape`` under
+        this context's ``tuning`` policy (the registry's defaults when "off")."""
+        from ..kernels.tuning import tiles_for
+
+        return tiles_for(self, kernel, **shape)
 
 
 def as_context(backend: "str | ExecutionContext | None") -> ExecutionContext:

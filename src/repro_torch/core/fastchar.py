@@ -49,6 +49,8 @@ from ..kernels.char_kernels import (
     behav_stats_table,
     behav_stats_table_plain,
 )
+from ..kernels.tuning import launch_overrides
+from ..obs.telemetry import current
 from .engine import ENGINE_MENUS, ExecutionContext
 from .metrics import BEHAV_METRICS
 from .operator_model import (
@@ -187,18 +189,30 @@ def _model_planes(spec: OperatorSpec, masks: torch.Tensor) -> torch.Tensor:
 
 
 def _partials(spec: OperatorSpec, masks: torch.Tensor, impl: str,
-              a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+              a_tile: int | None = None,
+              ctx: ExecutionContext | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One device evaluation of a (D, R) int32 mask batch -> (n_ta, D, 8) partials.
 
     ``"plain"`` is K1's plain torch version (the reference ``_partials_xla``
     tiling) over the same planes.  Signed planes are gathered from the row
-    tables; unsigned ones come from the carry-chain model.
+    tables; unsigned ones come from the carry-chain model.  A ``None``
+    ``a_tile`` (and K2's configs a thread) resolves through the kernel
+    registry under ``ctx``'s ``tuning`` policy.
     """
+    if impl not in CHAR_IMPLS:
+        raise ValueError(f"unknown fastchar impl {impl!r} (menu: {CHAR_IMPLS})")
+    tel = ctx.tel if ctx is not None else current()
+    tel.count(f"dispatch.fastchar.{impl}")
+    tuned = launch_overrides(ctx, f"fastchar.{impl}", n_bits=spec.n_bits, d=masks.shape[0],
+                             signed=spec.signed)
+    if a_tile is None:
+        a_tile = tuned.get("a_tile", default_a_tile(spec))
     if impl == "entry":
         if not spec.signed:
             raise ValueError(f"the table-free kernel K2 synthesizes the signed "
                              f"multiplier only, got {spec.tag}")
-        return behav_stats_entry(masks, spec.n_bits, a_tile)
+        return behav_stats_entry(masks, spec.n_bits, a_tile,
+                                 *((tuned["configs"],) if tuned else ()))
     if impl in ("table", "plain"):
         if spec.signed:
             _, exact, w = _device_tables(spec.n_bits, str(masks.device))
@@ -208,7 +222,6 @@ def _partials(spec: OperatorSpec, masks: torch.Tensor, impl: str,
             small = _model_planes(spec, masks)
         stats = behav_stats_table if impl == "table" else behav_stats_table_plain
         return stats(small, exact, w, a_tile)
-    raise ValueError(f"unknown fastchar impl {impl!r} (menu: {CHAR_IMPLS})")
 
 
 def _combine(spec: OperatorSpec, int_p: np.ndarray, rel_p: np.ndarray, d: int):
@@ -253,7 +266,9 @@ def behav_metrics_torch(
     Signed and unsigned multipliers of up to 8 bits.  ``impl`` defaults to the
     context's fastchar preference, then to ``"table"`` (kernel K1); ``"entry"``
     (K2) takes signed multipliers only.  Batches go ``batch_size`` configs
-    per launch.
+    per launch; a ``None`` ``a_tile`` resolves through the kernel registry
+    under the context's ``tuning`` policy, per batch (``default_a_tile``
+    untuned).
     """
     ctx = ctx if ctx is not None else ExecutionContext()
     if impl is None:
@@ -261,7 +276,6 @@ def behav_metrics_torch(
     if impl not in CHAR_IMPLS:
         raise ValueError(f"unknown fastchar impl {impl!r} (menu: {CHAR_IMPLS})")
     _check_exhaustive(spec)
-    a_tile = default_a_tile(spec) if a_tile is None else a_tile
     configs = np.atleast_2d(np.asarray(configs)).astype(np.uint8)
     d = configs.shape[0]
     masks = torch.from_numpy(config_to_masks(spec, configs).astype(np.int32))
@@ -269,7 +283,7 @@ def behav_metrics_torch(
     for lo in range(0, d, batch_size):
         hi = min(lo + batch_size, d)
         chunk = masks[lo:hi].to(ctx.device)
-        int_p, rel_p = _partials(spec, chunk, impl, a_tile)
+        int_p, rel_p = _partials(spec, chunk, impl, a_tile, ctx)
         part = _combine(spec, int_p.cpu().numpy(), rel_p.cpu().numpy(), hi - lo)
         for k in BEHAV_METRICS:
             out[k][lo:hi] = part[k]

@@ -29,6 +29,19 @@ The numpy ``moo.nsga2`` stays the behavioral oracle: identical operators and
 selection semantics, but torch's random streams differ from numpy's, so the
 contract is *hypervolume parity* (feasible-archive hypervolume within 2%),
 not bit parity.
+
+With ``telemetry="on"`` (a sink whose ``device_taps`` is set) and an
+``hv_ref``, ``run`` is tapped: every generation merges its children into a
+nondominated-front buffer (:func:`front_update`, capacity
+``front_capacity``) and writes one row ``(gen, hv, arc_feasible,
+pop_viol_mean, pop_feas, front)`` into a chunk buffer on the device, which a
+batched device tap (``obs.device``) stages to the host at every chunk
+boundary without a sync; ``run`` drains the ``fastmoo.gen`` series at its
+end.  The checkpoint ``hv_history`` stays archive-based in both programs, so
+it is bit-identical tapped and untapped.  Sweeps stay untapped, as in the
+reference (lanes would interleave into one series).  ``run`` counts
+``dispatch.fastmoo.run`` and ``run_sweep`` ``dispatch.fastmoo.sweep``, each
+in a span of the same name.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from ..kernels.moo_kernels import (
     dominance_matrix,
     peel_fronts,
 )
+from ..obs import device as obs_device
 from .engine import ENGINE_MENUS, ExecutionContext
 from .moo import GAResult
 
@@ -72,6 +86,11 @@ RANK_IMPLS = ENGINE_MENUS["fastmoo"]
 
 # hv_history checkpoints: every 10th generation and the last, as moo.nsga2.
 RECORD_EVERY = 10
+
+# the tapped GA's chunk: a (TAP_CHUNK, 6) row buffer on the device, staged to
+# the host by one batched tap a chunk
+TAP_CHUNK = 32
+TAP_FIELDS = ("gen", "hv", "arc_feasible", "pop_viol_mean", "pop_feas", "front")
 
 
 def _lexsort(keys) -> torch.Tensor:
@@ -234,11 +253,15 @@ def front_update(buf_x, buf_y, objs, viol, ref):
 
 
 def front_hypervolume(buf_x, buf_y, ref):
-    """Exact 2-D hypervolume of a :func:`front_update` buffer (one O(F) sweep)."""
-    run = torch.minimum(torch.cummin(buf_y, dim=0).values, ref[1])
-    prev = torch.cat([ref[1:2], run[:-1]])
-    contrib = (ref[0] - buf_x) * (prev - buf_y)
-    return torch.where(torch.isfinite(buf_x) & (buf_y < prev), contrib, 0.0).sum()
+    """Exact 2-D hypervolume of a :func:`front_update` buffer (one O(F) sweep),
+    in f64, rounded once to f32.  The staircase's rectangles change as the
+    front grows, and an f32 sum of them can fall by an ulp where the area
+    rose; the rounded f64 area rises with the front."""
+    x, y, r = buf_x.double(), buf_y.double(), ref.double()
+    run = torch.minimum(torch.cummin(y, dim=0).values, r[1])
+    prev = torch.cat([r[1:2], run[:-1]])
+    contrib = (r[0] - x) * (prev - y)
+    return torch.where(torch.isfinite(x) & (y < prev), contrib, 0.0).sum().float()
 
 
 class CompiledNSGA2:
@@ -277,6 +300,12 @@ class CompiledNSGA2:
         self.rank_impl = rank_impl
         self.device = torch.device(ctx.device)
         self._objs_fn = objs_fn
+        # the nondominated-front buffer of the tapped per-generation hv (4P is
+        # generous for a 2-objective staircase; the tap's "front" field shows
+        # saturation)
+        self.front_capacity = 4 * self.pop_size
+        self._tel = ctx.tel
+        self._tapped = self.hv_ref is not None and self._tel.device_taps
 
     def _prep_init(self, initial_population) -> tuple[np.ndarray, int]:
         """Seed rows for the initial population.
@@ -319,8 +348,17 @@ class CompiledNSGA2:
         initial_population: np.ndarray | None = None,
     ) -> GAResult:
         """One full GA run on the device; returns host arrays.  The one-lane
-        case of :meth:`run_sweep`."""
-        return self.run_sweep([seed], [(max_behav, max_ppa)], [initial_population])[0]
+        case of :meth:`run_sweep`, tapped where the context asks for taps."""
+        tel = self._tel
+        tel.count("dispatch.fastmoo.run")
+        with tel.span("fastmoo.run", pop=self.pop_size, n_gen=self.n_gen, seed=seed):
+            st = self._setup([seed], [(max_behav, max_ppa)], [initial_population],
+                             tapped=self._tapped)
+            self._generations(st)
+            out = self._results(st)[0]
+            if self._tapped:
+                obs_device.flush()   # drain the staged rows into the series
+        return out
 
     def run_sweep(self, seeds, bounds, initial_populations=None) -> list[GAResult]:
         """A (seed x constraint-bound) sweep as one batched GA; lane i equals
@@ -334,44 +372,99 @@ class CompiledNSGA2:
         in another order and move a near-tie); the ranking is one launch of
         K3 over all lanes (:func:`constraint_ranks_lanes`), and crowding,
         tournament, crossover, mutation and environmental selection run
-        batched over the lanes.
+        batched over the lanes.  Sweeps are untapped.
         """
         seeds = [int(x) for x in seeds]
+        if not seeds:
+            return []
+        tel = self._tel
+        tel.count("dispatch.fastmoo.sweep")
+        with tel.span("fastmoo.sweep", n_lanes=len(seeds), pop=self.pop_size,
+                      n_gen=self.n_gen):
+            st = self._setup(seeds, bounds, initial_populations, tapped=False)
+            self._generations(st)
+            return self._results(st)
+
+    def _setup(self, seeds, bounds, initial_populations, tapped: bool) -> dict:
+        """The state of a batched run before its first generation: the lanes'
+        generators and evaluators, the initial populations (host seed pools
+        copied to the device) and their objectives, the archive, and, tapped,
+        the front buffer and the chunk's row buffer and tap."""
         S = len(seeds)
         bounds = np.asarray(bounds, np.float64).reshape(S, 2)
-        if S == 0:
-            return []
         P, L, G = self.pop_size, self.n_bits, self.n_gen
         dev = self.device
-        gens = [torch.Generator(device=dev).manual_seed(x) for x in seeds]
-        evals = [self._evaluator(b, p) for b, p in bounds]
-        ref = (None if self.hv_ref is None
-               else torch.as_tensor(self.hv_ref, dtype=torch.float32, device=dev))
-        lane = torch.arange(S, device=dev)
-
-        def evaluate(pops):
-            pairs = [ev(x) for ev, x in zip(evals, pops)]
-            return torch.stack([o for o, _ in pairs]), torch.stack([v for _, v in pairs])
-
+        st = {"S": S, "gens": [torch.Generator(device=dev).manual_seed(x) for x in seeds],
+              "evals": [self._evaluator(b, p) for b, p in bounds]}
+        ref = st["ref"] = (None if self.hv_ref is None
+                           else torch.as_tensor(self.hv_ref, dtype=torch.float32, device=dev))
         pop = torch.stack([torch.randint(0, 2, (P, L), generator=g, device=dev,
-                                         dtype=torch.uint8) for g in gens])
+                                         dtype=torch.uint8) for g in st["gens"]])
         for i in range(S):
             pool = None if initial_populations is None else initial_populations[i]
             init, k = self._prep_init(pool)
             if k:
                 pop[i, :k] = torch.from_numpy(init[:k]).to(dev)
-        objs, viol = evaluate(pop)
+        objs, viol = self._evaluate(st, pop)
 
         M = P * (G + 1)
         arc_c = torch.zeros((S, M, L), dtype=torch.uint8, device=dev)
         arc_o = torch.full((S, M, 2), float("inf"), dtype=torch.float32, device=dev)
         arc_v = torch.full((S, M), float("inf"), dtype=torch.float32, device=dev)
         arc_c[:, :P], arc_o[:, :P], arc_v[:, :P] = pop, objs, viol
+        st.update(pop=pop, objs=objs, viol=viol, arc_c=arc_c, arc_o=arc_o, arc_v=arc_v)
+        st["hv_dev"] = [] if ref is None else [(P, self._hv_now(st))]
+        st["tap"] = None
+        if tapped and ref is not None and S == 1:
+            # the front buffer starts from the initial population: the archive
+            # holds it and every generation's children, which is what the
+            # buffer accumulates
+            inf = torch.full((self.front_capacity,), float("inf"), device=dev)
+            st["front"] = front_update(inf, inf.clone(), objs[0], viol[0], ref)
+            st["chunk"] = min(G, TAP_CHUNK) or 1
+            st["gen_ids"] = torch.arange(G, dtype=torch.float32, device=dev)
+            st["tap"] = self._tel.device_batched_tap("fastmoo.gen", TAP_FIELDS)
+        return st
 
-        def hv_now():
-            return [hypervolume_2d(arc_o[i], arc_v[i] <= 0, ref) for i in range(S)]
+    def _evaluate(self, st, pops):
+        pairs = [ev(x) for ev, x in zip(st["evals"], pops)]
+        return torch.stack([o for o, _ in pairs]), torch.stack([v for _, v in pairs])
 
-        hv_dev = [] if ref is None else [(P, hv_now())]
+    @staticmethod
+    def _hv_now(st):
+        return [hypervolume_2d(st["arc_o"][i], st["arc_v"][i] <= 0, st["ref"])
+                for i in range(st["S"])]
+
+    def _tap_row(self, st, g: int, c_objs, c_viol) -> None:
+        """Generation ``g``'s row into the chunk buffer, the buffer to the tap
+        at the chunk's end; device work only, no host sync."""
+        C, G = st["chunk"], self.n_gen
+        if g % C == 0:
+            st["rows"] = torch.full((C, len(TAP_FIELDS)), -1.0, device=self.device)
+        buf_x, buf_y = st["front"] = front_update(*st["front"], c_objs[0], c_viol[0],
+                                                  st["ref"])
+        viol = st["viol"][0]
+        st["rows"][g % C] = torch.stack([
+            st["gen_ids"][g],
+            front_hypervolume(buf_x, buf_y, st["ref"]),
+            (st["arc_v"][0] <= 0).sum().to(torch.float32),
+            viol.mean(),
+            (viol <= 0).to(torch.float32).mean(),
+            torch.isfinite(buf_x).sum().to(torch.float32),
+        ])
+        if g % C == C - 1 or g == G - 1:
+            # never-written rows of a ragged last chunk keep gen == -1
+            st["tap"](st["rows"], st["rows"][:, 0] >= 0.0)
+
+    def _generations(self, st) -> None:
+        """Every generation of the batched run in ``st``, in place; on the
+        card no host sync a generation where the ranking is K3's."""
+        S, P, L, G = st["S"], self.pop_size, self.n_bits, self.n_gen
+        dev = self.device
+        gens, ref = st["gens"], st["ref"]
+        pop, objs, viol = st["pop"], st["objs"], st["viol"]
+        arc_c, arc_o, arc_v = st["arc_c"], st["arc_o"], st["arc_v"]
+        lane = torch.arange(S, device=dev)
         cols = torch.arange(L, device=dev)
         for g in range(G):
             rank = constraint_ranks_lanes(objs, viol, impl=self.rank_impl)
@@ -403,7 +496,7 @@ class CompiledNSGA2:
             # bit-flip mutation
             children = children ^ flip.to(torch.uint8)
 
-            c_objs, c_viol = evaluate(children)
+            c_objs, c_viol = self._evaluate(st, children)
             lo = (g + 1) * P
             arc_c[:, lo:lo + P], arc_o[:, lo:lo + P], arc_v[:, lo:lo + P] = \
                 children, c_objs, c_viol
@@ -420,13 +513,19 @@ class CompiledNSGA2:
             pop = all_pop.gather(1, sel[..., None].expand(S, P, L))
             objs = all_objs.gather(1, sel[..., None].expand(S, P, 2))
             viol = all_viol.gather(1, sel)
+            st.update(pop=pop, objs=objs, viol=viol)
 
+            if st["tap"] is not None:
+                self._tap_row(st, g, c_objs, c_viol)
             if ref is not None and (g % RECORD_EVERY == RECORD_EVERY - 1 or g == G - 1):
-                hv_dev.append(((g + 2) * P, hv_now()))
+                st["hv_dev"].append(((g + 2) * P, self._hv_now(st)))
 
-        host = {name: t.cpu().numpy() for name, t in (
-            ("pop", pop), ("objs", objs), ("arc_c", arc_c), ("arc_o", arc_o), ("arc_v", arc_v))}
-        hv_host = [(n, [float(h) for h in hs]) for n, hs in hv_dev]
+    def _results(self, st) -> list[GAResult]:
+        """The lanes' results as host arrays (one copy each, the run's sync)."""
+        S = st["S"]
+        host = {name: st[name].cpu().numpy()
+                for name in ("pop", "objs", "arc_c", "arc_o", "arc_v")}
+        hv_host = [(n, [float(h) for h in hs]) for n, hs in st["hv_dev"]]
         return [
             GAResult(
                 population=host["pop"][i],

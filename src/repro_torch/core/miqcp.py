@@ -602,23 +602,28 @@ def solve_pool(
     for ALL problems, instead of re-entering the solver once per problem.
     """
     ctx = as_context(backend)
+    tel = ctx.tel
     same_l_tabu = (
         bool(problems)
         and problems[0].n > 16
         and all(p.n == problems[0].n for p in problems)
     )
-    if ctx.is_torch and same_l_tabu:
-        results = solve_tabu_multi(
-            problems,
-            seeds=[seed + k for k in range(len(problems))],
-            pool_size=pool_size,
-            backend=ctx,
-        )
-    else:
-        results = [
-            solve(prob, seed=seed + k, pool_size=pool_size, backend=ctx)
-            for k, prob in enumerate(problems)
-        ]
+    with tel.span("miqcp.solve_pool", n_problems=len(problems),
+                  lockstep=bool(ctx.is_torch and same_l_tabu)):
+        if ctx.is_torch and same_l_tabu:
+            tel.count("dispatch.miqcp.tabu_multi")
+            results = solve_tabu_multi(
+                problems,
+                seeds=[seed + k for k in range(len(problems))],
+                pool_size=pool_size,
+                backend=ctx,
+            )
+        else:
+            tel.count("dispatch.miqcp.solve", len(problems))
+            results = [
+                solve(prob, seed=seed + k, pool_size=pool_size, backend=ctx)
+                for k, prob in enumerate(problems)
+            ]
     configs = [res.pool for res in results if len(res.pool)]
     if not configs:
         return np.empty((0, problems[0].n if problems else 0), dtype=np.uint8)

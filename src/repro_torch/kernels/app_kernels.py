@@ -27,7 +27,12 @@ holds one config's table in shared memory (two passes of 128 rows at 8 bits)
 and computes all its outputs from it, for shapes with at least
 ``STAGED_MIN_REUSE`` lookups per table entry that fit its shared memory;
 ``"gather"``, the first design, gathers the table through the caches, for
-the rest.  A call may name a route; a shape the route cannot take raises.
+the rest.  A call may name a route, and the gather route's tiles (the
+tiles the registry's ``fastapp.table`` spec tunes); a shape the route cannot
+take raises.  A plan is made once per shape and cached; the wrapper's first
+launch of a plan that the current telemetry sees counts
+``jit.retrace.app_kernels.plan`` (``plan`` itself records nothing: the
+registry probes it for every candidate).
 ``table_gemv.route_launches`` counts launches by route.  The staged route
 runs two grids a call: a packing of the codes as uint8 (and of which table
 halves they use), then the GEMV.  Its CUDA launcher computes its
@@ -61,6 +66,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.operator_model import _synth_small, spec_for
+from ..obs.telemetry import current, note_trace
 from . import build
 
 __all__ = [
@@ -245,14 +251,17 @@ def _staged_smem(m: int, k: int, n: int, n_bits: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(m: int, k: int, n: int, n_bits: int, route: str | None = None) -> Plan:
+def plan(m: int, k: int, n: int, n_bits: int, route: str | None = None,
+         m_tile: int | None = None, k_tile: int | None = None) -> Plan:
     """K4's launch for (M, K) x (K, N) codes of ``n_bits`` bits.
 
     Without ``route``: ``"staged"`` where a config makes at least
     ``STAGED_MIN_REUSE`` lookups per table entry (M*N*K / 4^n_bits), its
     codes have 2..8 bits and its table pass, B's codes and two A tiles fit
     ``MAX_SMEM``; else ``"gather"``.  A named route that cannot take the
-    shape raises.
+    shape raises.  ``m_tile`` and ``k_tile`` name the gather route's tiles
+    (default: the largest that fit ``SMEM_BUDGET``); tiles that do not fit
+    ``MAX_SMEM`` raise.
     """
     if route not in (None, "staged", "gather"):
         raise ValueError(f"unknown K4 route {route!r}")
@@ -265,9 +274,19 @@ def plan(m: int, k: int, n: int, n_bits: int, route: str | None = None) -> Plan:
                          f"({smem} bytes of shared memory)")
     if route == "staged" or (route is None and fits
                              and m * n * k >= STAGED_MIN_REUSE * (1 << 2 * n_bits)):
+        if m_tile or k_tile:
+            raise ValueError("K4's staged route takes no gather tiles")
         return Plan("staged", 0, 0, smem)
-    m_tile, k_tile = _tiles(m, k, n, 0)
-    return Plan("gather", m_tile, k_tile, (m_tile * (k_tile + 1) + k_tile * n) * 4)
+    if m_tile is None and k_tile is None:
+        m_tile, k_tile = _tiles(m, k, n, 0)
+    elif not (m_tile and k_tile and m_tile >= 1 and k_tile >= 1):
+        raise ValueError(f"K4's gather route needs both tiles, got m_tile={m_tile}, "
+                         f"k_tile={k_tile}")
+    smem = (m_tile * (k_tile + 1) + k_tile * n) * 4
+    if smem > MAX_SMEM:
+        raise ValueError(f"K4's gather tiles m_tile={m_tile}, k_tile={k_tile} need {smem} "
+                         f"bytes of shared memory at N={n}, over {MAX_SMEM}")
+    return Plan("gather", m_tile, k_tile, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,23 +320,36 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _note_launch(m: int, k: int, n: int, pl: Plan) -> None:
+    """``jit.retrace.app_kernels.plan``, once a (shape, plan) on the current telemetry."""
+    if current().first(("app_kernels", m, k, n, pl)):
+        note_trace("app_kernels.plan")
+
+
 def table_gemv(tables_flat: torch.Tensor, a_codes: torch.Tensor,
-               b_codes: torch.Tensor, route: str | None = None) -> torch.Tensor:
+               b_codes: torch.Tensor, route: str | None = None,
+               m_tile: int | None = None, k_tile: int | None = None) -> torch.Tensor:
     """K4: (D, A*B) i32 flattened product tables, (M, K), (K, N) i32 -> (D, M, N) i32.
 
-    ``route`` names K4's route on the card; by default :func:`plan` picks it.
+    ``route`` names K4's route on the card and ``m_tile``, ``k_tile`` the
+    gather route's tiles; by default :func:`plan` picks them.  A route or
+    tiles the shape cannot take raise, on the CPU too.
     """
     _check(tables_flat, "tables_flat", 2, tables_flat.device)
     d, ab = tables_flat.shape
     nb = _side(ab)
     n_bits = nb.bit_length() - 1
     _check_codes(a_codes, b_codes, tables_flat.device, n_bits)
-    if tables_flat.device.type == "cpu":
-        return table_gemv_plain(tables_flat, a_codes, b_codes)
     (m, k), n = a_codes.shape, b_codes.shape[1]
+    named = (route, m_tile, k_tile) != (None, None, None)
+    if tables_flat.device.type == "cpu":
+        if named and d * m * n and k:
+            _note_launch(m, k, n, plan(m, k, n, n_bits, route, m_tile, k_tile))
+        return table_gemv_plain(tables_flat, a_codes, b_codes)
     if d * m * n == 0 or k == 0:
         return torch.zeros((d, m, n), dtype=torch.int32, device=tables_flat.device)
-    pl = plan(m, k, n, n_bits, route)
+    pl = plan(m, k, n, n_bits, route, m_tile, k_tile)
+    _note_launch(m, k, n, pl)
     out = torch.empty((d, m, n), dtype=torch.int32, device=tables_flat.device)
     stream = torch.cuda.current_stream(tables_flat.device).cuda_stream
     if pl.route == "staged":

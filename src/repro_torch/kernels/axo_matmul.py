@@ -26,6 +26,14 @@ take one).  ``tests/test_torch_kernel_design.py`` emulates the tensor-core
 route's rounding in plain torch.  The tile and k-step constants below plan the
 launch; the kernel's source owns its layout and refuses a plan that does not
 fit it.
+
+:func:`plan` picks the K splits; a caller may name them instead (``splits=``,
+the tile the registry's ``axo_matmul.kernel`` spec tunes).  A plan is made
+once per shape and cached, and records nothing: the registry probes it for
+every candidate.  The wrapper's first launch of a plan that the current
+telemetry sees counts ``jit.retrace.axo_matmul.plan`` and records the
+launch's pad-to-tile waste (``axo_matmul.pad_waste``) there; later launches
+cost one set lookup.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.telemetry import current, note_trace, record_pad_waste
 from . import build
 
 __all__ = ["axo_matmul", "axo_matmul_plain", "plan", "Plan"]
@@ -100,8 +109,18 @@ def _split_k(tiles: int, k: int, kstep: int, wave: int, max_splits: int,
     return best[1], best[2]
 
 
+def _k_split(k: int, kstep: int, splits: int, max_splits: int) -> tuple[int, int]:
+    """(splits, codes per split) for a named split count: whole k-steps a
+    split, so K may take fewer splits than named."""
+    if not 1 <= splits <= max_splits:
+        raise ValueError(f"K6 takes 1..{max_splits} K splits on this route, got {splits}")
+    k_split = -(-(-(-k // splits)) // kstep) * kstep
+    return -(-k // k_split), k_split
+
+
 @functools.lru_cache(maxsize=4096)
-def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS) -> Plan:
+def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS,
+         splits: int | None = None) -> Plan:
     """The launch of K6 for an (m, k) x (k, n) product at this rank.
 
     M <= ``GEMV_M`` takes the GEMV route: a block owns 512 columns and MT rows
@@ -109,25 +128,44 @@ def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS)
     of 8).  Larger M takes the tensor-core route: 128 x 128 tiles.  K splits
     into whole k-steps (32 codes on either route) until the blocks fill the
     ``n_sms`` SMs (two GEMV blocks or one tensor-core block per SM at a
-    time) in as few waves as the work allows, counting a block's fixed cost.
-    Cached: a decode step asks for the same few shapes hundreds of times.
+    time) in as few waves as the work allows, counting a block's fixed cost;
+    ``splits`` names the split count instead (whole k-steps a split, so K
+    may take fewer).  Cached: a decode step asks for the same few shapes
+    hundreds of times.
     """
     r1 = rank + 1
     if m <= GEMV_M:
         rows = 1 << max(0, (min(m, 8) - 1).bit_length())
         tiles = -(-n // GEMV_COLS) * -(-m // rows)
-        splits, k_split = _split_k(tiles, k, GEMV_KSTEP, GEMV_PER_SM * n_sms,
-                                   GEMV_MAX_SPLITS, GEMV_BLOCK_COST)
+        if splits is None:
+            splits, k_split = _split_k(tiles, k, GEMV_KSTEP, GEMV_PER_SM * n_sms,
+                                       GEMV_MAX_SPLITS, GEMV_BLOCK_COST)
+        else:
+            splits, k_split = _k_split(k, GEMV_KSTEP, splits, GEMV_MAX_SPLITS)
         # the weight-side table, whose space then holds the warps' partial
         # sums; the activation-side table; the chunk's activation values
         smem = (max(r1 * n_codes, 4 * min(rows, 4) * GEMV_COLS) + r1 * n_codes
                 + GEMV_KSTEP * r1 * rows) * 4
         return Plan("gemv", rows, splits, k_split, smem, tiles)
     tiles = -(-n // MMA_TILE) * -(-m // MMA_TILE)
-    splits, k_split = _split_k(tiles, k, MMA_KSTEP, MMA_PER_SM * n_sms, MMA_MAX_SPLITS,
-                               MMA_BLOCK_COST)
+    if splits is None:
+        splits, k_split = _split_k(tiles, k, MMA_KSTEP, MMA_PER_SM * n_sms, MMA_MAX_SPLITS,
+                                   MMA_BLOCK_COST)
+    else:
+        splits, k_split = _k_split(k, MMA_KSTEP, splits, MMA_MAX_SPLITS)
     smem = 2 * r1 * n_codes * 4 + MMA_STAGE
     return Plan("mma", MMA_TILE, splits, k_split, smem, tiles)
+
+
+def _note_launch(m: int, n: int, k: int, pl: Plan) -> None:
+    """Once a (shape, plan) on the current telemetry: ``jit.retrace.axo_matmul.plan``
+    and the pad waste of the launch's (M, N, K) space on its route's tiles."""
+    if not current().first(("axo_matmul", m, n, k, pl)):
+        return
+    note_trace("axo_matmul.plan")
+    cols, kstep = (GEMV_COLS, GEMV_KSTEP) if pl.route == "gemv" else (MMA_TILE, MMA_KSTEP)
+    record_pad_waste("axo_matmul", (m, n, k), (-(-m // pl.rows) * pl.rows,
+                                               -(-n // cols) * cols, -(-k // kstep) * kstep))
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,17 +225,26 @@ def _check(a_codes, b_codes, f_table, g_table, signed_vals) -> None:
 
 
 def axo_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor, f_table: torch.Tensor,
-               g_table: torch.Tensor, signed_vals: torch.Tensor) -> torch.Tensor:
-    """K6: uint8 codes (M, K), (K, N); f32 tables (2^n, R), (2^n, R), (2^n,) -> (M, N) f32."""
+               g_table: torch.Tensor, signed_vals: torch.Tensor,
+               splits: int | None = None) -> torch.Tensor:
+    """K6: uint8 codes (M, K), (K, N); f32 tables (2^n, R), (2^n, R), (2^n,) -> (M, N) f32.
+
+    ``splits`` names the K splits (default: :func:`plan`'s); a count the
+    route does not take raises.  On a CPU tensor the launch is planned (at
+    an H100's SM count) as on the card, then the plain version runs.
+    """
     _check(a_codes, b_codes, f_table, g_table, signed_vals)
-    if a_codes.device.type == "cpu":
-        return axo_matmul_plain(a_codes, b_codes, f_table, g_table, signed_vals)
     (m, k), n = a_codes.shape, b_codes.shape[1]
     rank, n_codes = f_table.shape[1], signed_vals.shape[0]
+    if a_codes.device.type == "cpu":
+        if m * n and k:
+            _note_launch(m, n, k, plan(m, n, k, rank, n_codes, H100_SMS, splits))
+        return axo_matmul_plain(a_codes, b_codes, f_table, g_table, signed_vals)
     if m * n == 0 or k == 0:
         return torch.zeros((m, n), dtype=torch.float32, device=a_codes.device)
-    return _launch(a_codes, b_codes, f_table, g_table, signed_vals,
-                   plan(m, n, k, rank, n_codes, _sm_count(a_codes.device)))
+    pl = plan(m, n, k, rank, n_codes, _sm_count(a_codes.device), splits)
+    _note_launch(m, n, k, pl)
+    return _launch(a_codes, b_codes, f_table, g_table, signed_vals, pl)
 
 
 def _launch(a_codes, b_codes, f_table, g_table, signed_vals, pl: Plan) -> torch.Tensor:

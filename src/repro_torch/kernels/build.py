@@ -117,6 +117,10 @@ def ptxas_log(name: str) -> str:
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded shared library of ``csrc/<name>.cu``, built on first use;
+    its first load in the process counts ``jit.retrace.build.<name>``."""
+    from ..obs.telemetry import note_trace
+
     path = build_all((name,))[name]
+    note_trace(f"build.{name}")
     return ctypes.CDLL(str(path))

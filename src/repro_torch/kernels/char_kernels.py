@@ -42,6 +42,7 @@ import torch
 
 from ..core.operator_model import _synth_small, spec_for
 from . import build
+from .registry import entry_configs
 
 __all__ = [
     "N_CHAN",
@@ -228,14 +229,6 @@ behav_stats_table.launches = 0
 behav_stats_table_first.launches = 0
 
 
-def entry_configs(d: int, n_bits: int, a_tile: int, n_sms: int) -> int:
-    """Configs a thread of K2's walk: 4 where a grid of 4-config threads
-    (256 / B sub-blocks of B threads a block, by B / a_tile A-tiles) still
-    has a block for each of ``n_sms`` SMs, else 1."""
-    blocks = -(-d // ((256 >> n_bits) * 4)) * ((1 << n_bits) // a_tile)
-    return 4 if blocks >= n_sms else 1
-
-
 def _entry_stats(launcher: str, masks: torch.Tensor, n_bits: int, a_tile: int, *args: int):
     """(int partials, f32 partials, whether a kernel was launched) of K2's
     ``launcher`` design, ``args`` passed before the stream; the plain
@@ -257,14 +250,17 @@ def _entry_stats(launcher: str, masks: torch.Tensor, n_bits: int, a_tile: int, *
     return int_out, rel_out, True
 
 
-def behav_stats_entry(masks: torch.Tensor, n_bits: int,
-                      a_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+def behav_stats_entry(masks: torch.Tensor, n_bits: int, a_tile: int,
+                      configs: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """K2: per-A-tile BEHAV partials from the (D, R) config masks alone, at
-    the configs a thread :func:`entry_configs` picks for the tensor's card."""
+    ``configs`` (4 or 1) configs a thread of its walk, by default the count
+    :func:`entry_configs` picks for the tensor's card."""
     _check_tiling(n_bits, a_tile)
-    configs = 4
-    if masks.device.type == "cuda":
-        configs = entry_configs(masks.shape[0], n_bits, a_tile, _n_sms(masks.device.index))
+    if configs is None:
+        configs = 4
+        if masks.device.type == "cuda":
+            configs = entry_configs(masks.shape[0], n_bits, a_tile,
+                                    _n_sms(masks.device.index))
     return behav_stats_entry_at(masks, n_bits, a_tile, configs)
 
 

@@ -35,10 +35,15 @@ saved inputs and differentiates it.  That backward is the reference's own
 math: the reference trains through its XLA ``chunked_attention`` and has no
 backward kernel, so the gradient is autodiff of the plain softmax algebra.
 It is not a fallback: the forward never gives way to the plain version on
-the card.  The raw ``flash_attention`` refuses, on a CUDA tensor, inputs
-that require grad while grad mode is on: its output would carry no
-``grad_fn``, and every gradient through attention would be dropped without
-a word.
+the card.  ``flash_attention`` takes that route itself where a gradient is
+wanted (grad mode on and an input that requires grad, on a CUDA tensor):
+the kernel's output carries no ``grad_fn``, so no caller may reach the raw
+launch with such inputs, and none has to know the rule.
+``FlashAttentionFn.forward`` runs with grad off and so reaches the launch.
+
+The first launch of a (Sq, kv_len) that the current telemetry sees records
+its pad-to-tile waste over K7's 64 x 64 (query, key) tiles there as
+``flash_attention.pad_waste``.
 """
 
 from __future__ import annotations
@@ -49,11 +54,13 @@ import math
 
 import torch
 
+from ..obs.telemetry import current, record_pad_waste
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "FlashAttentionFn", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 112, 128)   # head widths the kernel is built for
+TILE = 64                  # query rows and keys of a block's tiles (csrc kBQ, kBK)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MISALIGNED = -1           # the launcher's answer to a bf16 row off a 16-byte boundary
 
@@ -111,19 +118,31 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
                          f"q_offset {q_offset} must be >= 0")
 
 
+def _record_pad(sq: int, kv_len: int) -> None:
+    """Pad waste of K7's (query, key) iteration space, once a shape on the
+    current telemetry."""
+    if current().first(("flash_attention", sq, kv_len)):
+        record_pad_waste("flash_attention", (sq, kv_len),
+                         (-(-sq // TILE) * TILE, -(-kv_len // TILE) * TILE))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
-    """K7: q (B, H, Sq, hd), k/v (B, G, Skv, hd) f32 or bf16 -> (B, H, Sq, hd)."""
+    """K7: q (B, H, Sq, hd), k/v (B, G, Skv, hd) f32 or bf16 -> (B, H, Sq, hd).
+
+    Where a gradient is wanted on a CUDA tensor it runs as
+    :class:`FlashAttentionFn` (K7 forward, the plain version's backward).
+    """
     kv_len = k.shape[2] if kv_len is None else int(kv_len)
     q_offset = int(q_offset)
     _check(q, k, v, q_offset, kv_len)
+    _record_pad(q.shape[2], kv_len)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, kv_len=kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("K7's output carries no gradient: take FlashAttentionFn.apply for "
-                           "inputs that require grad, or run under torch.no_grad()")
+        return FlashAttentionFn.apply(q, k, v, causal, scale, q_offset, kv_len)
     b, h, sq, hd = q.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"K7 takes float32 or bfloat16, got {q.dtype}")

@@ -43,10 +43,12 @@ differentiates it.  That backward is the reference's own math: the
 reference trains through its XLA ``ssd_chunked`` and has no backward
 kernel, so the gradient is autodiff of the plain chunked algebra.  It is
 not a fallback: the forward never gives way to the plain version on the
-card.  The raw ``ssd_scan`` and ``ssd_scan_scalar`` refuse, on a CUDA
-tensor, inputs that require grad while grad mode is on: their outputs would
-carry no ``grad_fn``, and every gradient through the scan would be dropped
-without a word.
+card.  ``ssd_scan`` takes that route itself where a gradient is wanted (grad
+mode on and an input that requires grad, on a CUDA tensor): the kernel's
+outputs carry no ``grad_fn``, so no caller may reach the raw launch with
+such inputs, and none has to know the rule (``SSDScanFn.forward`` runs with
+grad off and so reaches the launch).  ``ssd_scan_scalar``, which has no
+autograd function, refuses such inputs.
 """
 
 from __future__ import annotations
@@ -174,8 +176,7 @@ def _check(x, dt, a, bmat, cmat, init_state) -> None:
 
 def _check_card(x, dt, a, bmat, cmat, init_state) -> None:
     """What the CUDA kernel takes, beyond what the plain version does."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, dt, a, bmat, cmat, init_state)):
+    if _grad_wanted(x, dt, a, bmat, cmat, init_state):
         raise RuntimeError("K8's outputs carry no gradient: take SSDScanFn.apply for inputs "
                            "that require grad, or run under torch.no_grad()")
     p, n = x.shape[3], bmat.shape[3]
@@ -197,6 +198,11 @@ def _check_card(x, dt, a, bmat, cmat, init_state) -> None:
         raise ValueError("K8 in bf16 needs every row of x, B and C on a 16-byte boundary "
                          "(pointers, and batch, position and head|group strides in "
                          "multiples of 8)")
+
+
+def _grad_wanted(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
 
 
 def route(x: torch.Tensor) -> str:
@@ -237,10 +243,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Ten
     """K8: (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32).
 
     ``chunk`` is the plain version's chunk length; the kernel walks its own.
+    Where a gradient is wanted on a CUDA tensor it runs as :class:`SSDScanFn`
+    (K8 forward, the plain version's backward).
     """
     _check(x, dt, a, bmat, cmat, init_state)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
+    if _grad_wanted(x, dt, a, bmat, cmat, init_state):
+        return SSDScanFn.apply(x, dt, a, bmat, cmat, chunk, init_state)
     _check_card(x, dt, a, bmat, cmat, init_state)
     design = route(x)
     y, state, launched = _launch(design, x, dt, a, bmat, cmat, init_state)

@@ -50,8 +50,9 @@ polls it, ``GET /dse/library`` reports the operator library
 (``$REPRO_OPERATOR_LIBRARY``, default ``experiments/library``); the queue
 coalesces compatible jobs into one ``run_dse_sweep`` on the serving device.
 ``--dse-smoke N`` posts N small requests to the live endpoint after serving
-and waits for their fronts.  The reference's ``--trace`` waits for
-ROADMAP.md queue 1 item 12 and raises when given.
+and waits for their fronts.  ``--trace PATH`` writes the Chrome trace of
+the serving spans (each request, its prefill and its decode) at the run's
+end, loadable in Perfetto.
 """
 
 from __future__ import annotations
@@ -76,9 +77,6 @@ from .steps import make_decode_step, make_prefill_step
 
 __all__ = ["demo_operator", "generate", "replay", "fidelity", "main", "parse_args",
            "serve_config"]
-
-# flags of the reference's serve entry point that the port does not serve yet
-_NOT_PORTED = {"trace": 12}
 
 
 def demo_operator(rank: int) -> AxOOperator:
@@ -168,7 +166,8 @@ def main(argv=None) -> dict:
     The returned dict holds the numbers printed, the config, parameters,
     prompts, the exact trajectory and logits, and under ``"axo"`` the
     deployment and its teacher-forced logits, so a caller can replay either
-    pass on another route.
+    pass on another route; ``"telemetry"`` is the run's sink (its spans, its
+    latency histograms, its kernels' pad waste).
     """
     args = parse_args(argv)
     cfg = get_arch(args.arch)
@@ -204,7 +203,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "liveness + deployment status) on this port; 0 picks "
                          "an ephemeral port")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="not ported yet (ROADMAP.md queue 1 item 12)")
+                    help="write a Chrome-trace JSON of the serving spans "
+                         "(load at ui.perfetto.dev)")
     ap.add_argument("--dse-service", action="store_true",
                     help="mount the persistent DSE service on the metrics "
                          "server: POST /dse submits a (n_bits, op, signed, "
@@ -221,10 +221,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--dse-gens", type=int, default=8,
                     help="service GA generations per request lane")
     args = ap.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) != ap.get_default(flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet "
-                                      f"(ROADMAP.md queue 1 item {item})")
     if args.dse_smoke:
         args.dse_service = True
     if args.dse_service and args.metrics_port is None:
@@ -237,8 +233,9 @@ def serve_config(cfg, args: argparse.Namespace) -> dict:
     registry entry (``chip_smoke.py`` passes configs cut in depth); returns
     what :func:`main` returns."""
     ctx = ExecutionContext(device=args.device)
-    # one sink for the serving run: the latency histograms and gauges, counters
-    # chained to the process aggregate that /metrics renders
+    # one sink for the serving run: the latency histograms and gauges, the
+    # kernels' once-a-shape records (current for the run), counters chained to
+    # the process aggregate that /metrics renders
     tel = obs.Telemetry("serve", parent=obs.GLOBAL)
     metrics = dse_queue = None
     try:
@@ -248,7 +245,8 @@ def serve_config(cfg, args: argparse.Namespace) -> dict:
             metrics = MetricsServer(tel=obs.GLOBAL, port=args.metrics_port).start()
             print(f"metrics: {metrics.url}/metrics  health: {metrics.url}/healthz")
         dse_queue = _mount_dse_service(metrics, args, ctx) if args.dse_service else None
-        return _serve(cfg, args, ctx, tel, metrics, dse_queue)
+        with obs.use(tel):
+            return _serve(cfg, args, ctx, tel, metrics, dse_queue)
     finally:
         # the server's thread and socket and the queue's worker end with the
         # run, whether it returned or raised
@@ -289,6 +287,7 @@ def _serve(cfg, args, ctx, tel, metrics, dse_queue) -> dict:
         "trajectory": out, "exact_logits": exact_lgs,
         "exact_prefill_ms": t_prefill * 1e3, "exact_decode_ms": t_decode * 1e3,
         "prefills": max(1, args.requests), "decode_steps": max(1, args.requests) * (args.gen - 1),
+        "telemetry": tel,
     }
     if metrics is not None:
         metrics.set_deployment({"mode": "exact", "arch": cfg.name})
@@ -331,6 +330,15 @@ def _serve(cfg, args, ctx, tel, metrics, dse_queue) -> dict:
 
     if args.dse_smoke:
         result["dse"] = _dse_smoke(metrics, dse_queue, args.dse_smoke)
+    if args.trace is not None:
+        tel.to_chrome_trace(args.trace)
+        print(f"chrome trace: {args.trace} ({len(tel.spans)} spans; load at ui.perfetto.dev)")
+        for h in ("serve.prefill_ms", "serve.decode_step_ms"):
+            s = tel.histogram_summary(h)
+            if s["count"]:
+                print(f"{h}: n={s['count']} p50={s['p50']:.1f} p90={s['p90']:.1f} "
+                      f"max={s['max']:.1f}")
+        result["trace"] = args.trace
     return result
 
 

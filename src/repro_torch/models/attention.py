@@ -7,9 +7,9 @@ Counterpart of ``repro/models/attention.py``.  A prefill or training pass
 the query offset and ``kv_len`` as runtime arguments, causal or not, which
 is what the reference's XLA ``chunked_attention`` computes there (its module
 docstring names the Pallas flash kernel as its deployment counterpart).
-A training pass takes K7 through ``FlashAttentionFn``, whose backward is
-the autodiff of K7's plain version, as the reference differentiates its XLA
-path.
+A training pass takes K7 as ``FlashAttentionFn``, which ``flash_attention``
+picks itself where a gradient is wanted; its backward is the autodiff of
+K7's plain version, as the reference differentiates its XLA path.
 The encoder's ``attn_nc`` layers and the cross-attention of the
 encoder-decoder's ``attn_x`` and of the VLM's gated ``xattn`` take K7 with
 ``causal=False``, the latter two at Sq != Skv.  A decode step (at most 4
@@ -36,11 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention import (
-    FlashAttentionFn,
-    flash_attention,
-    flash_attention_plain,
-)
+from ..kernels.flash_attention import flash_attention, flash_attention_plain
 from .layers import rmsnorm
 from .spec import ParamSpec
 
@@ -186,18 +182,14 @@ def attn_apply(
 
 def _attend(q, k, v, *, causal: bool, positions, q_offset: int, kv_len: int, impl: str):
     """(B, Sq, H, hd) attention over (B, Skv, G, hd) keys and values: the
-    direct softmax for a decode step (Sq <= 4), else K7 or its plain version.
-    Where a gradient is wanted K7 runs as ``FlashAttentionFn`` (K7 forward,
-    the plain version's autodiff backward); serving takes the raw wrapper."""
+    direct softmax for a decode step (Sq <= 4), else K7 or its plain version
+    (``flash_attention`` takes ``FlashAttentionFn`` itself where a gradient
+    is wanted)."""
     if q.shape[1] <= 4:  # decode path
         return direct_attention(q, k, v, causal=causal, q_positions=positions, kv_len=kv_len)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if impl != "kernel":
-        out = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
-    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = FlashAttentionFn.apply(q, k, v, causal, None, q_offset, kv_len)
-    else:
-        out = flash_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    fn = flash_attention if impl == "kernel" else flash_attention_plain
+    out = fn(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
     return out.transpose(1, 2)
 
 

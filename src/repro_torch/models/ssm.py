@@ -4,8 +4,9 @@ Counterpart of ``repro/models/ssm.py``.  Prefill runs the chunked SSD scan
 through kernel K8 (``kernels.ssd_scan``) where the reference runs its XLA
 ``ssd_chunked`` (whose deployment counterpart is the Pallas ``ssd_scan``);
 ``impl="plain"`` runs K8's plain version, the same chunked algebra in torch.
-Training runs K8 through ``SSDScanFn``: its backward is the autodiff of the
-plain version, as the reference differentiates its XLA path.
+Training runs K8 as ``SSDScanFn``, which ``ssd_scan`` picks itself where a
+gradient is wanted: its backward is the autodiff of the plain version, as
+the reference differentiates its XLA path.
 Decode is the O(1) recurrent update carrying (conv window, SSD state), in
 plain torch as the reference's is in jnp.
 
@@ -22,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels.ssd_scan import SSDScanFn, ssd_scan, ssd_scan_plain
+from ..kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from .layers import rmsnorm
 from .spec import ParamSpec
 
@@ -78,16 +79,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.
                 impl: str = "kernel"):
     """(y (B, S, H, P), final state (B, H, P, N) f32): K8, or its plain version.
 
-    A ragged S is padded (plain) or masked (K8) as dt = 0, x = 0.  Where a
-    gradient is wanted K8 runs as ``SSDScanFn`` (K8 forward, the plain
-    version's autodiff backward); serving takes the raw wrapper.
+    A ragged S is padded (plain) or masked (K8) as dt = 0, x = 0.  ``ssd_scan``
+    takes ``SSDScanFn`` itself where a gradient is wanted.
     """
-    if impl != "kernel":
-        return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, dt, a, bmat, cmat, init_state)):
-        return SSDScanFn.apply(x, dt, a, bmat, cmat, chunk, init_state)
-    return ssd_scan(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
+    fn = ssd_scan if impl == "kernel" else ssd_scan_plain
+    return fn(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
 
 
 def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):

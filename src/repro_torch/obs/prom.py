@@ -1,9 +1,7 @@
 """Prometheus text exposition + the serving /metrics and /healthz endpoints.
 
 Counterpart of ``repro/obs/prom.py``; the health probe asks the CUDA card
-(``torch.cuda``) where the reference asks JAX, and the payload has no
-tuning-cache entry (the port has no kernel autotuner yet, ROADMAP.md queue 1
-item 12).
+(``torch.cuda``) where the reference asks JAX.
 
 The serving entry point (``launch/serve.py``) fills latency histograms and
 throughput gauges on a live :class:`~repro.obs.telemetry.Telemetry`, but
@@ -144,18 +142,22 @@ def _device_health() -> dict:
 def health_payload(tel: obs.Telemetry | None = None,
                    deployment: dict | None = None,
                    check_device: bool = True) -> dict:
-    """The ``/healthz`` JSON: device liveness + deployment.
+    """The ``/healthz`` JSON: device liveness + tuning cache + deployment.
 
     ``deployment`` is whatever descriptor the server was registered with
     (e.g. the AxO deployment summary from ``launch/serve.py``); ``None``
     reports ``"exact"`` -- no approximate operators deployed is a valid,
-    healthy configuration, not a missing one.
+    healthy configuration, not a missing one.  ``tuning_cache`` is
+    ``kernels.tuning.cache_status()``, which never raises.
     """
+    from ..kernels.tuning import cache_status
+
     tel = obs.GLOBAL if tel is None else tel
     device = _device_health() if check_device else {"status": "skipped"}
     return {
         "status": "ok" if device["status"] in ("ok", "skipped") else "degraded",
         "device": device,
+        "tuning_cache": cache_status(),
         "deployment": deployment if deployment is not None else {"mode": "exact"},
         "requests": tel.counter("serve.requests"),
     }

@@ -2,10 +2,13 @@
 
 Counterpart of ``repro/obs/telemetry.py``.  ``core.dse.run_dse`` and
 ``run_dse_sweep`` wrap their stages (characterize / MaP / GA / validate) in
-**spans**; the operator library and the DSE job queue count their traffic
-with **counters**, **gauges** and **histograms**.  The reference's device
-taps (``io_callback`` sinks inside a jitted GA), ``note_trace`` and
-``record_pad_waste`` are not ported yet (ROADMAP.md queue 1 item 12).
+**spans**; the kernel registry and autotuner, the engines' dispatches, the
+operator library and the DSE job queue count their traffic with
+**counters**; the K6 and K7 wrappers record pad-to-tile waste **gauges**;
+the serving entry point fills latency **histograms**.  :mod:`.device` adds
+device taps: rows staged on the card and drained into :attr:`Telemetry.
+series` without a host sync at the firing, which ``fastmoo.CompiledNSGA2``
+uses for its per-generation hypervolume curve.
 
 Design rules, as the reference's:
 
@@ -46,6 +49,8 @@ __all__ = [
     "current",
     "of",
     "use",
+    "note_trace",
+    "record_pad_waste",
 ]
 
 # open-span stack (tuple of Span) per thread/task; shared mutable state stays
@@ -56,6 +61,7 @@ _SPAN_STACK: contextvars.ContextVar[tuple] = contextvars.ContextVar(
 
 _MAX_SPANS = 100_000          # ring buffer: long processes never grow unbounded
 _MAX_HIST = 100_000
+_MAX_SERIES = 1_000_000
 
 
 @dataclass
@@ -129,9 +135,12 @@ class Telemetry:
     """Span + metric sink.  Thread-safe; cheap enough to leave on.
 
     ``parent`` chains counter/gauge/histogram updates upward (child sinks
-    created per run still feed process-wide totals); spans stay local to the
-    object that recorded them.  ``annotate`` opens a
-    ``torch.profiler.record_function`` range for every span.
+    created per run still feed process-wide totals); spans and device-tap
+    series stay local to the object that recorded them.  ``device_taps``
+    opts the engines into device taps (per-generation work inside the GA
+    loop), so it is False unless the telemetry was asked for with ``"on"``.
+    ``annotate`` opens a ``torch.profiler.record_function`` range for every
+    span.
     """
 
     enabled = True
@@ -140,10 +149,12 @@ class Telemetry:
         self,
         name: str = "telemetry",
         parent: "Telemetry | None" = None,
+        device_taps: bool = False,
         annotate: bool = False,
     ) -> None:
         self.name = name
         self.parent = parent
+        self.device_taps = bool(device_taps)
         self.annotate = bool(annotate)
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
@@ -151,6 +162,8 @@ class Telemetry:
         self.counters: dict[str, int] = {}
         self.gauges: dict[str, float] = {}
         self.histograms: dict[str, deque] = {}
+        self.series: dict[str, list] = {}
+        self._seen: set = set()
 
     # -- spans ----------------------------------------------------------------
 
@@ -167,6 +180,19 @@ class Telemetry:
             self.spans.append(span)
 
     # -- metrics --------------------------------------------------------------
+
+    def first(self, key) -> bool:
+        """True the first time ``key`` reaches this sink, False after: the
+        kernel wrappers' once-a-shape bookkeeping (:func:`note_trace`,
+        :func:`record_pad_waste`) keys on it, so every telemetry sees each
+        shape it launches once, whichever telemetry saw it before."""
+        if key in self._seen:
+            return False
+        with self._lock:
+            if key in self._seen:
+                return False
+            self._seen.add(key)
+        return True
 
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -188,6 +214,32 @@ class Telemetry:
             )
         if self.parent is not None:
             self.parent.observe(name, value)
+
+    def set_counter(self, name: str, value: int) -> None:
+        """Force a counter value (``kernels.tuning.STATS`` writes; not propagated)."""
+        with self._lock:
+            self.counters[name] = int(value)
+
+    def emit(self, name: str, record: dict) -> None:
+        """Append one record to a named series (device taps land here)."""
+        with self._lock:
+            s = self.series.setdefault(name, [])
+            if len(s) < _MAX_SERIES:
+                s.append(record)
+
+    # -- device taps ----------------------------------------------------------
+
+    def device_tap(self, name: str, fields: tuple):
+        """A tap ``tap(*values)`` staging one row a firing; see ``obs.device``."""
+        from .device import make_tap
+
+        return make_tap(self, name, fields)
+
+    def device_batched_tap(self, name: str, fields: tuple):
+        """A tap ``tap(rows, valid)`` staging a chunk of rows; see ``obs.device``."""
+        from .device import make_batched_tap
+
+        return make_batched_tap(self, name, fields)
 
     # -- queries / export -----------------------------------------------------
 
@@ -220,6 +272,7 @@ class Telemetry:
 
         write_chrome_trace(self, path)
 
+
 class _NullSpanCM:
     """Shared, reusable no-op span context manager (zero allocation per use)."""
 
@@ -239,16 +292,20 @@ _NULL_CM = _NullSpanCM()
 class NullTelemetry(Telemetry):
     """A true no-op sink: ``telemetry="off"``.
 
-    Every method is constant-time and allocation-free.
+    Every method is constant-time and allocation-free, and its device taps
+    stage nothing.
     """
 
     enabled = False
 
     def __init__(self) -> None:
-        super().__init__(name="null", parent=None)
+        super().__init__(name="null", parent=None, device_taps=False)
 
     def span(self, name: str, **attrs):
         return _NULL_CM
+
+    def first(self, key) -> bool:
+        return False
 
     def count(self, name: str, n: int = 1) -> None:
         pass
@@ -258,6 +315,23 @@ class NullTelemetry(Telemetry):
 
     def observe(self, name: str, value: float) -> None:
         pass
+
+    def set_counter(self, name: str, value: int) -> None:
+        pass
+
+    def emit(self, name: str, record: dict) -> None:
+        pass
+
+    def device_tap(self, name: str, fields: tuple):
+        from .device import null_tap
+
+        return null_tap
+
+    def device_batched_tap(self, name: str, fields: tuple):
+        from .device import null_tap
+
+        return null_tap
+
 
 #: process-wide aggregate: code without an ExecutionContext reports here, and
 #: child telemetries propagate counters here
@@ -297,8 +371,8 @@ class use:
 def as_telemetry(value, default: Telemetry | None = None) -> Telemetry:
     """Normalize the ``ExecutionContext(telemetry=...)`` knob.
 
-    ``None`` -> ``default`` (or :data:`GLOBAL`); ``"on"`` -> a fresh sink,
-    counters chained to :data:`GLOBAL`; ``"off"`` ->
+    ``None`` -> ``default`` (or :data:`GLOBAL`); ``"on"`` -> a fresh sink with
+    device taps enabled, counters chained to :data:`GLOBAL`; ``"off"`` ->
     :data:`NULL`; a :class:`Telemetry` instance passes through unchanged.
     """
     if value is None:
@@ -306,7 +380,7 @@ def as_telemetry(value, default: Telemetry | None = None) -> Telemetry:
     if isinstance(value, Telemetry):
         return value
     if value == "on":
-        return Telemetry(name="run", parent=GLOBAL)
+        return Telemetry(name="run", parent=GLOBAL, device_taps=True)
     if value == "off":
         return NULL
     raise ValueError(
@@ -322,3 +396,45 @@ def of(ctx) -> Telemetry:
     """
     tel = getattr(ctx, "telemetry", None)
     return current() if tel is None or isinstance(tel, str) else tel
+
+
+def note_trace(name: str) -> None:
+    """Count one piece of once-per-shape work: counter ``jit.retrace.<name>``.
+
+    The reference counts (re)traces of a jitted function here; the port
+    traces nothing, so it counts the work it does once per shape and then
+    caches, never once per call.  The sites:
+
+      * ``kernels.build.library`` -- the first load of a kernel library in
+        the process (``jit.retrace.build.<source>``);
+      * ``kernels.app_kernels.table_gemv`` -- the first launch of a K4 plan
+        (route and tiles at a shape) that the current telemetry sees
+        (``jit.retrace.app_kernels.plan``);
+      * ``kernels.axo_matmul.axo_matmul`` -- the same for a K6 plan
+        (``jit.retrace.axo_matmul.plan``).
+
+    ``plan()`` itself records nothing, so the registry's admissibility
+    probes and the tuner's candidates (run under :data:`NULL`) leave the
+    counter alone.  A hot counter here means some argument keeps changing
+    shape and the caches never warm.
+    """
+    current().count(f"jit.retrace.{name}")
+
+
+def record_pad_waste(kernel: str, logical: tuple, padded: tuple) -> None:
+    """Pad-to-tile waste of a kernel's iteration space: ``1 - prod(logical) /
+    prod(padded)``, the fraction of the padded space that computes nothing.
+
+    Recorded on the current telemetry as the gauge ``<kernel>.pad_waste``
+    (last value) and a histogram of the same name.  The K6 and K7 wrappers
+    call it at the first launch of a plan (K6) or shape (K7) that the
+    current telemetry sees (:meth:`Telemetry.first`), not at every launch.
+    """
+    num = den = 1
+    for lo, pa in zip(logical, padded):
+        num *= int(lo)
+        den *= int(pa)
+    waste = 0.0 if den == 0 else 1.0 - num / den
+    tel = current()
+    tel.gauge(f"{kernel}.pad_waste", waste)
+    tel.observe(f"{kernel}.pad_waste", waste)

@@ -72,6 +72,12 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.optim.base, repro_torch.optim.clip, repro_torch.optim.compress\n"
         "import repro_torch.optim.schedule, repro_torch.checkpoint, repro_torch.checkpoint.ckpt\n"
         "import repro_torch.train, repro_torch.train.loop, repro_torch.launch.train\n"
+        "import repro_torch.kernels.registry, repro_torch.kernels.tuning\n"
+        "import repro_torch.obs.device, repro_torch.obs.profile\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.accounting\n"
+        "from repro_torch.obs import profile_registry, trace_capture, MetricsServer\n"
+        "from repro_torch.kernels import registry, tuning\n"
+        "assert len(registry.registered()) == 16\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -161,6 +167,23 @@ def test_entry_point_defaults_to_the_card(name):
         ENTRY_POINTS[name]()
 
 
+def test_new_modules_are_covered_by_the_source_scan():
+    """The scan above reads every module of the port, this slice's too."""
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"kernels/registry.py", "kernels/tuning.py", "obs/device.py", "obs/profile.py",
+            "launch/roofline.py", "launch/accounting.py"} <= names
+
+
+@pytest.mark.gpu
+def test_tuning_keys_the_card():
+    from repro_torch.kernels import tuning
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    key = tuning.device_key()
+    assert key.startswith("cuda:") and key.endswith("_sm90")
+
+
 def test_context_validation_and_menus():
     ctx = ExecutionContext(device="cpu")
     assert ctx.is_torch and ctx.device == "cpu"
@@ -175,3 +198,8 @@ def test_context_validation_and_menus():
     assert entry.resolve_impl("fastmoo", "kernel") == "kernel"
     plain = ExecutionContext(device="cpu", kernel_impl="plain")
     assert all(plain.resolve_impl(e, m[0]) == "plain" for e, m in ENGINE_MENUS.items())
+    assert ExecutionContext(device="cpu").tuning == "off"
+    assert ExecutionContext(device="cpu").tuned_tiles("fastchar.table", n_bits=8,
+                                                      d=1024) == {"a_tile": 64}
+    with pytest.raises(ValueError, match="tuning"):
+        ExecutionContext(device="cpu", tuning="on")

@@ -11,6 +11,7 @@ difference in an activation can move one int8 code.  The reference test's
 fidelity bounds (top-1 >= 0.5, logit rel < 0.5) hold on the port too.
 """
 
+import json
 import urllib.error
 import urllib.request
 
@@ -208,15 +209,18 @@ def test_serve_main_serves_mamba_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag, item", [(["--metrics-port", "0"], 12), (["--trace", "t.json"], 12),
                                         (["--dse-service"], 8), (["--dse-smoke", "2"], 8)])
-def test_serve_flags_not_ported_raise(flag, item):
-    """``--trace`` (ROADMAP.md queue 1 item 12) is the reference's one serve
-    flag the port does not serve yet: it raises.  ``--metrics-port`` serves
-    and stops its server, and the DSE service flags need it, as the
-    reference's do (an argparse error)."""
+def test_serve_flags_not_ported_raise(flag, item, tmp_path, monkeypatch):
+    """The reference's serve flags, each as the port serves it now: ``--trace``
+    (ported with ROADMAP.md queue 1 item 12) writes the Chrome trace of the
+    serving spans; ``--metrics-port`` serves and stops its server, and the
+    DSE service flags need it, as the reference's do (an argparse error)."""
     argv = ["--arch", "granite-3-2b", "--device", "cpu", "--gen", "2", *flag]
     if flag[0] == "--trace":
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            serve.main(argv)
+        monkeypatch.chdir(tmp_path)
+        assert serve.main(argv)["trace"] == flag[1]
+        with open(tmp_path / flag[1]) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"}
+        assert {"serve.request", "serve.prefill", "serve.decode"} <= names
     elif flag[0] == "--metrics-port":
         assert serve.main(argv)["trajectory"].shape == (4, 2)
     else:

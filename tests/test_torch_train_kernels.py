@@ -2,9 +2,10 @@
 
 K7 and K8 are forward kernels bound with ``ctypes``: their outputs carry no
 ``grad_fn``.  Training takes them through ``FlashAttentionFn`` and
-``SSDScanFn``, whose backward differentiates the plain versions; the raw
-wrappers refuse grad-requiring CUDA inputs, so that no caller gets a
-detached result.  Every test here needs an NVIDIA card (marked ``gpu``) and
+``SSDScanFn``, whose backward differentiates the plain versions; the
+wrappers ``flash_attention`` and ``ssd_scan`` take that route themselves for
+grad-requiring CUDA inputs (``ssd_scan_scalar``, which has no autograd
+function, refuses them), so that no caller gets a detached result.  Every test here needs an NVIDIA card (marked ``gpu``) and
 skips without one; nothing here imports JAX.
 
 Tolerances: an autograd function's forward equals its raw kernel call bit
@@ -78,19 +79,38 @@ def _ssd_inputs(dev, dtype, b=2, s=200, h=8, g=1, p=64, n=128, seed=1):
 
 
 @pytest.mark.gpu
-def test_raw_wrappers_refuse_grad_requiring_inputs(cuda):
-    q, k, v, _ = _attn_inputs(cuda, torch.bfloat16, 64, 64)
-    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
-        k7.flash_attention(q.requires_grad_(), k, v)
+def test_wrappers_take_the_autograd_route_where_a_gradient_is_wanted(cuda):
+    """``flash_attention`` and ``ssd_scan`` on grad-requiring inputs launch the
+    kernel forward and give plain autograd's gradient; ``ssd_scan_scalar``
+    still refuses; under no_grad the raw launch serves."""
+    q, k, v, w = _attn_inputs(cuda, torch.bfloat16, 64, 64)
+
+    def grads(fn, ins, weight):
+        ins = [t.clone().requires_grad_() for t in ins]
+        out = fn(*ins)
+        first = out[0] if isinstance(out, tuple) else out
+        return out, torch.autograd.grad((first.float() * weight.float()).sum(), ins)
+
+    before = k7.flash_attention.launches
+    out, got = grads(k7.flash_attention, (q, k, v), w)
+    assert k7.flash_attention.launches == before + 1 and out.grad_fn is not None
+    _, want = grads(k7.flash_attention_plain, (q, k, v), w)
+    for g, gw in zip(got, want):
+        assert _close(g, gw, torch.bfloat16)
     with torch.no_grad():
-        k7.flash_attention(q, k, v)              # serving: no gradient wanted
-    x, dt, a, bm, cm, _ = _ssd_inputs(cuda, torch.bfloat16)
-    a.requires_grad_()
-    for fn in (k8.ssd_scan, k8.ssd_scan_scalar):
-        with pytest.raises(RuntimeError, match="SSDScanFn"):
-            fn(x, dt, a, bm, cm)
-        with torch.no_grad():
-            fn(x, dt, a, bm, cm)
+        assert torch.equal(k7.flash_attention(q, k, v), out.detach())
+
+    x, dt, a, bm, cm, wy = _ssd_inputs(cuda, torch.bfloat16)
+    before = k8.ssd_scan.launches
+    (y, _), got = grads(lambda *t: k8.ssd_scan(*t, chunk=128), (x, dt, a, bm, cm), wy)
+    assert k8.ssd_scan.launches == before + 1 and y.grad_fn is not None
+    _, want = grads(lambda *t: k8.ssd_scan_plain(*t, chunk=128), (x, dt, a, bm, cm), wy)
+    for g, gw in zip(got, want):
+        assert _close(g, gw, g.dtype)
+    with pytest.raises(RuntimeError, match="SSDScanFn"):
+        k8.ssd_scan_scalar(x, dt, a.clone().requires_grad_(), bm, cm)
+    with torch.no_grad():
+        k8.ssd_scan_scalar(x, dt, a, bm, cm)
 
 
 @pytest.mark.gpu
