@@ -147,9 +147,9 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      prefill); deepseek-v3-671b cut to its dense stage and one moe layer
      (repeats (3, 1); 15.21 of 671 G parameters, all 256 experts): MLA (q/k
      width 576, v width 512) on the port's plain attention, no K7, K6 at the
-     four MLA projections and the expert buffers (M = 24); whisper-medium at
-     full depth (24 encoder + 24 decoder layers, 0.81 G) with its 1,500 stub
-     frames: K7 non-causal in the encoder and the cross-attention (Sq 128 x
+     four MLA projections and the expert buffers (M = 24); whisper-medium
+     with its 24 encoder layers and 8 of its 24 decoder layers (cut for
+     the script's time) and its 1,500 stub frames: K7 non-causal in the encoder and the cross-attention (Sq 128 x
      Skv 1,500), causal in the decoder's self-attention; and
      llama-3.2-vision-90b cut to one whole 5-layer block of 20 (6.38 of 87.7
      G) with its 1,600 stub image tokens: K7 non-causal in the gated
@@ -199,6 +199,31 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      fault before step 5: the losses after recovery within TRAIN_REPLAY_REL
      of the uninterrupted run's (whether bitwise is printed); then a
      checkpoint of its final state saved and restored, timed.
+  shard: the multi-card paths as far as one card allows (PERF.md section 4).
+     With one card the DSE shard axes ('configs', 'lanes') are held on the
+     CPU only (tests/test_torch_sharding.py) and a line says so; with two or
+     more, the training set's characterization (K1), the map+ga front (K2),
+     mnist BEHAV (K4, K5) and a 12-lane sweep (K3) run one shard a card,
+     bit-identical to one card.  Then a gloo world of 4 ranks sharing cuda:0
+     (NCCL refuses two ranks on one card): which gloo collectives take CUDA
+     tensors is probed and printed; jamba-v0.1-52b's MoE layer at full width
+     (16 experts, top-2, d 4096, expert ff 14336) runs expert-parallel on a (1, 4) mesh
+     (``_ep_body``) and a (2, 2) mesh (the weight-stationary body), each
+     rank drawing only its block of the expert banks, placed by the arch's
+     ``rules_for`` (``init_params(..., mesh=)``), at batch 4 x prompt 128
+     and one 4-token decode step, against the single-device ``moe_apply``
+     on rank 0, in bf16 where gloo reduces bf16 CUDA tensors and in f32
+     (the largest error over the largest entry: SHARD_BF16_LIMIT in bf16,
+     1e-5 in f32; the aux loss to 1e-6), with the EP bodies' wall time (a
+     second call; the first, which warms gloo's staging, beside it) and the
+     second call's all-reduces' count, bytes and host time; ``compressed_psum`` of
+     4M f32 a rank, equal to the single-rank quantized sum bit for bit and
+     within half a shared step a rank of the exact sum.  Last the DTensor
+     train step as an NCCL world of 1 on a (1, 1) mesh: granite-3-2b at
+     full width cut to SHARD_TRAIN_LAYERS layers, two bf16 AdamW steps
+     against the same steps on plain tensors (loss and parameters to
+     SERVE_REL; whether bitwise is printed), K7 launched through
+     ``local_call`` twice a layer a step.
   device-time: K6's and K7's device time per call from torch.profiler, and
      their yardsticks', at phase 3's shapes, beside phase 3's CUDA-event
      times, K8's at mamba2's prefill, and K2's and K5's, both designs, at
@@ -377,8 +402,11 @@ DEPTH_CUTS = {"internlm2-1.8b": (8,),      # layers kept: 8 of 24 and 30, the sc
               "kimi-k2-1t-a32b": (1, 1),   # a stage's repeats: the dense layer, one moe layer
               "jamba-v0.1-52b": (1,),      # one whole 8-layer block of 4
               "deepseek-v3-671b": (3, 1),  # the dense stage and one moe layer
-              "llama-3.2-vision-90b": (1,)}  # one whole 5-layer block of 20
-# slice 4's serving phases: whisper-medium at full depth, the others cut above
+              "llama-3.2-vision-90b": (1,),  # one whole 5-layer block of 20
+              # 8 of 24 decoder layers (each projects the 1,500 frames' cross
+              # K/V through K6 at M = 6,000); the encoder's 24 in full
+              "whisper-medium": (8,)}
+# slice 4's serving phases, each cut in depth above
 SLICE4_PHASES = {"serve-hybrid": "jamba-v0.1-52b", "serve-mla": "deepseek-v3-671b",
                  "serve-encdec": "whisper-medium", "serve-vlm": "llama-3.2-vision-90b"}
 # K7 at the new head widths: arch -> (query heads, KV groups, hd) of its prefill
@@ -442,6 +470,23 @@ TRAIN_REPLAY_REL = SERVE_REL
 TRAIN_GRAD_CAP = 0.25
 # the least granite's loss must fall over its TRAIN_STEPS steps (nats)
 TRAIN_MIN_DROP = 1.0
+# the shard phase: jamba's MoE layer at full width on a gloo world of
+# SHARD_WORLD ranks sharing cuda:0, over these meshes ((1, 4): _ep_body,
+# (2, 2): the weight-stationary body), at a prefill (batch x prompt) and one
+# decode step; compressed_psum over SHARD_PSUM_ELEMS f32 a rank; the DTensor
+# train step of granite-3-2b cut to SHARD_TRAIN_LAYERS layers
+SHARD_ARCH = "jamba-v0.1-52b"
+SHARD_WORLD = 4
+SHARD_MESHES = ((1, 4), (2, 2))
+SHARD_TOKENS = {"prefill": (4, PROMPT_LEN), "decode": (4, 1)}
+SHARD_SEED = 7
+SHARD_PSUM_ELEMS = 1 << 22
+SHARD_TRAIN_LAYERS = 2
+# bf16 EP vs the single-device bf16 layer, of its largest entry: the
+# weight-stationary body rounds its partial pre-activations and outputs to
+# bf16 before their all-reduces (the reduced layer on the CPU measured 1.3
+# ulps, 2^-7 each); f32 is held to REL_RTOL
+SHARD_BF16_LIMIT = 2.0 ** -5
 
 
 def smi(query: str) -> str:
@@ -1151,7 +1196,6 @@ def profile_train(torch, label, step_fn, params, state, batch, opt, cfg, step_kw
 
     from repro_torch.kernels import flash_attention as k7, ssd_scan as k8
     from repro_torch.launch import steps
-    from repro_torch.optim import Optimizer
 
     ranges = {"attention backward": k7.FlashAttentionFn, "scan backward": k8.SSDScanFn}
     originals = {name: fn.backward for name, fn in ranges.items()}
@@ -1168,9 +1212,8 @@ def profile_train(torch, label, step_fn, params, state, batch, opt, cfg, step_kw
     steps.apply_updates = ranged("optimizer", apply_updates)
     steps.clip_by_global_norm = ranged("clip", clip)
     try:
-        fn = steps.make_train_step(cfg, Optimizer(init=opt.init,
-                                                  update=ranged("optimizer", opt.update)),
-                                   **step_kw)
+        fn = steps.make_train_step(cfg, dataclasses.replace(
+            opt, update=ranged("optimizer", opt.update)), **step_kw)
         params, state, _ = fn(params, state, 1, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1260,6 +1303,344 @@ def obs_tune(torch, tuning, registry, obs, buckets, counted=()) -> float:
     for fn, n in zip(counted, held):
         fn.launches = n
     return time.perf_counter() - t0
+
+
+# -- the shard phase (module level: the gloo world's ranks import it) --------
+
+def _shard_moe(torch, dist, rank, dev, sync, dev_type, dt, out_rows) -> None:
+    """The shard phase's EP MoE in ``dt``: the single-device reference on
+    rank 0, then each mesh's EP run on every rank, into ``out_rows``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch, rules_for
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import set_mesh
+    from repro_torch.models.spec import init_params
+
+    cfg = get_arch(SHARD_ARCH)
+    e, d = cfg.moe, cfg.d_model
+    spec = moe.moe_spec(cfg)
+    empty_cache = torch.cuda.empty_cache if dev_type == "cuda" else (lambda: None)
+    gen = torch.Generator(device=dev).manual_seed(SHARD_SEED)
+    xs = {name: (torch.randn((b, s, d), generator=gen, device=dev) * 0.5).to(dt)
+          for name, (b, s) in SHARD_TOKENS.items()}
+    want = {}
+    t0 = time.perf_counter()
+    if rank == 0:   # the single-device moe_apply, full weights on this rank only
+        full = init_params(spec, seed=0, dtype=dt, device=dev)
+        for name, x in xs.items():
+            want[name] = moe.moe_apply(full, x, cfg)
+        del full
+        empty_cache()
+    for name, x in xs.items():
+        out = want[name][0] if rank == 0 else torch.empty_like(x)
+        aux = want[name][1].reshape(1) if rank == 0 else torch.empty(1, device=dev)
+        dist.broadcast(out, 0)
+        dist.broadcast(aux, 0)
+        want[name] = (out, aux)
+    sync()
+    reference_s = time.perf_counter() - t0
+
+    for shape in SHARD_MESHES:
+        mesh = init_device_mesh(dev_type, shape, mesh_dim_names=("data", "model"))
+        ws = shape[0] > 1
+        dsl = slice(None)
+        if ws:   # the weight-stationary body's output: d split over data
+            d_loc = d // shape[0]
+            dsl = slice(mesh.get_local_rank("data") * d_loc,
+                        (mesh.get_local_rank("data") + 1) * d_loc)
+        t0 = time.perf_counter()
+        # each rank draws its block of every expert bank, placed by the arch's
+        # rules; the router is drawn whole on every rank: the rules split it,
+        # and gathering it is a DTensor redistribute, whose functional
+        # collectives crash under gloo with CUDA tensors (torch 2.11)
+        rules = rules_for(cfg, ShapeConfig("shard", PROMPT_LEN, 4, "prefill"),
+                          mesh_model=shape[1], mesh_data=shape[0])
+        banks = {k: v for k, v in spec.items() if k != "router"}
+        p = init_params(banks, seed=0, dtype=dt, device=dev, mesh=mesh, rules=rules)
+        local = {k: v.to_local() for k, v in p.items()}
+        p["router"] = init_params({"router": spec["router"]}, seed=0, dtype=dt,
+                                  device=dev)["router"]
+        sync()
+        row = {"body": "_ep_decode_body" if ws else "_ep_body", "reference_s": reference_s,
+               "init_s": time.perf_counter() - t0, "local_weight_bytes":
+               sum(v.numel() * v.element_size() for v in local.values())}
+        for name, x in xs.items():
+            walls = []
+            for _ in range(2):   # the first call warms gloo's CUDA staging
+                for k in moe.EP_STATS:
+                    moe.EP_STATS[k] = type(moe.EP_STATS[k])(0)
+                dist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                with set_mesh(mesh):
+                    out, aux = moe.moe_apply(p, x, cfg)
+                sync()
+                walls.append(time.perf_counter() - t0)
+            got, ref = out.to_local().float(), want[name][0][..., dsl].float()
+            err = torch.stack([(got - ref).abs().max() / ref.abs().max(),
+                               (aux.float() - want[name][1][0].float()).abs()])
+            dist.all_reduce(err, op=dist.ReduceOp.MAX)
+            row[name] = {"ms": walls[1] * 1e3, "first_ms": walls[0] * 1e3,
+                         "max_err_over_max": float(err[0]),
+                         "aux_err": float(err[1]), "allreduces": moe.EP_STATS["calls"],
+                         "allreduce_bytes": moe.EP_STATS["bytes"],
+                         "allreduce_ms": moe.EP_STATS["seconds"] * 1e3,
+                         "placements": [str(q) for q in out.placements]}
+        out_rows[f"{shape[0]}x{shape[1]} {str(dt)[6:]}"] = row
+        del p, local
+        empty_cache()
+
+def _shard_world(torch, dist, rank: int, world: int, dev_type: str = "cuda") -> dict:
+    """One rank of the shard phase's gloo world (every rank on cuda:0; on
+    the host with ``dev_type="cpu"``, a rehearsal)."""
+    from repro_torch.optim.compress import compressed_psum
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
+    sync = torch.cuda.synchronize if dev_type == "cuda" else (lambda: None)
+    res = {"collectives": {}}
+    # which gloo collectives take CUDA tensors (every rank tries each alike)
+    probes = {
+        "all_reduce f32": lambda: dist.all_reduce(torch.ones(4, device=dev)),
+        "all_reduce bf16": lambda: dist.all_reduce(torch.ones(4, dtype=torch.bfloat16,
+                                                              device=dev)),
+        "all_reduce int32 max": lambda: dist.all_reduce(
+            torch.ones(4, dtype=torch.int32, device=dev), op=dist.ReduceOp.MAX),
+        "broadcast f32": lambda: dist.broadcast(torch.ones(4, device=dev), 0),
+        "all_gather f32": lambda: dist.all_gather(
+            [torch.empty(4, device=dev) for _ in range(world)], torch.ones(4, device=dev)),
+        "reduce_scatter f32": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), torch.ones(4 * world, device=dev)),
+    }
+    for name, fn in probes.items():
+        try:
+            fn()
+            sync()
+            res["collectives"][name] = "ok"
+        except Exception as exc:  # noqa: BLE001 -- recorded: the refusal is the finding
+            res["collectives"][name] = f"refused: {type(exc).__name__}: " \
+                                       f"{str(exc).strip().splitlines()[0][:160]}"
+    dist.barrier()
+    # bf16 where gloo reduces bf16 CUDA tensors, and always f32
+    dtypes = ([torch.bfloat16] if res["collectives"]["all_reduce bf16"] == "ok" else []) \
+        + [torch.float32]
+    res["dtypes"] = [str(dt)[6:] for dt in dtypes]
+    res["meshes"] = {}
+    for dt in dtypes:
+        _shard_moe(torch, dist, rank, dev, sync, dev_type, dt, res["meshes"])
+
+    # compressed_psum against the single-rank sum of every rank's tensor
+    xs_all = [torch.randn(SHARD_PSUM_ELEMS, generator=torch.Generator(device=dev)
+                          .manual_seed(SHARD_SEED + 1 + j), device=dev) for j in range(world)]
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    total, err = compressed_psum(xs_all[rank])
+    sync()
+    psum_s = time.perf_counter() - t0
+    gmax = torch.stack([x.abs().max() for x in xs_all]).max()
+    scale = torch.clamp(gmax, min=1e-12) / 127.0
+    qs = [torch.clamp(torch.round(x / scale), -127, 127).to(torch.int32) for x in xs_all]
+    expect = torch.stack(qs).sum(0).to(torch.float32) * scale
+    exact = sum(x.double() for x in xs_all)
+    ok = torch.tensor([float(torch.equal(total, expect)),
+                       float((total.double() - exact).abs().max()),
+                       float(torch.equal(err, (xs_all[rank].double() - qs[rank].double()
+                                               * scale.double()).float()))], device=dev)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    res["psum"] = {"elements": SHARD_PSUM_ELEMS, "ms": psum_s * 1e3,
+                   "equal_to_single_rank_sum": bool(ok[0]), "err_equal": bool(ok[2]),
+                   "max_dev_from_exact_sum": float(ok[1]),
+                   "half_step_bound": float(world * scale / 2)}
+    return res
+
+
+def shard_worker(rank: int, world: int, port: int, out_path: str,
+                 dev_type: str = "cuda") -> None:
+    """Entry of one rank of the shard phase's gloo world."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        res = _shard_world(torch, dist, rank, world, dev_type)
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dtensor_train_check(torch, dev, wrappers, cfg, backend: str) -> dict:
+    """The DTensor train step in a world of 1 on a (1, 1) mesh: two AdamW
+    steps of ``cfg`` against the same steps on plain tensors."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import rules_for
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.spec import distribute_params, init_params
+    from repro_torch.optim import cosine_schedule, make_optimizer, tree_leaves, tree_map
+
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+        shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        rules = rules_for(cfg, shape, mesh_model=1, mesh_data=1)
+        spec = model_spec(cfg)
+        params = rescale_attention(torch, init_params(spec, seed=0, device=dev))
+        data = SyntheticLM(cfg, shape, seed=0)
+        batches = [train.batch_to_device(data.batch(t), dev, torch.bfloat16) for t in range(2)]
+        opt = make_optimizer(cfg.optimizer, cosine_schedule(1e-3, warmup_steps=TRAIN_WARMUP,
+                                                            total_steps=TRAIN_STEPS))
+        runs = {}
+        for label in ("dtensor", "plain tensors"):
+            p = distribute_params(params, spec, rules, mesh) if label == "dtensor" else \
+                tree_map(lambda v: v.clone(), params)   # the in-place step keeps params
+            st = opt.init(p)
+            step = make_train_step(cfg, opt, mesh=mesh if label == "dtensor" else None,
+                                   rules=rules)
+            before = wrappers["K7"].launches
+            losses, ms = [], []
+            for t in range(2):
+                sync()
+                t1 = time.perf_counter()
+                p, st, m = step(p, st, t, batches[t])
+                losses.append(float(m["loss"]))
+                sync()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            leaves = [x.to_local() if hasattr(x, "to_local") else x for x in tree_leaves(p)]
+            runs[label] = (losses, leaves, wrappers["K7"].launches - before, ms)
+    finally:
+        dist.destroy_process_group()
+    (l_d, p_d, k7_d, ms_d), (l_p, p_p, _, ms_p) = runs["dtensor"], runs["plain tensors"]
+    param_err = max(rel_norm(a, b) for a, b in zip(p_d, p_p))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_d, l_p))
+    bitwise = all(torch.equal(a, b) for a, b in zip(p_d, p_p))
+    want = 2 * 2 * cfg.n_layers   # a forward and its remat forward, two steps
+    print(f"phase shard: the DTensor train step ({backend} world of 1, (1, 1) mesh), "
+          f"{cfg.name} at full width cut to {cfg.n_layers} layers, bf16, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, two AdamW steps: loss {l_d} (plain tensors "
+          f"{l_p}), relative loss error {loss_err:.3g}, parameters' worst relative norm "
+          f"{param_err:.3g} (limit {SERVE_REL}), bitwise {bitwise}; K7 launches {k7_d} "
+          f"(expected {want}); step ms {[round(v, 1) for v in ms_d]} (plain tensors "
+          f"{[round(v, 1) for v in ms_p]})", flush=True)
+    if loss_err > SERVE_REL or param_err > SERVE_REL or k7_d != want:
+        raise AssertionError("the DTensor train step differs from the plain-tensor step")
+    return {"loss": l_d, "plain_loss": l_p, "param_err": param_err, "bitwise": bitwise,
+            "k7_launches": k7_d, "step_ms": ms_d, "plain_step_ms": ms_p}
+
+
+def shard_phase(torch, dev, wrappers, dse_args) -> dict:
+    """The shard phase (module docstring).  Returns the printed figures."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.engine import ExecutionContext
+    from repro_torch.core.fastchar import behav_metrics_torch
+
+    stats, wall = {}, {}
+
+    # (1) the DSE shard axes, one shard a card
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"phase shard: the DSE shard axes ('configs', 'lanes') were held on the CPU "
+              f"only (tests/test_torch_sharding.py): this machine has {n_cards} CUDA device",
+              flush=True)
+    else:
+        spec, train_cfgs, front, app, sweep = dse_args
+        sharded = ExecutionContext(n_devices=n_cards)
+        for label, cfgs, impl in (("training set", train_cfgs, "table"),
+                                  ("map+ga front", front, "entry")):
+            a = behav_metrics_torch(spec, cfgs, impl=impl, ctx=ExecutionContext())
+            b = behav_metrics_torch(spec, cfgs, impl=impl, ctx=sharded)
+            if not all(np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"config-sharded {label} ({impl}) differs")
+        for impl in ("table", "entry"):
+            a = app.behav(spec, train_cfgs, backend=ExecutionContext(kernel_impl=impl))
+            b = app.behav(spec, train_cfgs, backend=ExecutionContext(kernel_impl=impl,
+                                                                   n_devices=n_cards))
+            if not np.array_equal(a, b):
+                raise AssertionError(f"config-sharded {app.name} BEHAV ({impl}) differs")
+        runner, args = sweep
+        a = runner(ExecutionContext()).run_sweep(*args)
+        b = runner(sharded).run_sweep(*args)
+        if not all(np.array_equal(x.population, y.population) for x, y in zip(a, b)):
+            raise AssertionError("the lane-sharded sweep differs")
+        print(f"phase shard: DSE axes on {n_cards} cards: the training set (K1), the map+ga "
+              f"front (K2), {app.name} BEHAV (K4, K5) and a {len(args[0])}-lane sweep (K3) "
+              f"bit-identical to one card", flush=True)
+    wall["dse"] = time.perf_counter() - t0
+
+    # (2) the EP MoE and compressed_psum: a gloo world sharing cuda:0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "shard.json")
+        mp.start_processes(shard_worker, args=(SHARD_WORLD, _free_port(), out_path),
+                           nprocs=SHARD_WORLD, start_method="spawn")
+        res = json.loads(Path(out_path).read_text())
+    wall["gloo world"] = time.perf_counter() - t0
+    cfg = get_arch(SHARD_ARCH)
+    print(f"phase shard: gloo collectives on CUDA tensors (4 ranks on cuda:0): "
+          f"{json.dumps(res['collectives'])}", flush=True)
+    for mesh_name, row in res["meshes"].items():
+        shape, dtype = mesh_name.split()
+        limit = SHARD_BF16_LIMIT if dtype == "bfloat16" else REL_RTOL
+        print(f"phase shard: {SHARD_ARCH}'s MoE layer at full width ({cfg.moe.n_experts} "
+              f"experts, top-{cfg.moe.top_k}, d {cfg.d_model}, expert ff "
+              f"{cfg.moe.d_ff_expert}, {dtype}) on a ({shape.replace('x', ', ')}) mesh "
+              f"through {row['body']}, against the single-device moe_apply (limit {limit:.3g} "
+              f"of its largest entry): {json.dumps(row)}", flush=True)
+        for name in SHARD_TOKENS:
+            r = row[name]
+            if not r["max_err_over_max"] <= limit or r["aux_err"] > 1e-6 \
+                    or r["allreduces"] == 0:
+                raise AssertionError(f"the EP MoE on {mesh_name} at {name} differs from "
+                                     f"the single-device moe_apply: {r}")
+    ps = res["psum"]
+    print(f"phase shard: compressed_psum of {ps['elements']} f32 a rank over 4 ranks: "
+          f"{json.dumps(ps)}", flush=True)
+    if not (ps["equal_to_single_rank_sum"] and ps["err_equal"]
+            and ps["max_dev_from_exact_sum"] <= ps["half_step_bound"]):
+        raise AssertionError(f"compressed_psum differs from the single-rank sum: {ps}")
+    stats["gloo"] = res
+
+    # (3) the DTensor train step: an NCCL world of 1 on a (1, 1) mesh
+    t0 = time.perf_counter()
+    full = get_arch("granite-3-2b")
+    stats["dtensor_train"] = dtensor_train_check(torch, dev, wrappers, dataclasses.replace(
+        full, stages=(dataclasses.replace(full.stages[0], repeats=SHARD_TRAIN_LAYERS),)),
+        "nccl")
+    wall["dtensor train"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    stats["wall_s"] = wall
+    print(f"phase shard: wall seconds {json.dumps({k: round(v, 1) for k, v in wall.items()})}",
+          flush=True)
+    return stats
+
 
 
 def http_json(url: str, body: dict | None = None) -> dict:
@@ -3075,10 +3456,10 @@ def main() -> int:
 
     # -- serve-dense, serve-moe, serve-hybrid, serve-mla, serve-encdec, serve-vlm
     segments["serve-families"] = time.perf_counter()
-    # whisper-medium at full depth through serve.main; internlm2-1.8b,
-    # starcoder2-3b, deepseek-67b, kimi-k2, jamba, deepseek-v3 and the VLM cut
-    # in depth (DEPTH_CUTS) with dataclasses.replace and served by
-    # serve.serve_config, serve.main's run.  Each: batch 4, prompt 128, 8 new
+    # internlm2-1.8b, starcoder2-3b, deepseek-67b, kimi-k2, jamba,
+    # deepseek-v3, whisper's decoder and the VLM cut in depth (DEPTH_CUTS)
+    # with dataclasses.replace and served by serve.serve_config, serve.main's
+    # run.  Each: batch 4, prompt 128, 8 new
     # tokens, exact and with the rank-8 demo operator in every projection and
     # the head; launch counts zeroed before and read after; every K7 and K8
     # call of an exact prefill and every K6, K7 and K8 call of the AxO prefill
@@ -3355,6 +3736,19 @@ def main() -> int:
     rec["K8"]["train_launches"] = train_stats["mamba2"]["k8_launches"]
     print(f"phase train: {t_train:.1f} s; {json.dumps(train_stats)}", flush=True)
 
+    # -- shard: the multi-card paths as far as one card allows -----------------
+    segments["shard"] = time.perf_counter()
+    t0 = time.perf_counter()
+    ga_objs, ga_bounds, _ = ga_problem
+    shard_stats = shard_phase(torch, dev, ssm_wrappers, (
+        spec, train.configs, results["map+ga"].ppf_configs, APPLICATIONS["mnist"](),
+        (lambda c: fastmoo.CompiledNSGA2(ga_objs, n_bits=spec.n_luts, pop_size=64, n_gen=20,
+                                         ctx=c), (list(range(12)), [ga_bounds] * 12))))
+    t_shard = time.perf_counter() - t0
+    launches["K7"] += shard_stats["dtensor_train"]["k7_launches"]
+    rec["K7"]["shard_launches"] = shard_stats["dtensor_train"]["k7_launches"]
+    print(f"phase shard: {t_shard:.1f} s", flush=True)
+
     # -- device time of K8, K6 and K7 -----------------------------------------
     segments["device-time"] = time.perf_counter()
     # first, one train step of granite-3-2b and one of mamba2-130m, each after
@@ -3606,7 +4000,7 @@ def main() -> int:
                                        "configs_a_thread", "ragged", "path", "bound_term",
                                        "tiers_ms", "tiers_device_ms", "per_lane_ms",
                                        "wrapped_configs", "library_reason",
-                                       "train_launches")
+                                       "train_launches", "shard_launches")
                if key in r},
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s (main path {t_main:.1f} s, apps "
@@ -3614,7 +4008,7 @@ def main() -> int:
           f"sweep {t_sweep:.1f} s, service {t_svc:.1f} s, serve-dense {t_dense:.1f} s, "
           f"serve-moe {t_moe:.1f} s, "
           f"{', '.join(f'{k} {v:.1f} s' for k, v in t_slice4.items())}, train "
-          f"{t_train:.1f} s, obs {t_obs:.1f} s)", flush=True)
+          f"{t_train:.1f} s, shard {t_shard:.1f} s, obs {t_obs:.1f} s)", flush=True)
     ends = [*list(segments.values())[1:], time.perf_counter()]
     print(f"phase wall: wall-clock by section (s): "
           f"{ {k: round(e - b, 1) for (k, b), e in zip(segments.items(), ends)} }", flush=True)

@@ -39,9 +39,20 @@ with exactly the oracle's expressions, which keeps every app BEHAV equal to
 the numpy path.  A table matmul counts ``dispatch.fastapp.<impl>`` on the
 batch context's telemetry, and K4's route and gather tiles resolve through
 the kernel registry under its ``tuning`` policy (``kernels.tuning.
-tiles_for``; ``app_kernels.plan``'s choice untuned).  Left out against the
-reference: the ``shard_map`` mesh paths and the power-of-two bucket padding
-of config chunks, which only bounds JAX recompiles.
+tiles_for``; ``app_kernels.plan``'s choice untuned).
+
+A batch whose context shards ``"configs"`` (``ExecutionContext(n_devices=
+n)``) and whose D the shard count divides (the reference's
+``_config_mesh_ctx``) runs every primitive shard by shard: the batch is cut
+once into n contiguous sub-batches on the shards' devices (their planes and
+tables built there, once), each shard takes the route the unsharded call
+takes (K4 staged or gather as ``app_kernels.plan`` picks, K5, ``gemm``,
+``entry_gather`` or ``plain``), and the outputs are gathered onto the first
+device in shard order; configs are independent, so the results are the
+unsharded call's bit for bit.  Each (context, route, shape bucket) counts
+``shard.rebuild.fastapp`` once.  Left out against the reference: the
+power-of-two bucket padding of config chunks, which only bounds JAX
+recompiles.
 """
 
 from __future__ import annotations
@@ -51,10 +62,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..core.engine import ENGINE_MENUS, ExecutionContext
+from ..core.engine import ENGINE_MENUS, ExecutionContext, shard_plan
 from ..core.fastchar import _gather_small
 from ..core.operator_model import OperatorSpec, _synth_small, config_to_masks, spec_for
-from ..kernels import app_kernels
+from ..kernels import app_kernels, registry
 from ..kernels.app_kernels import _pair
 from ..kernels.tuning import launch_overrides
 from ..obs.telemetry import current
@@ -109,6 +120,7 @@ class TableBatch:
     _small: torch.Tensor | None = field(default=None, repr=False)
     _tables: torch.Tensor | None = field(default=None, repr=False)
     _entry_small: torch.Tensor | None = field(default=None, repr=False)
+    _shards: list | None = field(default=None, repr=False)
 
     def __len__(self) -> int:
         src = self.masks if self.masks is not None else self._tables
@@ -286,21 +298,49 @@ def _resolve_impl(impl: str | None, batch: TableBatch, k: int,
     return impl
 
 
-def table_matmul_torch(tables, a_codes, b_codes, impl: str | None = None) -> torch.Tensor:
-    """Batched table matmul: (D, M, N) int32, every multiply a table lookup.
+def _config_mesh_ctx(batch: TableBatch, d: int) -> ExecutionContext | None:
+    """The batch's context iff it shards 'configs' and ``d`` divides evenly."""
+    ctx = batch.ctx
+    if ctx is None or not ctx.shards("configs") or d % ctx.device_count:
+        return None
+    return ctx
 
-    ``tables`` is a ``TableBatch`` (preferred: it offers every route) or raw
-    ``(D, 2^N, 2^N)`` tables.  ``a_codes`` is ``(M, K)`` (shared across
-    configs) or ``(D, M, K)`` (per config, e.g. the FFN's requantized hidden
-    activations).
-    """
-    batch = _as_batch(tables)
-    a = _codes(a_codes, batch.device)
-    b = _codes(b_codes, batch.device)
-    impl = _resolve_impl(impl, batch, a.shape[-1], per_config=a.dim() == 3)
+
+def _shard_batches(batch: TableBatch, ctx: ExecutionContext, impl: str,
+                   bucket) -> list[TableBatch]:
+    """The batch cut into its shards' contiguous sub-batches, each on its
+    shard's device with its shard's context; cut once a batch."""
+    contexts = shard_plan(ctx, "fastapp", impl, bucket)
+    if batch._shards is None:
+        n = len(contexts)
+        per = len(batch) // n
+        src = batch.masks if batch.masks is not None else batch._tables
+        parts = [src[i * per:(i + 1) * per].to(sc.device) for i, sc in enumerate(contexts)]
+        batch._shards = [
+            TableBatch(masks=p, n_bits=batch.n_bits, ctx=sc) if batch.masks is not None
+            else TableBatch(masks=None, n_bits=batch.n_bits, ctx=sc, _tables=p.contiguous())
+            for p, sc in zip(parts, contexts)]
+    return batch._shards
+
+
+def _on_shards(batch: TableBatch, ctx: ExecutionContext, impl: str, shape: dict, route,
+               per_config: tuple = (), shared: tuple = ()) -> torch.Tensor:
+    """``route(sub_batch, *args)`` on every shard, gathered in shard order:
+    ``per_config`` operands are cut along their leading D axis, ``shared``
+    ones copied to each shard's device.  Every shard is launched before any
+    result is gathered, so the shards' launches overlap on their cards."""
+    bucket = registry.get(f"fastapp.{impl}").bucket(n_bits=batch.n_bits, d=len(batch), **shape)
+    subs = _shard_batches(batch, ctx, impl, bucket)
+    per = len(batch) // len(subs)
+    outs = [route(sb, *(x[i * per:(i + 1) * per].to(sb.device) for x in per_config),
+                  *(x.to(sb.device) for x in shared))
+            for i, sb in enumerate(subs)]
+    return torch.cat([o.to(batch.device) for o in outs])
+
+
+def _matmul(batch: TableBatch, a: torch.Tensor, b: torch.Tensor, impl: str) -> torch.Tensor:
+    """One batch's table matmul on the resolved route ``impl``."""
     d = len(batch)
-    tel = batch.ctx.tel if batch.ctx is not None else current()
-    tel.count(f"dispatch.fastapp.{impl}")
     if impl == "table":
         (m, k), n = a.shape, b.shape[1]
         tuned = launch_overrides(batch.ctx, "fastapp.table", n_bits=batch.n_bits, d=d, m=m,
@@ -317,6 +357,45 @@ def table_matmul_torch(tables, a_codes, b_codes, impl: str | None = None) -> tor
     return app_kernels.table_gemv_plain(batch.tables.reshape(d, -1), a, b)
 
 
+def _count(batch: TableBatch, impl: str) -> None:
+    tel = batch.ctx.tel if batch.ctx is not None else current()
+    tel.count(f"dispatch.fastapp.{impl}")
+
+
+def table_matmul_torch(tables, a_codes, b_codes, impl: str | None = None) -> torch.Tensor:
+    """Batched table matmul: (D, M, N) int32, every multiply a table lookup.
+
+    ``tables`` is a ``TableBatch`` (preferred: it offers every route) or raw
+    ``(D, 2^N, 2^N)`` tables.  ``a_codes`` is ``(M, K)`` (shared across
+    configs) or ``(D, M, K)`` (per config, e.g. the FFN's requantized hidden
+    activations).
+    """
+    batch = _as_batch(tables)
+    a = _codes(a_codes, batch.device)
+    b = _codes(b_codes, batch.device)
+    impl = _resolve_impl(impl, batch, a.shape[-1], per_config=a.dim() == 3)
+    _count(batch, impl)
+    mesh = _config_mesh_ctx(batch, len(batch))
+    if mesh is None:
+        return _matmul(batch, a, b, impl)
+    shape = dict(m=a.shape[-2], k=a.shape[-1], n=b.shape[1])
+    route = lambda sb, *ops: _matmul(sb, *ops, impl)
+    if a.dim() == 3:
+        return _on_shards(batch, mesh, impl, shape, route, per_config=(a,), shared=(b,))
+    return _on_shards(batch, mesh, impl, shape, route, shared=(a, b))
+
+
+def _contract_route(batch: TableBatch, win: torch.Tensor, b: torch.Tensor,
+                    impl: str) -> torch.Tensor:
+    """One batch's (M, K) windows against (K, 1) taps on the resolved route."""
+    if impl in _ENTRY_ROUTES and _gemm_ok(b.shape[0], batch.n_bits):
+        return _matmul_gemm(batch.entry_small, win, b)
+    if impl != "plain":
+        return _matmul(batch, win, b, impl)
+    return app_kernels.table_gemv_plain(batch.tables.reshape(len(batch), -1), win, b,
+                                        CONV_D_CHUNK)
+
+
 def _contract(batch: TableBatch, win: torch.Tensor, taps: torch.Tensor,
               impl: str | None) -> torch.Tensor:
     """(M, K) windows against (K,) taps -> (D, M): a convolution as the N=1
@@ -328,14 +407,14 @@ def _contract(batch: TableBatch, win: torch.Tensor, taps: torch.Tensor,
     impl = _resolve_impl(impl, batch, k)
     win = win.contiguous()
     b = taps[:, None].contiguous()
-    if impl in _ENTRY_ROUTES and _gemm_ok(k, batch.n_bits):
-        out = _matmul_gemm(batch.entry_small, win, b)
-    elif impl != "plain":
-        out = table_matmul_torch(batch, win, b, impl=impl)
+    if impl != "plain" and not (impl in _ENTRY_ROUTES and _gemm_ok(k, batch.n_bits)):
+        _count(batch, impl)   # a table matmul, counted as one
+    mesh = _config_mesh_ctx(batch, len(batch))
+    if mesh is None:
+        out = _contract_route(batch, win, b, impl)
     else:
-        out = app_kernels.table_gemv_plain(
-            batch.tables.reshape(len(batch), -1), win, b, CONV_D_CHUNK
-        )
+        out = _on_shards(batch, mesh, impl, dict(m=win.shape[0], k=k, n=1),
+                         lambda sb, w, t: _contract_route(sb, w, t, impl), shared=(win, b))
     return out[..., 0]
 
 

@@ -11,14 +11,20 @@ in its key (``bfloat16::|...``) and decoded with torch (a ``uint16`` view
 read as ``torch.bfloat16``), so a checkpoint written by either package
 restores in the other, bit for bit.
 
-Leaves are torch tensors or numpy arrays.  ``restore_tree`` rebuilds the
-template's structure: a tensor leaf of the template comes back as a tensor
-on ``device`` (the card unless the caller says), a numpy leaf as a numpy
-array.  ``CheckpointManager`` adds retention, async save on a background
-thread and ``latest_step`` discovery for restarts; it snapshots every leaf
-to host memory in the caller's thread before returning, because the
-optimizer updates the parameters in place and the next step would otherwise
-race the writer.
+Leaves are torch tensors, DTensors or numpy arrays. A DTensor leaf is saved
+whole (``full_tensor``, a collective every rank of its mesh joins); in a
+``torch.distributed`` world only rank 0 writes. ``restore_tree`` rebuilds
+the template's structure: a tensor leaf of the template comes back as a
+tensor on ``device`` (the card unless the caller says), a numpy leaf as a
+numpy array; with target ``placements`` (a mesh and a placement tree) the
+tensors come back as DTensors placed so, whatever world wrote them (the
+reference's elastic restore onto other shardings). ``CheckpointManager``
+adds retention, async save on a background thread and ``latest_step``
+discovery for restarts; it snapshots every leaf to host memory in the
+caller's thread before returning, because the optimizer updates the
+parameters in place and the next step would otherwise race the writer.
+In a world, ``wait`` and ``restore`` are collective: the other ranks wait
+for rank 0's write and retention pass, and restore the step rank 0 names.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 
 from ..core.engine import ExecutionContext
 
-__all__ = ["save_tree", "restore_tree", "latest_step", "CheckpointManager"]
+__all__ = ["save_tree", "restore_tree", "place_tree", "latest_step", "CheckpointManager"]
 
 BF16 = "bfloat16"   # the name a bf16 leaf's raw bytes are stored under
 
@@ -58,17 +64,43 @@ def _unflatten_like(template, values: dict, prefix=""):
     return values[prefix]
 
 
+def _whole(v):
+    """A DTensor leaf as its full value (a collective); others as they are."""
+    from torch.distributed.tensor import DTensor
+
+    return v.full_tensor() if isinstance(v, DTensor) else v
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a world, or alone."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _agreed(value):
+    """Rank 0's ``value`` on every rank of a ``torch.distributed`` world (a
+    broadcast every rank joins); alone, ``value`` itself."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def _host(v) -> np.ndarray | torch.Tensor:
     """A host copy of a leaf that no later in-place update reaches."""
     if isinstance(v, torch.Tensor):
-        return v.detach().to("cpu", copy=True)
+        return _whole(v.detach()).to("cpu", copy=True)
     return np.array(v, copy=True)
 
 
 def _encode_leaf(v) -> tuple[np.ndarray, str]:
     """npz-compatible encoding: a bf16 leaf as its raw bytes, (..., 2) uint8."""
     if isinstance(v, torch.Tensor):
-        v = v.detach().cpu()
+        v = _whole(v.detach()).cpu()
         if v.dtype == torch.bfloat16:
             raw = v.contiguous().view(torch.int16).numpy().reshape(-1).view(np.uint8)
             return raw.reshape(tuple(v.shape) + (2,)), BF16
@@ -87,11 +119,14 @@ def _decode_leaf(raw: np.ndarray, dtype_name: str):
 
 
 def save_tree(path: str, step: int, tree, extra: dict | None = None) -> None:
-    """Atomic save of a tree (+ manifest) to ``<path>/step_<step>.npz``."""
+    """Atomic save of a tree (+ manifest) to ``<path>/step_<step>.npz``;
+    every rank encodes (DTensors gather), rank 0 writes."""
+    encoded = [(k, _encode_leaf(v)) for k, v in _flatten_with_paths(tree)]
+    if not _writer():
+        return
     os.makedirs(path, exist_ok=True)
     arrays = {}
-    for k, v in _flatten_with_paths(tree):
-        enc, dtype_name = _encode_leaf(v)
+    for k, (enc, dtype_name) in encoded:
         key = k.replace("/", "|")
         arrays[f"{dtype_name}::{key}" if dtype_name else key] = enc
 
@@ -126,10 +161,13 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_tree(path: str, step: int, template, device=None, dtypes=None):
+def restore_tree(path: str, step: int, template, device=None, dtypes=None,
+                 placements=None):
     """Restore into the structure of ``template``: a tensor leaf of the
     template as a tensor on ``device`` (the card by default), a numpy leaf as
-    a numpy array; ``dtypes``, a tree of torch dtypes, casts the tensors."""
+    a numpy array; ``dtypes``, a tree of torch dtypes, casts the tensors.
+    ``placements`` = (mesh, a tree of DTensor placements mirroring the
+    template) returns DTensors placed so, each rank keeping its shard."""
     npz = os.path.join(path, f"step_{step:08d}.npz")
     values = {}
     with np.load(npz) as z:
@@ -148,7 +186,22 @@ def restore_tree(path: str, step: int, template, device=None, dtypes=None):
     placed = {p: place(t, values[p]) for p, t in paths.items()}
     if dtypes is not None:
         placed = {p: placed[p].to(d) for p, d in _flatten_with_paths(dtypes)}
-    return _unflatten_like(template, placed)
+    tree = _unflatten_like(template, placed)
+    if placements is not None:
+        tree = place_tree(tree, *placements)
+    return tree
+
+
+def place_tree(tree, mesh, placements):
+    """Full tensors (the same on every rank) -> DTensors with ``placements``
+    (a tree mirroring ``tree``) on ``mesh``; each rank cuts its shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(tree, dict):
+        return {k: place_tree(tree[k], mesh, placements[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_tree(t, mesh, p) for t, p in zip(tree, placements))
+    return distribute_tensor(tree, mesh, placements, src_data_rank=None)
 
 
 class CheckpointManager:
@@ -166,18 +219,26 @@ class CheckpointManager:
         return latest_step(self.path)
 
     def wait(self) -> None:
-        """Join the background save; re-raise its failure, if it had one."""
+        """Join the background save; re-raise its failure, if it had one.
+
+        In a world every rank calls it: rank 0, the writer, joins its thread
+        (the write and the retention pass) and then tells every rank whether
+        it failed, so all ranks leave together and raise together."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
+        if _agreed(self._error is not None):
             err, self._error = self._error, None
-            raise err
+            raise err if err is not None else RuntimeError(
+                "the checkpoint write on rank 0 failed")
 
     def save(self, step: int, tree, extra: dict | None = None) -> None:
         self.wait()
         # host copies before returning: the caller updates the tree in place
         host_tree = _unflatten_like(tree, {p: _host(v) for p, v in _flatten_with_paths(tree)})
+
+        if not _writer():
+            return
 
         def work():
             try:
@@ -193,11 +254,16 @@ class CheckpointManager:
             work()
             self.wait()
 
-    def restore(self, template, step: int | None = None, device=None, dtypes=None):
-        step = self.latest_step() if step is None else step
+    def restore(self, template, step: int | None = None, device=None, dtypes=None,
+                placements=None):
+        """(tree, step) of ``step`` (the latest by default), or (None, None).
+        In a world every rank calls it: pending writes finish first, and the
+        latest step is rank 0's, so every rank restores the same one."""
+        self.wait()
+        step = _agreed(self.latest_step()) if step is None else step
         if step is None:
             return None, None
-        return restore_tree(self.path, step, template, device, dtypes), step
+        return restore_tree(self.path, step, template, device, dtypes, placements), step
 
     def _gc(self) -> None:
         steps = sorted(_steps(self.path))

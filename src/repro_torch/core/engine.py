@@ -39,22 +39,38 @@ cache, searched once on a miss; ``"search"`` a fresh search once a process.
 process-wide current sink, :attr:`ExecutionContext.tel`); ``"on"`` also
 turns the device taps on (the GA's per-generation curve).
 
+``n_devices`` and ``shard_axes`` shard the DSE engines' independent batch
+axes, as the reference's 1-D mesh does: ``"configs"`` (the D axis of
+fastchar's partials and of fastapp's table primitives) and ``"lanes"`` (the
+lanes of ``fastmoo.CompiledNSGA2.run_sweep``).  The design is single-
+controller and in-process, like the reference's ``shard_map``: with
+``device="cuda"`` shard *i* runs on ``cuda:i`` (construction raises when the
+machine has fewer cards), with ``device="cpu"`` the *n* shards all run on the
+host (the counterpart of the reference's forced host devices).  The host
+launches each shard's slice on its device, so the launches of the shards
+overlap on their cards, and gathers the results onto the first device in
+shard order.  Batch entries are independent, so a sharded call is the
+unsharded one on 1/n-th of the batch and its results are bit-identical.
+No ``torch.distributed`` is used here.
+
 On a CPU device the kernel wrappers run their plain versions; on a CUDA device
 they launch the kernels or raise.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import weakref
+from dataclasses import dataclass, replace
 
 import torch
 
 from ..kernels import registry
 
-__all__ = ["BACKENDS", "ENGINE_MENUS", "KERNEL_IMPLS", "TUNING_POLICIES", "ExecutionContext",
-           "as_context"]
+__all__ = ["BACKENDS", "ENGINE_MENUS", "KERNEL_IMPLS", "SHARD_AXES", "TUNING_POLICIES",
+           "ExecutionContext", "as_context", "shard_plan"]
 
 BACKENDS = ("torch", "numpy")
+SHARD_AXES = ("configs", "lanes")
 TUNING_POLICIES = ("off", "cached", "search")
 ENGINE_MENUS = {engine: registry.impl_names(engine) for engine in registry.ENGINES}
 KERNEL_IMPLS = tuple(sorted({i for menu in ENGINE_MENUS.values() for i in menu}))
@@ -69,6 +85,8 @@ class ExecutionContext:
     kernel_impl: str | None = None
     tuning: str = "off"
     telemetry: object | None = None
+    n_devices: int | None = None
+    shard_axes: tuple[str, ...] = SHARD_AXES
 
     def __post_init__(self) -> None:
         if self.telemetry is not None:
@@ -96,6 +114,25 @@ class ExecutionContext:
                 "pass device='cpu' to run the torch engines on the CPU"
             )
         object.__setattr__(self, "device", device)
+        axes = (self.shard_axes,) if isinstance(self.shard_axes, str) else tuple(self.shard_axes)
+        object.__setattr__(self, "shard_axes", axes)
+        if [a for a in axes if a not in SHARD_AXES] or len(set(axes)) != len(axes):
+            raise ValueError(f"shard_axes must be distinct names from {SHARD_AXES}, got {axes!r}")
+        if self.n_devices is not None:
+            if not isinstance(self.n_devices, int) or self.n_devices < 1:
+                raise ValueError(
+                    f"n_devices must be a positive int or None, got {self.n_devices!r}")
+            if self.n_devices > 1:
+                if self.backend != "torch":
+                    raise ValueError("sharded execution (n_devices > 1) requires "
+                                     f"backend='torch', got backend={self.backend!r}")
+                if not axes:
+                    raise ValueError("n_devices > 1 with empty shard_axes: nothing to shard "
+                                     f"-- name at least one of {SHARD_AXES} or drop n_devices")
+                first = torch.device(device).index or 0
+                if device.startswith("cuda") and torch.cuda.device_count() < first + self.n_devices:
+                    raise ValueError(f"n_devices={self.n_devices} from {device} but the machine "
+                                     f"has {torch.cuda.device_count()} CUDA devices")
 
     @property
     def is_torch(self) -> bool:
@@ -108,6 +145,27 @@ class ExecutionContext:
         from ..obs.telemetry import current
 
         return current() if self.telemetry is None else self.telemetry
+
+    @property
+    def device_count(self) -> int:
+        return 1 if self.n_devices is None else self.n_devices
+
+    def shards(self, axis: str) -> bool:
+        """Whether batch axis ``axis`` ('configs' | 'lanes') is sharded."""
+        if axis not in SHARD_AXES:
+            raise ValueError(f"unknown shard axis {axis!r} (not in {SHARD_AXES})")
+        return self.device_count > 1 and axis in self.shard_axes
+
+    def devices(self) -> list[str]:
+        """The shards' devices: ``cuda:0 .. cuda:n-1``, or the host n times."""
+        if not self.device.startswith("cuda"):
+            return [self.device] * self.device_count
+        first = torch.device(self.device).index or 0
+        return [f"cuda:{first + i}" for i in range(self.device_count)]
+
+    def shard_context(self, i: int) -> "ExecutionContext":
+        """The unsharded context of shard ``i``: this policy on its device."""
+        return replace(self, device=self.devices()[i], n_devices=None)
 
     def resolve_impl(self, engine: str, default: str) -> str:
         """The context's kernel impl if ``engine``'s menu offers it, else ``default``."""
@@ -122,6 +180,23 @@ class ExecutionContext:
         from ..kernels.tuning import tiles_for
 
         return tiles_for(self, kernel, **shape)
+
+
+# context -> the (engine, impl, shape bucket) shard plans it has built
+_SHARD_PLANS_SEEN: "weakref.WeakKeyDictionary[ExecutionContext, set]" = \
+    weakref.WeakKeyDictionary()
+
+
+def shard_plan(ctx: ExecutionContext, engine: str, impl: str, bucket) -> list[ExecutionContext]:
+    """The shard contexts of a sharded ``ctx`` for one (engine, impl, shape
+    bucket).  The first plan of each is counted as ``shard.rebuild.<engine>``
+    on the context's telemetry, as the reference counts its rebuilt sharded
+    programs; the contexts themselves are cheap and built on every call."""
+    seen = _SHARD_PLANS_SEEN.setdefault(ctx, set())
+    if (engine, impl, bucket) not in seen:
+        seen.add((engine, impl, bucket))
+        ctx.tel.count(f"shard.rebuild.{engine}")
+    return [ctx.shard_context(i) for i in range(ctx.device_count)]
 
 
 def as_context(backend: "str | ExecutionContext | None") -> ExecutionContext:

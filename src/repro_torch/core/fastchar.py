@@ -51,7 +51,7 @@ from ..kernels.char_kernels import (
 )
 from ..kernels.tuning import launch_overrides
 from ..obs.telemetry import current
-from .engine import ENGINE_MENUS, ExecutionContext
+from .engine import ENGINE_MENUS, ExecutionContext, shard_plan
 from .metrics import BEHAV_METRICS
 from .operator_model import (
     OperatorSpec,
@@ -224,6 +224,35 @@ def _partials(spec: OperatorSpec, masks: torch.Tensor, impl: str,
         return stats(small, exact, w, a_tile)
 
 
+def _sharded_partials(spec: OperatorSpec, masks: torch.Tensor, impl: str,
+                      a_tile: int | None, ctx: ExecutionContext):
+    """The partials of a (D, R) host mask chunk with its configs split over
+    ``ctx``'s shards: D is padded with zero masks to a multiple of the shard
+    count, shard i's contiguous slice runs through :func:`_partials` on its
+    device (its kernel on a card), and the slices' partials are gathered onto
+    the first device in shard order.  Configs are independent and the A tile
+    is resolved once at the whole chunk's D, so the result equals the
+    unsharded call's on the first D configs."""
+    from ..kernels import registry
+
+    n = ctx.device_count
+    d = masks.shape[0]
+    if a_tile is None:
+        tuned = launch_overrides(ctx, f"fastchar.{impl}", n_bits=spec.n_bits, d=d,
+                                 signed=spec.signed)
+        a_tile = tuned.get("a_tile", default_a_tile(spec))
+    pad = (-d) % n
+    if pad:
+        masks = torch.cat([masks, torch.zeros((pad, masks.shape[1]), dtype=masks.dtype)])
+    bucket = registry.get(f"fastchar.{impl}").bucket(n_bits=spec.n_bits, d=d)
+    shards = shard_plan(ctx, "fastchar", impl, bucket)
+    per = masks.shape[0] // n
+    parts = [_partials(spec, masks[i * per:(i + 1) * per].to(sc.device), impl, a_tile, sc)
+             for i, sc in enumerate(shards)]     # every shard launched before any gather
+    first = torch.device(ctx.device)
+    return tuple(torch.cat([p[j].to(first) for p in parts], dim=1) for j in range(2))
+
+
 def _combine(spec: OperatorSpec, int_p: np.ndarray, rel_p: np.ndarray, d: int):
     """Exact int64/f64 host combine of per-tile partials -> BEHAV metric dict."""
     ip = np.asarray(int_p, dtype=np.int64)[:, :d, :]
@@ -268,7 +297,8 @@ def behav_metrics_torch(
     (K2) takes signed multipliers only.  Batches go ``batch_size`` configs
     per launch; a ``None`` ``a_tile`` resolves through the kernel registry
     under the context's ``tuning`` policy, per batch (``default_a_tile``
-    untuned).
+    untuned).  A context that shards ``"configs"`` splits each batch over
+    its devices (:func:`_sharded_partials`); the metrics are the same.
     """
     ctx = ctx if ctx is not None else ExecutionContext()
     if impl is None:
@@ -282,8 +312,10 @@ def behav_metrics_torch(
     out = {k: np.empty(d, dtype=np.float64) for k in BEHAV_METRICS}
     for lo in range(0, d, batch_size):
         hi = min(lo + batch_size, d)
-        chunk = masks[lo:hi].to(ctx.device)
-        int_p, rel_p = _partials(spec, chunk, impl, a_tile, ctx)
+        if ctx.shards("configs"):
+            int_p, rel_p = _sharded_partials(spec, masks[lo:hi], impl, a_tile, ctx)
+        else:
+            int_p, rel_p = _partials(spec, masks[lo:hi].to(ctx.device), impl, a_tile, ctx)
         part = _combine(spec, int_p.cpu().numpy(), rel_p.cpu().numpy(), hi - lo)
         for k in BEHAV_METRICS:
             out[k][lo:hi] = part[k]
@@ -526,6 +558,7 @@ def surrogate_objs_device(estimators: dict, behav_key: str, ppa_key: str,
         X = X.to(torch.float32)
         return torch.stack([pb(X), pp(X)], dim=-1)
 
+    objs_fn.on = lambda dev: surrogate_objs_device(estimators, behav_key, ppa_key, dev)
     return objs_fn
 
 

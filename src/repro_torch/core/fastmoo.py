@@ -46,11 +46,13 @@ in a span of the same name.
 
 from __future__ import annotations
 
+import copy
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..kernels import registry
 from ..kernels.moo_kernels import (
     constraint_fronts,
     constraint_fronts_lanes,
@@ -58,7 +60,7 @@ from ..kernels.moo_kernels import (
     peel_fronts,
 )
 from ..obs import device as obs_device
-from .engine import ENGINE_MENUS, ExecutionContext
+from .engine import ENGINE_MENUS, ExecutionContext, shard_plan
 from .moo import GAResult
 
 __all__ = [
@@ -304,6 +306,7 @@ class CompiledNSGA2:
         # generous for a 2-objective staircase; the tap's "front" field shows
         # saturation)
         self.front_capacity = 4 * self.pop_size
+        self._ctx = ctx
         self._tel = ctx.tel
         self._tapped = self.hv_ref is not None and self._tel.device_taps
 
@@ -372,7 +375,9 @@ class CompiledNSGA2:
         in another order and move a near-tie); the ranking is one launch of
         K3 over all lanes (:func:`constraint_ranks_lanes`), and crowding,
         tournament, crossover, mutation and environmental selection run
-        batched over the lanes.  Sweeps are untapped.
+        batched over the lanes.  Sweeps are untapped.  A context that shards
+        ``"lanes"`` splits the lanes over its devices
+        (:meth:`_sharded_sweep`); each lane's result is the same.
         """
         seeds = [int(x) for x in seeds]
         if not seeds:
@@ -381,9 +386,51 @@ class CompiledNSGA2:
         tel.count("dispatch.fastmoo.sweep")
         with tel.span("fastmoo.sweep", n_lanes=len(seeds), pop=self.pop_size,
                       n_gen=self.n_gen):
+            if self._ctx.shards("lanes"):
+                return self._sharded_sweep(seeds, bounds, initial_populations)
             st = self._setup(seeds, bounds, initial_populations, tapped=False)
             self._generations(st)
             return self._results(st)
+
+    def _on_device(self, ctx: ExecutionContext) -> "CompiledNSGA2":
+        """This runner on a shard's device: the same settings, its objectives
+        evaluated there (``objs_fn.on(device)`` where the device differs)."""
+        runner = copy.copy(self)
+        runner.device, runner._ctx = torch.device(ctx.device), ctx
+        if runner.device != self.device:
+            on = getattr(self._objs_fn, "on", None)
+            if on is None:
+                raise ValueError(f"a lane shard on {ctx.device} needs objs_fn.on(device) "
+                                 f"(the objectives are bound to {self.device}); "
+                                 "fastchar.surrogate_objs_device provides it")
+            runner._objs_fn = on(ctx.device)
+        return runner
+
+    def _sharded_sweep(self, seeds, bounds, initial_populations) -> list[GAResult]:
+        """The sweep's lanes split over the context's shards (the reference's
+        ``shard_map`` over lanes).  The lane count is padded to a multiple of
+        the shard count by repeating lane 0; each shard runs its contiguous
+        lanes as one batched GA on its device (K3's lanes instance ranking
+        them), the shards' generations interleaved so that their launches
+        overlap on their cards; the padding lanes are dropped on the host.
+        Lanes never interact, so every lane equals the unsharded sweep's."""
+        n, S = self._ctx.device_count, len(seeds)
+        pad = (-S) % n
+        bounds = np.asarray(bounds, np.float64).reshape(S, 2)
+        pools = [None] * S if initial_populations is None else list(initial_populations)
+        seeds, pools = seeds + seeds[:1] * pad, pools + pools[:1] * pad
+        bounds = np.concatenate([bounds, np.repeat(bounds[:1], pad, axis=0)])
+        bucket = registry.get(f"fastmoo.{self.rank_impl}").bucket(p=self.pop_size)
+        runners = [self._on_device(sc)
+                   for sc in shard_plan(self._ctx, "fastmoo", self.rank_impl, bucket)]
+        per = len(seeds) // n
+        part = lambda x, i: x[i * per:(i + 1) * per]
+        states = [r._setup(part(seeds, i), part(bounds, i), part(pools, i), tapped=False)
+                  for i, r in enumerate(runners)]
+        for g in range(self.n_gen):
+            for r, st in zip(runners, states):
+                r._generation(st, g)
+        return [res for r, st in zip(runners, states) for res in r._results(st)][:S]
 
     def _setup(self, seeds, bounds, initial_populations, tapped: bool) -> dict:
         """The state of a batched run before its first generation: the lanes'
@@ -395,7 +442,8 @@ class CompiledNSGA2:
         P, L, G = self.pop_size, self.n_bits, self.n_gen
         dev = self.device
         st = {"S": S, "gens": [torch.Generator(device=dev).manual_seed(x) for x in seeds],
-              "evals": [self._evaluator(b, p) for b, p in bounds]}
+              "evals": [self._evaluator(b, p) for b, p in bounds],
+              "lane": torch.arange(S, device=dev), "cols": torch.arange(L, device=dev)}
         ref = st["ref"] = (None if self.hv_ref is None
                            else torch.as_tensor(self.hv_ref, dtype=torch.float32, device=dev))
         pop = torch.stack([torch.randint(0, 2, (P, L), generator=g, device=dev,
@@ -459,66 +507,69 @@ class CompiledNSGA2:
     def _generations(self, st) -> None:
         """Every generation of the batched run in ``st``, in place; on the
         card no host sync a generation where the ranking is K3's."""
+        for g in range(self.n_gen):
+            self._generation(st, g)
+
+    def _generation(self, st, g: int) -> None:
+        """Generation ``g`` of the batched run in ``st``, in place."""
         S, P, L, G = st["S"], self.pop_size, self.n_bits, self.n_gen
         dev = self.device
         gens, ref = st["gens"], st["ref"]
         pop, objs, viol = st["pop"], st["objs"], st["viol"]
         arc_c, arc_o, arc_v = st["arc_c"], st["arc_o"], st["arc_v"]
-        lane = torch.arange(S, device=dev)
-        cols = torch.arange(L, device=dev)
-        for g in range(G):
-            rank = constraint_ranks_lanes(objs, viol, impl=self.rank_impl)
-            crowd = crowding_distance_lanes(objs, rank)
+        lane, cols = st["lane"], st["cols"]
+        rank = constraint_ranks_lanes(objs, viol, impl=self.rank_impl)
+        crowd = crowding_distance_lanes(objs, rank)
 
-            draws = []
-            for gen in gens:   # each lane's draws from its own generator
-                cand = torch.randint(0, P, (P, 2), generator=gen, device=dev)
-                do_cx = torch.rand(P // 2, generator=gen, device=dev) < self.crossover_p
-                cut = torch.randint(1, L, (P // 2,), generator=gen, device=dev)
-                flip = torch.rand((P, L), generator=gen, device=dev) < self.mutation_p
-                draws.append((cand, do_cx, cut, flip))
-            cand, do_cx, cut, flip = (torch.stack(x) for x in zip(*draws))
+        draws = []
+        for gen in gens:   # each lane's draws from its own generator
+            cand = torch.randint(0, P, (P, 2), generator=gen, device=dev)
+            do_cx = torch.rand(P // 2, generator=gen, device=dev) < self.crossover_p
+            cut = torch.randint(1, L, (P // 2,), generator=gen, device=dev)
+            flip = torch.rand((P, L), generator=gen, device=dev) < self.mutation_p
+            draws.append((cand, do_cx, cut, flip))
+        cand, do_cx, cut, flip = (torch.stack(x) for x in zip(*draws))
 
-            # binary tournament selection
-            a, b = cand[..., 0], cand[..., 1]
-            ra, rb = rank.gather(1, a), rank.gather(1, b)
-            better = (ra < rb) | ((ra == rb) & (crowd.gather(1, a) > crowd.gather(1, b)))
-            win = torch.where(better, a, b)
-            parents = pop.gather(1, win[..., None].expand(S, P, L))
+        # binary tournament selection
+        a, b = cand[..., 0], cand[..., 1]
+        ra, rb = rank.gather(1, a), rank.gather(1, b)
+        better = (ra < rb) | ((ra == rb) & (crowd.gather(1, a) > crowd.gather(1, b)))
+        win = torch.where(better, a, b)
+        parents = pop.gather(1, win[..., None].expand(S, P, L))
 
-            # single-point crossover on consecutive pairs
-            swap = (cols[None, None, :] >= cut[..., None]) & do_cx[..., None]
-            p1, p2 = parents[:, 0::2], parents[:, 1::2]
-            children = torch.stack(
-                [torch.where(swap, p2, p1), torch.where(swap, p1, p2)], dim=2
-            ).reshape(S, P, L)
+        # single-point crossover on consecutive pairs
+        swap = (cols[None, None, :] >= cut[..., None]) & do_cx[..., None]
+        p1, p2 = parents[:, 0::2], parents[:, 1::2]
+        children = torch.stack(
+            [torch.where(swap, p2, p1), torch.where(swap, p1, p2)], dim=2
+        ).reshape(S, P, L)
 
-            # bit-flip mutation
-            children = children ^ flip.to(torch.uint8)
+        # bit-flip mutation
+        children = children ^ flip.to(torch.uint8)
 
-            c_objs, c_viol = self._evaluate(st, children)
-            lo = (g + 1) * P
-            arc_c[:, lo:lo + P], arc_o[:, lo:lo + P], arc_v[:, lo:lo + P] = \
-                children, c_objs, c_viol
+        c_objs, c_viol = self._evaluate(st, children)
+        lo = (g + 1) * P
+        arc_c[:, lo:lo + P], arc_o[:, lo:lo + P], arc_v[:, lo:lo + P] = \
+            children, c_objs, c_viol
 
-            # environmental selection: rank, then crowding, within each lane
-            all_pop = torch.cat([pop, children], 1)
-            all_objs = torch.cat([objs, c_objs], 1)
-            all_viol = torch.cat([viol, c_viol], 1)
-            rank2 = constraint_ranks_lanes(all_objs, all_viol, impl=self.rank_impl)
-            crowd2 = crowding_distance_lanes(all_objs, rank2)
-            lane2 = lane[:, None].expand(S, 2 * P)
-            order = _lexsort((-crowd2.reshape(-1), rank2.reshape(-1), lane2.reshape(-1)))
-            sel = order.reshape(S, 2 * P)[:, :P] - 2 * P * lane[:, None]
-            pop = all_pop.gather(1, sel[..., None].expand(S, P, L))
-            objs = all_objs.gather(1, sel[..., None].expand(S, P, 2))
-            viol = all_viol.gather(1, sel)
-            st.update(pop=pop, objs=objs, viol=viol)
+        # environmental selection: rank, then crowding, within each lane
+        all_pop = torch.cat([pop, children], 1)
+        all_objs = torch.cat([objs, c_objs], 1)
+        all_viol = torch.cat([viol, c_viol], 1)
+        rank2 = constraint_ranks_lanes(all_objs, all_viol, impl=self.rank_impl)
+        crowd2 = crowding_distance_lanes(all_objs, rank2)
+        lane2 = lane[:, None].expand(S, 2 * P)
+        order = _lexsort((-crowd2.reshape(-1), rank2.reshape(-1), lane2.reshape(-1)))
+        sel = order.reshape(S, 2 * P)[:, :P] - 2 * P * lane[:, None]
+        pop = all_pop.gather(1, sel[..., None].expand(S, P, L))
+        objs = all_objs.gather(1, sel[..., None].expand(S, P, 2))
+        viol = all_viol.gather(1, sel)
+        st.update(pop=pop, objs=objs, viol=viol)
 
-            if st["tap"] is not None:
-                self._tap_row(st, g, c_objs, c_viol)
-            if ref is not None and (g % RECORD_EVERY == RECORD_EVERY - 1 or g == G - 1):
-                st["hv_dev"].append(((g + 2) * P, self._hv_now(st)))
+        if st["tap"] is not None:
+            self._tap_row(st, g, c_objs, c_viol)
+        if ref is not None and (g % RECORD_EVERY == RECORD_EVERY - 1 or g == G - 1):
+            st["hv_dev"].append(((g + 2) * P, self._hv_now(st)))
 
     def _results(self, st) -> list[GAResult]:
         """The lanes' results as host arrays (one copy each, the run's sync)."""

@@ -16,8 +16,10 @@ read beside the card's power limit.
 The reference's ``compiled_cost`` and ``collective_bytes`` read XLA's
 artifacts and have no counterpart: ``obs.profile.profile_fn`` measures what
 the first did (FLOPs from ``torch.utils.flop_counter``, device time and
-peak memory), and collective bytes wait for a sharded port (ROADMAP.md
-queue 1 item 13).  :func:`model_flops` is pure arithmetic, as in the
+peak memory).  The port's collectives are counted where they are issued:
+the expert-parallel MoE's all-reduces in ``models.moe.EP_STATS`` (calls,
+bytes, host seconds); DTensor's own collectives in the sharded train step
+are not counted.  :func:`model_flops` is pure arithmetic, as in the
 reference.
 """
 

@@ -8,21 +8,36 @@ every arch of ``configs.registry``.  The train step differentiates
 autograd; the serving steps drop a MoE layer's aux loss, as the reference's
 do, and run under ``torch.no_grad()``.  The prefill takes the stubbed
 modality input of the encoder-decoder and VLM families.  PyTorch runs them
-eagerly; the reference's sharding trees and abstract caches have no use on
-one device.
+eagerly.
+
+Given a ``DeviceMesh``, the train step is the reference's sharded step:
+parameters and optimizer state are DTensors placed by a rule table
+(:func:`train_state_placements`, ``configs.registry.rules_for``), the batch
+is split over the mesh's batch axes, and the forward and backward run on
+DTensors (each op's sharding propagated by DTensor, the reference's SPMD
+partitioner).  K7 and K8 take each rank's local batch rows and heads
+(``models.sharding.local_call``).  Where DTensor lacks an op the model
+uses, the model redistributes around it: the CE gathers the vocab dim
+(DTensor's gather cannot take it sharded) and the token lookup runs on
+local tokens (``model._embed``).  Each gradient is redistributed to its
+parameter's placements before clipping and the update.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..models.model import cache_spec, compute_loss, forward, logits_fn
-from ..models.spec import init_params
+from ..models.sharding import BASE_RULES, ShardingRules, placements, set_mesh
+from ..models.spec import init_params, param_placements
 from ..optim import Optimizer, apply_updates, clip_by_global_norm, tree_leaves, tree_map
 from ..optim.compress import compress_int8, decompress_int8
 
-__all__ = ["init_cache", "make_train_step", "make_prefill_step", "make_decode_step"]
+__all__ = ["init_cache", "make_train_step", "make_prefill_step", "make_decode_step",
+           "train_state_placements", "shard_batch"]
 
 
 # ---------------------------------------------------------------------------
@@ -42,8 +57,31 @@ def _split_microbatches(batch: dict, accum: int) -> list[dict]:
     return out
 
 
+def train_state_placements(cfg: ModelConfig, rules: ShardingRules, mesh, opt: Optimizer):
+    """(parameter placements, optimizer-state placements) from the spec tree."""
+    from ..models.model import model_spec
+
+    spec = model_spec(cfg)
+    return (param_placements(spec, rules, mesh),
+            param_placements(opt.state_spec(spec), rules, mesh))
+
+
+def shard_batch(batch: dict, rules: ShardingRules, mesh) -> dict:
+    """The full batch (the same on every rank) as DTensors split over the
+    batch axes (the reference's ``batch_shardings``); each rank keeps its rows."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(x):
+        spec = rules.resolve(("batch",) + (None,) * (x.dim() - 1), kind="act")
+        return distribute_tensor(x, mesh, placements(mesh, spec, tuple(x.shape)),
+                                 src_data_rank=None)
+
+    return {k: one(v) for k, v in batch.items()}
+
+
 def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
-                    clip_norm: float = 1.0, int8_accum: bool = False, ctx=None):
+                    clip_norm: float = 1.0, int8_accum: bool = False, ctx=None,
+                    mesh=None, rules: ShardingRules | None = None):
     """(params, opt_state, step, batch) -> (params, opt_state, metrics).
 
     The gradient of ``compute_loss`` over every parameter leaf, clipped to
@@ -56,25 +94,57 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
     ``metrics``: ``loss``, ``ce``, ``moe_aux`` (and ``mtp_ce``), means over
     the microbatches, and ``grad_norm``, the norm before clipping; 0-d f32
     tensors.  ``ctx`` picks K7/K8 (default) or their plain versions.
+
+    With ``mesh`` (a ``DeviceMesh`` over ``data``/``model``, ``pod``) the
+    step is sharded (module docstring): ``params`` and ``opt_state`` are
+    DTensors placed by ``rules`` (default ``BASE_RULES``;
+    :func:`train_state_placements`), ``batch`` the full batch on every rank,
+    split here; the metrics are plain tensors, the same on every rank.
     """
+    rules = BASE_RULES if rules is None else rules
+
+    def scope():
+        if mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(set_mesh(mesh))
+        stack.enter_context(implicit_replication())   # host constants as replicated
+        return stack
 
     def grads_of(params, mb):
+        if mesh is not None:
+            mb = shard_batch(mb, rules, mesh)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         flat = tree_leaves(leaves)
         with torch.enable_grad():
             loss, metrics = compute_loss(leaves, cfg, mb, ctx=ctx)
             got = torch.autograd.grad(loss, flat, allow_unused=True)
         by_leaf = {id(p): g for p, g in zip(flat, got)}
-        grads = tree_map(lambda p: torch.zeros_like(p) if by_leaf[id(p)] is None
-                         else by_leaf[id(p)], leaves)
-        return grads, {k: v.detach() for k, v in metrics.items()}
+
+        def grad(p):
+            g = by_leaf[id(p)]
+            if g is None:
+                return torch.zeros_like(p)
+            if mesh is not None:   # sum the partial gradients onto the leaf's shards
+                g = g.redistribute(p.device_mesh, p.placements)
+            return g
+
+        grads = tree_map(grad, leaves)
+        return grads, {k: _plain(v.detach()) for k, v in metrics.items()}
 
     def train_step(params, opt_state, step, batch):
+        with scope():
+            params, opt_state, metrics = _step(params, opt_state, step, batch)
+        return params, opt_state, {k: _plain(v) for k, v in metrics.items()}
+
+    def _step(params, opt_state, step, batch):
         if accum_steps == 1:
             grads, metrics = grads_of(params, batch)
         else:
             f32 = torch.float32
-            zeros = lambda p, dt: torch.zeros(p.shape, dtype=dt, device=p.device)
+            zeros = lambda p, dt: torch.zeros_like(p, dtype=dt)   # a DTensor keeps its shards
             if int8_accum:
                 acc_q = tree_map(lambda p: zeros(p, torch.int8), params)
                 acc_s = tree_map(lambda p: torch.ones((), dtype=f32, device=p.device), params)
@@ -108,6 +178,13 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _plain(x):
+    """A DTensor metric as its full value (a plain tensor); others as they are."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention, flash_attention_plain
 from .layers import rmsnorm
+from .sharding import local_call
 from .spec import ParamSpec
 
 __all__ = [
@@ -189,7 +190,9 @@ def _attend(q, k, v, *, causal: bool, positions, q_offset: int, kv_len: int, imp
         return direct_attention(q, k, v, causal=causal, q_positions=positions, kv_len=kv_len)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     fn = flash_attention if impl == "kernel" else flash_attention_plain
-    out = fn(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    # under a sharded step each rank attends over its local batch rows and heads
+    out = local_call(fn, [q, k, v], [(0, 1)] * 3, [(0, 1)], causal=causal,
+                     q_offset=q_offset, kv_len=kv_len)
     return out.transpose(1, 2)
 
 

@@ -58,6 +58,7 @@ from .attention import (
     xattn_spec,
 )
 from .layers import embed_spec, mlp_apply, mlp_spec, rmsnorm, sinusoid_pos
+from .sharding import gather_dims, local_call
 from .moe import moe_apply, moe_spec
 from .spec import ParamSpec, stacked
 from .ssm import mamba_apply, mamba_decode, mamba_dims, mamba_spec
@@ -400,7 +401,7 @@ def forward(
     ci = 0 if cache_index is None else int(cache_index)
     positions = ci + torch.arange(s, device=tokens.device)
 
-    x = params["embed"]["tok"][tokens]
+    x = _embed(params, tokens)
     if cfg.pos_encoding == "sinusoid":
         x = x + sinusoid_pos(positions, cfg.d_model).to(x.dtype)[None]
 
@@ -430,6 +431,17 @@ def forward(
     return x, aux, cache
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings.  Under a sharded step the lookup runs on each
+    rank's local tokens against the whole table: DTensor's sharding rule for
+    the lookup's backward (``index_put``) fails in some PyTorch releases."""
+    return local_call(_lookup, [params["embed"]["tok"], tokens], [(None,), (0,)], [(0,)])
+
+
 def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torch.Tensor:
     if axo is not None and axo.head is not None:
         return axo.apply(x, axo.head)
@@ -444,7 +456,8 @@ def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torc
 
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over ``labels >= 0``, in f32.  logits (B, S, V), labels (B, S)."""
-    logits = logits.to(torch.float32)
+    # DTensor's gather cannot take a vocab-sharded operand: gather the vocab
+    logits = gather_dims(logits, -1).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
@@ -469,7 +482,7 @@ def compute_loss(params: dict, cfg: ModelConfig, batch: dict, ctx=None):
     metrics = {"ce": ce, "moe_aux": aux}
     if cfg.mtp:
         mtp = params["mtp"]
-        emb_next = params["embed"]["tok"][batch["tokens"][:, 1:]]
+        emb_next = _embed(params, batch["tokens"][:, 1:])
         h = torch.cat([rmsnorm(x[:, :-1], mtp["norm_h"], cfg.norm_eps),
                        rmsnorm(emb_next, mtp["norm_e"], cfg.norm_eps)], dim=-1)
         mtp_ce = _masked_ce(_unembed(params, cfg, h @ mtp["proj"]), batch["labels"][:, 1:])

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from .layers import rmsnorm
+from .sharding import local_call
 from .spec import ParamSpec
 
 __all__ = [
@@ -83,7 +84,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.
     takes ``SSDScanFn`` itself where a gradient is wanted.
     """
     fn = ssd_scan if impl == "kernel" else ssd_scan_plain
-    return fn(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
+    # under a sharded step each rank scans its local batch rows and heads; B
+    # and C keep a head shard only as groups (one group: replicated)
+    grp = (0, 2) if bmat.shape[2] > 1 else (0, None)
+
+    def scan(x, dt, a, bmat, cmat, init_state):
+        return fn(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
+
+    return local_call(scan, [x, dt, a, bmat, cmat, init_state],
+                      [(0, 2), (0, 2), (None, 0), grp, grp, (0, 1)], [(0, 2), (0, 1)])
 
 
 def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):

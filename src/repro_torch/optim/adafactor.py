@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import Optimizer, tree_map
+from ..models.spec import ParamSpec
+from .base import Optimizer, spec_map, tree_map
 
 __all__ = ["adafactor"]
 
@@ -69,4 +70,16 @@ def adafactor(
 
         return tree_map(one, grads, state, params), state
 
-    return Optimizer(init=init, update=update)
+    def state_spec(spec_tree):
+        def one(s):
+            if _is_factored(s.shape):
+                return {
+                    "vr": ParamSpec(s.shape[:-1], s.axes[:-1], init="zeros", dtype="float32"),
+                    "vc": ParamSpec(s.shape[:-2] + s.shape[-1:], s.axes[:-2] + s.axes[-1:],
+                                    init="zeros", dtype="float32"),
+                }
+            return {"v": ParamSpec(s.shape, s.axes, init="zeros", dtype="float32")}
+
+        return spec_map(one, spec_tree)
+
+    return Optimizer(init=init, update=update, state_spec=state_spec)

@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import Optimizer, tree_map
+from ..models.spec import ParamSpec
+from .base import Optimizer, spec_map, tree_map
 
 __all__ = ["adamw"]
 
@@ -25,7 +26,7 @@ def adamw(
     weight_decay: float = 0.1,
 ) -> Optimizer:
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)   # keeps a DTensor's placement
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     @torch.no_grad()
@@ -48,4 +49,11 @@ def adamw(
 
         return tree_map(one, grads, state["m"], state["v"], params), state
 
-    return Optimizer(init=init, update=update)
+    def state_spec(spec_tree):
+        def one(s):
+            return ParamSpec(s.shape, s.axes, init="zeros", dtype="float32")
+
+        moments = spec_map(one, spec_tree)
+        return {"m": moments, "v": moments}
+
+    return Optimizer(init=init, update=update, state_spec=state_spec)

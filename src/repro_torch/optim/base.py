@@ -4,9 +4,9 @@ Counterpart of ``repro/optim/base.py``.  A parameter tree is the model's
 nested dict of tensors; an optimizer's state mirrors it (AdamW's ``{"m",
 "v"}`` trees of f32 moments, Adafactor's per-leaf ``{"vr", "vc"}`` or
 ``{"v"}``), so a state converts from the reference's with
-``convert.params_from_jax`` and a checkpoint carries across.  The
-reference's ``state_spec`` (sharding trees for its dry-run) has no use on
-one device and is not ported.
+``convert.params_from_jax`` and a checkpoint carries across.
+``state_spec`` maps the model's ``ParamSpec`` tree to the state's, as the
+reference's does; the sharded train step places the state by it.
 
 The port works in place where the reference builds new trees: ``update``
 writes the new moments into the state's tensors and returns them, and
@@ -23,12 +23,13 @@ from typing import Callable
 
 import torch
 
-__all__ = ["Optimizer", "apply_updates", "tree_leaves", "tree_map"]
+__all__ = ["Optimizer", "apply_updates", "spec_map", "tree_leaves", "tree_map"]
 
 
 @dataclass(frozen=True)
 class Optimizer:
-    """init(params) -> state;  update(grads, state, params, step) -> (updates, state).
+    """init(params) -> state;  update(grads, state, params, step) -> (updates, state);
+    state_spec(spec_tree) -> the state's spec tree.
 
     ``updates`` are f32 deltas to *add* to params; ``step`` is the 0-based
     step count (an int).  ``update`` writes the new state into ``state``'s
@@ -36,6 +37,7 @@ class Optimizer:
 
     init: Callable
     update: Callable
+    state_spec: Callable
 
 
 def tree_leaves(tree) -> list:
@@ -53,6 +55,13 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     return fn(tree, *rest)
+
+
+def spec_map(fn, spec_tree):
+    """``fn`` over the ``ParamSpec`` leaves of a nested dict spec tree."""
+    if isinstance(spec_tree, dict):
+        return {k: spec_map(fn, v) for k, v in spec_tree.items()}
+    return fn(spec_tree)
 
 
 @torch.no_grad()

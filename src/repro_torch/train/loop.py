@@ -1,4 +1,4 @@
-"""Fault-tolerant training loop on one device.
+"""Fault-tolerant training loop, on one device or a mesh.
 
 Counterpart of ``repro/train/loop.py``:
 
@@ -11,9 +11,14 @@ Counterpart of ``repro/train/loop.py``:
   through ``on_straggler``.
 * **fault injection**: ``fault_hook(step)`` may raise to simulate a node loss.
 
-The reference's ``shardings`` (elastic restore onto another mesh) have no
-use on one device: a checkpoint restores onto the device of the state the
-loop started from.
+``placements`` = (mesh, parameter placements, optimizer-state placements)
+is the reference's ``shardings``: after a restore the state is re-placed
+onto that mesh, so a checkpoint written by one world (or one device)
+resumes on another (elastic restore).  Without it a checkpoint restores onto
+the device of the state the loop started from.  In a ``torch.distributed``
+world every rank runs the loop: rank 0 writes, and after a fault every rank
+waits for that write and restores the step rank 0 names
+(``CheckpointManager.restore``), so the ranks replay from one step.
 """
 
 from __future__ import annotations
@@ -63,15 +68,19 @@ def train_loop(
     fault_hook: Callable | None = None,  # step -> None (raise to inject a fault)
     on_straggler: Callable | None = None,
     on_metrics: Callable | None = None,
+    placements: tuple | None = None,     # (mesh, param, opt-state placements)
 ):
     """Run to ``total_steps`` with checkpoint/restart.  Returns the final
     state, the (step, loss) history and the restart and straggler counts."""
     mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep, async_save=cfg.async_ckpt)
 
+    def restore(state):
+        target = None if placements is None else (placements[0], placements[1:])
+        return mgr.restore(state, device=_device_of(state), placements=target)
+
     params, opt_state = init_state()
-    device = _device_of((params, opt_state))
     start = 0
-    restored, step0 = mgr.restore((params, opt_state), device=device)
+    restored, step0 = restore((params, opt_state))
     if restored is not None:
         params, opt_state = restored
         start = step0 + 1
@@ -118,8 +127,7 @@ def train_loop(
                       cfg.max_restarts)
             if restarts > cfg.max_restarts:
                 raise
-            mgr.wait()
-            restored, step0 = mgr.restore((params, opt_state), device=device)
+            restored, step0 = restore((params, opt_state))   # after pending writes
             if restored is None:
                 params, opt_state = init_state()
                 step = 0

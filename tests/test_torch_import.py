@@ -78,6 +78,18 @@ def test_package_imports_with_jax_and_reference_blocked():
         "from repro_torch.obs import profile_registry, trace_capture, MetricsServer\n"
         "from repro_torch.kernels import registry, tuning\n"
         "assert len(registry.registered()) == 16\n"
+        "import repro_torch.models.sharding, repro_torch.launch.mesh\n"
+        "from repro_torch.configs.registry import rules_for\n"
+        "from repro_torch.models.spec import param_placements, distribute_params\n"
+        "from repro_torch.models.moe import _ep_body, _ep_decode_body, EP_STATS\n"
+        "from repro_torch.optim import compressed_psum\n"
+        "from repro_torch.launch.steps import shard_batch, train_state_placements\n"
+        "from repro_torch.checkpoint.ckpt import place_tree\n"
+        "from repro_torch.core.fastchar import _sharded_partials\n"
+        "from repro_torch.core.engine import SHARD_AXES, shard_plan\n"
+        "from repro_torch.apps.fastapp import _on_shards\n"
+        "from repro_torch.core.fastmoo import CompiledNSGA2\n"
+        "assert CompiledNSGA2._sharded_sweep\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -146,6 +158,7 @@ ENTRY_POINTS = {
     "train.main": lambda: train.main(["--arch", "granite-3-2b", "--steps", "1"]),
     "train.main(mamba2-130m)": lambda: train.main(["--arch", "mamba2-130m", "--steps", "1"]),
     "restore_tree": lambda: _restore_default(),
+    "ExecutionContext(n_devices=2)": lambda: ExecutionContext(n_devices=2),
 }
 
 
@@ -171,7 +184,8 @@ def test_new_modules_are_covered_by_the_source_scan():
     """The scan above reads every module of the port, this slice's too."""
     names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"kernels/registry.py", "kernels/tuning.py", "obs/device.py", "obs/profile.py",
-            "launch/roofline.py", "launch/accounting.py"} <= names
+            "launch/roofline.py", "launch/accounting.py", "models/sharding.py",
+            "launch/mesh.py"} <= names
 
 
 @pytest.mark.gpu
