@@ -224,6 +224,24 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      against the same steps on plain tensors (loss and parameters to
      SERVE_REL; whether bitwise is printed), K7 launched through
      ``local_call`` twice a layer a step.
+  dryrun: the dry-run tools (``launch.dryrun``, ``launch.lowering``,
+     ``launch.report``) on this card's PyTorch: ``run_cell`` (its cost
+     probes, ``--probe``) on a fake world of 256 ranks for every shape of
+     granite-3-2b on the 16x16 mesh and mamba2-130m's long_500k, and of 512
+     ranks for granite's decode_32k on 2x16x16, the fake tensors on
+     ``cuda`` (no card memory is used); each record's status, per-device
+     need, FLOPs, collective bytes by kind and bottleneck on a line, then the
+     report's tables over the written records.  Then a one-rank cross-check:
+     ``lower_step`` of the train phase's granite step (full width and depth,
+     batch 8 x 128, AdamW, remat; no mesh) predicts the peak memory and the
+     FLOPs that the card measures for that step in this run (the train
+     phase's peak above what was held before, and ``obs.profile_fn``'s FLOP
+     count of one step, in which K7 is counted by its op's formula); the
+     ratios are printed and the FLOPs must agree to 1%.  Last K7 at
+     granite's prefill (B=4, H=32, G=8, S=128, hd 64, bf16) and K8 at
+     mamba2's (SSM_SHAPE, bf16) through their wrappers (checks, then the
+     custom op), through the ops alone and through the raw launchers: bit for
+     bit equal, each timed (the op's host dispatch).
   device-time: K6's and K7's device time per call from torch.profiler, and
      their yardsticks', at phase 3's shapes, beside phase 3's CUDA-event
      times, K8's at mamba2's prefill, and K2's and K5's, both designs, at
@@ -1345,11 +1363,6 @@ def _shard_moe(torch, dist, rank, dev, sync, dev_type, dt, out_rows) -> None:
     for shape in SHARD_MESHES:
         mesh = init_device_mesh(dev_type, shape, mesh_dim_names=("data", "model"))
         ws = shape[0] > 1
-        dsl = slice(None)
-        if ws:   # the weight-stationary body's output: d split over data
-            d_loc = d // shape[0]
-            dsl = slice(mesh.get_local_rank("data") * d_loc,
-                        (mesh.get_local_rank("data") + 1) * d_loc)
         t0 = time.perf_counter()
         # each rank draws its block of every expert bank, placed by the arch's
         # rules; the router is drawn whole on every rank: the rules split it,
@@ -1378,7 +1391,14 @@ def _shard_moe(torch, dist, rank, dev, sync, dev_type, dt, out_rows) -> None:
                     out, aux = moe.moe_apply(p, x, cfg)
                 sync()
                 walls.append(time.perf_counter() - t0)
-            got, ref = out.to_local().float(), want[name][0][..., dsl].float()
+            # this rank's block of the single-device output, by the output's
+            # placements (moe_apply constrains its output to the batch over data)
+            ref = want[name][0]
+            for i, q in enumerate(out.placements):
+                if q.is_shard():
+                    n = ref.shape[q.dim] // mesh.size(i)
+                    ref = ref.narrow(q.dim, mesh.get_local_rank(i) * n, n)
+            got, ref = out.to_local().float(), ref.float()
             err = torch.stack([(got - ref).abs().max() / ref.abs().max(),
                                (aux.float() - want[name][1][0].float()).abs()])
             dist.all_reduce(err, op=dist.ReduceOp.MAX)
@@ -1641,6 +1661,135 @@ def shard_phase(torch, dev, wrappers, dse_args) -> dict:
           flush=True)
     return stats
 
+
+# -- the dryrun phase ---------------------------------------------------------
+
+# (arch, shape, multi-pod) of the dryrun phase's cells, traced by their probes
+DRYRUN_CELLS = (("granite-3-2b", "train_4k", False), ("granite-3-2b", "prefill_32k", False),
+                ("granite-3-2b", "decode_32k", False), ("granite-3-2b", "long_500k", False),
+                ("mamba2-130m", "long_500k", False), ("granite-3-2b", "decode_32k", True))
+# the one-rank cross-check's FLOPs, predicted against measured
+DRYRUN_FLOPS_REL = 0.01
+
+
+def dryrun_cells(out_dir: str) -> dict:
+    """The dryrun phase's cells (module docstring): records written to
+    ``out_dir`` and printed, then the report's tables."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun, report
+
+    recs, wall = {}, {}
+    for arch, shape, multi in DRYRUN_CELLS:
+        mesh = "2x16x16" if multi else "16x16"
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi, verbose=False, probe=True, device="cuda")
+        wall[f"{arch} {shape} {mesh}"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json"), "w") as f:
+            json.dump(rec, f, indent=1, default=str)
+        recs[(arch, shape, mesh)] = rec
+        if rec["status"] != "ok":
+            print(f"phase dryrun: {arch} x {shape} x {mesh}: {rec['status']}", flush=True)
+            if not rec["status"].startswith("skip"):
+                raise AssertionError(f"the dry-run of {arch} x {shape} x {mesh} failed")
+            continue
+        coll = {k: int(v) for k, v in rec["coll_breakdown"].items() if v}
+        print(f"phase dryrun: {arch} x {shape} x {mesh} ({rec['chips']} fake ranks, probes "
+              f"traced in {rec['t_probe_s']:.1f} s): status ok; per-device need "
+              f"{rec['hbm_need_bytes'] / 1e9:.3f} GB (arguments "
+              f"{rec['argument_size_in_bytes'] / 1e9:.3f} GB; fits 80 GB: "
+              f"{rec['fits_h100_hbm']}); FLOPs {rec['hlo_flops']:.4g} a device; bytes "
+              f"{rec['hlo_bytes']:.4g}; collective bytes {rec['coll_bytes']:.4g} {coll}; "
+              f"t_compute {rec['t_compute_s']:.4g} s, t_memory {rec['t_memory_s']:.4g} s, "
+              f"t_collective {rec['t_collective_s']:.4g} s -> {rec['bottleneck']}; MFU bound "
+              f"{rec['mfu_bound']:.4f}", flush=True)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        report.main(["--dir", out_dir])
+    for line in buf.getvalue().splitlines():   # the cells not run here are left out
+        if line.strip() and "MISSING" not in line:
+            print(f"phase dryrun: report: {line}", flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()   # later phases see no world
+    return {"wall_s": wall, "records": {" ".join(k): v for k, v in recs.items()}}
+
+
+def dryrun_cross_check(torch, dev, kept, measured_peak: int) -> dict:
+    """One rank: ``lower_step`` of the train phase's granite step against the
+    card's peak memory and ``profile_fn``'s FLOP count of that step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import rules_for
+    from repro_torch.launch.lowering import lower_step
+    from repro_torch.obs.profile import profile_fn
+
+    step_fn, params, state, batch, opt, cfg, _ = kept
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    pred = lower_step(cfg, shape, None, rules_for(cfg, shape), device="cuda")
+    t_trace = time.perf_counter() - t0
+    prof = profile_fn(step_fn, params, state, TRAIN_STEPS, batch, name="granite_train_step",
+                      iters=1, device=dev)
+    flops = prof.cost["flops"]
+    out = {"predicted_peak_bytes": pred["peak_bytes"],
+           "predicted_argument_bytes": pred["argument_size_in_bytes"],
+           "measured_peak_bytes": measured_peak, "predicted_flops": pred["flops"],
+           "measured_flops": flops, "peak_ratio": measured_peak / pred["peak_bytes"],
+           "flops_ratio": flops / pred["flops"], "trace_s": t_trace,
+           "predicted_coll_bytes": pred["coll_total"]}
+    print(f"phase dryrun: one-rank cross-check, {cfg.name} train step (batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, AdamW, remat) traced on fake cuda tensors in {t_trace:.1f} s: "
+          f"predicted peak {pred['peak_bytes'] / 2**30:.3f} GiB (arguments "
+          f"{pred['argument_size_in_bytes'] / 2**30:.3f} GiB), measured in the train phase "
+          f"{measured_peak / 2**30:.3f} GiB: measured / predicted {out['peak_ratio']:.4f}; "
+          f"FLOPs predicted {pred['flops']:.6g}, measured by profile_fn {flops:.6g}: "
+          f"{out['flops_ratio']:.6f}; collective bytes {pred['coll_total']:.0f}", flush=True)
+    if abs(out["flops_ratio"] - 1) > DRYRUN_FLOPS_REL or pred["coll_total"] != 0:
+        raise AssertionError("the one-rank trace's FLOPs differ from the card's count")
+    return out
+
+
+def ops_vs_raw(torch, dev, gen) -> dict:
+    """K7 and K8 through their custom ops and through the raw launchers:
+    equal bit for bit, both timed by events."""
+    from repro_torch.kernels import flash_attention as k7, ssd_scan as k8
+
+    b, h, g, s, hd = 4, 32, 8, PROMPT_LEN, 64
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev).bfloat16().transpose(1, 2)
+    kv = [torch.randn((b, s, g, hd), generator=gen, device=dev).bfloat16().transpose(1, 2)
+          for _ in range(2)]
+    scale = 1.0 / math.sqrt(hd)
+    with torch.no_grad():
+        calls = {   # the wrapper (its checks, then the op), the op alone, the raw launch
+            "K7": (lambda: k7.flash_attention(q, *kv),
+                   lambda: torch.ops.repro_torch.flash_attention(q, *kv, True, scale, 0, s),
+                   lambda: k7.flash_attention_raw(q, *kv, True, scale, 0, s)),
+        }
+        x, dt, a, bm, cm = ssd_inputs(torch, SSM_SHAPE, torch.bfloat16, gen)
+        calls["K8"] = (lambda: k8.ssd_scan(x, dt, a, bm, cm),
+                       lambda: torch.ops.repro_torch.ssd_scan(x, dt, a, bm, cm, None, 128),
+                       lambda: k8.ssd_scan_raw(x, dt, a, bm, cm))
+        out = {}
+        for k, fns in calls.items():
+            got = [fn() for fn in fns]
+            flat = [t if isinstance(t, tuple) else (t,) for t in got]
+            same = all(torch.equal(u, v) for f in flat[:2] for u, v in zip(f, flat[2]))
+            n = 500 if k == "K7" else 50
+            ms = [cuda_ms(torch, fn, n) for fn in fns]
+            out[k] = {"wrapper_ms": ms[0], "op_ms": ms[1], "raw_ms": ms[2], "same": same}
+    k7r, k8r = out["K7"], out["K8"]
+    print(f"phase dryrun: K7 at granite's prefill (B={b}, H={h}, G={g}, S={s}, hd {hd}, bf16): "
+          f"flash_attention (its checks, then the op) {k7r['wrapper_ms']:.4f} ms, "
+          f"torch.ops.repro_torch.flash_attention {k7r['op_ms']:.4f} ms, the raw launcher "
+          f"{k7r['raw_ms']:.4f} ms, by events over back-to-back calls; bit for bit equal: "
+          f"{k7r['same']}.  K8 at mamba2's prefill {SSM_SHAPE} (bf16): ssd_scan "
+          f"{k8r['wrapper_ms']:.4f} ms, torch.ops.repro_torch.ssd_scan {k8r['op_ms']:.4f} ms, "
+          f"raw {k8r['raw_ms']:.4f} ms; bit for bit equal: {k8r['same']}", flush=True)
+    if not (k7r.pop("same") and k8r.pop("same")):
+        raise AssertionError("a custom op's output differs from its raw launcher's")
+    return out
 
 
 def http_json(url: str, body: dict | None = None) -> dict:
@@ -3749,6 +3898,24 @@ def main() -> int:
     rec["K7"]["shard_launches"] = shard_stats["dtensor_train"]["k7_launches"]
     print(f"phase shard: {t_shard:.1f} s", flush=True)
 
+    # -- dryrun: the dry-run tools on fake worlds, checked against the card ---
+    segments["dryrun"] = time.perf_counter()
+    t0 = time.perf_counter()
+    dryrun_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    dryrun_dir.mkdir(parents=True, exist_ok=True)
+    dryrun_stats = dryrun_cells(str(dryrun_dir))
+    dryrun_stats["cross_check"] = dryrun_cross_check(
+        torch, dev, train_keep["granite"], train_stats["granite"]["peak_bytes"])
+    dryrun_stats["ops"] = ops_vs_raw(torch, dev, gen)
+    for k, v in dryrun_stats["ops"].items():
+        rec[k].update(v)
+    t_dryrun = time.perf_counter() - t0
+    dryrun_stats["phase_s"] = t_dryrun
+    (ROOT / "chiprun_out" / "dryrun_phase.json").write_text(json.dumps(
+        {k: v for k, v in dryrun_stats.items() if k != "records"}, indent=1, default=str))
+    print(f"phase dryrun: {t_dryrun:.1f} s; cells "
+          f"{ {k: round(v, 1) for k, v in dryrun_stats['wall_s'].items()} }", flush=True)
+
     # -- device time of K8, K6 and K7 -----------------------------------------
     segments["device-time"] = time.perf_counter()
     # first, one train step of granite-3-2b and one of mamba2-130m, each after
@@ -4000,7 +4167,8 @@ def main() -> int:
                                        "configs_a_thread", "ragged", "path", "bound_term",
                                        "tiers_ms", "tiers_device_ms", "per_lane_ms",
                                        "wrapped_configs", "library_reason",
-                                       "train_launches", "shard_launches")
+                                       "train_launches", "shard_launches", "op_ms",
+                                       "raw_ms", "wrapper_ms")
                if key in r},
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s (main path {t_main:.1f} s, apps "
@@ -4008,7 +4176,8 @@ def main() -> int:
           f"sweep {t_sweep:.1f} s, service {t_svc:.1f} s, serve-dense {t_dense:.1f} s, "
           f"serve-moe {t_moe:.1f} s, "
           f"{', '.join(f'{k} {v:.1f} s' for k, v in t_slice4.items())}, train "
-          f"{t_train:.1f} s, shard {t_shard:.1f} s, obs {t_obs:.1f} s)", flush=True)
+          f"{t_train:.1f} s, shard {t_shard:.1f} s, dryrun {t_dryrun:.1f} s, obs "
+          f"{t_obs:.1f} s)", flush=True)
     ends = [*list(segments.values())[1:], time.perf_counter()]
     print(f"phase wall: wall-clock by section (s): "
           f"{ {k: round(e - b, 1) for (k, b), e in zip(segments.items(), ends)} }", flush=True)

@@ -44,6 +44,17 @@ launch with such inputs, and none has to know the rule.
 The first launch of a (Sq, kv_len) that the current telemetry sees records
 its pad-to-tile waste over K7's 64 x 64 (query, key) tiles there as
 ``flash_attention.pad_waste``.
+
+The card's entry is the custom op ``torch.ops.repro_torch.flash_attention``
+(CUDA only), which ``flash_attention`` calls on a CUDA tensor and whose
+implementation is the raw launcher, :func:`flash_attention_raw`.  The op
+has a fake implementation (the output's shape, dtype, layout and device,
+no launch), so a step traced on fake tensors (the dry-run,
+``launch.lowering``) passes through it, and a FLOP formula, the registry's
+``cost_fn`` (``kernels.registry``: 4 b h sq kv_len hd, halved when causal),
+so ``torch.utils.flop_counter`` counts the kernel's own work where it would
+count the plain version's (2x ``cost_fn`` causal: the plain version
+computes every score and masks half).
 """
 
 from __future__ import annotations
@@ -53,11 +64,13 @@ import functools
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..obs.telemetry import current, record_pad_waste
 from . import build
 
-__all__ = ["flash_attention", "flash_attention_plain", "FlashAttentionFn", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_raw",
+           "FlashAttentionFn", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 112, 128)   # head widths the kernel is built for
 TILE = 64                  # query rows and keys of a block's tiles (csrc kBQ, kBK)
@@ -143,7 +156,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      q_offset=q_offset, kv_len=kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, scale, q_offset, kv_len)
-    b, h, sq, hd = q.shape
+    hd = q.shape[3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"K7 takes float32 or bfloat16, got {q.dtype}")
     if hd not in HEAD_DIMS:
@@ -151,6 +164,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a contiguous head dimension")
     scale = (1.0 / math.sqrt(hd)) if scale is None else float(scale)
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal), scale, q_offset,
+                                                 kv_len)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        scale: float, q_offset: int, kv_len: int) -> torch.Tensor:
+    return flash_attention_raw(q, k, v, causal, scale, q_offset, kv_len)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, scale, q_offset, kv_len):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, scale, q_offset, kv_len, *,
+                           out_shape=None, **_) -> int:
+    from .registry import _flash_cost
+
+    b, h, sq, hd = q_shape
+    return _flash_cost(b=b, h=h, sq=sq, skv=kv_len, hd=hd, causal=causal)["flops"]
+
+
+def flash_attention_raw(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        scale: float, q_offset: int, kv_len: int) -> torch.Tensor:
+    """The raw K7 launch on CUDA tensors as ``flash_attention`` checks them
+    (the custom op's implementation); counts ``flash_attention.launches``."""
+    b, h, sq, hd = q.shape
     out = torch.empty_like(q)   # q's layout: dense with a contiguous head dim
     if out.numel() == 0:
         return out

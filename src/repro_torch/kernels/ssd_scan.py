@@ -49,6 +49,16 @@ outputs carry no ``grad_fn``, so no caller may reach the raw launch with
 such inputs, and none has to know the rule (``SSDScanFn.forward`` runs with
 grad off and so reaches the launch).  ``ssd_scan_scalar``, which has no
 autograd function, refuses such inputs.
+
+The card's entry is the custom op ``torch.ops.repro_torch.ssd_scan`` (CUDA
+only), which ``ssd_scan`` calls on a CUDA tensor and whose implementation
+is the raw launcher, :func:`ssd_scan_raw` (the route by dtype, the launch
+and its counts).  The op has a fake implementation (y and the f32 state,
+no launch), so a step traced on fake tensors (``launch.lowering``) passes
+through it, and a FLOP formula, the registry's ``cost_fn`` at the model's
+chunk, so ``torch.utils.flop_counter`` counts the kernel's work.  The
+16-byte alignment of bf16 rows is checked by the raw launcher (a fake
+tensor has no address).
 """
 
 from __future__ import annotations
@@ -58,10 +68,12 @@ import functools
 
 import torch
 
+from torch.utils.flop_counter import register_flop_formula
+
 from . import build
 
-__all__ = ["ssd_scan", "ssd_scan_scalar", "ssd_scan_plain", "SSDScanFn", "route", "grids",
-           "segsum", "HEAD_DIMS", "STATE_DIMS", "CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_scalar", "ssd_scan_plain", "ssd_scan_raw", "SSDScanFn",
+           "route", "grids", "segsum", "HEAD_DIMS", "STATE_DIMS", "CHUNK"]
 
 HEAD_DIMS = (8, 16, 32, 64)            # P values the kernel is built for
 STATE_DIMS = (8, 16, 32, 64, 128)      # N values
@@ -192,6 +204,9 @@ def _check_card(x, dt, a, bmat, cmat, init_state) -> None:
             init_state is not None and not init_state.is_contiguous()):
         raise ValueError("K8 needs x, B and C with a contiguous last axis, and a and "
                          "init_state contiguous")
+
+
+def _check_aligned(x, bmat, cmat) -> None:
     if x.dtype == torch.bfloat16 and not all(
             t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
             for t in (x, bmat, cmat)):
@@ -252,6 +267,37 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Ten
     if _grad_wanted(x, dt, a, bmat, cmat, init_state):
         return SSDScanFn.apply(x, dt, a, bmat, cmat, chunk, init_state)
     _check_card(x, dt, a, bmat, cmat, init_state)
+    return torch.ops.repro_torch.ssd_scan(x, dt, a, bmat, cmat, init_state, int(chunk))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(), device_types="cuda")
+def _ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+                 cmat: torch.Tensor, init_state: torch.Tensor | None,
+                 chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return ssd_scan_raw(x, dt, a, bmat, cmat, init_state)
+
+
+@_ssd_scan_op.register_fake
+def _(x, dt, a, bmat, cmat, init_state, chunk):
+    b, s, h, p = x.shape
+    return (x.new_empty((b, s, h, p)),
+            x.new_empty((b, h, p, bmat.shape[3]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_scan_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, init_shape, chunk, *,
+                    out_shape=None, **_) -> int:
+    from .registry import _ssd_cost
+
+    b, s, h, p = x_shape
+    return _ssd_cost(b=b, s=s, h=h, g=b_shape[2], p=p, n=b_shape[3], chunk=chunk)["flops"]
+
+
+def ssd_scan_raw(x, dt, a, bmat, cmat, init_state=None):
+    """The raw K8 launch on CUDA tensors as ``ssd_scan`` checks them (the
+    custom op's implementation): the route by dtype, (y, final state);
+    counts ``ssd_scan.launches`` and ``ssd_scan.route_launches``."""
+    _check_aligned(x, bmat, cmat)
     design = route(x)
     y, state, launched = _launch(design, x, dt, a, bmat, cmat, init_state)
     ssd_scan.launches += launched
@@ -268,6 +314,7 @@ def ssd_scan_scalar(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: to
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, init_state=init_state)
     _check_card(x, dt, a, bmat, cmat, init_state)
+    _check_aligned(x, bmat, cmat)
     y, state, launched = _launch("scalar", x, dt, a, bmat, cmat, init_state)
     ssd_scan_scalar.launches += launched
     return y, state

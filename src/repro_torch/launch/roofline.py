@@ -16,11 +16,12 @@ read beside the card's power limit.
 The reference's ``compiled_cost`` and ``collective_bytes`` read XLA's
 artifacts and have no counterpart: ``obs.profile.profile_fn`` measures what
 the first did (FLOPs from ``torch.utils.flop_counter``, device time and
-peak memory).  The port's collectives are counted where they are issued:
-the expert-parallel MoE's all-reduces in ``models.moe.EP_STATS`` (calls,
-bytes, host seconds); DTensor's own collectives in the sharded train step
-are not counted.  :func:`model_flops` is pure arithmetic, as in the
-reference.
+peak memory), and the dry-run's trace (``launch.lowering``) counts one
+rank's FLOPs, bytes and collective bytes by kind, DTensor's collectives
+and the expert-parallel MoE's all-reduces alike, on a fake world; a real
+run counts the MoE's in ``models.moe.EP_STATS`` (calls, bytes, host
+seconds).  :meth:`Roofline.row` is the dry-run record's roofline part.
+:func:`model_flops` is pure arithmetic, as in the reference.
 """
 
 from __future__ import annotations
@@ -104,6 +105,21 @@ class Roofline:
         """Roofline-implied MFU upper bound: useful flops / (chips*peak*t_bound)."""
         denom = self.chips * self.hw.peak(self.dtype) * self.t_bound
         return self.model_flops / denom if denom else 0.0
+
+    def row(self) -> dict:
+        """The dry-run record's roofline keys (the reference's)."""
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "chips": self.chips,
+            "t_compute_s": self.t_compute, "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective, "bottleneck": self.bottleneck,
+            "hlo_flops": self.hlo_flops, "hlo_bytes": self.hlo_bytes,
+            "coll_bytes": self.coll_bytes,
+            "bytes_per_device": self.bytes_per_device,
+            "model_flops": self.model_flops,
+            "useful_fraction": self.useful_fraction,
+            "mfu_bound": self.mfu_bound,
+        }
 
 
 def model_flops(cfg, shape, n_params_active: int, kind: str) -> float:

@@ -21,6 +21,17 @@ uses, the model redistributes around it: the CE gathers the vocab dim
 (DTensor's gather cannot take it sharded) and the token lookup runs on
 local tokens (``model._embed``).  Each gradient is redistributed to its
 parameter's placements before clipping and the update.
+
+Given a mesh, the prefill and decode steps are the reference's sharded
+serving steps: parameters placed by ``rules`` (``param_placements``), the
+token batch (and a frontend) split over the batch axes
+(:func:`batch_placements`), and the decode cache a tree of DTensors placed
+by the activation rules (:func:`cache_placements`: at decode its sequence
+dim over ``model``, or ``data`` and ``model`` at batch 1), which the
+prefill creates so and the decode step writes in place on each rank's
+block.  The model's activation sites (``models.sharding.constrain``) place
+the activations by the same rules.  :func:`abstract_cache` is the cache as
+fake tensors, which the dry-run (``launch.lowering``) traces.
 """
 
 from __future__ import annotations
@@ -31,13 +42,14 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models.model import cache_spec, compute_loss, forward, logits_fn
-from ..models.sharding import BASE_RULES, ShardingRules, placements, set_mesh
-from ..models.spec import init_params, param_placements
+from ..models.sharding import BASE_RULES, ShardingRules, gather_dims, placements, set_mesh
+from ..models.spec import abstract_params, init_params, param_placements
 from ..optim import Optimizer, apply_updates, clip_by_global_norm, tree_leaves, tree_map
 from ..optim.compress import compress_int8, decompress_int8
 
-__all__ = ["init_cache", "make_train_step", "make_prefill_step", "make_decode_step",
-           "train_state_placements", "shard_batch"]
+__all__ = ["init_cache", "abstract_cache", "make_train_step", "make_prefill_step",
+           "make_decode_step", "train_state_placements", "batch_placements",
+           "cache_placements", "shard_batch"]
 
 
 # ---------------------------------------------------------------------------
@@ -66,17 +78,42 @@ def train_state_placements(cfg: ModelConfig, rules: ShardingRules, mesh, opt: Op
             param_placements(opt.state_spec(spec), rules, mesh))
 
 
+def _batch_leaf_placements(rules: ShardingRules, mesh, shape: tuple[int, ...]) -> list:
+    spec = rules.resolve(("batch",) + (None,) * (len(shape) - 1), kind="act")
+    return placements(mesh, spec, tuple(shape))
+
+
+def batch_placements(rules: ShardingRules, mesh, batch_specs: dict) -> dict:
+    """Data-input placements (the reference's ``batch_shardings``): each
+    input (tokens, labels, a frontend's embeddings; a tensor or anything with
+    a ``shape``) split over the batch axes on its leading dim."""
+    return {k: _batch_leaf_placements(rules, mesh, tuple(x.shape))
+            for k, x in batch_specs.items()}
+
+
 def shard_batch(batch: dict, rules: ShardingRules, mesh) -> dict:
     """The full batch (the same on every rank) as DTensors split over the
-    batch axes (the reference's ``batch_shardings``); each rank keeps its rows."""
+    batch axes (:func:`batch_placements`); each rank keeps its rows."""
     from torch.distributed.tensor import distribute_tensor
 
     def one(x):
-        spec = rules.resolve(("batch",) + (None,) * (x.dim() - 1), kind="act")
-        return distribute_tensor(x, mesh, placements(mesh, spec, tuple(x.shape)),
+        return distribute_tensor(x, mesh, _batch_leaf_placements(rules, mesh, tuple(x.shape)),
                                  src_data_rank=None)
 
     return {k: one(v) for k, v in batch.items()}
+
+
+def _mesh_scope(mesh, rules: ShardingRules):
+    """``set_mesh(mesh, rules)`` and ``implicit_replication`` (host constants
+    as replicated) for a sharded step; nothing without a mesh."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(set_mesh(mesh, rules))
+    stack.enter_context(implicit_replication())
+    return stack
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
@@ -103,16 +140,6 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
     """
     rules = BASE_RULES if rules is None else rules
 
-    def scope():
-        if mesh is None:
-            return contextlib.nullcontext()
-        from torch.distributed.tensor.experimental import implicit_replication
-
-        stack = contextlib.ExitStack()
-        stack.enter_context(set_mesh(mesh))
-        stack.enter_context(implicit_replication())   # host constants as replicated
-        return stack
-
     def grads_of(params, mb):
         if mesh is not None:
             mb = shard_batch(mb, rules, mesh)
@@ -135,7 +162,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
         return grads, {k: _plain(v.detach()) for k, v in metrics.items()}
 
     def train_step(params, opt_state, step, batch):
-        with scope():
+        with _mesh_scope(mesh, rules):
             params, opt_state, metrics = _step(params, opt_state, step, batch)
         return params, opt_state, {k: _plain(v) for k, v in metrics.items()}
 
@@ -193,18 +220,36 @@ def _plain(x):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device=None) -> dict:
+               device=None, mesh=None, rules: ShardingRules | None = None) -> dict:
     """A zero decode cache (on the card unless ``device`` says).
 
     Attention layers get KV rows of capacity ``max_seq`` in ``dtype``; mamba
     layers a conv tail in ``dtype`` and an SSD state in f32 whatever
     ``dtype`` is (the leaf's own spec dtype wins), which their prefill and
-    decode write in place.
+    decode write in place.  With ``mesh`` every leaf is a DTensor placed by
+    :func:`cache_placements`, each rank holding its block.
     """
-    return init_params(cache_spec(cfg, batch, max_seq), dtype=dtype, device=device)
+    return init_params(cache_spec(cfg, batch, max_seq), dtype=dtype, device=device,
+                       mesh=mesh, rules=rules, kind="act")
 
 
-def make_prefill_step(cfg: ModelConfig, max_seq: int, axo=None, ctx=None):
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+                   device="cuda", mesh=None, rules: ShardingRules | None = None,
+                   mode=None) -> dict:
+    """:func:`init_cache`'s tree as fake tensors (``models.spec.abstract_params``)."""
+    return abstract_params(cache_spec(cfg, batch, max_seq), dtype=dtype, device=device,
+                           mesh=mesh, rules=rules, kind="act", mode=mode)
+
+
+def cache_placements(cfg: ModelConfig, rules: ShardingRules, mesh, batch: int,
+                     max_seq: int) -> dict:
+    """Each cache leaf's placements (the reference's ``cache_shardings``):
+    its logical axes resolved by the activation rules."""
+    return param_placements(cache_spec(cfg, batch, max_seq), rules, mesh, kind="act")
+
+
+def make_prefill_step(cfg: ModelConfig, max_seq: int, axo=None, ctx=None, mesh=None,
+                      rules: ShardingRules | None = None):
     """(params, tokens[, frontend]) -> (last-position logits (B, 1, V), cache).
 
     ``frontend`` is the stubbed modality input: frame embeddings for the
@@ -218,35 +263,58 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int, axo=None, ctx=None):
     the approximate operator on its cached weight codes; ``ctx`` picks the
     prefill attention (K7 or its plain version) and the Mamba-2 prefill scan
     (K8 or its plain version).
+
+    With ``mesh`` (a ``DeviceMesh``) the step is sharded (module docstring):
+    ``params`` are DTensors placed by ``rules`` (default ``BASE_RULES``),
+    ``tokens`` and ``frontend`` the full batch on every rank, split here, and
+    the cache and the logits come back as DTensors.
     """
+    rules = BASE_RULES if rules is None else rules
 
     @torch.no_grad()
     def prefill_step(params, tokens, frontend=None):
-        norm = params["norm_f"]
-        cache = init_cache(cfg, tokens.shape[0], max_seq, dtype=norm.dtype,
-                           device=norm.device)
-        enc = frontend if cfg.encoder is not None else None
-        img = frontend if cfg.n_img_tokens else None
-        x, _, cache = forward(params, cfg, tokens, mode="prefill", cache=cache,
-                              cache_index=0, enc_embeds=enc, img_embeds=img, axo=axo,
-                              ctx=ctx)
-        logits = logits_fn(params, cfg, x[:, -1:], axo=axo)
+        with _mesh_scope(mesh, rules):
+            if mesh is not None:
+                inputs = {"tokens": tokens}
+                if frontend is not None:
+                    inputs["frontend"] = frontend
+                inputs = shard_batch(inputs, rules, mesh)
+                tokens, frontend = inputs["tokens"], inputs.get("frontend")
+            norm = params["norm_f"]
+            dev = norm.to_local().device if mesh is not None else norm.device
+            cache = init_cache(cfg, tokens.shape[0], max_seq, dtype=norm.dtype, device=dev,
+                               mesh=mesh, rules=rules)
+            enc = frontend if cfg.encoder is not None else None
+            img = frontend if cfg.n_img_tokens else None
+            x, _, cache = forward(params, cfg, tokens, mode="prefill", cache=cache,
+                                  cache_index=0, enc_embeds=enc, img_embeds=img, axo=axo,
+                                  ctx=ctx)
+            # the last position's hidden state (the sequence gathered first
+            # where sequence parallelism splits it)
+            logits = logits_fn(params, cfg, gather_dims(x, 1)[:, -1:], axo=axo)
         return logits, cache
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, axo=None, ctx=None):
+def make_decode_step(cfg: ModelConfig, axo=None, ctx=None, mesh=None,
+                     rules: ShardingRules | None = None):
     """(params, cache, tokens (B, 1), index) -> (logits (B, 1, V), cache).
 
-    The cache is written in place and returned.  ``axo`` and ``ctx`` as in
-    :func:`make_prefill_step`."""
+    The cache is written in place and returned.  ``axo``, ``ctx``, ``mesh``
+    and ``rules`` as in :func:`make_prefill_step`; under a mesh the cache is
+    the DTensor tree the sharded prefill returns (or one placed by
+    :func:`cache_placements`), written on each rank's block."""
+    rules = BASE_RULES if rules is None else rules
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, index):
-        x, _, cache = forward(params, cfg, tokens, mode="decode", cache=cache,
-                              cache_index=int(index), axo=axo, ctx=ctx)
-        logits = logits_fn(params, cfg, x, axo=axo)
+        with _mesh_scope(mesh, rules):
+            if mesh is not None:
+                tokens = shard_batch({"tokens": tokens}, rules, mesh)["tokens"]
+            x, _, cache = forward(params, cfg, tokens, mode="decode", cache=cache,
+                                  cache_index=int(index), axo=axo, ctx=ctx)
+            logits = logits_fn(params, cfg, x, axo=axo)
         return logits, cache
 
     return decode_step

@@ -38,7 +38,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention, flash_attention_plain
 from .layers import rmsnorm
-from .sharding import local_call
+from .sharding import constrain, local_call, write_slice
 from .spec import ParamSpec
 
 __all__ = [
@@ -158,6 +158,8 @@ def attn_apply(
         q = _proj(x, p["wq"])
         k = _proj(x, p["wk"])
         v = _proj(x, p["wv"])
+    q = constrain(q, None, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, None, "batch", "seq", "kv_heads", "head_dim")
 
     if use_rope:
         cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
@@ -168,8 +170,8 @@ def attn_apply(
     q_offset = 0
     if cache is not None:
         q_offset = int(cache_index)
-        cache["k"][:, q_offset:q_offset + s] = k.to(cache["k"].dtype)
-        cache["v"][:, q_offset:q_offset + s] = v.to(cache["v"].dtype)
+        write_slice(cache["k"], k.to(cache["k"].dtype), 1, q_offset)
+        write_slice(cache["v"], v.to(cache["v"].dtype), 1, q_offset)
         new_cache = cache
         k, v = cache["k"], cache["v"]
         kv_len = q_offset + s
@@ -178,7 +180,7 @@ def attn_apply(
 
     out = _attend(q, k, v, causal=causal, positions=positions, q_offset=q_offset,
                   kv_len=kv_len, impl=impl)
-    return _out_proj(p, out, axo), new_cache
+    return constrain(_out_proj(p, out, axo), None, "batch", "seq", "embed"), new_cache
 
 
 def _attend(q, k, v, *, causal: bool, positions, q_offset: int, kv_len: int, impl: str):
@@ -266,6 +268,7 @@ def mla_apply(
         q = axo[0].apply(q, ent["wq_b"]).reshape(b, s, h, nope + m.rope_head_dim)
     else:
         q = _proj(q, p["wq_b"])
+    q = constrain(q, None, "batch", "seq", "heads", "head_dim")
     q_nope, q_pe = q[..., :nope], q[..., nope:]
 
     kv = lin("wkv_a", x)
@@ -282,8 +285,8 @@ def mla_apply(
 
     if cache is not None:
         ci = int(cache_index)
-        cache["ckv"][:, ci:ci + s] = ckv.to(cache["ckv"].dtype)
-        cache["kpe"][:, ci:ci + s] = kpe.to(cache["kpe"].dtype)
+        write_slice(cache["ckv"], ckv.to(cache["ckv"].dtype), 1, ci)
+        write_slice(cache["kpe"], kpe.to(cache["kpe"].dtype), 1, ci)
         ckv, kpe = cache["ckv"], cache["kpe"]
         kv_len = ci + s
     else:
@@ -292,11 +295,21 @@ def mla_apply(
     # latent K and V: one shared head (MQA form)
     k_lat = torch.cat([ckv, kpe], dim=-1)[:, :, None, :]  # (B, Skv, 1, r + rope)
     v_lat = ckv[:, :, None, :]                            # (B, Skv, 1, r)
-    lat = direct_attention(q_full, k_lat, v_lat, causal=True, q_positions=positions,
-                           kv_len=kv_len, scale=1.0 / ((nope + m.rope_head_dim) ** 0.5))
+    scale = 1.0 / ((nope + m.rope_head_dim) ** 0.5)
+    if s > 4:
+        # under a sharded step each rank attends over its local batch rows and
+        # query heads against the one shared latent head: DTensor cannot run
+        # the heads-split products of the scores and the values, which
+        # flatten (head, query) with the heads split
+        lat = local_call(direct_attention, [q_full, k_lat, v_lat],
+                         [(0, 2), (0, None), (0, None)], [(0, 2)],
+                         causal=True, q_positions=positions, kv_len=kv_len, scale=scale)
+    else:
+        lat = direct_attention(q_full, k_lat, v_lat, causal=True, q_positions=positions,
+                               kv_len=kv_len, scale=scale)
     # (B, S, H, r) in latent space -> through wkv_b's V half
     out = torch.einsum("bshr,rhk->bshk", lat, p["wkv_b"][..., nope:])
-    return _out_proj(p, out, axo), cache
+    return constrain(_out_proj(p, out, axo), None, "batch", "seq", "embed"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -340,10 +353,11 @@ def xattn_apply(
         q = axo[0].apply(x, axo[1]["wq"]).reshape(b, s, h, hd)
     else:
         q = _proj(x, p["wq"])
+    q = constrain(q, None, "batch", "seq", "heads", "head_dim")
     k, v = kv
     out = _attend(q, k, v, causal=False, positions=torch.arange(s, device=x.device),
                   q_offset=0, kv_len=k.shape[1], impl=impl)
     out = _out_proj(p, out, axo)
     if gated:
         out = torch.tanh(p["gate"].to(out.dtype)) * out
-    return out
+    return constrain(out, None, "batch", "seq", "embed")

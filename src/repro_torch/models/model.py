@@ -58,7 +58,7 @@ from .attention import (
     xattn_spec,
 )
 from .layers import embed_spec, mlp_apply, mlp_spec, rmsnorm, sinusoid_pos
-from .sharding import gather_dims, local_call
+from .sharding import assign, constrain, gather_dims, local_call
 from .moe import moe_apply, moe_spec
 from .spec import ParamSpec, stacked
 from .ssm import mamba_apply, mamba_decode, mamba_dims, mamba_spec
@@ -238,8 +238,8 @@ def _mamba(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict, cache: dict | 
     else:
         out, (conv, state) = mamba_apply(p, h, cfg, impl=ctx["ssd_impl"])
     if cache is not None:
-        cache["conv"].copy_(conv)
-        cache["state"].copy_(state)
+        assign(cache["conv"], conv)
+        assign(cache["state"], state)
     return out, cache
 
 
@@ -252,9 +252,44 @@ def _cross_kv(p: dict, ctx: dict, cache: dict | None, axo):
         return cache["xk"], cache["xv"]
     kv = xattn_kv(p, ctx["enc_out"], axo=axo)
     if cache is not None:
-        cache["xk"].copy_(kv[0])
-        cache["xv"].copy_(kv[1])
+        assign(cache["xk"], kv[0])
+        assign(cache["xv"], kv[1])
     return kv
+
+
+def _full_seq(h: torch.Tensor) -> torch.Tensor:
+    """A block's input with its sequence whole.  Under Megatron sequence
+    parallelism (the ``res_seq`` rule at train and prefill) the residual
+    stream is split over the sequence between blocks; each block's
+    projections take the whole sequence, as Megatron all-gathers it before
+    a column-parallel linear (DTensor in some PyTorch releases cannot
+    flatten a sequence-split (batch, seq) for a matmul).  A no-op on a
+    plain tensor or an unsplit sequence."""
+    return gather_dims(h, 1)
+
+
+class _WholeSeqGrad(torch.autograd.Function):
+    """Identity whose backward gathers the gradient's sequence dim: a block's
+    output joins a sequence-split residual stream, so its gradient comes
+    back split over the sequence, and the projection that made it takes
+    the whole sequence (Megatron's all-gather before a row-parallel
+    linear's backward; see :func:`_full_seq`)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dims(g, 1)
+
+
+def _block_out(out: torch.Tensor) -> torch.Tensor:
+    """A block's output, about to join the residual stream."""
+    from torch.distributed.tensor import DTensor
+
+    return _WholeSeqGrad.apply(out) if isinstance(out, DTensor) and out.requires_grad \
+        else out
 
 
 def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -278,7 +313,7 @@ def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfi
             ent = ent.get(sub)
         return None if ent is None else (dep, ent)
 
-    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    h = _full_seq(rmsnorm(x, p["norm1"], cfg.norm_eps))
     use_rope = cfg.pos_encoding == "rope"
     attn_kw = dict(positions=ctx["positions"], cache_index=ctx["cache_index"],
                    impl=ctx["attn_impl"])
@@ -292,8 +327,8 @@ def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfi
         self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
         out, _ = attn_apply(p["mixer"]["self"], h, cfg, causal=True, use_rope=use_rope,
                             cache=self_cache, axo=ax("mixer", "self"), **attn_kw)
-        x = x + out
-        h = rmsnorm(x, p["mixer"]["norm_x"], cfg.norm_eps)
+        x = x + _block_out(out)
+        h = _full_seq(rmsnorm(x, p["mixer"]["norm_x"], cfg.norm_eps))
         cross = ax("mixer", "cross")
         kv = _cross_kv(p["mixer"]["cross"], ctx, cache, cross)
         out = xattn_apply(p["mixer"]["cross"], h, cfg, kv=kv, axo=cross,
@@ -309,15 +344,16 @@ def _apply_layer(mixer: str, mlp: str, p: dict, x: torch.Tensor, cfg: ModelConfi
                                    cache_index=ctx["cache_index"], axo=ax("mixer"))
     else:
         raise ValueError(f"unknown mixer {mixer!r}")
-    x = x + out
+    x = x + _block_out(out)
     aux = None
     if mlp != "none":
-        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        h = _full_seq(rmsnorm(x, p["norm2"], cfg.norm_eps))
         if mlp == "moe":
             out, aux = moe_apply(p["mlp"], h, cfg, axo=ax("mlp"))
         else:
             out = mlp_apply(p["mlp"], h, cfg, axo=ax("mlp"))
-        x = x + out
+        x = x + _block_out(out)
+    x = constrain(x, None, "batch", "res_seq", "embed")
     return x, aux, new_cache
 
 
@@ -368,7 +404,7 @@ def _encode(params: dict, cfg: ModelConfig, enc_embeds: torch.Tensor, ctx: dict,
     ectx = dict(ctx, positions=positions, cache_index=0, enc_out=None)
     ea = axo.encoder if axo is not None and axo.encoder else {}
     x, _ = _run_stage(params["encoder"]["stage"], _encoder_stage(cfg), x, cfg, ectx, {}, ea)
-    return rmsnorm(x, params["encoder"]["norm_f"], cfg.norm_eps)
+    return _full_seq(rmsnorm(x, params["encoder"]["norm_f"], cfg.norm_eps))
 
 
 def forward(
@@ -401,7 +437,7 @@ def forward(
     ci = 0 if cache_index is None else int(cache_index)
     positions = ci + torch.arange(s, device=tokens.device)
 
-    x = _embed(params, tokens)
+    x = constrain(_embed(params, tokens), None, "batch", "res_seq", "embed")
     if cfg.pos_encoding == "sinusoid":
         x = x + sinusoid_pos(positions, cfg.d_model).to(x.dtype)[None]
 
@@ -443,11 +479,14 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torch.Tensor:
+    x = _full_seq(x)
     if axo is not None and axo.head is not None:
-        return axo.apply(x, axo.head)
-    if cfg.tie_embeddings:
-        return x @ params["embed"]["tok"].T
-    return x @ params["embed"]["unembed"]
+        logits = axo.apply(x, axo.head)
+    elif cfg.tie_embeddings:
+        logits = x @ params["embed"]["tok"].T
+    else:
+        logits = x @ params["embed"]["unembed"]
+    return constrain(logits, None, "batch", "res_seq", "vocab")
 
 
 def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torch.Tensor:
@@ -483,6 +522,7 @@ def compute_loss(params: dict, cfg: ModelConfig, batch: dict, ctx=None):
     if cfg.mtp:
         mtp = params["mtp"]
         emb_next = _embed(params, batch["tokens"][:, 1:])
+        x = _full_seq(x)
         h = torch.cat([rmsnorm(x[:, :-1], mtp["norm_h"], cfg.norm_eps),
                        rmsnorm(emb_next, mtp["norm_e"], cfg.norm_eps)], dim=-1)
         mtp_ce = _masked_ce(_unembed(params, cfg, h @ mtp["proj"]), batch["labels"][:, 1:])

@@ -53,7 +53,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .layers import mlp_apply, mlp_spec
-from .sharding import current_mesh
+from .sharding import constrain, current_mesh
 from .spec import ParamSpec
 
 __all__ = ["moe_spec", "moe_apply", "moe_capacity", "EP_STATS"]
@@ -394,4 +394,4 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, axo=None):
             shared = DTensor.from_local(shared, mesh, [Replicate()] * mesh.ndim,
                                         run_check=False)
         out = out + shared
-    return out.to(x.dtype), aux
+    return constrain(out, None, "batch", "seq", "embed").to(x.dtype), aux

@@ -18,8 +18,15 @@ stay: mesh axes the mesh lacks are dropped, and, given the shape, axes whose
 size does not divide what is left of the dim are pruned greedily.
 
 :func:`constrain` redistributes a DTensor activation to its logical
-placements when a mesh is set (:func:`set_mesh`); off the mesh, or on a
-plain tensor, it returns its argument.
+placements when a mesh is set (:func:`set_mesh`, which also sets the rule
+table the model's activation sites read); off the mesh, or on a plain
+tensor, it returns its argument.  The model calls it at the reference's
+activation sites: the residual stream after the embedding and after each
+layer (``res_seq``: Megatron sequence parallelism at train and prefill), the
+logits, each mixer's queries (keys too for GQA) and output, and the MoE's
+and Mamba-2's output.  :func:`write_slice` and :func:`assign` write a decode
+cache in place, on each rank's block where the cache is a DTensor (a slice of
+a sharded dim would be a gathered copy, and the write would be lost).
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from dataclasses import dataclass, field, replace
 
 __all__ = [
     "ShardingRules", "BASE_RULES", "mesh_spec", "spec_placements", "placements",
-    "constrain", "set_mesh", "current_mesh", "gather_dims", "local_call",
+    "constrain", "set_mesh", "current_mesh", "gather_dims", "local_call", "write_slice",
+    "assign",
 ]
 
 MeshAxes = tuple[str, ...]
@@ -163,15 +171,16 @@ def placements(mesh, spec: tuple, shape: tuple[int, ...] | None = None) -> list:
     return spec_placements(names, mesh_spec(names, tuple(mesh.shape), spec, shape))
 
 
-# the mesh in scope (set_mesh); the reference reads JAX's ambient mesh
+# the (mesh, rules) in scope (set_mesh); the reference reads JAX's ambient mesh
 _MESH: list = []
 
 
 @contextlib.contextmanager
-def set_mesh(mesh):
+def set_mesh(mesh, rules: ShardingRules | None = None):
     """Make ``mesh`` the ambient mesh of :func:`constrain` and the MoE's
-    expert-parallel selection for the ``with`` block."""
-    _MESH.append(mesh)
+    expert-parallel selection for the ``with`` block, and ``rules`` (default
+    ``BASE_RULES``) the table the model's activation sites resolve by."""
+    _MESH.append((mesh, BASE_RULES if rules is None else rules))
     try:
         yield mesh
     finally:
@@ -180,12 +189,13 @@ def set_mesh(mesh):
 
 def current_mesh():
     """The mesh set by the innermost :func:`set_mesh`, or None."""
-    return _MESH[-1] if _MESH else None
+    return _MESH[-1][0] if _MESH else None
 
 
-def constrain(x, rules: ShardingRules, *axes: str | None):
+def constrain(x, rules: ShardingRules | None, *axes: str | None):
     """Redistribute a DTensor activation to its logical placements (no-op off
-    the mesh or on a plain tensor)."""
+    the mesh or on a plain tensor).  ``rules=None`` reads the table
+    :func:`set_mesh` set, as the model's sites do."""
     mesh = current_mesh()
     if mesh is None or math.prod(mesh.shape) == 1:
         return x
@@ -193,8 +203,52 @@ def constrain(x, rules: ShardingRules, *axes: str | None):
 
     if not isinstance(x, DTensor):
         return x
+    rules = _MESH[-1][1] if rules is None else rules
     spec = rules.resolve(tuple(axes), kind="act")
-    return x.redistribute(x.device_mesh, placements(x.device_mesh, spec, tuple(x.shape)))
+    want = placements(x.device_mesh, spec, tuple(x.shape))
+    return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def assign(buf, val) -> None:
+    """``buf.copy_(val)`` in place; on a DTensor ``buf`` each rank copies its
+    block of the DTensor ``val`` (redistributed to ``buf``'s placements) into
+    its shard."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(buf, DTensor):
+        buf.copy_(val)
+        return
+    buf.to_local().copy_(val.redistribute(buf.device_mesh, buf.placements).to_local())
+
+
+def write_slice(buf, val, dim: int, start: int) -> None:
+    """``buf.narrow(dim, start, n).copy_(val)`` in place (n = ``val.shape[dim]``).
+
+    On a DTensor ``buf`` each rank writes the rows of ``[start, start + n)``
+    that fall in its block of ``dim`` into its local shard: the DTensor
+    ``val`` is brought to ``buf``'s placements with ``dim`` replicated, and a rank
+    whose block misses the rows writes nothing.  Splits are even (the rules'
+    safeguards)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    n = val.shape[dim]
+    if not isinstance(buf, DTensor):
+        buf.narrow(dim, start, n).copy_(val)
+        return
+    mesh = buf.device_mesh
+    lo, size = 0, buf.shape[dim]
+    want = []
+    for i, p in enumerate(buf.placements):
+        if p.is_shard(dim):
+            size //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * size
+            want.append(Replicate())
+        else:
+            want.append(p)
+    a, b = max(start, lo), min(start + n, lo + size)
+    val = val.redistribute(mesh, want).to_local()
+    if a < b:
+        buf.to_local().narrow(dim, a - lo, b - a).copy_(val.narrow(dim, a - start, b - a))
 
 
 def gather_dims(x, *dims: int):

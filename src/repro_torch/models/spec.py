@@ -13,7 +13,9 @@ of kimi-k2, (384, 7168, 2048), would be 22.5 GB as one f32 draw).
 The reference's ``param_shardings`` becomes :func:`param_placements` (each
 leaf's DTensor placements on a ``DeviceMesh``, with ``models.sharding``'s
 safeguards); :func:`distribute_params` turns a tree of full tensors, the
-same on every rank, into DTensors placed so.
+same on every rank, into DTensors placed so.  :func:`abstract_params` is
+the reference's: the tree's leaves with their shapes, dtypes and placements
+and no storage (fake tensors), which is what the dry-run traces.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ import torch
 
 from ..core.engine import ExecutionContext
 
-__all__ = ["ParamSpec", "init_params", "count_params", "stacked", "param_placements",
-           "distribute_params"]
+__all__ = ["ParamSpec", "init_params", "abstract_params", "count_params", "stacked",
+           "param_placements", "distribute_params"]
 
 
 @dataclass(frozen=True)
@@ -75,7 +77,8 @@ def _leaf_paths(tree, prefix=""):
 
 
 def init_params(tree, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                device: str | torch.device | None = None, mesh=None, rules=None):
+                device: str | torch.device | None = None, mesh=None, rules=None,
+                kind: str = "param"):
     """Materialize a spec tree with deterministic per-leaf seeding.
 
     ``device`` defaults to the card and raises when none is present; pass
@@ -94,8 +97,11 @@ def init_params(tree, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
     leaf of up to two axes drawn whole and cut, a stacked leaf a matrix at a
     time, the matrices outside the block drawn and dropped), so the blocks
     equal those of the unplaced tree and no rank keeps a whole leaf.
+    ``kind="act"`` places the leaves by the activation rules (a decode cache).
+    A ``torch.device`` (a tensor's own) is taken as it is.
     """
-    dev = torch.device(ExecutionContext(device=device).device)
+    dev = device if isinstance(device, torch.device) else \
+        torch.device(ExecutionContext(device=device).device)
     if mesh is not None:
         from .sharding import BASE_RULES, placements
 
@@ -106,7 +112,7 @@ def init_params(tree, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
         if mesh is None:
             block = tuple(slice(0, n) for n in spec.shape)
         else:
-            pl = placements(mesh, rules.resolve(spec.axes), spec.shape)
+            pl = placements(mesh, rules.resolve(spec.axes, kind=kind), spec.shape)
             block = _block(spec.shape, mesh, pl)
         shape = tuple(b.stop - b.start for b in block)
         if spec.init == "zeros":
@@ -131,11 +137,51 @@ def init_params(tree, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
                             x[block[-2:]] * std
         if mesh is None:
             return out
-        from torch.distributed.tensor import DTensor
+        return _placed(out.contiguous(), mesh, pl, spec.shape)
 
-        return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
-                                  shape=torch.Size(spec.shape),
-                                  stride=torch.empty(spec.shape, device="meta").stride())
+    return _map_with_path(tree, make)
+
+
+def _placed(local: torch.Tensor, mesh, pl, shape: tuple[int, ...]):
+    """A DTensor of global ``shape`` (contiguous) from this rank's block."""
+    from torch.distributed.tensor import DTensor
+
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
+def abstract_params(tree, dtype: torch.dtype = torch.bfloat16,
+                    device: str | torch.device = "cuda", mesh=None, rules=None,
+                    kind: str = "param", mode=None):
+    """The tree :func:`init_params` would give, as fake tensors: each leaf's
+    shape, dtype and device (and, with ``mesh``, its placements and this
+    rank's block of a DTensor) with nothing allocated.
+
+    ``mode`` is the ``FakeTensorMode`` the leaves belong to (default: a new
+    one); a step traced on them runs under that mode.  No card is needed for
+    ``device="cuda"``.
+    """
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = FakeTensorMode(allow_non_fake_inputs=True) if mode is None else mode
+    dev = torch.device(device)
+    if mesh is not None:
+        from .sharding import BASE_RULES, placements
+
+        rules = BASE_RULES if rules is None else rules
+
+    def make(_, spec: ParamSpec):
+        dt = spec.resolved_dtype(dtype)
+        if mesh is None:
+            with mode:
+                return torch.empty(spec.shape, dtype=dt, device=dev)
+        pl = placements(mesh, rules.resolve(spec.axes, kind=kind), spec.shape)
+        shape = tuple(b.stop - b.start for b in _block(spec.shape, mesh, pl))
+        with mode:
+            return _placed(torch.empty(shape, dtype=dt, device=dev), mesh, pl, spec.shape)
 
     return _map_with_path(tree, make)
 

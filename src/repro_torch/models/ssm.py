@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from .layers import rmsnorm
-from .sharding import local_call
+from .sharding import constrain, local_call
 from .spec import ParamSpec
 
 __all__ = [
@@ -66,7 +66,15 @@ def mamba_spec(cfg: ModelConfig) -> dict:
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv, window d_conv.  xbc: (B, S, C); w: (K, C)."""
+    """Depthwise causal conv, window d_conv.  xbc: (B, S, C); w: (K, C).
+    Under a sharded step each rank convolves its local batch rows and
+    channels (``local_call``: DTensor's ``pad`` fails in some PyTorch
+    releases)."""
+    return local_call(_causal_conv_local, [xbc, w, b], [(0, 2), (None, 1), (None, 0)],
+                      [(0, 2)])
+
+
+def _causal_conv_local(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     k, s = w.shape[0], xbc.shape[1]
     pad = F.pad(xbc, (0, 0, k - 1, 0))
     out = torch.zeros_like(xbc, dtype=torch.float32)
@@ -138,9 +146,10 @@ def mamba_apply(p: dict, xin: torch.Tensor, cfg: ModelConfig, *, impl: str = "ke
     y, state = ssd_chunked(xs, dt, a, bmat, cmat, s.chunk, init_state=init_state, impl=impl)
     y = y + xs * p["d_skip"].to(xs.dtype)[None, None, :, None]
     y = rmsnorm(y.reshape(b, sl, -1) * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = constrain(y @ p["out_proj"], None, "batch", "seq", "embed")
     k1 = s.d_conv - 1
-    conv_tail = F.pad(xbc_raw, (0, 0, max(0, k1 - sl), 0))[:, -k1:]
+    conv_tail = local_call(lambda t: F.pad(t, (0, 0, max(0, k1 - sl), 0))[:, -k1:],
+                           [xbc_raw], [(0, 2)], [(0, 2)])
     return out, (conv_tail, state)
 
 
@@ -162,8 +171,13 @@ def mamba_decode(p: dict, xin: torch.Tensor, cfg: ModelConfig, conv_state: torch
     xf = xs.to(f32)
     new_state = (ssd_state * torch.exp(dt * a)[:, :, None, None]
                  + (dt[:, :, None] * xf)[..., None] * bh[:, :, None, :])
-    y = torch.einsum("bhn,bhpn->bhp", ch, new_state)
+    # per rank on its local batch rows and heads under a sharded step (the
+    # einsum flattens (batch, head), which DTensor in some PyTorch releases
+    # cannot do with the heads split)
+    y = local_call(lambda c, st: torch.einsum("bhn,bhpn->bhp", c, st), [ch, new_state],
+                   [(0, 1), (0, 1)], [(0, 1)])
     y = y + xf * p["d_skip"].to(f32)[None, :, None]
     y = y.reshape(xs.shape[0], -1).to(xin.dtype)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return (y @ p["out_proj"])[:, None], (window[:, 1:], new_state)
+    out = constrain((y @ p["out_proj"])[:, None], None, "batch", "seq", "embed")
+    return out, (window[:, 1:], new_state)

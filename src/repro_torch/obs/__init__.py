@@ -5,8 +5,9 @@ Counterpart of ``repro/obs``.  Collection: spans + counters/gauges/histograms
 taps that stage rows on the card without a host sync (:mod:`.device`).
 Analysis and exposure: profiling against the kernel registry's cost
 formulas (:mod:`.profile`) and the Prometheus ``/metrics`` + ``/healthz``
-server (:mod:`.prom`), both imported on use.  The reference's regression
-sentinel (``regress``) waits for a benchmark of the port (ROADMAP.md).
+server (:mod:`.prom`), both imported on use, and the bench-history
+regression sentinel (:mod:`.regress`, stdlib only, imported on use: its
+history store is the port's own).
 """
 
 from .telemetry import (

@@ -19,9 +19,10 @@ FLOPs and bytes; this module measures and cross-checks them:
   * :func:`profile_registry` does both for every kernel of the port, at
     small example shapes or at the caller's (``chip_smoke.py`` passes its
     main paths').  ``FlopCounterMode`` cannot see a kernel launched through
-    ``ctypes``, so the FLOP check runs on the plain version wherever its
-    operations are counted (K6, K7 and the ``gemm`` route of the table
-    matmul), and every kernel's record holds its time and that time's share
+    ``ctypes`` (K7 and K8 are counted through their custom ops, whose FLOP
+    formulas are the registry's ``cost_fn``), so the FLOP check runs on the
+    plain version wherever its operations are counted (K6, K7 and the
+    ``gemm`` route of the table matmul), and every kernel's record holds its time and that time's share
     of its roofline bound on :meth:`launch.roofline.HW.h100_sxm` (the
     operands' own bytes, ``cost_fn``'s FLOPs); a divergence is
     informational, as in the reference;

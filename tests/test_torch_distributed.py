@@ -271,14 +271,16 @@ def test_ep_moe_matches_the_reference(runs, world):
     assert np.abs(out - r[f"ep{tag}"]).max() <= max(
         2 * np.abs(r[f"ep{tag}"] - r["moe"]).max(), 1e-6)
     assert abs(aux - float(r[f"aux{tag}"])) < 1e-6
-    # constrain: the batch over data, the rest replicated, the values kept
+    # constrain: the batch over data, the rest replicated, the values kept;
+    # moe_apply constrains its own output so (the reference's site)
     assert list(got["moe:constrained"]) == ["S(0)", "R"]
+    assert list(got["moe:placements"]) == ["S(0)", "R"]
     np.testing.assert_array_equal(got["moe:constrained_out"], out)
     if world == 4:   # _ep_body: batch over the (size-1) data dim, one all-reduce
-        assert list(got["moe:placements"]) == ["S(0)", "R"]
+        assert list(got["moe:body_placements"]) == ["S(0)", "R"]
         assert int(got["moe:allreduces"]) == 1
     else:            # the weight-stationary body: d-sharded over data, 3 all-reduces
-        assert list(got["moe:placements"]) == ["S(2)", "R"]
+        assert list(got["moe:body_placements"]) == ["S(2)", "R"]
         assert int(got["moe:allreduces"]) == 3
 
 

@@ -38,9 +38,12 @@ def _imported_modules(path: Path) -> set[str]:
     return names
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES,
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_source_imports_neither_jax_nor_reference(path):
@@ -90,14 +93,47 @@ def test_package_imports_with_jax_and_reference_blocked():
         "from repro_torch.apps.fastapp import _on_shards\n"
         "from repro_torch.core.fastmoo import CompiledNSGA2\n"
         "assert CompiledNSGA2._sharded_sweep\n"
+        "import repro_torch.launch.lowering, repro_torch.launch.costprobe\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.report, repro_torch.obs.regress\n"
+        "from repro_torch.configs.registry import cell_status, arch_for_shape, input_specs\n"
+        "from repro_torch.models.spec import abstract_params\n"
+        "from repro_torch.launch.steps import abstract_cache, batch_placements, cache_placements\n"
+        "import importlib.util\n"
+        "for name in ('torch_quickstart', 'torch_operator_dse', 'torch_axo_serving',\n"
+        "             'torch_train_lm'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.main)\n"
         "print('ok')\n"
     )
     out = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True,
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=str(ROOT),
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=120,
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each module of the reference has one at the same path in the port (a
+    kernel module ``X_kernel.py`` as ``X.py``), but for ``kernels/ops.py`` and
+    ``kernels/ref.py``, whose content lives in the port's kernel modules;
+    each reference example has a ``torch_`` one."""
+    ref = ROOT / "src" / "repro"
+    missing = []
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        if rel in ("kernels/ops.py", "kernels/ref.py"):
+            continue
+        if rel.startswith("kernels/") and rel.endswith("_kernel.py"):
+            rel = rel[: -len("_kernel.py")] + ".py"
+        if not (PORT / rel).exists():
+            missing.append(rel)
+    assert missing == []
+    ref_examples = {p.name for p in (ROOT / "examples").glob("*.py")
+                    if not p.name.startswith("torch_")}
+    assert {f"torch_{n}" for n in ref_examples} == {p.name for p in EXAMPLES}
 
 
 def test_context_defaults_to_the_card():

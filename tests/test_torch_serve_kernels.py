@@ -263,6 +263,30 @@ def test_k6_at_expert_buffers_matches_plain_version_on_card(cuda, m, k, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal, sq, skv, hd", [(True, 128, 128, 64), (True, 33, 80, 112),
+                                                 (False, 70, 150, 128), (False, 40, 40, 16)])
+def test_k7_op_equals_the_raw_launcher_on_card(cuda, causal, sq, skv, hd, dtype):
+    """The wrapper reaches the card through ``torch.ops.repro_torch.
+    flash_attention``: its output, the op's called directly and the raw
+    launcher's are equal bit for bit, with q's layout, one launch each."""
+    rng = np.random.default_rng(sq + skv + hd)
+    q = torch.from_numpy(rng.standard_normal((2, sq, 8, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, skv, 2, hd)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda, dtype).transpose(1, 2) for t in (q, k, v))
+    off = skv - sq if causal else 0
+    scale = 1.0 / hd ** 0.5
+    before = k7.flash_attention.launches
+    got = [k7.flash_attention(q, k, v, causal=causal, q_offset=off, kv_len=skv),
+           torch.ops.repro_torch.flash_attention(q, k, v, causal, scale, off, skv),
+           k7.flash_attention_raw(q, k, v, causal, scale, off, skv)]
+    torch.cuda.synchronize()
+    assert k7.flash_attention.launches == before + 3
+    assert all(torch.equal(t, got[2]) and t.stride() == q.stride() for t in got)
+
+
+@pytest.mark.gpu
 def test_k7_refuses_misaligned_rows_on_card(cuda):
     """The bf16 kernel copies K/V rows in 16-byte pieces: a view whose rows do
     not start on 16-byte boundaries is refused, never served another way."""
@@ -452,6 +476,25 @@ def test_k8_first_design_and_unaligned_rows_on_card(cuda, dtype):
     torch.cuda.synchronize()
     assert k8.ssd_scan.launches == before + 1
     assert k8.ssd_scan_scalar.launches == scalar_before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_k8_op_equals_the_raw_launcher_on_card(cuda, dtype, with_state):
+    """The wrapper reaches the card through ``torch.ops.repro_torch.ssd_scan``:
+    its (y, state), the op's called directly and the raw launcher's are equal
+    bit for bit, one launch each."""
+    x, dt, a, bm, cm = _ssd_inputs(2, 75, 8, 2, 16, 32, dtype, cuda, 5)
+    init = torch.randn((2, 8, 16, 32), generator=torch.Generator(cuda).manual_seed(5),
+                       device=cuda) if with_state else None
+    before = k8.ssd_scan.launches
+    got = [k8.ssd_scan(x, dt, a, bm, cm, chunk=32, init_state=init),
+           torch.ops.repro_torch.ssd_scan(x, dt, a, bm, cm, init, 32),
+           k8.ssd_scan_raw(x, dt, a, bm, cm, init)]
+    torch.cuda.synchronize()
+    assert k8.ssd_scan.launches == before + 3
+    assert all(torch.equal(y, got[2][0]) and torch.equal(st, got[2][1]) for y, st in got)
 
 
 @pytest.mark.gpu

@@ -11,6 +11,13 @@ JOB; rank 0 writes what the tests compare to ``OUT_DIR/JOB.npz``.  Jobs:
   ``kimi-k2-1t-a32b`` reduced there; and one sharded train step of
   ``granite-3-2b`` and ``mamba2-130m`` reduced on a (2, 4) mesh, with its
   loss, ``grad_norm`` and updated parameters.
+* ``serve`` (8 ranks): the sharded prefill and decode steps
+  (``make_prefill_step`` / ``make_decode_step`` with ``mesh=`` and
+  ``rules=``) of each of ``SERVE_ARCHS`` reduced on a (2, 4) mesh, in f32
+  from the seed-0 weights (``init_params(..., mesh=)``), each rule table
+  ``rules_for``'s for its kind: the prefill's logits, the cache placed by the
+  decode rules (its sequence dim over ``model``), and two decode steps'
+  logits and cache placements.
 * ``narrow`` (4 ranks): the MoE on a (1, 4) mesh (``_ep_body``) and kimi's
   gradients there; ``train_loop`` on a (2, 2) mesh resuming from the
   one-process checkpoint in ``OUT_DIR/ckpt`` and taking steps 1 and 2, with
@@ -37,6 +44,10 @@ TRAIN_ARCHS = ("granite-3-2b", "mamba2-130m")
 MOE_ARCH = "kimi-k2-1t-a32b"
 ELASTIC_STEPS = 3                 # the elastic run ends after step 2
 FAULT_STEP = 2                    # every rank raises before this step, once
+SERVE_ARCHS = ("granite-3-2b", "mamba2-130m", "kimi-k2-1t-a32b", "deepseek-v3-671b",
+               "whisper-medium", "llama-3.2-vision-90b", "jamba-v0.1-52b")
+SERVE_PROMPT, SERVE_CAP, SERVE_BATCH = 16, 24, 8   # prompt, cache capacity, batch
+SERVE_DECODES = 2
 
 
 def free_port() -> int:
@@ -82,7 +93,7 @@ def _psum(out_dir, rank, world) -> dict:
 
 def _moe(out_dir, mesh_shape) -> dict:
     from repro_torch.configs.registry import get_arch
-    from repro_torch.models.moe import EP_STATS, moe_apply
+    from repro_torch.models.moe import EP_STATS, _moe_ep, moe_apply
     from repro_torch.models.sharding import BASE_RULES, constrain, set_mesh
 
     z = np.load(os.path.join(out_dir, "moe_in.npz"))
@@ -90,13 +101,16 @@ def _moe(out_dir, mesh_shape) -> dict:
     x = torch.from_numpy(z["x"])
     cfg = get_arch("jamba-v0.1-52b").reduced()
     EP_STATS["calls"] = 0
-    with set_mesh(_mesh(mesh_shape)):
+    with set_mesh(_mesh(mesh_shape)) as mesh:
         out, aux = moe_apply(p, x, cfg)
         calls = EP_STATS["calls"]
+        # the EP body's own output, before moe_apply constrains it
+        body, _ = _moe_ep(p, x, cfg, mesh, weight_stationary=mesh_shape[0] > 1)
         # the reference constrains the layer's output to its activation axes
         constrained = constrain(out, BASE_RULES, "batch", "seq", "embed")
     return {"moe:out": out.full_tensor().numpy(), "moe:aux": aux.numpy(),
             "moe:placements": np.array([str(pl) for pl in out.placements]),
+            "moe:body_placements": np.array([str(pl) for pl in body.placements]),
             "moe:constrained": np.array([str(pl) for pl in constrained.placements]),
             "moe:constrained_out": constrained.full_tensor().numpy(),
             "moe:allreduces": np.array(calls)}
@@ -252,6 +266,78 @@ def _placed_init(rank, world, mesh_shape) -> dict:
     return {"placed_init:bad": np.array(json.dumps(ranks))}
 
 
+def serve_inputs(cfg) -> tuple:
+    """(prompt tokens (B, SERVE_PROMPT), decode tokens (B, SERVE_DECODES),
+    the stub frontend or None) as numpy, from ``SyntheticLM``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import SyntheticLM
+
+    batch = SyntheticLM(cfg, ShapeConfig("serve", SERVE_CAP, SERVE_BATCH, "train")).batch(0)
+    toks = batch["tokens"]
+    front = next((batch[k] for k in ("enc_embeds", "img_embeds") if k in batch), None)
+    return (toks[:, :SERVE_PROMPT], toks[:, SERVE_PROMPT:SERVE_PROMPT + SERVE_DECODES],
+            front)
+
+
+def serve_rules(cfg, mesh_shape):
+    """The prefill's and the decode's rule tables (``rules_for``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import rules_for
+
+    data, model = mesh_shape
+    return tuple(rules_for(cfg, ShapeConfig(f"mini_{kind}", SERVE_CAP, SERVE_BATCH, kind),
+                           mesh_model=model, mesh_data=data)
+                 for kind in ("prefill", "decode"))
+
+
+def _serve(mesh_shape) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.engine import ExecutionContext
+    from repro_torch.launch.steps import cache_placements, make_decode_step, make_prefill_step
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.spec import _leaf_paths, init_params
+
+    mesh = _mesh(mesh_shape)
+    cpu = ExecutionContext(device="cpu")
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_arch(arch).reduced()
+        pre_rules, dec_rules = serve_rules(cfg, mesh_shape)
+        params = init_params(model_spec(cfg), seed=0, dtype=torch.float32, device="cpu",
+                             mesh=mesh, rules=pre_rules)
+        toks, dec_toks, front = serve_inputs(cfg)
+        prefill = make_prefill_step(cfg, SERVE_CAP, ctx=cpu, mesh=mesh, rules=pre_rules)
+        decode = make_decode_step(cfg, ctx=cpu, mesh=mesh, rules=dec_rules)
+        logits, cache = prefill(params, torch.as_tensor(toks),
+                                None if front is None else torch.as_tensor(front))
+        out[f"{arch}:prefill"] = logits.full_tensor().numpy()
+        want = dict(_leaf_paths(cache_placements(cfg, dec_rules, mesh, SERVE_BATCH,
+                                                 SERVE_CAP)))
+
+        def place(tree, prefix=""):
+            if isinstance(tree, dict):
+                return {k: place(v, f"{prefix}/{k}") for k, v in tree.items()}
+            return tree.redistribute(mesh, want[prefix])
+
+        cache = place(cache)
+        for j in range(SERVE_DECODES):
+            logits, cache = decode(params, cache, torch.as_tensor(dec_toks[:, j:j + 1]),
+                                   SERVE_PROMPT + j)
+            out[f"{arch}:decode{j}"] = logits.full_tensor().numpy()
+        held = [isinstance(v, DTensor) and list(v.placements) == list(want[k])
+                for k, v in _leaf_paths(cache)]
+        out[f"{arch}:cache_placed"] = np.array(bool(held) and all(held))
+        out[f"{arch}:kv_seq_sharded"] = np.array(any(
+            str(pl) != "R" for k, pls in want.items() for pl in pls))
+    return out
+
+
+def job_serve(out_dir, rank, world):
+    return _serve((2, world // 2))
+
+
 def job_wide(out_dir, rank, world):
     out = _psum(out_dir, rank, world)
     out.update(_moe(out_dir, (2, world // 2)))
@@ -268,7 +354,7 @@ def job_narrow(out_dir, rank, world):
     return out
 
 
-JOBS = {"wide": job_wide, "narrow": job_narrow}
+JOBS = {"wide": job_wide, "narrow": job_narrow, "serve": job_serve}
 
 
 def _worker(rank, job, world, port, out_dir):
