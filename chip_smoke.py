@@ -161,7 +161,8 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      in f32 (K7's and K8's f32 instances): kernel passes against plain
      passes end to end, exact to SERVE_REL, AxO to SERVE_REL or, where a
      one-ulp nudge of the norm weights moves the plain AxO pass by more, to
-     twice that; and MLA's attention at deepseek-v3's prefill timed beside
+     twice that; and MLA's attention at deepseek-v3's prefill (the blockwise
+     ``chunked_attention``) timed beside the direct softmax it replaced and
      SDPA on K/V expanded to the heads.
   train: K7 and K8 under autograd, then training.  ``FlashAttentionFn`` at
      granite-3-2b's train shape (bf16, B=8, H=32, G=8, S=128, hd 64) and a
@@ -169,7 +170,8 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      B=4, S=2,000, H=24, P=64, N=128) and a reduced f32 shape: the forward
      equal to the raw kernel call, the gradients against plain autograd to
      one bf16 ulp of each gradient's largest entry (f32: 1e-5 relative
-     norm); on grad-requiring inputs ``flash_attention`` and ``ssd_scan``
+     norm), and ``FlashAttentionFn``'s (its backward the blockwise one,
+     ATTN_CHECK_CHUNK blocks a side) to ``blockwise_attention``'s as well; on grad-requiring inputs ``flash_attention`` and ``ssd_scan``
      take those functions themselves (``ssd_scan_scalar`` refuses).  Every
      reduced arch in f32 takes two train steps on the kernels and on the
      plain versions (``kernel_impl="plain"``): the first step's loss and
@@ -191,7 +193,10 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      ``make_train_step`` at batch 8 x seq 128, lr 1e-3 cosine with warmup
      5, clip 1.0: finite losses and grad norms, the loss falling by
      TRAIN_MIN_DROP or more, K7 80 launches a step; step time, tokens/s,
-     peak memory and the step's bound.  No checkpoint at this width (one
+     peak memory and the step's bound.  Then LONG_STEPS more steps of the
+     same run at batch 4 x seq 4,096 (the attention backward blockwise over
+     granite's 1024 x 1024 blocks): step time and peak memory, K7 80
+     launches a step.  No checkpoint at this width (one
      would be ~25 GB).  mamba2-130m through ``launch.train.main`` (8 steps,
      batch 8 x seq 2,000 in two microbatches, int8 accumulation,
      checkpoints every 4 steps): K8 96 launches a step, each on the
@@ -232,9 +237,9 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
      ``cuda`` (no card memory is used); each record's status, per-device
      need, FLOPs, collective bytes by kind and bottleneck on a line, then the
      report's tables over the written records.  Then a one-rank cross-check:
-     ``lower_step`` of the train phase's granite step (full width and depth,
-     batch 8 x 128, AdamW, remat; no mesh) predicts the peak memory and the
-     FLOPs that the card measures for that step in this run (the train
+     ``lower_step`` of the train phase's granite steps (full width and depth,
+     batch 8 x 128 and 4 x 4,096, AdamW, remat; no mesh) predicts the peak
+     memory and the FLOPs that the card measures for those steps in this run (the train
      phase's peak above what was held before, and ``obs.profile_fn``'s FLOP
      count of one step, in which K7 is counted by its op's formula); the
      ratios are printed and the FLOPs must agree to 1%.  Last K7 at
@@ -477,6 +482,12 @@ EARLIER_AXO_DECODE_MS = {"granite-3-2b": "162-189", "kimi-k2-1t-a32b": "283-389"
 # the train phase: granite-3-2b's steps (batch x seq, cosine warmup) and
 # mamba2-130m's run through launch.train.main, a fault injected before one step
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 8, 128, 6, 5
+# granite-3-2b's long steps after those (batch x seq): the blockwise attention
+# backward holds O(S hd) where the direct one held four f32 (4, 32, 4096, 4096)
+# score tensors, 8.6 GB each
+LONG_BATCH, LONG_SEQ, LONG_STEPS = 4, 4096, 2
+# the blocks of the autograd check (1): several a side at granite's S = 128
+ATTN_CHECK_CHUNK = 32
 TRAIN_SSM_ARGS = ["--arch", "mamba2-130m", "--full-config", "--steps", "8", "--batch", "8",
                   "--seq", "2000", "--accum", "2", "--int8-accum", "--ckpt-every", "4"]
 TRAIN_FAULT_STEP = 5
@@ -643,7 +654,9 @@ def checked_calls(torch):
 
     def k7(q, k, v, **kw):
         out = flash_attention.flash_attention(q, k, v, **kw)
-        want = flash_attention.flash_attention_plain(q, k, v, **kw).float()
+        blocks = ("q_chunk", "kv_chunk")   # a gradient's blocks: no grad here
+        want = flash_attention.flash_attention_plain(
+            q, k, v, **{key: v_ for key, v_ in kw.items() if key not in blocks}).float()
         calls["K7"].append(float((out.float() - want).abs().max() / want.abs().max()))
         calls["K7 non-causal"] += not kw.get("causal", True)
         return out
@@ -861,18 +874,29 @@ def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
             out = fn(*ins)
             return out.detach(), torch.autograd.grad((out.float() * w).sum(), ins)
 
-        out_k, g_k = run(lambda *t: k7.FlashAttentionFn.apply(*t, True, None, 0, s))
+        chunk = ATTN_CHECK_CHUNK
+        out_k, g_k = run(lambda *t: k7.FlashAttentionFn.apply(*t, True, None, 0, s, chunk,
+                                                              chunk))
+        out_b, g_b = run(lambda *t: k7.blockwise_attention(*t, causal=True, q_chunk=chunk,
+                                                           kv_chunk=chunk))
         out_p, g_p = run(lambda *t: k7.flash_attention_plain(*t, causal=True))
         with torch.no_grad():
             same = torch.equal(out_k, k7.flash_attention(q, kk, vv))
+        errs_b = [grad_err(a, c) for a, c in zip(g_k, g_b)]
         errs = [grad_err(a, c) for a, c in zip(g_k, g_p)]
+        bitwise = all(torch.equal(a, c) for a, c in zip(g_k, g_b))
         fwd = float((out_k.float() - out_p.float()).abs().max() / out_p.float().abs().max())
+        fwd_b = float((out_b.float() - out_p.float()).abs().max() / out_p.float().abs().max())
         print(f"phase train: FlashAttentionFn at the {label} shape (B={b}, H={h}, G={g}, S={s}, "
-              f"hd {hd}, {str(dtype)[6:]}): forward equals the raw K7 call: {same}; forward vs "
-              f"plain {fwd:.3g}; q/k/v gradients vs plain autograd {[f'{e:.3g}' for e in errs]} "
-              f"(limit {grad_limit(dtype):.3g})", flush=True)
-        if not same or max(errs) > grad_limit(dtype):
+              f"hd {hd}, {str(dtype)[6:]}, backward blocks {chunk} x {chunk}): forward equals "
+              f"the raw K7 call: {same}; forward vs plain {fwd:.3g} (the blockwise function's "
+              f"{fwd_b:.3g}); q/k/v gradients vs the blockwise function's "
+              f"{[f'{e:.3g}' for e in errs_b]} (bitwise: {bitwise}), vs plain autograd "
+              f"{[f'{e:.3g}' for e in errs]} (limit {grad_limit(dtype):.3g})", flush=True)
+        if not same or max(errs + errs_b) > grad_limit(dtype) or fwd_b > grad_limit(dtype):
             raise AssertionError(f"FlashAttentionFn at the {label} shape differs")
+        stats[f"attention_fn_{label.split()[0]}"] = {"vs_blockwise": errs_b, "vs_plain": errs,
+                                                      "bitwise": bitwise}
     for label, shape, dtype, chunk in (
             ("mamba2 microbatch", (4, 2000, 24, 1, 64, 128), torch.bfloat16, 128),
             ("reduced", (2, 40, 16, 1, 8, 16), torch.float32, 16)):
@@ -898,6 +922,43 @@ def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
         if not same or any(e > grad_limit(c.dtype) for e, c in zip(errs, g_p)):
             raise AssertionError(f"SSDScanFn at the {label} shape differs")
         del x, dt, a, bm, cm, w, g_k, g_p
+    # (1b) FlashAttentionFn's backward (the blockwise one, over granite's
+    # blocks) beside the backward it replaced (the direct plain version
+    # recomputed and differentiated), at granite's two train shapes: time by
+    # events and the peak above what was allocated before the call
+    stats["attention_backward"] = {}
+    for b, s in ((TRAIN_BATCH, TRAIN_SEQ), (LONG_BATCH, LONG_SEQ)):
+        h, g, hd = 32, 8, 64
+        blockwise, direct = attention_backwards(torch, dev, gen, b, s)
+
+        def peak(fn) -> int:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            grads = fn()
+            torch.cuda.synchronize()
+            del grads
+            return torch.cuda.max_memory_allocated(dev) - base
+
+        iters = 10 if s == TRAIN_SEQ else 3
+        row = {"blockwise_ms": cuda_ms(torch, blockwise, iters),
+               "direct_ms": cuda_ms(torch, direct, iters),
+               "blockwise_peak_bytes": peak(blockwise), "direct_peak_bytes": peak(direct),
+               "score_bytes": 4 * b * h * s * s}
+        stats["attention_backward"][f"{b}x{s}"] = row
+        print(f"phase train: FlashAttentionFn's backward at granite's {b} x {s} (H={h}, G={g}, "
+              f"hd {hd}, bf16, causal, blocks {k7.CHUNK} x {k7.CHUNK}): blockwise "
+              f"{row['blockwise_ms']:.3f} ms by events, peak {row['blockwise_peak_bytes']} "
+              f"bytes above what was held; the direct plain autodiff it replaced (the "
+              f"backward before) {row['direct_ms']:.3f} ms, peak "
+              f"{row['direct_peak_bytes']} bytes; one f32 (B, H, S, S) score tensor "
+              f"{row['score_bytes']} bytes", flush=True)
+        if s > k7.CHUNK and row["blockwise_peak_bytes"] >= row["score_bytes"]:
+            # (at S <= CHUNK one block pair is the whole matrix)
+            raise AssertionError(f"the blockwise backward at {b} x {s} holds a score matrix")
+        del blockwise, direct
+    torch.cuda.empty_cache()
+
     # on grad-requiring inputs the wrappers take their autograd functions
     # themselves: a kernel launch, a grad_fn, plain autograd's gradient;
     # ssd_scan_scalar, which has no autograd function, refuses them
@@ -1002,6 +1063,7 @@ def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
     data = SyntheticLM(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=0)
     batches = [train.batch_to_device(data.batch(t), dev, torch.bfloat16)
                for t in range(TRAIN_STEPS)]
+    batches0 = batches[0]
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
 
@@ -1099,7 +1161,58 @@ def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
                              f"{TRAIN_STEPS} steps: {losses}")
     stats["granite"] = {"loss": losses, "grad_norm": norms, "step_ms": step_ms,
                         "peak_bytes": peak, "k7_launches": got["K7"], "bound_tflop": flops / 1e12}
-    keep["granite"] = (step_fn, params, state, batches[0], opt, cfg, {})
+
+    # (3b) LONG_STEPS more steps of the same run at batch LONG_BATCH x seq
+    # LONG_SEQ: K7's forward, the blockwise backward over granite's 1024 x
+    # 1024 blocks; step time and the peak above what was held before the
+    # parameters (the dryrun phase holds it against lower_step's prediction)
+    del batches
+    long = long_batch(torch, cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = k7.flash_attention.launches
+    long_ms, long_loss = [], []
+    for t in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, TRAIN_STEPS + t, long)
+        long_loss.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        long_ms.append((time.perf_counter() - t0) * 1e3)
+    long_peak = torch.cuda.max_memory_allocated(dev) - held
+    long_k7 = k7.flash_attention.launches - before
+    # the forward and backward alone (train_step.grads, the step before its
+    # clip and update): its peak above what was held before the parameters,
+    # which the dryrun phase holds against lower_step(..., grads_only=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    grads, _ = step_fn.grads(params, long)
+    torch.cuda.synchronize()
+    grads_peak = torch.cuda.max_memory_allocated(dev) - held
+    del grads
+    long_tokens = LONG_BATCH * LONG_SEQ
+    long_flops = (6 + 2) * n_params * long_tokens
+    print(f"phase train: {cfg.name} at full width and depth, {LONG_STEPS} more steps at batch "
+          f"{LONG_BATCH} x seq {LONG_SEQ} (AdamW, remat; the attention backward blockwise over "
+          f"{cfg.attn_q_chunk} x {cfg.attn_kv_chunk} blocks): loss "
+          f"{[round(v, 4) for v in long_loss]}; step ms {[round(v, 1) for v in long_ms]} (the "
+          f"first includes this shape's warm-up; {long_tokens / long_ms[-1] * 1e3:.0f} tokens/s "
+          f"in the last); bound of the dense work {long_flops / 1e12:.1f} TFLOP at the bf16 "
+          f"dense peak {long_flops / BF16_TENSOR_FLOPS * 1e3:.1f} ms; peak memory "
+          f"{long_peak / 2**30:.3f} GiB ({long_peak} bytes above the {held} held before the "
+          f"parameters); K7 launches {long_k7} (expected {2 * cfg.n_layers * LONG_STEPS}); "
+          f"the forward and backward alone (no clip, no update): peak memory "
+          f"{grads_peak / 2**30:.3f} GiB ({grads_peak} bytes)", flush=True)
+    if long_k7 != 2 * cfg.n_layers * LONG_STEPS or not all(map(math.isfinite, long_loss)):
+        raise AssertionError(f"granite's {LONG_BATCH} x {LONG_SEQ} steps: K7 launches "
+                             f"{long_k7}, losses {long_loss}")
+    stats["granite_long"] = {"loss": long_loss, "step_ms": long_ms, "peak_bytes": long_peak,
+                             "grads_peak_bytes": grads_peak, "k7_launches": long_k7,
+                             "bound_tflop": long_flops / 1e12}
+    keep["granite"] = (step_fn, params, state, batches0, opt, cfg, {})
+    del long
+    torch.cuda.empty_cache()
 
     # (4) mamba2-130m at full width and depth through launch.train.main, then
     # the same run with a fault at step TRAIN_FAULT_STEP through train_loop
@@ -1204,11 +1317,49 @@ def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
     return stats, keep
 
 
+def attention_backwards(torch, dev, gen, b: int, s: int):
+    """(blockwise, direct): at granite's attention (H=32, G=8, hd 64, bf16,
+    causal) over batch ``b`` x seq ``s``, ``FlashAttentionFn``'s backward
+    (the blockwise one over ``CHUNK`` blocks, its forward run once before)
+    and the backward it replaced (the direct plain version recomputed and
+    differentiated), each a call that returns the q, k, v gradients."""
+    from repro_torch.kernels import flash_attention as k7
+
+    h, g, hd = 32, 8, 64
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev).bfloat16().transpose(1, 2)
+    kk, vv = (torch.randn((b, s, g, hd), generator=gen, device=dev).bfloat16()
+              .transpose(1, 2) for _ in range(2))
+    dout = torch.randn((b, h, s, hd), generator=gen, device=dev).bfloat16()
+    ins = [t.detach().requires_grad_() for t in (q, kk, vv)]
+    out = k7.FlashAttentionFn.apply(*ins, True, None, 0, s, k7.CHUNK, k7.CHUNK)
+
+    def blockwise():
+        return torch.autograd.grad(out, ins, dout, retain_graph=True)
+
+    def direct():
+        again = [t.detach().requires_grad_() for t in ins]
+        with torch.enable_grad():
+            o = k7.flash_attention_plain(*again, causal=True)
+        return torch.autograd.grad(o, again, dout)
+
+    return blockwise, direct
+
+
+def long_batch(torch, cfg, dev) -> dict:
+    """granite's batch of LONG_BATCH x LONG_SEQ tokens on the card (bf16)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import train
+
+    data = SyntheticLM(cfg, ShapeConfig("train", LONG_SEQ, LONG_BATCH, "train"), seed=1)
+    return train.batch_to_device(data.batch(0), dev, torch.bfloat16)
+
+
 def profile_train(torch, label, step_fn, params, state, batch, opt, cfg, step_kw) -> dict:
     """torch.profiler over one train step, after a warm one and one timed
     unprofiled: device time against that step's wall time (the busy share),
-    K7's and K8's forward kernels, the ranges of the plain attention and scan
-    backward, of the global-norm clip and of the optimizer (``opt.update``
+    K7's and K8's forward kernels, the ranges of the blockwise attention and
+    the plain scan backward, of the global-norm clip and of the optimizer (``opt.update``
     and ``apply_updates``), and GEMM kernels."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1265,7 +1416,7 @@ def profile_train(torch, label, step_fn, params, state, batch, opt, cfg, step_kw
     print(f"phase device-time: {label} train step profiled: device time {out['device_ms']:.2f} "
           f"ms, {out['device_ms'] / step:.1%} of the step before it unprofiled ({step:.2f} "
           f"ms; the profiled step's wall {wall:.2f} ms); K7 forward "
-          f"{out['k7_ms']:.3f}, K8 forward {out['k8_ms']:.3f}, plain attention backward "
+          f"{out['k7_ms']:.3f}, K8 forward {out['k8_ms']:.3f}, blockwise attention backward "
           f"{out['attention_backward_ms']:.3f}, plain scan backward "
           f"{out['scan_backward_ms']:.3f}, clip {out['clip_ms']:.3f}, optimizer "
           f"{out['optimizer_ms']:.3f}, GEMM kernels "
@@ -1717,16 +1868,24 @@ def dryrun_cells(out_dir: str) -> dict:
     return {"wall_s": wall, "records": {" ".join(k): v for k, v in recs.items()}}
 
 
-def dryrun_cross_check(torch, dev, kept, measured_peak: int) -> dict:
-    """One rank: ``lower_step`` of the train phase's granite step against the
-    card's peak memory and ``profile_fn``'s FLOP count of that step."""
+def dryrun_cross_check(torch, dev, kept, measured_peak: int, long: bool = False,
+                       grads_peak: int | None = None) -> dict:
+    """One rank: ``lower_step`` of the train phase's granite step (batch
+    TRAIN_BATCH x TRAIN_SEQ, or with ``long`` LONG_BATCH x LONG_SEQ) against
+    the card's peak memory and ``profile_fn``'s FLOP count of that step;
+    with ``grads_peak``, also the forward and backward alone
+    (``grads_only``) against the card's peak of that phase, which must lie
+    within one f32 (B, H, S, S) score tensor of the prediction."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import rules_for
     from repro_torch.launch.lowering import lower_step
     from repro_torch.obs.profile import profile_fn
 
     step_fn, params, state, batch, opt, cfg, _ = kept
-    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rows, seq = (LONG_BATCH, LONG_SEQ) if long else (TRAIN_BATCH, TRAIN_SEQ)
+    if long:
+        batch = long_batch(torch, cfg, dev)
+    shape = ShapeConfig("train", seq, rows, "train")
     t0 = time.perf_counter()
     pred = lower_step(cfg, shape, None, rules_for(cfg, shape), device="cuda")
     t_trace = time.perf_counter() - t0
@@ -1739,8 +1898,8 @@ def dryrun_cross_check(torch, dev, kept, measured_peak: int) -> dict:
            "measured_flops": flops, "peak_ratio": measured_peak / pred["peak_bytes"],
            "flops_ratio": flops / pred["flops"], "trace_s": t_trace,
            "predicted_coll_bytes": pred["coll_total"]}
-    print(f"phase dryrun: one-rank cross-check, {cfg.name} train step (batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}, AdamW, remat) traced on fake cuda tensors in {t_trace:.1f} s: "
+    print(f"phase dryrun: one-rank cross-check, {cfg.name} train step (batch {rows} x "
+          f"{seq}, AdamW, remat) traced on fake cuda tensors in {t_trace:.1f} s: "
           f"predicted peak {pred['peak_bytes'] / 2**30:.3f} GiB (arguments "
           f"{pred['argument_size_in_bytes'] / 2**30:.3f} GiB), measured in the train phase "
           f"{measured_peak / 2**30:.3f} GiB: measured / predicted {out['peak_ratio']:.4f}; "
@@ -1748,6 +1907,23 @@ def dryrun_cross_check(torch, dev, kept, measured_peak: int) -> dict:
           f"{out['flops_ratio']:.6f}; collective bytes {pred['coll_total']:.0f}", flush=True)
     if abs(out["flops_ratio"] - 1) > DRYRUN_FLOPS_REL or pred["coll_total"] != 0:
         raise AssertionError("the one-rank trace's FLOPs differ from the card's count")
+    if grads_peak is not None:
+        t0 = time.perf_counter()
+        g_pred = lower_step(cfg, shape, None, rules_for(cfg, shape), device="cuda",
+                            grads_only=True)["peak_bytes"]
+        score = 4 * rows * cfg.n_heads * seq * seq
+        out.update(predicted_grads_peak_bytes=g_pred, measured_grads_peak_bytes=grads_peak,
+                   grads_peak_ratio=grads_peak / g_pred, score_bytes=score,
+                   grads_trace_s=time.perf_counter() - t0)
+        print(f"phase dryrun: one-rank cross-check, the forward and backward alone of that "
+              f"step (grads_only) traced in {out['grads_trace_s']:.1f} s: predicted peak "
+              f"{g_pred / 2**30:.3f} GiB, measured in the train phase {grads_peak / 2**30:.3f} "
+              f"GiB: measured / predicted {out['grads_peak_ratio']:.4f}, measured - predicted "
+              f"{(grads_peak - g_pred) / 2**30:.3f} GiB against one f32 (B, H, S, S) score "
+              f"tensor of {score / 2**30:.3f} GiB", flush=True)
+        if grads_peak - g_pred >= score:
+            raise AssertionError("the forward and backward hold a score matrix more than "
+                                 "lower_step predicts")
     return out
 
 
@@ -3842,10 +4018,11 @@ def main() -> int:
                                  f"plain replay")
         del red_params, red_dep, red_plain, red_front
 
-    # MLA's attention at deepseek-v3's prefill: the port's plain direct softmax
-    # (q/k width 576, v width 512, one shared KV head, 128 query heads, B=4,
-    # S=128 over the 136-slot latent cache), bf16 as served; SDPA beside it
-    # on K/V expanded to the 128 heads
+    # MLA's attention at deepseek-v3's prefill: the port's blockwise
+    # chunked_attention (q/k width 576, v width 512, one shared KV head, 128
+    # query heads, B=4, S=128 over the 136-slot latent cache, one 1024 x 1024
+    # block), bf16 as served; the direct softmax it replaced and SDPA on K/V
+    # expanded to the 128 heads beside it
     mla = get_arch("deepseek-v3-671b").mla
     qk_w = mla.kv_lora_rank + mla.rope_head_dim
     mla_scale = 1.0 / (mla.nope_head_dim + mla.rope_head_dim) ** 0.5
@@ -3856,6 +4033,10 @@ def main() -> int:
     mla_pos = torch.arange(PROMPT_LEN, device=dev)
 
     def mla_attention():
+        return attention.chunked_attention(mla_q, mla_k, mla_v, causal=True, q_offset=0,
+                                           kv_len=PROMPT_LEN, scale=mla_scale)
+
+    def mla_direct():
         return attention.direct_attention(mla_q, mla_k, mla_v, causal=True, q_positions=mla_pos,
                                           kv_len=PROMPT_LEN, scale=mla_scale)
 
@@ -3863,6 +4044,7 @@ def main() -> int:
                      mla_k[:, :PROMPT_LEN].transpose(1, 2).expand(-1, 128, -1, -1),
                      mla_v[:, :PROMPT_LEN].transpose(1, 2).expand(-1, 128, -1, -1))
     mla_ms = cuda_ms(torch, mla_attention, 20)
+    mla_direct_ms = cuda_ms(torch, mla_direct, 20)
     mla_sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         *mla_sdpa_args, is_causal=True, scale=mla_scale), 20)
     mla_bound = bound(2 * (mla_q.numel() + mla_k[:, :PROMPT_LEN].numel()
@@ -3870,8 +4052,9 @@ def main() -> int:
                       bf16_ops=2.0 * 4 * 128 * (PROMPT_LEN * (PROMPT_LEN + 1) // 2)
                       * (qk_w + mla.kv_lora_rank))
     print(f"phase serve-mla: MLA attention at deepseek-v3's prefill (B=4, H=128, S=128, q/k "
-          f"width {qk_w}, v width {mla.kv_lora_rank}, bf16), the port's plain direct softmax: "
-          f"{mla_ms:.4f} ms by events (bound {mla_bound[0]:.4g} by {mla_bound[1]}), SDPA on "
+          f"width {qk_w}, v width {mla.kv_lora_rank}, bf16), the port's blockwise "
+          f"chunked_attention: {mla_ms:.4f} ms by events (bound {mla_bound[0]:.4g} by "
+          f"{mla_bound[1]}), the direct softmax it replaced {mla_direct_ms:.4f} ms, SDPA on "
           f"K/V expanded to the heads {mla_sdpa_ms:.4f} ms", flush=True)
 
     # -- train: K7 and K8 under autograd, the reduced archs, granite and mamba2
@@ -3879,9 +4062,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_stats, train_keep = train_phase(torch, dev, ssm_wrappers, gen)
     t_train = time.perf_counter() - t0
-    launches["K7"] += train_stats["granite"]["k7_launches"]
+    launches["K7"] += (train_stats["granite"]["k7_launches"]
+                       + train_stats["granite_long"]["k7_launches"])
     launches["K8"] += train_stats["mamba2"]["k8_launches"]
-    rec["K7"]["train_launches"] = train_stats["granite"]["k7_launches"]
+    rec["K7"]["train_launches"] = (train_stats["granite"]["k7_launches"]
+                                   + train_stats["granite_long"]["k7_launches"])
     rec["K8"]["train_launches"] = train_stats["mamba2"]["k8_launches"]
     print(f"phase train: {t_train:.1f} s; {json.dumps(train_stats)}", flush=True)
 
@@ -3906,6 +4091,9 @@ def main() -> int:
     dryrun_stats = dryrun_cells(str(dryrun_dir))
     dryrun_stats["cross_check"] = dryrun_cross_check(
         torch, dev, train_keep["granite"], train_stats["granite"]["peak_bytes"])
+    dryrun_stats["cross_check_long"] = dryrun_cross_check(
+        torch, dev, train_keep["granite"], train_stats["granite_long"]["peak_bytes"], long=True,
+        grads_peak=train_stats["granite_long"]["grads_peak_bytes"])
     dryrun_stats["ops"] = ops_vs_raw(torch, dev, gen)
     for k, v in dryrun_stats["ops"].items():
         rec[k].update(v)
@@ -3926,6 +4114,16 @@ def main() -> int:
     del train_keep, kept
     gc.collect()
     torch.cuda.empty_cache()
+    # a layer's attention backward at granite's 8 x 128: the blockwise one
+    # beside the direct plain autodiff it replaced, on the device
+    blockwise, direct = attention_backwards(torch, dev, gen, TRAIN_BATCH, TRAIN_SEQ)
+    attn_dev = {"blockwise_ms": device_ms(torch, blockwise, 10),
+                "direct_ms": device_ms(torch, direct, 10)}
+    train_stats["attention_backward"][f"{TRAIN_BATCH}x{TRAIN_SEQ}"]["device"] = attn_dev
+    print(f"phase device-time: a layer's attention backward at granite's {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: blockwise {fmt_ms(attn_dev['blockwise_ms'])}, the direct plain "
+          f"autodiff it replaced {fmt_ms(attn_dev['direct_ms'])} on the device", flush=True)
+    del blockwise, direct
     # torch.profiler's device time per call, beside the CUDA-event times of
     # phase 3 (which count the host's time to issue a call where it is the
     # longer), taken last: after a profiler session the host issues every
@@ -4038,7 +4236,8 @@ def main() -> int:
     mla_sdpa_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         *mla_sdpa_args, is_causal=True, scale=mla_scale), 10)
     print(f"phase device-time: K8 at jamba's prefill bf16: {fmt_ms(rec['K8H']['device_ms'])}; "
-          f"MLA attention at deepseek-v3's prefill (plain direct softmax): {fmt_ms(mla_dev)} on "
+          f"MLA attention at deepseek-v3's prefill (blockwise chunked_attention): "
+          f"{fmt_ms(mla_dev)} on "
           f"the device ({mla_ms:.4f} ms by events), SDPA on expanded K/V "
           f"{fmt_ms(mla_sdpa_dev)}", flush=True)
     del mla_q, mla_k, mla_v, mla_sdpa_args

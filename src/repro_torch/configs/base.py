@@ -11,9 +11,13 @@ Heterogeneous patterns (Jamba 1:7, VLM every-5th-cross) are expressed inside the
 super-block.  Counterpart of ``repro/configs/base.py``, copied: plain data.  The
 port runs every mixer and MLP kind above; its model loops over ``repeats`` in
 Python.  Of the runtime-policy fields, ``remat`` is read (a training pass
-recomputes each repeat in the backward) and ``optimizer`` picks the train
-step's optimizer; those that steer XLA (``causal_block_skip``, the attention
-chunks, ``unroll_loops``) are kept for the configs' sake and not read.
+recomputes each repeat in the backward), ``optimizer`` picks the train
+step's optimizer, and the attention chunks set the blocks of the model's
+blockwise attention (``models.attention.chunked_attention``, the K7 train
+step's backward), as in the reference; ``causal_block_skip`` and
+``unroll_loops``, which steer XLA, are kept for the configs' sake and not
+read (the blockwise attention always skips the fully masked causal blocks,
+which changes no bit).
 """
 
 from __future__ import annotations

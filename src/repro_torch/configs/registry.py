@@ -70,7 +70,8 @@ def cell_status(arch_id: str, shape_name: str) -> str:
 def arch_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
     """The shape's config: ``max_seq`` at least the shape's sequence, and
     causal block skipping at prefill or from 16k tokens on (the reference's
-    measured policy; the port's K7 skips masked tiles whatever the flag)."""
+    measured policy; the port's K7 and blockwise attention skip masked
+    blocks whatever the flag says)."""
     skip = shape.kind == "prefill" or shape.seq_len >= 16384
     return replace(cfg, max_seq=max(shape.seq_len, cfg.max_seq), causal_block_skip=skip)
 

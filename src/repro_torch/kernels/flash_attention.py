@@ -30,16 +30,45 @@ launches.
 
 Training takes K7 through :class:`FlashAttentionFn`, an autograd function:
 its forward is ``flash_attention`` (K7 on the card, the plain version on a
-CPU tensor) and its backward recomputes ``flash_attention_plain`` on the
-saved inputs and differentiates it.  That backward is the reference's own
-math: the reference trains through its XLA ``chunked_attention`` and has no
-backward kernel, so the gradient is autodiff of the plain softmax algebra.
-It is not a fallback: the forward never gives way to the plain version on
-the card.  ``flash_attention`` takes that route itself where a gradient is
-wanted (grad mode on and an input that requires grad, on a CUDA tensor):
-the kernel's output carries no ``grad_fn``, so no caller may reach the raw
+CPU tensor) and its backward is :func:`blockwise_attention`'s: it recomputes
+the blockwise forward on the saved q, k and v (no grad) for the output and
+each row's log-sum-exp, then runs the blockwise backward, block pair by
+block pair.  Nothing of size Sq x Skv is made, so a training step holds
+O(B H S hd) for its attention, as the reference does: the reference trains
+through its XLA ``chunked_attention`` (an online softmax over KV blocks, each
+under ``jax.checkpoint``) and has no backward kernel.  It is not a fallback:
+the forward never gives way to a plain version on the card.
+``flash_attention`` takes that route itself where a gradient is wanted
+(grad mode on and an input that requires grad, on a CUDA tensor): the
+kernel's output carries no ``grad_fn``, so no caller may reach the raw
 launch with such inputs, and none has to know the rule.
 ``FlashAttentionFn.forward`` runs with grad off and so reaches the launch.
+
+:func:`blockwise_attention` is the reference's ``chunked_attention`` in
+plain torch (an autograd function, :class:`BlockwiseAttentionFn`): inside
+each block of ``q_chunk`` query rows an online softmax over blocks of
+``kv_chunk`` keys, with an f32 running max, sum and accumulator (f64 for
+f64 inputs); the queries are viewed in (group, rep) form, so K and V are
+never repeated to the heads.  With ``causal`` a query block scans only
+the KV blocks up to its last row's absolute position (``q_offset`` + row),
+as the reference's ``q_start`` (``causal_block_skip``) does; the skipped
+blocks would add exact zeros, so the output bits are those of a full scan,
+and a Python loop gains nothing from scanning them.  It keeps
+the reference's masking constant (-1e30, not -inf) and its ``acc /
+max(l, 1e-30)``: a row with no valid key (``kv_len`` 0) gets the mean of
+the values it scanned, where the direct plain version gives NaN.  The
+value width may differ from the key width (MLA).  Its backward works a
+block pair at a time (``D = rowsum(dO * O)``, ``P = exp(scale q k^T -
+lse)``, ``dV += P^T dO``, ``dS = P * (dO v^T - D)``, ``dQ += scale dS k``,
+``dK += scale dS^T q``, dK and dV summed over each group's heads) and saves
+only q, k, v, the output and each row's log-sum-exp.  Where
+``FlashAttentionFn`` runs it, nothing is saved but q, k and v: each query
+block's output and log-sum-exp are recomputed just before its gradient
+pass, and a block that scans one KV block keeps its scores for that pass
+(the same bits as computing them again).  The model's prefill
+and training attention runs it on the CPU and with ``impl="plain"``, and
+MLA runs it everywhere at Sq > 4; ``flash_attention_plain`` stays K7's twin,
+the one held against the kernel.
 
 The first launch of a (Sq, kv_len) that the current telemetry sees records
 its pad-to-tile waste over K7's 64 x 64 (query, key) tiles there as
@@ -70,26 +99,30 @@ from ..obs.telemetry import current, record_pad_waste
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_raw",
-           "FlashAttentionFn", "HEAD_DIMS"]
+           "FlashAttentionFn", "blockwise_attention", "BlockwiseAttentionFn", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 112, 128)   # head widths the kernel is built for
 TILE = 64                  # query rows and keys of a block's tiles (csrc kBQ, kBK)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MISALIGNED = -1           # the launcher's answer to a bf16 row off a 16-byte boundary
+NEG_INF = -1e30            # the reference's masking constant (blockwise_attention)
+CHUNK = 1024               # the reference's default attention chunks (attn_q/kv_chunk)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, scale: float | None = None,
                           q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
-    """Plain version of K7: the direct masked softmax, (B, H, Sq, hd)."""
+    """Plain version of K7: the direct masked softmax, (B, H, Sq, hd), in f32
+    (f64 for f64 inputs)."""
     b, h, sq, hd = q.shape
     g, skv = k.shape[1], k.shape[2]
     rep = h // g
     scale = (1.0 / math.sqrt(hd)) if scale is None else scale
     kv_len = skv if kv_len is None else kv_len
-    kh = k.to(torch.float32).repeat_interleave(rep, dim=1)
-    vh = v.to(torch.float32).repeat_interleave(rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kh) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kh = k.to(acc).repeat_interleave(rep, dim=1)
+    vh = v.to(acc).repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kh) * scale
     kpos = torch.arange(skv, device=q.device)
     valid = (kpos < kv_len)[None, :]
     if causal:
@@ -113,11 +146,14 @@ def _lib():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
-           kv_len: int) -> None:
+           kv_len: int, value_width: bool = False) -> None:
+    """Shapes, dtypes, devices and the offsets; ``value_width`` lets v's
+    width differ from q's and k's."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, H|G, S, hd)")
     b, h, _, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+    if (k.shape[:3] != v.shape[:3] or (k.shape[3] != v.shape[3] and not value_width)
+            or k.shape[0] != b or k.shape[3] != hd):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not fit "
                          f"q {tuple(q.shape)}")
     if h % k.shape[1]:
@@ -141,11 +177,13 @@ def _record_pad(sq: int, kv_len: int) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
-                    q_offset: int = 0, kv_len: int | None = None) -> torch.Tensor:
+                    q_offset: int = 0, kv_len: int | None = None, q_chunk: int = CHUNK,
+                    kv_chunk: int = CHUNK) -> torch.Tensor:
     """K7: q (B, H, Sq, hd), k/v (B, G, Skv, hd) f32 or bf16 -> (B, H, Sq, hd).
 
     Where a gradient is wanted on a CUDA tensor it runs as
-    :class:`FlashAttentionFn` (K7 forward, the plain version's backward).
+    :class:`FlashAttentionFn` (K7 forward, the blockwise backward over
+    ``q_chunk`` x ``kv_chunk`` blocks); elsewhere the chunks are unused.
     """
     kv_len = k.shape[2] if kv_len is None else int(kv_len)
     q_offset = int(q_offset)
@@ -155,7 +193,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, kv_len=kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, scale, q_offset, kv_len)
+        return FlashAttentionFn.apply(q, k, v, causal, scale, q_offset, kv_len, q_chunk,
+                                      kv_chunk)
     hd = q.shape[3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"K7 takes float32 or bfloat16, got {q.dtype}")
@@ -220,26 +259,231 @@ flash_attention.launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """K7 under autograd: ``apply(q, k, v, causal, scale, q_offset, kv_len)``.
+    """K7 under autograd: ``apply(q, k, v, causal, scale, q_offset, kv_len,
+    q_chunk=CHUNK, kv_chunk=CHUNK)``.
 
-    The forward runs ``flash_attention``; the backward differentiates
-    ``flash_attention_plain`` recomputed on the saved q, k and v.  q, k and v
-    as ``flash_attention`` takes them, causal or not, at any Sq and Skv.
+    The forward runs ``flash_attention``; the backward is
+    :func:`blockwise_attention`'s over ``q_chunk`` x ``kv_chunk`` blocks,
+    each query block's output and log-sum-exp recomputed on the saved q, k
+    and v just before its gradient pass (module docstring), so the gradients
+    equal ``BlockwiseAttentionFn``'s on the same inputs bit for bit.  q, k
+    and v as ``flash_attention`` takes them, causal or not, at any Sq and Skv.
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True, scale=None, q_offset=0, kv_len=None):
+    def forward(ctx, q, k, v, causal=True, scale=None, q_offset=0, kv_len=None,
+                q_chunk=CHUNK, kv_chunk=CHUNK):
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(causal=causal, scale=scale, q_offset=q_offset, kv_len=kv_len)
+        ctx.blocks = dict(q_chunk=q_chunk, kv_chunk=kv_chunk)
         return flash_attention(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
-        wrt = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            out = flash_attention_plain(*inputs, **ctx.kw)
-        grads = iter(torch.autograd.grad(out, wrt, grad_out))
-        return (*(next(grads) if t.requires_grad else None for t in inputs),
-                None, None, None, None)
+        q, k, v = ctx.saved_tensors
+        kw = _blockwise_args(q, k, **ctx.kw, **ctx.blocks)
+        return (*_blockwise_backward(q, k, v, grad_out, **kw), *(None,) * 6)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, scale: float | None = None, q_offset: int = 0,
+                        kv_len: int | None = None, q_chunk: int = CHUNK,
+                        kv_chunk: int = CHUNK) -> torch.Tensor:
+    """The reference's ``chunked_attention`` in plain torch (module
+    docstring): q (B, H, Sq, hd), k (B, G, Skv, hd), v (B, G, Skv, hd_v) ->
+    (B, H, Sq, hd_v) in q's dtype, laid out as (B, Sq, H, hd_v) in memory (as
+    K7's output of the model's views).  Differentiable, with a backward
+    that holds O(B H S hd)."""
+    kv_len = k.shape[2] if kv_len is None else int(kv_len)
+    _check(q, k, v, int(q_offset), kv_len, value_width=True)
+    if q_chunk < 1 or kv_chunk < 1:
+        raise ValueError(f"chunks must be positive, got q {q_chunk}, kv {kv_chunk}")
+    return BlockwiseAttentionFn.apply(q, k, v, causal, scale, q_offset, kv_len, q_chunk,
+                                      kv_chunk)
+
+
+class BlockwiseAttentionFn(torch.autograd.Function):
+    """:func:`blockwise_attention` under autograd: ``apply(q, k, v, causal,
+    scale, q_offset, kv_len, q_chunk, kv_chunk)``; saves q, k, v, the output
+    and each row's log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset, kv_len, q_chunk, kv_chunk):
+        kw = _blockwise_args(q, k, causal=causal, scale=scale, q_offset=q_offset,
+                             kv_len=kv_len, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        out, lse = _blockwise_forward(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_blockwise_backward(q, k, v, grad_out, out, lse, **ctx.kw), *(None,) * 6)
+
+
+def _blockwise_args(q, k, *, causal, scale, q_offset, kv_len, q_chunk, kv_chunk) -> dict:
+    """The blockwise passes' keywords with the defaults resolved."""
+    return dict(causal=bool(causal), q_offset=int(q_offset), q_chunk=int(q_chunk),
+                kv_chunk=int(kv_chunk),
+                scale=(1.0 / math.sqrt(q.shape[3])) if scale is None else float(scale),
+                kv_len=k.shape[2] if kv_len is None else int(kv_len))
+
+
+def _kv_blocks(i1: int, skv: int, *, causal: bool, q_offset: int,
+               kv_chunk: int) -> list[tuple[int, int]]:
+    """The KV blocks [j0, j1) that query rows up to ``i1`` scan: with
+    ``causal`` those up to the last row's absolute position (at least one,
+    as the reference's ``n_need``), else all of them."""
+    end = skv
+    if causal:
+        end = min(skv, max(1, (q_offset + i1 - 1) // kv_chunk + 1) * kv_chunk)
+    return [(j, min(j + kv_chunk, skv)) for j in range(0, end, kv_chunk)]
+
+
+class _Block:
+    """One query block [i0, i1) of a blockwise pass: its rows of each
+    group's ``rep`` heads as one (B G, rep (i1 - i0), hd) matrix in the
+    compute dtype, and its scores against a KV block."""
+
+    def __init__(self, q, k, i0, i1, *, causal, scale, q_offset, kv_len, **_):
+        b, h, _, hd = q.shape
+        self.b, self.g, self.rep, self.n = b, k.shape[1], h // k.shape[1], i1 - i0
+        self.i0, self.i1, self.acc = i0, i1, torch.promote_types(q.dtype, torch.float32)
+        self.causal, self.scale, self.q_offset, self.kv_len = causal, scale, q_offset, kv_len
+        self.q = self.rows(q, hd)
+
+    def rows(self, x: torch.Tensor, width: int) -> torch.Tensor:
+        """x's (B, H, i0:i1, width) rows as (B G, rep n, width), compute dtype."""
+        part = x.reshape(self.b, self.g, self.rep, x.shape[2], width)[:, :, :, self.i0:self.i1]
+        return part.to(self.acc, memory_format=torch.contiguous_format).reshape(
+            self.b * self.g, self.rep * self.n, width)
+
+    def kv(self, x: torch.Tensor, j0: int, j1: int) -> torch.Tensor:
+        """x's (B, G, j0:j1, width) block as (B G, j1 - j0, width), compute dtype."""
+        return x[:, :, j0:j1].to(self.acc, memory_format=torch.contiguous_format).reshape(
+            self.b * self.g, j1 - j0, x.shape[3])
+
+    def masked(self, j0: int, j1: int) -> torch.Tensor | None:
+        """The (n, j1 - j0) mask of the invalid (query, key) pairs, True where
+        masked; None where every pair is valid."""
+        qpos = self.q_offset + self.i0
+        if j1 <= self.kv_len and (not self.causal or j1 - 1 <= qpos):
+            return None
+        shape = (self.n, j1 - j0)
+        if self.causal:   # key j0 + c is past query qpos + r where c - r > qpos - j0
+            masked = torch.ones(shape, dtype=torch.bool, device=self.q.device).triu_(
+                qpos - j0 + 1)
+        else:
+            masked = torch.zeros(shape, dtype=torch.bool, device=self.q.device)
+        if j1 > self.kv_len:
+            masked[:, max(self.kv_len - j0, 0):] = True
+        return masked
+
+    def scores(self, kj: torch.Tensor, masked) -> torch.Tensor:
+        """scale q k^T, the masked pairs at the reference's -1e30."""
+        s = torch.baddbmm(self.q.new_empty(()), self.q, kj.transpose(1, 2), beta=0,
+                          alpha=self.scale)
+        if masked is not None:
+            s.view(self.b, self.g, self.rep, self.n, -1).masked_fill_(masked, NEG_INF)
+        return s
+
+    def forward(self, k, v, blocks, keep: bool = False):
+        """(out, lse[, s]): the block's output (B G, rep n, hd_v) and each
+        row's log-sum-exp (B G, rep n), in the compute dtype, by an online
+        softmax over ``blocks``; with ``keep`` also the masked scores of a
+        block that scans one KV block (else None).  The first KV block
+        starts the running max, sum and accumulator, which the reference's
+        rescaling of its -1e30 / 0 carry gives exactly."""
+        s_kept = None
+        for n, (j0, j1) in enumerate(blocks):
+            s = self.scores(self.kv(k, j0, j1), self.masked(j0, j1))
+            vj = self.kv(v, j0, j1)
+            if n == 0:
+                m = s.amax(-1).clamp_(min=NEG_INF)
+                s_kept = s if keep and len(blocks) == 1 else None
+                p = (s - m[..., None] if keep else s.sub_(m[..., None])).exp_()
+                l = p.sum(-1)
+                a = torch.bmm(_as_value(p, v.dtype), vj)
+            else:
+                m_new = torch.maximum(m, s.amax(-1))
+                p = s.sub_(m_new[..., None]).exp_()
+                alpha = torch.exp(m - m_new)
+                l = l.mul_(alpha).add_(p.sum(-1))
+                a = a.mul_(alpha[..., None]).add_(torch.bmm(_as_value(p, v.dtype), vj))
+                m = m_new
+            del s, p
+        l = l.clamp_(min=1e-30)
+        return a.div_(l[..., None]), m.add_(l.log_()), s_kept
+
+    def put(self, dst: torch.Tensor, x: torch.Tensor) -> None:
+        """Write (B G, rep n, ...) rows into dst's (B, H, i0:i1, ...) rows."""
+        dst[:, :, self.i0:self.i1] = x.reshape(self.b, self.g * self.rep, self.n,
+                                               *x.shape[2:])
+
+
+def _as_value(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Softmax weights rounded to the value type, as the reference's
+    ``p.astype(vh.dtype)`` (in the compute dtype again)."""
+    return p if dtype == p.dtype else p.to(dtype).to(p.dtype)
+
+
+def _blockwise_forward(q, k, v, *, q_chunk, kv_chunk, **kw):
+    """(out, lse): the output (B, H, Sq, hd_v) in q's dtype, laid out as
+    (B, Sq, H, hd_v), and each row's log-sum-exp (B, H, Sq) in the compute
+    dtype (f32; f64 for f64 inputs)."""
+    b, h, sq, _ = q.shape
+    out = q.new_empty((b, sq, h, v.shape[3])).transpose(1, 2)
+    lse = q.new_empty((b, h, sq), dtype=torch.promote_types(q.dtype, torch.float32))
+    for i0 in range(0, sq, q_chunk):
+        blk = _Block(q, k, i0, min(i0 + q_chunk, sq), **kw)
+        blocks = _kv_blocks(blk.i1, k.shape[2], causal=blk.causal, q_offset=blk.q_offset,
+                            kv_chunk=kv_chunk)
+        o, l, _ = blk.forward(k, v, blocks)
+        blk.put(out, o)
+        blk.put(lse, l)
+    return out, lse
+
+
+def _blockwise_backward(q, k, v, dout, out=None, lse=None, *, q_chunk, kv_chunk, **kw):
+    """(dq, dk, dv) in q's, k's and v's dtypes, a block pair at a time
+    (module docstring), from the saved output and log-sum-exp or, where they
+    are None, from each query block's own recomputed just before its
+    gradient pass (the block's scores reused where it scans one KV block).
+    The products over a group's (rep n) query rows sum dK and dV over its
+    heads."""
+    b, h, sq, hd = q.shape
+    skv, hdv = k.shape[2], v.shape[3]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    dq = q.new_empty((b, sq, h, hd)).transpose(1, 2)
+    dk = k.new_zeros((b, k.shape[1], skv, hd), dtype=acc)
+    dv = v.new_zeros((b, k.shape[1], skv, hdv), dtype=acc)
+    for i0 in range(0, sq, q_chunk):
+        blk = _Block(q, k, i0, min(i0 + q_chunk, sq), **kw)
+        blocks = _kv_blocks(blk.i1, skv, causal=blk.causal, q_offset=blk.q_offset,
+                            kv_chunk=kv_chunk)
+        doi = blk.rows(dout, hdv)
+        if lse is None:   # the output rounded to q's dtype, as the forward returns it
+            oi, li, s_kept = blk.forward(k, v, blocks, keep=True)
+            oi = oi.to(q.dtype).to(acc)
+        else:
+            oi, li, s_kept = blk.rows(out, hdv), blk.rows(lse[..., None], 1)[..., 0], None
+        di = (doi * oi).sum(-1, keepdim=True)
+        li = li[..., None]
+        dqi = None
+        for j0, j1 in blocks:
+            kj, vj = blk.kv(k, j0, j1), blk.kv(v, j0, j1)
+            masked = blk.masked(j0, j1)
+            s = s_kept if s_kept is not None else blk.scores(kj, masked)
+            p = s.sub_(li).exp_()
+            dv[:, :, j0:j1] += torch.bmm(_as_value(p, v.dtype).transpose(1, 2),
+                                         doi).view(b, -1, j1 - j0, hdv)
+            ds = torch.bmm(doi, vj.transpose(1, 2)).sub_(di).mul_(p)
+            if masked is not None and blk.kv_len == 0:   # rows with no valid key
+                ds.view(b, blk.g, blk.rep, blk.n, -1).masked_fill_(masked, 0.0)
+            dqi = torch.bmm(ds, kj) if dqi is None else dqi.add_(torch.bmm(ds, kj))
+            dk[:, :, j0:j1] += torch.bmm(ds.transpose(1, 2), blk.q).view(b, -1, j1 - j0, hd)
+            del s, p, ds
+            s_kept = None
+        blk.put(dq, dqi.mul_(blk.scale))
+    return dq, dk.mul_(kw["scale"]).to(k.dtype), dv.to(v.dtype)

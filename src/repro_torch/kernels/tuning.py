@@ -367,7 +367,7 @@ def _channels_ok(spec, got, want) -> bool:
     return True
 
 
-def parity_ok(spec: registry.KernelSpec, tiles: dict, device="cpu", **shape) -> bool:
+def parity_ok(spec: registry.KernelSpec, tiles: dict, device="cuda", **shape) -> bool:
     """Whether ``spec``'s wrapper at ``tiles`` agrees with its plain version
     on the deterministic case at ``shape`` on ``device``: integer channels
     bit-identical, f32 channels within the spec's ``tol``.  Its launches,
@@ -391,7 +391,7 @@ def _label(tiles: dict) -> str:
     return ",".join(f"{k}={v}" for k, v in tiles.items())
 
 
-def autotune(spec: registry.KernelSpec, device="cpu", **shape) -> dict:
+def autotune(spec: registry.KernelSpec, device="cuda", **shape) -> dict:
     """Search ``spec``'s admissible tiles at ``shape`` on ``device``.
 
     Every candidate is held to the plain version first, then timed; the

@@ -21,16 +21,21 @@ for FLOPs, bytes accessed and each kind's collective bytes: every repeat of
 a super-block runs the same ops on the same local shapes (the model
 constrains the residual stream to one placement after each layer).
 
-``probe_variants`` and ``corrected_costs`` are the reference's (the
-configs' XLA knobs they set, ``unroll_loops`` and the attention chunks, are
-not read by the port).  The reference doubles a stage's *layer list* in
+``probe_variants`` and ``corrected_costs`` are the reference's, with one
+difference: a probe keeps the cell's own attention chunks.  The reference
+raises them to at least 4096 for a cell without causal block skipping
+(its cap on unrolled attention blocks, a limit of XLA); the port's block
+loops are Python loops that always skip, so its probes run the blocks
+that the cell's step runs.  ``unroll_loops``, which a probe sets, is not
+read by the port.  The reference doubles a stage's *layer list* in
 one repeat, since its scan must run one trip; for a prefill or decode cell
 that extrapolation equals the port's full trace exactly.  A train cell's
 does not: the doubled block is one remat checkpoint where the full step
 has one a repeat (a checkpoint's recompute stops at its last saved tensor,
-so a repeat's tail is counted once more: +2.3% FLOPs on reduced granite at
-3 repeats; and the peak, two layers' activations live in one recompute,
-far above), and the clip's and the optimizer's per-leaf scalars follow the
+so a repeat's tail is counted once more: +2.5% FLOPs on reduced granite at
+3 repeats; and the peak, with two layers' activations live in one
+recompute, is off: below the full trace's on the reduced granite cell the
+tests run), and the clip's and the optimizer's per-leaf scalars follow the
 leaf count.  The port's dry-run therefore doubles the *repeats*
 (``double="repeats"``): each repeat is its own checkpoint and the stacked
 leaves keep their count, as in the full step, so the extrapolation equals
@@ -48,22 +53,13 @@ from .lowering import COLLECTIVES
 
 __all__ = ["probe_variants", "measure", "corrected_costs", "MEASURE_KEYS"]
 
-_PROBE_ATTN_CHUNK = 4096   # the reference's cap on unrolled attention blocks
-
 # what a probe measures: the costs, then the memory the dry-run extrapolates
 MEASURE_KEYS = (("flops", "bytes", "coll_total") + tuple(f"coll_{k}" for k in COLLECTIVES)
                 + ("argument_size_in_bytes", "peak_bytes"))
 
 
 def _probe_base(cfg: ModelConfig) -> ModelConfig:
-    if cfg.causal_block_skip:
-        return replace(cfg, unroll_loops=True)
-    return replace(
-        cfg,
-        unroll_loops=True,
-        attn_q_chunk=max(cfg.attn_q_chunk, _PROBE_ATTN_CHUNK),
-        attn_kv_chunk=max(cfg.attn_kv_chunk, _PROBE_ATTN_CHUNK),
-    )
+    return replace(cfg, unroll_loops=True)
 
 
 def probe_variants(cfg: ModelConfig, double: str = "layers") -> dict[str, ModelConfig]:

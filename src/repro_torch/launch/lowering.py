@@ -33,6 +33,10 @@ one rank's:
 * ``argument_size_in_bytes``: the local bytes of the parameters, optimizer
   state, batch (or tokens, frontend, cache and index) and the step counter.
 
+``lower_step(..., grads_only=True)`` traces a train cell's forward and
+backward alone (``train_step.grads``: no clip, no optimizer update), with
+the same arguments held, so its ``peak_bytes`` is that phase's peak.
+
 The record is rank 0's.  The rules' safeguards split every sharded dim
 evenly; where a split is uneven DTensor gives rank 0 the largest chunk, so
 rank 0's numbers are the per-device maximum.
@@ -265,7 +269,8 @@ def _local_bytes(specs: dict, mesh, rules: ShardingRules) -> int:
 
 
 def lower_step(cfg: ModelConfig, shape: ShapeConfig, mesh, rules: ShardingRules, *,
-               device: str = "cuda", dtype: torch.dtype = torch.bfloat16, ctx=None) -> dict:
+               device: str = "cuda", dtype: torch.dtype = torch.bfloat16, ctx=None,
+               grads_only: bool = False) -> dict:
     """Trace the cell's step once on fake tensors; returns rank 0's record
     (module docstring) with ``t_trace_s``, the trace's wall seconds.
 
@@ -273,8 +278,11 @@ def lower_step(cfg: ModelConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
     None for one device; ``ctx`` picks K7/K8 (default) or their plain
     versions.  Nothing is allocated on ``device`` (no card is needed for
     ``"cuda"``; a train cell's backward on fake ``cuda`` tensors needs the
-    CUDA build of PyTorch).
+    CUDA build of PyTorch).  ``grads_only`` traces a train cell's forward
+    and backward without the clip and the update (module docstring).
     """
+    if grads_only and shape.kind != "train":
+        raise ValueError(f"grads_only traces a train cell, not {shape.kind!r}")
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     spec = model_spec(cfg)
@@ -308,7 +316,10 @@ def lower_step(cfg: ModelConfig, shape: ShapeConfig, mesh, rules: ShardingRules,
             args += 4   # the int32 step counter
             fn = make_train_step(cfg, opt, ctx=ctx, mesh=mesh, rules=rules)
             with counter:
-                fn(params, state, 0, fake(specs["batch"]))
+                if grads_only:
+                    fn.grads(params, fake(specs["batch"]))
+                else:
+                    fn(params, state, 0, fake(specs["batch"]))
         elif shape.kind == "prefill":
             args += data_bytes(dict(specs))
             front = specs.get("enc_embeds", specs.get("img_embeds"))

@@ -137,6 +137,11 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
     DTensors placed by ``rules`` (default ``BASE_RULES``;
     :func:`train_state_placements`), ``batch`` the full batch on every rank,
     split here; the metrics are plain tensors, the same on every rank.
+
+    ``train_step.grads(params, batch) -> (grads, metrics)`` is the step's
+    forward and backward alone (one microbatch, no clip, no update): what
+    ``lowering.lower_step(..., grads_only=True)`` traces and a measurement
+    of that phase runs.
     """
     rules = BASE_RULES if rules is None else rules
 
@@ -165,6 +170,10 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
         with _mesh_scope(mesh, rules):
             params, opt_state, metrics = _step(params, opt_state, step, batch)
         return params, opt_state, {k: _plain(v) for k, v in metrics.items()}
+
+    def grads(params, batch):
+        with _mesh_scope(mesh, rules):
+            return grads_of(params, batch)
 
     def _step(params, opt_state, step, batch):
         if accum_steps == 1:
@@ -204,6 +213,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, accum_steps: int = 1,
         metrics["grad_norm"] = gnorm
         return params, opt_state, metrics
 
+    train_step.grads = grads
     return train_step
 
 

@@ -1,28 +1,45 @@
-"""Attention: rotary embeddings, direct softmax, GQA self-attention, MLA and
-cross-attention.
+"""Attention: rotary embeddings, direct softmax, blockwise attention, GQA
+self-attention, MLA and cross-attention.
 
 Counterpart of ``repro/models/attention.py``.  A prefill or training pass
-(more than 4 query rows) of GQA self-attention runs kernel K7,
-``kernels.flash_attention``: online-softmax attention over the KV cache with
-the query offset and ``kv_len`` as runtime arguments, causal or not, which
-is what the reference's XLA ``chunked_attention`` computes there (its module
-docstring names the Pallas flash kernel as its deployment counterpart).
-A training pass takes K7 as ``FlashAttentionFn``, which ``flash_attention``
-picks itself where a gradient is wanted; its backward is the autodiff of
-K7's plain version, as the reference differentiates its XLA path.
-The encoder's ``attn_nc`` layers and the cross-attention of the
-encoder-decoder's ``attn_x`` and of the VLM's gated ``xattn`` take K7 with
-``causal=False``, the latter two at Sq != Skv.  A decode step (at most 4
-query rows, the reference's threshold) runs :func:`direct_attention` in
-plain torch, as the reference does in jnp.
+(more than 4 query rows) runs blockwise, as the reference's
+``chunked_attention`` does, in blocks of the config's ``attn_q_chunk`` x
+``attn_kv_chunk``, skipping the fully masked causal blocks whatever
+``causal_block_skip`` says (a knob of the reference's XLA scan; the skip
+changes no bit).  On a CUDA tensor with the
+kernel engine (``impl="kernel"``) GQA self-attention, the encoder's
+``attn_nc`` layers and the cross-attention of the encoder-decoder's
+``attn_x`` and of the VLM's gated ``xattn`` (those three with
+``causal=False``, the last two at Sq != Skv) run kernel K7,
+``kernels.flash_attention``: online-softmax attention over the KV cache
+with the query offset and ``kv_len`` as runtime arguments, which is what
+the reference's ``chunked_attention`` computes there (its module docstring
+names the Pallas flash kernel as its deployment counterpart).  A training
+pass takes K7 as ``FlashAttentionFn``, which ``flash_attention`` picks
+itself where a gradient is wanted; its backward is the blockwise one over
+the config's blocks.  On a CPU tensor, or with ``impl="plain"``, they run
+:func:`chunked_attention` (``kernels.flash_attention.blockwise_attention``
+in the reference's ``(B, S, H, hd)`` layout), whose forward and backward
+hold O(S hd) a head, so a CPU trace or train step holds what the
+reference's does.  A decode step (at most 4 query rows, the reference's
+threshold) runs :func:`direct_attention` in plain torch, as the reference
+does in jnp.
+
+Under a sharded step each rank attends over its local batch rows and query
+heads (``sharding.local_call``).  Where the model axis splits the query
+heads but not GQA's KV heads, each rank narrows its replicated K and V to
+the one group its heads read (``grouped``), as the reference repeats each
+KV block to its local heads; where a rank's heads span two groups, the
+heads are gathered.
 
 MLA (DeepSeek-V3) runs in the reference's absorbed / MQA form: the latent
 cache ``ckv`` plus the shared rope key is one KV head of width
 ``kv_lora_rank + rope_head_dim`` (576 at full width) and the values its
 first ``kv_lora_rank`` (512) columns.  K7 is built for equal q and v widths,
 and the reference runs this attention through its XLA paths, never its
-Pallas kernel; so MLA's attention is :func:`direct_attention` at the prefill
-too (ROADMAP.md queue 2 lists a K7 instance for unequal widths).
+Pallas kernel; so MLA's prefill and training attention is
+:func:`chunked_attention` at those widths on every device (ROADMAP.md lists
+a K7 instance for unequal widths), its decode the direct softmax.
 
 Caches are fixed-capacity ``(B, Smax, G, hd)`` buffers (MLA's ``ckv`` and
 ``kpe``: ``(B, Smax, r)``).  Unlike the reference's functional
@@ -36,7 +53,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention import flash_attention, flash_attention_plain
+from ..kernels.flash_attention import blockwise_attention, flash_attention
 from .layers import rmsnorm
 from .sharding import constrain, local_call, write_slice
 from .spec import ParamSpec
@@ -44,6 +61,7 @@ from .spec import ParamSpec
 __all__ = [
     "rope_cos_sin",
     "rope_rotate",
+    "chunked_attention",
     "direct_attention",
     "attn_spec",
     "attn_apply",
@@ -106,6 +124,34 @@ def direct_attention(
     p = torch.softmax(s, dim=-1).to(v.dtype).to(torch.float32)
     out = torch.einsum("bgrqs,bsgk->bqgrk", p, v.to(torch.float32))
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def chunked_attention(
+    q: torch.Tensor,                # (B, Sq, H, hd)
+    k: torch.Tensor,                # (B, Skv, G, hd)
+    v: torch.Tensor,                # (B, Skv, G, hd_v)
+    *,
+    causal: bool,
+    q_offset: int = 0,              # absolute position of query row 0
+    kv_len: int | None = None,      # number of valid kv entries
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Online-softmax blockwise attention, (B, Sq, H, hd_v); f32 accumulators
+    and O(Sq hd) memory, its backward too.
+
+    The reference's ``chunked_attention`` (name, layout, chunks): query row i
+    sits at ``q_offset + i`` (the reference's ``q_positions``, which the
+    port's callers always give as a run from the cache index), and with
+    ``causal`` each query block skips its fully masked KV blocks (the
+    reference's static ``q_start``; the output bits are the same).
+    ``kernels.flash_attention.blockwise_attention`` on the transposed
+    views."""
+    out = blockwise_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=causal, scale=scale, q_offset=q_offset, kv_len=kv_len,
+                              q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return out.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -178,24 +224,31 @@ def attn_apply(
     else:
         kv_len = s
 
-    out = _attend(q, k, v, causal=causal, positions=positions, q_offset=q_offset,
+    out = _attend(q, k, v, cfg, causal=causal, positions=positions, q_offset=q_offset,
                   kv_len=kv_len, impl=impl)
     return constrain(_out_proj(p, out, axo), None, "batch", "seq", "embed"), new_cache
 
 
-def _attend(q, k, v, *, causal: bool, positions, q_offset: int, kv_len: int, impl: str):
+def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, positions, q_offset: int,
+            kv_len: int, impl: str):
     """(B, Sq, H, hd) attention over (B, Skv, G, hd) keys and values: the
-    direct softmax for a decode step (Sq <= 4), else K7 or its plain version
-    (``flash_attention`` takes ``FlashAttentionFn`` itself where a gradient
-    is wanted)."""
+    direct softmax for a decode step (Sq <= 4), else K7 on a CUDA tensor
+    with ``impl="kernel"`` (``FlashAttentionFn`` where a gradient is wanted,
+    its backward over ``cfg``'s blocks), else :func:`chunked_attention`.
+    Under a sharded step each rank runs its local batch rows and query heads
+    against the KV group they read (module docstring)."""
     if q.shape[1] <= 4:  # decode path
         return direct_attention(q, k, v, causal=causal, q_positions=positions, kv_len=kv_len)
-    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    fn = flash_attention if impl == "kernel" else flash_attention_plain
-    # under a sharded step each rank attends over its local batch rows and heads
-    out = local_call(fn, [q, k, v], [(0, 1)] * 3, [(0, 1)], causal=causal,
-                     q_offset=q_offset, kv_len=kv_len)
-    return out.transpose(1, 2)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, q_chunk=cfg.attn_q_chunk,
+              kv_chunk=cfg.attn_kv_chunk)
+    rep = q.shape[2] // k.shape[2]
+    if impl == "kernel" and q.device.type != "cpu":
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        out = local_call(flash_attention, [q, k, v], [(0, 1)] * 3, [(0, 1)],
+                         grouped=[None, rep, rep], **kw)
+        return out.transpose(1, 2)
+    return local_call(chunked_attention, [q, k, v], [(0, 2)] * 3, [(0, 2)],
+                      grouped=[None, rep, rep], **kw)
 
 
 def _out_proj(p: dict, out: torch.Tensor, axo) -> torch.Tensor:
@@ -249,8 +302,8 @@ def mla_apply(
     last-dim linears (wq_a, wq_b, wkv_a, wo) run on the approximate
     operator; ``wkv_b`` stays exact, as in the reference: its halves
     contract per head against latents, not as a (K, N) linear.  The
-    attention itself is the direct softmax, prefill and decode alike (see
-    the module docstring).
+    attention is :func:`chunked_attention` at Sq > 4 and the direct
+    softmax at a decode step (see the module docstring).
     """
     m = cfg.mla
     b, s, _ = x.shape
@@ -283,6 +336,7 @@ def mla_apply(
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wkv_b"][..., :nope])
     q_full = torch.cat([q_lat, q_pe], dim=-1)             # (B, S, H, r + rope)
 
+    ci = 0
     if cache is not None:
         ci = int(cache_index)
         write_slice(cache["ckv"], ckv.to(cache["ckv"].dtype), 1, ci)
@@ -301,9 +355,10 @@ def mla_apply(
         # query heads against the one shared latent head: DTensor cannot run
         # the heads-split products of the scores and the values, which
         # flatten (head, query) with the heads split
-        lat = local_call(direct_attention, [q_full, k_lat, v_lat],
+        lat = local_call(chunked_attention, [q_full, k_lat, v_lat],
                          [(0, 2), (0, None), (0, None)], [(0, 2)],
-                         causal=True, q_positions=positions, kv_len=kv_len, scale=scale)
+                         causal=True, q_offset=ci, kv_len=kv_len, scale=scale,
+                         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
     else:
         lat = direct_attention(q_full, k_lat, v_lat, causal=True, q_positions=positions,
                                kv_len=kv_len, scale=scale)
@@ -345,8 +400,8 @@ def xattn_apply(
     impl: str = "kernel",                 # the attention engine: "kernel" (K7) | "plain"
 ) -> torch.Tensor:
     """Non-causal attention of ``x``'s queries over every encoder/image key:
-    K7 with ``causal=False`` at the prefill (Sq != Skv), the direct softmax at
-    a decode step.  ``gated`` scales the output by ``tanh(gate)`` (the VLM)."""
+    K7 (or :func:`chunked_attention`) with ``causal=False`` at the prefill
+    (Sq != Skv), the direct softmax at a decode step.  ``gated`` scales the output by ``tanh(gate)`` (the VLM)."""
     b, s = x.shape[:2]
     h, hd = p["wq"].shape[1], p["wq"].shape[2]
     if axo is not None and "wq" in axo[1]:
@@ -355,7 +410,7 @@ def xattn_apply(
         q = _proj(x, p["wq"])
     q = constrain(q, None, "batch", "seq", "heads", "head_dim")
     k, v = kv
-    out = _attend(q, k, v, causal=False, positions=torch.arange(s, device=x.device),
+    out = _attend(q, k, v, cfg, causal=False, positions=torch.arange(s, device=x.device),
                   q_offset=0, kv_len=k.shape[1], impl=impl)
     out = _out_proj(p, out, axo)
     if gated:

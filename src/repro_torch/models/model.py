@@ -493,14 +493,24 @@ def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torc
     return _unembed(params, cfg, x, axo=axo)
 
 
-def _masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over ``labels >= 0``, in f32.  logits (B, S, V), labels (B, S)."""
-    # DTensor's gather cannot take a vocab-sharded operand: gather the vocab
-    logits = gather_dims(logits, -1).to(torch.float32)
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's CE in f32, 0 where ``labels < 0``."""
+    logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    mask = (labels >= 0).to(torch.float32)
-    return ((lse - tgt) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (lse - tgt) * (labels >= 0).to(torch.float32)
+
+
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over ``labels >= 0``, in f32.  logits (B, S, V), labels (B, S).
+
+    Under a sharded step each rank takes its own tokens' CE against the
+    whole vocabulary (``local_call``): DTensor's ``gather`` cannot take a
+    vocab-sharded operand, and on a batch- and sequence-split one its
+    strategy may replicate the logits (on PyTorch 2.11 every rank held the
+    global batch's f32 logits)."""
+    per_token = local_call(_token_ce, [logits, labels], [(0, 1), (0, 1)], [(0, 1)])
+    return per_token.sum() / torch.clamp((labels >= 0).to(torch.float32).sum(), min=1.0)
 
 
 def compute_loss(params: dict, cfg: ModelConfig, batch: dict, ctx=None):

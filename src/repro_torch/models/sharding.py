@@ -263,7 +263,8 @@ def gather_dims(x, *dims: int):
     return x if list(x.placements) == pl else x.redistribute(x.device_mesh, pl)
 
 
-def local_call(fn, xs: list, keep: list[tuple], out_keep: list[tuple], *args, **kw):
+def local_call(fn, xs: list, keep: list[tuple], out_keep: list[tuple], *args,
+               grouped: list | None = None, **kw):
     """``fn`` on the local shards of DTensor operands, its outputs as DTensors.
 
     This is how a hand-written kernel (K7, K8) runs under a sharded step: it
@@ -274,12 +275,21 @@ def local_call(fn, xs: list, keep: list[tuple], out_keep: list[tuple], *args, **
     operand sharded on it is sharded on one role and every operand with that
     role divides evenly there; a replicated operand with the role is cut to
     match (a local slice), and one without it stays replicated.  Elsewhere
-    the operands are gathered on it (so GQA's KV heads that the model dim
-    does not divide bring every query head to each rank).  Outputs are
-    sharded by role as ``out_keep`` says.  The gradient of an operand left
-    replicated on a mesh dim the computation is split over is the sum of the
-    ranks' (``Partial``).  ``None`` operands pass through; with no DTensor
-    operand ``fn`` runs as it is.
+    the operands are gathered on it.  Outputs are sharded by role as
+    ``out_keep`` says.  The gradient of an operand left replicated on a mesh
+    dim the computation is split over is the sum of the ranks' (``Partial``).
+    ``None`` operands pass through; with no DTensor operand ``fn`` runs as
+    it is.
+
+    ``grouped[i] = rep`` declares that ``xs[i]``'s head entries each serve
+    ``rep`` contiguous heads of the other operands (GQA's K and V against
+    the query heads).  Where a mesh dim of size n divides the heads H but
+    not ``xs[i]``'s groups, and each rank's H / n heads lie in one group
+    (H / n divides ``rep``), the heads stay split: ``xs[i]`` is replicated
+    there and each rank narrows its local copy to the one group its heads
+    read.  The narrow is a view (the group dim's stride, the head dim kept
+    contiguous); the gradient outside it is zero, so the ``Partial`` sum is
+    the whole gradient.  Otherwise the heads are gathered on that mesh dim.
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -287,7 +297,13 @@ def local_call(fn, xs: list, keep: list[tuple], out_keep: list[tuple], *args, **
     if not dts:
         return fn(*xs, *args, **kw)
     mesh = dts[0].device_mesh
-    roles = []   # per mesh dim: the role kept sharded, or None
+    grouped = grouped or [None] * len(xs)
+
+    def role_dim(x, kp, role):
+        return kp[role] if isinstance(x, DTensor) and role < len(kp) else None
+
+    roles = []    # per mesh dim: the role kept sharded, or None
+    narrow = []   # per mesh dim: the grouped operands narrowed there
     for m in range(mesh.ndim):
         found = set()
         for x, kp in zip(xs, keep):
@@ -298,24 +314,49 @@ def local_call(fn, xs: list, keep: list[tuple], out_keep: list[tuple], *args, **
                      None)
             found.add(-1 if r is None else r)   # Partial or a dim not kept: gather
         role = found.pop() if len(found) == 1 and -1 not in found else None
-        if role is not None and any(   # every operand with the role cut evenly, or none
-                isinstance(x, DTensor) and role < len(kp) and kp[role] is not None
-                and x.shape[kp[role]] % mesh.size(m) for x, kp in zip(xs, keep)):
-            role = None
+        cut = set()
+        if role is not None:
+            n = mesh.size(m)
+            uneven = {i for i, (x, kp) in enumerate(zip(xs, keep))
+                      if role_dim(x, kp, role) is not None and x.shape[kp[role]] % n}
+            heads = [x.shape[kp[role]] for i, (x, kp) in enumerate(zip(xs, keep))
+                     if role_dim(x, kp, role) is not None and not grouped[i]]
+            if uneven and role == 1 and heads and all(grouped[i] for i in uneven) \
+                    and all(grouped[i] % (heads[0] // n) == 0 for i in uneven):
+                cut = uneven     # every rank reads one group of each
+            elif uneven:         # every operand with the role cut evenly, or none
+                role = None
         roles.append(role)
+        narrow.append(cut)
 
-    def want(kp):
+    def want(kp, i=None):   # i: the operand, for the mesh dims that narrow it
         return [Shard(kp[r]) if r is not None and r < len(kp) and kp[r] is not None
-                else Replicate() for r in roles]
+                and i not in cut else Replicate() for r, cut in zip(roles, narrow)]
 
-    def grad_of(kp):
+    def grad_of(i):
         # a replicated operand of a computation split over a mesh dim gets a
         # different gradient on each rank there: its gradient is their sum
         return [Partial() if isinstance(p, Replicate) and r is not None else p
-                for p, r in zip(want(kp), roles)]
+                for p, r in zip(want(keep[i], i), roles)]
 
-    local = [x.redistribute(mesh, want(kp)).to_local(grad_placements=grad_of(kp))
-             if isinstance(x, DTensor) else x for x, kp in zip(xs, keep)]
+    def offset(i):
+        """The global index of this rank's first entry of ``xs[i]``'s role-1
+        dim under ``want(i)``."""
+        d = keep[i][1]
+        size, off = xs[i].shape[d], 0
+        for m, p in enumerate(want(keep[i], i)):
+            if isinstance(p, Shard) and p.dim == d:
+                size //= mesh.size(m)
+                off += mesh.get_local_rank(m) * size
+        return off
+
+    local = [x.redistribute(mesh, want(keep[i], i)).to_local(grad_placements=grad_of(i))
+             if isinstance(x, DTensor) else x for i, x in enumerate(xs)]
+    if any(narrow):
+        lead = next(i for i, (x, kp) in enumerate(zip(xs, keep))
+                    if role_dim(x, kp, 1) is not None and not grouped[i])
+        for i in set().union(*narrow):
+            local[i] = local[i].narrow(keep[i][1], offset(lead) // grouped[i] - offset(i), 1)
     out = fn(*local, *args, **kw)
     single = not isinstance(out, tuple)
     outs = (out,) if single else out

@@ -300,10 +300,10 @@ _CASES = {"fastchar": _char_case, "fastapp": _app_case, "fastmoo": _moo_case,
           "axo_matmul": _axo_case, "attention": _attn_case, "ssd_scan": _ssd_case}
 
 
-def profile_registry(tel=None, device=None, n_bits: int = 8, iters: int = 10,
+def profile_registry(tel=None, device="cuda", n_bits: int = 8, iters: int = 10,
                      hw=None, shapes: dict | None = None) -> list[ProfileRecord]:
-    """Profile every kernel of the port on ``device`` (the card where one
-    answers): its time, its ``cost_fn`` counts and that time's share of its
+    """Profile every kernel of the port on ``device`` (the card unless the
+    caller asks for the CPU; without CUDA the card raises): its time, its ``cost_fn`` counts and that time's share of its
     roofline bound on ``hw`` (default ``HW.h100_sxm()``); where the plain
     version's operations are counted (K6, K7, the ``gemm`` route),
     ``FlopCounterMode``'s FLOPs of the plain version checked against
@@ -326,9 +326,10 @@ def profile_registry(tel=None, device=None, n_bits: int = 8, iters: int = 10,
 
     tel = obs.current() if tel is None else tel
     hw = HW.h100_sxm() if hw is None else hw
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("profile_registry measures the card and no CUDA device answers; "
+                           "pass device='cpu' to run the plain versions on the host")
     shapes = shapes or {}
     cases = {}
     for engine, build in _CASES.items():

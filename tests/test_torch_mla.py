@@ -115,17 +115,27 @@ def test_mla_prefill_and_decode_with_cache_match_reference(mla):
 
 
 def test_mla_runs_no_flash_attention(mla, monkeypatch):
-    """MLA's attention is the port's plain direct softmax at the prefill: K7
-    (and its plain version) is never called, and nothing catches a refusal."""
+    """MLA's attention at the prefill is the blockwise ``chunked_attention``
+    at widths r + rope and r, once, in the config's chunks: K7 is never
+    called, and nothing catches a refusal."""
     rcfg, cfg, rp, p, x = mla
+    seen = []
 
     def refuse(*args, **kw):
         raise AssertionError("MLA must not call flash attention")
 
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[-1], v.shape[-1], kw["q_chunk"], kw["kv_chunk"]))
+        return chunked(q, k, v, **kw)
+
+    chunked = attention.chunked_attention
     monkeypatch.setattr(attention, "flash_attention", refuse)
-    monkeypatch.setattr(attention, "flash_attention_plain", refuse)
+    monkeypatch.setattr(attention, "chunked_attention", spy)
     out, _ = mla_apply(p, torch.from_numpy(x), cfg, positions=torch.arange(S))
     assert out.shape == (B, S, cfg.d_model)
+    m = cfg.mla
+    assert seen == [(m.kv_lora_rank + m.rope_head_dim, m.kv_lora_rank, cfg.attn_q_chunk,
+                     cfg.attn_kv_chunk)]
 
 
 def test_mla_axo_entries_match_reference(mla):

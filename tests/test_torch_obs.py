@@ -331,8 +331,10 @@ def test_serve_main_writes_a_loadable_trace(tmp_path):
 
 
 def test_serve_run_keeps_its_kernels_once_a_shape_records():
-    """A serving run's K6 and K7 plans record on the run's own telemetry, so
-    its pad waste is its own path's, whatever ran before in the process."""
+    """A serving run's K6 plans record on the run's own telemetry, so its pad
+    waste is its own path's, whatever ran before in the process.  K7 runs on
+    the card only: on the CPU the model's attention is the blockwise plain
+    function, which records no K7 plan."""
     from repro_torch.launch import serve
 
     args = ["--arch", "granite-3-2b", "--device", "cpu", "--gen", "2", "--prompt-len", "8",
@@ -341,10 +343,19 @@ def test_serve_run_keeps_its_kernels_once_a_shape_records():
     for tel in (first, second):
         k6 = tel.histogram_summary("axo_matmul.pad_waste")
         k7 = tel.histogram_summary("flash_attention.pad_waste")
-        assert k6["count"] >= 2 and k7["count"] >= 1
+        assert k6["count"] >= 2 and k7["count"] == 0
         assert tel.counter("jit.retrace.axo_matmul.plan") == k6["count"]
     assert second.histogram_summary("axo_matmul.pad_waste") == \
         first.histogram_summary("axo_matmul.pad_waste")
+
+
+def test_profile_registry_raises_without_a_card():
+    """``profile_registry`` measures the card by default: on a host without
+    CUDA it raises, where it once ran the plain versions on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_registry(tel=tm.Telemetry("p"), iters=1)
 
 
 def test_healthz_carries_the_tuning_cache():

@@ -4,9 +4,11 @@ paths of K7 and K8) against the reference, at the reduced configs in f32.
 Parameters come from the reference's ``init_params`` and cross over by name
 (``convert.params_from_jax``); batches come from ``SyntheticLM`` (numpy,
 equal in both).  The reference runs its XLA paths on the CPU (chunked
-attention, ``ssd_chunked``); the port's wrappers run K7's and K8's plain
-versions there, through ``FlashAttentionFn`` and ``SSDScanFn`` where a
-gradient is wanted.
+attention, ``ssd_chunked``); the port runs its blockwise attention there
+(``models.attention.chunked_attention``, the reference's chunks) and K8's
+plain version, through ``SSDScanFn`` where a gradient is wanted.
+``FlashAttentionFn``'s forward is K7's plain version on the CPU and its
+backward the blockwise one.
 
 Tolerances: the loss and its parts to 1e-5 relative.  Gradients per leaf to
 1e-4 relative norm (a leaf whose norm is under 1e-6 of the global norm is
@@ -50,7 +52,9 @@ from repro_torch.configs.registry import ARCH_IDS, get_arch
 from repro_torch.convert import params_from_jax
 from repro_torch.core.engine import ExecutionContext
 from repro_torch.data.synthetic import SyntheticLM
-from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_plain
+from repro_torch.kernels.flash_attention import (
+    FlashAttentionFn, blockwise_attention, flash_attention_plain,
+)
 from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan_plain
 from repro_torch.launch import train
 from repro_torch.launch.steps import make_train_step
@@ -347,6 +351,10 @@ ATTN_CASES = {
 @pytest.mark.parametrize("case", sorted(ATTN_CASES))
 @pytest.mark.parametrize("needs", ["qkv", "q"])
 def test_flash_attention_fn_grads_equal_plain_autograd(case, needs):
+    """``FlashAttentionFn``'s forward is K7's plain version bit for bit; its
+    gradients are ``blockwise_attention``'s bit for bit (its backward, at the
+    same blocks) and, in float64, the plain version's autodiff within
+    1e-10."""
     c = ATTN_CASES[case]
     gen = torch.Generator().manual_seed(0)
     q = torch.randn((2, 4, c["sq"], 16), generator=gen)
@@ -354,19 +362,24 @@ def test_flash_attention_fn_grads_equal_plain_autograd(case, needs):
     w = torch.randn((2, 4, c["sq"], 16), generator=gen)
     kw = dict(causal=c["causal"], q_offset=c["q_offset"], kv_len=c["kv_len"])
 
-    def grads(fn):
-        ins = [t.clone().requires_grad_(name in needs) for name, t in zip("qkv", (q, k, v))]
-        out = fn(*ins)
-        wrt = [t for t in ins if t.requires_grad]
-        return out.detach(), torch.autograd.grad((out * w).sum(), wrt)
+    for dtype in (torch.float32, torch.float64):
+        def grads(fn):
+            ins = [t.to(dtype).requires_grad_(name in needs)
+                   for name, t in zip("qkv", (q, k, v))]
+            out = fn(*ins)
+            wrt = [t for t in ins if t.requires_grad]
+            return out.detach(), torch.autograd.grad((out * w.to(dtype)).sum(), wrt)
 
-    got = grads(lambda *t: FlashAttentionFn.apply(*t, kw["causal"], None, kw["q_offset"],
-                                                  kw["kv_len"]))
-    want = grads(lambda *t: flash_attention_plain(*t, **kw))
-    assert torch.equal(got[0], want[0])
-    assert len(got[1]) == len(needs)
-    for a, b in zip(got[1], want[1]):
-        assert torch.equal(a, b)
+        got = grads(lambda *t: FlashAttentionFn.apply(*t, kw["causal"], None, kw["q_offset"],
+                                                      kw["kv_len"], 8, 8))
+        blockwise = grads(lambda *t: blockwise_attention(*t, q_chunk=8, kv_chunk=8, **kw))
+        want = grads(lambda *t: flash_attention_plain(*t, **kw))
+        assert torch.equal(got[0], want[0])
+        assert len(got[1]) == len(needs)
+        for a, b, p in zip(got[1], blockwise[1], want[1]):
+            assert torch.equal(a, b)
+            if dtype == torch.float64:
+                torch.testing.assert_close(a, p, atol=1e-10, rtol=1e-10)
 
 
 @pytest.mark.parametrize("with_state", [False, True], ids=["y-only", "y-and-state"])

@@ -1,8 +1,9 @@
 """Training through kernels K7 and K8 on the card.
 
 K7 and K8 are forward kernels bound with ``ctypes``: their outputs carry no
-``grad_fn``.  Training takes them through ``FlashAttentionFn`` and
-``SSDScanFn``, whose backward differentiates the plain versions; the
+``grad_fn``.  Training takes them through ``FlashAttentionFn``, whose
+backward is the blockwise attention's, and ``SSDScanFn``, whose backward
+differentiates the plain scan; the
 wrappers ``flash_attention`` and ``ssd_scan`` take that route themselves for
 grad-requiring CUDA inputs (``ssd_scan_scalar``, which has no autograd
 function, refuses them), so that no caller gets a detached result.  Every test here needs an NVIDIA card (marked ``gpu``) and
@@ -10,8 +11,9 @@ skips without one; nothing here imports JAX.
 
 Tolerances: an autograd function's forward equals its raw kernel call bit
 for bit; its gradients match plain autograd to one bf16 ulp (2^-7) of each
-gradient's largest entry in bf16 and to 1e-5 relative norm in f32 (the
-backward is the plain version's own, fed the same cotangent).  Two reduced
+gradient's largest entry in bf16 and to 1e-5 relative norm in f32 (K8's
+backward is the plain version's own, fed the same cotangent; K7's the
+blockwise one, the same softmax algebra a block pair at a time).  Two reduced
 train steps through the kernels match the same steps on the plain versions
 to 1e-3 relative (loss, grad norm, parameters), the serving paths'
 tolerance for reduced f32 logits, or to twice what one-ulp nudges of the

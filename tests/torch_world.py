@@ -13,7 +13,8 @@ JOB; rank 0 writes what the tests compare to ``OUT_DIR/JOB.npz``.  Jobs:
   loss, ``grad_norm`` and updated parameters.
 * ``serve`` (8 ranks): the sharded prefill and decode steps
   (``make_prefill_step`` / ``make_decode_step`` with ``mesh=`` and
-  ``rules=``) of each of ``SERVE_ARCHS`` reduced on a (2, 4) mesh, in f32
+  ``rules=``) of each of ``SERVE_ARCHS`` reduced, and of ``GATHER_ARCH``
+  (whose query heads are gathered), on a (2, 4) mesh, in f32
   from the seed-0 weights (``init_params(..., mesh=)``), each rule table
   ``rules_for``'s for its kind: the prefill's logits, the cache placed by the
   decode rules (its sequence dim over ``model``), and two decode steps'
@@ -48,6 +49,9 @@ SERVE_ARCHS = ("granite-3-2b", "mamba2-130m", "kimi-k2-1t-a32b", "deepseek-v3-67
                "whisper-medium", "llama-3.2-vision-90b", "jamba-v0.1-52b")
 SERVE_PROMPT, SERVE_CAP, SERVE_BATCH = 16, 24, 8   # prompt, cache capacity, batch
 SERVE_DECODES = 2
+# reduced granite with 12 query heads over 6 KV groups: on 4 model ranks
+# each rank's 3 heads span two groups, so the attention gathers its heads
+GATHER_ARCH = "granite-3-2b@12x6"
 
 
 def free_port() -> int:
@@ -266,6 +270,18 @@ def _placed_init(rank, world, mesh_shape) -> dict:
     return {"placed_init:bad": np.array(json.dumps(ranks))}
 
 
+def serve_config(name: str):
+    """The reduced config of a served name: an arch of ``SERVE_ARCHS`` or
+    ``GATHER_ARCH``."""
+    from dataclasses import replace
+
+    from repro_torch.configs.registry import get_arch
+
+    if name == GATHER_ARCH:
+        return replace(get_arch("granite-3-2b").reduced(), n_heads=12, kv_heads=6)
+    return get_arch(name).reduced()
+
+
 def serve_inputs(cfg) -> tuple:
     """(prompt tokens (B, SERVE_PROMPT), decode tokens (B, SERVE_DECODES),
     the stub frontend or None) as numpy, from ``SyntheticLM``."""
@@ -293,7 +309,6 @@ def serve_rules(cfg, mesh_shape):
 def _serve(mesh_shape) -> dict:
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.configs.registry import get_arch
     from repro_torch.core.engine import ExecutionContext
     from repro_torch.launch.steps import cache_placements, make_decode_step, make_prefill_step
     from repro_torch.models.model import model_spec
@@ -302,8 +317,8 @@ def _serve(mesh_shape) -> dict:
     mesh = _mesh(mesh_shape)
     cpu = ExecutionContext(device="cpu")
     out = {}
-    for arch in SERVE_ARCHS:
-        cfg = get_arch(arch).reduced()
+    for arch in SERVE_ARCHS + (GATHER_ARCH,):
+        cfg = serve_config(arch)
         pre_rules, dec_rules = serve_rules(cfg, mesh_shape)
         params = init_params(model_spec(cfg), seed=0, dtype=torch.float32, device="cpu",
                              mesh=mesh, rules=pre_rules)
