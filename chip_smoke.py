@@ -232,11 +232,15 @@ Phases, each printed on its own line, any failure raising (exit code != 0):
   dryrun: the dry-run tools (``launch.dryrun``, ``launch.lowering``,
      ``launch.report``) on this card's PyTorch: ``run_cell`` (its cost
      probes, ``--probe``) on a fake world of 256 ranks for every shape of
-     granite-3-2b on the 16x16 mesh and mamba2-130m's long_500k, and of 512
-     ranks for granite's decode_32k on 2x16x16, the fake tensors on
-     ``cuda`` (no card memory is used); each record's status, per-device
-     need, FLOPs, collective bytes by kind and bottleneck on a line, then the
-     report's tables over the written records.  Then a one-rank cross-check:
+     granite-3-2b on the 16x16 mesh, internlm2-1.8b's train_4k (its
+     vocabulary, 92,544, splits 16 ways as a parameter: the head gathers it)
+     and mamba2-130m's long_500k, and of 512 ranks for granite's decode_32k
+     on 2x16x16, the fake tensors on ``cuda`` (no card memory is used); each
+     record's status, per-device need, FLOPs, collective bytes by kind and
+     bottleneck on a line, then the report's tables over the written
+     records.  The train cells must fit 80 GB, and granite's train_4k,
+     whose head and CE run on each rank's own tokens, must need at most
+     TRAIN_4K_NEED_BOUND (24.046 GB before they did).  Then a one-rank cross-check:
      ``lower_step`` of the train phase's granite steps (full width and depth,
      batch 8 x 128 and 4 x 4,096, AdamW, remat; no mesh) predicts the peak
      memory and the FLOPs that the card measures for those steps in this run (the train
@@ -1818,7 +1822,12 @@ def shard_phase(torch, dev, wrappers, dse_args) -> dict:
 # (arch, shape, multi-pod) of the dryrun phase's cells, traced by their probes
 DRYRUN_CELLS = (("granite-3-2b", "train_4k", False), ("granite-3-2b", "prefill_32k", False),
                 ("granite-3-2b", "decode_32k", False), ("granite-3-2b", "long_500k", False),
-                ("mamba2-130m", "long_500k", False), ("granite-3-2b", "decode_32k", True))
+                ("mamba2-130m", "long_500k", False), ("granite-3-2b", "decode_32k", True),
+                ("internlm2-1.8b", "train_4k", False))
+# granite-3-2b train_4k on 16x16: the most a device may need, in bytes, now
+# that the head and CE run on each rank's own tokens, and the need before
+TRAIN_4K_NEED_BOUND = 11.5e9
+TRAIN_4K_NEED_BEFORE = 24.046e9
 # the one-rank cross-check's FLOPs, predicted against measured
 DRYRUN_FLOPS_REL = 0.01
 
@@ -1865,6 +1874,19 @@ def dryrun_cells(out_dir: str) -> dict:
             print(f"phase dryrun: report: {line}", flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()   # later phases see no world
+    for (arch, shape, mesh), rec in recs.items():
+        if shape != "train_4k":
+            continue
+        bound = TRAIN_4K_NEED_BOUND if arch == "granite-3-2b" else None
+        print(f"phase dryrun: {arch} x {shape} x {mesh}: per-device need "
+              f"{rec['hbm_need_bytes'] / 1e9:.3f} GB"
+              + (f" (bound {bound / 1e9:.3f} GB; {TRAIN_4K_NEED_BEFORE / 1e9:.3f} GB before "
+                 f"the head and CE ran on each rank's own tokens)" if bound else "")
+              + f", fits 80 GB: {rec['fits_h100_hbm']}; traced in "
+              f"{wall[f'{arch} {shape} {mesh}']:.1f} s wall", flush=True)
+        if not rec["fits_h100_hbm"] or (bound and rec["hbm_need_bytes"] > bound):
+            raise AssertionError(f"the dry-run of {arch} x {shape} x {mesh} needs "
+                                 f"{rec['hbm_need_bytes'] / 1e9:.3f} GB a device")
     return {"wall_s": wall, "records": {" ".join(k): v for k, v in recs.items()}}
 
 

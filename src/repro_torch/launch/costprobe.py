@@ -34,8 +34,8 @@ does not: the doubled block is one remat checkpoint where the full step
 has one a repeat (a checkpoint's recompute stops at its last saved tensor,
 so a repeat's tail is counted once more: +2.5% FLOPs on reduced granite at
 3 repeats; and the peak, with two layers' activations live in one
-recompute, is off: below the full trace's on the reduced granite cell the
-tests run), and the clip's and the optimizer's per-leaf scalars follow the
+recompute, is off: 4% above the full trace's on the reduced granite cell
+the tests run), and the clip's and the optimizer's per-leaf scalars follow the
 leaf count.  The port's dry-run therefore doubles the *repeats*
 (``double="repeats"``): each repeat is its own checkpoint and the stacked
 leaves keep their count, as in the full step, so the extrapolation equals

@@ -44,6 +44,8 @@ for the AxO projections (K6).
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -478,7 +480,8 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return local_call(_lookup, [params["embed"]["tok"], tokens], [(None,), (0,)], [(0,)])
 
 
-def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torch.Tensor:
+def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torch.Tensor:
+    """The serving steps' logits (B, S, V) from the final hidden state."""
     x = _full_seq(x)
     if axo is not None and axo.head is not None:
         logits = axo.apply(x, axo.head)
@@ -489,10 +492,6 @@ def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torch
     return constrain(logits, None, "batch", "res_seq", "vocab")
 
 
-def logits_fn(params: dict, cfg: ModelConfig, x: torch.Tensor, axo=None) -> torch.Tensor:
-    return _unembed(params, cfg, x, axo=axo)
-
-
 def _token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Each token's CE in f32, 0 where ``labels < 0``."""
     logits = logits.to(torch.float32)
@@ -501,15 +500,94 @@ def _token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - tgt) * (labels >= 0).to(torch.float32)
 
 
-def _masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over ``labels >= 0``, in f32.  logits (B, S, V), labels (B, S).
+class _SumOver(torch.autograd.Function):
+    """All-reduce SUM over ``groups``.  Every rank of the groups consumes the
+    sum alike and the loss counts it once, so the gradient passes through
+    (Megatron's reduce from the model-parallel region)."""
 
-    Under a sharded step each rank takes its own tokens' CE against the
-    whole vocabulary (``local_call``): DTensor's ``gather`` cannot take a
-    vocab-sharded operand, and on a batch- and sequence-split one its
-    strategy may replicate the logits (on PyTorch 2.11 every rank held the
-    global batch's f32 logits)."""
-    per_token = local_call(_token_ce, [logits, labels], [(0, 1), (0, 1)], [(0, 1)])
+    @staticmethod
+    def forward(ctx, t, groups):
+        import torch.distributed as dist
+
+        out = t.clone()
+        for group in groups:
+            dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, offset: int,
+                       groups: list) -> torch.Tensor:
+    """:func:`_token_ce` where this rank holds the vocabulary entries
+    ``[offset, offset + V_local)`` of the logits and the ranks of ``groups``
+    the rest: the max and the sum of exponentials are combined over them,
+    and the target logit comes from the rank that holds its entry."""
+    import torch.distributed as dist
+
+    logits = logits.to(torch.float32)
+    with torch.no_grad():
+        top = logits.max(dim=-1).values
+        for group in groups:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    sumexp = _SumOver.apply(torch.exp(logits - top[..., None]).sum(-1), groups)
+    local = labels.long() - offset
+    mine = (local >= 0) & (local < logits.shape[-1])
+    tgt = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    tgt = _SumOver.apply(torch.where(mine, tgt, 0.0), groups)
+    return (torch.log(sumexp) + top - tgt) * (labels >= 0).to(torch.float32)
+
+
+def _head_token_ce(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, vdim: int,
+                   split: tuple | None = None) -> torch.Tensor:
+    """The head's logits from ``x`` (B, S, d) and its weight ``w`` ((V, d)
+    tied, ``vdim`` 0; (d, V) untied, ``vdim`` 1), then each token's CE: over
+    the whole vocabulary, or with ``split = (offset, groups)`` over this
+    rank's slice of it (:func:`_vocab_parallel_ce`)."""
+    logits = x @ w.T if vdim == 0 else x @ w
+    if split is None:
+        return _token_ce(logits, labels)
+    return _vocab_parallel_ce(logits, labels, *split)
+
+
+def _head_ce(params: dict, cfg: ModelConfig, x: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over ``labels >= 0`` of the head on ``x`` (B, S, d), in f32.
+
+    Under a sharded step the head and the CE run on each rank's own tokens
+    (``local_call``), in the layout the reference resolves: where ``x`` or
+    ``labels`` is split over a mesh dim (the batch over ``data``, the
+    sequence over ``model``), the weight is gathered there and each rank
+    holds its (B/d, S/m, V) logits; where neither is split and the weight's
+    vocabulary is, evenly, each rank keeps its vocabulary slice and the CE
+    is combined across those ranks (:func:`_vocab_parallel_ce`).  The
+    weight's gradient is the ranks' sum.  No (B, S, V) logits exist."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    w, vdim = (params["embed"]["tok"], 0) if cfg.tie_embeddings else \
+        (params["embed"]["unembed"], 1)
+    keep_w, split = (), None
+    if isinstance(w, DTensor):
+        mesh = w.device_mesh
+        busy = {m for t in (x, labels) if isinstance(t, DTensor)
+                for m, p in enumerate(t.placements) if not isinstance(p, Replicate)}
+        dims = [m for m, p in enumerate(w.placements)
+                if p == Shard(vdim) and m not in busy and mesh.size(m) > 1]
+        if w.shape[vdim] % math.prod(mesh.size(m) for m in dims):
+            dims = []
+        want = [Shard(vdim) if m in dims else Replicate() for m in range(mesh.ndim)]
+        if list(w.placements) != want:
+            w = w.redistribute(mesh, want)
+        if dims:
+            size, offset = w.shape[vdim], 0
+            for m in dims:
+                size //= mesh.size(m)
+                offset += mesh.get_local_rank(m) * size
+            keep_w, split = (None, None, vdim), (offset, [mesh.get_group(m) for m in dims])
+    per_token = local_call(_head_token_ce, [x, w, labels], [(0, 1), keep_w, (0, 1)],
+                           [(0, 1)], vdim, split=split)
     return per_token.sum() / torch.clamp((labels >= 0).to(torch.float32).sum(), min=1.0)
 
 
@@ -526,7 +604,7 @@ def compute_loss(params: dict, cfg: ModelConfig, batch: dict, ctx=None):
     dtype = params["norm_f"].dtype
     front = {k: batch[k].to(dtype) for k in ("enc_embeds", "img_embeds") if k in batch}
     x, aux, _ = forward(params, cfg, batch["tokens"], mode="train", ctx=ctx, **front)
-    ce = _masked_ce(_unembed(params, cfg, x), batch["labels"])
+    ce = _head_ce(params, cfg, x, batch["labels"])
     loss = ce + aux
     metrics = {"ce": ce, "moe_aux": aux}
     if cfg.mtp:
@@ -535,7 +613,7 @@ def compute_loss(params: dict, cfg: ModelConfig, batch: dict, ctx=None):
         x = _full_seq(x)
         h = torch.cat([rmsnorm(x[:, :-1], mtp["norm_h"], cfg.norm_eps),
                        rmsnorm(emb_next, mtp["norm_e"], cfg.norm_eps)], dim=-1)
-        mtp_ce = _masked_ce(_unembed(params, cfg, h @ mtp["proj"]), batch["labels"][:, 1:])
+        mtp_ce = _head_ce(params, cfg, h @ mtp["proj"], batch["labels"][:, 1:])
         loss = loss + cfg.mtp_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce
     metrics["loss"] = loss

@@ -269,8 +269,9 @@ def local_call(fn, xs: list, keep: list[tuple], out_keep: list[tuple], *args,
 
     This is how a hand-written kernel (K7, K8) runs under a sharded step: it
     takes each rank's local tensors, never a DTensor.  ``keep[i]`` names, by
-    role (role 0 the batch dim, role 1 the head dim, ``None`` where ``xs[i]``
-    has none), the dims of ``xs[i]`` that may stay sharded; every other dim
+    role (role 0 the batch dim, role 1 the head dim or the sequence, role 2
+    the head weight's vocabulary; ``None`` where ``xs[i]`` has none), the
+    dims of ``xs[i]`` that may stay sharded; every other dim
     is all-gathered first.  A mesh dim keeps its shard only where every
     operand sharded on it is sharded on one role and every operand with that
     role divides evenly there; a replicated operand with the role is cut to

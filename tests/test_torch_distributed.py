@@ -16,20 +16,26 @@ reference is changed.
   weight-stationary body): within the reference's own bounds (2e-4, aux
   1e-5) of its single-device ``moe_apply``, and as close to its EP run on
   the same mesh.
-* The sharded train step on a (2, 4) world, for ``granite-3-2b`` and
-  ``mamba2-130m`` reduced.  Against one device: the loss within the
+* The sharded train step on a (2, 4) world, for ``granite-3-2b``,
+  ``mamba2-130m`` and ``deepseek-v3-671b`` (MLA, MoE and the MTP head)
+  reduced.  Against one device: the loss within the
   reference test's 5e-3 relative; every leaf's loss gradient (above 1e-4),
   its ``grad_norm`` and the update it applied (parameters after minus
   before) within twice what a one-ulp nudge of every weight, up or down,
   does to them on one device.  The update is held element by element
   where the gradient stands clear of that nudge noise (twice its leaf's
   gradient nudge): elsewhere a first AdamW step, about lr * sign(g), may
-  rightly go either way.  Against the reference's step on its (2, 4) mesh:
+  rightly go either way.  Against the reference's step on its (2, 4) mesh
+  (granite and mamba2, ``REF_MESH_ARCHS``):
   the loss to 1e-5 and ``grad_norm`` to 1e-4 relative, as
   ``tests/test_torch_train.py`` holds one device, and the reference's
   update in the same band around the port's single-device step (its
   ``grad_norm`` sits 6.7e-6 relative from the port's, outside the port's
   own nudge band: the reference sums in another order).
+* The loss gradients of the head and CE on each rank's own tokens
+  (``HEAD_CASES``: reduced granite at a vocabulary of 258, which the model
+  axis does not split, and at a train length of 30, which it does not split,
+  so the CE runs vocab-parallel) on (2, 4), held to one device as kimi-k2's.
 * Elastic restore and a fault in a world: a checkpoint of step 0 written by
   one process resumes on a (2, 2) world, which takes step 1, meets a fault
   on every rank before step 2, restores step 1 and takes step 2.  Every rank
@@ -53,7 +59,6 @@ jax = pytest.importorskip("jax")  # the reference; the card's host has no JAX
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.checkpoint.ckpt import restore_tree  # noqa: E402
-from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.core.engine import ExecutionContext  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
@@ -65,9 +70,14 @@ from repro_torch.optim import cosine_schedule, make_optimizer, tree_map  # noqa:
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-from torch_world import MOE_ARCH, SHAPE, TRAIN_ARCHS  # noqa: E402
+from torch_world import HEAD_CASES, MOE_ARCH, SHAPE, TRAIN_ARCHS, case_config  # noqa: E402
 
 LR = cosine_schedule(1e-3)   # the worlds' schedule
+# the archs whose sharded step is also held to the reference's on its mesh.
+# deepseek-v3-671b is not: the reference's own one-device update sits one
+# ulp of a parameter off the port's on single elements (wkv_a), outside the
+# one-ulp-nudge band the update is held in; its loss and grad_norm agree
+REF_MESH_ARCHS = ("granite-3-2b", "mamba2-130m")
 CPU = ExecutionContext(device="cpu")
 TIMEOUT = 300                # seconds, each subprocess
 
@@ -177,9 +187,9 @@ REF_CODE = """
 
 
 def _setup(arch):
-    cfg = get_arch(arch).reduced()
+    cfg, shape = case_config(arch)
     params = init_params(model_spec(cfg), seed=0, dtype=torch.float32, device="cpu")
-    return cfg, params, SyntheticLM(cfg, ShapeConfig(*SHAPE))
+    return cfg, params, SyntheticLM(cfg, shape)
 
 
 def _batch(data, step):
@@ -206,7 +216,7 @@ def runs(tmp_path_factory):
              x=np.random.default_rng(0).standard_normal((4, 16, moe_cfg.d_model))
              .astype(np.float32), **{k: v.numpy() for k, v in moe_p.items()})
     np.savez(os.path.join(out_dir, "train_in.npz"),
-             **{f"{arch}{p}".replace("/", "|"): v for arch in TRAIN_ARCHS
+             **{f"{arch}{p}".replace("/", "|"): v for arch in REF_MESH_ARCHS
                 for p, v in _leaves(_setup(arch)[1]).items()})
     # step 0 on one device, checkpointed by one process, for the narrow world
     cfg, params, data = _setup(TRAIN_ARCHS[0])
@@ -219,7 +229,7 @@ def runs(tmp_path_factory):
     started = {
         "ref": _Run([sys.executable, "-c", textwrap.dedent(REF_CODE)],
                     _env(XLA_FLAGS="--xla_force_host_platform_device_count=8",
-                         JAX_PLATFORMS="cpu", OUT_DIR=out_dir, TRAIN_ARCHS=",".join(TRAIN_ARCHS),
+                         JAX_PLATFORMS="cpu", OUT_DIR=out_dir, TRAIN_ARCHS=",".join(REF_MESH_ARCHS),
                          SHAPE=",".join(map(str, SHAPE))),
                     os.path.join(out_dir, "ref.npz")),
         "wide": _Run([sys.executable, world, "wide", "8", out_dir], _env(OMP_NUM_THREADS="1"),
@@ -397,7 +407,7 @@ def test_sharded_train_step_matches_one_device(runs, arch):
     assert abs(loss - want) < 5e-3 * max(1.0, abs(want))
 
 
-@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+@pytest.mark.parametrize("arch", REF_MESH_ARCHS)
 def test_sharded_train_step_matches_the_reference_on_a_mesh(runs, arch):
     """The port's step on its (2, 4) world against the reference's on its
     (2, 4) mesh, from the same weights and batch: the loss to 1e-5 and
@@ -417,6 +427,17 @@ def test_sharded_moe_gradients_match_one_device(runs, world):
     through the weight-stationary body on (2, 4), through ``_ep_body`` on
     (1, 4), under the sharded step's autograd."""
     _hold_grads(_get(runs, "wide" if world == "train" else "narrow"), MOE_ARCH)
+
+
+@pytest.mark.parametrize("case", HEAD_CASES)
+def test_sharded_loss_gradients_match_one_device(runs, case):
+    """The head and CE on each rank's own tokens (``model._head_ce``) under
+    the sharded step's autograd on (2, 4), reduced granite: at a vocabulary
+    of 258, which 4 does not divide (the weight gathered, each rank's B/2 x
+    S/4 tokens), and at a train length of 30, which 4 does not divide (the
+    vocab-parallel CE over ``model``).  deepseek-v3's MTP head, which runs
+    the head twice, is held with the train step (``TRAIN_ARCHS``)."""
+    _hold_grads(_get(runs, "wide"), case)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,12 @@ JOB; rank 0 writes what the tests compare to ``OUT_DIR/JOB.npz``.  Jobs:
   ``OUT_DIR/psum_in.npz``; the expert-parallel MoE (``jamba-v0.1-52b``
   reduced) on the weights and input of ``OUT_DIR/moe_in.npz`` on a (2, 4)
   mesh (the weight-stationary body); the loss gradients of
-  ``kimi-k2-1t-a32b`` reduced there; and one sharded train step of
-  ``granite-3-2b`` and ``mamba2-130m`` reduced on a (2, 4) mesh, with its
-  loss, ``grad_norm`` and updated parameters.
+  ``kimi-k2-1t-a32b`` reduced there, and of the ``HEAD_CASES`` (the head
+  and CE on each rank's tokens: a vocabulary the model axis does not split,
+  and a sequence it does not split, which takes the vocab-parallel CE); and
+  one sharded train step of each of ``TRAIN_ARCHS`` reduced on a (2, 4)
+  mesh (deepseek-v3-671b's MTP head runs the head twice), with its loss,
+  ``grad_norm`` and updated parameters.
 * ``serve`` (8 ranks): the sharded prefill and decode steps
   (``make_prefill_step`` / ``make_decode_step`` with ``mesh=`` and
   ``rules=``) of each of ``SERVE_ARCHS`` reduced, and of ``GATHER_ARCH``
@@ -41,7 +44,14 @@ import torch
 import torch.distributed as dist
 
 SHAPE = ("t", 32, 8, "train")     # the train jobs' ShapeConfig
-TRAIN_ARCHS = ("granite-3-2b", "mamba2-130m")
+TRAIN_ARCHS = ("granite-3-2b", "mamba2-130m", "deepseek-v3-671b")
+# variants of a reduced arch: name -> (arch, config overrides, ShapeConfig args)
+HEAD_CASES = {
+    # 4 does not divide the vocabulary: the head's weight stays whole
+    "granite-3-2b@v258": ("granite-3-2b", {"vocab": 258}, SHAPE),
+    # 4 does not divide the sequence: the CE runs vocab-parallel over model
+    "granite-3-2b@s30": ("granite-3-2b", {}, ("t", 30, 8, "train")),
+}
 MOE_ARCH = "kimi-k2-1t-a32b"
 ELASTIC_STEPS = 3                 # the elastic run ends after step 2
 FAULT_STEP = 2                    # every rank raises before this step, once
@@ -120,15 +130,24 @@ def _moe(out_dir, mesh_shape) -> dict:
             "moe:allreduces": np.array(calls)}
 
 
-def _train_setup(arch, mesh_shape):
+def case_config(name: str):
+    """(the reduced config, the ShapeConfig) of a train arch or a ``HEAD_CASES`` name."""
+    from dataclasses import replace
+
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.configs.registry import get_arch, rules_for
+    from repro_torch.configs.registry import get_arch
+
+    arch, over, shape = HEAD_CASES.get(name, (name, {}, SHAPE))
+    return replace(get_arch(arch).reduced(), **over), ShapeConfig(*shape)
+
+
+def _train_setup(arch, mesh_shape):
+    from repro_torch.configs.registry import rules_for
     from repro_torch.core.engine import ExecutionContext
     from repro_torch.launch.steps import make_train_step, train_state_placements
     from repro_torch.optim import cosine_schedule, make_optimizer
 
-    cfg = get_arch(arch).reduced()
-    shape = ShapeConfig(*SHAPE)
+    cfg, shape = case_config(arch)
     mesh = _mesh(mesh_shape)
     rules = rules_for(cfg, shape, mesh_model=mesh_shape[1], mesh_data=mesh_shape[0])
     opt = make_optimizer("adamw", cosine_schedule(1e-3))
@@ -160,18 +179,19 @@ def _batch(data, step: int) -> dict:
     return {k: torch.as_tensor(v) for k, v in data.batch(step).items()}
 
 
-def _moe_grads(mesh_shape) -> dict:
-    """The reduced MoE arch's loss gradients on a ``mesh_shape`` mesh."""
+def _loss_grads(name: str, mesh_shape) -> dict:
+    """The loss gradients of ``name`` (an arch or a ``HEAD_CASES`` name) on a
+    ``mesh_shape`` mesh."""
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models.model import model_spec
     from repro_torch.models.spec import distribute_params, init_params
 
-    cfg, shape, mesh, rules, *_ = _train_setup(MOE_ARCH, mesh_shape)
+    cfg, shape, mesh, rules, *_ = _train_setup(name, mesh_shape)
     spec = model_spec(cfg)
     params = distribute_params(init_params(spec, seed=0, dtype=torch.float32, device="cpu"),
                                spec, rules, mesh)
     grads = _full(_sharded_grads(cfg, params, _batch(SyntheticLM(cfg, shape), 0), rules, mesh))
-    return {f"{MOE_ARCH}:grad:{k}": v for k, v in _flat(grads).items()}
+    return {f"{name}:grad:{k}": v for k, v in _flat(grads).items()}
 
 
 def _train(mesh_shape) -> dict:
@@ -356,14 +376,15 @@ def job_serve(out_dir, rank, world):
 def job_wide(out_dir, rank, world):
     out = _psum(out_dir, rank, world)
     out.update(_moe(out_dir, (2, world // 2)))
-    out.update(_moe_grads((2, world // 2)))
+    for name in (MOE_ARCH, *HEAD_CASES):
+        out.update(_loss_grads(name, (2, world // 2)))
     out.update(_train((2, world // 2)))
     return out
 
 
 def job_narrow(out_dir, rank, world):
     out = _moe(out_dir, (1, world))
-    out.update(_moe_grads((1, world)))
+    out.update(_loss_grads(MOE_ARCH, (1, world)))
     out.update(_elastic(out_dir, rank, world, (2, world // 2)))
     out.update(_placed_init(rank, world, (2, world // 2)))
     return out
