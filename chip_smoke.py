@@ -320,10 +320,35 @@ f32 GEMM; and K8 at jamba's prefill scan (B=4, S=128, H=128, P=64, N=128).
 The device-time phase adds their profiler times, K8's at jamba's prefill
 and MLA's attention.
 
+Both have a second design for the shapes that lost most to a library call:
+K7's wgmma route (non-causal calls and causal ones over 512 keys or more)
+and K6's skinny route (16 < M <= 80).  At the K6_NEW and K7_NC shapes where
+the plan takes a new route, and at granite's 4 x 4096 causal training
+forward (a record of its own, its launches the train phase's long steps),
+phase 3 holds the new route and the earlier route (named through the
+wrappers' and raw launchers' ``route=``) to the plain version and times both
+in turns, old, new, new, old, printing each route and its tiles.  Each K7
+route is held row by row (a relative norm of 2^-7 a query), and the wgmma
+route also to its plain twin (``k7_wgmma_twin``: the same 128-key tiles, p
+rounded to bf16) within ``K7_TWIN_ULPS`` bf16 ulps.  The device-time phase
+profiles both routes; the skinny K6 shapes and K7 at 4 x 4096 in a fresh
+process of their own (``fresh_profile``), with whisper's encoder there and
+in the script's process as a yardstick.  ``device_ms`` takes each kernel's
+launches from its wrapper's counter (or, for a library call, the host's
+launch calls), not from the profiler's events, which late in the script
+fall short.  The dryrun phase times K7's wrapper, custom op and raw launcher
+at whisper's cross on both routes, with the host's cost of each step.  Shapes whose
+route did not change (K7 at granite's S=128 prefill, K6 at its 512-row
+prefill and 4-row decode) must give the named earlier route's bits.  Every
+serving phase counts K6's and K7's launches by route: every non-causal K7
+call on the wgmma route, serve-hybrid's and serve-mla's expert buffers on
+the skinny route; the train phase's 4 x 4096 steps all on K7's wgmma route.
+
 Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
 decode shapes (M=4 against the five weight shapes), a prefill shape (M=512,
-2048 x 8192), mamba2's head (M=8), the boundary of its two routes (M=16 on
-the GEMV, M=17 on the tensor cores) and, with a random 36-bit config whose
+2048 x 8192), mamba2's head (M=8), the boundaries of its routes (M=16 on
+the GEMV, M=17 on the skinny tensor-core route, M=81 on the 128 x 128
+tiles) and, with a random 36-bit config whose
 factor part dominates, gate/up at decode and prefill, at rank 8, to 1e-5
 relative norm; its bound is the larger of the bytes and the three-pass TF32
 work, with the f32-pipe count beside it.  It holds K7 (flash attention) at
@@ -354,13 +379,16 @@ serve-encdec and serve-vlm, of K6 in serve-dense, serve-moe, serve-hybrid +
 serve-mla (the expert-buffer record) and serve-encdec + serve-vlm (the cross
 K/V record), of K8 at jamba's shape from serve-hybrid, each counted
 separately; K7's and K8's records add the train phase's launches, granite's
-steps and mamba2's run through ``launch.train.main``, as ``train_launches``) and the card's ``nvidia-smi`` name and power limit; the last line is the
+8 x 128 steps and mamba2's run through ``launch.train.main``, as
+``train_launches``, and the 4 x 4096 steps count under their own record;
+a record's own route, where it has one, is its ``plan_route``) and the card's ``nvidia-smi`` name and power limit; the last line is the
 result JSON.  Nothing of JAX or of the reference package is imported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -463,10 +491,12 @@ K7_NC = {"whisper encoder": (16, 16, 1500, 1500, 64),
          "whisper cross": (16, 16, PROMPT_LEN, 1500, 64),
          "vlm cross": (64, 8, PROMPT_LEN, 1600, 128)}
 JAMBA_SSM_SHAPE = (4, PROMPT_LEN, 128, 1, 64, 128)   # jamba's prefill scan: B, S, H, G, P, N
-# K6 above this many rows (its tensor-core route at M = 80 .. 6,400) is not
-# profiled in the device-time section: torch.profiler handed back no device
-# events for those launches in every earlier run, and the empty windows took
-# ~80 s of the script; their rows keep their CUDA-event times
+# K6 above this many rows on route 1 (M = 512 .. 6,400) is not profiled in
+# the device-time section: in the script's own process torch.profiler handed
+# back no device events for those launches in every earlier run, and the empty
+# windows took ~80 s of the script; their rows keep their CUDA-event times.
+# The skinny route's shapes (24 and 80 rows) are profiled in a fresh process
+# (fresh_profile)
 K6_PROFILED_MAX_M = 24
 K8_Q = 32                               # K8's own chunk length, both designs (csrc/ssd_scan.cu kQ)
 # The two GAs draw from different random streams, and one run's hypervolume
@@ -520,6 +550,17 @@ SHARD_TRAIN_LAYERS = 2
 # bf16 before their all-reduces (the reduced layer on the CPU measured 1.3
 # ulps, 2^-7 each); f32 is held to REL_RTOL
 SHARD_BF16_LIMIT = 2.0 ** -5
+# K7's bf16 output, each row (one query's head_dim outputs) against the plain
+# version: a relative norm of 2^-7, one bf16 ulp (the bf16 roundings of p and
+# of the output give ~2^-9 a row).  The wgmma route is also held to its plain twin
+# (k7_wgmma_twin: the same tiles, p rounded to bf16) within K7_TWIN_ULPS bf16
+# ulps of each element's scale (bf16_ulps).  The twin sums q.k in another order,
+# which now and then flips one p's bf16 rounding and moves a row's small
+# outputs by a few of their ulps (relative noise of 2^-23 to 2^-21 in the
+# twin's own scores does as much); the mma route's f32-exact p reads about
+# twice the kernel's; one stale or wrong 128-key K/V tile, thousands
+K7_ROW_LIMIT = 2.0 ** -7
+K7_TWIN_ULPS = 8
 
 
 def smi(query: str) -> str:
@@ -544,18 +585,34 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-# torch.profiler windows of device_ms that held no device events, of all opened
-PROFILER_EMPTY = {"empty": 0, "windows": 0}
+# torch.profiler windows of device_ms: all opened, those that held no device
+# events, those that held fewer kernel events than launches counted, and those
+# where no count of launches was to be had (events alone)
+PROFILER_EMPTY = {"empty": 0, "windows": 0, "short": 0, "uncounted": 0}
+# the host's launch calls, as torch.profiler names them among its CPU events
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
-def device_ms(torch, fn, calls: int):
+def device_ms(torch, fn, calls: int, launches=None):
     """Device time per call of ``fn``, every kernel it launches summed, from
     torch.profiler over at least ``calls`` warm calls, or None where the
     profiler handed back no device events (counted in ``PROFILER_EMPTY``).
     A secondary figure beside :func:`cuda_ms`, which every kernel's ``ms``
     uses: here the host's time to issue a call does not count where it exceeds
     the kernel's.  The card is kept busy for 50 ms first, so that its clocks
-    are up, and the profiled window spans at least 20 ms of the host's time."""
+    are up, and the profiled window spans at least 20 ms of the host's time.
+
+    Late in a long process the profiler has handed back fewer kernel events
+    than were launched (a window that does so counts as ``short``; why, is not
+    known), so the events' sum is not the time.  Each kernel counts its mean
+    time over the events the window holds, times its launches, taken from a
+    count the profiler does not drop.  ``launches`` = (name part, counter): the
+    kernels whose name holds the part launched as often as the wrapper's own
+    counter rose over the window, shared evenly among them (each wrapper timed
+    here launches each of its kernels once a call).  The other kernels share
+    the host's launch calls the window recorded (less those counted), in
+    proportion to their events, and never fewer than their events; memset
+    and memcpy events count as recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     t0, n = time.perf_counter(), 0
@@ -564,17 +621,32 @@ def device_ms(torch, fn, calls: int):
         n += 1
     torch.cuda.synchronize()
     calls = max(calls, min(2000, int(0.02 / ((time.perf_counter() - t0) / n)) + 1))
+    part, counter = launches if launches else (None, None)
+    before = counter() if counter else 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type.name == "CUDA")
+    counted = counter() - before if counter else 0
+    avgs = prof.key_averages()
+    events = [(e.key, e.self_device_time_total, e.count) for e in avgs
+              if e.device_type.name == "CUDA" and e.count > 0]
+    host = sum(e.count for e in avgs if e.device_type.name == "CPU" and e.key in LAUNCH_APIS)
+    copies = [x for x in events if x[0].startswith(("Memset", "Memcpy"))]
+    mine = [x for x in events if part and part in x[0]]
+    rest = [x for x in events if x not in copies and x not in mine]
     PROFILER_EMPTY["windows"] += 1
-    if total > 0:
-        return total / 1e3 / calls
-    PROFILER_EMPTY["empty"] += 1
-    return None
+    if not events or (counted and not mine):
+        PROFILER_EMPTY["empty"] += 1
+        return None
+    n_mine, n_rest = sum(x[2] for x in mine), sum(x[2] for x in rest)
+    rest_launches = max(host - counted, n_rest)
+    PROFILER_EMPTY["short"] += n_mine < counted or n_rest < host - counted
+    PROFILER_EMPTY["uncounted"] += bool(rest) and host == 0
+    total = (sum(t / n * counted / len(mine) for _, t, n in mine)
+             + (sum(t for _, t, _ in rest) / n_rest * rest_launches if rest else 0.0)
+             + sum(t for _, t, _ in copies))
+    return total / calls / 1e3 if total > 0 else None
 
 
 def fmt_ms(ms) -> str:
@@ -596,6 +668,55 @@ def rel_norm(got, want) -> float:
 
     diff = torch.linalg.vector_norm((got.double() - want.double()))
     return float(diff / torch.linalg.vector_norm(want.double()))
+
+
+def k7_wgmma_twin(torch, q, k, v, causal: bool, keys: int):
+    """K7's wgmma route in plain f32 torch (kernel-free): an online softmax
+    over ``keys``-key tiles in the exp2 domain, the row sums of f32 p, p
+    rounded once to bf16 for P.V, the output rounded once to bf16 (the CPU
+    tests' emulation, tests/test_torch_kernel_design.py).  q_offset 0, every
+    key valid; a causal call scans the tiles up to its last row's key."""
+    b, h, sq, hd = q.shape
+    skv = k.shape[2]
+    rep = h // k.shape[1]
+    kh = k.float().repeat_interleave(rep, dim=1)
+    vh = v.float().repeat_interleave(rep, dim=1)
+    qf, scale_log2 = q.float(), math.log2(math.e) / math.sqrt(hd)
+    m = torch.full((b, h, sq, 1), -math.inf, device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    acc = torch.zeros((b, h, sq, hd), device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    for k0 in range(0, min(skv, sq) if causal else skv, keys):
+        k1 = min(k0 + keys, skv)
+        sc = (qf @ kh[:, :, k0:k1].transpose(2, 3)).mul_(scale_log2)
+        if causal:
+            sc.masked_fill_(torch.arange(k0, k1, device=q.device)[None, :] > qpos, -math.inf)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        base = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(sc - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vh[:, :, k0:k1]
+        m = m_new
+        del sc, p
+    return (acc / l).to(torch.bfloat16)
+
+
+def bf16_ulps(torch, got, twin) -> float:
+    """Largest |got - twin| in bf16 ulps (8 significant bits) of each
+    element's scale: the larger of |twin| and its row's largest |twin| / 16."""
+    t = twin.float()
+    scale = torch.maximum(t.abs(), t.abs().amax(-1, keepdim=True) / 16)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return float(((got.float() - t).abs() / ulp).max())
+
+
+def row_err(torch, got, want) -> float:
+    """Largest relative norm of a row (one query's head_dim outputs):
+    ||got_i - want_i|| / ||want_i||."""
+    w = want.float()
+    return float((torch.linalg.vector_norm(got.float() - w, dim=-1)
+                  / torch.linalg.vector_norm(w, dim=-1)).max())
 
 
 def ssd_inputs(torch, shape, dtype, gen):
@@ -1176,6 +1297,7 @@ def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     before = k7.flash_attention.launches
+    routes0 = dict(k7.flash_attention.route_launches)
     long_ms, long_loss = [], []
     for t in range(LONG_STEPS):
         t0 = time.perf_counter()
@@ -1185,6 +1307,9 @@ def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
         long_ms.append((time.perf_counter() - t0) * 1e3)
     long_peak = torch.cuda.max_memory_allocated(dev) - held
     long_k7 = k7.flash_attention.launches - before
+    long_routes = {r: n - routes0[r] for r, n in k7.flash_attention.route_launches.items()}
+    long_route = k7.plan(LONG_BATCH, cfg.n_heads, LONG_SEQ, LONG_SEQ, cfg.resolved_head_dim,
+                         True).route
     # the forward and backward alone (train_step.grads, the step before its
     # clip and update): its peak above what was held before the parameters,
     # which the dryrun phase holds against lower_step(..., grads_only=True)
@@ -1205,14 +1330,17 @@ def train_phase(torch, dev, wrappers, gen) -> tuple[dict, dict]:
           f"in the last); bound of the dense work {long_flops / 1e12:.1f} TFLOP at the bf16 "
           f"dense peak {long_flops / BF16_TENSOR_FLOPS * 1e3:.1f} ms; peak memory "
           f"{long_peak / 2**30:.3f} GiB ({long_peak} bytes above the {held} held before the "
-          f"parameters); K7 launches {long_k7} (expected {2 * cfg.n_layers * LONG_STEPS}); "
+          f"parameters); K7 launches {long_k7} (expected {2 * cfg.n_layers * LONG_STEPS}, "
+          f"all on the {long_route} route: {long_routes}); "
           f"the forward and backward alone (no clip, no update): peak memory "
           f"{grads_peak / 2**30:.3f} GiB ({grads_peak} bytes)", flush=True)
-    if long_k7 != 2 * cfg.n_layers * LONG_STEPS or not all(map(math.isfinite, long_loss)):
+    if (long_k7 != 2 * cfg.n_layers * LONG_STEPS or long_routes[long_route] != long_k7
+            or not all(map(math.isfinite, long_loss))):
         raise AssertionError(f"granite's {LONG_BATCH} x {LONG_SEQ} steps: K7 launches "
-                             f"{long_k7}, losses {long_loss}")
+                             f"{long_k7} by route {long_routes}, losses {long_loss}")
     stats["granite_long"] = {"loss": long_loss, "step_ms": long_ms, "peak_bytes": long_peak,
                              "grads_peak_bytes": grads_peak, "k7_launches": long_k7,
+                             "k7_routes": long_routes,
                              "bound_tflop": long_flops / 1e12}
     keep["granite"] = (step_fn, params, state, batches0, opt, cfg, {})
     del long
@@ -1653,6 +1781,67 @@ def shard_worker(rank: int, world: int, port: int, out_path: str,
         dist.destroy_process_group()
 
 
+def fresh_profile(rank: int, out_path: str) -> None:
+    """Entry of the device-time phase's fresh process (one, spawned): late in
+    the script torch.profiler hands back fewer kernel events than were
+    launched, or none (K6 above 24 rows, K7 at 4 x 4096), so these shapes are
+    profiled here, in a process that has profiled nothing before.  Each K6_NEW
+    shape on the skinny route on both routes and beside one cuBLAS f32 GEMM;
+    granite's 4 x 4096 causal forward and whisper's encoder (also profiled in
+    the script's own process, as a yardstick) on both K7 routes and beside
+    SDPA; device_ms counts launches from the wrappers' counters.  Writes
+    {label: {route or library: ms}} and the windows' tallies to ``out_path``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import axo_matmul, flash_attention
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(28)
+    k6_count = ("::axo_", lambda: axo_matmul.axo_matmul.launches)
+    k7_count = ("flash_attention_", lambda: flash_attention.flash_attention.launches)
+    op = serve.demo_operator(AXO_RANK)
+    f_t, g_t, sv_t = (torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(dev)
+                      for t in (op.f_table, op.g_table, op.signed_vals))
+    out = {}
+    for label, (m, k, n, _, filled) in K6_NEW.items():
+        if axo_matmul.route_for(m) != "skinny":
+            continue
+        a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
+        a[filled:] = 0
+        bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
+        al, ac = a.long(), bb.long()
+        a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
+        b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
+        del al, ac
+        out[label] = {route: device_ms(torch, lambda: axo_matmul.axo_matmul(
+            a, bb, f_t, g_t, sv_t, route=route), 10, launches=k6_count)
+            for route in ("skinny", "mma")}
+        out[label]["cublas"] = device_ms(torch, lambda: a_cat @ b_cat, 10)
+        del a, bb, a_cat, b_cat
+    h_e, g_e, s_e, _, hd_e = K7_NC["whisper encoder"]
+    for label, (b, h, g, s, hd, causal) in {
+            "granite 4 x 4096": (LONG_BATCH, 32, 8, LONG_SEQ, 64, True),
+            "whisper encoder": (4, h_e, g_e, s_e, hd_e, False)}.items():
+        q = torch.randn((b, h, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+        kk, vv = (torch.randn((b, g, s, hd), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        k_rep, v_rep = (x.repeat_interleave(h // g, dim=1) for x in (kk, vv))
+        out[label] = {route: device_ms(torch, lambda: flash_attention.flash_attention_raw(
+            q, kk, vv, causal, 1.0 / math.sqrt(hd), 0, s, route=route), 5, launches=k7_count)
+            for route in ("wgmma", "mma")}
+        out[label]["sdpa"] = device_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k_rep, v_rep, is_causal=causal), 5)
+        del q, kk, vv, k_rep, v_rep
+    out["windows"] = dict(PROFILER_EMPTY)
+    Path(out_path).write_text(json.dumps(out))
+
+
 def _free_port() -> int:
     import socket
 
@@ -1987,6 +2176,88 @@ def ops_vs_raw(torch, dev, gen) -> dict:
           f"raw {k8r['raw_ms']:.4f} ms; bit for bit equal: {k8r['same']}", flush=True)
     if not (k7r.pop("same") and k8r.pop("same")):
         raise AssertionError("a custom op's output differs from its raw launcher's")
+    return out
+
+
+def k7_host_costs(torch, dev, gen) -> dict:
+    """K7 at whisper's cross-attention (B=4, H=G=16, Sq 128 x Skv 1,500, hd
+    64, bf16), a host-bound call, on each route: the wrapper, the custom op and
+    the raw launcher by events over back-to-back calls, and the host's time a
+    call (perf_counter over 2,000 calls) of each and of the wrapper's and
+    launcher's Python steps alone.  The mma route is forced through
+    ``flash_attention.plan`` for the wrapper and the op, which take no
+    route."""
+    from repro_torch.kernels import flash_attention as k7
+
+    h, _, s_q, s_kv, hd = K7_NC["whisper cross"]
+    b = 4
+    q = torch.randn((b, s_q, h, hd), generator=gen, device=dev).bfloat16().transpose(1, 2)
+    kk, vv = (torch.randn((b, s_kv, h, hd), generator=gen, device=dev).bfloat16().transpose(1, 2)
+              for _ in range(2))
+    scale = 1.0 / math.sqrt(hd)
+    n_sms = k7._sm_count(q.device)
+    plan0 = k7.plan
+
+    def host_us(fn, n=2000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return host
+
+    out = {}
+    with torch.no_grad():
+        for route in ("wgmma", "mma"):
+            def forced(b_, h_, sq_, kv_, hd_, causal, bf16=True, n_sms_=k7.H100_SMS,
+                       route_=None):
+                return plan0(b_, h_, sq_, kv_, hd_, causal, bf16, n_sms_, route_ or route)
+            pl = plan0(b, h, s_q, s_kv, hd, False, True, n_sms, route)
+            k7.plan = forced
+            try:
+                calls = {"wrapper": lambda: k7.flash_attention(q, kk, vv, causal=False),
+                         "op": lambda: torch.ops.repro_torch.flash_attention(
+                             q, kk, vv, False, scale, 0, s_kv),
+                         "raw": lambda: k7.flash_attention_raw(q, kk, vv, False, scale, 0, s_kv)}
+                before = dict(k7.flash_attention.route_launches)
+                got = [fn() for fn in calls.values()]
+                if k7.flash_attention.route_launches[route] - before[route] != 3:
+                    raise AssertionError(f"K7's wrapper, op and raw launcher at whisper's cross "
+                                         f"did not all take the {route} route")
+                row = {f"{k}_ms": cuda_ms(torch, fn, 500) for k, fn in calls.items()}
+                row.update({f"{k}_host_us": host_us(fn) for k, fn in calls.items()})
+            finally:
+                k7.plan = plan0
+            steps = {
+                "_check": lambda: k7._check(q, kk, vv, 0, s_kv),
+                "plan": lambda: k7.plan(b, h, s_q, s_kv, hd, False, True, n_sms, route),
+                "_sm_count": lambda: k7._sm_count(q.device),
+                "_record_pad": lambda: k7._record_pad(pl, s_q, s_kv),
+                "empty_like": lambda: torch.empty_like(q),
+                "strides": lambda: (ctypes.c_longlong * 12)(*(
+                    st for t in (q, kk, vv, q) for st in (t.stride(0), t.stride(1),
+                                                          t.stride(2)))),
+                "current_stream": lambda: torch.cuda.current_stream(q.device).cuda_stream,
+                "is_available": torch.cuda.is_available,
+            }
+            row["steps_host_us"] = {k: host_us(fn, 5000) for k, fn in steps.items()}
+            row["same"] = all(torch.equal(t, got[2]) for t in got[:2])
+            row["plan"] = list(pl)
+            out[route] = row
+    for route, row in out.items():
+        print(f"phase dryrun: K7 at whisper's cross (B={b}, H={h}, Sq {s_q}, Skv {s_kv}, hd "
+              f"{hd}, bf16) on the {route} route {row['plan']}: flash_attention "
+              f"{row['wrapper_ms']:.4f} ms, the op {row['op_ms']:.4f} ms, the raw launcher "
+              f"{row['raw_ms']:.4f} ms by events; the host's us a call: wrapper "
+              f"{row['wrapper_host_us']:.2f}, op {row['op_host_us']:.2f}, raw "
+              f"{row['raw_host_us']:.2f}; its steps alone "
+              f"{ {k: round(v, 2) for k, v in row['steps_host_us'].items()} }; bit for bit "
+              f"equal: {row['same']}", flush=True)
+        if not row.pop("same"):
+            raise AssertionError(f"K7's op or wrapper differs from its raw launcher at "
+                                 f"whisper's cross on the {route} route")
     return out
 
 
@@ -2536,7 +2807,8 @@ def main() -> int:
 
     # K6 at granite-3-2b's AxO projections, rank 8: decode (M=4) against the
     # five weight shapes, and the prefill's M = 4 x 128 against gate/up; the
-    # two routes' boundary (M=16 GEMV, M=17 tensor cores); and a random 36-bit
+    # routes' boundaries (M=16 GEMV, M=17 skinny, M=81 the 128 x 128 tiles,
+    # each checked to take that route); and a random 36-bit
     # config, whose factor part dominates the product.  The bound: the larger
     # of the bytes (codes, tables, output) and the three-pass TF32 work,
     # (1 + 3R) 2MNK at the TF32 tensor-core rate, the cheapest route to the
@@ -2554,7 +2826,7 @@ def main() -> int:
                  "gate/up decode": (4, 2048, 8192), "down decode": (4, 8192, 2048),
                  "head decode": (4, 2048, 49155), "gate/up prefill": (512, 2048, 8192),
                  "mamba2 head": (8, 768, 50280), "M=16 boundary": (16, 2048, 2048),
-                 "M=17 boundary": (17, 2048, 2048),
+                 "M=17 boundary": (17, 2048, 2048), "M=81 boundary": (81, 2048, 2048),
                  "gate/up decode, random36": (4, 2048, 8192),
                  "gate/up prefill, random36": (512, 2048, 8192)}
     for label, (m, k, n) in k6_shapes.items():
@@ -2585,6 +2857,11 @@ def main() -> int:
         f32_bound = bound(k6_bytes, 0, 2.0 * m * n * k * r1, int_rate, f32_rate=f32_rate)
         del a_cat, b_cat
         pl = axo_matmul.plan(m, n, k, AXO_RANK, 256)
+        boundary_route = {"M=16 boundary": "gemv", "M=17 boundary": "skinny",
+                          "M=81 boundary": "mma"}.get(label, pl.route)
+        if pl.route != boundary_route:
+            raise AssertionError(f"K6 at {label} takes the {pl.route} route, not the "
+                                 f"{boundary_route} route")
         was = K6_PR13_MS.get(label)
         print(f"phase kernels: K6 vs plain at {label} M={m} K={k} N={n} R={AXO_RANK} "
               f"({pl.route} route, {pl.splits} splits of {pl.k_split}): rel norm "
@@ -2697,55 +2974,115 @@ def main() -> int:
     # prefill (the heaviest K6 call of serve-dense), jamba's and deepseek-v3's
     # prefill expert buffers and the cross K/V of whisper and the VLM; each
     # beside one cuBLAS f32 GEMM over [A|F_1..F_R] . [B;G_1..G_R] and its bound,
-    # as above
+    # as above.  Where the plan takes the skinny route (16 < M <= SKINNY_M),
+    # route 1 (the 128 x 128 tensor-core tiles it replaced there) is held to
+    # the plain version and timed beside it in turn (old, new, new, old)
     f_t, g_t, sv_t = tabs["demo"]
     for label, (m, k, n, key, filled) in K6_NEW.items():
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         a[filled:] = 0
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
-        got = axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t)
+        pl = axo_matmul.plan(m, n, k, AXO_RANK, 256)
+        routes = (pl.route, "mma") if pl.route == "skinny" else (pl.route,)
         want = axo_matmul.axo_matmul_plain(a, bb, f_t, g_t, sv_t)
-        torch.cuda.synchronize()
-        rel = rel_norm(got, want)
-        if not (torch.isfinite(got).all() and rel <= REL_RTOL):
-            raise AssertionError(f"K6 differs from its plain version at {label}: rel {rel:.3g}")
+        got, rel = {}, {}
+        for route in routes:
+            got[route] = axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t, route=route)
+            torch.cuda.synchronize()
+            rel[route] = rel_norm(got[route], want)
+            if not (torch.isfinite(got[route]).all() and rel[route] <= REL_RTOL):
+                raise AssertionError(f"K6's {route} route differs from its plain version at "
+                                     f"{label}: rel {rel[route]:.3g}")
         al, ac = a.long(), bb.long()
         a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
         b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
         del al, ac
+        route_ms = {r: [] for r in routes}
+        for route in (*routes[::-1], *routes):
+            route_ms[route].append(cuda_ms(torch, lambda: axo_matmul.axo_matmul(
+                a, bb, f_t, g_t, sv_t, route=route), 20))
         n_rec = dict(
             name=K6_RECORDS[key],
             source="src/repro_torch/kernels/csrc/axo_matmul.cu",
             replaces="src/repro/kernels/axo_matmul_kernel.py:80",
-            ms=cuda_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 20),
+            ms=min(route_ms[pl.route]),
             plain_ms=cuda_ms(torch, lambda: axo_matmul.axo_matmul_plain(
                 a, bb, f_t, g_t, sv_t), 3),
             library_ms=cuda_ms(torch, lambda: a_cat @ b_cat, 20),
             bound=bound(m * k + k * n + m * n * 4 + 2 * r1 * 256 * 4, 0, 0, int_rate,
                         tf32_ops=2.0 * m * n * k * (1 + 3 * AXO_RANK)),
+            route=pl.route,
         )
+        if len(routes) > 1:
+            n_rec.update(old_ms=min(route_ms["mma"]), old_route="mma")
         del a_cat, b_cat
-        pl = axo_matmul.plan(m, n, k, AXO_RANK, 256)
-        e = float((got - want).abs().max())
+        e = float((got[pl.route] - want).abs().max())
+        old = (f"; route 1 (128 x 128 tiles) rel norm {rel['mma']:.3g}, "
+               f"{min(route_ms['mma']):.4f} ms" if len(routes) > 1 else "")
         print(f"phase kernels: K6 vs plain at {label} M={m} K={k} N={n} R={AXO_RANK} "
-              f"({pl.route} route, {pl.splits} splits of {pl.k_split}): rel norm {rel:.3g} "
-              f"(limit {REL_RTOL}); K6 {n_rec['ms']:.4f} ms (plain {n_rec['plain_ms']:.4f}; "
-              f"bound {n_rec['bound'][0]:.4g} by {n_rec['bound'][1]}), one cuBLAS f32 GEMM "
-              f"at K(1+R) {n_rec['library_ms']:.4f} ms ({n_rec['ms'] / n_rec['library_ms']:.2f}x "
-              f"its time)", flush=True)
+              f"({pl.route} route, {pl.rows} x {pl.cols} tiles, {pl.splits} splits of "
+              f"{pl.k_split}): rel norm {rel[pl.route]:.3g} (limit {REL_RTOL}); K6 "
+              f"{n_rec['ms']:.4f} ms (both turns {[round(t, 4) for t in route_ms[pl.route]]}; "
+              f"plain {n_rec['plain_ms']:.4f}; bound {n_rec['bound'][0]:.4g} by "
+              f"{n_rec['bound'][1]}){old}, one cuBLAS f32 GEMM at K(1+R) "
+              f"{n_rec['library_ms']:.4f} ms ({n_rec['ms'] / n_rec['library_ms']:.2f}x its time)",
+              flush=True)
         if key not in rec:
             rec[key], err[key] = n_rec, e
         rec[key].setdefault("shapes", {})[label] = {
             "ms": n_rec["ms"], "plain_ms": n_rec["plain_ms"],
             "library_ms": n_rec["library_ms"], "bound_ms": n_rec["bound"][0],
-            "bound_by": n_rec["bound"][1], "route": pl.route, "splits": pl.splits}
+            "bound_by": n_rec["bound"][1], "route": pl.route, "rows": pl.rows,
+            "cols": pl.cols, "splits": pl.splits, "max_abs_err": e,
+            **({"old_ms": n_rec["old_ms"], "old_route": "mma",
+                "old_max_abs_err": float((got["mma"] - want).abs().max())}
+               if len(routes) > 1 else {})}
         err[key] = max(err[key], e)
         del a, bb, got, want
     # K7 non-causal, at Sq != Skv and Skv off the 64-key tile: whisper's encoder
     # (1,500 frames) and cross-attention (Sq 128 x Skv 1,500, hd 64) and the
     # VLM's gated cross-attention (128 x 1,600, hd 128, H 64 / G 8), B=4; bf16
     # as served, timed beside SDPA (K/V repeated to the query heads,
-    # is_causal=False) and the bound; f32 beside it, held and not timed
+    # is_causal=False) and the bound; f32 beside it, held and not timed.  In
+    # bf16 the plan's route (wgmma) and the earlier mma route are each held to
+    # the plain version and timed through the raw launcher in turns (old, new,
+    # new, old); the record's ms is the wrapper's, on the plan's route
+    def k7_routes(q, kk, vv, causal, kv_len, want, tol, label, routes=None):
+        """{route: [max abs err, raw ms in turns, max row error, ulps from the
+        twin or None]} of the plan's route and the mma route (or of
+        ``routes``), each held to ``want`` within ``tol`` and, row by row,
+        within a relative norm of K7_ROW_LIMIT; the wgmma route also
+        to its plain twin within K7_TWIN_ULPS."""
+        b_, h_, sq_, hd_ = q.shape
+        if routes is None:
+            new = flash_attention.plan(b_, h_, sq_, kv_len, hd_, causal).route
+            routes = (new, "mma") if new != "mma" else (new,)
+        scale = 1.0 / math.sqrt(hd_)
+        twin = (k7_wgmma_twin(torch, q, kk, vv, causal, flash_attention.WGMMA_KEYS)
+                if "wgmma" in routes else None)
+        out = {}
+        for route in routes:
+            got = flash_attention.flash_attention_raw(q, kk, vv, causal, scale, 0, kv_len,
+                                                      route=route)
+            torch.cuda.synchronize()
+            e = float((got.float() - want).abs().max())
+            row = row_err(torch, got, want)
+            ulps = bf16_ulps(torch, got, twin) if route == "wgmma" else None
+            if not (torch.isfinite(got.float()).all() and e <= tol and row <= K7_ROW_LIMIT
+                    and (ulps is None or ulps <= K7_TWIN_ULPS)):
+                raise AssertionError(
+                    f"K7's {route} route differs from its plain version at {label}: {e:.3g} "
+                    f"(limit {tol:.3g}), largest row relative norm {row:.3g} (limit "
+                    f"{K7_ROW_LIMIT:.3g}), from the wgmma twin {ulps} bf16 ulps (limit "
+                    f"{K7_TWIN_ULPS})")
+            out[route] = [e, [], row, ulps]
+            del got
+        del twin
+        for route in (*routes[::-1], *routes):
+            out[route][1].append(cuda_ms(torch, lambda: flash_attention.flash_attention_raw(
+                q, kk, vv, causal, scale, 0, kv_len, route=route), 20))
+        return out
+
     for label, (h_q, g_kv, s_q, s_kv, hd) in K7_NC.items():
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((4, h_q, s_q, hd), generator=gen, device=dev).to(dtype)
@@ -2761,12 +3098,16 @@ def main() -> int:
                 q, kk, vv.abs(), causal=False).abs().max()) if dtype == torch.float32
                 else 2.0 ** -7 * float(want.abs().max()))
             e = float((got.float() - want).abs().max())
-            if not (torch.isfinite(got.float()).all() and e <= tol):
+            row = row_err(torch, got, want) if dtype == torch.bfloat16 else 0.0
+            if not (torch.isfinite(got.float()).all() and e <= tol and row <= K7_ROW_LIMIT):
                 raise AssertionError(f"K7 non-causal differs from its plain version at {label} "
-                                     f"{dtype}: {e:.3g} > {tol:.3g}")
+                                     f"{dtype}: {e:.3g} (limit {tol:.3g}), largest row relative "
+                                     f"norm {row:.3g} (limit {K7_ROW_LIMIT:.3g})")
             msg = (f"phase kernels: K7 non-causal vs plain at {label} B=4 H={h_q} G={g_kv} "
                    f"Sq={s_q} Skv={s_kv} hd={hd} {dtype}: max abs err {e:.3g} (limit {tol:.3g})")
             if dtype == torch.bfloat16:
+                pl = flash_attention.plan(4, h_q, s_q, s_kv, hd, False)
+                by_route = k7_routes(q, kk, vv, False, s_kv, want, tol, label)
                 k_rep = kk.repeat_interleave(h_q // g_kv, dim=1)
                 v_rep = vv.repeat_interleave(h_q // g_kv, dim=1)
                 nc_rec = dict(
@@ -2782,7 +3123,18 @@ def main() -> int:
                     bound=bound(2 * (2 * q.numel() + 2 * kk.numel()), 0, 0, int_rate,
                                 bf16_ops=4.0 * 4 * h_q * s_q * s_kv * hd),
                 )
-                msg += (f"; K7 {nc_rec['ms']:.4f} ms (plain {nc_rec['plain_ms']:.4f}, bound "
+                nc_rec.update(old_ms=min(by_route["mma"][1]), old_route="mma",
+                              raw_ms=min(by_route[pl.route][1]), route=pl.route)
+                msg += (f"; K7 ({pl.route} route, {pl.rows} query rows x {pl.keys} keys a "
+                        f"block) {nc_rec['ms']:.4f} ms, the raw launch "
+                        f"{[round(t, 4) for t in by_route[pl.route][1]]} ms (max abs err "
+                        f"{by_route[pl.route][0]:.3g}, largest row relative norm "
+                        f"{by_route[pl.route][2]:.3g} (limit {K7_ROW_LIMIT:.3g}), "
+                        f"{by_route[pl.route][3]} bf16 ulps from the wgmma twin (limit "
+                        f"{K7_TWIN_ULPS})), the mma route "
+                        f"{[round(t, 4) for t in by_route['mma'][1]]} ms (max abs err "
+                        f"{by_route['mma'][0]:.3g}, largest row relative norm "
+                        f"{by_route['mma'][2]:.3g}) (plain {nc_rec['plain_ms']:.4f}, bound "
                         f"{nc_rec['bound'][0]:.4g} by {nc_rec['bound'][1]}), SDPA "
                         f"{nc_rec['library_ms']:.4f} ms ({nc_rec['ms'] / nc_rec['library_ms']:.2f}x"
                         f" its time)")
@@ -2791,11 +3143,108 @@ def main() -> int:
                 rec["K7N"].setdefault("shapes", {})[label] = {
                     "ms": nc_rec["ms"], "plain_ms": nc_rec["plain_ms"],
                     "library_ms": nc_rec["library_ms"], "bound_ms": nc_rec["bound"][0],
-                    "bound_by": nc_rec["bound"][1], "max_abs_err": e}
+                    "bound_by": nc_rec["bound"][1], "max_abs_err": e, "route": pl.route,
+                    "rows": pl.rows, "keys": pl.keys, "raw_ms": nc_rec["raw_ms"],
+                    "old_ms": nc_rec["old_ms"], "old_route": "mma",
+                    "old_max_abs_err": by_route["mma"][0], "row_err": by_route[pl.route][2],
+                    "twin_ulps": by_route[pl.route][3]}
                 err["K7N"] = max(err["K7N"], e)
                 del k_rep, v_rep
             print(msg, flush=True)
             del q, kk, vv, got, want
+    # K7 at granite's 4 x 4096 causal training forward (B=4, H=32, G=8, hd 64;
+    # FlashAttentionFn.forward in the train phase's long steps), bf16: both
+    # routes held to the plain version (its (4, 32, 4096, 4096) f32 scores,
+    # ~26 GB at once) and timed in turns, beside SDPA is_causal=True
+    b_l, h_l, g_l, s_l = LONG_BATCH, 32, 8, LONG_SEQ
+    q = torch.randn((b_l, h_l, s_l, 64), generator=gen, device=dev).to(torch.bfloat16)
+    kk, vv = (torch.randn((b_l, g_l, s_l, 64), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    got = flash_attention.flash_attention(q, kk, vv)
+    want = flash_attention.flash_attention_plain(q, kk, vv).float()
+    torch.cuda.synchronize()
+    tol = 2.0 ** -7 * float(want.abs().max())
+    e = float((got.float() - want).abs().max())
+    row = row_err(torch, got, want)
+    if not (torch.isfinite(got.float()).all() and e <= tol and row <= K7_ROW_LIMIT):
+        raise AssertionError(f"K7 differs from its plain version at granite's {b_l} x {s_l} "
+                             f"causal forward: {e:.3g} (limit {tol:.3g}), largest row "
+                             f"relative norm {row:.3g} (limit {K7_ROW_LIMIT:.3g})")
+    pl = flash_attention.plan(b_l, h_l, s_l, s_l, 64, True)
+    by_route = k7_routes(q, kk, vv, True, s_l, want, tol, f"granite's {b_l} x {s_l}")
+    del got, want
+    k_rep, v_rep = (x.repeat_interleave(h_l // g_l, dim=1) for x in (kk, vv))
+    pairs = s_l * (s_l + 1) // 2
+    rec["K7L"] = dict(
+        name="flash_attention_causal_long",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention_kernel.py:87",
+        ms=cuda_ms(torch, lambda: flash_attention.flash_attention(q, kk, vv), 20),
+        plain_ms=cuda_ms(torch, lambda: flash_attention.flash_attention_plain(q, kk, vv), 3),
+        library_ms=cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=True), 20),
+        bound=bound(2 * (2 * q.numel() + 2 * kk.numel()), 0, 0, int_rate,
+                    bf16_ops=4.0 * b_l * h_l * pairs * 64),
+        route=pl.route, raw_ms=min(by_route[pl.route][1]), row_err=by_route[pl.route][2],
+        twin_ulps=by_route[pl.route][3],
+        **({"old_ms": min(by_route["mma"][1]), "old_route": "mma"} if "mma" in by_route
+           and pl.route != "mma" else {}))
+    err["K7L"] = e
+    r_l = rec["K7L"]
+    print(f"phase kernels: K7 vs plain at granite's {b_l} x {s_l} causal forward B={b_l} "
+          f"H={h_l} G={g_l} hd=64 bf16: max abs err {e:.3g} (limit {tol:.3g}); K7 ({pl.route} "
+          f"route, {pl.rows} query rows x {pl.keys} keys a block) {r_l['ms']:.4f} ms, the raw "
+          f"launch {[round(t, 4) for t in by_route[pl.route][1]]} ms (largest row relative "
+          f"norm {by_route[pl.route][2]:.3g}, limit {K7_ROW_LIMIT:.3g}; "
+          f"{by_route[pl.route][3]} bf16 ulps from the wgmma twin, limit {K7_TWIN_ULPS})"
+          + (f", the mma route {[round(t, 4) for t in by_route['mma'][1]]} ms (max abs "
+             f"err {by_route['mma'][0]:.3g}, largest row relative norm "
+             f"{by_route['mma'][2]:.3g})" if pl.route != "mma" else "")
+          + f" (plain {r_l['plain_ms']:.4f}, bound {r_l['bound'][0]:.4g} by "
+          f"{r_l['bound'][1]}), SDPA {r_l['library_ms']:.4f} ms "
+          f"({r_l['ms'] / r_l['library_ms']:.2f}x its time)", flush=True)
+    del q, kk, vv, k_rep, v_rep
+    # the causal boundary of the wgmma route (flash_attention.WGMMA_CAUSAL_KV):
+    # both routes on granite's heads (B=4, H=32, G=8, hd 64) at S = 128 (its
+    # serve prefill, which keeps the mma route), 256 and 512
+    causal_at = {}
+    for s_c in (128, 256, 512):
+        q = torch.randn((4, 32, s_c, 64), generator=gen, device=dev).to(torch.bfloat16)
+        kk, vv = (torch.randn((4, 8, s_c, 64), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        want = flash_attention.flash_attention_plain(q, kk, vv).float()
+        tol = 2.0 ** -7 * float(want.abs().max())
+        causal_at[s_c] = {r: [e, min(t), row, ulps] for r, (e, t, row, ulps) in k7_routes(
+            q, kk, vv, True, s_c, want, tol, f"causal S={s_c}", ("wgmma", "mma")).items()}
+        del q, kk, vv, want
+    print(f"phase kernels: K7 causal on granite's heads, both routes (max abs err, raw ms, "
+          f"largest row relative norm (limit {K7_ROW_LIMIT:.3g}), bf16 ulps "
+          f"from the wgmma twin (limit {K7_TWIN_ULPS})), "
+          f"the plan takes wgmma from {flash_attention.WGMMA_CAUSAL_KV} keys: {causal_at}",
+          flush=True)
+    rec["K7L"]["causal_boundary"] = causal_at
+    # the shapes whose route this slice left alone give the bits of the route
+    # they had: K7 at granite's S=128 prefill (mma), K6 at granite's 512-row
+    # prefill (128 x 128 tiles) and 4-row decode (GEMV), each default call
+    # against the named route
+    q = torch.randn((4, 32, 128, 64), generator=gen, device=dev).to(torch.bfloat16)
+    kk, vv = (torch.randn((4, 8, 144, 64), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    same = {"K7 granite prefill (mma)": torch.equal(
+        flash_attention.flash_attention(q, kk, vv, kv_len=128),
+        flash_attention.flash_attention_raw(q, kk, vv, True, 0.125, 0, 128, route="mma"))}
+    for m, k, n, route in ((512, 2048, 8192, "mma"), (4, 2048, 8192, "gemv")):
+        a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
+        bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
+        same[f"K6 {m}x{k}x{n} ({route})"] = (
+            axo_matmul.plan(m, n, k, AXO_RANK, 256).route == route and torch.equal(
+                axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t),
+                axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t, route=route)))
+    print(f"phase kernels: shapes whose route did not change, the default call bit for bit "
+          f"the earlier route's: {same}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"a shape left on its route changed its bits: {same}")
+    del q, kk, vv, a, bb
     # K8 at mamba2-130m's prefill scan, the reduced config's, and a grouped shape
     # with an entering state; bf16 as served, f32 beside it.  Both versions
     # compute in f32 over other chunk lengths and round y once: y in f32 to
@@ -3819,6 +4268,8 @@ def main() -> int:
         for fn in ssm_wrappers.values():
             fn.launches = 0
         ssd_scan.ssd_scan.route_launches.update(mma=0, scalar=0)
+        for fn in (axo_matmul.axo_matmul, flash_attention.flash_attention):
+            fn.route_launches.update(dict.fromkeys(fn.route_launches, 0))
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -3842,6 +4293,8 @@ def main() -> int:
         t_run = time.perf_counter() - t0
         got = {k: fn.launches for k, fn in ssm_wrappers.items()}
         k8_routes = dict(ssd_scan.ssd_scan.route_launches)
+        k6_routes = dict(axo_matmul.axo_matmul.route_launches)
+        k7_by_route = dict(flash_attention.flash_attention.route_launches)
         peak = torch.cuda.max_memory_allocated(dev) - held
         cfg, axo = res["cfg"], res["axo"]
         dep = axo["deployment"]
@@ -3877,7 +4330,8 @@ def main() -> int:
               f"{axo['decode_ms'] / steps:.3f} ms/step{earlier}; peak memory "
               f"{peak / 2**30:.3f} GiB "
               f"({peak} bytes above the {held} held before); launches {got} (expected {want}), "
-              f"K7 a prefill by (hd, causal) {k7_pre}, K8 calls by route {k8_routes}; "
+              f"K7 a prefill by (hd, causal) {k7_pre}, K6 calls by route {k6_routes}, K7 by "
+              f"route {k7_by_route}, K8 by route {k8_routes}; "
               f"free-run match {axo['free_run_match']:.4f}, teacher-forced top-1 "
               f"{axo['top1']:.4f}, logit rel_err {axo['rel_err']:.4f}; K6 pad waste of the "
               f"run's plans {res['telemetry'].histogram_summary('axo_matmul.pad_waste')}",
@@ -3887,6 +4341,14 @@ def main() -> int:
         if k8_routes != {"mma": got["K8"], "scalar": 0}:
             raise AssertionError(f"{phase}: K8 calls by route {k8_routes}: every one must take "
                                  f"the tensor-core design")
+        # every non-causal K7 call (128 queries over 1,500 or 1,600 keys) takes
+        # the wgmma route, every causal one (128 keys) the mma route; the MoE
+        # prefill's expert buffers (16 < M <= SKINNY_M rows) take K6's skinny route
+        if (k7_by_route["wgmma"] != k7_nc * prefills or sum(k7_by_route.values()) != got["K7"]
+                or (phase in ("serve-hybrid", "serve-mla") and not k6_routes["skinny"])
+                or sum(k6_routes.values()) != got["K6"]):
+            raise AssertionError(f"{phase}: K6 calls by route {k6_routes}, K7 by route "
+                                 f"{k7_by_route} ({k7_nc * prefills} non-causal)")
         if not all(torch.isfinite(lg.float()).all() for lg in res["exact_logits"] +
                    axo["replay_logits"]):
             raise AssertionError(f"non-finite logits on the {phase} path ({cfg.name})")
@@ -3926,6 +4388,7 @@ def main() -> int:
             raise AssertionError(f"a kernel call on the {phase} path differs from its plain "
                                  f"version ({cfg.name})")
         stats = {"layers": cfg.n_layers, "head_dim": hd, "peak_bytes": peak, "launches": got,
+                 "k6_routes": k6_routes, "k7_routes": k7_by_route,
                  "k7_a_prefill": {f"hd{h} {'causal' if c else 'non-causal'}": n
                                   for (h, c), n in k7_pre.items()},
                  "seconds": t_run, "drop_rate": drop}
@@ -4084,11 +4547,12 @@ def main() -> int:
     t0 = time.perf_counter()
     train_stats, train_keep = train_phase(torch, dev, ssm_wrappers, gen)
     t_train = time.perf_counter() - t0
-    launches["K7"] += (train_stats["granite"]["k7_launches"]
-                       + train_stats["granite_long"]["k7_launches"])
+    # granite's 8 x 128 steps count under K7, its 4 x 4096 steps under K7L
+    launches["K7"] += train_stats["granite"]["k7_launches"]
+    launches["K7L"] = train_stats["granite_long"]["k7_launches"]
     launches["K8"] += train_stats["mamba2"]["k8_launches"]
-    rec["K7"]["train_launches"] = (train_stats["granite"]["k7_launches"]
-                                   + train_stats["granite_long"]["k7_launches"])
+    rec["K7"]["train_launches"] = train_stats["granite"]["k7_launches"]
+    rec["K7L"]["train_launches"] = train_stats["granite_long"]["k7_launches"]
     rec["K8"]["train_launches"] = train_stats["mamba2"]["k8_launches"]
     print(f"phase train: {t_train:.1f} s; {json.dumps(train_stats)}", flush=True)
 
@@ -4119,6 +4583,7 @@ def main() -> int:
     dryrun_stats["ops"] = ops_vs_raw(torch, dev, gen)
     for k, v in dryrun_stats["ops"].items():
         rec[k].update(v)
+    rec["K7N"]["shapes"]["whisper cross"]["host"] = k7_host_costs(torch, dev, gen)
     t_dryrun = time.perf_counter() - t0
     dryrun_stats["phase_s"] = t_dryrun
     (ROOT / "chiprun_out" / "dryrun_phase.json").write_text(json.dumps(
@@ -4128,6 +4593,10 @@ def main() -> int:
 
     # -- device time of K8, K6 and K7 -----------------------------------------
     segments["device-time"] = time.perf_counter()
+    # device_ms's launch counts: each wrapper's own counter, and its kernels' names
+    k6_count = ("::axo_", lambda: axo_matmul.axo_matmul.launches)
+    k7_count = ("flash_attention_", lambda: flash_attention.flash_attention.launches)
+    k8_count = ("ssd_", ssd_scan.grids)
     # first, one train step of granite-3-2b and one of mamba2-130m, each after
     # a warm one: the device time split by kernel and range; then their state
     # is freed
@@ -4136,6 +4605,18 @@ def main() -> int:
     del train_keep, kept
     gc.collect()
     torch.cuda.empty_cache()
+    # the skinny K6 shapes, K7 at 4 x 4096 and whisper's encoder in a fresh
+    # process (fresh_profile), once the train state is freed
+    import torch.multiprocessing as torch_mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "fresh.json")
+        torch_mp.start_processes(fresh_profile, args=(out_path,), nprocs=1,
+                                 start_method="spawn")
+        fresh = json.loads(Path(out_path).read_text())
+    print(f"phase device-time: a fresh process's profiler windows: {fresh.pop('windows')} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # a layer's attention backward at granite's 8 x 128: the blockwise one
     # beside the direct plain autodiff it replaced, on the device
     blockwise, direct = attention_backwards(torch, dev, gen, TRAIN_BATCH, TRAIN_SEQ)
@@ -4153,7 +4634,8 @@ def main() -> int:
     # above.  Fresh codes and inputs of each shape; these launches count nowhere.
     # K8 first, at mamba2's prefill in bf16
     x, dt, a, bm, cm = ssd_inputs(torch, SSM_SHAPE, torch.bfloat16, gen)
-    k8_dev = device_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, a, bm, cm), 10)
+    k8_dev = device_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, a, bm, cm), 10,
+                       launches=k8_count)
     print(f"phase device-time: K8 at mamba2 prefill bf16: {fmt_ms(k8_dev)} on the device",
           flush=True)
     rec["K8"]["device_ms"] = k8_dev
@@ -4171,7 +4653,8 @@ def main() -> int:
         al, ac = a.long(), bb.long()
         a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
         b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
-        k6_dev = device_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 10)
+        k6_dev = device_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 10,
+                            launches=k6_count)
         lib_dev = device_ms(torch, lambda: a_cat @ b_cat, 10)
         del al, ac, a_cat, b_cat
         print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: {fmt_ms(k6_dev)} on "
@@ -4185,7 +4668,7 @@ def main() -> int:
         k_rep = kk[:, :, :s_q].repeat_interleave(4, dim=1)
         v_rep = vv[:, :, :s_q].repeat_interleave(4, dim=1)
         k7_dev = device_ms(torch, lambda: flash_attention.flash_attention(
-            q, kk, vv, kv_len=s_q), 50)
+            q, kk, vv, kv_len=s_q), 50, launches=k7_count)
         lib_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k_rep, v_rep, is_causal=True), 50)
         print(f"phase device-time: K7 at {label} S={s_q} cache {cap} bf16: {fmt_ms(k7_dev)} "
@@ -4201,7 +4684,7 @@ def main() -> int:
         k_rep = kk[:, :, :PROMPT_LEN].repeat_interleave(h_q // g_kv, dim=1)
         v_rep = vv[:, :, :PROMPT_LEN].repeat_interleave(h_q // g_kv, dim=1)
         k7_dev = device_ms(torch, lambda: flash_attention.flash_attention(
-            q, kk, vv, kv_len=PROMPT_LEN), 50)
+            q, kk, vv, kv_len=PROMPT_LEN), 50, launches=k7_count)
         lib_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k_rep, v_rep, is_causal=True), 50)
         print(f"phase device-time: K7 at {label}'s prefill hd {hd} bf16: {fmt_ms(k7_dev)} on "
@@ -4218,17 +4701,50 @@ def main() -> int:
         k_rep = kk.repeat_interleave(h_q // g_kv, dim=1)
         v_rep = vv.repeat_interleave(h_q // g_kv, dim=1)
         k7_dev = device_ms(torch, lambda: flash_attention.flash_attention(
-            q, kk, vv, causal=False), 20)
+            q, kk, vv, causal=False), 20, launches=k7_count)
+        old_dev = device_ms(torch, lambda: flash_attention.flash_attention_raw(
+            q, kk, vv, False, 1.0 / math.sqrt(hd), 0, s_kv, route="mma"), 20,
+            launches=k7_count)
         lib_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k_rep, v_rep), 20)
+        yard = fresh.get(label)
         print(f"phase device-time: K7 non-causal at {label} bf16: {fmt_ms(k7_dev)} on the "
-              f"device, SDPA {fmt_ms(lib_dev)}", flush=True)
-        rec["K7N"]["shapes"][label].update(device_ms=k7_dev, library_device_ms=lib_dev)
+              f"device ({rec['K7N']['shapes'][label]['route']} route; the mma route "
+              f"{fmt_ms(old_dev)}), SDPA {fmt_ms(lib_dev)}"
+              + (f"; in a fresh process wgmma {fmt_ms(yard['wgmma'])}, mma "
+                 f"{fmt_ms(yard['mma'])}, SDPA {fmt_ms(yard['sdpa'])}" if yard else ""),
+              flush=True)
+        if yard:
+            rec["K7N"]["shapes"][label]["fresh_device_ms"] = yard
+        rec["K7N"]["shapes"][label].update(device_ms=k7_dev, library_device_ms=lib_dev,
+                                           old_device_ms=old_dev)
         if rec["K7N"].get("device_ms") is None:     # the first shape the profiler measured
-            rec["K7N"].update(device_ms=k7_dev, library_device_ms=lib_dev)
+            rec["K7N"].update(device_ms=k7_dev, library_device_ms=lib_dev,
+                              old_device_ms=old_dev)
         del q, kk, vv, k_rep, v_rep
+    # K7 at granite's 4 x 4096 causal forward, both routes, beside SDPA (the
+    # fresh process's)
+    long_dev = fresh["granite 4 x 4096"]
+    print(f"phase device-time: K7 at granite's {LONG_BATCH} x {LONG_SEQ} causal forward bf16 "
+          f"(a fresh process): {fmt_ms(long_dev['wgmma'])} on the device ({rec['K7L']['route']} "
+          f"route; the mma route {fmt_ms(long_dev['mma'])}), SDPA {fmt_ms(long_dev['sdpa'])}",
+          flush=True)
+    rec["K7L"].update(device_ms=long_dev[rec["K7L"]["route"]], library_device_ms=long_dev["sdpa"],
+                      old_device_ms=long_dev["mma"])
     f_t, g_t, sv_t = tabs["demo"]
     for label, (m, k, n, key, filled) in K6_NEW.items():
+        if label in fresh:    # the skinny route's shapes, both routes (the fresh process's)
+            got = fresh[label]
+            print(f"phase device-time: K6 at {label} M={m} K={k} N={n} (a fresh process): "
+                  f"{fmt_ms(got['skinny'])} on the device (skinny route; route 1 "
+                  f"{fmt_ms(got['mma'])}), one cuBLAS f32 GEMM at K(1+R) "
+                  f"{fmt_ms(got['cublas'])}", flush=True)
+            rec[key]["shapes"][label].update(device_ms=got["skinny"],
+                                             library_device_ms=got["cublas"],
+                                             old_device_ms=got["mma"])
+            if rec[key].get("device_ms") is None:
+                rec[key].update(device_ms=got["skinny"], library_device_ms=got["cublas"])
+            continue
         if m > K6_PROFILED_MAX_M:
             print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: not profiled (M > "
                   f"{K6_PROFILED_MAX_M})", flush=True)
@@ -4243,16 +4759,24 @@ def main() -> int:
         a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
         b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
         del al, ac
-        k6_dev = device_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 10)
+        k6_dev = device_ms(torch, lambda: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t), 10,
+                            launches=k6_count)
+        old = rec[key]["shapes"][label].get("old_route")
+        old_dev = old and device_ms(torch, lambda: axo_matmul.axo_matmul(
+            a, bb, f_t, g_t, sv_t, route=old), 10, launches=k6_count)
         lib_dev = device_ms(torch, lambda: a_cat @ b_cat, 10)
         print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: {fmt_ms(k6_dev)} on the "
-              f"device, one cuBLAS f32 GEMM at K(1+R) {fmt_ms(lib_dev)}", flush=True)
-        rec[key]["shapes"][label].update(device_ms=k6_dev, library_device_ms=lib_dev)
+              f"device ({rec[key]['shapes'][label]['route']} route"
+              + (f"; route 1 {fmt_ms(old_dev)}" if old else "")
+              + f"), one cuBLAS f32 GEMM at K(1+R) {fmt_ms(lib_dev)}", flush=True)
+        rec[key]["shapes"][label].update(device_ms=k6_dev, library_device_ms=lib_dev,
+                                         **({"old_device_ms": old_dev} if old else {}))
         if rec[key].get("device_ms") is None:     # the first shape the profiler measured
             rec[key].update(device_ms=k6_dev, library_device_ms=lib_dev)
         del a, bb, a_cat, b_cat
     x, dt, a, bm, cm = ssd_inputs(torch, JAMBA_SSM_SHAPE, torch.bfloat16, gen)
-    rec["K8H"]["device_ms"] = device_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, a, bm, cm), 20)
+    rec["K8H"]["device_ms"] = device_ms(torch, lambda: ssd_scan.ssd_scan(x, dt, a, bm, cm), 20,
+                                        launches=k8_count)
     del x, dt, a, bm, cm
     mla_dev = device_ms(torch, mla_attention, 10)
     mla_sdpa_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -4291,8 +4815,11 @@ def main() -> int:
               f"config a thread {fmt_ms(tiers[1])} on the device (the rule takes "
               f"{char_kernels.entry_configs(args[0].shape[0], 8, a_tile, n_sms)})", flush=True)
         where["tiers_device_ms"] = tiers
-    print(f"phase device-time: torch.profiler windows that held no device events: "
-          f"{PROFILER_EMPTY['empty']} of {PROFILER_EMPTY['windows']}", flush=True)
+    print(f"phase device-time: torch.profiler windows that held no device events (or none of "
+          f"the counted kernel's): {PROFILER_EMPTY['empty']} of {PROFILER_EMPTY['windows']}; "
+          f"that held fewer kernel events than launches counted: {PROFILER_EMPTY['short']}; "
+          f"whose launches no count gave (events alone): {PROFILER_EMPTY['uncounted']}",
+          flush=True)
 
     # -- obs: the registry's profile of every kernel (after the timed phases)
     segments["profile"] = time.perf_counter()
@@ -4382,11 +4909,15 @@ def main() -> int:
             "replaces": r["replaces"], "launches": launches[k], "max_abs_err": err[k],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+            # a record's own route (K4's staged or gather, K6's and K7's
+            # designs) as plan_route: "route" is the contract's cuda or triton
+            **({"plan_route": r["route"]} if "route" in r else {}),
             **{key: r[key] for key in ("device_ms", "library_device_ms", "old_ms", "grids",
-                                       "dominance_counts_ms", "route", "staged_ms", "shapes",
+                                       "dominance_counts_ms", "old_route", "staged_ms", "shapes",
                                        "boundary", "old_bound_ms", "old_device_ms", "splits",
                                        "configs_a_thread", "ragged", "path", "bound_term",
                                        "tiers_ms", "tiers_device_ms", "per_lane_ms",
+                                       "causal_boundary", "row_err", "twin_ulps",
                                        "wrapped_configs", "library_reason",
                                        "train_launches", "shard_launches", "op_ms",
                                        "raw_ms", "wrapper_ms")

@@ -16,19 +16,25 @@ itself, so a caller keeps its weights as 1-byte codes.
 The plain version gathers the values and factors and runs ``torch.matmul``
 in f32: one product for the exact part, then one per rank.  On a CPU tensor
 the wrapper returns it; on a CUDA tensor it launches the kernel or raises.
-``axo_matmul.launches`` counts kernel launches.  Any M, K and N work: the
+``axo_matmul.launches`` counts kernel launches, ``axo_matmul.route_launches``
+each route's.  Any M, K and N work: the
 kernel masks its ragged tiles itself.
 
-The kernel has two routes, which :func:`plan` picks by M: up to ``GEMV_M``
-rows (decode) an f32 GEMV on the FMA pipe, above that (prefill) TF32 tensor
-cores with each factor split into hi + lo (three passes; the integer values
-take one).  ``tests/test_torch_kernel_design.py`` emulates the tensor-core
-route's rounding in plain torch.  The tile and k-step constants below plan the
-launch; the kernel's source owns its layout and refuses a plan that does not
-fit it.
+The kernel has three routes, which :func:`plan` picks by M: up to ``GEMV_M``
+rows (decode) an f32 GEMV on the FMA pipe; up to ``SKINNY_M`` rows (the MoE
+prefill's expert buffers) the skinny tensor-core route, which computes
+out^T = B^T A^T so that the weight's columns fill the MMA's 16-row side and
+the activation rows its 8-wide side, in blocks of 24 or 80 rows; above
+that (prefill) 128 x 128 tensor-core tiles.  Both tensor-core routes feed
+TF32 with each factor split into hi + lo (three passes; the integer values
+take one) and sum in the same order, so ``tests/test_torch_kernel_design.py``
+emulates both with one model of their rounding.  The tile and k-step
+constants below plan the launch; the kernel's source owns its layout and
+refuses a plan that does not fit it.
 
-:func:`plan` picks the K splits; a caller may name them instead (``splits=``,
-the tile the registry's ``axo_matmul.kernel`` spec tunes).  A plan is made
+:func:`plan` picks the route and the K splits; a caller may name either
+(``route=``, ``splits=``; the splits are the tile the registry's
+``axo_matmul.kernel`` spec tunes).  A plan is made
 once per shape and cached, and records nothing: the registry probes it for
 every candidate.  The wrapper's first launch of a plan that the current
 telemetry sees counts ``jit.retrace.axo_matmul.plan`` and records the
@@ -47,7 +53,7 @@ import torch
 from ..obs.telemetry import current, note_trace, record_pad_waste
 from . import build
 
-__all__ = ["axo_matmul", "axo_matmul_plain", "plan", "Plan"]
+__all__ = ["axo_matmul", "axo_matmul_plain", "plan", "Plan", "route_for"]
 
 MAX_SMEM = 227 * 1024      # dynamic shared memory one block may use
 H100_SMS = 132             # plan()'s default; a launch passes its card's count
@@ -65,6 +71,16 @@ MMA_PER_SM = 1
 MMA_MAX_SPLITS = 16
 MMA_BLOCK_COST = 4
 MMA_STAGE = 2 * (MMA_TILE * 48 + MMA_KSTEP * 144)   # double-buffered code tiles, bytes
+# skinny tensor-core route (16 < M <= SKINNY_M): rows a block -> weight columns a
+# block (the instances csrc/axo_matmul.cu builds) and blocks an SM holds at once
+# (its registers); 4 warps, 32 codes a step.  24 and 80 are the expert buffers
+# the port serves (deepseek-v3's and jamba's); M = 25..79 pads to 80
+SKINNY_M = 80
+SKINNY_TILES = {24: 128, 80: 64}
+SKINNY_PER_SM = {24: 4, 80: 3}
+SKINNY_MAX_SPLITS = 32
+SKINNY_BLOCK_COST = 2
+ROUTES = ("gemv", "mma", "skinny")
 
 
 def _need_ieee_f32(t: torch.Tensor) -> None:
@@ -86,12 +102,13 @@ def axo_matmul_plain(a_codes: torch.Tensor, b_codes: torch.Tensor, f_table: torc
 
 
 class Plan(NamedTuple):
-    route: str          # "gemv" (M <= GEMV_M) or "mma" (tensor cores)
-    rows: int           # output rows a block owns: MT = 1, 2, 4 or 8, or 128
+    route: str          # "gemv" (M <= GEMV_M), "skinny" (M <= SKINNY_M) or "mma"
+    rows: int           # output rows a block owns: MT = 1, 2, 4 or 8; 24 or 80; 128
     splits: int         # blocks along K, summed in split order in the kernel
     k_split: int        # codes of K per split: whole k-steps of the route
     smem: int           # dynamic shared memory per block, bytes
     tiles: int          # output tiles, one split-K counter each
+    cols: int           # output columns a block owns
 
 
 def _split_k(tiles: int, k: int, kstep: int, wave: int, max_splits: int,
@@ -118,23 +135,38 @@ def _k_split(k: int, kstep: int, splits: int, max_splits: int) -> tuple[int, int
     return -(-k // k_split), k_split
 
 
+def route_for(m: int) -> str:
+    """The route :func:`plan` takes at M rows: a pure function of M."""
+    return "gemv" if m <= GEMV_M else "skinny" if m <= SKINNY_M else "mma"
+
+
 @functools.lru_cache(maxsize=4096)
 def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS,
-         splits: int | None = None) -> Plan:
+         splits: int | None = None, route: str | None = None) -> Plan:
     """The launch of K6 for an (m, k) x (k, n) product at this rank.
 
     M <= ``GEMV_M`` takes the GEMV route: a block owns 512 columns and MT rows
     (the least power of two >= M, at most 8; M = 9..16 takes two row groups
-    of 8).  Larger M takes the tensor-core route: 128 x 128 tiles.  K splits
-    into whole k-steps (32 codes on either route) until the blocks fill the
-    ``n_sms`` SMs (two GEMV blocks or one tensor-core block per SM at a
-    time) in as few waves as the work allows, counting a block's fixed cost;
-    ``splits`` names the split count instead (whole k-steps a split, so K
-    may take fewer).  Cached: a decode step asks for the same few shapes
-    hundreds of times.
+    of 8).  M <= ``SKINNY_M`` takes the skinny tensor-core route: a block
+    owns 24 rows and 128 columns up to M = 24, else 80 rows and 64 columns
+    (so no padded row at M = 24 and 80).  Larger M takes 128 x 128
+    tiles.  K splits into whole k-steps (32 codes on every route) until the
+    blocks fill the ``n_sms`` SMs (two GEMV blocks or one tensor-core block
+    per SM at a time) in as few waves as the work allows, counting a block's
+    fixed cost; ``splits`` names the split count instead (whole k-steps a
+    split, so K may take fewer).  ``route`` names the route instead of
+    :func:`route_for`'s (the skinny route only up to ``SKINNY_M`` rows, the
+    GEMV only up to ``GEMV_M``; the tensor-core route takes any M).  Cached:
+    a decode step asks for the same few shapes hundreds of times.
     """
     r1 = rank + 1
-    if m <= GEMV_M:
+    route = route_for(m) if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"K6 has the routes {ROUTES}, got {route!r}")
+    if (route == "gemv" and m > GEMV_M) or (route == "skinny" and m > SKINNY_M):
+        raise ValueError(f"K6's {route} route takes at most "
+                         f"{GEMV_M if route == 'gemv' else SKINNY_M} rows, got {m}")
+    if route == "gemv":
         rows = 1 << max(0, (min(m, 8) - 1).bit_length())
         tiles = -(-n // GEMV_COLS) * -(-m // rows)
         if splits is None:
@@ -146,7 +178,19 @@ def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS,
         # sums; the activation-side table; the chunk's activation values
         smem = (max(r1 * n_codes, 4 * min(rows, 4) * GEMV_COLS) + r1 * n_codes
                 + GEMV_KSTEP * r1 * rows) * 4
-        return Plan("gemv", rows, splits, k_split, smem, tiles)
+        return Plan("gemv", rows, splits, k_split, smem, tiles, GEMV_COLS)
+    if route == "skinny":
+        rows = min(r for r in SKINNY_TILES if r >= m)
+        cols = SKINNY_TILES[rows]
+        tiles = -(-n // cols) * -(-m // rows)
+        if splits is None:
+            splits, k_split = _split_k(tiles, k, MMA_KSTEP, SKINNY_PER_SM[rows] * n_sms,
+                                       SKINNY_MAX_SPLITS, SKINNY_BLOCK_COST)
+        else:
+            splits, k_split = _k_split(k, MMA_KSTEP, splits, SKINNY_MAX_SPLITS)
+        # the two tables; double-buffered (rows, 48) and (32, cols + 16) code tiles
+        smem = 2 * r1 * n_codes * 4 + 2 * (rows * 48 + MMA_KSTEP * (cols + 16))
+        return Plan("skinny", rows, splits, k_split, smem, tiles, cols)
     tiles = -(-n // MMA_TILE) * -(-m // MMA_TILE)
     if splits is None:
         splits, k_split = _split_k(tiles, k, MMA_KSTEP, MMA_PER_SM * n_sms, MMA_MAX_SPLITS,
@@ -154,7 +198,7 @@ def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS,
     else:
         splits, k_split = _k_split(k, MMA_KSTEP, splits, MMA_MAX_SPLITS)
     smem = 2 * r1 * n_codes * 4 + MMA_STAGE
-    return Plan("mma", MMA_TILE, splits, k_split, smem, tiles)
+    return Plan("mma", MMA_TILE, splits, k_split, smem, tiles, MMA_TILE)
 
 
 def _note_launch(m: int, n: int, k: int, pl: Plan) -> None:
@@ -163,9 +207,10 @@ def _note_launch(m: int, n: int, k: int, pl: Plan) -> None:
     if not current().first(("axo_matmul", m, n, k, pl)):
         return
     note_trace("axo_matmul.plan")
-    cols, kstep = (GEMV_COLS, GEMV_KSTEP) if pl.route == "gemv" else (MMA_TILE, MMA_KSTEP)
+    kstep = GEMV_KSTEP if pl.route == "gemv" else MMA_KSTEP
     record_pad_waste("axo_matmul", (m, n, k), (-(-m // pl.rows) * pl.rows,
-                                               -(-n // cols) * cols, -(-k // kstep) * kstep))
+                                               -(-n // pl.cols) * pl.cols,
+                                               -(-k // kstep) * kstep))
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,23 +271,24 @@ def _check(a_codes, b_codes, f_table, g_table, signed_vals) -> None:
 
 def axo_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor, f_table: torch.Tensor,
                g_table: torch.Tensor, signed_vals: torch.Tensor,
-               splits: int | None = None) -> torch.Tensor:
+               splits: int | None = None, route: str | None = None) -> torch.Tensor:
     """K6: uint8 codes (M, K), (K, N); f32 tables (2^n, R), (2^n, R), (2^n,) -> (M, N) f32.
 
-    ``splits`` names the K splits (default: :func:`plan`'s); a count the
-    route does not take raises.  On a CPU tensor the launch is planned (at
-    an H100's SM count) as on the card, then the plain version runs.
+    ``splits`` names the K splits and ``route`` the route (default:
+    :func:`plan`'s); a count or route the shape does not take raises.  On a
+    CPU tensor the launch is planned (at an H100's SM count) as on the card,
+    then the plain version runs.
     """
     _check(a_codes, b_codes, f_table, g_table, signed_vals)
     (m, k), n = a_codes.shape, b_codes.shape[1]
     rank, n_codes = f_table.shape[1], signed_vals.shape[0]
     if a_codes.device.type == "cpu":
         if m * n and k:
-            _note_launch(m, n, k, plan(m, n, k, rank, n_codes, H100_SMS, splits))
+            _note_launch(m, n, k, plan(m, n, k, rank, n_codes, H100_SMS, splits, route))
         return axo_matmul_plain(a_codes, b_codes, f_table, g_table, signed_vals)
     if m * n == 0 or k == 0:
         return torch.zeros((m, n), dtype=torch.float32, device=a_codes.device)
-    pl = plan(m, n, k, rank, n_codes, _sm_count(a_codes.device), splits)
+    pl = plan(m, n, k, rank, n_codes, _sm_count(a_codes.device), splits, route)
     _note_launch(m, n, k, pl)
     return _launch(a_codes, b_codes, f_table, g_table, signed_vals, pl)
 
@@ -263,14 +309,16 @@ def _launch(a_codes, b_codes, f_table, g_table, signed_vals, pl: Plan) -> torch.
         a_codes.data_ptr(), b_codes.data_ptr(), signed_vals.data_ptr(), f_table.data_ptr(),
         g_table.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
         counters.numel(), m, n, k, f_table.shape[1], signed_vals.shape[0],
-        int(pl.route == "mma"), pl.rows, pl.splits, pl.k_split, pl.smem, stream,
+        ROUTES.index(pl.route), pl.rows, pl.splits, pl.k_split, pl.smem, stream,
     )
     if err == _LAYOUT_MISMATCH:
         raise RuntimeError(f"{pl} does not fit the layout of csrc/axo_matmul.cu")
     if err != 0:
         raise RuntimeError(f"axo_matmul launch failed: cudaError {err}")
     axo_matmul.launches += 1
+    axo_matmul.route_launches[pl.route] += 1
     return out
 
 
 axo_matmul.launches = 0
+axo_matmul.route_launches = dict.fromkeys(ROUTES, 0)

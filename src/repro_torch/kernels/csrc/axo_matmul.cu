@@ -15,10 +15,10 @@
 // linear weights of granite-3-2b they are 91 GB at R=8.  So this kernel reads
 // the weight codes (1 byte each) and gathers values and factors itself from
 // the two (1+R, 2^n) tables [sv; f^T] and [sv; g^T], held in shared memory.
-// Two routes, chosen in kernels/axo_matmul.py plan() by M; both reduce a
+// Three routes, chosen in kernels/axo_matmul.py plan() by M; each reduces a
 // split K in the kernel itself, in split order (below).
 //
-// 1. M > 16 (prefill): tensor cores, mma.sync.m16n8k8 TF32 with f32
+// 1. M > 80 (prefill): tensor cores, mma.sync.m16n8k8 TF32 with f32
 //    accumulate.  A block of 8 warps owns a 128 x 128 output tile; each warp
 //    a 64 x 32 one (4 x 4 MMA tiles).  The block walks K in steps of 32
 //    codes: cp.async stages the A (128 x 32) and B (32 x 128) code tiles in
@@ -68,6 +68,35 @@
 //    instruction issue and latency, about 600 cycles an SM per warp and row
 //    (16 codes: 9 gathers, 9 address sums and 9 x MT FMAs each) whatever the
 //    occupancy; its floor on the FMA pipe is 2*M*N*K*(1+R) f32 operations.
+//
+// 3. 16 < M <= 80 (the MoE prefill's expert buffers: deepseek-v3's 24 rows,
+//    jamba's 80): skinny tensor cores.  Route 1's 128-row tiles spent 104 of
+//    128 rows on padding at M = 24 (5.3x the useful MMAs, and each weight
+//    code's table expansion spent on 24 real rows).  This route computes
+//    out^T = B^T A^T: the weight's columns fill mma.m16n8k8's 16-row A side
+//    and the activation rows its 8-wide B side, so a block of 4 warps owns
+//    Rows = 24 or 80 rows (no padded row at M = 24 and 80; M = 25..79 pads
+//    to 80) and 128 or 64 weight columns; each warp 2 tiles of 16 columns x
+//    3 or 5 tiles of 8 rows.  Everything else is route 1's: the tables in shared memory, the
+//    codes staged by cp.async in 32-code steps, the values in one TF32 pass
+//    and each factor in three (x_lo.w_hi, x_hi.w_lo, x_hi.w_hi, route 1's
+//    terms in route 1's order), each step summed from zero in the tensor
+//    core and added in IEEE f32, split K summed in split order by the last
+//    block.  What bounds it: latency, the shared-memory gathers (1 + R a code
+//    on each side, ~3.5-way bank conflicts for random codes) and the MMAs of
+//    each table row waiting on them; with 8 warps an SM (8-warp blocks) it ran
+//    no faster than route 1 at M = 80, so blocks are 4 warps and an SM holds 3
+//    or 4 of them (128-168 registers a thread; the plan's splits fill that
+//    many a card), and the table rows are unrolled by two, so that one row's
+//    gathers are in flight during the other's MMAs.  Measured (chip_smoke.py, H100 80GB HBM3, 700 W, CUDA
+//    events [profiler device time]): deepseek-v3's 24 rows 0.1421 ms
+//    [0.1421] (7168 x 2048) and 0.1511 [0.1512] (2048 x 7168) against route
+//    1's 0.5148 [0.5110] and 0.5848 [0.5821] and one cuBLAS GEMM's 0.2167
+//    and 0.2421; jamba's 80 rows 1.4250 and 1.3974 against 2.3316 and 2.0498
+//    (cuBLAS 2.4632, 2.4905); profiled in a fresh process in a later run,
+//    jamba's 80 rows [1.4177] and [1.3684] against route 1's [2.2705] and
+//    [2.0092] (cuBLAS [2.4716], [2.5270]).  The TF32 bounds are 0.0356 and
+//    0.4745.
 //
 // Split K: each block writes its partial tile to a (splits, M, N) workspace;
 // the last block of a tile to arrive (an atomic counter per tile, which it
@@ -426,6 +455,229 @@ axo_mma_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
+// route 3, 16 < M <= 80: skinny tensor cores, out^T = B^T . A^T
+// ---------------------------------------------------------------------------
+
+// A block of 4 warps owns Cols weight columns x Rows activation rows: the
+// warps stand 4 / MW along N and MW along M, each owning 2 weight tiles of 16
+// columns (the MMA's 16-row A side) x NTW activation tiles of 8 rows (its
+// n8 side).  Instances: Rows = 24 (NTW 3, MW 1, 128 columns) and 80 (5, 2,
+// 64), the expert buffers the port serves (deepseek-v3's and jamba's).
+constexpr int kSkThreads = 128;
+constexpr int kSkBlocksPerSm = 3;   // the fewest blocks an SM holds (ptxas: 128-168 registers)
+
+template <int NTW, int MW>
+struct Skinny {
+  static constexpr int kWt = 2;                     // 16-column weight tiles a warp
+  static constexpr int kWarpsN = 4 / MW;
+  static constexpr int kCols = kWarpsN * 16 * kWt;  // weight columns a block
+  static constexpr int kRows = MW * NTW * 8;        // activation rows a block
+  static constexpr int kBStride = kCols + 16;       // bytes per staged weight row
+  static constexpr int kABytes = kRows * kAStride;  // (rows, 48): 32 codes + 16 pad
+  static constexpr int kBBytes = kStepK * kBStride;
+};
+
+// Stage one 32-code step of the activation codes (Rows x 32) and the weight
+// codes (32 x Cols), as stage_step does for route 1.
+template <int NTW, int MW>
+__device__ void stage_skinny(uint8_t* as, uint8_t* bs, const uint8_t* __restrict__ a,
+                             const uint8_t* __restrict__ b, int m_total, int n_total,
+                             int k_total, int m0, int n0, int k0, int kend, bool a_vec,
+                             bool b_vec) {
+  using S = Skinny<NTW, MW>;
+  constexpr int kBPieces = kStepK * S::kCols / 16;
+  for (int p = threadIdx.x; p < 2 * S::kRows + kBPieces; p += kSkThreads) {
+    if (p < 2 * S::kRows) {   // activation codes: a row's 32 codes in two pieces
+      const int r = p >> 1;
+      const int c = (p & 1) * 16;
+      const int m = m0 + r;
+      const int k = k0 + c;
+      uint8_t* dst = as + r * kAStride + c;
+      if (a_vec) {
+        const bool in = m < m_total && k < kend;
+        cp_async16(dst, a + (in ? static_cast<size_t>(m) * k_total + k : 0), in ? 16 : 0);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (m < m_total) {
+          const uint8_t* src = a + static_cast<size_t>(m) * k_total;
+          for (int i = 0; i < 16; ++i)
+            if (k + i < kend) w[i >> 2] |= static_cast<uint32_t>(src[k + i]) << (8 * (i & 3));
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    } else {                  // weight codes: a k row's Cols codes in pieces of 16
+      const int q = p - 2 * S::kRows;
+      const int r = q / (S::kCols / 16);
+      const int c = (q - r * (S::kCols / 16)) * 16;
+      const int k = k0 + r;
+      const int n = n0 + c;
+      uint8_t* dst = bs + r * S::kBStride + c;
+      if (b_vec) {
+        const bool in = k < kend && n < n_total;
+        cp_async16(dst, b + (in ? static_cast<size_t>(k) * n_total + n : 0), in ? 16 : 0);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (k < kend) {
+          const uint8_t* src = b + static_cast<size_t>(k) * n_total;
+          for (int i = 0; i < 16; ++i)
+            if (n + i < n_total) w[i >> 2] |= static_cast<uint32_t>(src[n + i]) << (8 * (i & 3));
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+template <int NTW, int MW>
+__global__ void __launch_bounds__(kSkThreads, kSkBlocksPerSm)
+axo_skinny_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+                  const float* __restrict__ sv, const float* __restrict__ ft,
+                  const float* __restrict__ gt, float* __restrict__ out, float* __restrict__ ws,
+                  int* __restrict__ counters, int m_total, int n_total, int k_total, int rank,
+                  int n_codes, int splits, int k_split, bool a_vec, bool b_vec) {
+  using S = Skinny<NTW, MW>;
+  constexpr int WT = S::kWt;
+  extern __shared__ __align__(16) float smem[];
+  const int r1 = rank + 1;
+  const int tsz = n_codes;
+  float* ta = smem;                        // (1+R, n_codes): [sv; f], the activation side
+  float* tb = ta + r1 * tsz;               // [sv; g], the weight side
+  uint8_t* as = reinterpret_cast<uint8_t*>(tb + r1 * tsz);   // 2 x (Rows, 48) codes
+  uint8_t* bs = as + 2 * S::kABytes;                           // 2 x (32, Cols + 16) codes
+
+  const int m0 = blockIdx.y * S::kRows;
+  const int n0 = blockIdx.x * S::kCols;
+  const int kb = blockIdx.z * k_split;
+  const int kend = min(k_total, kb + k_split);
+  const int n_steps = (kend - kb + kStepK - 1) / kStepK;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wn = (warp % S::kWarpsN) * 16 * WT;   // the warp's weight columns
+  const int wm = (warp / S::kWarpsN) * NTW * 8;   // and activation rows
+  const int code_mask = n_codes - 1;
+
+  if (n_steps > 0)
+    stage_skinny<NTW, MW>(as, bs, a, b, m_total, n_total, k_total, m0, n0, kb, kend, a_vec,
+                          b_vec);
+  const bool sv_exact = fill_table(ta, sv, ft, rank, n_codes);
+  fill_table(tb, sv, gt, rank, n_codes);
+
+  float acc[WT][NTW][4] = {};
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int buf = step & 1;
+    const int k0 = kb + step * kStepK;
+    if (step + 1 < n_steps) {
+      stage_skinny<NTW, MW>(as + (buf ^ 1) * S::kABytes, bs + (buf ^ 1) * S::kBBytes, a, b,
+                            m_total, n_total, k_total, m0, n0, k0 + kStepK, kend, a_vec, b_vec);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint8_t* at = as + buf * S::kABytes;
+    const uint8_t* bt = bs + buf * S::kBBytes;
+    const int klim = kend - k0;
+    // this step's sum starts from zero in the tensor core, as in route 1
+    float tmp[WT][NTW][4] = {};
+#pragma unroll 1
+    for (int s = 0; s < 4; ++s) {
+      // k slot t holds code 8s + 2t of the step, slot t + 4 code 8s + 2t + 1,
+      // as in route 1.  A side (weights): columns g and g + 8 of each tile.
+      int ow[WT][4];
+#pragma unroll
+      for (int i = 0; i < WT; ++i) {
+        const int col = wn + i * 16 + g;
+        const uint8_t* r0 = bt + (8 * s + 2 * t) * S::kBStride;
+        const uint8_t* r1p = r0 + S::kBStride;
+        ow[i][0] = r0[col] & code_mask;
+        ow[i][1] = r0[col + 8] & code_mask;
+        ow[i][2] = r1p[col] & code_mask;
+        ow[i][3] = r1p[col + 8] & code_mask;
+      }
+      // B side (activations): row g of each 8-row tile, both k slots in one read
+      int ox[NTW][2];
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt) {
+        const int row = wm + nt * 8 + g;
+        const uint32_t c2 = *reinterpret_cast<const uint16_t*>(at + row * kAStride + 8 * s + 2 * t);
+        ox[nt][0] = (c2 & 0xff) & code_mask;
+        ox[nt][1] = (c2 >> 8) & code_mask;
+      }
+      const bool v0 = 8 * s + 2 * t < klim;
+      const bool v1 = 8 * s + 2 * t + 1 < klim;
+      // table rows from the last factor down to the values, each factor
+      // x_lo.w_hi, x_hi.w_lo, x_hi.w_hi: route 1's order
+#pragma unroll 2   // two table rows' gathers in flight together
+      for (int j = rank; j >= (sv_exact ? 1 : 0); --j) {
+        const float* taj = ta + j * tsz;
+        const float* tbj = tb + j * tsz;
+        uint32_t wh[WT][4], wl[WT][4];
+#pragma unroll
+        for (int i = 0; i < WT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(tbj[ow[i][e]], wh[i][e], wl[i][e]);
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          uint32_t xh0, xl0, xh1, xl1;
+          split_tf32(v0 ? taj[ox[nt][0]] : 0.f, xh0, xl0);
+          split_tf32(v1 ? taj[ox[nt][1]] : 0.f, xh1, xl1);
+#pragma unroll
+          for (int i = 0; i < WT; ++i) {
+            mma_tf32(tmp[i][nt], wh[i], xl0, xl1);
+            mma_tf32(tmp[i][nt], wl[i], xh0, xh1);
+            mma_tf32(tmp[i][nt], wh[i], xh0, xh1);
+          }
+        }
+      }
+      if (sv_exact) {   // the value part: one pass, exact
+        uint32_t wf[WT][4];
+#pragma unroll
+        for (int i = 0; i < WT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) wf[i][e] = __float_as_uint(tb[ow[i][e]]);
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          const uint32_t x0 = v0 ? __float_as_uint(ta[ox[nt][0]]) : 0u;
+          const uint32_t x1 = v1 ? __float_as_uint(ta[ox[nt][1]]) : 0u;
+#pragma unroll
+          for (int i = 0; i < WT; ++i) mma_tf32(tmp[i][nt], wf[i], x0, x1);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WT; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][nt][e] += tmp[i][nt][e];
+    __syncthreads();   // this buffer is read before the next stage overwrites it
+  }
+
+  // the accumulator is out^T: element (weight column, activation row)
+  float* dst = splits > 1 ? ws + static_cast<size_t>(blockIdx.z) * m_total * n_total : out;
+#pragma unroll
+  for (int i = 0; i < WT; ++i) {
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n0 + wn + i * 16 + g + 8 * (e >> 1);
+        const int row = m0 + wm + nt * 8 + 2 * t + (e & 1);
+        if (row < m_total && col < n_total)
+          dst[static_cast<size_t>(row) * n_total + col] = acc[i][nt][e];
+      }
+    }
+  }
+  if (splits > 1)
+    split_fixup(out, ws, counters, splits, m_total, n_total, m0, S::kRows, n0, S::kCols);
+}
+
+// ---------------------------------------------------------------------------
 // route 2, M <= 16: f32 GEMV
 // ---------------------------------------------------------------------------
 
@@ -620,6 +872,12 @@ size_t mma_smem(int r1, int n_codes) {
   return (2 * static_cast<size_t>(r1) * n_codes) * sizeof(float) + 2 * (kABytes + kBBytes);
 }
 
+template <int NTW, int MW>
+size_t skinny_smem(int r1, int n_codes) {
+  using S = Skinny<NTW, MW>;
+  return (2 * static_cast<size_t>(r1) * n_codes) * sizeof(float) + 2 * (S::kABytes + S::kBBytes);
+}
+
 size_t gemv_smem(int mt, int r1, int n_codes) {
   const int pass = mt < 4 ? mt : 4;
   return (static_cast<size_t>(max(r1 * n_codes, kGemvWarps * pass * kGemvCols)) +
@@ -647,15 +905,35 @@ cudaError_t launch_gemv(const uint8_t* a, const uint8_t* b, const float* sv, con
   return cudaGetLastError();
 }
 
+template <int NTW, int MW>
+cudaError_t launch_skinny(const uint8_t* a, const uint8_t* b, const float* sv, const float* ft,
+                          const float* gt, float* out, float* ws, int* counters, int n_counters,
+                          int m, int n, int k, int rank, int n_codes, int splits, int k_split,
+                          size_t smem, cudaStream_t stream, bool& mismatch) {
+  using S = Skinny<NTW, MW>;
+  const dim3 grid((n + S::kCols - 1) / S::kCols, (m + S::kRows - 1) / S::kRows, splits);
+  mismatch = k_split % kStepK || smem != skinny_smem<NTW, MW>(rank + 1, n_codes) ||
+             (splits > 1 && static_cast<long long>(grid.x) * grid.y > n_counters);
+  if (mismatch) return cudaSuccess;
+  cudaError_t err = allow_smem(axo_skinny_kernel<NTW, MW>, smem);
+  if (err != cudaSuccess) return err;
+  const bool a_vec = k % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const bool b_vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  axo_skinny_kernel<NTW, MW><<<grid, kSkThreads, smem, stream>>>(
+      a, b, sv, ft, gt, out, ws, counters, m, n, k, rank, n_codes, splits, k_split, a_vec, b_vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// route 0 = GEMV (rows = MT, 1/2/4/8 rows per block), 1 = tensor cores.
+// route 0 = GEMV (rows = MT, 1/2/4/8 rows per block), 1 = tensor cores, 2 =
+// skinny tensor cores (rows = 24 or 80 per block).
 // With splits > 1, ws holds splits * m * n floats of partials and counters
 // n_counters zeroed ints, one per output tile (left zeroed).  smem is the
 // dynamic shared memory plan() computed for the launch.  Returns a cudaError_t,
 // or kLayoutMismatch where the plan disagrees with this file's layout: smem
 // not what the route's block takes, a split not whole k-steps, a row count
-// the GEMV is not built for, or fewer counters than output tiles.
+// the route is not built for, or fewer counters than output tiles.
 constexpr int kLayoutMismatch = -1;
 
 extern "C" int axo_matmul_launch(const void* a, const void* b, const void* sv,
@@ -686,6 +964,17 @@ extern "C" int axo_matmul_launch(const void* a, const void* b, const void* sv,
     axo_mma_kernel<<<grid, kMmaThreads, sm, s>>>(ap, bp, svp, fp, gp, op, wp, cnt, m, n, k,
                                                  rank, n_codes, splits, k_split, a_vec, b_vec);
     return static_cast<int>(cudaGetLastError());
+  }
+  if (route == 2) {
+    bool mismatch = true;
+    cudaError_t err = cudaSuccess;
+    if (rows == 24)
+      err = launch_skinny<3, 1>(ap, bp, svp, fp, gp, op, wp, cnt, n_counters, m, n, k, rank,
+                                n_codes, splits, k_split, sm, s, mismatch);
+    else if (rows == 80)
+      err = launch_skinny<5, 2>(ap, bp, svp, fp, gp, op, wp, cnt, n_counters, m, n, k, rank,
+                                n_codes, splits, k_split, sm, s, mismatch);
+    return mismatch ? kLayoutMismatch : static_cast<int>(err);
   }
   auto* fn = rows == 1 ? &launch_gemv<1> : rows == 2 ? &launch_gemv<2>
             : rows == 4 ? &launch_gemv<4> : rows == 8 ? &launch_gemv<8> : nullptr;

@@ -1,5 +1,5 @@
 // Causal GQA flash attention for Hopper (sm_90a): the prefill attention of
-// the port's dense LM.
+// the port's LMs (and their training forward), causal or not.
 //
 //   out[b, h, i] = softmax_j(scale * q[b, h, i] . k[b, h // rep, j]) v[b, h // rep, j]
 //
@@ -51,6 +51,47 @@
 // layout needs 16-byte aligned rows: the launcher checks q, k, v and o and
 // refuses the launch otherwise (the wrapper raises).
 //
+// The bf16 wgmma route (flash_attention_wgmma_kernel): the long and the
+// non-causal calls (kernels/flash_attention.py plan(): every non-causal call,
+// and causal ones over 512 keys or more, at hd 64 and 128).  The design above
+// sat at 19% of its bound over whisper's 1,500 keys, where SDPA reached 38%:
+// mma.sync is not the card's full tensor-core rate, its 64-key tiles arrive
+// by cp.async copies every thread issues, and the hi + lo pair does 1.5x the
+// P.V work.  Here a block is one to three consumer warpgroups of 64 query
+// rows (the plan picks 192, 128 or 64 rows: the most whose blocks still fill
+// the 132 SMs; three only at hd 64, whose 128 registers a thread leave room)
+// and one producer warp.  The producer's one lane loads the block's q rows
+// and then each 128-key K and V tile by TMA (cp.async.bulk.tensor, 4-d maps
+// over the strided (hd, position, head, batch) views, 128-byte swizzled, keys
+// past kv_len filled with zeros) into a ring of two stages, each with full
+// and empty mbarriers.  A consumer warpgroup computes S = q k^T with
+// wgmma.m64n128k16 from shared memory (q and K both K-major), runs the online
+// softmax on S's accumulator fragments in the exp2 domain (ex2.approx.ftz),
+// rounds p once to bf16 as the TPU kernel does (its p.astype(v.dtype)) and
+// feeds it from registers as the A operand of O += P.V, wgmma.m64n{HD}k16
+// with V as the MN-major B operand; a causal warpgroup skips the tiles past
+// its last row and masks only the tiles that cross the diagonal or kv_len.
+// Every warp arrives on a stage's empty barrier once its tile is read, the
+// skipped tiles included, so a round's arrivals never mix with the next's.
+// A barrier that has not completed after ~17 s traps instead of holding the
+// card.  What bounds it on this card: at hd 64 the softmax's 16,384 exp2 a
+// 128 x 128 tile pair on the SFU (16 a clock an SM) about equals the tile's
+// wgmma time, and each warpgroup waits for its own products before its
+// softmax, so only the other warpgroups overlap them (an S of the next tile
+// in flight during this one's softmax did not fit 168 registers a thread: it
+// spilled and ran slower).  Measured (chip_smoke.py, H100 80GB HBM3, 700 W,
+// CUDA events on the raw launcher [profiler device time]): whisper's encoder
+// (4 x 16 heads, 1,500 x 1,500) 0.1353 ms [0.1290] against the mma route's
+// 0.2704 [0.2641] and SDPA's 0.1065 [0.1042], bound 0.0373; the VLM's cross
+// (128 x 1,600, hd 128) 0.0795 [0.0757] against 0.1658 [0.1607] and 0.0850
+// [0.0815]; whisper's cross (128 x 1,500) [0.0183] against [0.0370] and
+// [0.0188]; granite's 4 x 4096 causal forward 0.9066 [0.9097, profiled in a
+// fresh process in a later run] against 1.8227 [1.8490] and 0.6298
+// [0.6281], bound 0.278.  S's and P's fragments are
+// those of mma.m16n8k16 per warp, so the softmax code is the design above's.
+// hd 112 (kimi-k2) keeps the mma route: its 224-byte rows are not whole
+// 128-byte panels.
+//
 // The f32 kernel serves only the reduced-config checks and keeps the first
 // design: one query row per thread on the f32 FMA pipe, K/V staged in shared
 // memory as f32, p kept f32.
@@ -74,8 +115,10 @@
 // back into 255 registers and spilled 60 bytes at 128; by 4, 48 registers and
 // no spills at 112 and 128).
 
+#include <cuda.h>   // CUtensorMap and its enums (types only: the encoder is looked up)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -364,6 +407,379 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 route 2: warpgroup MMA (wgmma) over a TMA-fed K/V ring
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;           // query rows a consumer warpgroup owns
+constexpr int kWgKeys = 128;          // keys a K/V tile holds
+constexpr int kSwRow = 128;           // bytes of a 128-byte swizzled row: 64 bf16
+constexpr int kSwAtom = 8 * kSwRow;   // the swizzle's period: 8 rows
+
+// Shared memory of a block with NC consumer warpgroups: q's rows, then the
+// K and V rings, then the barriers.  A row of HD bf16 lies in HD / 64 panels
+// of 128-byte rows, each panel 128-byte swizzled as TMA writes it and wgmma
+// reads it; every panel starts on a 1024-byte boundary.
+template <int HD, int NC>
+struct WgLayout {
+  static constexpr int kStages = 2;                 // K/V tiles in flight
+  static constexpr int kPanels = HD / 64;
+  static constexpr int kQPanel = kWgRows * kSwRow;    // a warpgroup's q rows, one panel
+  static constexpr int kKVPanel = kWgKeys * kSwRow;   // a K or V tile, one panel
+  static constexpr int kQBytes = kPanels * kQPanel;   // a warpgroup's q rows
+  static constexpr int kTileBytes = kPanels * kKVPanel;
+  static constexpr int kK = NC * kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;   // + alignment
+  static constexpr int kThreads = NC * 128 + 32;       // the consumers, then the producer warp
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of `parity` to complete.  A phase that has not completed
+// after ~2^35 cycles (~17 s) can never complete: the kernel traps, so the
+// launch fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 35)) __trap();
+}
+
+// a (hd, position, head, batch) box of a 4-d tensor map into shared memory,
+// completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x on the SFU, flushing results below 2^-126 to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keep the compiler from moving reads or writes of an accumulator across the
+// asynchronous MMA's issue and wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma's shared-memory matrix descriptor for a 128-byte swizzled operand:
+// start address, leading and stride byte offsets (16-byte units), swizzle mode 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFFu) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFFu) >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= A . B for a 64 x 128 tile over 16 of k: A and B from shared memory
+// (K-major, 128-byte swizzle), bf16 in, f32 accumulate; scale_d 0 zeroes d first
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A . B for a 64 x 64 tile over 16 of k: A from registers (the
+// accumulator layout's fragments), B from shared memory (MN-major, 128-byte
+// swizzle), bf16 in, f32 accumulate
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B for a 64 x 128 tile over 16 of k: A from registers (the
+// accumulator layout's fragments), B from shared memory (MN-major, 128-byte
+// swizzle), bf16 in, f32 accumulate
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else {
+    wgmma_rs_n128(d, a, db);
+  }
+}
+
+template <int HD, int NC>
+__global__ void __launch_bounds__(WgLayout<HD, NC>::kThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ o, Strides os, int rep, int sq,
+                             float scale_log2, int causal, int q_offset, int kv_len) {
+  using L = WgLayout<HD, NC>;
+  constexpr int P = L::kPanels;
+  constexpr int DT = HD / 8;          // 8-wide tiles of the output
+  constexpr int NT = kWgKeys / 8;     // 8-key tiles of the scores
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  auto full_k = [&](int s) { return base + L::kBar + 8u * (1 + s); };
+  auto full_v = [&](int s) { return base + L::kBar + 8u * (1 + L::kStages + s); };
+  auto empty = [&](int s) { return base + L::kBar + 8u * (1 + 2 * L::kStages + s); };
+
+  const int qt = blockIdx.x;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int gi = hi / rep;
+  const int tid = threadIdx.x;
+  const int row_blk = qt * NC * kWgRows;
+  // the keys any row of this block can see: the tiles the producer loads
+  const int last_row = min(sq, row_blk + NC * kWgRows) - 1;
+  const int kend = causal ? min(kv_len, q_offset + last_row + 1) : kv_len;
+  const int n_tiles = (kend + kWgKeys - 1) / kWgKeys;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), 4 * NC);   // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= NC * 128) {   // the producer warp: one lane issues every copy
+    if (tid == NC * 128) {
+      const int live = min(NC, (sq - row_blk + kWgRows - 1) / kWgRows);   // warpgroups with rows
+      mbar_arrive_tx(bar_q, live * L::kQBytes);
+      for (int w = 0; w < live; ++w)
+        for (int p = 0; p < P; ++p)
+          tma_load(base + (w * P + p) * L::kQPanel, &tq, 64 * p, row_blk + w * kWgRows, hi, bi,
+                   bar_q);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % L::kStages;
+        mbar_wait(empty(s), ((i / L::kStages) & 1) ^ 1);
+        mbar_arrive_tx(full_k(s), L::kTileBytes);
+        for (int p = 0; p < P; ++p)
+          tma_load(base + L::kK + s * L::kTileBytes + p * L::kKVPanel, &tk, 64 * p,
+                   i * kWgKeys, gi, bi, full_k(s));
+        mbar_arrive_tx(full_v(s), L::kTileBytes);
+        for (int p = 0; p < P; ++p)
+          tma_load(base + L::kV + s * L::kTileBytes + p * L::kKVPanel, &tv, 64 * p,
+                   i * kWgKeys, gi, bi, full_v(s));
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: 64 query rows, 16 a warp
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wg_row0 = row_blk + wg * kWgRows;
+  const int row0 = wg_row0 + warp * 16;
+  const int r_lo = row0 + g;
+  const int r_hi = r_lo + 8;
+  const bool wg_active = wg_row0 < sq;
+  // the keys this warpgroup's rows see: a causal block's earlier warpgroups
+  // may skip the block's last tile
+  const int wg_kend = causal ? min(kv_len, q_offset + min(sq, wg_row0 + kWgRows)) : kv_len;
+  const uint32_t q_base = base + wg * L::kQBytes;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float sc[NT * 4];
+#pragma unroll
+  for (int i = 0; i < NT * 4; ++i) sc[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  if (wg_active) mbar_wait(bar_q, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % L::kStages;
+    const int ph = (i / L::kStages) & 1;
+    const int k0 = i * kWgKeys;
+    mbar_wait(full_k(s), ph);
+    __syncwarp();   // wgmma is .aligned: the warp converged after its spin
+    if (wg_active && k0 < wg_kend) {
+      // S = q k^T: 64 rows x 128 keys, HD / 16 steps of 16
+      const uint32_t k_base = base + L::kK + s * L::kTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < HD / 16; ++kc) {
+        const uint32_t off = (kc & 3) * 32;   // 16 bf16 along the swizzled row
+        wgmma_ss_n128(sc, sw128_desc(q_base + (kc >> 2) * L::kQPanel + off, 16, kSwAtom),
+                      sw128_desc(k_base + (kc >> 2) * L::kKVPanel + off, 16, kSwAtom), kc > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      // scale into the exp2 domain; mask only where the tile crosses kv_len
+      // or the diagonal of this warp's rows
+      const bool need_mask =
+          k0 + kWgKeys > kv_len || (causal && k0 + kWgKeys - 1 > q_offset + row0);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * nt + e] * scale_log2;
+          if (need_mask) {
+            const int key = k0 + nt * 8 + 2 * t + (e & 1);
+            const int qpos = q_offset + (e < 2 ? r_lo : r_hi);
+            if (key >= kv_len || (causal && key > qpos)) x = -INFINITY;
+          }
+          sc[4 * nt + e] = x;
+        }
+      }
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo);
+      const float mn_hi = fmaxf(m_hi, mx_hi);
+      // a row that has seen no key yet keeps everything at 0
+      const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+      const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+      const float alpha_lo = ex2(m_lo - base_lo);
+      const float alpha_hi = ex2(m_hi - base_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      l_lo *= alpha_lo;
+      l_hi *= alpha_hi;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        acc[4 * dt] *= alpha_lo;
+        acc[4 * dt + 1] *= alpha_lo;
+        acc[4 * dt + 2] *= alpha_hi;
+        acc[4 * dt + 3] *= alpha_hi;
+      }
+      // p in f32 for the row sums; rounded once to bf16 for P.V, as the TPU
+      // kernel's p.astype(v.dtype); the A fragments of 16-key chunk kc are
+      // the scores of 8-key tiles 2 kc and 2 kc + 1
+      uint32_t pa[kWgKeys / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kWgKeys / 16; ++kc) {
+        float p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) p[e] = ex2(sc[8 * kc + e] - ((e & 2) ? base_hi : base_lo));
+        l_lo += p[0] + p[1] + p[4] + p[5];
+        l_hi += p[2] + p[3] + p[6] + p[7];
+        pa[kc][0] = as_u32(__floats2bfloat162_rn(p[0], p[1]));
+        pa[kc][1] = as_u32(__floats2bfloat162_rn(p[2], p[3]));
+        pa[kc][2] = as_u32(__floats2bfloat162_rn(p[4], p[5]));
+        pa[kc][3] = as_u32(__floats2bfloat162_rn(p[6], p[7]));
+      }
+      // O += P . V: V's tile is the MN-major B operand, 16 keys (two 8-row
+      // groups) a step, its HD columns across the panels
+      mbar_wait(full_v(s), ph);
+      __syncwarp();
+      const uint32_t v_base = base + L::kV + s * L::kTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kWgKeys / 16; ++kc)
+        wgmma_pv<HD>(acc, pa[kc], sw128_desc(v_base + kc * 2 * kSwAtom, L::kKVPanel, kSwAtom));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+    } else {
+      mbar_wait(full_v(s), ph);   // keeps every warp's arrivals in the tile's round
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+  if (!wg_active) return;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  // a row with no visible key gives 0/0, as the plain softmax does
+  const float inv_lo = 1.f / l_lo;
+  const float inv_hi = 1.f / l_hi;
+  __nv_bfloat16* ob = o + bi * os.b + hi * os.h;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int d = 8 * dt + 2 * t;
+    if (r_lo < sq) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r_lo) * os.s + d) =
+          __floats2bfloat162_rn(acc[4 * dt] * inv_lo, acc[4 * dt + 1] * inv_lo);
+    }
+    if (r_hi < sq) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r_hi) * os.s + d) =
+          __floats2bfloat162_rn(acc[4 * dt + 2] * inv_hi, acc[4 * dt + 3] * inv_hi);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: the first design, one query row per thread
 // ---------------------------------------------------------------------------
 
@@ -539,6 +955,74 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// libcuda's tensor-map encoder, looked up once in the loaded library (the
+// library links against the runtime alone).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A (batch, head, position, hd) bf16 view as a 4-d tensor map (hd, position,
+// head, batch): boxes of 64 hd x `rows` positions, 128-byte swizzled;
+// positions at or past `len` read as zero.  False where libcuda refuses it.
+bool tensor_map(CUtensorMap* map, const void* p, const Strides& st, int nb, int nh, int len,
+                int hd, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  // an axis of extent 1 is never stepped: it takes any stride the map allows
+  auto bytes = [](long long stride, int extent) -> cuuint64_t {
+    return extent > 1 ? static_cast<cuuint64_t>(stride) * sizeof(__nv_bfloat16) : 16;
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(nh), static_cast<cuuint64_t>(nb)};
+  const cuuint64_t strides[3] = {bytes(st.s, len), bytes(st.h, nh), bytes(st.b, nb)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wgmma route at NC consumer warpgroups (64 NC query rows a block); sets
+// `refused` where a tensor map cannot be made.
+template <int HD, int NC>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream, bool& refused) {
+  using L = WgLayout<HD, NC>;
+  CUtensorMap tq, tk, tv;
+  refused = !(tensor_map(&tq, a.q, a.qs, a.b, a.h, a.sq, HD, kWgRows) &&
+              tensor_map(&tk, a.k, a.ks, a.b, a.g, a.kv_len, HD, kWgKeys) &&
+              tensor_map(&tv, a.v, a.vs, a.b, a.g, a.kv_len, HD, kWgKeys));
+  if (refused) return cudaSuccess;
+  static unsigned raised = 0;
+  const cudaError_t err = allow_smem(flash_attention_wgmma_kernel<HD, NC>, L::kBytes, raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + NC * kWgRows - 1) / (NC * kWgRows), a.h, a.b);
+  flash_attention_wgmma_kernel<HD, NC><<<grid, L::kThreads, L::kBytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.os, a.h / a.g, a.sq, a.scale_log2,
+      a.causal, a.q_offset, a.kv_len);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_wgmma_rows(const Args& a, int rows, cudaStream_t stream, bool& refused) {
+  if (rows == 64) return launch_wgmma<HD, 1>(a, stream, refused);
+  if (rows == 128) return launch_wgmma<HD, 2>(a, stream, refused);
+  if constexpr (HD == 64) {
+    if (rows == 192) return launch_wgmma<HD, 3>(a, stream, refused);
+  }
+  refused = true;
+  return cudaSuccess;
+}
+
 // Every row the bf16 kernel reads or writes starts on a 16-byte boundary: the
 // base, and each stride of an axis it walks (extent > 1), in bytes.
 bool rows_aligned(const void* p, const Strides& st, int nb, int nh, int ns) {
@@ -551,14 +1035,19 @@ bool rows_aligned(const void* p, const Strides& st, int nb, int nh, int ns) {
 
 // dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 112, 128}.  Each stride array is
 // the (batch, head, position) element strides of q, k, v and o in turn.
-// Returns a cudaError_t, or kMisaligned where a bf16 row does not start on a
-// 16-byte boundary.
+// route 0 = the mma.sync design (bf16) or the f32 kernel, 1 = the bf16 wgmma
+// route, hd 64 or 128, kv_len >= 1, with `rows` = 64 or 128 query rows a block.
+// Returns a cudaError_t, kMisaligned where a bf16 row does not start on a
+// 16-byte boundary, or kRefused where the wgmma route does not take the call
+// (its width, its rows, an empty cache, or a tensor map libcuda refuses).
 constexpr int kMisaligned = -1;
+constexpr int kRefused = -2;
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const long long* strides, int dtype, int b, int h,
                                       int g, int sq, int hd, float scale, int causal,
-                                      int q_offset, int kv_len, void* stream) {
+                                      int q_offset, int kv_len, int route, int rows,
+                                      void* stream) {
   const Args a{q, k, v, o,
                Strides{strides[0], strides[1], strides[2]},
                Strides{strides[3], strides[4], strides[5]},
@@ -571,6 +1060,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                       rows_aligned(v, a.vs, b, g, kv_len) && rows_aligned(o, a.os, b, h, sq)))
     return kMisaligned;
   cudaError_t err;
+  if (route == 1) {
+    bool refused = true;
+    err = cudaSuccess;
+    if (dtype == 1 && kv_len >= 1) {
+      if (hd == 64) err = launch_wgmma_rows<64>(a, rows, s, refused);
+      if (hd == 128) err = launch_wgmma_rows<128>(a, rows, s, refused);
+    }
+    return refused ? kRefused : static_cast<int>(err);
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 16: err = launch<16>(dtype, a, s); break;
     case 32: err = launch<32>(dtype, a, s); break;

@@ -16,17 +16,23 @@ transposed); the output has ``q``'s layout.
 
 The plain version is ``ref.ref_flash_attention``'s direct masked softmax with
 the offset and ``kv_len`` added, computed in f32 and rounded once to the input
-type.  The bf16 kernel runs both products on the tensor cores and carries its
-softmax weights as a bf16 hi + lo pair (``tests/test_torch_kernel_design.py``
-emulates that in plain torch); the f32 kernel keeps them in f32.  For bf16
-every row of q, k, v and the output must start on a 16-byte boundary: the
-kernel copies K/V rows in 16-byte pieces, its launcher refuses a view that
-breaks that, and the wrapper raises.  The kernel is built for the head widths
-in ``HEAD_DIMS``: granite's 64, the reduced configs' 16, internlm2's,
+type.  bf16 takes one of two routes, which :func:`plan` picks from the shape:
+``"mma"`` (``mma.sync`` on 64 x 64 tiles, its softmax weights carried as a
+bf16 hi + lo pair; the short causal prefills) and ``"wgmma"`` (Hopper's
+warpgroup MMA, 64, 128 or 192 query rows a block against TMA-fed 128-key tiles,
+its weights rounded once to bf16 as the TPU kernel rounds them; non-causal
+calls and causal ones over at least ``WGMMA_CAUSAL_KV`` keys, at head widths
+``WGMMA_HEAD_DIMS``).  ``tests/test_torch_kernel_design.py`` emulates both in
+plain torch.  The f32 kernel keeps its weights in f32.  For bf16 every row of
+q, k, v and the output must start on a 16-byte boundary: the kernels copy
+K/V rows in 16-byte pieces (TMA boxes on the wgmma route), their launcher
+refuses a view that breaks that, and the wrapper raises.  The kernel is
+built for the head widths in ``HEAD_DIMS``: granite's 64, the reduced
+configs' 16, internlm2's,
 starcoder2's and deepseek-67b's 128, and kimi-k2's 112; another width raises.
 On a CPU tensor the wrapper returns the plain version; on a CUDA tensor it
 launches the kernel or raises.  ``flash_attention.launches`` counts kernel
-launches.
+launches, ``flash_attention.route_launches`` each route's.
 
 Training takes K7 through :class:`FlashAttentionFn`, an autograd function:
 its forward is ``flash_attention`` (K7 on the card, the plain version on a
@@ -70,13 +76,16 @@ and training attention runs it on the CPU and with ``impl="plain"``, and
 MLA runs it everywhere at Sq > 4; ``flash_attention_plain`` stays K7's twin,
 the one held against the kernel.
 
-The first launch of a (Sq, kv_len) that the current telemetry sees records
-its pad-to-tile waste over K7's 64 x 64 (query, key) tiles there as
-``flash_attention.pad_waste``.
+The first call at a (Sq, kv_len) and plan that the current telemetry sees
+records its pad-to-tile waste over the route's (query, key) tiles there as
+``flash_attention.pad_waste``: the raw launcher records the plan it launches,
+the op's fake implementation the plan for an H100 (a traced step has no card
+to ask), and the wrapper on a CPU tensor the same.  A launch plans once.
 
 The card's entry is the custom op ``torch.ops.repro_torch.flash_attention``
 (CUDA only), which ``flash_attention`` calls on a CUDA tensor and whose
-implementation is the raw launcher, :func:`flash_attention_raw`.  The op
+implementation is the raw launcher, :func:`flash_attention_raw` (which also
+takes a ``route``; the op leaves it to :func:`plan`).  The op
 has a fake implementation (the output's shape, dtype, layout and device,
 no launch), so a step traced on fake tensors (the dry-run,
 ``launch.lowering``) passes through it, and a FLOP formula, the registry's
@@ -91,6 +100,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -99,12 +109,26 @@ from ..obs.telemetry import current, record_pad_waste
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_raw",
-           "FlashAttentionFn", "blockwise_attention", "BlockwiseAttentionFn", "HEAD_DIMS"]
+           "FlashAttentionFn", "blockwise_attention", "BlockwiseAttentionFn", "HEAD_DIMS",
+           "plan", "Plan"]
 
 HEAD_DIMS = (16, 32, 64, 112, 128)   # head widths the kernel is built for
-TILE = 64                  # query rows and keys of a block's tiles (csrc kBQ, kBK)
+TILE = 64                  # query rows and keys of the mma and f32 tiles (csrc kBQ, kBK)
+WGMMA_HEAD_DIMS = (64, 128)   # head widths the wgmma route is built for
+WGMMA_ROWS = 64            # query rows of a consumer warpgroup (csrc kWgRows)
+WGMMA_KEYS = 128           # keys of the wgmma route's K/V tiles (csrc kWgKeys)
+# causal calls over at least this many keys take the wgmma route: on the H100
+# the mma route is as fast or faster below (chip_smoke.py times both routes on
+# granite's heads at 128, 256, 512 and 4,096 keys; PERF.md section 6)
+WGMMA_CAUSAL_KV = 512
+# query rows a wgmma block may own (one to three consumer warpgroups); three
+# only at hd 64, where a thread's registers leave room for a third
+WGMMA_BLOCK_ROWS = {64: (192, 128, 64), 128: (128, 64)}
+H100_SMS = 132             # plan()'s default; a launch passes its card's count
+ROUTES = ("mma", "wgmma", "f32")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MISALIGNED = -1           # the launcher's answer to a bf16 row off a 16-byte boundary
+_REFUSED = -2              # ... to a call the wgmma route does not take
 NEG_INF = -1e30            # the reference's masking constant (blockwise_attention)
 CHUNK = 1024               # the reference's default attention chunks (attn_q/kv_chunk)
 
@@ -139,7 +163,7 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [
         p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i,
-        ctypes.c_float, i, i, i, p,
+        ctypes.c_float, i, i, i, i, i, p,
     ]
     lib.flash_attention_launch.restype = ctypes.c_int
     return lib
@@ -167,12 +191,65 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
                          f"q_offset {q_offset} must be >= 0")
 
 
-def _record_pad(sq: int, kv_len: int) -> None:
-    """Pad waste of K7's (query, key) iteration space, once a shape on the
-    current telemetry."""
-    if current().first(("flash_attention", sq, kv_len)):
+class Plan(NamedTuple):
+    route: str          # "mma" (bf16, mma.sync), "wgmma" (bf16, warpgroup MMA) or "f32"
+    rows: int           # query rows a block owns
+    keys: int           # keys of a K/V tile
+
+
+def route_for(bf16: bool, hd: int, causal: bool, kv_len: int) -> str:
+    """The route :func:`plan` takes: a pure function of the shape."""
+    if not bf16:
+        return "f32"
+    if hd in WGMMA_HEAD_DIMS and kv_len >= 1 and (not causal or kv_len >= WGMMA_CAUSAL_KV):
+        return "wgmma"
+    return "mma"
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, h: int, sq: int, kv_len: int, hd: int, causal: bool, bf16: bool = True,
+         n_sms: int = H100_SMS, route: str | None = None) -> Plan:
+    """K7's launch for q (b, h, sq, hd) over ``kv_len`` keys.
+
+    :func:`route_for` picks the route unless ``route`` names one (the wgmma
+    route only for bf16 at ``WGMMA_HEAD_DIMS`` and ``kv_len >= 1``, the mma
+    route only for bf16, the f32 kernel only for f32).  A wgmma block holds
+    the most query rows of ``WGMMA_BLOCK_ROWS`` (192 at hd 64, 128 at hd
+    128; 64 a consumer warpgroup) whose blocks still fill the ``n_sms`` SMs,
+    else 64.
+    """
+    route = route_for(bf16, hd, causal, kv_len) if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"K7 has the routes {ROUTES}, got {route!r}")
+    if (route == "f32") == bf16 or (route == "wgmma" and (hd not in WGMMA_HEAD_DIMS
+                                                          or kv_len < 1)):
+        raise ValueError(f"K7's {route} route does not take {'bf16' if bf16 else 'f32'} "
+                         f"at hd {hd}, kv_len {kv_len}")
+    if route != "wgmma":
+        return Plan(route, TILE, TILE)
+    rows = next((r for r in WGMMA_BLOCK_ROWS[hd] if b * h * -(-sq // r) >= n_sms), WGMMA_ROWS)
+    return Plan(route, rows, WGMMA_KEYS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _record_pad(pl: Plan, sq: int, kv_len: int) -> None:
+    """Pad waste of K7's (query, key) iteration space on the plan's tiles, once
+    a shape and plan on the current telemetry."""
+    if current().first(("flash_attention", sq, kv_len, pl)):
         record_pad_waste("flash_attention", (sq, kv_len),
-                         (-(-sq // TILE) * TILE, -(-kv_len // TILE) * TILE))
+                         (-(-sq // pl.rows) * pl.rows, -(-kv_len // pl.keys) * pl.keys))
+
+
+def _record_plan(q: torch.Tensor, kv_len: int, causal: bool, n_sms: int) -> None:
+    """:func:`_record_pad` of the plan for ``q`` on ``n_sms`` SMs, where no launch
+    makes one."""
+    b, h, sq, hd = q.shape
+    _record_pad(plan(b, h, sq, kv_len, hd, bool(causal), q.dtype == torch.bfloat16, n_sms),
+                sq, kv_len)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -188,8 +265,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_len = k.shape[2] if kv_len is None else int(kv_len)
     q_offset = int(q_offset)
     _check(q, k, v, q_offset, kv_len)
-    _record_pad(q.shape[2], kv_len)
     if q.device.type == "cpu":
+        _record_plan(q, kv_len, causal, H100_SMS)
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, kv_len=kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -215,6 +292,7 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
 
 @_flash_attention_op.register_fake
 def _(q, k, v, causal, scale, q_offset, kv_len):
+    _record_plan(q, kv_len, causal, H100_SMS)
     return torch.empty_like(q)
 
 
@@ -228,13 +306,19 @@ def _flash_attention_flops(q_shape, k_shape, v_shape, causal, scale, q_offset, k
 
 
 def flash_attention_raw(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                        scale: float, q_offset: int, kv_len: int) -> torch.Tensor:
+                        scale: float, q_offset: int, kv_len: int,
+                        route: str | None = None) -> torch.Tensor:
     """The raw K7 launch on CUDA tensors as ``flash_attention`` checks them
-    (the custom op's implementation); counts ``flash_attention.launches``."""
+    (the custom op's implementation), on :func:`plan`'s route or the one
+    ``route`` names; records the plan's pad waste and counts
+    ``flash_attention.launches`` and ``flash_attention.route_launches``."""
     b, h, sq, hd = q.shape
     out = torch.empty_like(q)   # q's layout: dense with a contiguous head dim
     if out.numel() == 0:
         return out
+    pl = plan(b, h, sq, kv_len, hd, bool(causal), q.dtype == torch.bfloat16,
+              _sm_count(q.device), route)
+    _record_pad(pl, sq, kv_len)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))
     ))
@@ -242,20 +326,25 @@ def flash_attention_raw(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         _DTYPES[q.dtype], b, h, k.shape[1], sq, hd, scale, int(causal), q_offset,
-        kv_len, stream,
+        kv_len, int(pl.route == "wgmma"), pl.rows, stream,
     )
     if err == _MISALIGNED:
         raise ValueError("K7 in bf16 needs every row of q, k, v and out on a 16-byte "
                          "boundary: data at " + ", ".join(
                              f"{t.data_ptr():#x} strides {tuple(t.stride())}"
                              for t in (q, k, v, out)))
+    if err == _REFUSED:
+        raise RuntimeError(f"K7's wgmma route refused {pl} at q {tuple(q.shape)}, kv_len "
+                           f"{kv_len} (a tensor map libcuda would not make)")
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.route_launches[pl.route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):

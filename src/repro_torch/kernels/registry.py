@@ -470,8 +470,9 @@ def _axo_defaults(**shape) -> dict:
 
 
 def _axo_constraint(shape, tiles) -> bool:
-    """A split count the route takes and that splits K into that many whole
-    k-steps (not fewer after rounding), within shared memory."""
+    """A split count the shape's route takes (the GEMV's up to 64, the skinny
+    route's up to 32, route 1's up to 16) and that splits K into that many
+    whole k-steps (not fewer after rounding), within shared memory."""
     try:
         pl = _k6_plan(shape, tiles["splits"])
     except ValueError:
@@ -496,7 +497,9 @@ register(KernelSpec(
     defaults_fn=_axo_defaults, bucket_fn=_axo_bucket, constraint=_axo_constraint,
     cost_fn=_axo_cost, tol=1e-5,
     peak_type="tf32",
-    description="K6: GEMV route (M <= 16) or TF32 tensor cores, split along K",
+    description="K6: GEMV route (M <= 16), skinny TF32 tensor cores (M <= 80: the "
+                "weight's columns on the MMA's 16-row side, 24- or 80-row blocks) or "
+                "128 x 128 TF32 tensor-core tiles, split along K",
 ))
 
 register(KernelSpec(
@@ -532,8 +535,10 @@ register(KernelSpec(
     oracle_ref="repro_torch.kernels.flash_attention:flash_attention_plain",
     bucket_fn=_flash_bucket, cost_fn=_flash_cost, tol=5e-6,
     peak_type="bf16",
-    description="K7: online-softmax GQA attention over 64-key tiles (tiles are template "
-                "arguments)",
+    description="K7: online-softmax GQA attention: mma.sync over 64 x 64 tiles (short "
+                "causal prefills) or wgmma on 64/128/192 query rows against TMA-fed "
+                "128-key tiles (non-causal and long causal calls); tiles are fixed by the "
+                "route",
 ))
 
 register(KernelSpec(

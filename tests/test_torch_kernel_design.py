@@ -7,10 +7,14 @@ K6's tensor-core route feeds TF32 operands (10 stored mantissa bits) to
 hi + lo in three (hi.hi + hi.lo + lo.hi), each 32-code step summed from zero
 in the tensor core and added to the running sum in IEEE f32.  K7's bf16
 kernel carries its softmax weights p as a bf16 hi + lo pair through P.V.
-These tests hold the emulated designs to the contracts the card checks:
-K6 within 1e-5 relative norm of an f64 result, K7 within 2^-7 of the output's
-largest magnitude of the plain version, and they check that ``plan`` routes
-and splits as the kernel expects.  K8's bf16 route feeds every f32 operand
+K6's skinny route (16 < M <= 80) sums the same terms in the same order,
+split by split; K7's wgmma route rounds its weights once to bf16 over
+128-key tiles, as the TPU kernel does.  These tests hold the emulated
+designs to the contracts the card checks: K6 within 1e-5 relative norm of an
+f64 result (and of the reference's ``ref_axo_matmul_lowrank``), K7 within
+2^-7 of the output's largest magnitude of the plain version (and of the
+reference's ``ref_flash_attention``), and they check that both kernels'
+``plan`` routes and splits as the kernels expect.  K8's bf16 route feeds every f32 operand
 (M, w x, the state) to bf16 ``mma.sync`` as three bf16 terms; its emulation
 is held against the reference's sequential scan and its Pallas kernel (those
 tests need JAX and skip without it).  K4's staged route (two table halves
@@ -212,8 +216,15 @@ def test_plan_routes_by_m_with_whole_steps(m, k, n, rank):
         assert pl.rows < 2 * min(m, 8)              # no more than the next power of two
         assert pl.tiles == -(-n // k6.GEMV_COLS) * -(-m // pl.rows)
         step = k6.GEMV_KSTEP
+    elif m <= k6.SKINNY_M:
+        # the least block of rows that holds M, and its columns
+        assert pl.route == "skinny" and pl.rows in k6.SKINNY_TILES and pl.rows >= m
+        assert all(r < m for r in k6.SKINNY_TILES if r < pl.rows)
+        assert pl.cols == k6.SKINNY_TILES[pl.rows]
+        assert pl.tiles == -(-n // pl.cols) * -(-m // pl.rows)
+        step = k6.MMA_KSTEP
     else:
-        assert pl.route == "mma" and pl.rows == k6.MMA_TILE
+        assert pl.route == "mma" and pl.rows == k6.MMA_TILE == pl.cols
         assert pl.tiles == -(-n // k6.MMA_TILE) * -(-m // k6.MMA_TILE)
         step = k6.MMA_KSTEP
     assert pl.k_split % step == 0
@@ -223,8 +234,10 @@ def test_plan_routes_by_m_with_whole_steps(m, k, n, rank):
         assert pl.smem <= k6.MAX_SMEM // 2          # two blocks per SM
         assert pl.splits <= k6.GEMV_MAX_SPLITS
     else:
-        assert pl.splits <= k6.MMA_MAX_SPLITS
-    per_sm = k6.GEMV_PER_SM if pl.route == "gemv" else k6.MMA_PER_SM
+        assert pl.splits <= (k6.SKINNY_MAX_SPLITS if pl.route == "skinny"
+                             else k6.MMA_MAX_SPLITS)
+    per_sm = {"gemv": k6.GEMV_PER_SM, "mma": k6.MMA_PER_SM}.get(pl.route)
+    per_sm = per_sm or k6.SKINNY_PER_SM[pl.rows]
     assert pl.splits == 1 or pl.tiles < 4 * per_sm * k6.H100_SMS
 
 
@@ -251,7 +264,116 @@ def test_plan_at_the_serve_shapes():
     assert k6.plan(512, 8192, 2048, 8, 256)[:3] == ("mma", 128, 1)
     assert k6.plan(512, 2048, 2048, 8, 256)[:3] == ("mma", 128, 2)
     assert k6.plan(16, 64, 64, 8, 256).route == "gemv"
-    assert k6.plan(17, 64, 64, 8, 256).route == "mma"
+    assert k6.plan(17, 64, 64, 8, 256).route == "skinny"
+    # the MoE prefill's expert buffers: deepseek-v3's 24 rows (gate/up 16
+    # column tiles split K 32 ways: four blocks an SM; down 56 tiles 8 ways)
+    # and jamba's 80 (three blocks an SM)
+    assert k6.plan(24, 2048, 7168, 8, 256)[:4] == ("skinny", 24, 32, 224)
+    assert k6.plan(24, 7168, 2048, 8, 256)[:4] == ("skinny", 24, 8, 256)
+    assert k6.plan(80, 14336, 4096, 8, 256)[:3] == ("skinny", 80, 5)
+    assert k6.plan(80, 4096, 14336, 8, 256)[:3] == ("skinny", 80, 6)
+    assert k6.plan(81, 4096, 14336, 8, 256).route == "mma"
+
+
+@pytest.mark.parametrize("m, k, n", [(24, 7168, 2048), (24, 2048, 7168), (80, 4096, 14336),
+                                     (80, 14336, 4096)])
+def test_skinny_plan_at_the_expert_buffers(m, k, n):
+    """The skinny route at deepseek-v3's and jamba's prefill expert buffers:
+    a block of exactly M rows, whole 32-code steps a split, the splits
+    within the route's limit and its blocks within one wave or more (never
+    a last wave of a few blocks), shared memory within a block's, and no
+    pad waste (M rows, N a whole number of column tiles, K of steps)."""
+    from repro_torch.obs import telemetry as tm
+
+    pl = k6.plan(m, n, k, 8, 256)
+    assert pl.route == "skinny" and pl.rows == m and n % pl.cols == 0
+    assert pl.tiles == n // pl.cols
+    assert pl.k_split % k6.MMA_KSTEP == 0 and pl.splits * pl.k_split >= k
+    assert 1 <= pl.splits <= k6.SKINNY_MAX_SPLITS
+    assert pl.smem <= k6.MAX_SMEM // 2
+    blocks = pl.tiles * pl.splits
+    assert blocks >= k6.H100_SMS * 0.8 or pl.splits == k6.SKINNY_MAX_SPLITS
+    tel = tm.Telemetry("t")
+    with tm.use(tel):
+        k6._note_launch(m, n, k, pl)
+    assert tel.gauges["axo_matmul.pad_waste"] == 0.0
+    # route 1 at the same shape pads rows to 128
+    tel = tm.Telemetry("t")
+    with tm.use(tel):
+        k6._note_launch(m, n, k, k6.plan(m, n, k, 8, 256, route="mma"))
+    assert tel.gauges["axo_matmul.pad_waste"] == pytest.approx(1 - m / 128)
+
+
+def test_k6_named_routes():
+    """A route named by the caller: the tensor-core route at any M, the
+    skinny one up to SKINNY_M rows, the GEMV up to GEMV_M; splits as named."""
+    assert k6.plan(24, 2048, 7168, 8, 256, route="mma")[:2] == ("mma", 128)
+    assert k6.plan(8, 2048, 7168, 8, 256, route="skinny")[:2] == ("skinny", 24)
+    assert k6.plan(24, 2048, 7168, 8, 256, splits=8, route="skinny")[:3] == ("skinny", 24, 8)
+    for bad in (dict(m=81, route="skinny"), dict(m=17, route="gemv"), dict(m=8, route="x")):
+        with pytest.raises(ValueError):
+            k6.plan(bad["m"], 64, 64, 8, 256, route=bad["route"])
+    with pytest.raises(ValueError):
+        k6.plan(24, 64, 4096, 8, 256, splits=33)
+
+
+@pytest.mark.parametrize("m, rows", [(17, 24), (24, 24), (25, 80), (40, 80), (80, 80)])
+def test_skinny_blocks_are_the_served_row_counts(m, rows):
+    """The skinny route is built for the two expert buffers the port serves,
+    24 rows (deepseek-v3) and 80 (jamba): M up to 24 takes 24-row blocks of
+    128 columns, M = 25..80 80-row blocks of 64; M = 81 is route 1's."""
+    assert sorted(k6.SKINNY_TILES) == [24, 80]
+    pl = k6.plan(m, 4096, 2048, 8, 256)
+    assert (pl.route, pl.rows, pl.cols) == ("skinny", rows, k6.SKINNY_TILES[rows])
+    assert pl.tiles == 4096 // pl.cols
+    assert k6.plan(m + 56 if m > 24 else 81, 4096, 2048, 8, 256)[:2] == ("mma", 128)
+
+
+def skinny_emulated(a_codes, b_codes, f, g, sv, pl) -> torch.Tensor:
+    """The skinny route's sums: each split of ``pl.k_split`` codes its own
+    chain of 32-code steps (``tf32_matmul`` with the tensor core's
+    rounding, the table rows from the last factor down, each factor lo.hi,
+    hi.lo, hi.hi: route 1's order, the MMA's operands swapped), the partials
+    then summed in split order in f32, as the last block of a tile sums them."""
+    k = a_codes.shape[1]
+    parts = [tf32_matmul(a_codes[:, k0:k0 + pl.k_split], b_codes[k0:k0 + pl.k_split], f, g, sv,
+                         chain=k6.MMA_KSTEP) for k0 in range(0, k, pl.k_split)]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_k6_ref():
+    """The reference's ``ref_axo_matmul_lowrank`` (needs JAX)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.ref import ref_axo_matmul_lowrank
+
+    def run(a, b, f, g, sv):
+        out = ref_axo_matmul_lowrank(*(jnp.asarray(t.numpy()) for t in (a, b, f, g, sv)))
+        return torch.from_numpy(np.array(out))
+
+    return run
+
+
+@pytest.mark.parametrize("m, k, n", [(24, 1024, 64), (80, 768, 48), (24, 300, 40)])
+@pytest.mark.parametrize("name", ["demo", "random36"])
+def test_skinny_route_sums_hold_the_contract(operators, jax_k6_ref, name, m, k, n):
+    """At M = 24 and 80 on narrow K and N (the plan's own splits: 32, 24 and
+    10 of them), the skinny route's summation order holds 1e-5 relative norm
+    against the plain version, the reference's ``ref_axo_matmul_lowrank`` and
+    an f64 sum."""
+    f, g, sv = _tables(operators[name])
+    a, b = _codes(m, k, n, m + k)
+    pl = k6.plan(m, n, k, 8, 256)
+    assert pl.route == "skinny" and pl.splits > 1
+    got = skinny_emulated(a, b, f, g, sv, pl)
+    assert _rel(got, _f64(a, b, f, g, sv)) < REL
+    plain = k6.axo_matmul(a, b, f, g, sv)
+    assert _rel(got, plain.double()) < REL
+    assert _rel(got, jax_k6_ref(a, b, f, g, sv).double()) < REL
 
 
 def _k7_emulated(q, k, v, kv_len, hi_lo=True):
@@ -298,6 +420,140 @@ def test_k7_hi_lo_p_keeps_the_bf16_contract(s, cap):
     err_bf16 = float((_k7_emulated(q, k, v, s, hi_lo=False).float() - want).abs().max()) / scale
     assert err_pair <= 2.0 ** -7, err_pair
     assert err_pair <= err_bf16, (err_pair, err_bf16)
+
+
+def k7_wgmma_emulated(q, k, v, *, causal: bool) -> torch.Tensor:
+    """K7's wgmma route in plain f32: an online softmax over 128-key tiles in
+    the exp2 domain, the row sums of f32 p, p rounded once to bf16 for P.V
+    (the TPU kernel's ``p.astype(v.dtype)``), the output rounded once to
+    bf16.  A causal block scans the tiles up to its last row's key; a row
+    that has seen no key yet keeps its sums at 0 (the kernel's base of 0)."""
+    b, h, sq, hd = q.shape
+    skv = k.shape[2]
+    rep = h // k.shape[1]
+    kh = k.float().repeat_interleave(rep, dim=1)
+    vh = v.float().repeat_interleave(rep, dim=1)
+    scale = math.log2(math.e) / math.sqrt(hd)
+    m = torch.full((b, h, sq, 1), -math.inf)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, hd))
+    qpos = torch.arange(sq)[:, None]
+    kend = min(skv, sq) if causal else skv
+    for k0 in range(0, kend, k7.WGMMA_KEYS):
+        k1 = min(k0 + k7.WGMMA_KEYS, skv)
+        s = q.float() @ kh[:, :, k0:k1].transpose(2, 3) * scale
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k1)[None, :] > qpos, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(s - base)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vh[:, :, k0:k1]
+        m = m_new
+    return (acc / l).to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def jax_k7_ref():
+    """The reference's ``ref_flash_attention`` (needs JAX): bf16 in, p
+    rounded to bf16 before P.V."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.ref import ref_flash_attention
+
+    def run(q, k, v, causal):
+        args = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v))
+        out = ref_flash_attention(*args, causal=causal)
+        return torch.from_numpy(np.array(out.astype(jnp.float32)))
+
+    return run
+
+
+# the wgmma route's shapes with their heads cut to fit the CPU: whisper's
+# encoder (1,500 x 1,500, hd 64), the VLM's cross-attention (128 x 1,600,
+# hd 128, 8 query heads a KV group) and granite's 4,096-token causal forward
+K7_WGMMA_SHAPES = {"whisper encoder": (1, 2, 2, 1500, 1500, 64, False),
+                   "vlm cross": (1, 8, 1, 128, 1600, 128, False),
+                   "causal 4096": (1, 1, 1, 4096, 4096, 64, True)}
+
+
+@pytest.mark.parametrize("name", sorted(K7_WGMMA_SHAPES))
+def test_k7_wgmma_bf16_p_keeps_the_bf16_contract(jax_k7_ref, name):
+    """p rounded once to bf16 over 128-key tiles stays within 2^-7 of
+    max|out| of the plain version (f32 p) and of the reference (bf16 p)."""
+    b, h, g, sq, skv, hd, causal = K7_WGMMA_SHAPES[name]
+    rng = np.random.default_rng(sq + skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+               for shape in ((b, h, sq, hd), (b, g, skv, hd), (b, g, skv, hd)))
+    assert k7.plan(4, 16 * h, sq, skv, hd, causal).route == "wgmma"
+    got = k7_wgmma_emulated(q, k, v, causal=causal).float()
+    for want in (k7.flash_attention_plain(q, k, v, causal=causal).float(),
+                 jax_k7_ref(q, k, v, causal)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 2.0 ** -7 * scale
+
+
+def test_k7_plan_routes_by_shape():
+    """The wgmma route takes the non-causal calls and the long causal ones at
+    hd 64 and 128, in blocks of the most query rows (192 at hd 64, 128 at hd
+    128) whose blocks fill the card, else 64; granite's S=128 causal prefill
+    keeps the mma route, as do hd 112 (kimi-k2) and the reduced configs' 16;
+    f32 takes the f32 kernel."""
+    assert k7.plan(4, 32, 128, 128, 64, True) == ("mma", 64, 64)        # granite prefill
+    assert k7.plan(4, 64, 128, 128, 112, True).route == "mma"             # kimi-k2
+    assert k7.plan(4, 16, 128, 128, 128, True).route == "mma"             # internlm2
+    assert k7.plan(4, 16, 1500, 1500, 64, False) == ("wgmma", 192, 128)  # whisper encoder
+    assert k7.plan(4, 16, 128, 1500, 64, False) == ("wgmma", 64, 128)    # whisper cross
+    assert k7.plan(4, 64, 128, 1600, 128, False) == ("wgmma", 128, 128)  # the VLM's cross
+    assert k7.plan(4, 32, 4096, 4096, 64, True) == ("wgmma", 192, 128)   # granite 4 x 4096
+    assert k7.plan(1, 16, 1500, 1500, 64, False) == ("wgmma", 128, 128)  # 128 rows fill it
+    assert k7.plan(1, 16, 1500, 1500, 64, False, n_sms=64).rows == 192
+    assert k7.plan(1, 2, 40, 40, 16, False).route == "mma"
+    assert k7.plan(4, 32, 128, 128, 64, True, bf16=False).route == "f32"
+    c = k7.WGMMA_CAUSAL_KV
+    assert k7.plan(4, 32, c, c, 64, True).route == "wgmma"
+    assert k7.plan(4, 32, c - 1, c - 1, 64, True).route == "mma"
+    assert k7.plan(4, 32, 128, 128, 64, True, route="wgmma")[:1] == ("wgmma",)
+    for kw in (dict(hd=112, route="wgmma"), dict(hd=64, route="f32"), dict(hd=64, route="x")):
+        with pytest.raises(ValueError):
+            k7.plan(4, 32, 128, 128, kw["hd"], True, route=kw["route"])
+    with pytest.raises(ValueError):
+        k7.plan(4, 32, 128, 0, 64, False, route="wgmma")
+
+
+def test_k7_pad_waste_on_the_route_tiles():
+    """The wrapper records pad waste on its plan's tiles: 64 x 64 on the
+    mma and f32 routes, (64, 128 or 192) x 128 on the wgmma route."""
+    from repro_torch.obs import telemetry as tm
+
+    tel = tm.Telemetry("t")
+    with tm.use(tel):
+        k7._record_pad(k7.plan(4, 16, 1500, 1500, 64, False), 1500, 1500)
+    # whisper's encoder: 1,500 queries in 8 blocks of 192, 1,500 keys in 12 tiles of 128
+    assert tel.gauges["flash_attention.pad_waste"] == pytest.approx(1 - 1500 ** 2 / 1536 ** 2)
+    with tm.use(tel):
+        k7._record_pad(k7.plan(4, 32, 128, 128, 64, True), 128, 128)
+    assert tel.gauges["flash_attention.pad_waste"] == 0.0
+
+
+def test_k7_traced_call_records_the_h100_plan_once():
+    """A call traced on fake CUDA tensors (the dry-run) launches nothing and
+    plans nowhere in the wrapper: the op's fake implementation records the
+    pad waste of the H100's plan (whisper's encoder, 192 x 128 wgmma blocks),
+    once a shape."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.obs import telemetry as tm
+
+    tel = tm.Telemetry("t")
+    with tm.use(tel), FakeTensorMode():
+        q = torch.empty(4, 1500, 16, 64, dtype=torch.bfloat16, device="cuda").transpose(1, 2)
+        kv = torch.empty(4, 1500, 16, 64, dtype=torch.bfloat16, device="cuda").transpose(1, 2)
+        for _ in range(2):
+            k7.flash_attention(q, kv, kv, causal=False)
+    assert tel.gauges["flash_attention.pad_waste"] == pytest.approx(1 - 1500 ** 2 / 1536 ** 2)
+    assert tel.histogram_summary("flash_attention.pad_waste")["count"] == 1
 
 
 def test_p_hi_lo_carries_sixteen_bits():

@@ -76,15 +76,18 @@ def _k6_args(m, k, n, rank=2, seed=0):
 def test_pad_waste_of_a_k6_and_a_k7_call():
     tel = tm.Telemetry("t")
     with tm.use(tel):
-        # deepseek-v3's 24-row expert buffer on the 128-row tile: 1 - 24/128
+        # deepseek-v3's 24-row expert buffer on the skinny route's 24-row,
+        # 128-column block: no waste; on route 1's 128-row tile 1 - 24/128
         axo_matmul.axo_matmul(*_k6_args(24, 64, 128))
+        assert tel.gauges["axo_matmul.pad_waste"] == 0.0
+        axo_matmul.axo_matmul(*_k6_args(24, 64, 128), route="mma")
         assert tel.gauges["axo_matmul.pad_waste"] == pytest.approx(1 - 24 / 128)
         # the GEMV route: M=4 rows on a 4-row group, N=40 of a 512-column block,
         # K=48 of two 32-code steps
         axo_matmul.axo_matmul(*_k6_args(4, 48, 40))
         assert tel.gauges["axo_matmul.pad_waste"] == pytest.approx(
             1 - (4 * 40 * 48) / (4 * 512 * 64))
-        assert tel.histogram_summary("axo_matmul.pad_waste")["count"] == 2
+        assert tel.histogram_summary("axo_matmul.pad_waste")["count"] == 3
         # K7: Sq = 37 queries and 37 keys on 64 x 64 tiles; once a shape
         q = torch.randn(1, 2, 37, 16)
         kv = torch.randn(1, 1, 37, 16)
