@@ -344,6 +344,22 @@ serving phase counts K6's and K7's launches by route: every non-causal K7
 call on the wgmma route, serve-hybrid's and serve-mla's expert buffers on
 the skinny route; the train phase's 4 x 4096 steps all on K7's wgmma route.
 
+A third design each for the two rows that lost most next: K7's head-stacked
+wgmma route (the short causal prefills at hd 112 and 128: a block's consumer
+warpgroups take heads of one KV group at the same 64 query rows, so a K/V
+tile serves them all) and K6's wgmma route (M >= WGMMA_M rows: code tiles by
+TMA, expanded once a block into TF32 planes that warpgroup MMAs read).  Phase
+3 holds the K7_WIDE shapes on the stacked route and the mma route it
+replaced (row by row, and the stacked route to its plain twin) and times
+both through the raw launcher in turns; it holds K6 at the 512-row
+prefills (granite's gate/up, deepseek-67b's) and the cross K/V shapes on
+the wgmma route and route 1, timed in turns.  The fresh process profiles
+all of them on both routes (K7 beside SDPA; K6's cuBLAS is timed by events
+only).  The serve phase requires granite's AxO prefill projections on K6's
+wgmma route; every serving phase requires each causal K7 call at hd 112
+and 128 on the stacked route, and serve-encdec's and serve-vlm's K6 calls
+of thousands of rows on the wgmma route.
+
 Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
 decode shapes (M=4 against the five weight shapes), a prefill shape (M=512,
 2048 x 8192), mamba2's head (M=8), the boundaries of its routes (M=16 on
@@ -458,9 +474,10 @@ DEPTH_CUTS = {"internlm2-1.8b": (8,),      # layers kept: 8 of 24 and 30, the sc
               "jamba-v0.1-52b": (1,),      # one whole 8-layer block of 4
               "deepseek-v3-671b": (3, 1),  # the dense stage and one moe layer
               "llama-3.2-vision-90b": (1,),  # one whole 5-layer block of 20
-              # 8 of 24 decoder layers (each projects the 1,500 frames' cross
-              # K/V through K6 at M = 6,000); the encoder's 24 in full
-              "whisper-medium": (8,)}
+              # 4 of 24 decoder layers (each projects the 1,500 frames' cross
+              # K/V through K6 at M = 6,000; cut from 8 for the script's
+              # time); the encoder's 24 in full
+              "whisper-medium": (4,)}
 # slice 4's serving phases, each cut in depth above
 SLICE4_PHASES = {"serve-hybrid": "jamba-v0.1-52b", "serve-mla": "deepseek-v3-671b",
                  "serve-encdec": "whisper-medium", "serve-vlm": "llama-3.2-vision-90b"}
@@ -561,6 +578,9 @@ SHARD_BF16_LIMIT = 2.0 ** -5
 # twice the kernel's; one stale or wrong 128-key K/V tile, thousands
 K7_ROW_LIMIT = 2.0 ** -7
 K7_TWIN_ULPS = 8
+# calls of each timed window of k7_host_costs (cut from 500 by events and
+# 2,000 on the host's clock for the script's time)
+K7_HOST_CALLS = 200
 
 
 def smi(query: str) -> str:
@@ -1785,12 +1805,16 @@ def fresh_profile(rank: int, out_path: str) -> None:
     """Entry of the device-time phase's fresh process (one, spawned): late in
     the script torch.profiler hands back fewer kernel events than were
     launched, or none (K6 above 24 rows, K7 at 4 x 4096), so these shapes are
-    profiled here, in a process that has profiled nothing before.  Each K6_NEW
-    shape on the skinny route on both routes and beside one cuBLAS f32 GEMM;
-    granite's 4 x 4096 causal forward and whisper's encoder (also profiled in
-    the script's own process, as a yardstick) on both K7 routes and beside
+    profiled here, in a process that has profiled nothing before.  K6 at each
+    K6_NEW shape from WGMMA_M rows and at granite's gate/up prefill, on the
+    wgmma and mma routes (their cuBLAS yardstick is timed by events in phase
+    3: a profiler window costs the host ~2-3 s, and 42 of them took 125 s);
+    K7 at the K7_WIDE prefills on the stacked and mma routes, granite's 4 x
+    4096 causal forward and whisper's encoder (also profiled in the script's
+    own process, as a yardstick) on the wgmma and mma routes, each beside
     SDPA; device_ms counts launches from the wrappers' counters.  Writes
-    {label: {route or library: ms}} and the windows' tallies to ``out_path``."""
+    {label: {route or library: ms}} and the windows' tallies to
+    ``out_path``."""
     import numpy as np
     import torch
 
@@ -1808,21 +1832,29 @@ def fresh_profile(rank: int, out_path: str) -> None:
     f_t, g_t, sv_t = (torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(dev)
                       for t in (op.f_table, op.g_table, op.signed_vals))
     out = {}
-    for label, (m, k, n, _, filled) in K6_NEW.items():
-        if axo_matmul.route_for(m) != "skinny":
-            continue
+    k6_at = {label: (m, k, n, filled) for label, (m, k, n, _, filled) in K6_NEW.items()
+             if m >= axo_matmul.WGMMA_M}
+    k6_at["gate/up prefill"] = (512, 2048, 8192, 512)
+    for label, (m, k, n, filled) in k6_at.items():
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         a[filled:] = 0
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
-        al, ac = a.long(), bb.long()
-        a_cat = torch.cat([sv_t[al]] + [f_t[:, r][al] for r in range(AXO_RANK)], 1)
-        b_cat = torch.cat([sv_t[ac]] + [g_t[:, r][ac] for r in range(AXO_RANK)], 0)
-        del al, ac
-        out[label] = {route: device_ms(torch, lambda: axo_matmul.axo_matmul(
-            a, bb, f_t, g_t, sv_t, route=route), 10, launches=k6_count)
-            for route in ("skinny", "mma")}
-        out[label]["cublas"] = device_ms(torch, lambda: a_cat @ b_cat, 10)
-        del a, bb, a_cat, b_cat
+        out[label] = {r: device_ms(torch, lambda: axo_matmul.axo_matmul(
+            a, bb, f_t, g_t, sv_t, route=r), 10, launches=k6_count) for r in ("wgmma", "mma")}
+        del a, bb
+    for label, (h, g, hd) in K7_WIDE.items():
+        s, cap = PROMPT_LEN, PROMPT_LEN + GEN_TOKENS
+        q = torch.randn((4, s, h, hd), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+        kk, vv = (torch.randn((4, cap, g, hd), generator=gen, device=dev).to(
+            torch.bfloat16).transpose(1, 2) for _ in range(2))
+        k_rep, v_rep = (x[:, :, :s].repeat_interleave(h // g, dim=1) for x in (kk, vv))
+        out[label] = {route: device_ms(torch, lambda: flash_attention.flash_attention_raw(
+            q, kk, vv, True, 1.0 / math.sqrt(hd), 0, s, route=route), 50, launches=k7_count)
+            for route in ("stacked", "mma")}
+        out[label]["sdpa"] = device_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k_rep, v_rep, is_causal=True), 50)
+        del q, kk, vv, k_rep, v_rep
     h_e, g_e, s_e, _, hd_e = K7_NC["whisper encoder"]
     for label, (b, h, g, s, hd, causal) in {
             "granite 4 x 4096": (LONG_BATCH, 32, 8, LONG_SEQ, 64, True),
@@ -2183,7 +2215,7 @@ def k7_host_costs(torch, dev, gen) -> dict:
     """K7 at whisper's cross-attention (B=4, H=G=16, Sq 128 x Skv 1,500, hd
     64, bf16), a host-bound call, on each route: the wrapper, the custom op and
     the raw launcher by events over back-to-back calls, and the host's time a
-    call (perf_counter over 2,000 calls) of each and of the wrapper's and
+    call (perf_counter over K7_HOST_CALLS calls) of each and of the wrapper's and
     launcher's Python steps alone.  The mma route is forced through
     ``flash_attention.plan`` for the wrapper and the op, which take no
     route."""
@@ -2198,7 +2230,7 @@ def k7_host_costs(torch, dev, gen) -> dict:
     n_sms = k7._sm_count(q.device)
     plan0 = k7.plan
 
-    def host_us(fn, n=2000):
+    def host_us(fn, n=K7_HOST_CALLS):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2212,8 +2244,9 @@ def k7_host_costs(torch, dev, gen) -> dict:
     with torch.no_grad():
         for route in ("wgmma", "mma"):
             def forced(b_, h_, sq_, kv_, hd_, causal, bf16=True, n_sms_=k7.H100_SMS,
-                       route_=None):
-                return plan0(b_, h_, sq_, kv_, hd_, causal, bf16, n_sms_, route_ or route)
+                       route_=None, groups=None):
+                return plan0(b_, h_, sq_, kv_, hd_, causal, bf16, n_sms_, route_ or route,
+                             groups)
             pl = plan0(b, h, s_q, s_kv, hd, False, True, n_sms, route)
             k7.plan = forced
             try:
@@ -2226,23 +2259,29 @@ def k7_host_costs(torch, dev, gen) -> dict:
                 if k7.flash_attention.route_launches[route] - before[route] != 3:
                     raise AssertionError(f"K7's wrapper, op and raw launcher at whisper's cross "
                                          f"did not all take the {route} route")
-                row = {f"{k}_ms": cuda_ms(torch, fn, 500) for k, fn in calls.items()}
+                row = {f"{k}_ms": cuda_ms(torch, fn, K7_HOST_CALLS) for k, fn in calls.items()}
                 row.update({f"{k}_host_us": host_us(fn) for k, fn in calls.items()})
             finally:
                 k7.plan = plan0
             steps = {
                 "_check": lambda: k7._check(q, kk, vv, 0, s_kv),
-                "plan": lambda: k7.plan(b, h, s_q, s_kv, hd, False, True, n_sms, route),
+                "plan": lambda: k7.plan(b, h, s_q, s_kv, hd, False, True, n_sms, route, h),
                 "_sm_count": lambda: k7._sm_count(q.device),
                 "_record_pad": lambda: k7._record_pad(pl, s_q, s_kv),
                 "empty_like": lambda: torch.empty_like(q),
-                "strides": lambda: (ctypes.c_longlong * 12)(*(
+                # the stride array and the stream as the launcher takes them,
+                # beside the ways it took them before (a generator over the
+                # four tensors' strides; a Stream object's handle)
+                "strides": lambda: k7._STRIDES(*q.stride()[:3], *kk.stride()[:3],
+                                               *vv.stride()[:3], *q.stride()[:3]),
+                "strides (generator)": lambda: (ctypes.c_longlong * 12)(*(
                     st for t in (q, kk, vv, q) for st in (t.stride(0), t.stride(1),
                                                           t.stride(2)))),
+                "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(q.device.index),
                 "current_stream": lambda: torch.cuda.current_stream(q.device).cuda_stream,
                 "is_available": torch.cuda.is_available,
             }
-            row["steps_host_us"] = {k: host_us(fn, 5000) for k, fn in steps.items()}
+            row["steps_host_us"] = {k: host_us(fn, 4 * K7_HOST_CALLS) for k, fn in steps.items()}
             row["same"] = all(torch.equal(t, got[2]) for t in got[:2])
             row["plan"] = list(pl)
             out[route] = row
@@ -2873,6 +2912,22 @@ def main() -> int:
               f"K(1+R) {k6_rec['library_ms']:.4f} ms", flush=True)
         if label == "gate/up prefill":   # the path's heaviest K6 call
             rec["K6"], err["K6"] = k6_rec, float((got - want).abs().max())
+            # the plan's route (wgmma from WGMMA_M rows) and the other
+            # tensor-core route, held and timed in turns
+            k6_rec["route"] = pl.route
+            other = "wgmma" if pl.route == "mma" else "mma"
+            rel_o = rel_norm(axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t, route=other), want)
+            if rel_o > REL_RTOL:
+                raise AssertionError(f"K6's {other} route differs from its plain version at "
+                                     f"{label}: rel {rel_o:.3g}")
+            turns = {pl.route: [], other: []}
+            for route in (pl.route, other, other, pl.route):
+                turns[route].append(cuda_ms(torch, lambda: axo_matmul.axo_matmul(
+                    a, bb, f_t, g_t, sv_t, route=route), 10))
+            k6_rec["routes_ms"] = {r: min(t) for r, t in turns.items()}
+            print(f"phase kernels: K6 at {label}, both routes in turns: "
+                  f"{ {r: [round(t, 4) for t in v] for r, v in turns.items()} } ms (the "
+                  f"{other} route rel norm {rel_o:.3g})", flush=True)
 
     # K7 at the serve prefill: B=4, H=32, G=8, hd=64, S=128 over the 144-slot
     # cache (kv_len 128), and a ragged S=77; bf16 as served, f32 beside it
@@ -2918,10 +2973,52 @@ def main() -> int:
                 if label == "serve prefill":
                     rec["K7"], err["K7"] = k7_rec, e
             print(msg, flush=True)
+    def k7_routes(q, kk, vv, causal, kv_len, want, tol, label, routes=None):
+        """{route: [max abs err, raw ms in turns, max row error, ulps from the
+        twin or None]} of the plan's route and the mma route (or of
+        ``routes``), each held to ``want`` within ``tol`` and, row by row,
+        within a relative norm of K7_ROW_LIMIT; the wgmma and stacked routes
+        also to their plain twin within K7_TWIN_ULPS (every key of kk valid)."""
+        b_, h_, sq_, hd_ = q.shape
+        if routes is None:
+            new = flash_attention.plan(b_, h_, sq_, kv_len, hd_, causal,
+                                       groups=kk.shape[1]).route
+            routes = (new, "mma") if new != "mma" else (new,)
+        scale = 1.0 / math.sqrt(hd_)
+        tiled = ("wgmma", "stacked")   # the routes of 128-key tiles and bf16 p
+        twin = (k7_wgmma_twin(torch, q, kk, vv, causal, flash_attention.WGMMA_KEYS)
+                if set(tiled) & set(routes) else None)
+        out = {}
+        for route in routes:
+            got = flash_attention.flash_attention_raw(q, kk, vv, causal, scale, 0, kv_len,
+                                                      route=route)
+            torch.cuda.synchronize()
+            e = float((got.float() - want).abs().max())
+            row = row_err(torch, got, want)
+            ulps = bf16_ulps(torch, got, twin) if route in tiled else None
+            if not (torch.isfinite(got.float()).all() and e <= tol and row <= K7_ROW_LIMIT
+                    and (ulps is None or ulps <= K7_TWIN_ULPS)):
+                raise AssertionError(
+                    f"K7's {route} route differs from its plain version at {label}: {e:.3g} "
+                    f"(limit {tol:.3g}), largest row relative norm {row:.3g} (limit "
+                    f"{K7_ROW_LIMIT:.3g}), from the wgmma twin {ulps} bf16 ulps (limit "
+                    f"{K7_TWIN_ULPS})")
+            out[route] = [e, [], row, ulps]
+            del got
+        del twin
+        for route in (*routes[::-1], *routes):
+            out[route][1].append(cuda_ms(torch, lambda: flash_attention.flash_attention_raw(
+                q, kk, vv, causal, scale, 0, kv_len, route=route), 20))
+        return out
+
     # K7 at head widths 128 and 112: the prefill of each new arch (B=4, S=128
     # over a 136-slot cache, kv_len 128) with its own heads and KV groups;
     # bf16 as served, timed beside SDPA (K/V repeated to the query heads) and
-    # the bound, f32 beside it (held, not timed)
+    # the bound, f32 beside it (held, not timed).  In bf16 the plan's route
+    # (the head-stacked wgmma tiles) and the mma route it replaced are each
+    # held to the plain version, row by row, and the stacked route to its
+    # plain twin, and both are timed through the raw launcher in turns (old,
+    # new, new, old); the record's ms is the wrapper's, on the plan's route
     for label, (h_q, g_kv, hd) in K7_WIDE.items():
         key = "K7W" if hd == 128 else "K7X"
         s_q, cap = PROMPT_LEN, PROMPT_LEN + GEN_TOKENS
@@ -2944,6 +3041,9 @@ def main() -> int:
                 k_rep = kk[:, :, :s_q].repeat_interleave(h_q // g_kv, dim=1)
                 v_rep = vv[:, :, :s_q].repeat_interleave(h_q // g_kv, dim=1)
                 pairs = s_q * (s_q + 1) // 2
+                pl = flash_attention.plan(4, h_q, s_q, s_q, hd, True, groups=g_kv)
+                by_route = k7_routes(q, kk[:, :, :s_q], vv[:, :, :s_q], True, s_q,
+                                     want.float(), tol, label)
                 w_rec = dict(
                     name=f"flash_attention_hd{hd}",
                     source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2957,16 +3057,28 @@ def main() -> int:
                                            q, k_rep, v_rep, is_causal=True), 50),
                     bound=bound(2 * (2 * q.numel() + 2 * 4 * g_kv * s_q * hd), 0, 0, int_rate,
                                 bf16_ops=4.0 * 4 * h_q * pairs * hd),
+                    route=pl.route,
                 )
-                msg += (f"; K7 {w_rec['ms']:.4f} ms (plain {w_rec['plain_ms']:.4f}, bound "
-                        f"{w_rec['bound'][0]:.4g} by {w_rec['bound'][1]}), SDPA "
-                        f"{w_rec['library_ms']:.4f} ms")
+                turns = {r: [round(t, 4) for t in v[1]] for r, v in by_route.items()}
+                msg += (f"; K7 ({pl.route} route, heads at once {pl.rows // 64}, a block "
+                        f"{pl.heads}) {w_rec['ms']:.4f} ms, the raw launch in turns {turns} (the "
+                        f"plan's route: largest row relative norm {by_route[pl.route][2]:.3g}, "
+                        f"limit {K7_ROW_LIMIT:.3g}; {by_route[pl.route][3]} bf16 ulps from the "
+                        f"twin, limit {K7_TWIN_ULPS}; the mma route max abs err "
+                        f"{by_route['mma'][0]:.3g}, row {by_route['mma'][2]:.3g}) (plain "
+                        f"{w_rec['plain_ms']:.4f}, bound {w_rec['bound'][0]:.4g} by "
+                        f"{w_rec['bound'][1]}), SDPA {w_rec['library_ms']:.4f} ms")
                 if key not in rec:
                     rec[key], err[key] = w_rec, e
                 rec[key].setdefault("shapes", {})[label] = {
                     "ms": w_rec["ms"], "plain_ms": w_rec["plain_ms"],
                     "library_ms": w_rec["library_ms"], "bound_ms": w_rec["bound"][0],
-                    "bound_by": w_rec["bound"][1], "max_abs_err": e}
+                    "bound_by": w_rec["bound"][1], "max_abs_err": e, "route": pl.route,
+                    "rows": pl.rows, "heads": pl.heads,
+                    "raw_ms": min(by_route[pl.route][1]), "row_err": by_route[pl.route][2],
+                    "twin_ulps": by_route[pl.route][3],
+                    **({"old_ms": min(by_route["mma"][1]), "old_route": "mma",
+                        "old_max_abs_err": by_route["mma"][0]} if pl.route != "mma" else {})}
                 err[key] = max(err[key], e)
             print(msg, flush=True)
             del q, kk, vv, got, want
@@ -2974,16 +3086,19 @@ def main() -> int:
     # prefill (the heaviest K6 call of serve-dense), jamba's and deepseek-v3's
     # prefill expert buffers and the cross K/V of whisper and the VLM; each
     # beside one cuBLAS f32 GEMM over [A|F_1..F_R] . [B;G_1..G_R] and its bound,
-    # as above.  Where the plan takes the skinny route (16 < M <= SKINNY_M),
-    # route 1 (the 128 x 128 tensor-core tiles it replaced there) is held to
-    # the plain version and timed beside it in turn (old, new, new, old)
+    # as above.  Where the plan takes the skinny route (16 < M <= SKINNY_M)
+    # or the wgmma route (M >= WGMMA_M), route 1 (the 128 x 128 mma.sync
+    # tiles it replaced there) is held to the plain version and timed beside
+    # it in turns (old, new, new, old); where the plan keeps route 1 above
+    # SKINNY_M rows, the wgmma route is held and timed beside it the same way
     f_t, g_t, sv_t = tabs["demo"]
     for label, (m, k, n, key, filled) in K6_NEW.items():
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         a[filled:] = 0
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
         pl = axo_matmul.plan(m, n, k, AXO_RANK, 256)
-        routes = (pl.route, "mma") if pl.route == "skinny" else (pl.route,)
+        routes = ((pl.route, "mma") if pl.route in ("skinny", "wgmma")
+                  else (pl.route, "wgmma") if m > axo_matmul.SKINNY_M else (pl.route,))
         want = axo_matmul.axo_matmul_plain(a, bb, f_t, g_t, sv_t)
         got, rel = {}, {}
         for route in routes:
@@ -3013,12 +3128,13 @@ def main() -> int:
                         tf32_ops=2.0 * m * n * k * (1 + 3 * AXO_RANK)),
             route=pl.route,
         )
-        if len(routes) > 1:
+        replaced = len(routes) > 1 and routes[1] == "mma"
+        if replaced:
             n_rec.update(old_ms=min(route_ms["mma"]), old_route="mma")
         del a_cat, b_cat
         e = float((got[pl.route] - want).abs().max())
-        old = (f"; route 1 (128 x 128 tiles) rel norm {rel['mma']:.3g}, "
-               f"{min(route_ms['mma']):.4f} ms" if len(routes) > 1 else "")
+        old = "".join(f"; the {r} route rel norm {rel[r]:.3g}, {[round(t, 4) for t in route_ms[r]]}"
+                      f" ms in turns" for r in routes[1:])
         print(f"phase kernels: K6 vs plain at {label} M={m} K={k} N={n} R={AXO_RANK} "
               f"({pl.route} route, {pl.rows} x {pl.cols} tiles, {pl.splits} splits of "
               f"{pl.k_split}): rel norm {rel[pl.route]:.3g} (limit {REL_RTOL}); K6 "
@@ -3034,9 +3150,10 @@ def main() -> int:
             "library_ms": n_rec["library_ms"], "bound_ms": n_rec["bound"][0],
             "bound_by": n_rec["bound"][1], "route": pl.route, "rows": pl.rows,
             "cols": pl.cols, "splits": pl.splits, "max_abs_err": e,
+            "routes_ms": {r: min(t) for r, t in route_ms.items()},
             **({"old_ms": n_rec["old_ms"], "old_route": "mma",
                 "old_max_abs_err": float((got["mma"] - want).abs().max())}
-               if len(routes) > 1 else {})}
+               if replaced else {})}
         err[key] = max(err[key], e)
         del a, bb, got, want
     # K7 non-causal, at Sq != Skv and Skv off the 64-key tile: whisper's encoder
@@ -3047,42 +3164,6 @@ def main() -> int:
     # bf16 the plan's route (wgmma) and the earlier mma route are each held to
     # the plain version and timed through the raw launcher in turns (old, new,
     # new, old); the record's ms is the wrapper's, on the plan's route
-    def k7_routes(q, kk, vv, causal, kv_len, want, tol, label, routes=None):
-        """{route: [max abs err, raw ms in turns, max row error, ulps from the
-        twin or None]} of the plan's route and the mma route (or of
-        ``routes``), each held to ``want`` within ``tol`` and, row by row,
-        within a relative norm of K7_ROW_LIMIT; the wgmma route also
-        to its plain twin within K7_TWIN_ULPS."""
-        b_, h_, sq_, hd_ = q.shape
-        if routes is None:
-            new = flash_attention.plan(b_, h_, sq_, kv_len, hd_, causal).route
-            routes = (new, "mma") if new != "mma" else (new,)
-        scale = 1.0 / math.sqrt(hd_)
-        twin = (k7_wgmma_twin(torch, q, kk, vv, causal, flash_attention.WGMMA_KEYS)
-                if "wgmma" in routes else None)
-        out = {}
-        for route in routes:
-            got = flash_attention.flash_attention_raw(q, kk, vv, causal, scale, 0, kv_len,
-                                                      route=route)
-            torch.cuda.synchronize()
-            e = float((got.float() - want).abs().max())
-            row = row_err(torch, got, want)
-            ulps = bf16_ulps(torch, got, twin) if route == "wgmma" else None
-            if not (torch.isfinite(got.float()).all() and e <= tol and row <= K7_ROW_LIMIT
-                    and (ulps is None or ulps <= K7_TWIN_ULPS)):
-                raise AssertionError(
-                    f"K7's {route} route differs from its plain version at {label}: {e:.3g} "
-                    f"(limit {tol:.3g}), largest row relative norm {row:.3g} (limit "
-                    f"{K7_ROW_LIMIT:.3g}), from the wgmma twin {ulps} bf16 ulps (limit "
-                    f"{K7_TWIN_ULPS})")
-            out[route] = [e, [], row, ulps]
-            del got
-        del twin
-        for route in (*routes[::-1], *routes):
-            out[route][1].append(cuda_ms(torch, lambda: flash_attention.flash_attention_raw(
-                q, kk, vv, causal, scale, 0, kv_len, route=route), 20))
-        return out
-
     for label, (h_q, g_kv, s_q, s_kv, hd) in K7_NC.items():
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((4, h_q, s_q, hd), generator=gen, device=dev).to(dtype)
@@ -3223,17 +3304,18 @@ def main() -> int:
           f"the plan takes wgmma from {flash_attention.WGMMA_CAUSAL_KV} keys: {causal_at}",
           flush=True)
     rec["K7L"]["causal_boundary"] = causal_at
-    # the shapes whose route this slice left alone give the bits of the route
-    # they had: K7 at granite's S=128 prefill (mma), K6 at granite's 512-row
-    # prefill (128 x 128 tiles) and 4-row decode (GEMV), each default call
-    # against the named route
+    # the shapes whose route the wgmma, skinny and stacked routes left alone
+    # give the bits of the route they had: K7 at granite's S=128 prefill
+    # (mma), K6 at 128 rows of granite's gate/up (128 x 128 mma.sync tiles: M
+    # = 81..511) and its 4-row decode (GEMV), each default call against the
+    # named route
     q = torch.randn((4, 32, 128, 64), generator=gen, device=dev).to(torch.bfloat16)
     kk, vv = (torch.randn((4, 8, 144, 64), generator=gen, device=dev).to(torch.bfloat16)
               for _ in range(2))
     same = {"K7 granite prefill (mma)": torch.equal(
         flash_attention.flash_attention(q, kk, vv, kv_len=128),
         flash_attention.flash_attention_raw(q, kk, vv, True, 0.125, 0, 128, route="mma"))}
-    for m, k, n, route in ((512, 2048, 8192, "mma"), (4, 2048, 8192, "gemv")):
+    for m, k, n, route in ((128, 2048, 8192, "mma"), (4, 2048, 8192, "gemv")):
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
         same[f"K6 {m}x{k}x{n} ({route})"] = (
@@ -3930,6 +4012,8 @@ def main() -> int:
                         K7=flash_attention.flash_attention)
     for fn in all_wrappers.values():
         fn.launches = 0
+    for fn in (axo_matmul.axo_matmul, flash_attention.flash_attention):
+        fn.route_launches.update(dict.fromkeys(fn.route_launches, 0))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     serve_trace = ROOT / "build" / "serve_trace.json"
@@ -3958,6 +4042,17 @@ def main() -> int:
     if (serve_launches["K6"], serve_launches["K7"]) != (k6_want, k7_want):
         raise AssertionError(f"serve launches {serve_launches}: expected K6 {k6_want}, "
                              f"K7 {k7_want}")
+    # the AxO prefill's seven projections a layer (512 rows) take K6's wgmma
+    # route, the decode steps' and the head's four rows its GEMV
+    k6_by_route = dict(axo_matmul.axo_matmul.route_launches)
+    k6_prefill = 7 * n_layers * axo["prefills"]
+    print(f"phase serve: K6 calls by route {k6_by_route} ({k6_prefill} at the prefills' 512 "
+          f"rows), K7 by route {dict(flash_attention.flash_attention.route_launches)}",
+          flush=True)
+    if k6_by_route != {"gemv": k6_want - k6_prefill, "mma": 0, "skinny": 0,
+                       "wgmma": k6_prefill}:
+        raise AssertionError(f"serve: K6 calls by route {k6_by_route}, expected "
+                             f"{k6_prefill} on the wgmma route and the rest on the GEMV")
     # obs: the --trace file, the AxO decode step beside earlier runs', the pad waste
     with open(serve_trace) as f:
         spans = [e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
@@ -4342,13 +4437,20 @@ def main() -> int:
             raise AssertionError(f"{phase}: K8 calls by route {k8_routes}: every one must take "
                                  f"the tensor-core design")
         # every non-causal K7 call (128 queries over 1,500 or 1,600 keys) takes
-        # the wgmma route, every causal one (128 keys) the mma route; the MoE
-        # prefill's expert buffers (16 < M <= SKINNY_M rows) take K6's skinny route
+        # the wgmma route, every causal one (128 keys) at hd 112 or 128 the
+        # head-stacked route, the others the mma route; the MoE prefill's
+        # expert buffers (16 < M <= SKINNY_M rows) take K6's skinny route, the
+        # encoder's and the cross K/V projections (M >= WGMMA_M) its wgmma route
+        k7_stacked = prefills * sum(n for (h_, causal), n in k7_pre.items()
+                                    if causal and h_ in flash_attention.STACKED_HEAD_DIMS)
         if (k7_by_route["wgmma"] != k7_nc * prefills or sum(k7_by_route.values()) != got["K7"]
+                or k7_by_route["stacked"] != k7_stacked
                 or (phase in ("serve-hybrid", "serve-mla") and not k6_routes["skinny"])
+                or (phase in ("serve-encdec", "serve-vlm") and not k6_routes["wgmma"])
                 or sum(k6_routes.values()) != got["K6"]):
             raise AssertionError(f"{phase}: K6 calls by route {k6_routes}, K7 by route "
-                                 f"{k7_by_route} ({k7_nc * prefills} non-causal)")
+                                 f"{k7_by_route} ({k7_nc * prefills} non-causal, "
+                                 f"{k7_stacked} causal at hd {flash_attention.STACKED_HEAD_DIMS})")
         if not all(torch.isfinite(lg.float()).all() for lg in res["exact_logits"] +
                    axo["replay_logits"]):
             raise AssertionError(f"non-finite logits on the {phase} path ({cfg.name})")
@@ -4641,11 +4743,17 @@ def main() -> int:
     rec["K8"]["device_ms"] = k8_dev
     del x, dt, a, bm, cm
     for label, (m, k, n) in k6_shapes.items():
+        if label in fresh:   # granite's gate/up prefill, both routes (the fresh process's)
+            got = fresh[label]
+            route = axo_matmul.plan(m, n, k, AXO_RANK, 256).route
+            print(f"phase device-time: K6 at {label} M={m} K={k} N={n} (a fresh process): "
+                  f"{ {r: fmt_ms(t) for r, t in got.items()} } on the device (the plan's "
+                  f"route {route})", flush=True)
+            rec["K6"].update(device_ms=got[route], routes_device_ms=got)
+            continue
         if m > K6_PROFILED_MAX_M:
             print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: not profiled (M > "
                   f"{K6_PROFILED_MAX_M})", flush=True)
-            if label == "gate/up prefill":
-                rec["K6"].update(device_ms=None, library_device_ms=None)
             continue
         f_t, g_t, sv_t = tabs["random36" if "random36" in label else "demo"]
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
@@ -4675,23 +4783,20 @@ def main() -> int:
               f"on the device, SDPA {fmt_ms(lib_dev)}", flush=True)
         if label == "serve prefill":
             rec["K7"].update(device_ms=k7_dev, library_device_ms=lib_dev)
-    # K7 at the new head widths: each arch's prefill, bf16
+    # K7 at the new head widths: each arch's prefill, bf16, both routes and
+    # SDPA (the fresh process's)
     for label, (h_q, g_kv, hd) in K7_WIDE.items():
         key = "K7W" if hd == 128 else "K7X"
-        q = torch.randn((4, h_q, PROMPT_LEN, hd), generator=gen, device=dev).to(torch.bfloat16)
-        kk, vv = (torch.randn((4, g_kv, PROMPT_LEN + GEN_TOKENS, hd), generator=gen,
-                              device=dev).to(torch.bfloat16) for _ in range(2))
-        k_rep = kk[:, :, :PROMPT_LEN].repeat_interleave(h_q // g_kv, dim=1)
-        v_rep = vv[:, :, :PROMPT_LEN].repeat_interleave(h_q // g_kv, dim=1)
-        k7_dev = device_ms(torch, lambda: flash_attention.flash_attention(
-            q, kk, vv, kv_len=PROMPT_LEN), 50, launches=k7_count)
-        lib_dev = device_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k_rep, v_rep, is_causal=True), 50)
-        print(f"phase device-time: K7 at {label}'s prefill hd {hd} bf16: {fmt_ms(k7_dev)} on "
-              f"the device, SDPA {fmt_ms(lib_dev)}", flush=True)
-        rec[key]["shapes"][label].update(device_ms=k7_dev, library_device_ms=lib_dev)
+        got = fresh[label]
+        route = rec[key]["shapes"][label]["route"]
+        print(f"phase device-time: K7 at {label}'s prefill hd {hd} bf16 (a fresh process): "
+              f"{fmt_ms(got[route])} on the device ({route} route; the mma route "
+              f"{fmt_ms(got['mma'])}), SDPA {fmt_ms(got['sdpa'])}", flush=True)
+        rec[key]["shapes"][label].update(device_ms=got[route], library_device_ms=got["sdpa"],
+                                         old_device_ms=got["mma"])
         if "device_ms" not in rec[key]:
-            rec[key].update(device_ms=k7_dev, library_device_ms=lib_dev)
+            rec[key].update(device_ms=got[route], library_device_ms=got["sdpa"],
+                            old_device_ms=got["mma"])
     # K7 non-causal at slice 4's three shapes, K6 at K6_NEW's shapes, K8 at
     # jamba's prefill and MLA's plain attention, bf16
     for label, (h_q, g_kv, s_q, s_kv, hd) in K7_NC.items():
@@ -4733,17 +4838,19 @@ def main() -> int:
                       old_device_ms=long_dev["mma"])
     f_t, g_t, sv_t = tabs["demo"]
     for label, (m, k, n, key, filled) in K6_NEW.items():
-        if label in fresh:    # the skinny route's shapes, both routes (the fresh process's)
+        if label in fresh:    # M >= WGMMA_M: both 128 x 128 routes (the fresh process's)
             got = fresh[label]
+            shape = rec[key]["shapes"][label]
+            route = shape["route"]
             print(f"phase device-time: K6 at {label} M={m} K={k} N={n} (a fresh process): "
-                  f"{fmt_ms(got['skinny'])} on the device (skinny route; route 1 "
-                  f"{fmt_ms(got['mma'])}), one cuBLAS f32 GEMM at K(1+R) "
-                  f"{fmt_ms(got['cublas'])}", flush=True)
-            rec[key]["shapes"][label].update(device_ms=got["skinny"],
-                                             library_device_ms=got["cublas"],
-                                             old_device_ms=got["mma"])
+                  f"{fmt_ms(got[route])} on the device ({route} route; "
+                  + ", ".join(f"the {r} route {fmt_ms(t)}" for r, t in got.items() if r != route)
+                  + f"), one cuBLAS f32 GEMM at K(1+R) {shape['library_ms']:.4f} ms by events",
+                  flush=True)
+            shape.update(device_ms=got[route], routes_device_ms=got,
+                         **({"old_device_ms": got["mma"]} if "old_route" in shape else {}))
             if rec[key].get("device_ms") is None:
-                rec[key].update(device_ms=got["skinny"], library_device_ms=got["cublas"])
+                rec[key].update(device_ms=got[route])
             continue
         if m > K6_PROFILED_MAX_M:
             print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: not profiled (M > "
@@ -4920,7 +5027,8 @@ def main() -> int:
                                        "causal_boundary", "row_err", "twin_ulps",
                                        "wrapped_configs", "library_reason",
                                        "train_launches", "shard_launches", "op_ms",
-                                       "raw_ms", "wrapper_ms")
+                                       "raw_ms", "wrapper_ms", "routes_ms",
+                                       "routes_device_ms")
                if key in r},
         })
     print(f"phase done: {time.perf_counter() - t_start:.1f} s (main path {t_main:.1f} s, apps "

@@ -20,15 +20,23 @@ the wrapper returns it; on a CUDA tensor it launches the kernel or raises.
 each route's.  Any M, K and N work: the
 kernel masks its ragged tiles itself.
 
-The kernel has three routes, which :func:`plan` picks by M: up to ``GEMV_M``
+The kernel has four routes, which :func:`plan` picks by M: up to ``GEMV_M``
 rows (decode) an f32 GEMV on the FMA pipe; up to ``SKINNY_M`` rows (the MoE
 prefill's expert buffers) the skinny tensor-core route, which computes
 out^T = B^T A^T so that the weight's columns fill the MMA's 16-row side and
-the activation rows its 8-wide side, in blocks of 24 or 80 rows; above
-that (prefill) 128 x 128 tensor-core tiles.  Both tensor-core routes feed
-TF32 with each factor split into hi + lo (three passes; the integer values
-take one) and sum in the same order, so ``tests/test_torch_kernel_design.py``
-emulates both with one model of their rounding.  The tile and k-step
+the activation rows its 8-wide side, in blocks of 24 or 80 rows; from
+``WGMMA_M`` rows (the prefills' 512 rows, the encoder's and the
+cross-attention's thousands of frames and image tokens) the wgmma route:
+128 x 128 tiles whose code tiles arrive by TMA and are expanded through the
+tables once a block, into TF32 hi and lo planes that warpgroup MMAs read (K
+and N whole multiples of 16, the TMA's row strides, and the tables within
+its block's shared memory); otherwise (M = 81..511, or off that alignment)
+128 x 128 ``mma.sync`` tiles.
+The tensor-core routes feed TF32 with each factor split into hi + lo (three
+passes; the integer values take one), each 32-code step summed from zero in
+the tensor core, so ``tests/test_torch_kernel_design.py`` emulates them with
+one model of their rounding (the wgmma route takes a step's table rows one
+after another over its 32 codes, the others 8 codes at a time).  The tile and k-step
 constants below plan the launch; the kernel's source owns its layout and
 refuses a plan that does not fit it.
 
@@ -80,7 +88,23 @@ SKINNY_TILES = {24: 128, 80: 64}
 SKINNY_PER_SM = {24: 4, 80: 3}
 SKINNY_MAX_SPLITS = 32
 SKINNY_BLOCK_COST = 2
-ROUTES = ("gemv", "mma", "skinny")
+# wgmma route (M >= WGMMA_M, K and N multiples of 16, the tables within a
+# block's shared memory): 128 x 128 tiles, two consumer warpgroups and an
+# expansion warpgroup, one block an SM; shared memory: 1024 bytes of
+# alignment, three stages of four 16 KB planes, one stage of 8 KB code tiles,
+# 64 bytes of barriers, then the two tables (rank <= 11 at 8-bit codes).  On
+# the H100 it beats the 128 x 128 mma.sync tiles at the 512-row prefills
+# (granite's four projections, deepseek-67b's gate/up) and at whisper's 6,000
+# and the VLM's 6,400 rows (chip_smoke.py times both routes; PERF.md section
+# 6); M = 81..511 keeps route 1 (not measured there)
+WGMMA_M = 512
+WGMMA_TILE = 128
+WGMMA_ALIGN = 16           # the TMA's row strides, bytes: K and N multiples of it
+WGMMA_FIXED_SMEM = (1024 + 3 * 4 * WGMMA_TILE * MMA_KSTEP * 4 + 2 * WGMMA_TILE * MMA_KSTEP
+                    + 64)
+WGMMA_BLOCK_COST = 4
+ROUTES = ("gemv", "mma", "skinny", "wgmma")   # in the launcher's route numbers
+_REFUSED = -2              # the launcher's answer to codes the TMA cannot map
 
 
 def _need_ieee_f32(t: torch.Tensor) -> None:
@@ -102,7 +126,7 @@ def axo_matmul_plain(a_codes: torch.Tensor, b_codes: torch.Tensor, f_table: torc
 
 
 class Plan(NamedTuple):
-    route: str          # "gemv" (M <= GEMV_M), "skinny" (M <= SKINNY_M) or "mma"
+    route: str          # "gemv" (M <= GEMV_M), "skinny" (M <= SKINNY_M), "mma" or "wgmma"
     rows: int           # output rows a block owns: MT = 1, 2, 4 or 8; 24 or 80; 128
     splits: int         # blocks along K, summed in split order in the kernel
     k_split: int        # codes of K per split: whole k-steps of the route
@@ -135,9 +159,22 @@ def _k_split(k: int, kstep: int, splits: int, max_splits: int) -> tuple[int, int
     return -(-k // k_split), k_split
 
 
-def route_for(m: int) -> str:
-    """The route :func:`plan` takes at M rows: a pure function of M."""
-    return "gemv" if m <= GEMV_M else "skinny" if m <= SKINNY_M else "mma"
+def _wgmma_fits(n: int, k: int, rank: int, n_codes: int) -> bool:
+    """Whether the wgmma route takes K and N (the TMA's row strides) and its
+    block holds the two tables."""
+    return (not (n % WGMMA_ALIGN or k % WGMMA_ALIGN)
+            and WGMMA_FIXED_SMEM + 2 * (rank + 1) * n_codes * 4 <= MAX_SMEM)
+
+
+def route_for(m: int, n: int, k: int, rank: int, n_codes: int) -> str:
+    """The route :func:`plan` takes at M rows (N, K, the rank and the codes
+    decide only whether the wgmma route's TMA maps the codes and its block
+    holds the tables): a pure function of the shape."""
+    if m <= GEMV_M:
+        return "gemv"
+    if m <= SKINNY_M:
+        return "skinny"
+    return "wgmma" if m >= WGMMA_M and _wgmma_fits(n, k, rank, n_codes) else "mma"
 
 
 @functools.lru_cache(maxsize=4096)
@@ -149,23 +186,28 @@ def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS,
     (the least power of two >= M, at most 8; M = 9..16 takes two row groups
     of 8).  M <= ``SKINNY_M`` takes the skinny tensor-core route: a block
     owns 24 rows and 128 columns up to M = 24, else 80 rows and 64 columns
-    (so no padded row at M = 24 and 80).  Larger M takes 128 x 128
-    tiles.  K splits into whole k-steps (32 codes on every route) until the
+    (so no padded row at M = 24 and 80).  Larger M takes 128 x 128 tiles,
+    on the wgmma route from ``WGMMA_M`` rows where K and N are multiples of
+    16.  K splits into whole k-steps (32 codes on every route) until the
     blocks fill the ``n_sms`` SMs (two GEMV blocks or one tensor-core block
     per SM at a time) in as few waves as the work allows, counting a block's
     fixed cost; ``splits`` names the split count instead (whole k-steps a
     split, so K may take fewer).  ``route`` names the route instead of
     :func:`route_for`'s (the skinny route only up to ``SKINNY_M`` rows, the
-    GEMV only up to ``GEMV_M``; the tensor-core route takes any M).  Cached:
-    a decode step asks for the same few shapes hundreds of times.
+    GEMV only up to ``GEMV_M``, the wgmma route only where K and N are
+    multiples of 16; the mma route takes any M).  Cached: a decode step asks
+    for the same few shapes hundreds of times.
     """
     r1 = rank + 1
-    route = route_for(m) if route is None else route
+    route = route_for(m, n, k, rank, n_codes) if route is None else route
     if route not in ROUTES:
         raise ValueError(f"K6 has the routes {ROUTES}, got {route!r}")
     if (route == "gemv" and m > GEMV_M) or (route == "skinny" and m > SKINNY_M):
         raise ValueError(f"K6's {route} route takes at most "
                          f"{GEMV_M if route == 'gemv' else SKINNY_M} rows, got {m}")
+    if route == "wgmma" and (n % WGMMA_ALIGN or k % WGMMA_ALIGN):
+        raise ValueError(f"K6's wgmma route takes K and N in multiples of {WGMMA_ALIGN}, got "
+                         f"K {k}, N {n}")
     if route == "gemv":
         rows = 1 << max(0, (min(m, 8) - 1).bit_length())
         tiles = -(-n // GEMV_COLS) * -(-m // rows)
@@ -191,6 +233,15 @@ def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS,
         # the two tables; double-buffered (rows, 48) and (32, cols + 16) code tiles
         smem = 2 * r1 * n_codes * 4 + 2 * (rows * 48 + MMA_KSTEP * (cols + 16))
         return Plan("skinny", rows, splits, k_split, smem, tiles, cols)
+    if route == "wgmma":
+        tiles = -(-n // WGMMA_TILE) * -(-m // WGMMA_TILE)
+        if splits is None:
+            splits, k_split = _split_k(tiles, k, MMA_KSTEP, MMA_PER_SM * n_sms, MMA_MAX_SPLITS,
+                                       WGMMA_BLOCK_COST)
+        else:
+            splits, k_split = _k_split(k, MMA_KSTEP, splits, MMA_MAX_SPLITS)
+        smem = WGMMA_FIXED_SMEM + 2 * r1 * n_codes * 4
+        return Plan("wgmma", WGMMA_TILE, splits, k_split, smem, tiles, WGMMA_TILE)
     tiles = -(-n // MMA_TILE) * -(-m // MMA_TILE)
     if splits is None:
         splits, k_split = _split_k(tiles, k, MMA_KSTEP, MMA_PER_SM * n_sms, MMA_MAX_SPLITS,
@@ -303,7 +354,9 @@ def _launch(a_codes, b_codes, f_table, g_table, signed_vals, pl: Plan) -> torch.
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     ws = (torch.empty((pl.splits, m, n), dtype=torch.float32, device=dev)
           if pl.splits > 1 else out)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the current stream's raw handle (what current_stream().cuda_stream reads,
+    # without making a Stream object)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     counters = _counters(dev, stream, pl.tiles)
     err = _lib().axo_matmul_launch(
         a_codes.data_ptr(), b_codes.data_ptr(), signed_vals.data_ptr(), f_table.data_ptr(),
@@ -313,6 +366,10 @@ def _launch(a_codes, b_codes, f_table, g_table, signed_vals, pl: Plan) -> torch.
     )
     if err == _LAYOUT_MISMATCH:
         raise RuntimeError(f"{pl} does not fit the layout of csrc/axo_matmul.cu")
+    if err == _REFUSED:
+        raise ValueError(f"K6's wgmma route needs codes whose base and rows start on "
+                         f"16-byte boundaries: a at {a_codes.data_ptr():#x}, b at "
+                         f"{b_codes.data_ptr():#x}, K {k}, N {n}")
     if err != 0:
         raise RuntimeError(f"axo_matmul launch failed: cudaError {err}")
     axo_matmul.launches += 1

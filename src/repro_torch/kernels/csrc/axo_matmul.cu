@@ -15,10 +15,10 @@
 // linear weights of granite-3-2b they are 91 GB at R=8.  So this kernel reads
 // the weight codes (1 byte each) and gathers values and factors itself from
 // the two (1+R, 2^n) tables [sv; f^T] and [sv; g^T], held in shared memory.
-// Three routes, chosen in kernels/axo_matmul.py plan() by M; each reduces a
+// Four routes, chosen in kernels/axo_matmul.py plan() by M; each reduces a
 // split K in the kernel itself, in split order (below).
 //
-// 1. M > 80 (prefill): tensor cores, mma.sync.m16n8k8 TF32 with f32
+// 1. M = 81..511, or K or N off 16 bytes: tensor cores, mma.sync.m16n8k8 TF32 with f32
 //    accumulate.  A block of 8 warps owns a 128 x 128 output tile; each warp
 //    a 64 x 32 one (4 x 4 MMA tiles).  The block walks K in steps of 32
 //    codes: cp.async stages the A (128 x 32) and B (32 x 128) code tiles in
@@ -98,6 +98,40 @@
 //    [2.0092] (cuBLAS [2.4716], [2.5270]).  The TF32 bounds are 0.0356 and
 //    0.4745.
 //
+// 4. M >= WGMMA_M = 512 (the prefills' projections, and the encoder and
+//    cross K/V projections over whisper's 6,000 frames and the VLM's 6,400
+//    image tokens), K and N multiples of 16: wgmma TF32 on planes expanded
+//    once a block.  Route 1's bound is
+//    instruction issue: each warp expands its own fragments from the codes,
+//    so a 128 x 128 tile's A codes are expanded once per warp along N (4
+//    times) and its B codes once per warp along M (twice).  Here a block of
+//    384 threads owns a 128 x 128 tile: one lane of the expansion warpgroup
+//    loads each 32-code step's A (128 x 32) and B (32 x 128) codes by TMA
+//    (2-d maps over the uint8 matrices, edges filled with zero codes); the
+//    expansion warpgroup's 128 threads hold the step's codes in registers
+//    and expand them once, table row by table row, into TF32 hi and lo
+//    planes (hi = x rounded to TF32, lo = x - hi, route 1's split), written
+//    K-major in the 128-byte swizzled layout wgmma reads (B's transpose is
+//    free: each thread writes one weight column's 32 codes), into a ring of
+//    three (step, table row) stages of 64 KB with full and empty mbarriers
+//    (a thread fences the async proxy before it arrives).  Two consumer
+//    warpgroups (64 rows each, all 128 columns) issue
+//    wgmma.m64n128k8.f32.tf32.tf32 from shared memory: the values' row one
+//    pass, each factor row three (lo.hi, hi.lo, hi.hi), the table rows from
+//    the last factor down to the values, each over the step's four 8-code
+//    slices; a stage is freed once the next one's products are issued and
+//    its own are done (wgmma.wait_group 1).  Route 1's precision contract
+//    holds: each step is summed from zero in the tensor core (scale-d 0 on
+//    its first wgmma) and added to the running IEEE f32 sum, and a split K
+//    is summed in split order by the last block (tests/test_torch_kernel_design.py
+//    emulates the order).  What bounds it: shared memory, about 2,500 of its
+//    128-byte wavefronts a stage (the 8,192 table gathers with their bank
+//    conflicts, the 64 KB of plane stores, and wgmma's reads: each consumer
+//    warpgroup reads all of B), against the stage's 1,536 cycles of TF32
+//    MMAs, so the stages are three (the expansion runs up to two table rows
+//    ahead) and the code tiles one, which serves a step's nine table rows.
+//    Its times against route 1's and cuBLAS's are in PERF.md section 6.
+//
 // Split K: each block writes its partial tile to a (splits, M, N) workspace;
 // the last block of a tile to arrive (an atomic counter per tile, which it
 // resets) sums the partials in split order, so the result does not depend on
@@ -109,7 +143,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 // ---------------------------------------------------------------------------
 // shared pieces
@@ -678,6 +716,249 @@ axo_skinny_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
+// route 4, M in the thousands: wgmma TF32 on planes expanded once a block
+// ---------------------------------------------------------------------------
+
+constexpr int kWgTile = 128;                        // output rows and columns a block owns
+constexpr int kWgConsumers = 2;                     // consumer warpgroups, 64 rows each
+constexpr int kWgThreads = (kWgConsumers + 1) * 128;   // + the expansion warpgroup
+constexpr int kWgCodeStages = 1;                    // 32-code steps of codes in flight
+constexpr int kWgPlaneStages = 3;                   // (step, table row) planes in flight
+constexpr int kWgPlane = kWgTile * kStepK * 4;      // 128 rows x 32 TF32, 128-byte swizzled
+constexpr int kWgStage = 4 * kWgPlane;              // A hi, A lo, B hi, B lo: 64 KB
+constexpr int kWgCodeStage = 2 * kWgTile * kStepK;  // A (128 x 32) and B (32 x 128) codes
+constexpr int kWgCodes = kWgPlaneStages * kWgStage;
+constexpr int kWgBar = kWgCodes + kWgCodeStages * kWgCodeStage;
+constexpr int kWgTables = kWgBar + 8 * 2 * (kWgCodeStages + kWgPlaneStages);
+
+// Dynamic shared memory of a route-4 block: 1024 bytes to align the planes
+// (the swizzle's period), the plane ring, the code ring, the barriers, the
+// two tables.
+size_t wgmma_smem(int r1, int n_codes) {
+  return 1024 + kWgTables + 2 * static_cast<size_t>(r1) * n_codes * sizeof(float);
+}
+
+// a 2-d box of a uint8 tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// d (+)= A . B for a 64 x 128 tile over 8 of k, both operands K-major TF32 in
+// shared memory, f32 accumulate; scale_d 0 zeroes d first
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The byte offset of element (row, k) in a 128 x 32 TF32 plane: each row one
+// 128-byte line, its 16-byte chunks XOR-ed with the row's index mod 8 (the
+// 128-byte swizzle that wgmma reads, as TMA would write it)
+__device__ __forceinline__ uint32_t plane_chunk(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// The expansion of one table row of one step: 4 codes of one row of the plane
+// (one 16-byte chunk) through the table row, split into hi and lo.  Codes
+// past K (valid false) give 0.
+__device__ __forceinline__ void expand_chunk(unsigned char* hi_plane, unsigned char* lo_plane,
+                                             uint32_t off, const float* tab, uint32_t codes,
+                                             int code_mask, int valid, bool lo_too) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float x = q < valid ? tab[(codes >> (8 * q)) & code_mask] : 0.f;
+    split_tf32(x, h[q], l[q]);
+  }
+  *reinterpret_cast<uint4*>(hi_plane + off) = make_uint4(h[0], h[1], h[2], h[3]);
+  if (lo_too) *reinterpret_cast<uint4*>(lo_plane + off) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+axo_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_b,
+                 const float* __restrict__ sv, const float* __restrict__ ft,
+                 const float* __restrict__ gt, float* __restrict__ out, float* __restrict__ ws,
+                 int* __restrict__ counters, int m_total, int n_total, int k_total, int rank,
+                 int n_codes, int splits, int k_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const smem =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);   // planes 1024-aligned
+  const uint32_t base = smem_addr(smem);
+  float* const ta = reinterpret_cast<float*>(smem + kWgTables);   // (1+R, n_codes): [sv; f]
+  float* const tb = ta + (rank + 1) * n_codes;                     // [sv; g]
+  auto code_full = [&](int s) { return base + kWgBar + 8u * s; };
+  auto plane_full = [&](int s) { return base + kWgBar + 8u * (kWgCodeStages + s); };
+  auto plane_empty = [&](int s) {
+    return base + kWgBar + 8u * (kWgCodeStages + kWgPlaneStages + s);
+  };
+
+  const int m0 = blockIdx.y * kWgTile;
+  const int n0 = blockIdx.x * kWgTile;
+  const int kb = blockIdx.z * k_split;
+  const int kend = min(k_total, kb + k_split);
+  const int n_steps = (kend - kb + kStepK - 1) / kStepK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgCodeStages; ++s) mbar_init(code_full(s), 1);
+    for (int s = 0; s < kWgPlaneStages; ++s) {
+      mbar_init(plane_full(s), 128);                 // every expansion thread
+      mbar_init(plane_empty(s), 4 * kWgConsumers);   // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const bool sv_exact = fill_table(ta, sv, ft, rank, n_codes);   // its barriers publish the inits
+  fill_table(tb, sv, gt, rank, n_codes);
+  const int j_value = sv_exact ? 0 : -1;   // the value row's one pass (exact), else three
+
+  if (tid >= kWgConsumers * 128) {
+    // The expansion warpgroup.  Thread p expands chunk p & 7 of A's rows
+    // p / 8 + 16 i and all 8 chunks of B's row (weight column) p, i = 0..7,
+    // holding the step's codes in registers across its table rows.
+    const int p = tid - kWgConsumers * 128;
+    const int code_mask = n_codes - 1;
+    auto load_codes = [&](int step) {
+      const int s = step % kWgCodeStages;
+      const uint32_t dst = base + kWgCodes + s * kWgCodeStage;
+      mbar_arrive_tx(code_full(s), kWgCodeStage);
+      tma_load_2d(dst, &tma_a, kb + step * kStepK, m0, code_full(s));
+      tma_load_2d(dst + kWgTile * kStepK, &tma_b, n0, kb + step * kStepK, code_full(s));
+    };
+    if (p == 0)
+      for (int step = 0; step < min(n_steps, kWgCodeStages); ++step) load_codes(step);
+    int stage = 0;
+    for (int step = 0; step < n_steps; ++step) {
+      const int s = step % kWgCodeStages;
+      mbar_wait(code_full(s), (step / kWgCodeStages) & 1);
+      const unsigned char* ca = smem + kWgCodes + s * kWgCodeStage;   // (128 m, 32 k)
+      const unsigned char* cb = ca + kWgTile * kStepK;                // (32 k, 128 n)
+      uint32_t a_codes[8], b_codes[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        a_codes[i] = *reinterpret_cast<const uint32_t*>(ca + ((p >> 3) + 16 * i) * kStepK +
+                                                       4 * (p & 7));
+        b_codes[i] = cb[(4 * i) * kWgTile + p] | (cb[(4 * i + 1) * kWgTile + p] << 8) |
+                     (cb[(4 * i + 2) * kWgTile + p] << 16) |
+                     (static_cast<uint32_t>(cb[(4 * i + 3) * kWgTile + p]) << 24);
+      }
+      // every thread holds the step's codes: the slot takes the step after next
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (p == 0 && step + kWgCodeStages < n_steps) load_codes(step + kWgCodeStages);
+      const int klim = kend - (kb + step * kStepK);   // codes of the step inside the split
+      for (int j = rank; j >= 0; --j, ++stage) {
+        const int ps = stage % kWgPlaneStages;
+        mbar_wait(plane_empty(ps), ((stage / kWgPlaneStages) & 1) ^ 1);
+        unsigned char* const planes = smem + ps * kWgStage;
+        const bool lo_too = j != j_value;
+        const float* taj = ta + j * n_codes;
+        const float* tbj = tb + j * n_codes;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = (p >> 3) + 16 * i;
+          expand_chunk(planes, planes + kWgPlane, plane_chunk(row, p & 7), taj, a_codes[i],
+                       code_mask, 4, lo_too);
+          expand_chunk(planes + 2 * kWgPlane, planes + 3 * kWgPlane, plane_chunk(p, i), tbj,
+                       b_codes[i], code_mask, klim - 4 * i, lo_too);
+        }
+        // the planes are read by wgmma, through the async proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(plane_full(ps));
+      }
+    }
+  } else {
+    // A consumer warpgroup: rows 64 wg .. 64 wg + 63 of the tile, all 128
+    // columns.  Each step's sum starts from zero in the tensor core (scale-d
+    // 0 on its first wgmma) and is added to the running sum in IEEE f32;
+    // within a step the table rows run from the last factor down to the
+    // values, each factor's 8-code slices lo.hi, hi.lo, hi.hi (route 1's
+    // terms and order of rows).
+    const int wg = tid >> 7;
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    float acc[64], tmp[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = tmp[i] = 0.f;
+    int stage = 0;
+    int held = -1;   // the plane stage whose wgmmas may still be in flight
+    for (int step = 0; step < n_steps; ++step) {
+      for (int j = rank; j >= 0; --j, ++stage) {
+        const int ps = stage % kWgPlaneStages;
+        mbar_wait(plane_full(ps), (stage / kWgPlaneStages) & 1);
+        __syncwarp();   // wgmma is .aligned: the warp converged after its spin
+        const uint32_t a_hi = base + ps * kWgStage + wg * 64 * 128;
+        const uint32_t a_lo = a_hi + kWgPlane;
+        const uint32_t b_hi = base + ps * kWgStage + 2 * kWgPlane;
+        const uint32_t b_lo = b_hi + kWgPlane;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kStepK / 8; ++kk) {
+          const uint32_t off = kk * 32;   // 8 TF32 along the swizzled row
+          if (j != j_value) {
+            wgmma_tf32_n128(tmp, sw128_desc(a_lo + off), sw128_desc(b_hi + off),
+                            j < rank || kk > 0);
+            wgmma_tf32_n128(tmp, sw128_desc(a_hi + off), sw128_desc(b_lo + off), 1);
+            wgmma_tf32_n128(tmp, sw128_desc(a_hi + off), sw128_desc(b_hi + off), 1);
+          } else {
+            wgmma_tf32_n128(tmp, sw128_desc(a_hi + off), sw128_desc(b_hi + off),
+                            j < rank || kk > 0);
+          }
+        }
+        wgmma_commit();
+        if (j > 0) {
+          wgmma_wait<1>();   // the previous stage's products are done: free it
+        } else {
+          wgmma_wait<0>();
+        }
+        __syncwarp();
+        if (held >= 0 && lane == 0) mbar_arrive(plane_empty(held));
+        held = ps;
+        if (j == 0) {
+          fence_regs(tmp);
+          if (lane == 0) mbar_arrive(plane_empty(ps));
+          held = -1;
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[i] += tmp[i];
+        }
+      }
+    }
+    // the accumulator's fragments: 8-column tile i holds (row g, columns
+    // 8 i + 2 t, + 1) and (row g + 8, the same columns)
+    float* dst = splits > 1 ? ws + static_cast<size_t>(blockIdx.z) * m_total * n_total : out;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wg * 64 + warp * 16 + g + 8 * h;
+      if (row >= m_total) continue;
+      float* rp = dst + static_cast<size_t>(row) * n_total;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int col = n0 + 8 * i + 2 * t;
+        if (col + 1 < n_total && (n_total & 1) == 0) {
+          *reinterpret_cast<float2*>(rp + col) = make_float2(acc[4 * i + 2 * h],
+                                                             acc[4 * i + 2 * h + 1]);
+        } else {
+          if (col < n_total) rp[col] = acc[4 * i + 2 * h];
+          if (col + 1 < n_total) rp[col + 1] = acc[4 * i + 2 * h + 1];
+        }
+      }
+    }
+  }
+  if (splits > 1)
+    split_fixup(out, ws, counters, splits, m_total, n_total, m0, kWgTile, n0, kWgTile);
+}
+
+// ---------------------------------------------------------------------------
 // route 2, M <= 16: f32 GEMV
 // ---------------------------------------------------------------------------
 
@@ -924,17 +1205,56 @@ cudaError_t launch_skinny(const uint8_t* a, const uint8_t* b, const float* sv, c
   return cudaGetLastError();
 }
 
+// A row-major (rows, cols) uint8 matrix as a 2-d tensor map (cols, rows) with
+// boxes of box_cols x box_rows, unswizzled; elements past its edges read as
+// zero.  False where libcuda refuses it (a base or row stride off 16 bytes).
+bool code_map(CUtensorMap* map, const void* p, int rows, int cols, int box_cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Route 4; sets `refused` where a code matrix cannot be mapped and `mismatch`
+// where the plan disagrees with this file's layout.
+cudaError_t launch_wgmma(const uint8_t* a, const uint8_t* b, const float* sv, const float* ft,
+                         const float* gt, float* out, float* ws, int* counters, int n_counters,
+                         int m, int n, int k, int rank, int n_codes, int splits, int k_split,
+                         size_t smem, cudaStream_t stream, bool& mismatch, bool& refused) {
+  const dim3 grid((n + kWgTile - 1) / kWgTile, (m + kWgTile - 1) / kWgTile, splits);
+  mismatch = k_split % kStepK || smem != wgmma_smem(rank + 1, n_codes) ||
+             (splits > 1 && static_cast<long long>(grid.x) * grid.y > n_counters);
+  refused = false;
+  if (mismatch) return cudaSuccess;
+  CUtensorMap ta, tb;
+  refused = !(code_map(&ta, a, m, k, kStepK, kWgTile) && code_map(&tb, b, k, n, kWgTile, kStepK));
+  if (refused) return cudaSuccess;
+  cudaError_t err = allow_smem(axo_wgmma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  axo_wgmma_kernel<<<grid, kWgThreads, smem, stream>>>(ta, tb, sv, ft, gt, out, ws, counters, m,
+                                                       n, k, rank, n_codes, splits, k_split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // route 0 = GEMV (rows = MT, 1/2/4/8 rows per block), 1 = tensor cores, 2 =
-// skinny tensor cores (rows = 24 or 80 per block).
-// With splits > 1, ws holds splits * m * n floats of partials and counters
-// n_counters zeroed ints, one per output tile (left zeroed).  smem is the
-// dynamic shared memory plan() computed for the launch.  Returns a cudaError_t,
-// or kLayoutMismatch where the plan disagrees with this file's layout: smem
-// not what the route's block takes, a split not whole k-steps, a row count
-// the route is not built for, or fewer counters than output tiles.
+// skinny tensor cores (rows = 24 or 80 per block), 3 = wgmma (128 x 128
+// tiles).  With splits > 1, ws holds splits * m * n floats of partials and
+// counters n_counters zeroed ints, one per output tile (left zeroed).  smem is
+// the dynamic shared memory plan() computed for the launch.  Returns a
+// cudaError_t, kLayoutMismatch where the plan disagrees with this file's
+// layout: smem not what the route's block takes, a split not whole k-steps, a
+// row count the route is not built for, or fewer counters than output tiles;
+// or kRefused where route 3 cannot map a code matrix (its base or row stride
+// off 16 bytes).
 constexpr int kLayoutMismatch = -1;
+constexpr int kRefused = -2;
 
 extern "C" int axo_matmul_launch(const void* a, const void* b, const void* sv,
                                  const void* ft, const void* gt, void* out, void* ws,
@@ -975,6 +1295,14 @@ extern "C" int axo_matmul_launch(const void* a, const void* b, const void* sv,
       err = launch_skinny<5, 2>(ap, bp, svp, fp, gp, op, wp, cnt, n_counters, m, n, k, rank,
                                 n_codes, splits, k_split, sm, s, mismatch);
     return mismatch ? kLayoutMismatch : static_cast<int>(err);
+  }
+  if (route == 3) {
+    bool mismatch = true, refused = false;
+    const cudaError_t err =
+        rows == kWgTile ? launch_wgmma(ap, bp, svp, fp, gp, op, wp, cnt, n_counters, m, n, k,
+                                       rank, n_codes, splits, k_split, sm, s, mismatch, refused)
+                        : cudaSuccess;
+    return mismatch ? kLayoutMismatch : refused ? kRefused : static_cast<int>(err);
   }
   auto* fn = rows == 1 ? &launch_gemv<1> : rows == 2 ? &launch_gemv<2>
             : rows == 4 ? &launch_gemv<4> : rows == 8 ? &launch_gemv<8> : nullptr;

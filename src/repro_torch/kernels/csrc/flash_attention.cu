@@ -53,7 +53,8 @@
 //
 // The bf16 wgmma route (flash_attention_wgmma_kernel): the long and the
 // non-causal calls (kernels/flash_attention.py plan(): every non-causal call,
-// and causal ones over 512 keys or more, at hd 64 and 128).  The design above
+// and causal ones over 512 keys or more, at hd 64 and 128; the head-stacked
+// layout below takes the short causal ones at hd 112 and 128).  The design above
 // sat at 19% of its bound over whisper's 1,500 keys, where SDPA reached 38%:
 // mma.sync is not the card's full tensor-core rate, its 64-key tiles arrive
 // by cp.async copies every thread issues, and the hi + lo pair does 1.5x the
@@ -89,8 +90,32 @@
 // fresh process in a later run] against 1.8227 [1.8490] and 0.6298
 // [0.6281], bound 0.278.  S's and P's fragments are
 // those of mma.m16n8k16 per warp, so the softmax code is the design above's.
-// hd 112 (kimi-k2) keeps the mma route: its 224-byte rows are not whole
-// 128-byte panels.
+//
+// The head-stacked layout of the wgmma route (STACK; plan()'s "stacked"
+// route): the short causal prefills at hd 112 and 128 (internlm2, starcoder2,
+// deepseek-67b, kimi-k2: S = 128 over 128 keys).  The mma route sat there at
+// 3.9x its bound (deepseek-67b, kimi-k2) and up to 2.1x SDPA on the device:
+// latency, a serial copy -> q.k -> softmax -> P.V chain over one or two
+// 64-key tiles, a third of its MMAs on p's lo half, and each of a group's
+// heads' blocks fetching the same K/V tiles again.  At S <= 256 every tile a
+// block's rows see crosses the diagonal, so the causal skip saves nothing;
+// what sharing does is feed one TMA-loaded K/V tile to several heads.  Here a
+// block's NC consumer warpgroups (1 or 2) take NC heads of one KV group at
+// the same 64 query rows, so each K/V tile serves NC heads, and the block
+// walks `iters` rounds of NC heads (1 or 2), the producer loading the next
+// round's q into a second q buffer (released by a q-empty mbarrier) while
+// this round computes; the K/V tiles of a round are the same group's again
+// (L2 hits).  plan() picks NC and the rounds for the fewest waves of blocks
+// times rounds, then the most rounds, then the fewest heads at once.  hd 112
+// runs in the hd 128 instance's 128-wide tiles: the tensor maps' inner
+// extent is 112, so TMA fills columns 112-127 of q, K and V with zeros, q.k
+// takes 7 k-steps of 16, P.V runs at n = 128 (its last 16 columns zero) and
+// only the first 112 are stored (an n = 112 P.V instance was not built).
+// What bounds it: latency again, now per round (q.k, a softmax that masks
+// every tile, P.V, each waiting on the one before), with two consumer
+// warpgroups an SM (the registers: 159-164 a thread); its device times are
+// 2.5-4.4x the bytes' bound.  The figures are in PERF.md section 6
+// (chip_smoke.py).
 //
 // The f32 kernel serves only the reduced-config checks and keeps the first
 // design: one query row per thread on the f32 FMA pipe, K/V staged in shared
@@ -115,14 +140,16 @@
 // back into 255 registers and spilled 60 bytes at 128; by 4, 48 registers and
 // no spills at 112 and 128).
 
-#include <cuda.h>   // CUtensorMap and its enums (types only: the encoder is looked up)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // keys per shared-memory tile
@@ -415,11 +442,12 @@ constexpr int kWgKeys = 128;          // keys a K/V tile holds
 constexpr int kSwRow = 128;           // bytes of a 128-byte swizzled row: 64 bf16
 constexpr int kSwAtom = 8 * kSwRow;   // the swizzle's period: 8 rows
 
-// Shared memory of a block with NC consumer warpgroups: q's rows, then the
-// K and V rings, then the barriers.  A row of HD bf16 lies in HD / 64 panels
-// of 128-byte rows, each panel 128-byte swizzled as TMA writes it and wgmma
-// reads it; every panel starts on a 1024-byte boundary.
-template <int HD, int NC>
+// Shared memory of a block with NC consumer warpgroups: QB buffers of q's
+// rows (two where a block walks several heads, the next head's q in flight),
+// then the K and V rings, then the barriers.  A row of HD bf16 lies in HD /
+// 64 panels of 128-byte rows, each panel 128-byte swizzled as TMA writes it
+// and wgmma reads it; every panel starts on a 1024-byte boundary.
+template <int HD, int NC, int QB = 1>
 struct WgLayout {
   static constexpr int kStages = 2;                 // K/V tiles in flight
   static constexpr int kPanels = HD / 64;
@@ -427,48 +455,13 @@ struct WgLayout {
   static constexpr int kKVPanel = kWgKeys * kSwRow;   // a K or V tile, one panel
   static constexpr int kQBytes = kPanels * kQPanel;   // a warpgroup's q rows
   static constexpr int kTileBytes = kPanels * kKVPanel;
-  static constexpr int kK = NC * kQBytes;
+  static constexpr int kK = QB * NC * kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;
-  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;   // + alignment
+  // q full and empty a buffer; K full, V full and K/V empty a stage
+  static constexpr int kBytes = kBar + 8 * (2 * QB + 3 * kStages) + 1024;   // + alignment
   static constexpr int kThreads = NC * 128 + 32;       // the consumers, then the producer warp
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P1;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of `parity` to complete.  A phase that has not completed
-// after ~2^35 cycles (~17 s) can never complete: the kernel traps, so the
-// launch fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - start > (1ll << 35)) __trap();
-}
 
 // a (hd, position, head, batch) box of a 4-d tensor map into shared memory,
 // completing on bar
@@ -481,39 +474,11 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 // 2^x on the SFU, flushing results below 2^-126 to zero
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// keep the compiler from moving reads or writes of an accumulator across the
-// asynchronous MMA's issue and wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma's shared-memory matrix descriptor for a 128-byte swizzled operand:
-// start address, leading and stride byte offsets (16-byte units), swizzle mode 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFFu) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFFu) >> 4) << 32) | (1ull << 62);
 }
 
 // d (+)= A . B for a 64 x 128 tile over 16 of k: A and B from shared memory
@@ -567,37 +532,50 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2], const uint32_t (&a)
   }
 }
 
-template <int HD, int NC>
+// HD: the width in shared memory (whole 64-wide panels); HDR: the heads'
+// own width, 112 or HD (the columns past it TMA fills with zeros).  STACK:
+// the consumer warpgroups take NC heads of one KV group at the same 64 query
+// rows (the head-stacked layout), `iters` rounds of them a block, the next
+// round's q loaded during this one; else NC consecutive 64-row tiles of one
+// head (iters 1).
+template <int HD, int NC, int HDR = HD, bool STACK = false>
 __global__ void __launch_bounds__(WgLayout<HD, NC>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ o, Strides os, int rep, int sq,
-                             float scale_log2, int causal, int q_offset, int kv_len) {
-  using L = WgLayout<HD, NC>;
+                             float scale_log2, int causal, int q_offset, int kv_len, int iters) {
+  constexpr int QB = STACK ? 2 : 1;   // q buffers
+  using L = WgLayout<HD, NC, QB>;
   constexpr int P = L::kPanels;
-  constexpr int DT = HD / 8;          // 8-wide tiles of the output
+  constexpr int KC = HDR / 16;        // 16-wide k-steps of q . k (7 at hd 112)
+  constexpr int DT = HDR / 8;         // 8-wide tiles of the output stored
+  constexpr int kBlkRows = STACK ? kWgRows : NC * kWgRows;   // query rows of a block
   constexpr int NT = kWgKeys / 8;     // 8-key tiles of the scores
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
-  const uint32_t bar_q = base + L::kBar;
-  auto full_k = [&](int s) { return base + L::kBar + 8u * (1 + s); };
-  auto full_v = [&](int s) { return base + L::kBar + 8u * (1 + L::kStages + s); };
-  auto empty = [&](int s) { return base + L::kBar + 8u * (1 + 2 * L::kStages + s); };
+  auto bar_q = [&](int b) { return base + L::kBar + 8u * b; };
+  auto q_empty = [&](int b) { return base + L::kBar + 8u * (QB + b); };
+  auto full_k = [&](int s) { return base + L::kBar + 8u * (2 * QB + s); };
+  auto full_v = [&](int s) { return base + L::kBar + 8u * (2 * QB + L::kStages + s); };
+  auto empty = [&](int s) { return base + L::kBar + 8u * (2 * QB + 2 * L::kStages + s); };
 
   const int qt = blockIdx.x;
-  const int hi = blockIdx.y;
+  const int head0 = STACK ? blockIdx.y * NC * iters : blockIdx.y;   // the block's first head
   const int bi = blockIdx.z;
-  const int gi = hi / rep;
+  const int gi = head0 / rep;
   const int tid = threadIdx.x;
-  const int row_blk = qt * NC * kWgRows;
+  const int row_blk = qt * kBlkRows;
   // the keys any row of this block can see: the tiles the producer loads
-  const int last_row = min(sq, row_blk + NC * kWgRows) - 1;
+  const int last_row = min(sq, row_blk + kBlkRows) - 1;
   const int kend = causal ? min(kv_len, q_offset + last_row + 1) : kv_len;
   const int n_tiles = (kend + kWgKeys - 1) / kWgKeys;
 
   if (tid == 0) {
-    mbar_init(bar_q, 1);
+    for (int b = 0; b < QB; ++b) {
+      mbar_init(bar_q(b), 1);
+      mbar_init(q_empty(b), 4 * NC);   // one arrival a consumer warp
+    }
     for (int s = 0; s < L::kStages; ++s) {
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
@@ -609,23 +587,32 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid >= NC * 128) {   // the producer warp: one lane issues every copy
     if (tid == NC * 128) {
-      const int live = min(NC, (sq - row_blk + kWgRows - 1) / kWgRows);   // warpgroups with rows
-      mbar_arrive_tx(bar_q, live * L::kQBytes);
-      for (int w = 0; w < live; ++w)
-        for (int p = 0; p < P; ++p)
-          tma_load(base + (w * P + p) * L::kQPanel, &tq, 64 * p, row_blk + w * kWgRows, hi, bi,
-                   bar_q);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % L::kStages;
-        mbar_wait(empty(s), ((i / L::kStages) & 1) ^ 1);
-        mbar_arrive_tx(full_k(s), L::kTileBytes);
-        for (int p = 0; p < P; ++p)
-          tma_load(base + L::kK + s * L::kTileBytes + p * L::kKVPanel, &tk, 64 * p,
-                   i * kWgKeys, gi, bi, full_k(s));
-        mbar_arrive_tx(full_v(s), L::kTileBytes);
-        for (int p = 0; p < P; ++p)
-          tma_load(base + L::kV + s * L::kTileBytes + p * L::kKVPanel, &tv, 64 * p,
-                   i * kWgKeys, gi, bi, full_v(s));
+      // warpgroups with rows
+      const int live = STACK ? NC : min(NC, (sq - row_blk + kWgRows - 1) / kWgRows);
+      for (int it = 0; it < iters; ++it) {
+        // a round's q, once the round QB before has released its buffer, then
+        // its K/V tiles (the same group's tiles again: from L2)
+        const int qb = it % QB;
+        if (it >= QB) mbar_wait(q_empty(qb), ((it / QB) - 1) & 1);
+        mbar_arrive_tx(bar_q(qb), live * L::kQBytes);
+        for (int w = 0; w < live; ++w)
+          for (int p = 0; p < P; ++p)
+            tma_load(base + ((qb * NC + w) * P + p) * L::kQPanel, &tq, 64 * p,
+                     STACK ? row_blk : row_blk + w * kWgRows,
+                     STACK ? head0 + it * NC + w : head0, bi, bar_q(qb));
+        for (int i = it * n_tiles; i < (it + 1) * n_tiles; ++i) {
+          const int s = i % L::kStages;
+          const int k0 = (i - it * n_tiles) * kWgKeys;
+          mbar_wait(empty(s), ((i / L::kStages) & 1) ^ 1);
+          mbar_arrive_tx(full_k(s), L::kTileBytes);
+          for (int p = 0; p < P; ++p)
+            tma_load(base + L::kK + s * L::kTileBytes + p * L::kKVPanel, &tk, 64 * p, k0, gi,
+                     bi, full_k(s));
+          mbar_arrive_tx(full_v(s), L::kTileBytes);
+          for (int p = 0; p < P; ++p)
+            tma_load(base + L::kV + s * L::kTileBytes + p * L::kKVPanel, &tv, 64 * p, k0, gi,
+                     bi, full_v(s));
+        }
       }
     }
     return;
@@ -637,7 +624,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wg_row0 = row_blk + wg * kWgRows;
+  const int wg_row0 = STACK ? row_blk : row_blk + wg * kWgRows;
   const int row0 = wg_row0 + warp * 16;
   const int r_lo = row0 + g;
   const int r_hi = r_lo + 8;
@@ -645,136 +632,141 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // the keys this warpgroup's rows see: a causal block's earlier warpgroups
   // may skip the block's last tile
   const int wg_kend = causal ? min(kv_len, q_offset + min(sq, wg_row0 + kWgRows)) : kv_len;
-  const uint32_t q_base = base + wg * L::kQBytes;
 
-  float acc[HD / 2];
+  for (int it = 0; it < iters; ++it) {   // a round: this warpgroup's head of it
+    const int qb = it % QB;
+    const int head = STACK ? head0 + it * NC + wg : head0;
+    const uint32_t q_base = base + (qb * NC + wg) * L::kQBytes;
+    float acc[HD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
-  float sc[NT * 4];
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float sc[NT * 4];
 #pragma unroll
-  for (int i = 0; i < NT * 4; ++i) sc[i] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  if (wg_active) mbar_wait(bar_q, 0);
+    for (int i = 0; i < NT * 4; ++i) sc[i] = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+    if (wg_active) mbar_wait(bar_q(qb), (it / QB) & 1);
 
-  for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % L::kStages;
-    const int ph = (i / L::kStages) & 1;
-    const int k0 = i * kWgKeys;
-    mbar_wait(full_k(s), ph);
-    __syncwarp();   // wgmma is .aligned: the warp converged after its spin
-    if (wg_active && k0 < wg_kend) {
-      // S = q k^T: 64 rows x 128 keys, HD / 16 steps of 16
-      const uint32_t k_base = base + L::kK + s * L::kTileBytes;
-      wgmma_fence();
+    for (int i = it * n_tiles; i < (it + 1) * n_tiles; ++i) {
+      const int s = i % L::kStages;
+      const int ph = (i / L::kStages) & 1;
+      const int k0 = (i - it * n_tiles) * kWgKeys;
+      mbar_wait(full_k(s), ph);
+      __syncwarp();   // wgmma is .aligned: the warp converged after its spin
+      if (wg_active && k0 < wg_kend) {
+        // S = q k^T: 64 rows x 128 keys, HDR / 16 steps of 16
+        const uint32_t k_base = base + L::kK + s * L::kTileBytes;
+        wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < HD / 16; ++kc) {
-        const uint32_t off = (kc & 3) * 32;   // 16 bf16 along the swizzled row
-        wgmma_ss_n128(sc, sw128_desc(q_base + (kc >> 2) * L::kQPanel + off, 16, kSwAtom),
-                      sw128_desc(k_base + (kc >> 2) * L::kKVPanel + off, 16, kSwAtom), kc > 0);
-      }
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(sc);
-      // scale into the exp2 domain; mask only where the tile crosses kv_len
-      // or the diagonal of this warp's rows
-      const bool need_mask =
-          k0 + kWgKeys > kv_len || (causal && k0 + kWgKeys - 1 > q_offset + row0);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = sc[4 * nt + e] * scale_log2;
-          if (need_mask) {
-            const int key = k0 + nt * 8 + 2 * t + (e & 1);
-            const int qpos = q_offset + (e < 2 ? r_lo : r_hi);
-            if (key >= kv_len || (causal && key > qpos)) x = -INFINITY;
-          }
-          sc[4 * nt + e] = x;
+        for (int kc = 0; kc < KC; ++kc) {
+          const uint32_t off = (kc & 3) * 32;   // 16 bf16 along the swizzled row
+          wgmma_ss_n128(sc, sw128_desc(q_base + (kc >> 2) * L::kQPanel + off, 16, kSwAtom),
+                        sw128_desc(k_base + (kc >> 2) * L::kKVPanel + off, 16, kSwAtom), kc > 0);
         }
-      }
-      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        // scale into the exp2 domain; mask only where the tile crosses kv_len
+        // or the diagonal of this warp's rows
+        const bool need_mask =
+            k0 + kWgKeys > kv_len || (causal && k0 + kWgKeys - 1 > q_offset + row0);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
-      }
+        for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-      }
-      const float mn_lo = fmaxf(m_lo, mx_lo);
-      const float mn_hi = fmaxf(m_hi, mx_hi);
-      // a row that has seen no key yet keeps everything at 0
-      const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
-      const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
-      const float alpha_lo = ex2(m_lo - base_lo);
-      const float alpha_hi = ex2(m_hi - base_hi);
-      m_lo = mn_lo;
-      m_hi = mn_hi;
-      l_lo *= alpha_lo;
-      l_hi *= alpha_hi;
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * nt + e] * scale_log2;
+            if (need_mask) {
+              const int key = k0 + nt * 8 + 2 * t + (e & 1);
+              const int qpos = q_offset + (e < 2 ? r_lo : r_hi);
+              if (key >= kv_len || (causal && key > qpos)) x = -INFINITY;
+            }
+            sc[4 * nt + e] = x;
+          }
+        }
+        float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        acc[4 * dt] *= alpha_lo;
-        acc[4 * dt + 1] *= alpha_lo;
-        acc[4 * dt + 2] *= alpha_hi;
-        acc[4 * dt + 3] *= alpha_hi;
-      }
-      // p in f32 for the row sums; rounded once to bf16 for P.V, as the TPU
-      // kernel's p.astype(v.dtype); the A fragments of 16-key chunk kc are
-      // the scores of 8-key tiles 2 kc and 2 kc + 1
-      uint32_t pa[kWgKeys / 16][4];
+        for (int nt = 0; nt < NT; ++nt) {
+          mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
+          mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
+        }
 #pragma unroll
-      for (int kc = 0; kc < kWgKeys / 16; ++kc) {
-        float p[8];
+        for (int off = 1; off < 4; off <<= 1) {
+          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+        }
+        const float mn_lo = fmaxf(m_lo, mx_lo);
+        const float mn_hi = fmaxf(m_hi, mx_hi);
+        // a row that has seen no key yet keeps everything at 0
+        const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+        const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+        const float alpha_lo = ex2(m_lo - base_lo);
+        const float alpha_hi = ex2(m_hi - base_hi);
+        m_lo = mn_lo;
+        m_hi = mn_hi;
+        l_lo *= alpha_lo;
+        l_hi *= alpha_hi;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) p[e] = ex2(sc[8 * kc + e] - ((e & 2) ? base_hi : base_lo));
-        l_lo += p[0] + p[1] + p[4] + p[5];
-        l_hi += p[2] + p[3] + p[6] + p[7];
-        pa[kc][0] = as_u32(__floats2bfloat162_rn(p[0], p[1]));
-        pa[kc][1] = as_u32(__floats2bfloat162_rn(p[2], p[3]));
-        pa[kc][2] = as_u32(__floats2bfloat162_rn(p[4], p[5]));
-        pa[kc][3] = as_u32(__floats2bfloat162_rn(p[6], p[7]));
+        for (int dt = 0; dt < DT; ++dt) {
+          acc[4 * dt] *= alpha_lo;
+          acc[4 * dt + 1] *= alpha_lo;
+          acc[4 * dt + 2] *= alpha_hi;
+          acc[4 * dt + 3] *= alpha_hi;
+        }
+        // p in f32 for the row sums; rounded once to bf16 for P.V, as the TPU
+        // kernel's p.astype(v.dtype); the A fragments of 16-key chunk kc are
+        // the scores of 8-key tiles 2 kc and 2 kc + 1
+        uint32_t pa[kWgKeys / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < kWgKeys / 16; ++kc) {
+          float p[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) p[e] = ex2(sc[8 * kc + e] - ((e & 2) ? base_hi : base_lo));
+          l_lo += p[0] + p[1] + p[4] + p[5];
+          l_hi += p[2] + p[3] + p[6] + p[7];
+          pa[kc][0] = as_u32(__floats2bfloat162_rn(p[0], p[1]));
+          pa[kc][1] = as_u32(__floats2bfloat162_rn(p[2], p[3]));
+          pa[kc][2] = as_u32(__floats2bfloat162_rn(p[4], p[5]));
+          pa[kc][3] = as_u32(__floats2bfloat162_rn(p[6], p[7]));
+        }
+        // O += P . V: V's tile is the MN-major B operand, 16 keys (two 8-row
+        // groups) a step, its HD columns across the panels
+        mbar_wait(full_v(s), ph);
+        __syncwarp();
+        const uint32_t v_base = base + L::kV + s * L::kTileBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < kWgKeys / 16; ++kc)
+          wgmma_pv<HD>(acc, pa[kc], sw128_desc(v_base + kc * 2 * kSwAtom, L::kKVPanel, kSwAtom));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      } else {
+        mbar_wait(full_v(s), ph);   // keeps every warp's arrivals in the tile's round
       }
-      // O += P . V: V's tile is the MN-major B operand, 16 keys (two 8-row
-      // groups) a step, its HD columns across the panels
-      mbar_wait(full_v(s), ph);
       __syncwarp();
-      const uint32_t v_base = base + L::kV + s * L::kTileBytes;
-      wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < kWgKeys / 16; ++kc)
-        wgmma_pv<HD>(acc, pa[kc], sw128_desc(v_base + kc * 2 * kSwAtom, L::kKVPanel, kSwAtom));
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(acc);
-    } else {
-      mbar_wait(full_v(s), ph);   // keeps every warp's arrivals in the tile's round
+      if (lane == 0) mbar_arrive(empty(s));
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(s));
-  }
-  if (!wg_active) return;
+    if (lane == 0) mbar_arrive(q_empty(qb));   // this round's q is read
+    if (!wg_active) return;
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  // a row with no visible key gives 0/0, as the plain softmax does
-  const float inv_lo = 1.f / l_lo;
-  const float inv_hi = 1.f / l_hi;
-  __nv_bfloat16* ob = o + bi * os.b + hi * os.h;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int d = 8 * dt + 2 * t;
-    if (r_lo < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r_lo) * os.s + d) =
-          __floats2bfloat162_rn(acc[4 * dt] * inv_lo, acc[4 * dt + 1] * inv_lo);
+    for (int off = 1; off < 4; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
     }
-    if (r_hi < sq) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r_hi) * os.s + d) =
-          __floats2bfloat162_rn(acc[4 * dt + 2] * inv_hi, acc[4 * dt + 3] * inv_hi);
+    // a row with no visible key gives 0/0, as the plain softmax does
+    const float inv_lo = 1.f / l_lo;
+    const float inv_hi = 1.f / l_hi;
+    __nv_bfloat16* ob = o + bi * os.b + head * os.h;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const int d = 8 * dt + 2 * t;
+      if (r_lo < sq) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r_lo) * os.s + d) =
+            __floats2bfloat162_rn(acc[4 * dt] * inv_lo, acc[4 * dt + 1] * inv_lo);
+      }
+      if (r_hi < sq) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(r_hi) * os.s + d) =
+            __floats2bfloat162_rn(acc[4 * dt + 2] * inv_hi, acc[4 * dt + 3] * inv_hi);
+      }
     }
   }
 }
@@ -955,22 +947,6 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// libcuda's tensor-map encoder, looked up once in the loaded library (the
-// library links against the runtime alone).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
 // A (batch, head, position, hd) bf16 view as a 4-d tensor map (hd, position,
 // head, batch): boxes of 64 hd x `rows` positions, 128-byte swizzled;
 // positions at or past `len` read as zero.  False where libcuda refuses it.
@@ -992,23 +968,28 @@ bool tensor_map(CUtensorMap* map, const void* p, const Strides& st, int nb, int 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The wgmma route at NC consumer warpgroups (64 NC query rows a block); sets
-// `refused` where a tensor map cannot be made.
-template <int HD, int NC>
-cudaError_t launch_wgmma(const Args& a, cudaStream_t stream, bool& refused) {
-  using L = WgLayout<HD, NC>;
+// The wgmma routes at NC consumer warpgroups: 64 NC query rows of a head a
+// block, or with STACK 64 query rows of NC heads of one KV group a block;
+// sets `refused` where a tensor map cannot be made or a block's heads would
+// span two KV groups.
+template <int HD, int NC, int HDR = HD, bool STACK = false>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream, bool& refused, int iters = 1) {
+  using L = WgLayout<HD, NC, STACK ? 2 : 1>;
   CUtensorMap tq, tk, tv;
-  refused = !(tensor_map(&tq, a.q, a.qs, a.b, a.h, a.sq, HD, kWgRows) &&
-              tensor_map(&tk, a.k, a.ks, a.b, a.g, a.kv_len, HD, kWgKeys) &&
-              tensor_map(&tv, a.v, a.vs, a.b, a.g, a.kv_len, HD, kWgKeys));
+  refused = (STACK && (iters < 1 || (a.h / a.g) % (NC * iters) != 0)) ||
+            !(tensor_map(&tq, a.q, a.qs, a.b, a.h, a.sq, HDR, kWgRows) &&
+              tensor_map(&tk, a.k, a.ks, a.b, a.g, a.kv_len, HDR, kWgKeys) &&
+              tensor_map(&tv, a.v, a.vs, a.b, a.g, a.kv_len, HDR, kWgKeys));
   if (refused) return cudaSuccess;
   static unsigned raised = 0;
-  const cudaError_t err = allow_smem(flash_attention_wgmma_kernel<HD, NC>, L::kBytes, raised);
+  const cudaError_t err =
+      allow_smem(flash_attention_wgmma_kernel<HD, NC, HDR, STACK>, L::kBytes, raised);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + NC * kWgRows - 1) / (NC * kWgRows), a.h, a.b);
-  flash_attention_wgmma_kernel<HD, NC><<<grid, L::kThreads, L::kBytes, stream>>>(
+  const dim3 grid = STACK ? dim3((a.sq + kWgRows - 1) / kWgRows, a.h / (NC * iters), a.b)
+                          : dim3((a.sq + NC * kWgRows - 1) / (NC * kWgRows), a.h, a.b);
+  flash_attention_wgmma_kernel<HD, NC, HDR, STACK><<<grid, L::kThreads, L::kBytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.os, a.h / a.g, a.sq, a.scale_log2,
-      a.causal, a.q_offset, a.kv_len);
+      a.causal, a.q_offset, a.kv_len, STACK ? iters : 1);
   return cudaGetLastError();
 }
 
@@ -1019,6 +1000,18 @@ cudaError_t launch_wgmma_rows(const Args& a, int rows, cudaStream_t stream, bool
   if constexpr (HD == 64) {
     if (rows == 192) return launch_wgmma<HD, 3>(a, stream, refused);
   }
+  refused = true;
+  return cudaSuccess;
+}
+
+// The head-stacked route at hd 112 or 128: `rows` = 64 x the heads a block
+// holds at once (its consumer warpgroups), `heads` the heads it walks
+template <int HDR>
+cudaError_t launch_stacked(const Args& a, int rows, int heads, cudaStream_t stream,
+                           bool& refused) {
+  if (rows == 64) return launch_wgmma<128, 1, HDR, true>(a, stream, refused, heads);
+  if (rows == 128 && heads % 2 == 0)
+    return launch_wgmma<128, 2, HDR, true>(a, stream, refused, heads / 2);
   refused = true;
   return cudaSuccess;
 }
@@ -1036,10 +1029,14 @@ bool rows_aligned(const void* p, const Strides& st, int nb, int nh, int ns) {
 // dtype 0 = float32, 1 = bfloat16; hd in {16, 32, 64, 112, 128}.  Each stride array is
 // the (batch, head, position) element strides of q, k, v and o in turn.
 // route 0 = the mma.sync design (bf16) or the f32 kernel, 1 = the bf16 wgmma
-// route, hd 64 or 128, kv_len >= 1, with `rows` = 64 or 128 query rows a block.
+// route, hd 64 or 128, kv_len >= 1, with `rows` = 64 or 128 query rows a block
+// (192 at hd 64), 2 = the bf16 head-stacked wgmma route, hd 112 or 128,
+// kv_len >= 1, with `rows` = 64 x the heads a block holds at once (1 or 2)
+// and `heads` the heads it walks (a multiple of those, dividing H / G).
 // Returns a cudaError_t, kMisaligned where a bf16 row does not start on a
 // 16-byte boundary, or kRefused where the wgmma route does not take the call
-// (its width, its rows, an empty cache, or a tensor map libcuda refuses).
+// (its width, its rows, an empty cache, a block's heads across two KV groups,
+// or a tensor map libcuda refuses).
 constexpr int kMisaligned = -1;
 constexpr int kRefused = -2;
 
@@ -1047,7 +1044,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       const long long* strides, int dtype, int b, int h,
                                       int g, int sq, int hd, float scale, int causal,
                                       int q_offset, int kv_len, int route, int rows,
-                                      void* stream) {
+                                      int heads, void* stream) {
   const Args a{q, k, v, o,
                Strides{strides[0], strides[1], strides[2]},
                Strides{strides[3], strides[4], strides[5]},
@@ -1066,6 +1063,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     if (dtype == 1 && kv_len >= 1) {
       if (hd == 64) err = launch_wgmma_rows<64>(a, rows, s, refused);
       if (hd == 128) err = launch_wgmma_rows<128>(a, rows, s, refused);
+    }
+    return refused ? kRefused : static_cast<int>(err);
+  }
+  if (route == 2) {
+    bool refused = true;
+    err = cudaSuccess;
+    if (dtype == 1 && kv_len >= 1) {
+      if (hd == 112) err = launch_stacked<112>(a, rows, heads, s, refused);
+      if (hd == 128) err = launch_stacked<128>(a, rows, heads, s, refused);
     }
     return refused ? kRefused : static_cast<int>(err);
   }

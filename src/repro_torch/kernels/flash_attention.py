@@ -16,16 +16,21 @@ transposed); the output has ``q``'s layout.
 
 The plain version is ``ref.ref_flash_attention``'s direct masked softmax with
 the offset and ``kv_len`` added, computed in f32 and rounded once to the input
-type.  bf16 takes one of two routes, which :func:`plan` picks from the shape:
-``"mma"`` (``mma.sync`` on 64 x 64 tiles, its softmax weights carried as a
-bf16 hi + lo pair; the short causal prefills) and ``"wgmma"`` (Hopper's
-warpgroup MMA, 64, 128 or 192 query rows a block against TMA-fed 128-key tiles,
-its weights rounded once to bf16 as the TPU kernel rounds them; non-causal
-calls and causal ones over at least ``WGMMA_CAUSAL_KV`` keys, at head widths
-``WGMMA_HEAD_DIMS``).  ``tests/test_torch_kernel_design.py`` emulates both in
-plain torch.  The f32 kernel keeps its weights in f32.  For bf16 every row of
-q, k, v and the output must start on a 16-byte boundary: the kernels copy
-K/V rows in 16-byte pieces (TMA boxes on the wgmma route), their launcher
+type.  bf16 takes one of three routes, which :func:`plan` picks from the
+shape: ``"mma"`` (``mma.sync`` on 64 x 64 tiles, its softmax weights carried
+as a bf16 hi + lo pair; the short causal prefills at hd 64 and below),
+``"wgmma"`` (Hopper's warpgroup MMA, 64, 128 or 192 query rows of a head a
+block against TMA-fed 128-key tiles, its weights rounded once to bf16 as the
+TPU kernel rounds them; non-causal calls and causal ones over at least
+``WGMMA_CAUSAL_KV`` keys, at head widths ``WGMMA_HEAD_DIMS``) and
+``"stacked"`` (the same warpgroups and tiles, each taking one of a KV group's
+heads at the same 64 query rows, so that one K/V tile serves 1 or 2 heads;
+the short causal prefills at ``STACKED_HEAD_DIMS``, hd 112 in 128-wide tiles
+whose last 16 columns TMA fills with zeros).
+``tests/test_torch_kernel_design.py`` emulates them in plain torch.  The
+f32 kernel keeps its weights in f32.  For bf16 every row of q, k, v and the
+output must start on a 16-byte boundary: the kernels copy K/V rows in
+16-byte pieces (TMA boxes on the wgmma routes), their launcher
 refuses a view that breaks that, and the wrapper raises.  The kernel is
 built for the head widths in ``HEAD_DIMS``: granite's 64, the reduced
 configs' 16, internlm2's,
@@ -115,6 +120,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_raw",
 HEAD_DIMS = (16, 32, 64, 112, 128)   # head widths the kernel is built for
 TILE = 64                  # query rows and keys of the mma and f32 tiles (csrc kBQ, kBK)
 WGMMA_HEAD_DIMS = (64, 128)   # head widths the wgmma route is built for
+STACKED_HEAD_DIMS = (112, 128)   # head widths the head-stacked route is built for
 WGMMA_ROWS = 64            # query rows of a consumer warpgroup (csrc kWgRows)
 WGMMA_KEYS = 128           # keys of the wgmma route's K/V tiles (csrc kWgKeys)
 # causal calls over at least this many keys take the wgmma route: on the H100
@@ -124,8 +130,15 @@ WGMMA_CAUSAL_KV = 512
 # query rows a wgmma block may own (one to three consumer warpgroups); three
 # only at hd 64, where a thread's registers leave room for a third
 WGMMA_BLOCK_ROWS = {64: (192, 128, 64), 128: (128, 64)}
+# heads a head-stacked block holds at once (a consumer warpgroup each: 128
+# registers of accumulator and scores a thread leave room for two) and rounds
+# of them it may walk (the next round's q loaded during this one)
+STACKED_HEADS = (1, 2)
+STACKED_ROUNDS = (1, 2)
 H100_SMS = 132             # plan()'s default; a launch passes its card's count
-ROUTES = ("mma", "wgmma", "f32")
+ROUTES = ("mma", "wgmma", "stacked", "f32")
+_ROUTE_IDS = {"mma": 0, "f32": 0, "wgmma": 1, "stacked": 2}   # the launcher's route numbers
+_STRIDES = ctypes.c_longlong * 12
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MISALIGNED = -1           # the launcher's answer to a bf16 row off a 16-byte boundary
 _REFUSED = -2              # ... to a call the wgmma route does not take
@@ -163,7 +176,7 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [
         p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i,
-        ctypes.c_float, i, i, i, i, i, p,
+        ctypes.c_float, i, i, i, i, i, i, p,
     ]
     lib.flash_attention_launch.restype = ctypes.c_int
     return lib
@@ -192,15 +205,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
 
 
 class Plan(NamedTuple):
-    route: str          # "mma" (bf16, mma.sync), "wgmma" (bf16, warpgroup MMA) or "f32"
-    rows: int           # query rows a block owns
+    route: str          # "mma" (bf16, mma.sync), "wgmma", "stacked" (bf16, wgmma) or "f32"
+    rows: int           # query rows a block holds at once (stacked: 64 a head)
     keys: int           # keys of a K/V tile
+    heads: int = 1      # heads a block walks (stacked: rows / 64 at once, in rounds)
 
 
 def route_for(bf16: bool, hd: int, causal: bool, kv_len: int) -> str:
     """The route :func:`plan` takes: a pure function of the shape."""
     if not bf16:
         return "f32"
+    if kv_len >= 1 and causal and kv_len < WGMMA_CAUSAL_KV and hd in STACKED_HEAD_DIMS:
+        return "stacked"
     if hd in WGMMA_HEAD_DIMS and kv_len >= 1 and (not causal or kv_len >= WGMMA_CAUSAL_KV):
         return "wgmma"
     return "mma"
@@ -208,23 +224,40 @@ def route_for(bf16: bool, hd: int, causal: bool, kv_len: int) -> str:
 
 @functools.lru_cache(maxsize=4096)
 def plan(b: int, h: int, sq: int, kv_len: int, hd: int, causal: bool, bf16: bool = True,
-         n_sms: int = H100_SMS, route: str | None = None) -> Plan:
-    """K7's launch for q (b, h, sq, hd) over ``kv_len`` keys.
+         n_sms: int = H100_SMS, route: str | None = None, groups: int | None = None) -> Plan:
+    """K7's launch for q (b, h, sq, hd) over ``kv_len`` keys of ``groups``
+    KV groups (None: one a head).
 
     :func:`route_for` picks the route unless ``route`` names one (the wgmma
-    route only for bf16 at ``WGMMA_HEAD_DIMS`` and ``kv_len >= 1``, the mma
-    route only for bf16, the f32 kernel only for f32).  A wgmma block holds
-    the most query rows of ``WGMMA_BLOCK_ROWS`` (192 at hd 64, 128 at hd
-    128; 64 a consumer warpgroup) whose blocks still fill the ``n_sms`` SMs,
-    else 64.
+    route only for bf16 at ``WGMMA_HEAD_DIMS``, the stacked one only for bf16
+    at ``STACKED_HEAD_DIMS``, both at ``kv_len >= 1``; the mma route only for
+    bf16, the f32 kernel only for f32).  A wgmma block holds the most query
+    rows of ``WGMMA_BLOCK_ROWS`` (192 at hd 64, 128 at hd 128; 64 a consumer
+    warpgroup) whose blocks still fill the ``n_sms`` SMs, else 64.  A
+    stacked block holds 1 or 2 heads of a group at once (``rows`` = 64 a
+    head) for 1 or 2 rounds (``heads`` in all, dividing the group's): the
+    choice with the fewest waves of blocks times rounds, then the most
+    rounds (the next round's q loads during this one), then the fewest heads
+    at once (more blocks to spread the bytes).
     """
     route = route_for(bf16, hd, causal, kv_len) if route is None else route
     if route not in ROUTES:
         raise ValueError(f"K7 has the routes {ROUTES}, got {route!r}")
-    if (route == "f32") == bf16 or (route == "wgmma" and (hd not in WGMMA_HEAD_DIMS
-                                                          or kv_len < 1)):
+    if (route == "f32") == bf16 or (route in ("wgmma", "stacked") and (
+            hd not in (WGMMA_HEAD_DIMS if route == "wgmma" else STACKED_HEAD_DIMS)
+            or kv_len < 1)):
         raise ValueError(f"K7's {route} route does not take {'bf16' if bf16 else 'f32'} "
                          f"at hd {hd}, kv_len {kv_len}")
+    if route == "stacked":
+        rep = h // groups if groups else 1
+        tiles = b * h * -(-sq // WGMMA_ROWS)   # (64-row tile, head) pairs
+
+        def cost(choice):
+            at_once, rounds = choice
+            return (-(-tiles // (at_once * rounds) // n_sms) * rounds, -rounds, at_once)
+        at_once, rounds = min(((n, r) for n in STACKED_HEADS for r in STACKED_ROUNDS
+                               if rep % (n * r) == 0), key=cost)
+        return Plan(route, at_once * WGMMA_ROWS, WGMMA_KEYS, at_once * rounds)
     if route != "wgmma":
         return Plan(route, TILE, TILE)
     rows = next((r for r in WGMMA_BLOCK_ROWS[hd] if b * h * -(-sq // r) >= n_sms), WGMMA_ROWS)
@@ -240,16 +273,18 @@ def _record_pad(pl: Plan, sq: int, kv_len: int) -> None:
     """Pad waste of K7's (query, key) iteration space on the plan's tiles, once
     a shape and plan on the current telemetry."""
     if current().first(("flash_attention", sq, kv_len, pl)):
+        rows = WGMMA_ROWS if pl.route == "stacked" else pl.rows
         record_pad_waste("flash_attention", (sq, kv_len),
-                         (-(-sq // pl.rows) * pl.rows, -(-kv_len // pl.keys) * pl.keys))
+                         (-(-sq // rows) * rows, -(-kv_len // pl.keys) * pl.keys))
 
 
-def _record_plan(q: torch.Tensor, kv_len: int, causal: bool, n_sms: int) -> None:
-    """:func:`_record_pad` of the plan for ``q`` on ``n_sms`` SMs, where no launch
-    makes one."""
+def _record_plan(q: torch.Tensor, k: torch.Tensor, kv_len: int, causal: bool,
+                 n_sms: int) -> None:
+    """:func:`_record_pad` of the plan for ``q`` and ``k`` on ``n_sms`` SMs, where
+    no launch makes one."""
     b, h, sq, hd = q.shape
-    _record_pad(plan(b, h, sq, kv_len, hd, bool(causal), q.dtype == torch.bfloat16, n_sms),
-                sq, kv_len)
+    _record_pad(plan(b, h, sq, kv_len, hd, bool(causal), q.dtype == torch.bfloat16, n_sms,
+                     None, k.shape[1]), sq, kv_len)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -266,7 +301,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_offset = int(q_offset)
     _check(q, k, v, q_offset, kv_len)
     if q.device.type == "cpu":
-        _record_plan(q, kv_len, causal, H100_SMS)
+        _record_plan(q, k, kv_len, causal, H100_SMS)
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, kv_len=kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -292,7 +327,7 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
 
 @_flash_attention_op.register_fake
 def _(q, k, v, causal, scale, q_offset, kv_len):
-    _record_plan(q, kv_len, causal, H100_SMS)
+    _record_plan(q, k, kv_len, causal, H100_SMS)
     return torch.empty_like(q)
 
 
@@ -316,17 +351,21 @@ def flash_attention_raw(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     out = torch.empty_like(q)   # q's layout: dense with a contiguous head dim
     if out.numel() == 0:
         return out
+    g = k.shape[1]
     pl = plan(b, h, sq, kv_len, hd, bool(causal), q.dtype == torch.bfloat16,
-              _sm_count(q.device), route)
+              _sm_count(q.device), route, g)
     _record_pad(pl, sq, kv_len)
-    strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))
-    ))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    os_ = out.stride()
+    strides = _STRIDES(qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+                       os_[0], os_[1], os_[2])
+    # the current stream's raw handle (what current_stream().cuda_stream reads,
+    # without making a Stream object)
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        _DTYPES[q.dtype], b, h, k.shape[1], sq, hd, scale, int(causal), q_offset,
-        kv_len, int(pl.route == "wgmma"), pl.rows, stream,
+        _DTYPES[q.dtype], b, h, g, sq, hd, scale, int(causal), q_offset,
+        kv_len, _ROUTE_IDS[pl.route], pl.rows, pl.heads, stream,
     )
     if err == _MISALIGNED:
         raise ValueError("K7 in bf16 needs every row of q, k, v and out on a 16-byte "
@@ -334,8 +373,9 @@ def flash_attention_raw(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
                              f"{t.data_ptr():#x} strides {tuple(t.stride())}"
                              for t in (q, k, v, out)))
     if err == _REFUSED:
-        raise RuntimeError(f"K7's wgmma route refused {pl} at q {tuple(q.shape)}, kv_len "
-                           f"{kv_len} (a tensor map libcuda would not make)")
+        raise RuntimeError(f"K7's {pl.route} route refused {pl} at q {tuple(q.shape)}, "
+                           f"{g} KV groups, kv_len {kv_len} (a tensor map libcuda would not "
+                           f"make, or a block's heads across two KV groups)")
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     flash_attention.launches += 1

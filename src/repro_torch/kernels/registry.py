@@ -498,8 +498,9 @@ register(KernelSpec(
     cost_fn=_axo_cost, tol=1e-5,
     peak_type="tf32",
     description="K6: GEMV route (M <= 16), skinny TF32 tensor cores (M <= 80: the "
-                "weight's columns on the MMA's 16-row side, 24- or 80-row blocks) or "
-                "128 x 128 TF32 tensor-core tiles, split along K",
+                "weight's columns on the MMA's 16-row side, 24- or 80-row blocks), "
+                "wgmma TF32 on planes expanded once a block (M >= 512) or 128 x 128 "
+                "mma.sync TF32 tiles, split along K",
 ))
 
 register(KernelSpec(
@@ -536,9 +537,10 @@ register(KernelSpec(
     bucket_fn=_flash_bucket, cost_fn=_flash_cost, tol=5e-6,
     peak_type="bf16",
     description="K7: online-softmax GQA attention: mma.sync over 64 x 64 tiles (short "
-                "causal prefills) or wgmma on 64/128/192 query rows against TMA-fed "
-                "128-key tiles (non-causal and long causal calls); tiles are fixed by the "
-                "route",
+                "causal prefills at hd <= 64), wgmma on 64/128/192 query rows against "
+                "TMA-fed 128-key tiles (non-causal and long causal calls) or on a KV "
+                "group's heads at the same 64 rows (short causal prefills at hd 112/128); "
+                "tiles are fixed by the route",
 ))
 
 register(KernelSpec(

@@ -207,7 +207,8 @@ def test_tensor_core_sum_restarts_every_step(operators, name):
 @pytest.mark.parametrize("m, k, n", [(1, 2048, 2048), (4, 2048, 8192), (4, 8192, 2048),
                                      (4, 2048, 49155), (8, 768, 50280), (16, 2048, 2048),
                                      (17, 2048, 2048), (64, 1000, 77), (512, 2048, 8192),
-                                     (512, 2048, 512), (5, 40, 3)])
+                                     (512, 2048, 512), (5, 40, 3), (6000, 1024, 1024),
+                                     (6400, 8192, 1024), (512, 1000, 2048)])
 @pytest.mark.parametrize("rank", [8, 16])
 def test_plan_routes_by_m_with_whole_steps(m, k, n, rank):
     pl = k6.plan(m, n, k, rank, 256)
@@ -224,7 +225,11 @@ def test_plan_routes_by_m_with_whole_steps(m, k, n, rank):
         assert pl.tiles == -(-n // pl.cols) * -(-m // pl.rows)
         step = k6.MMA_KSTEP
     else:
-        assert pl.route == "mma" and pl.rows == k6.MMA_TILE == pl.cols
+        # the wgmma route from WGMMA_M rows where the TMA maps the codes and
+        # the tables fit its block, else route 1; both 128 x 128 tiles
+        wgmma = m >= k6.WGMMA_M and k % 16 == 0 == n % 16 and rank < 12
+        assert pl.route == ("wgmma" if wgmma else "mma")
+        assert pl.rows == k6.MMA_TILE == k6.WGMMA_TILE == pl.cols
         assert pl.tiles == -(-n // k6.MMA_TILE) * -(-m // k6.MMA_TILE)
         step = k6.MMA_KSTEP
     assert pl.k_split % step == 0
@@ -236,7 +241,7 @@ def test_plan_routes_by_m_with_whole_steps(m, k, n, rank):
     else:
         assert pl.splits <= (k6.SKINNY_MAX_SPLITS if pl.route == "skinny"
                              else k6.MMA_MAX_SPLITS)
-    per_sm = {"gemv": k6.GEMV_PER_SM, "mma": k6.MMA_PER_SM}.get(pl.route)
+    per_sm = {"gemv": k6.GEMV_PER_SM, "mma": k6.MMA_PER_SM, "wgmma": k6.MMA_PER_SM}.get(pl.route)
     per_sm = per_sm or k6.SKINNY_PER_SM[pl.rows]
     assert pl.splits == 1 or pl.tiles < 4 * per_sm * k6.H100_SMS
 
@@ -259,10 +264,10 @@ def test_plan_at_the_serve_shapes():
     assert k6.plan(4, 49155, 2048, 8, 256)[:4] == ("gemv", 4, 8, 256)
     # mamba2's head: 8 rows, no padding
     assert k6.plan(8, 50280, 768, 8, 256)[:3] == ("gemv", 8, 5)
-    # granite prefill: the gate/up tiles fill two waves, no split; q/o's 64
-    # tiles split K in two
-    assert k6.plan(512, 8192, 2048, 8, 256)[:3] == ("mma", 128, 1)
-    assert k6.plan(512, 2048, 2048, 8, 256)[:3] == ("mma", 128, 2)
+    # granite prefill, on the wgmma route: the gate/up tiles fill two waves,
+    # no split; q/o's 64 tiles split K in two
+    assert k6.plan(512, 8192, 2048, 8, 256)[:3] == ("wgmma", 128, 1)
+    assert k6.plan(512, 2048, 2048, 8, 256)[:3] == ("wgmma", 128, 2)
     assert k6.plan(16, 64, 64, 8, 256).route == "gemv"
     assert k6.plan(17, 64, 64, 8, 256).route == "skinny"
     # the MoE prefill's expert buffers: deepseek-v3's 24 rows (gate/up 16
@@ -373,6 +378,166 @@ def test_skinny_route_sums_hold_the_contract(operators, jax_k6_ref, name, m, k, 
     assert _rel(got, _f64(a, b, f, g, sv)) < REL
     plain = k6.axo_matmul(a, b, f, g, sv)
     assert _rel(got, plain.double()) < REL
+    assert _rel(got, jax_k6_ref(a, b, f, g, sv).double()) < REL
+
+
+# -- K6's wgmma route: planes expanded once a block, table row by table row --
+
+def wgmma_step_sums(a_codes, b_codes, f, g, sv) -> torch.Tensor:
+    """Every 32-code step of the wgmma route as the tensor core sums it, all
+    steps at once: (steps, M, N) f32.  Within a step the table rows run from
+    the last factor down to the values, each row over the step's four
+    8-code slices, each factor slice lo.hi, hi.lo, hi.hi (the values' one
+    pass hi.hi); every 8-code product is added to the accumulator, which
+    rounds toward zero to f32 and starts the step at zero.  The operands are
+    the K-major planes the expansion warpgroup writes: hi = x rounded to
+    TF32, lo = x - hi, which the tensor core truncates to TF32; codes past K
+    give 0 on B's side (A's are zero codes, whose values meet those zeros)."""
+    step = k6.MMA_KSTEP
+    (m, k), n = a_codes.shape, b_codes.shape[1]
+    steps = -(-k // step)
+    a = torch.zeros((m, steps * step), dtype=torch.long)
+    a[:, :k] = a_codes.long()
+    b = b_codes.long()
+    acc = torch.zeros((steps, m, n), dtype=torch.float64)
+    for j in range(f.shape[1], -1, -1):
+        ta = sv.float() if j == 0 else f[:, j - 1].float()
+        tb = sv.float() if j == 0 else g[:, j - 1].float()
+        xa = ta[a]                                                   # (m, steps * 32)
+        xb = torch.zeros((steps * step, n))
+        xb[:k] = tb[b]
+        ah, bh = tf32_round(xa), tf32_round(xb)
+        al, bl = tf32_trunc(xa - ah), tf32_trunc(xb - bh)
+        passes = [(ah, bh)] if j == 0 else [(al, bh), (ah, bl), (ah, bh)]
+        # (steps, m, 32) and (steps, 32, n): each step's slice of K
+        passes = [(x.double().reshape(m, steps, step).transpose(0, 1),
+                   y.double().reshape(steps, step, n)) for x, y in passes]
+        for k0 in range(0, step, 8):
+            for x, y in passes:
+                acc = _round_toward_zero(acc + x[:, :, k0:k0 + 8] @ y[:, k0:k0 + 8])
+    return acc.float()
+
+
+def wgmma_emulated(a_codes, b_codes, f, g, sv, pl) -> torch.Tensor:
+    """The wgmma route's sums: each split of ``pl.k_split`` codes a chain of
+    32-code steps (:func:`wgmma_step_sums`) added in IEEE f32 in step order,
+    the partials summed in split order, as the last block of a tile sums
+    them."""
+    sums = wgmma_step_sums(a_codes, b_codes, f, g, sv)
+    per_split = pl.k_split // k6.MMA_KSTEP
+    out = None
+    for s0 in range(0, sums.shape[0], per_split):
+        part = sums[s0]
+        for s in range(s0 + 1, min(sums.shape[0], s0 + per_split)):
+            part = part + sums[s]
+        out = part if out is None else out + part
+    return out
+
+
+def plane_offset(row: int, k: int) -> int:
+    """Where the expansion warpgroup writes element (row, k) of a 128 x 32
+    TF32 plane: csrc/axo_matmul.cu plane_chunk (the 16-byte chunk k // 4 of
+    the row's 128-byte line, XOR-ed with row mod 8), then k mod 4 words in."""
+    return row * 128 + (((k // 4) ^ (row % 8)) << 4) + 4 * (k % 4)
+
+
+def wgmma_reads(row: int, kk: int, k8: int) -> int:
+    """Where wgmma reads element (row, 8 kk + k8) of a K-major operand under
+    the 128-byte swizzle: the descriptor's start address advanced by 32 kk
+    bytes, 8-row groups 1,024 bytes apart, rows 128 bytes apart, and the
+    hardware's XOR of address bits 4-6 with bits 7-9."""
+    linear = row * 128 + 32 * kk + 4 * k8
+    return linear ^ (((linear >> 7) & 7) << 4)
+
+
+def test_wgmma_planes_are_where_wgmma_reads_them():
+    """Every (row, k) of a 128 x 32 plane is written to a distinct word, the
+    one the K-major 128-byte-swizzled descriptor reads for it; a warp's
+    16-byte stores (A: 4 rows x 8 chunks; B: 32 rows, one chunk each) fall
+    on 4 wavefronts of 128 bytes, the fewest 512 bytes take."""
+    seen = set()
+    for row in range(k6.WGMMA_TILE):
+        for k in range(k6.MMA_KSTEP):
+            off = plane_offset(row, k)
+            assert off == wgmma_reads(row, k // 8, k % 8)
+            seen.add(off)
+    assert seen == set(range(0, k6.WGMMA_TILE * k6.MMA_KSTEP * 4, 4))
+    for i in range(8):                         # a warp's lanes p = 0..31, chunk index i
+        a_rows = [(p >> 3) + 16 * i for p in range(32)]
+        a_banks = [(plane_offset(r, 4 * (p & 7)) // 4) % 32 for p, r in zip(range(32), a_rows)]
+        b_banks = [(plane_offset(p, 4 * i) // 4) % 32 for p in range(32)]
+        for banks in (a_banks, b_banks):       # each 16-byte store covers 4 banks
+            load = [sum(1 for b in banks if b == bank) for bank in range(0, 32, 4)]
+            assert max(load) == 4
+
+
+@pytest.mark.parametrize("m, k, n", [(6000, 1024, 1024), (6400, 8192, 1024)])
+def test_wgmma_plan_at_thousands_of_rows(m, k, n):
+    """Whisper's and the VLM's cross K/V projections take the wgmma route:
+    128 x 128 tiles, whole 32-code steps a split, the splits within route 1's
+    limit, shared memory within a block's, pad waste only at M's edge."""
+    from repro_torch.obs import telemetry as tm
+
+    pl = k6.plan(m, n, k, 8, 256)
+    assert (pl.route, pl.rows, pl.cols) == ("wgmma", k6.WGMMA_TILE, k6.WGMMA_TILE)
+    assert pl.tiles == -(-m // 128) * (n // 128)
+    assert pl.k_split % k6.MMA_KSTEP == 0
+    assert (pl.splits - 1) * pl.k_split < k <= pl.splits * pl.k_split
+    assert 1 <= pl.splits <= k6.MMA_MAX_SPLITS
+    assert pl.smem == k6.WGMMA_FIXED_SMEM + 2 * 9 * 256 * 4 <= k6.MAX_SMEM
+    tel = tm.Telemetry("t")
+    with tm.use(tel):
+        k6._note_launch(m, n, k, pl)
+    assert tel.gauges["axo_matmul.pad_waste"] == pytest.approx(1 - m / (-(-m // 128) * 128))
+
+
+def test_wgmma_route_boundary_and_alignment():
+    """The wgmma route from WGMMA_M rows (the 512-row prefills) where K and N
+    are whole multiples of 16 (the TMA's row strides) and its block holds the
+    tables; below it, off that alignment or at rank 16, route 1.  Named, it
+    refuses K or N off 16 and takes any M above the skinny route's."""
+    w = k6.WGMMA_M
+    assert k6.plan(w, 1024, 1024, 8, 256).route == "wgmma"
+    assert k6.plan(w - 1, 1024, 1024, 8, 256).route == "mma"
+    assert k6.plan(512, 8192, 2048, 8, 256).route == "wgmma"     # granite's prefill
+    assert k6.plan(512, 22016, 8192, 8, 256).route == "wgmma"    # deepseek-67b's
+    assert k6.plan(512, 8192, 2048, 16, 256).route == "mma"      # its tables too large
+    assert k6.plan(81, 8192, 2048, 8, 256).route == "mma"
+    assert k6.plan(w, 1000, 1024, 8, 256).route == "mma"
+    assert k6.plan(w, 1024, 1000, 8, 256).route == "mma"
+    assert k6.route_for(6000, 1024, 1024, 8, 256) == "wgmma"
+    assert k6.route_for(6000, 1024, 1024, 8, 256) == k6.plan(6000, 1024, 1024, 8, 256).route
+    assert k6.plan(128, 8192, 2048, 8, 256, route="wgmma")[:2] == ("wgmma", 128)
+    for n, k in ((1000, 1024), (1024, 1000)):
+        with pytest.raises(ValueError):
+            k6.plan(w, n, k, 8, 256, route="wgmma")
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the emulations' many small products only contend
+    for the cores with the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("m, k, n, splits", [(130, 1008, 144, None), (256, 512, 64, 3),
+                                             (130, 2048, 32, None)])
+@pytest.mark.parametrize("name", ["demo", "random36"])
+def test_wgmma_route_sums_hold_the_contract(operators, jax_k6_ref, one_thread, name, m, k, n,
+                                            splits):
+    """The wgmma route's order (table row by table row over a 32-code step,
+    per-step restart, splits in order), on ragged M, N and a K that ends
+    half way through a step, holds 1e-5 relative norm against an f64 sum,
+    the plain version and the reference's ``ref_axo_matmul_lowrank``."""
+    f, g, sv = _tables(operators[name])
+    a, b = _codes(m, k, n, m + k + n)
+    pl = k6.plan(m, n, k, 8, 256, splits=splits, route="wgmma")
+    got = wgmma_emulated(a, b, f, g, sv, pl)
+    assert _rel(got, _f64(a, b, f, g, sv)) < REL
+    assert _rel(got, k6.axo_matmul(a, b, f, g, sv).double()) < REL
     assert _rel(got, jax_k6_ref(a, b, f, g, sv).double()) < REL
 
 
@@ -494,20 +659,111 @@ def test_k7_wgmma_bf16_p_keeps_the_bf16_contract(jax_k7_ref, name):
         assert float((got - want).abs().max()) <= 2.0 ** -7 * scale
 
 
+def k7_stacked_emulated(q, k, v, kv_len: int, heads: int) -> torch.Tensor:
+    """K7's head-stacked route in plain f32, causal, no offset: each block
+    owns 64 query rows of ``heads`` heads of one KV group (so the group's K/V
+    tiles of 128 keys serve them all); q, K and V are zero-filled to 128
+    columns (hd 112: the TMA's fill past the map's width) and only the heads'
+    own columns are stored.  Per head the online softmax of
+    :func:`k7_wgmma_emulated` over the tiles up to the block's last row."""
+    b, h, sq, hd = q.shape
+    rep = h // k.shape[1]
+    assert rep % heads == 0
+
+    def wide(x):
+        return torch.nn.functional.pad(x.float(), (0, 128 - hd))
+    qw, kw, vw = wide(q), wide(k[:, :, :kv_len]), wide(v[:, :, :kv_len])
+    scale = math.log2(math.e) / math.sqrt(hd)
+    out = torch.empty((b, h, sq, hd))
+    for r0 in range(0, sq, k7.WGMMA_ROWS):
+        r1 = min(sq, r0 + k7.WGMMA_ROWS)
+        qpos = torch.arange(r0, r1)[:, None]
+        kend = min(kv_len, r1)
+        for h0 in range(0, h, heads):          # one block: heads h0 .. h0 + heads - 1
+            grp = h0 // rep
+            kb, vb = kw[:, grp], vw[:, grp]     # the tiles every warpgroup reads
+            for hh in range(h0, h0 + heads):
+                m = torch.full((b, r1 - r0, 1), -math.inf)
+                l = torch.zeros((b, r1 - r0, 1))
+                acc = torch.zeros((b, r1 - r0, 128))
+                for k0 in range(0, kend, k7.WGMMA_KEYS):
+                    k1 = min(k0 + k7.WGMMA_KEYS, kv_len)
+                    s = qw[:, hh, r0:r1] @ kb[:, k0:k1].transpose(1, 2) * scale
+                    s = s.masked_fill(torch.arange(k0, k1)[None, :] > qpos, -math.inf)
+                    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                    base = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+                    alpha = torch.exp2(m - base)
+                    p = torch.exp2(s - base)
+                    l = l * alpha + p.sum(-1, keepdim=True)
+                    acc = acc * alpha + p.to(torch.bfloat16).float() @ vb[:, k0:k1]
+                    m = m_new
+                out[:, hh, r0:r1] = (acc / l)[..., :hd]
+    return out.to(torch.bfloat16)
+
+
+# K7's four short causal prefills at hd 128 and 112 (chip_smoke.py K7_WIDE):
+# query heads, KV groups, hd, and on the H100 the heads a stacked block holds
+# at once and walks in all
+K7_WIDE = {"internlm2-1.8b": (16, 8, 128, 1, 1), "starcoder2-3b": (24, 2, 128, 2, 2),
+           "deepseek-67b": (64, 8, 128, 2, 4), "kimi-k2-1t-a32b": (64, 8, 112, 2, 4)}
+
+
+@pytest.mark.parametrize("name", sorted(K7_WIDE))
+def test_k7_stacked_plan_at_the_wide_prefills(name):
+    """B=4, S=128 over 128 of a 136-slot cache: the head-stacked route in the
+    fewest waves of blocks times rounds (deepseek-67b, kimi-k2: 128 blocks of
+    two heads at once, two rounds; starcoder2: 96 blocks of two; internlm2:
+    128 blocks of one), its blocks' heads within one KV group; its pad waste
+    is that of 64 x 128 tiles (none here)."""
+    from repro_torch.obs import telemetry as tm
+
+    h, g, hd, at_once, heads = K7_WIDE[name]
+    pl = k7.plan(4, h, 128, 128, hd, True, groups=g)
+    assert pl == ("stacked", 64 * at_once, 128, heads)
+    assert (h // g) % heads == 0 and 4 * 2 * h // heads <= k7.H100_SMS
+    tel = tm.Telemetry("t")
+    with tm.use(tel):
+        k7._record_pad(pl, 128, 128)
+        k7._record_pad(pl, 77, 77)
+    assert tel.histogram_summary("flash_attention.pad_waste")["count"] == 2
+    assert tel.gauges["flash_attention.pad_waste"] == pytest.approx(1 - 77 ** 2 / (128 * 128))
+
+
+@pytest.mark.parametrize("hd, heads", [(128, 2), (112, 2), (128, 1)])
+@pytest.mark.parametrize("s, cap", [(128, 136), (77, 93)])
+def test_k7_stacked_tiles_keep_the_bf16_contract(jax_k7_ref, one_thread, hd, heads, s, cap):
+    """The head-stacked tiles (hd 112 zero-filled to 128) at causal S = 128
+    and 77 over a longer cache stay within 2^-7 of max|out| of the plain
+    version and of the reference; at hd 128 they give the bits of the
+    per-head wgmma tiles (a fully masked tile changes nothing)."""
+    rng = np.random.default_rng(s + hd + heads)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+               for shape in ((1, 8, s, hd), (1, 2, cap, hd), (1, 2, cap, hd)))
+    got = k7_stacked_emulated(q, k, v, s, heads)
+    want = k7.flash_attention_plain(q, k, v, kv_len=s).float()
+    ref = jax_k7_ref(q, k[:, :, :s], v[:, :, :s], True)
+    for w in (want, ref):
+        assert float((got.float() - w).abs().max()) <= 2.0 ** -7 * float(w.abs().max())
+    if hd == 128:
+        assert torch.equal(got, k7_wgmma_emulated(q, k[:, :, :s], v[:, :, :s], causal=True))
+
+
 def test_k7_plan_routes_by_shape():
     """The wgmma route takes the non-causal calls and the long causal ones at
     hd 64 and 128, in blocks of the most query rows (192 at hd 64, 128 at hd
     128) whose blocks fill the card, else 64; granite's S=128 causal prefill
-    keeps the mma route, as do hd 112 (kimi-k2) and the reduced configs' 16;
-    f32 takes the f32 kernel."""
-    assert k7.plan(4, 32, 128, 128, 64, True) == ("mma", 64, 64)        # granite prefill
-    assert k7.plan(4, 64, 128, 128, 112, True).route == "mma"             # kimi-k2
-    assert k7.plan(4, 16, 128, 128, 128, True).route == "mma"             # internlm2
-    assert k7.plan(4, 16, 1500, 1500, 64, False) == ("wgmma", 192, 128)  # whisper encoder
-    assert k7.plan(4, 16, 128, 1500, 64, False) == ("wgmma", 64, 128)    # whisper cross
-    assert k7.plan(4, 64, 128, 1600, 128, False) == ("wgmma", 128, 128)  # the VLM's cross
-    assert k7.plan(4, 32, 4096, 4096, 64, True) == ("wgmma", 192, 128)   # granite 4 x 4096
-    assert k7.plan(1, 16, 1500, 1500, 64, False) == ("wgmma", 128, 128)  # 128 rows fill it
+    keeps the mma route, as do the reduced configs' 16; the short causal
+    prefills at hd 112 (kimi-k2) and 128 (internlm2) take the head-stacked
+    route; f32 takes the f32 kernel."""
+    assert k7.plan(4, 32, 128, 128, 64, True) == ("mma", 64, 64, 1)     # granite prefill
+    assert k7.plan(4, 64, 128, 128, 112, True).route == "stacked"         # kimi-k2
+    assert k7.plan(4, 16, 128, 128, 128, True).route == "stacked"         # internlm2
+    assert k7.plan(4, 64, 512, 512, 112, True).route == "mma"             # hd 112, long
+    assert k7.plan(4, 16, 1500, 1500, 64, False) == ("wgmma", 192, 128, 1)  # whisper encoder
+    assert k7.plan(4, 16, 128, 1500, 64, False) == ("wgmma", 64, 128, 1)    # whisper cross
+    assert k7.plan(4, 64, 128, 1600, 128, False) == ("wgmma", 128, 128, 1)  # the VLM's cross
+    assert k7.plan(4, 32, 4096, 4096, 64, True) == ("wgmma", 192, 128, 1)   # granite 4 x 4096
+    assert k7.plan(1, 16, 1500, 1500, 64, False) == ("wgmma", 128, 128, 1)  # 128 rows fill it
     assert k7.plan(1, 16, 1500, 1500, 64, False, n_sms=64).rows == 192
     assert k7.plan(1, 2, 40, 40, 16, False).route == "mma"
     assert k7.plan(4, 32, 128, 128, 64, True, bf16=False).route == "f32"
@@ -515,7 +771,8 @@ def test_k7_plan_routes_by_shape():
     assert k7.plan(4, 32, c, c, 64, True).route == "wgmma"
     assert k7.plan(4, 32, c - 1, c - 1, 64, True).route == "mma"
     assert k7.plan(4, 32, 128, 128, 64, True, route="wgmma")[:1] == ("wgmma",)
-    for kw in (dict(hd=112, route="wgmma"), dict(hd=64, route="f32"), dict(hd=64, route="x")):
+    for kw in (dict(hd=112, route="wgmma"), dict(hd=64, route="f32"), dict(hd=64, route="x"),
+               dict(hd=64, route="stacked")):
         with pytest.raises(ValueError):
             k7.plan(4, 32, 128, 128, kw["hd"], True, route=kw["route"])
     with pytest.raises(ValueError):

@@ -85,14 +85,17 @@ def test_k6_matches_plain_version_on_card(cuda, m, k, n):
 @pytest.mark.parametrize("k, n", [(1000, 777), (2000, 1040)])
 @pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 64, 512])
 def test_k6_routes_match_plain_version_on_card(cuda, op, k, n, m):
-    """Both routes (GEMV up to M=16, tensor cores from M=17), a ragged N, a K
-    that is no multiple of the 32-code step, rows that are not 16-byte
-    aligned (K=1000, N=777) and rows that are (K=2000, N=1040)."""
+    """Every route (GEMV up to M=16, skinny tensor cores up to 80, the wgmma
+    route from 512 where K and N are multiples of 16, route 1 otherwise), a
+    ragged N, a K that is no multiple of the 32-code step, rows that are not
+    16-byte aligned (K=1000, N=777) and rows that are (K=2000, N=1040)."""
     rng = np.random.default_rng(m * k + n)
     f, g, sv = _op_tables(op, cuda)
     a = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.uint8)).to(cuda)
     b = torch.from_numpy(rng.integers(0, 256, (k, n)).astype(np.uint8)).to(cuda)
-    assert k6.plan(m, n, k, 8, 256).route == ("gemv" if m <= 16 else "mma")
+    assert k6.plan(m, n, k, 8, 256).route == (
+        "gemv" if m <= 16 else "skinny" if m <= 80
+        else "wgmma" if m >= 512 and k % 16 == 0 == n % 16 else "mma")
     before = k6.axo_matmul.launches
     got = k6.axo_matmul(a, b, f, g, sv)
     want = k6.axo_matmul_plain(a, b, f, g, sv)
@@ -562,12 +565,12 @@ def test_k7_non_causal_at_long_unequal_lengths_on_card(cuda, dtype, sq, skv, h, 
 @pytest.mark.parametrize("m", [24, 80])
 def test_k6_at_prefill_expert_buffers_matches_plain_version_on_card(cuda, m, k, n):
     """K6 at the prefill expert buffers of deepseek-v3 (M = 24) and jamba (M =
-    80) against their experts' gate/up and down codes, on the tensor-core
-    route; the buffer's unfilled rows (all-zero codes) included."""
+    80) against their experts' gate/up and down codes, on the skinny
+    tensor-core route; the buffer's unfilled rows (all-zero codes) included."""
     f, g, sv = _op_tables("demo", cuda)
     a, b = _k6_inputs(m, k, n, cuda, m + k)
     a[2 * m // 3:] = 0
-    assert k6.plan(m, n, k, 8, 256).route == "mma"
+    assert k6.plan(m, n, k, 8, 256).route == "skinny"
     before = k6.axo_matmul.launches
     got = k6.axo_matmul(a, b, f, g, sv)
     want = k6.axo_matmul_plain(a, b, f, g, sv)
