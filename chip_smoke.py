@@ -338,8 +338,8 @@ launches from its wrapper's counter (or, for a library call, the host's
 launch calls), not from the profiler's events, which late in the script
 fall short.  The dryrun phase times K7's wrapper, custom op and raw launcher
 at whisper's cross on both routes, with the host's cost of each step.  Shapes whose
-route did not change (K7 at granite's S=128 prefill, K6 at its 512-row
-prefill and 4-row decode) must give the named earlier route's bits.  Every
+route did not change (K7 at granite's S=128 prefill, K6 at its 128-row
+gate/up and its 4-row head) must give the named earlier route's bits.  Every
 serving phase counts K6's and K7's launches by route: every non-causal K7
 call on the wgmma route, serve-hybrid's and serve-mla's expert buffers on
 the skinny route; the train phase's 4 x 4096 steps all on K7's wgmma route.
@@ -360,10 +360,25 @@ wgmma route; every serving phase requires each causal K7 call at hd 112
 and 128 on the stacked route, and serve-encdec's and serve-vlm's K6 calls
 of thousands of rows on the wgmma route.
 
+A redesign of K6's small-M route (M <= 16 at rank 8: tensor cores with the
+activation rows on the MMA's 8-wide side, each weight code expanded once for
+every row, from planes of four table entries in 8 copies): phase 3 holds it
+and the GEMV it replaced (``route="gemv"``) to the plain version at every
+M <= 16 shape (granite's five decode shapes, mamba2's head, the M = 16
+boundary, the random 36-bit gate/up) and at kimi-k2's four expert buffers,
+and times both in turns (the ``axo_matmul_decode`` record); the plan keeps
+the GEMV at granite's 4-row head, where it ran faster.  At each of those
+shapes and at two 4-row shapes on either side of that cutoff (N = 40960
+and 49152) it also holds each block width the source builds for the
+route beside the GEMV and times them by CUDA-graph replay
+(``k6_block_widths``): the plan's ``SMALL_WIDE_N`` and ``SMALL_GEMV_N``.  Every serving phase
+requires each K6 call of at most 16 rows on the small-M route but the
+heads, which keep the GEMV once an AxO forward, and prints the counts.
+
 Phase 3 also holds K6 (AxO matmul) against its plain version at granite's
 decode shapes (M=4 against the five weight shapes), a prefill shape (M=512,
 2048 x 8192), mamba2's head (M=8), the boundaries of its routes (M=16 on
-the GEMV, M=17 on the skinny tensor-core route, M=81 on the 128 x 128
+the small-M route, M=17 on the skinny tensor-core route, M=81 on the 128 x 128
 tiles) and, with a random 36-bit config whose
 factor part dominates, gate/up at decode and prefill, at rank 8, to 1e-5
 relative norm; its bound is the larger of the bytes and the three-pass TF32
@@ -603,6 +618,61 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed, by CUDA events: the host's time to issue a call, which
+    hides kernels shorter than it from :func:`cuda_ms`, does not count."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k6_block_widths(torch, axo_matmul, label, a, bb, tables, want) -> dict:
+    """K6's small-M route at each block width its source builds
+    (``SMALL_COLS``) beside the GEMV, at a shape of at most ``GEMV_M`` rows:
+    each held to the plain version ``want``, then timed in turns (the GEMV,
+    each width, each width again, the GEMV) by :func:`graph_ms` over 20
+    calls.  Prints the times and returns the least of each; the plan's block
+    width (``SMALL_WIDE_N``) and its GEMV exception at granite's head
+    (``SMALL_GEMV_N``) were chosen from these."""
+    (m, k), n = a.shape, bb.shape[1]
+    sms = axo_matmul._sm_count(a.device)
+    plans = {"gemv": axo_matmul.plan(m, n, k, AXO_RANK, 256, sms, route="gemv")}
+    for cols in axo_matmul.SMALL_COLS:
+        plans[f"small {cols}"] = axo_matmul._small_plan(m, n, k, AXO_RANK, 256, sms, None, cols)
+    rels = {}
+    for name, pl in plans.items():
+        got = axo_matmul._launch(a, bb, *tables, pl)
+        torch.cuda.synchronize()
+        rels[name] = rel_norm(got, want)
+        if not (torch.isfinite(got).all() and rels[name] <= REL_RTOL):
+            raise AssertionError(f"K6's {name} block differs from its plain version at "
+                                 f"{label}: rel {rels[name]:.3g}")
+    turns = {name: [] for name in plans}
+    for name in (*plans, *reversed(plans)):
+        turns[name].append(graph_ms(
+            torch, lambda pl=plans[name]: axo_matmul._launch(a, bb, *tables, pl), 20))
+    pl = axo_matmul.plan(m, n, k, AXO_RANK, 256, sms)
+    print(f"phase kernels: K6 at {label} M={m} K={k} N={n}, the small-M route's block widths "
+          f"and the GEMV in turns, CUDA-graph replay: "
+          f"{ {name: [round(t, 4) for t in v] for name, v in turns.items()} } ms (rel norms "
+          f"{ {name: float(f'{v:.3g}') for name, v in rels.items()} }; the plan takes "
+          f"{pl.route} at {pl.cols} columns)", flush=True)
+    return {name: min(t) for name, t in turns.items()}
 
 
 # torch.profiler windows of device_ms: all opened, those that held no device
@@ -2896,7 +2966,7 @@ def main() -> int:
         f32_bound = bound(k6_bytes, 0, 2.0 * m * n * k * r1, int_rate, f32_rate=f32_rate)
         del a_cat, b_cat
         pl = axo_matmul.plan(m, n, k, AXO_RANK, 256)
-        boundary_route = {"M=16 boundary": "gemv", "M=17 boundary": "skinny",
+        boundary_route = {"M=16 boundary": "small", "M=17 boundary": "skinny",
                           "M=81 boundary": "mma"}.get(label, pl.route)
         if pl.route != boundary_route:
             raise AssertionError(f"K6 at {label} takes the {pl.route} route, not the "
@@ -2910,6 +2980,44 @@ def main() -> int:
               f"{k6_rec['bound'][0]:.4g} by {k6_rec['bound'][1]}, three-pass TF32 or bytes; "
               f"f32-pipe bound {f32_bound[0]:.4g} by {f32_bound[1]}), one cuBLAS f32 GEMM at "
               f"K(1+R) {k6_rec['library_ms']:.4f} ms", flush=True)
+        if m <= axo_matmul.GEMV_M:
+            # the small-M route beside the GEMV it replaced at M <= 16 (the
+            # plan keeps the GEMV at granite's 49155-word head, where it ran
+            # faster): both held to the plain version and timed in turns
+            # (old, new, new, old)
+            by_route = {r: axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t, route=r)
+                        for r in ("small", "gemv")}
+            rels = {r: rel_norm(o, want) for r, o in by_route.items()}
+            for r, o in by_route.items():
+                if not (torch.isfinite(o).all() and rels[r] <= REL_RTOL):
+                    raise AssertionError(f"K6's {r} route differs from its plain version at "
+                                         f"{label}: rel {rels[r]:.3g}")
+            turns = {"gemv": [], "small": []}
+            for route in ("gemv", "small", "small", "gemv"):
+                turns[route].append(cuda_ms(torch, lambda: axo_matmul.axo_matmul(
+                    a, bb, f_t, g_t, sv_t, route=route), 10))
+            print(f"phase kernels: K6 at {label}, the small route and the GEMV in turns: "
+                  f"{ {r: [round(t, 4) for t in v] for r, v in turns.items()} } ms (rel norms "
+                  f"{ {r: float(f'{v:.3g}') for r, v in rels.items()} }; the small route "
+                  f"{min(turns['small']) / min(turns['gemv']):.3f}x the GEMV's time; the plan "
+                  f"takes {pl.route})", flush=True)
+            pl_s = axo_matmul.plan(m, n, k, AXO_RANK, 256, route="small")
+            shape = {"ms": min(turns["small"]), "plain_ms": k6_rec["plain_ms"],
+                     "library_ms": k6_rec["library_ms"], "bound_ms": k6_rec["bound"][0],
+                     "bound_by": k6_rec["bound"][1], "route": pl.route, "rows": pl_s.rows,
+                     "cols": pl_s.cols, "splits": pl_s.splits,
+                     "max_abs_err": float((by_route["small"] - want).abs().max()),
+                     "old_ms": min(turns["gemv"]), "old_route": "gemv",
+                     "old_max_abs_err": float((by_route["gemv"] - want).abs().max()),
+                     "routes_ms": {r: min(t) for r, t in turns.items()}}
+            k6s = rec.setdefault("K6S", {"shapes": {}})
+            k6s["shapes"][label] = shape
+            k6_block_widths(torch, axo_matmul, label, a, bb, (f_t, g_t, sv_t), want)
+            if label == "gate/up decode":   # granite's heaviest decode projection
+                k6s.update(k6_rec, name="axo_matmul_decode", ms=shape["ms"],
+                           old_ms=shape["old_ms"], old_route="gemv", route=pl.route)
+                err["K6S"] = shape["max_abs_err"]
+            del by_route
         if label == "gate/up prefill":   # the path's heaviest K6 call
             rec["K6"], err["K6"] = k6_rec, float((got - want).abs().max())
             # the plan's route (wgmma from WGMMA_M rows) and the other
@@ -2929,6 +3037,18 @@ def main() -> int:
                   f"{ {r: [round(t, 4) for t in v] for r, v in turns.items()} } ms (the "
                   f"{other} route rel norm {rel_o:.3g})", flush=True)
 
+    # the small-M route's block widths and the GEMV at two 4-row shapes, one
+    # on each side of SMALL_GEMV_N: the small route won at N = 8192 to 40960,
+    # the GEMV at granite's head (N = 49155)
+    # (their own generator: the later phases draw what they drew before)
+    f_t, g_t, sv_t = tabs["demo"]
+    gen_w = torch.Generator(device=dev).manual_seed(16)
+    for n in (40960, 49152):
+        a = torch.randint(0, 256, (4, 2048), generator=gen_w, device=dev, dtype=torch.uint8)
+        bb = torch.randint(0, 256, (2048, n), generator=gen_w, device=dev, dtype=torch.uint8)
+        k6_block_widths(torch, axo_matmul, f"4 rows, N={n}", a, bb, (f_t, g_t, sv_t),
+                        axo_matmul.axo_matmul_plain(a, bb, f_t, g_t, sv_t))
+    del a, bb
     # K7 at the serve prefill: B=4, H=32, G=8, hd=64, S=128 over the 144-slot
     # cache (kv_len 128), and a ragged S=77; bf16 as served, f32 beside it
     for label, (s_q, cap) in {"serve prefill": (128, 144), "ragged": (77, 93)}.items():
@@ -3089,8 +3209,10 @@ def main() -> int:
     # as above.  Where the plan takes the skinny route (16 < M <= SKINNY_M)
     # or the wgmma route (M >= WGMMA_M), route 1 (the 128 x 128 mma.sync
     # tiles it replaced there) is held to the plain version and timed beside
-    # it in turns (old, new, new, old); where the plan keeps route 1 above
-    # SKINNY_M rows, the wgmma route is held and timed beside it the same way
+    # it in turns (old, new, new, old), and where it takes the small-M route
+    # (the expert buffers' 16 and 8 rows) the GEMV it replaced; where the plan
+    # keeps route 1 above SKINNY_M rows, the wgmma route is held and timed
+    # beside it the same way
     f_t, g_t, sv_t = tabs["demo"]
     for label, (m, k, n, key, filled) in K6_NEW.items():
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
@@ -3098,6 +3220,7 @@ def main() -> int:
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
         pl = axo_matmul.plan(m, n, k, AXO_RANK, 256)
         routes = ((pl.route, "mma") if pl.route in ("skinny", "wgmma")
+                  else (pl.route, "gemv") if pl.route == "small"
                   else (pl.route, "wgmma") if m > axo_matmul.SKINNY_M else (pl.route,))
         want = axo_matmul.axo_matmul_plain(a, bb, f_t, g_t, sv_t)
         got, rel = {}, {}
@@ -3128,9 +3251,9 @@ def main() -> int:
                         tf32_ops=2.0 * m * n * k * (1 + 3 * AXO_RANK)),
             route=pl.route,
         )
-        replaced = len(routes) > 1 and routes[1] == "mma"
+        replaced = len(routes) > 1 and routes[1] in ("mma", "gemv")
         if replaced:
-            n_rec.update(old_ms=min(route_ms["mma"]), old_route="mma")
+            n_rec.update(old_ms=min(route_ms[routes[1]]), old_route=routes[1])
         del a_cat, b_cat
         e = float((got[pl.route] - want).abs().max())
         old = "".join(f"; the {r} route rel norm {rel[r]:.3g}, {[round(t, 4) for t in route_ms[r]]}"
@@ -3151,10 +3274,12 @@ def main() -> int:
             "bound_by": n_rec["bound"][1], "route": pl.route, "rows": pl.rows,
             "cols": pl.cols, "splits": pl.splits, "max_abs_err": e,
             "routes_ms": {r: min(t) for r, t in route_ms.items()},
-            **({"old_ms": n_rec["old_ms"], "old_route": "mma",
-                "old_max_abs_err": float((got["mma"] - want).abs().max())}
+            **({"old_ms": n_rec["old_ms"], "old_route": routes[1],
+                "old_max_abs_err": float((got[routes[1]] - want).abs().max())}
                if replaced else {})}
         err[key] = max(err[key], e)
+        if pl.route == "small":
+            k6_block_widths(torch, axo_matmul, label, a, bb, (f_t, g_t, sv_t), want)
         del a, bb, got, want
     # K7 non-causal, at Sq != Skv and Skv off the 64-key tile: whisper's encoder
     # (1,500 frames) and cross-attention (Sq 128 x Skv 1,500, hd 64) and the
@@ -3304,26 +3429,34 @@ def main() -> int:
           f"the plan takes wgmma from {flash_attention.WGMMA_CAUSAL_KV} keys: {causal_at}",
           flush=True)
     rec["K7L"]["causal_boundary"] = causal_at
-    # the shapes whose route the wgmma, skinny and stacked routes left alone
-    # give the bits of the route they had: K7 at granite's S=128 prefill
-    # (mma), K6 at 128 rows of granite's gate/up (128 x 128 mma.sync tiles: M
-    # = 81..511) and its 4-row decode (GEMV), each default call against the
-    # named route
+    # the shapes whose route the wgmma, skinny, stacked and small-M routes
+    # left alone give the bits of the route they had: K7 at granite's S=128
+    # prefill (mma), K6 at 128 rows of granite's gate/up (128 x 128 mma.sync
+    # tiles: M = 81..511) and at its 4-row head (the GEMV, where it ran
+    # faster), each default call against the named route.  K6's other calls
+    # of M <= 16 (the decode projections, mamba2's head, the expert buffers)
+    # moved from the GEMV to the small-M route and are held to the plain
+    # version above instead
     q = torch.randn((4, 32, 128, 64), generator=gen, device=dev).to(torch.bfloat16)
     kk, vv = (torch.randn((4, 8, 144, 64), generator=gen, device=dev).to(torch.bfloat16)
               for _ in range(2))
     same = {"K7 granite prefill (mma)": torch.equal(
         flash_attention.flash_attention(q, kk, vv, kv_len=128),
         flash_attention.flash_attention_raw(q, kk, vv, True, 0.125, 0, 128, route="mma"))}
-    for m, k, n, route in ((128, 2048, 8192, "mma"), (4, 2048, 8192, "gemv")):
+    for m, k, n, route in ((128, 2048, 8192, "mma"), (4, 2048, 49155, "gemv")):
         a = torch.randint(0, 256, (m, k), generator=gen, device=dev, dtype=torch.uint8)
         bb = torch.randint(0, 256, (k, n), generator=gen, device=dev, dtype=torch.uint8)
         same[f"K6 {m}x{k}x{n} ({route})"] = (
             axo_matmul.plan(m, n, k, AXO_RANK, 256).route == route and torch.equal(
                 axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t),
                 axo_matmul.axo_matmul(a, bb, f_t, g_t, sv_t, route=route)))
+    moved = [label for label, (m, k, n) in k6_shapes.items()
+             if axo_matmul.plan(m, n, k, AXO_RANK, 256).route == "small"] + [
+        label for label, (m, k, n, *_) in K6_NEW.items()
+        if axo_matmul.plan(m, n, k, AXO_RANK, 256).route == "small"]
     print(f"phase kernels: shapes whose route did not change, the default call bit for bit "
-          f"the earlier route's: {same}", flush=True)
+          f"the earlier route's: {same}; moved from the GEMV to the small-M route (held to "
+          f"the plain version, not bit for bit): {moved}", flush=True)
     if not all(same.values()):
         raise AssertionError(f"a shape left on its route changed its bits: {same}")
     del q, kk, vv, a, bb
@@ -4043,16 +4176,20 @@ def main() -> int:
         raise AssertionError(f"serve launches {serve_launches}: expected K6 {k6_want}, "
                              f"K7 {k7_want}")
     # the AxO prefill's seven projections a layer (512 rows) take K6's wgmma
-    # route, the decode steps' and the head's four rows its GEMV
+    # route, the decode steps' four rows its small-M route, and the head (four
+    # rows against the 49155-word vocabulary, once a forward) the GEMV
     k6_by_route = dict(axo_matmul.axo_matmul.route_launches)
     k6_prefill = 7 * n_layers * axo["prefills"]
+    k6_heads = axo["prefills"] + axo["decode_steps"]
     print(f"phase serve: K6 calls by route {k6_by_route} ({k6_prefill} at the prefills' 512 "
-          f"rows), K7 by route {dict(flash_attention.flash_attention.route_launches)}",
-          flush=True)
-    if k6_by_route != {"gemv": k6_want - k6_prefill, "mma": 0, "skinny": 0,
-                       "wgmma": k6_prefill}:
+          f"rows, {k6_heads} at the head), K7 by route "
+          f"{dict(flash_attention.flash_attention.route_launches)}", flush=True)
+    if k6_by_route != {"gemv": k6_heads, "mma": 0, "skinny": 0, "wgmma": k6_prefill,
+                       "small": k6_want - k6_prefill - k6_heads}:
         raise AssertionError(f"serve: K6 calls by route {k6_by_route}, expected "
-                             f"{k6_prefill} on the wgmma route and the rest on the GEMV")
+                             f"{k6_prefill} on the wgmma route, {k6_heads} heads on the GEMV "
+                             f"and the rest on the small-M route")
+    launches["K6S"] = k6_by_route["small"]
     # obs: the --trace file, the AxO decode step beside earlier runs', the pad waste
     with open(serve_trace) as f:
         spans = [e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
@@ -4139,7 +4276,7 @@ def main() -> int:
             with open(prefill_trace) as f:
                 events = json.load(f)["traceEvents"]
             dev_names = [e["name"] for e in events if e.get("cat") == "kernel"]
-            k6_ev = sum("axo_mma_kernel" in n or "axo_gemv_kernel" in n for n in dev_names)
+            k6_ev = sum(("axo_" in n and "_kernel" in n) for n in dev_names)
             k7_ev = sum("flash_attention_" in n for n in dev_names)
             t_obs += time.perf_counter() - t_tr
             print(f"phase obs: trace_capture of one granite-3-2b AxO prefill (B=4, S=128) -> "
@@ -4399,6 +4536,12 @@ def main() -> int:
         k7_n, k8_n = sum(k7_pre.values()), k8_per_prefill(cfg)
         k7_nc = sum(n for (_, causal), n in k7_pre.items() if not causal)
         prefills = res["prefills"] + axo["prefills"]
+        # the head's four rows against a vocabulary of SMALL_GEMV_N words or
+        # more keep the GEMV, once an AxO forward; every other call of at
+        # most GEMV_M rows takes the small-M route
+        k6_heads = (axo["prefills"] + axo["decode_steps"]
+                    if axo_matmul.plan(4, cfg.vocab, cfg.d_model, AXO_RANK, 256).route == "gemv"
+                    else 0)
         want = dict.fromkeys(ssm_wrappers, 0)
         want.update(K6=per_pre * axo["prefills"] + per_dec * axo["decode_steps"],
                     K7=k7_n * prefills, K8=k8_n * prefills)
@@ -4440,12 +4583,17 @@ def main() -> int:
         # the wgmma route, every causal one (128 keys) at hd 112 or 128 the
         # head-stacked route, the others the mma route; the MoE prefill's
         # expert buffers (16 < M <= SKINNY_M rows) take K6's skinny route, the
-        # encoder's and the cross K/V projections (M >= WGMMA_M) its wgmma route
+        # encoder's and the cross K/V projections (M >= WGMMA_M) its wgmma
+        # route, and every other call of at most GEMV_M rows (the decode
+        # steps' projections, kimi-k2's expert buffers of 16 and 8 rows) its
+        # small-M route: only the heads stay on the GEMV
         k7_stacked = prefills * sum(n for (h_, causal), n in k7_pre.items()
                                     if causal and h_ in flash_attention.STACKED_HEAD_DIMS)
         if (k7_by_route["wgmma"] != k7_nc * prefills or sum(k7_by_route.values()) != got["K7"]
                 or k7_by_route["stacked"] != k7_stacked
                 or (phase in ("serve-hybrid", "serve-mla") and not k6_routes["skinny"])
+                or k6_routes["gemv"] != k6_heads or not k6_routes["small"]
+                or (phase == "serve-moe" and k6_routes["skinny"] + k6_routes["mma"])
                 or (phase in ("serve-encdec", "serve-vlm") and not k6_routes["wgmma"])
                 or sum(k6_routes.values()) != got["K6"]):
             raise AssertionError(f"{phase}: K6 calls by route {k6_routes}, K7 by route "
@@ -4874,7 +5022,7 @@ def main() -> int:
         lib_dev = device_ms(torch, lambda: a_cat @ b_cat, 10)
         print(f"phase device-time: K6 at {label} M={m} K={k} N={n}: {fmt_ms(k6_dev)} on the "
               f"device ({rec[key]['shapes'][label]['route']} route"
-              + (f"; route 1 {fmt_ms(old_dev)}" if old else "")
+              + (f"; the {old} route {fmt_ms(old_dev)}" if old else "")
               + f"), one cuBLAS f32 GEMM at K(1+R) {fmt_ms(lib_dev)}", flush=True)
         rec[key]["shapes"][label].update(device_ms=k6_dev, library_device_ms=lib_dev,
                                          **({"old_device_ms": old_dev} if old else {}))

@@ -20,8 +20,15 @@ the wrapper returns it; on a CUDA tensor it launches the kernel or raises.
 each route's.  Any M, K and N work: the
 kernel masks its ragged tiles itself.
 
-The kernel has four routes, which :func:`plan` picks by M: up to ``GEMV_M``
-rows (decode) an f32 GEMV on the FMA pipe; up to ``SKINNY_M`` rows (the MoE
+The kernel has five routes, which :func:`plan` picks by M: up to ``GEMV_M``
+rows (decode, kimi-k2's expert buffers of 16 and 8 rows) the small-M route at
+the ranks the source builds it for (``SMALL_RANKS``; not granite's wide head at
+4 rows, where the GEMV ran faster): tensor cores with the
+activation rows on the MMA's 8-wide side, 8 or 16 rows a block, so that each
+weight code is expanded once for all of them, from a table held as planes of
+four entries in 8 copies (three loads a code at rank 8); the f32 GEMV on the
+FMA pipe it replaced is reachable as ``route="gemv"`` and keeps the other
+ranks; up to ``SKINNY_M`` rows (the MoE
 prefill's expert buffers) the skinny tensor-core route, which computes
 out^T = B^T A^T so that the weight's columns fill the MMA's 16-row side and
 the activation rows its 8-wide side, in blocks of 24 or 80 rows; from
@@ -36,7 +43,8 @@ The tensor-core routes feed TF32 with each factor split into hi + lo (three
 passes; the integer values take one), each 32-code step summed from zero in
 the tensor core, so ``tests/test_torch_kernel_design.py`` emulates them with
 one model of their rounding (the wgmma route takes a step's table rows one
-after another over its 32 codes, the others 8 codes at a time).  The tile and k-step
+after another over its 32 codes, the others 8 codes at a time; the small-M
+route sums each 8-code group from zero, its warps along K in warp order).  The tile and k-step
 constants below plan the launch; the kernel's source owns its layout and
 refuses a plan that does not fit it.
 
@@ -65,7 +73,7 @@ __all__ = ["axo_matmul", "axo_matmul_plain", "plan", "Plan", "route_for"]
 
 MAX_SMEM = 227 * 1024      # dynamic shared memory one block may use
 H100_SMS = 132             # plan()'s default; a launch passes its card's count
-GEMV_M = 16                # M at or below this takes the GEMV route
+GEMV_M = 16                # M at or below this takes the small-M route or the GEMV
 # GEMV route (csrc/axo_matmul.cu): 4 warps x 16 columns a lane, MT rows a block
 GEMV_COLS = 512
 GEMV_KSTEP = 32            # K rows expanded per shared-memory chunk
@@ -103,7 +111,29 @@ WGMMA_ALIGN = 16           # the TMA's row strides, bytes: K and N multiples of 
 WGMMA_FIXED_SMEM = (1024 + 3 * 4 * WGMMA_TILE * MMA_KSTEP * 4 + 2 * WGMMA_TILE * MMA_KSTEP
                     + 64)
 WGMMA_BLOCK_COST = 4
-ROUTES = ("gemv", "mma", "skinny", "wgmma")   # in the launcher's route numbers
+# small-M route (M <= GEMV_M at the ranks the source builds it for): tensor
+# cores with the activation rows on the MMA's 8-wide side, 8 or 16 rows a
+# block (one expansion of each weight code for all of them); 8 warps, each 4
+# weight tiles of 16 columns, cols // 64 of them along N and the rest along
+# K; the weight table as planes of 4 entries in 8 copies (csrc/axo_matmul.cu).
+# A block owns 512 columns where N >= SMALL_WIDE_N, else 256: on the H100 the
+# narrower block won by 6-40% at N = 512 to 2048; from N = 7168 to 50280 the
+# two came within 6% of each other either way (chip_smoke.py's
+# k6_block_widths; PERF.md section 6).  Two 8-row blocks fit an SM (ptxas: at
+# most 128 registers a thread), one 16-row block (its registers and shared
+# memory).  At M <= 4 and N >= SMALL_GEMV_N the GEMV keeps the shape: the
+# small route won at N = 8192, 32768 and 40960, the GEMV at N = 49155
+# (granite's head); chip_smoke.py times both at N = 40960 and 49152, on
+# either side of the cutoff
+SMALL_COLS = (256, 512)    # the block widths the source builds
+SMALL_WIDE_N = 4096
+SMALL_GEMV_N = 45056
+SMALL_RANKS = (8,)         # the ranks the source builds the route for (its loops unroll)
+SMALL_PLANE = 256 * 8 * 16   # a table plane: 256 code slots x 8 copies of 4 entries, bytes
+SMALL_PER_SM = {8: 2, 16: 1}
+SMALL_MAX_SPLITS = 64
+SMALL_BLOCK_COST = 1
+ROUTES = ("gemv", "mma", "skinny", "wgmma", "small")   # in the launcher's route numbers
 _REFUSED = -2              # the launcher's answer to codes the TMA cannot map
 
 
@@ -126,8 +156,8 @@ def axo_matmul_plain(a_codes: torch.Tensor, b_codes: torch.Tensor, f_table: torc
 
 
 class Plan(NamedTuple):
-    route: str          # "gemv" (M <= GEMV_M), "skinny" (M <= SKINNY_M), "mma" or "wgmma"
-    rows: int           # output rows a block owns: MT = 1, 2, 4 or 8; 24 or 80; 128
+    route: str          # "small" or "gemv" (M <= GEMV_M), "skinny" (M <= SKINNY_M), "mma", "wgmma"
+    rows: int           # output rows a block owns: 8 or 16; MT = 1, 2, 4 or 8; 24 or 80; 128
     splits: int         # blocks along K, summed in split order in the kernel
     k_split: int        # codes of K per split: whole k-steps of the route
     smem: int           # dynamic shared memory per block, bytes
@@ -166,12 +196,43 @@ def _wgmma_fits(n: int, k: int, rank: int, n_codes: int) -> bool:
             and WGMMA_FIXED_SMEM + 2 * (rank + 1) * n_codes * 4 <= MAX_SMEM)
 
 
+def _small_smem(rows: int, cols: int, rank: int, n_codes: int) -> int:
+    """A small-M block's shared memory: the weight table's planes of 4 entries
+    in 8 copies (the last plane 1, 2 or 3 entries wide), whose region then
+    holds the K warps' partial sums, and two 32-code steps' (4, 1+R, rows / 8,
+    32) float2 activation fragments."""
+    r1 = rank + 1
+    planes = SMALL_PLANE * (r1 // 4) + (SMALL_PLANE if r1 % 4 == 3 else
+                                        SMALL_PLANE // 2 if r1 % 4 else 0)
+    wn = cols // 64
+    reduce = (8 // wn - 1) * wn * 32 * 4 * (rows // 8) * 4 * 4
+    return max(planes, reduce) + 2 * 4 * r1 * (rows // 8) * 32 * 8
+
+
+def _small_plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int,
+                splits: int | None, cols: int | None = None) -> Plan:
+    """The small-M route's launch: 8 rows a block up to M = 8, else 16, and
+    ``cols`` columns (one of ``SMALL_COLS``; default 512 where N >=
+    ``SMALL_WIDE_N``, else 256)."""
+    rows = 8 if m <= 8 else 16
+    cols = (SMALL_COLS[1] if n >= SMALL_WIDE_N else SMALL_COLS[0]) if cols is None else cols
+    tiles = -(-n // cols)
+    smem = _small_smem(rows, cols, rank, n_codes)
+    if splits is None:
+        splits, k_split = _split_k(tiles, k, MMA_KSTEP, SMALL_PER_SM[rows] * n_sms,
+                                   SMALL_MAX_SPLITS, SMALL_BLOCK_COST)
+    else:
+        splits, k_split = _k_split(k, MMA_KSTEP, splits, SMALL_MAX_SPLITS)
+    return Plan("small", rows, splits, k_split, smem, tiles, cols)
+
+
 def route_for(m: int, n: int, k: int, rank: int, n_codes: int) -> str:
-    """The route :func:`plan` takes at M rows (N, K, the rank and the codes
-    decide only whether the wgmma route's TMA maps the codes and its block
+    """The route :func:`plan` takes at M rows (the rank, and N at M <= 4,
+    decide whether the small-M route takes M <= ``GEMV_M``; N, K, the rank
+    and the codes whether the wgmma route's TMA maps the codes and its block
     holds the tables): a pure function of the shape."""
     if m <= GEMV_M:
-        return "gemv"
+        return "small" if rank in SMALL_RANKS and (m > 4 or n < SMALL_GEMV_N) else "gemv"
     if m <= SKINNY_M:
         return "skinny"
     return "wgmma" if m >= WGMMA_M and _wgmma_fits(n, k, rank, n_codes) else "mma"
@@ -182,9 +243,12 @@ def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS,
          splits: int | None = None, route: str | None = None) -> Plan:
     """The launch of K6 for an (m, k) x (k, n) product at this rank.
 
-    M <= ``GEMV_M`` takes the GEMV route: a block owns 512 columns and MT rows
-    (the least power of two >= M, at most 8; M = 9..16 takes two row groups
-    of 8).  M <= ``SKINNY_M`` takes the skinny tensor-core route: a block
+    M <= ``GEMV_M`` takes the small-M route at the ranks it is built for
+    (not at M <= 4 with N >= ``SMALL_GEMV_N``): a block owns 8 rows up to
+    M = 8, else 16, and 512 columns where N >= ``SMALL_WIDE_N``, else 256;
+    named, the GEMV route (and the plan's at the other shapes): 512
+    columns and MT rows (the least power of two >= M, at most 8; M = 9..16
+    takes two row groups of 8).  M <= ``SKINNY_M`` takes the skinny tensor-core route: a block
     owns 24 rows and 128 columns up to M = 24, else 80 rows and 64 columns
     (so no padded row at M = 24 and 80).  Larger M takes 128 x 128 tiles,
     on the wgmma route from ``WGMMA_M`` rows where K and N are multiples of
@@ -194,20 +258,25 @@ def plan(m: int, n: int, k: int, rank: int, n_codes: int, n_sms: int = H100_SMS,
     fixed cost; ``splits`` names the split count instead (whole k-steps a
     split, so K may take fewer).  ``route`` names the route instead of
     :func:`route_for`'s (the skinny route only up to ``SKINNY_M`` rows, the
-    GEMV only up to ``GEMV_M``, the wgmma route only where K and N are
-    multiples of 16; the mma route takes any M).  Cached: a decode step asks
-    for the same few shapes hundreds of times.
+    GEMV and the small-M route only up to ``GEMV_M``, the small-M route only
+    at ``SMALL_RANKS``, the wgmma route only where K and N are multiples of
+    16; the mma route takes any M).  Cached: a decode step asks for the same
+    few shapes hundreds of times.
     """
     r1 = rank + 1
     route = route_for(m, n, k, rank, n_codes) if route is None else route
     if route not in ROUTES:
         raise ValueError(f"K6 has the routes {ROUTES}, got {route!r}")
-    if (route == "gemv" and m > GEMV_M) or (route == "skinny" and m > SKINNY_M):
+    if route == "small" and rank not in SMALL_RANKS:
+        raise ValueError(f"K6's small route is built for the ranks {SMALL_RANKS}, got {rank}")
+    if (route in ("gemv", "small") and m > GEMV_M) or (route == "skinny" and m > SKINNY_M):
         raise ValueError(f"K6's {route} route takes at most "
-                         f"{GEMV_M if route == 'gemv' else SKINNY_M} rows, got {m}")
+                         f"{SKINNY_M if route == 'skinny' else GEMV_M} rows, got {m}")
     if route == "wgmma" and (n % WGMMA_ALIGN or k % WGMMA_ALIGN):
         raise ValueError(f"K6's wgmma route takes K and N in multiples of {WGMMA_ALIGN}, got "
                          f"K {k}, N {n}")
+    if route == "small":
+        return _small_plan(m, n, k, rank, n_codes, n_sms, splits)
     if route == "gemv":
         rows = 1 << max(0, (min(m, 8) - 1).bit_length())
         tiles = -(-n // GEMV_COLS) * -(-m // rows)
@@ -269,7 +338,7 @@ def _lib():
     lib = build.library("axo_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.axo_matmul_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                                      i, ctypes.c_longlong, p]
+                                      i, i, ctypes.c_longlong, p]
     lib.axo_matmul_launch.restype = ctypes.c_int
     return lib
 
@@ -362,7 +431,7 @@ def _launch(a_codes, b_codes, f_table, g_table, signed_vals, pl: Plan) -> torch.
         a_codes.data_ptr(), b_codes.data_ptr(), signed_vals.data_ptr(), f_table.data_ptr(),
         g_table.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
         counters.numel(), m, n, k, f_table.shape[1], signed_vals.shape[0],
-        ROUTES.index(pl.route), pl.rows, pl.splits, pl.k_split, pl.smem, stream,
+        ROUTES.index(pl.route), pl.rows, pl.cols, pl.splits, pl.k_split, pl.smem, stream,
     )
     if err == _LAYOUT_MISMATCH:
         raise RuntimeError(f"{pl} does not fit the layout of csrc/axo_matmul.cu")

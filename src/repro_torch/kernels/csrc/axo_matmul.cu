@@ -15,7 +15,7 @@
 // linear weights of granite-3-2b they are 91 GB at R=8.  So this kernel reads
 // the weight codes (1 byte each) and gathers values and factors itself from
 // the two (1+R, 2^n) tables [sv; f^T] and [sv; g^T], held in shared memory.
-// Four routes, chosen in kernels/axo_matmul.py plan() by M; each reduces a
+// Five routes, chosen in kernels/axo_matmul.py plan() by M; each reduces a
 // split K in the kernel itself, in split order (below).
 //
 // 1. M = 81..511, or K or N off 16 bytes: tensor cores, mma.sync.m16n8k8 TF32 with f32
@@ -54,7 +54,8 @@
 //    conversion instruction, which issues at a quarter of the rate, the
 //    kernel took longer).
 //
-// 2. M <= 16 (decode): a split-K GEMV in IEEE f32 on the FMA pipe.  A block
+// 2. M <= 16 by name (route="gemv"; the plan's below rank 8's route 5 and
+//    at other ranks): a split-K GEMV in IEEE f32 on the FMA pipe.  A block
 //    of 4 warps owns 512 columns and MT (1, 2, 4 or 8) rows; each lane owns
 //    16 columns and streams their weight codes down K with one 16-byte load
 //    per row (two aligned loads and a funnel shift where N is not a multiple
@@ -131,6 +132,41 @@
 //    MMAs, so the stages are three (the expansion runs up to two table rows
 //    ahead) and the code tiles one, which serves a step's nine table rows.
 //    Its times against route 1's and cuBLAS's are in PERF.md section 6.
+//
+// 5. M <= 16 at rank 8 (the decode steps' projections, mamba2's head,
+//    kimi-k2's expert buffers of 16 and 8 rows): tensor cores at a few rows, each
+//    weight code expanded once for all of them.  Route 2 expands each code
+//    once per 8 rows (twice at M = 9..16) with 9 scalar shared-memory
+//    gathers of ~3.15-way bank conflicts for random codes, and spends
+//    9 x MT FMAs a code.  Here out^T = B^T A^T as in route 3: the weight's
+//    columns fill mma.m16n8k8's 16-row side and the activation rows its
+//    8-wide side (8 rows a block up to M = 8, 16 as two n8 tiles up to 16),
+//    so the MMAs take the FMAs and one expansion serves every row.  The
+//    weight table is held as planes of 4 entries in 8 copies (a float4 a
+//    code, copy l % 8 for lane l: the 8 lanes a 16-byte load serves at once
+//    never share a bank) and the 9th entry as a plane of 16 copies, so a
+//    code's 9 entries take 3 loads; a lane's 8 columns are adjacent (one
+//    8-byte load of codes a K row) and a code's byte gives its offset in
+//    every plane.  A block of 8 warps stands WN along N and 8 / WN along
+//    K, each warp 4 tiles of 16 columns; the activation side, (32 codes, 9
+//    rows, rows / 8, 32 lanes) B fragments, is expanded once a block a
+//    32-code step into shared memory.  Each factor takes three TF32 passes,
+//    split as route 1 splits them, the values one.  Each 8-code group is
+//    summed from zero in the tensor core (at most 25 MMAs a chain, each
+//    rounding toward zero) and added to the warp's IEEE f32 sum; the K
+//    warps' sums are added in warp order, the splits in split order
+//    (tests/test_torch_kernel_design.py emulates the order).  With route
+//    1's 32-code chains (100 MMAs, their roundings toward zero adding up)
+//    the reduced VLM's AxO pass in chip_smoke.py flipped an activation code
+//    and left its plain replay by 0.0245; with 8-code chains it did not
+//    (16 f32 adds a lane and group at 8 rows).  The table rows are a
+//    template parameter (the source builds
+//    rank 8; the plan keeps route 2 at other ranks).  What bounds it:
+//    instruction issue.  Per warp and 128 codes it issues 12 gathers, the
+//    hi/lo split of 32 factor entries (three operations each), the moves
+//    that gather each table row's 4 codes into an MMA operand (each gather
+//    brings one code's 4 rows), and 25 MMAs at 8 rows, 50 at 16; probe_k6.py
+//    prints each instance's loop-body SASS mix and times it against route 2.
 //
 // Split K: each block writes its partial tile to a (splits, M, N) workspace;
 // the last block of a tile to arrive (an atomic counter per tile, which it
@@ -1147,6 +1183,402 @@ axo_gemv_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
     split_fixup(out, ws, counters, splits, m_total, n_total, m0, MT, n0, kGemvCols);
 }
 
+// ---------------------------------------------------------------------------
+// route 5, M <= 16: tensor cores at a few rows, one expansion for all of them
+// ---------------------------------------------------------------------------
+
+// A block of 8 warps owns Rows = 8 NT activation rows (NT = 1 up to 8 rows,
+// 2 up to 16) and WN x 64 weight columns: WN warps along N, 8 / WN along K.
+// Each warp owns 4 weight tiles of 16 columns (the MMA's 16-row A side) x NT
+// activation tiles of 8 rows (its n8 side), as the skinny route; a lane's 8
+// columns are adjacent (tile i's row g is column 8g + i, row g + 8 column
+// 8g + 4 + i), so one 8-byte load gives a lane its 8 codes of a K row.  The
+// table rows (1+R = R1 of them) are a template parameter: every loop over
+// them unrolls.
+constexpr int kSmThreads = 256;
+constexpr int kSmWarps = 8;
+constexpr int kSmWt = 4;          // 16-column weight tiles a warp
+constexpr int kSmCodes = 256;     // code slots of each table plane, whatever the codes
+constexpr int kSmPlane = kSmCodes * 8 * 16;   // a plane of 4 entries in 8 copies, bytes
+
+template <int NT, int WN, int R1>
+struct Small {
+  static constexpr int kWk = kSmWarps / WN;       // warps along K
+  static constexpr int kGroups = 4 / kWk;         // 8-code groups a warp takes a step
+  static constexpr int kCols = WN * 16 * kSmWt;   // weight columns a block
+  static constexpr int kRows = 8 * NT;            // activation rows a block
+  static constexpr int kAcc = kSmWt * NT * 4;     // a lane's accumulators
+  static constexpr int kFull = R1 / 4;            // planes of 4 table rows
+  static constexpr int kRem = R1 % 4;             // table rows after them
+  static constexpr int kLast = kRem == 3 ? 4 : kRem;   // floats of the last plane an entry
+  static constexpr int kXStep = 4 * R1 * NT * 32 * 2;  // floats of a step's activation fragments
+  static constexpr int kTable = kFull * kSmPlane + (kLast == 4 ? kSmPlane : kLast ? kSmPlane / 2 : 0);
+};
+
+// The weight side's table in shared memory: the R1 entries of each code
+// [sv; g] in planes of 4 (entries 4p .. 4p + 3, a float4) held in 8 copies,
+// code c's copy q at byte 128 c + 16 q, so that lane l gathers copy l % 8 and
+// the 8 lanes of a quarter warp, which a 16-byte load serves together, never
+// share a bank; then the last 1 entry (R1 = 9 at rank 8) in 16 copies of a
+// float (at 64 c + 4 (l % 16): lanes l and l + 16 share a bank only where
+// their codes differ and have the same parity), 2 entries in 8 copies of a
+// float2, or 3 as a full plane.  Planes hold 256 code slots (a code's slot
+// holds the entries of the code masked to the table's codes), so that a
+// code's offset in one plane is its offset in every plane.  The region then
+// holds the K warps' partial sums.
+template <int NT, int WN, int R1>
+__host__ __device__ constexpr int small_table_bytes() {
+  using S = Small<NT, WN, R1>;
+  return S::kTable > (S::kWk - 1) * WN * 32 * S::kAcc * 4 ? S::kTable
+                                                         : (S::kWk - 1) * WN * 32 * S::kAcc * 4;
+}
+
+// the table region, then two 32-code steps' (4 groups, R1, NT, 32 lanes)
+// float2 activation fragments
+template <int NT, int WN, int R1>
+size_t small_smem() {
+  return static_cast<size_t>(small_table_bytes<NT, WN, R1>()) +
+         2 * Small<NT, WN, R1>::kXStep * sizeof(float);
+}
+
+// The 8 codes of columns [col, col + 8) of row k of b, as two words: one
+// 8-byte load where N and b are 8-byte aligned (then a lane's columns are all
+// in N or all past it), else three 4-byte loads and a funnel shift, or at b's
+// very ends byte loads.  Rows at or past kend and columns past N read 0.
+__device__ __forceinline__ uint2 small_codes(const uint8_t* __restrict__ b, int k, int kend,
+                                             int col, int n_total, size_t total, bool vec) {
+  if (k >= kend || col >= n_total) return make_uint2(0u, 0u);
+  const size_t idx = static_cast<size_t>(k) * n_total + col;
+  if (vec) return __ldg(reinterpret_cast<const uint2*>(b + idx));
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(b + idx);
+  const uintptr_t base = addr & ~static_cast<uintptr_t>(3);
+  if (base >= reinterpret_cast<uintptr_t>(b) && base + 12 <= reinterpret_cast<uintptr_t>(b + total)) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(base);
+    const uint32_t w0 = __ldg(p), w1 = __ldg(p + 1), w2 = __ldg(p + 2);
+    const int bits = 8 * static_cast<int>(addr & 3);
+    return make_uint2(__funnelshift_r(w0, w1, bits), __funnelshift_r(w1, w2, bits));
+  }
+  uint32_t w[2] = {0u, 0u};
+  for (int i = 0; i < 8; ++i)
+    if (idx + i < total && col + i < n_total)
+      w[i >> 2] |= static_cast<uint32_t>(b[idx + i]) << (8 * (i & 3));
+  return make_uint2(w[0], w[1]);
+}
+
+// Shared-memory loads at 32-bit shared addresses (a constant added to the
+// address folds into the load's offset)
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float2 lds64(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float lds32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+template <int NT, int WN, int R1, int IL, int MB>
+__global__ void __launch_bounds__(kSmThreads, MB)
+axo_small_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+                 const float* __restrict__ sv, const float* __restrict__ ft,
+                 const float* __restrict__ gt, float* __restrict__ out, float* __restrict__ ws,
+                 int* __restrict__ counters, int m_total, int n_total, int k_total,
+                 int n_codes, int splits, int k_split, bool vec) {
+  using S = Small<NT, WN, R1>;
+  constexpr int WT = kSmWt;
+  constexpr int kRank = R1 - 1;
+  constexpr int kPlanes = S::kFull + (S::kRem > 0);
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int wn = warp % WN;
+  const int kw = warp / WN;
+  const int n0 = blockIdx.x * S::kCols;
+  const int m0 = blockIdx.y * S::kRows;
+  const int kb = blockIdx.z * k_split;
+  const int kend = min(k_total, kb + k_split);
+  const int n_steps = (kend - kb + kStepK - 1) / kStepK;
+  const uint32_t code_mask = n_codes - 1;
+  const int col = n0 + wn * 16 * WT + (lane >> 2) * 2 * WT;   // the lane's 8 adjacent columns
+  const size_t total = static_cast<size_t>(k_total) * n_total;
+  char* const tab = reinterpret_cast<char*>(smem);
+  float* const xbuf = smem + small_table_bytes<NT, WN, R1>() / 4;
+
+  // the weight side's table: [sv; g] staged row by row in the activation
+  // buffers (each thread's loads in flight together), then written out as
+  // planes
+  bool exact = true;
+  for (int i0 = tid; i0 < R1 * n_codes; i0 += 8 * kSmThreads) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kSmThreads;
+      const int j = i / n_codes;
+      const int c = i - j * n_codes;
+      v[u] = i >= R1 * n_codes ? 0.f : j == 0 ? sv[c] : gt[c * kRank + j - 1];
+      if (i < n_codes) exact = exact && (__float_as_uint(v[u]) & 0x1fffu) == 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (i0 + u * kSmThreads < R1 * n_codes) xbuf[i0 + u * kSmThreads] = v[u];
+  }
+  const bool sv_exact = __syncthreads_and(exact);
+  auto raw = [&](int j, int c) { return j < R1 ? xbuf[j * n_codes + (c & code_mask)] : 0.f; };
+  for (int i = tid; i < S::kTable / 4; i += kSmThreads) {
+    const int p = i / (kSmPlane / 4);
+    const int w = i - p * (kSmPlane / 4);   // the word in its plane
+    const int j = 4 * p;
+    if (p < S::kFull || S::kLast == 4) {
+      const int c = w >> 5;                 // 32 words a code
+      reinterpret_cast<float*>(tab)[i] = raw(j + (w & 3), c);
+    } else if (S::kLast == 1) {
+      reinterpret_cast<float*>(tab)[i] = raw(j, w >> 4);
+    } else {
+      reinterpret_cast<float*>(tab)[i] = raw(j + (w & 1), w >> 4);
+    }
+  }
+
+  // the activation side: item e = tid + 256 u is code k0 + 8s + 2t + h of
+  // row 8 u + g (e's bits: h, t, g, s), written with its R1 values to
+  // fragment slot (s, j, u, lane 4g + t), word h, where the MMA's B operand
+  // reads them; codes past M and kend expand to zeros
+  int acode[NT];
+  auto load_a = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      const int k = k0 + 8 * ((tid >> 6) & 3) + 2 * ((tid >> 1) & 3) + (tid & 1);
+      const int m = m0 + 8 * u + ((tid >> 3) & 7);
+      acode[u] = m < m_total && k < kend ? a[static_cast<size_t>(m) * k_total + k] & code_mask
+                                         : -1;
+    }
+  };
+  auto expand = [&](float* dst) {
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      float* d = dst + ((((tid >> 6) & 3) * R1 * NT + u) * 32 + ((tid >> 1) & 31)) * 2 + (tid & 1);
+      const int c = acode[u];
+      float v[R1];
+#pragma unroll
+      for (int j = 0; j < R1; ++j)
+        v[j] = c < 0 ? 0.f : j == 0 ? __ldg(sv + c) : __ldg(ft + c * kRank + j - 1);
+#pragma unroll
+      for (int j = 0; j < R1; ++j) d[j * NT * 64] = v[j];
+    }
+  };
+  if (n_steps > 0) load_a(kb);
+  __syncthreads();   // the planes are written; the staged rows are read
+  if (n_steps > 0) {
+    expand(xbuf);
+    if (n_steps > 1) load_a(kb + kStepK);
+  }
+  __syncthreads();
+
+  float acc[WT][NT][4];
+#pragma unroll
+  for (int i = 0; i < WT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+
+  // the warp's groups: s = kw * kGroups + gi of each step; the next group's
+  // codes are in flight while it works on one
+  auto group_row = [&](int st, int gi) {
+    return kb + st * kStepK + 8 * (kw * S::kGroups + gi) + 2 * t;
+  };
+  uint2 nc0 = small_codes(b, group_row(0, 0), kend, col, n_total, total, vec);
+  uint2 nc1 = small_codes(b, group_row(0, 0) + 1, kend, col, n_total, total, vec);
+  // the lane's copy in a full plane, and in the last one, as shared addresses
+  const uint32_t lane_tab = smem_addr(tab) + (lane & 7) * 16;
+  const uint32_t lane_last = smem_addr(tab) + S::kFull * kSmPlane +
+                             (S::kLast == 1 ? (lane & 15) * 4 : (lane & 7) * 8);
+  const uint32_t lane_x = smem_addr(xbuf) + lane * 8;
+
+  for (int st = 0; st < n_steps; ++st) {
+    const uint32_t xs = lane_x + (st & 1) * S::kXStep * 4;
+#pragma unroll
+    for (int gi = 0; gi < S::kGroups; ++gi) {
+      // each 8-code group's sum starts from zero in the tensor core (25 MMAs
+      // at most a chain, each rounding toward zero) and is added in IEEE f32
+      float tmp[WT][NT][4];
+#pragma unroll
+      for (int i = 0; i < WT; ++i)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tmp[i][nt][e] = 0.f;
+      const uint32_t cw[4] = {nc0.x, nc0.y, nc1.x, nc1.y};   // rows 8s + 2t, 8s + 2t + 1
+      {
+        const int row = gi + 1 < S::kGroups ? group_row(st, gi + 1) : group_row(st + 1, 0);
+        nc0 = small_codes(b, row, kend, col, n_total, total, vec);
+        nc1 = small_codes(b, row + 1, kend, col, n_total, total, vec);
+      }
+      const int s = kw * S::kGroups + gi;
+      // planes from the last down, each plane's rows from its last: the table
+      // rows from the last factor down to the values, each factor x_lo.w_hi,
+      // x_hi.w_lo, x_hi.w_hi (route 1's order)
+#pragma unroll
+      for (int p = kPlanes - 1; p >= 0; --p) {
+        const int nj = p < S::kFull ? 4 : S::kRem;
+        uint32_t xh[4][NT][2], xl[4][NT][2];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (jj >= nj) continue;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float2 v = lds64(xs + (((s * R1 + 4 * p + jj) * NT + nt) * 32) * 8);
+            split_tf32(v.x, xh[jj][nt][0], xl[jj][nt][0]);
+            split_tf32(v.y, xh[jj][nt][1], xl[jj][nt][1]);
+          }
+        }
+        // A operand of tile i: (row g, slot t) = code (8s + 2t, 8g + i), (row
+        // g + 8, slot t) = (8s + 2t, 8g + 4 + i), then slots t + 4: row 8s +
+        // 2t + 1; IL tiles at a time, their MMA chains interleaved
+#pragma unroll
+        for (int i0 = 0; i0 < WT; i0 += IL) {
+          // code (row 8s + 2t + (e >> 1), column 8g + 4 (e & 1) + i): byte i of
+          // its word, 128 bytes a code in a full plane, 64 in the last
+          float4 wv[IL][4];
+#pragma unroll
+          for (int ii = 0; ii < IL; ++ii) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const uint32_t c = __byte_perm(cw[e], 0u, 0x4440 + i0 + ii);
+              if (p < S::kFull || S::kLast == 4) {
+                wv[ii][e] = lds128(lane_tab + c * 128 + p * kSmPlane);
+              } else if (S::kLast == 1) {
+                wv[ii][e] = make_float4(lds32(lane_last + c * 64), 0.f, 0.f, 0.f);
+              } else {
+                const float2 x = lds64(lane_last + c * 64);
+                wv[ii][e] = make_float4(x.x, x.y, 0.f, 0.f);
+              }
+            }
+          }
+#pragma unroll
+          for (int jj = 3; jj >= 0; --jj) {
+            if (jj >= nj) continue;
+            const bool values = p == 0 && jj == 0 && sv_exact;   // one pass, exact
+            uint32_t wh[IL][4], wl[IL][4];
+#pragma unroll
+            for (int ii = 0; ii < IL; ++ii) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float4& v = wv[ii][e];
+                const float w = jj == 0 ? v.x : jj == 1 ? v.y : jj == 2 ? v.z : v.w;
+                if (values)
+                  wh[ii][e] = __float_as_uint(w);   // exact in TF32
+                else
+                  split_tf32(w, wh[ii][e], wl[ii][e]);
+              }
+            }
+            if (values) {
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int ii = 0; ii < IL; ++ii)
+                  mma_tf32(tmp[i0 + ii][nt], wh[ii], xh[0][nt][0], xh[0][nt][1]);
+              continue;
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+              for (int ii = 0; ii < IL; ++ii)
+                mma_tf32(tmp[i0 + ii][nt], wh[ii], xl[jj][nt][0], xl[jj][nt][1]);
+#pragma unroll
+              for (int ii = 0; ii < IL; ++ii)
+                mma_tf32(tmp[i0 + ii][nt], wl[ii], xh[jj][nt][0], xh[jj][nt][1]);
+#pragma unroll
+              for (int ii = 0; ii < IL; ++ii)
+                mma_tf32(tmp[i0 + ii][nt], wh[ii], xh[jj][nt][0], xh[jj][nt][1]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < WT; ++i)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][nt][e] += tmp[i][nt][e];
+    }
+    if (st + 1 < n_steps) {
+      // the other buffer was last read before the previous barrier
+      expand(xbuf + ((st + 1) & 1) * S::kXStep);
+      if (st + 2 < n_steps) load_a(kb + (st + 2) * kStepK);
+    }
+    __syncthreads();
+  }
+
+  // the K warps' sums, added in warp order through the table's region (no
+  // longer read): warps kw > 0 write theirs, warp kw = 0 of each column
+  // range adds them to its own and stores
+  if constexpr (S::kWk > 1) {
+    float* red = smem;
+    if (kw > 0) {
+      float* dst = red + ((kw - 1) * WN + wn) * S::kAcc * 32 + lane;
+#pragma unroll
+      for (int i = 0; i < WT; ++i)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dst[((i * NT + nt) * 4 + e) * 32] = acc[i][nt][e];
+    }
+    __syncthreads();
+    if (kw == 0) {
+      for (int w = 1; w < S::kWk; ++w) {
+        const float* src = red + ((w - 1) * WN + wn) * S::kAcc * 32 + lane;
+#pragma unroll
+        for (int i = 0; i < WT; ++i)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][nt][e] += src[((i * NT + nt) * 4 + e) * 32];
+      }
+    }
+  }
+
+  // the accumulator is out^T: (column 8g + 4 (e >> 1) + i, row 8 nt + 2t + (e & 1))
+  float* dst = splits > 1 ? ws + static_cast<size_t>(blockIdx.z) * m_total * n_total : out;
+  if (kw == 0) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + nt * 8 + 2 * t + h;
+        if (row >= m_total) continue;
+        float* o = dst + static_cast<size_t>(row) * n_total + col;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int c = col + 4 * half;
+          const float4 v = make_float4(acc[0][nt][2 * half + h], acc[1][nt][2 * half + h],
+                                       acc[2][nt][2 * half + h], acc[3][nt][2 * half + h]);
+          if (n_total % 4 == 0) {
+            if (c < n_total) *reinterpret_cast<float4*>(o + 4 * half) = v;
+          } else {
+            const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (c + i < n_total) o[4 * half + i] = w[i];
+          }
+        }
+      }
+    }
+  }
+  if (splits > 1)
+    split_fixup(out, ws, counters, splits, m_total, n_total, m0, S::kRows, n0, S::kCols);
+}
+
 // Dynamic shared memory a block of each route takes, in the layout the kernels
 // above carve it into.
 size_t mma_smem(int r1, int n_codes) {
@@ -1205,6 +1637,27 @@ cudaError_t launch_skinny(const uint8_t* a, const uint8_t* b, const float* sv, c
   return cudaGetLastError();
 }
 
+// Route 5 at Rows = 8 NT, WN x 64 columns a block, R1 table rows, IL tiles'
+// MMA chains interleaved and MB blocks an SM; sets `mismatch` where the plan
+// disagrees with this file's layout.
+template <int NT, int WN, int R1, int IL, int MB>
+cudaError_t launch_small(const uint8_t* a, const uint8_t* b, const float* sv, const float* ft,
+                         const float* gt, float* out, float* ws, int* counters, int n_counters,
+                         int m, int n, int k, int n_codes, int splits, int k_split, size_t smem,
+                         cudaStream_t stream, bool& mismatch) {
+  using S = Small<NT, WN, R1>;
+  const dim3 grid((n + S::kCols - 1) / S::kCols, (m + S::kRows - 1) / S::kRows, splits);
+  mismatch = k_split % kStepK || smem != small_smem<NT, WN, R1>() ||
+             (splits > 1 && static_cast<long long>(grid.x) * grid.y > n_counters);
+  if (mismatch) return cudaSuccess;
+  cudaError_t err = allow_smem(axo_small_kernel<NT, WN, R1, IL, MB>, smem);
+  if (err != cudaSuccess) return err;
+  const bool vec = n % 8 == 0 && reinterpret_cast<uintptr_t>(b) % 8 == 0;
+  axo_small_kernel<NT, WN, R1, IL, MB><<<grid, kSmThreads, smem, stream>>>(
+      a, b, sv, ft, gt, out, ws, counters, m, n, k, n_codes, splits, k_split, vec);
+  return cudaGetLastError();
+}
+
 // A row-major (rows, cols) uint8 matrix as a 2-d tensor map (cols, rows) with
 // boxes of box_cols x box_rows, unswizzled; elements past its edges read as
 // zero.  False where libcuda refuses it (a base or row stride off 16 bytes).
@@ -1245,12 +1698,14 @@ cudaError_t launch_wgmma(const uint8_t* a, const uint8_t* b, const float* sv, co
 
 // route 0 = GEMV (rows = MT, 1/2/4/8 rows per block), 1 = tensor cores, 2 =
 // skinny tensor cores (rows = 24 or 80 per block), 3 = wgmma (128 x 128
-// tiles).  With splits > 1, ws holds splits * m * n floats of partials and
-// counters n_counters zeroed ints, one per output tile (left zeroed).  smem is
-// the dynamic shared memory plan() computed for the launch.  Returns a
-// cudaError_t, kLayoutMismatch where the plan disagrees with this file's
-// layout: smem not what the route's block takes, a split not whole k-steps, a
-// row count the route is not built for, or fewer counters than output tiles;
+// tiles), 4 = small-M tensor cores (rows = 8 or 16, cols = 256 or 512 per
+// block, rank 8; cols is read by route 4 only).  With splits > 1, ws holds
+// splits * m * n floats of partials and counters n_counters zeroed ints, one
+// per output tile (left zeroed).  smem is the dynamic shared memory plan()
+// computed for the launch.  Returns a cudaError_t, kLayoutMismatch where the
+// plan disagrees with this file's layout: smem not what the route's block
+// takes, a split not whole k-steps, a row or column count or rank the route
+// is not built for, or fewer counters than output tiles;
 // or kRefused where route 3 cannot map a code matrix (its base or row stride
 // off 16 bytes).
 constexpr int kLayoutMismatch = -1;
@@ -1259,8 +1714,8 @@ constexpr int kRefused = -2;
 extern "C" int axo_matmul_launch(const void* a, const void* b, const void* sv,
                                  const void* ft, const void* gt, void* out, void* ws,
                                  void* counters, int n_counters, int m, int n, int k,
-                                 int rank, int n_codes, int route, int rows, int splits,
-                                 int k_split, long long smem, void* stream) {
+                                 int rank, int n_codes, int route, int rows, int cols,
+                                 int splits, int k_split, long long smem, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* ap = static_cast<const uint8_t*>(a);
   const auto* bp = static_cast<const uint8_t*>(b);
@@ -1303,6 +1758,23 @@ extern "C" int axo_matmul_launch(const void* a, const void* b, const void* sv,
                                        rank, n_codes, splits, k_split, sm, s, mismatch, refused)
                         : cudaSuccess;
     return mismatch ? kLayoutMismatch : refused ? kRefused : static_cast<int>(err);
+  }
+  if (route == 4) {
+    // 8 rows: two blocks an SM, one tile's MMA chain at a time; 16 rows: one
+    // block an SM (its registers), four tiles' chains interleaved
+    using Fn = decltype(&launch_small<1, 4, 9, 1, 2>);
+    Fn fn = nullptr;
+    if (r1 == 9 && rows == 8)
+      fn = cols == 256 ? &launch_small<1, 4, 9, 1, 2> : cols == 512 ? &launch_small<1, 8, 9, 1, 2>
+                                                       : nullptr;
+    else if (r1 == 9 && rows == 16)
+      fn = cols == 256 ? &launch_small<2, 4, 9, 4, 1> : cols == 512 ? &launch_small<2, 8, 9, 4, 1>
+                                                       : nullptr;
+    bool mismatch = true;
+    const cudaError_t err = fn == nullptr ? cudaSuccess
+                                          : fn(ap, bp, svp, fp, gp, op, wp, cnt, n_counters, m, n,
+                                               k, n_codes, splits, k_split, sm, s, mismatch);
+    return mismatch ? kLayoutMismatch : static_cast<int>(err);
   }
   auto* fn = rows == 1 ? &launch_gemv<1> : rows == 2 ? &launch_gemv<2>
             : rows == 4 ? &launch_gemv<4> : rows == 8 ? &launch_gemv<8> : nullptr;

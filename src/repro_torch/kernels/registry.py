@@ -470,9 +470,10 @@ def _axo_defaults(**shape) -> dict:
 
 
 def _axo_constraint(shape, tiles) -> bool:
-    """A split count the shape's route takes (the GEMV's up to 64, the skinny
-    route's up to 32, route 1's up to 16) and that splits K into that many
-    whole k-steps (not fewer after rounding), within shared memory."""
+    """A split count the shape's route takes (the small-M route's and the
+    GEMV's up to 64, the skinny route's up to 32, route 1's up to 16) and
+    that splits K into that many whole k-steps (not fewer after rounding),
+    within shared memory."""
     try:
         pl = _k6_plan(shape, tiles["splits"])
     except ValueError:
@@ -497,7 +498,9 @@ register(KernelSpec(
     defaults_fn=_axo_defaults, bucket_fn=_axo_bucket, constraint=_axo_constraint,
     cost_fn=_axo_cost, tol=1e-5,
     peak_type="tf32",
-    description="K6: GEMV route (M <= 16), skinny TF32 tensor cores (M <= 80: the "
+    description="K6: small-M TF32 tensor cores (M <= 16 at rank 8: the activation "
+                "rows on the MMA's 8-wide side, each weight code expanded once; the "
+                "f32 GEMV elsewhere), skinny TF32 tensor cores (M <= 80: the "
                 "weight's columns on the MMA's 16-row side, 24- or 80-row blocks), "
                 "wgmma TF32 on planes expanded once a block (M >= 512) or 128 x 128 "
                 "mma.sync TF32 tiles, split along K",

@@ -1,7 +1,8 @@
 """Instruction counts of built kernels from their SASS, on a host with the CUDA toolkit.
 
-``python -m repro_torch.kernels.sass`` builds the BEHAV (K1, K2) and
-table-GEMV (K4, K5) libraries and prints, for each of their kernels named in
+``python -m repro_torch.kernels.sass`` builds the BEHAV (K1, K2),
+table-GEMV (K4, K5) and AxO matmul (K6) libraries and prints, for each of
+their kernels named in
 ``KERNELS``, its SASS instruction count and its loop bodies, largest first,
 each as its size and the shared-memory loads (``LDS``) in it, from
 ``cuobjdump -sass``.  A loop body runs from a backward branch's target to the
@@ -24,13 +25,20 @@ __all__ = ["KERNELS", "loops", "main"]
 # library -> substrings of the mangled names of the kernels to read: K1's
 # and K2's two designs (the walks at a group of 64 codes; K1 at 4 configs a
 # thread, K2 at 4 and at 1), K4's staged route at 8 bits and its gather
-# route, K5's two designs (the redesign at 8 bits)
+# route, K5's two designs (the redesign at 8 bits), K6's small-M route at
+# rank 8 (8 rows x 256 and 512 columns, 16 rows x 256 and 512) and the GEMV
+# it replaced at 4 and 8 rows a block
 KERNELS = {
     "char_kernels": ("behav_stats_table_first_kernel", "behav_stats_walk_kernelILi6ELi4ELb0E",
                      "behav_stats_entry_first_kernel", "behav_stats_walk_kernelILi6ELi4ELb1E",
                      "behav_stats_walk_kernelILi6ELi1ELb1E"),
     "app_kernels": ("table_gemv_staged_kernelILi8E", "table_gemv_kernel",
                     "entry_gemv_staged_kernelILi8E", "entry_gemv_first_kernel"),
+    "axo_matmul": ("axo_small_kernelILi1ELi4ELi9ELi1ELi2EE",
+                   "axo_small_kernelILi1ELi8ELi9ELi1ELi2EE",
+                   "axo_small_kernelILi2ELi4ELi9ELi4ELi1EE",
+                   "axo_small_kernelILi2ELi8ELi9ELi4ELi1EE",
+                   "axo_gemv_kernelILi4EE", "axo_gemv_kernelILi8EE"),
 }
 
 _INSTR = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);")

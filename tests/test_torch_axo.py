@@ -150,13 +150,13 @@ def test_k6_wrapper_checks_and_plans(ops):
         k6.axo_matmul(a, b, f[:100].contiguous(), g[:100].contiguous(), sv[:100].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         k6.axo_matmul(a, torch.zeros((8, 16), dtype=torch.uint8).T, f, g, sv)
-    # decode shapes take the GEMV route and split K until the grid fills two
-    # waves; prefill takes the tensor cores (the wgmma route from 512 rows)
-    # and does not split
+    # decode shapes take the small-M route (8-row blocks) and split K until
+    # the grid fills a wave; prefill takes the tensor cores (the wgmma route
+    # from 512 rows) and does not split; granite's wide head keeps the GEMV
     pl = k6.plan(4, 2048, 2048, 8, 256)
-    assert pl[:4] == ("gemv", 4, 64, 32) and pl.splits * pl.k_split >= 2048
+    assert pl[:4] == ("small", 8, 32, 64) and pl.splits * pl.k_split >= 2048
     assert k6.plan(512, 8192, 2048, 8, 256)[:3] == ("wgmma", 128, 1)
-    assert k6.plan(4, 49155, 2048, 8, 256).splits == 8
+    assert k6.plan(4, 49155, 2048, 8, 256)[:3] == ("gemv", 4, 8)
     pl2 = k6.plan(4, 2048, 8192, 8, 256)
     assert pl2.k_split % 32 == 0
     assert (pl2.splits - 1) * pl2.k_split < 8192 <= pl2.splits * pl2.k_split

@@ -212,7 +212,17 @@ def test_tensor_core_sum_restarts_every_step(operators, name):
 @pytest.mark.parametrize("rank", [8, 16])
 def test_plan_routes_by_m_with_whole_steps(m, k, n, rank):
     pl = k6.plan(m, n, k, rank, 256)
-    if m <= k6.GEMV_M:
+    if m <= k6.GEMV_M and rank in k6.SMALL_RANKS and (m > 4 or n < k6.SMALL_GEMV_N):
+        # one block of 8 rows (the MMA's n8 side) up to M = 8, else of 16:
+        # every weight code expanded once for all M rows; 512 columns on
+        # wide weights, else 256
+        assert pl.route == "small" and pl.rows == (8 if m <= 8 else 16)
+        assert pl.cols == (512 if n >= k6.SMALL_WIDE_N else 256)
+        assert pl.tiles == -(-n // pl.cols)
+        step = k6.MMA_KSTEP
+    elif m <= k6.GEMV_M:
+        # ranks the small route is not built for, and the wide head at 4
+        # rows, keep the GEMV
         assert pl.route == "gemv" and pl.rows in (1, 2, 4, 8) and pl.rows >= min(m, 8)
         assert pl.rows < 2 * min(m, 8)              # no more than the next power of two
         assert pl.tiles == -(-n // k6.GEMV_COLS) * -(-m // pl.rows)
@@ -238,10 +248,13 @@ def test_plan_routes_by_m_with_whole_steps(m, k, n, rank):
     if pl.route == "gemv":
         assert pl.smem <= k6.MAX_SMEM // 2          # two blocks per SM
         assert pl.splits <= k6.GEMV_MAX_SPLITS
+    elif pl.route == "small":
+        assert pl.splits <= k6.SMALL_MAX_SPLITS
     else:
         assert pl.splits <= (k6.SKINNY_MAX_SPLITS if pl.route == "skinny"
                              else k6.MMA_MAX_SPLITS)
-    per_sm = {"gemv": k6.GEMV_PER_SM, "mma": k6.MMA_PER_SM, "wgmma": k6.MMA_PER_SM}.get(pl.route)
+    per_sm = {"gemv": k6.GEMV_PER_SM, "mma": k6.MMA_PER_SM, "wgmma": k6.MMA_PER_SM,
+              "small": k6.SMALL_PER_SM.get(pl.rows)}.get(pl.route)
     per_sm = per_sm or k6.SKINNY_PER_SM[pl.rows]
     assert pl.splits == 1 or pl.tiles < 4 * per_sm * k6.H100_SMS
 
@@ -252,23 +265,30 @@ def test_plan_splits_less_on_a_card_with_fewer_sms(m, k, n):
     take more splits, and the plan stays whole k-steps."""
     full, half = k6.plan(m, n, k, 8, 256), k6.plan(m, n, k, 8, 256, n_sms=k6.H100_SMS // 2)
     assert half.splits <= full.splits and half[:2] == full[:2]
-    assert half.k_split % (k6.GEMV_KSTEP if m <= k6.GEMV_M else k6.MMA_KSTEP) == 0
+    assert half.route == k6.route_for(m, n, k, 8, 256)
+    assert half.k_split % k6.MMA_KSTEP == 0
 
 
 def test_plan_at_the_serve_shapes():
-    # granite decode: the gate/up projection's 16 tiles split K 16 ways (one
-    # wave of 256 blocks); k/v's single tile splits it 64 ways; the head's 97
-    # tiles 8 ways (three full waves)
-    assert k6.plan(4, 8192, 2048, 8, 256)[:4] == ("gemv", 4, 16, 128)
-    assert k6.plan(4, 512, 2048, 8, 256)[:4] == ("gemv", 4, 64, 32)
+    # granite decode on the small-M route (8-row blocks, two an SM): the
+    # gate/up projection's 16 tiles of 512 columns split K 16 ways (one wave
+    # of 256 blocks); k/v's 2 tiles of 256 split it 64 ways; the head's
+    # 49155 columns keep the GEMV (97 tiles, 8 ways: three full waves)
+    assert k6.plan(4, 8192, 2048, 8, 256)[:4] == ("small", 8, 16, 128)
+    assert k6.plan(4, 8192, 2048, 8, 256).cols == 512
+    assert k6.plan(4, 512, 2048, 8, 256)[:4] == ("small", 8, 64, 32)
     assert k6.plan(4, 49155, 2048, 8, 256)[:4] == ("gemv", 4, 8, 256)
-    # mamba2's head: 8 rows, no padding
-    assert k6.plan(8, 50280, 768, 8, 256)[:3] == ("gemv", 8, 5)
+    # mamba2's head: 8 rows, no padding, 99 tiles of 512 split 5 ways
+    assert k6.plan(8, 50280, 768, 8, 256)[:3] == ("small", 8, 5)
+    # kimi-k2's expert buffers: 16 rows (one block an SM) at the prefill, 8
+    # at decode
+    assert k6.plan(16, 2048, 7168, 8, 256)[:4] == ("small", 16, 16, 448)
+    assert k6.plan(8, 7168, 2048, 8, 256)[:4] == ("small", 8, 16, 128)
     # granite prefill, on the wgmma route: the gate/up tiles fill two waves,
     # no split; q/o's 64 tiles split K in two
     assert k6.plan(512, 8192, 2048, 8, 256)[:3] == ("wgmma", 128, 1)
     assert k6.plan(512, 2048, 2048, 8, 256)[:3] == ("wgmma", 128, 2)
-    assert k6.plan(16, 64, 64, 8, 256).route == "gemv"
+    assert k6.plan(16, 64, 64, 8, 256).route == "small"
     assert k6.plan(17, 64, 64, 8, 256).route == "skinny"
     # the MoE prefill's expert buffers: deepseek-v3's 24 rows (gate/up 16
     # column tiles split K 32 ways: four blocks an SM; down 56 tiles 8 ways)
@@ -311,15 +331,89 @@ def test_skinny_plan_at_the_expert_buffers(m, k, n):
 
 def test_k6_named_routes():
     """A route named by the caller: the tensor-core route at any M, the
-    skinny one up to SKINNY_M rows, the GEMV up to GEMV_M; splits as named."""
+    skinny one up to SKINNY_M rows, the GEMV and the small-M route up to
+    GEMV_M (the small one at the ranks it is built for); splits as named."""
     assert k6.plan(24, 2048, 7168, 8, 256, route="mma")[:2] == ("mma", 128)
     assert k6.plan(8, 2048, 7168, 8, 256, route="skinny")[:2] == ("skinny", 24)
     assert k6.plan(24, 2048, 7168, 8, 256, splits=8, route="skinny")[:3] == ("skinny", 24, 8)
-    for bad in (dict(m=81, route="skinny"), dict(m=17, route="gemv"), dict(m=8, route="x")):
+    # the GEMV the small-M route replaced stays reachable by name
+    assert k6.plan(8, 2048, 7168, 8, 256, route="gemv")[:2] == ("gemv", 8)
+    assert k6.plan(4, 2048, 2048, 8, 256, splits=5, route="small")[:3] == ("small", 8, 5)
+    for bad in (dict(m=81, route="skinny"), dict(m=17, route="gemv"), dict(m=8, route="x"),
+                dict(m=17, route="small")):
         with pytest.raises(ValueError):
             k6.plan(bad["m"], 64, 64, 8, 256, route=bad["route"])
     with pytest.raises(ValueError):
+        k6.plan(8, 64, 64, 16, 256, route="small")
+    with pytest.raises(ValueError):
         k6.plan(24, 64, 4096, 8, 256, splits=33)
+
+
+@pytest.mark.parametrize("m, k, n", [(16, 7168, 2048), (16, 2048, 7168), (8, 7168, 2048),
+                                     (8, 2048, 7168), (4, 2048, 2048), (4, 2048, 512),
+                                     (4, 2048, 8192), (4, 8192, 2048), (8, 768, 50280)])
+def test_small_plan_at_the_expert_and_decode_shapes(m, k, n):
+    """The small-M route at kimi-k2's expert buffers (M = 16 at the prefill,
+    8 at decode), granite-3-2b's four decode projections (M = 4) and
+    mamba2's head: a block of the fewest rows the MMA's 8-wide side allows,
+    its columns, whole 32-code steps a split, the splits within the route's
+    limit, shared memory within a block's and, at 8 rows, within two blocks
+    an SM (a block also holds 1 KB of the SM's), and no pad waste beyond the
+    8-row side's (none at M = 8 and 16) and a ragged N's."""
+    from repro_torch.obs import telemetry as tm
+
+    pl = k6.plan(m, n, k, 8, 256)
+    assert (pl.route, pl.rows) == ("small", 8 if m <= 8 else 16)
+    assert pl.cols == (512 if n >= k6.SMALL_WIDE_N else 256) and pl.tiles == -(-n // pl.cols)
+    assert pl.k_split % k6.MMA_KSTEP == 0
+    assert (pl.splits - 1) * pl.k_split < k <= pl.splits * pl.k_split
+    assert 1 <= pl.splits <= k6.SMALL_MAX_SPLITS
+    assert pl.smem == k6._small_smem(pl.rows, pl.cols, 8, 256) <= k6.MAX_SMEM
+    if pl.rows == 8:
+        assert 2 * (pl.smem + 1024) <= 228 * 1024
+    tel = tm.Telemetry("t")
+    with tm.use(tel):
+        k6._note_launch(m, n, k, pl)
+    assert k % k6.MMA_KSTEP == 0                  # K pads to no step
+    padded = pl.rows * pl.tiles * pl.cols * k
+    assert tel.gauges["axo_matmul.pad_waste"] == pytest.approx(1 - m * n * k / padded)
+    assert m < 8 or n % pl.cols or tel.gauges["axo_matmul.pad_waste"] == 0.0
+
+
+def test_small_route_leaves_granite_head_to_the_gemv():
+    """At 4 rows against granite's 49155-word head the GEMV ran faster on the
+    H100 (PERF.md section 6), so the plan keeps it there; named, the small-M
+    route still takes the shape, and at 8 rows (mamba2's head) the plan
+    takes it."""
+    assert k6.route_for(4, 49155, 2048, 8, 256) == "gemv"
+    assert k6.route_for(4, k6.SMALL_GEMV_N - 1, 2048, 8, 256) == "small"
+    assert k6.route_for(5, 49155, 2048, 8, 256) == "small"
+    assert k6.route_for(4, 40960, 2048, 8, 256) == "small"     # it won there too
+    assert k6.plan(4, 49155, 2048, 8, 256, route="small")[:3] == ("small", 8, 8)
+
+
+def test_sass_reads_the_k6_instances_the_launcher_builds():
+    """``kernels/sass.py`` names K6's small-M and GEMV instances by their
+    mangled template arguments: each is one the launcher in
+    ``csrc/axo_matmul.cu`` instantiates, and the small-M ones are the four
+    block shapes the plan takes at the ranks the route is built for."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import sass
+
+    src = (Path(k6.__file__).parent / "csrc" / "axo_matmul.cu").read_text()
+    launchers = {"axo_small_kernel": "launch_small", "axo_gemv_kernel": "launch_gemv"}
+    small = set()
+    for name in sass.KERNELS["axo_matmul"]:
+        kernel, args = re.fullmatch(r"(axo_\w+?_kernel)I((?:Li\d+E)+)E", name).groups()
+        vals = [int(v) for v in re.findall(r"Li(\d+)E", args)]
+        assert f"&{launchers[kernel]}<{', '.join(map(str, vals))}>" in src
+        if kernel == "axo_small_kernel":
+            nt, wn, r1 = vals[:3]
+            assert r1 - 1 in k6.SMALL_RANKS
+            small.add((8 * nt, 64 * wn))
+    assert small == {(rows, cols) for rows in k6.SMALL_PER_SM for cols in k6.SMALL_COLS}
 
 
 @pytest.mark.parametrize("m, rows", [(17, 24), (24, 24), (25, 80), (40, 80), (80, 80)])
@@ -536,6 +630,97 @@ def test_wgmma_route_sums_hold_the_contract(operators, jax_k6_ref, one_thread, n
     a, b = _codes(m, k, n, m + k + n)
     pl = k6.plan(m, n, k, 8, 256, splits=splits, route="wgmma")
     got = wgmma_emulated(a, b, f, g, sv, pl)
+    assert _rel(got, _f64(a, b, f, g, sv)) < REL
+    assert _rel(got, k6.axo_matmul(a, b, f, g, sv).double()) < REL
+    assert _rel(got, jax_k6_ref(a, b, f, g, sv).double()) < REL
+
+
+# -- K6's small-M route: one expansion for up to 16 rows, warps along K ----
+
+def small_group_sums(a_codes, b_codes, f, g, sv) -> torch.Tensor:
+    """Every 8-code group of K as the small-M route's tensor core sums it, all
+    groups at once: (groups, M, N) f32; K is padded to whole 32-code steps
+    with codes whose activation values are zero.  Within a group the table
+    rows from the last factor down to the values, each factor lo.hi, hi.lo,
+    hi.hi (the values' one pass hi.hi): every product is added to the
+    accumulator, which rounds toward zero to f32 and starts the group at
+    zero.  The operands are split as the kernel splits them: hi = x rounded
+    to TF32, lo = x - hi, which the tensor core truncates to TF32."""
+    chunk = 8
+    (m, k), n = a_codes.shape, b_codes.shape[1]
+    kp = -(-k // k6.MMA_KSTEP) * k6.MMA_KSTEP
+    runs = kp // chunk
+    a = torch.zeros((m, kp), dtype=torch.long)
+    a[:, :k] = a_codes.long()
+    b = torch.zeros((kp, n), dtype=torch.long)
+    b[:k] = b_codes.long()
+    rows = []
+    for j in range(f.shape[1], -1, -1):
+        ta = sv.float() if j == 0 else f[:, j - 1].float()
+        tb = sv.float() if j == 0 else g[:, j - 1].float()
+        xa = ta[a]
+        xa[:, k:] = 0.0
+        xb = tb[b]
+        ah, bh = tf32_round(xa), tf32_round(xb)
+        al, bl = tf32_trunc(xa - ah), tf32_trunc(xb - bh)
+        passes = [(ah, bh)] if j == 0 else [(al, bh), (ah, bl), (ah, bh)]
+        # (runs, m, chunk) and (runs, chunk, n): each run's slice of K
+        rows.append([(x.double().reshape(m, runs, chunk).transpose(0, 1),
+                      y.double().reshape(runs, chunk, n)) for x, y in passes])
+    acc = torch.zeros((runs, m, n), dtype=torch.float64)
+    for passes in rows:
+        for x, y in passes:
+            acc = _round_toward_zero(acc + x @ y)
+    return acc.float()
+
+
+def small_emulated(a_codes, b_codes, f, g, sv, pl) -> torch.Tensor:
+    """The small-M route's sums: a block's 8 warps stand ``pl.cols // 64``
+    along N and the rest, W, along K; warp w takes the 4 / W groups of 8 codes
+    from group 4w / W of every 32-code step of its split
+    (:func:`small_group_sums`) and adds them in IEEE f32 in step order; the
+    block adds its W warps' sums in warp order, and the last block of a tile
+    the splits' in split order."""
+    warps_k = 8 // (pl.cols // 64)
+    groups = 4 // warps_k
+    sums = small_group_sums(a_codes, b_codes, f, g, sv)
+    steps = sums.shape[0] // 4
+    per_split = pl.k_split // k6.MMA_KSTEP
+    out = None
+    for s0 in range(0, steps, per_split):
+        block = None
+        for w in range(warps_k):
+            order = [4 * st + groups * w + gi for st in range(s0, min(steps, s0 + per_split))
+                     for gi in range(groups)]
+            part = sums[order[0]]
+            for i in order[1:]:
+                part = part + sums[i]
+            block = part if block is None else block + part
+        out = block if out is None else out + block
+    return out
+
+
+@pytest.mark.parametrize("m, k, n, splits", [(1, 300, 40, None), (2, 256, 64, 3),
+                                             (4, 1000, 77, None), (8, 640, 130, None),
+                                             (16, 520, 48, 2), (13, 2048, 96, None),
+                                             (3, 96, 4100, 1), (12, 160, 4100, None)])
+@pytest.mark.parametrize("name", ["demo", "random36"])
+def test_small_route_sums_hold_the_contract(operators, jax_k6_ref, one_thread, name, m, k, n,
+                                            splits):
+    """The small-M route's order (each 8-code group summed from zero, the
+    table rows from the last factor down, a warp's groups in step order, the
+    warps along K in warp order, the splits in split order), at M = 1 to
+    16 on the plan's own splits or named ones, a ragged N and a K that ends
+    inside a step, on both block widths (256 columns, 8 / 4 warps along N and
+    K; 512 at N >= SMALL_WIDE_N, every warp along N), holds 1e-5 relative
+    norm against an f64 sum, the plain version and the reference's
+    ``ref_axo_matmul_lowrank``."""
+    f, g, sv = _tables(operators[name])
+    a, b = _codes(m, k, n, m + k + n)
+    pl = k6.plan(m, n, k, 8, 256, splits=splits)
+    assert pl.route == "small" and pl.splits == (splits or pl.splits)
+    assert pl.cols == (512 if n >= k6.SMALL_WIDE_N else 256)
+    got = small_emulated(a, b, f, g, sv, pl)
     assert _rel(got, _f64(a, b, f, g, sv)) < REL
     assert _rel(got, k6.axo_matmul(a, b, f, g, sv).double()) < REL
     assert _rel(got, jax_k6_ref(a, b, f, g, sv).double()) < REL

@@ -85,16 +85,17 @@ def test_k6_matches_plain_version_on_card(cuda, m, k, n):
 @pytest.mark.parametrize("k, n", [(1000, 777), (2000, 1040)])
 @pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 64, 512])
 def test_k6_routes_match_plain_version_on_card(cuda, op, k, n, m):
-    """Every route (GEMV up to M=16, skinny tensor cores up to 80, the wgmma
-    route from 512 where K and N are multiples of 16, route 1 otherwise), a
-    ragged N, a K that is no multiple of the 32-code step, rows that are not
-    16-byte aligned (K=1000, N=777) and rows that are (K=2000, N=1040)."""
+    """Every route (the small-M tensor-core route up to M=16, and the GEMV it
+    replaced there by name, skinny tensor cores up to 80, the wgmma route
+    from 512 where K and N are multiples of 16, route 1 otherwise), a ragged
+    N, a K that is no multiple of the 32-code step, rows that are not 16-byte
+    aligned (K=1000, N=777) and rows that are (K=2000, N=1040)."""
     rng = np.random.default_rng(m * k + n)
     f, g, sv = _op_tables(op, cuda)
     a = torch.from_numpy(rng.integers(0, 256, (m, k)).astype(np.uint8)).to(cuda)
     b = torch.from_numpy(rng.integers(0, 256, (k, n)).astype(np.uint8)).to(cuda)
     assert k6.plan(m, n, k, 8, 256).route == (
-        "gemv" if m <= 16 else "skinny" if m <= 80
+        "small" if m <= 16 else "skinny" if m <= 80
         else "wgmma" if m >= 512 and k % 16 == 0 == n % 16 else "mma")
     before = k6.axo_matmul.launches
     got = k6.axo_matmul(a, b, f, g, sv)
@@ -103,6 +104,8 @@ def test_k6_routes_match_plain_version_on_card(cuda, op, k, n, m):
     assert k6.axo_matmul.launches == before + 1
     assert bool(torch.isfinite(got).all())
     assert _rel(got, want) < 1e-5
+    if m <= 16:
+        assert _rel(k6.axo_matmul(a, b, f, g, sv, route="gemv"), want) < 1e-5
 
 
 @pytest.mark.gpu
@@ -169,14 +172,22 @@ def test_k6_split_sums_on_two_streams_on_card(cuda, m):
 @pytest.mark.parametrize("m", [4, 64])
 def test_k6_refuses_a_plan_off_its_layout_on_card(cuda, m):
     """The kernel's source owns its launch layout: a plan with another
-    shared-memory size, a split of no whole k-steps or a GEMV row count it is
-    not built for raises, and nothing launches."""
+    shared-memory size, a split of no whole k-steps, a GEMV row count or a
+    small-M row or column count the route is not built for raises, and
+    nothing launches.  At M <= 16 both the plan's small-M route and the GEMV
+    it replaced (named) are held so."""
     f, g, sv = _tables(8, cuda)
     a, b = _k6_inputs(m, 2048, 512, cuda, 0)
-    pl = k6.plan(m, 512, 2048, 8, 256)
-    bad = [pl._replace(smem=pl.smem - 16), pl._replace(k_split=pl.k_split + 8)]
-    if pl.route == "gemv":
-        bad.append(pl._replace(rows=3))
+    plans = [k6.plan(m, 512, 2048, 8, 256)]
+    if m <= k6.GEMV_M:
+        plans.append(k6.plan(m, 512, 2048, 8, 256, route="gemv"))
+    bad = [wrong for pl in plans
+           for wrong in (pl._replace(smem=pl.smem - 16), pl._replace(k_split=pl.k_split + 8))]
+    for pl in plans:
+        if pl.route == "gemv":
+            bad.append(pl._replace(rows=3))
+        if pl.route == "small":
+            bad += [pl._replace(rows=4), pl._replace(cols=96)]
     before = k6.axo_matmul.launches
     for wrong in bad:
         with pytest.raises(RuntimeError, match="does not fit the layout"):
@@ -251,12 +262,12 @@ def test_k7_refuses_a_head_width_it_is_not_built_for_on_card(cuda, hd):
 def test_k6_at_expert_buffers_matches_plain_version_on_card(cuda, m, k, n):
     """K6 at kimi-k2's expert shapes: a capacity buffer of M = 8 (decode) or
     16 (prefill) rows against an expert's gate/up (7168 x 2048) and down
-    (2048 x 7168) codes, on the GEMV route; padding rows (all zero codes)
+    (2048 x 7168) codes, on the small-M route; padding rows (all zero codes)
     included."""
     f, g, sv = _op_tables("demo", cuda)
     a, b = _k6_inputs(m, k, n, cuda, m + k)
     a[m // 2:] = 0                          # the buffer's unfilled rows
-    assert k6.plan(m, n, k, 8, 256).route == "gemv"
+    assert k6.plan(m, n, k, 8, 256).route == "small"
     before = k6.axo_matmul.launches
     got = k6.axo_matmul(a, b, f, g, sv)
     want = k6.axo_matmul_plain(a, b, f, g, sv)
